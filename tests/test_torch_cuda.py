@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 These need an NVIDIA GPU and the CUDA toolkit, and skip elsewhere. They cover
-shapes off the slice's main path (odd row counts, groups wider than a warp,
-every head dim the kernel takes, pad-heavy vocabularies, out-of-range crop
-offsets). Run them on the card from the repository root, without the JAX
-conftest (the card's machine has no JAX):
+shapes off the slices' main paths (odd row counts, groups wider than a warp,
+every head dim the kernels take, pad-heavy vocabularies, out-of-range crop
+offsets, ragged and fully masked flash tiles, Tq != Tk). Run them on the card
+from the repository root, without the JAX conftest (the card's machine has no
+JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -19,9 +20,11 @@ from vilmedic_torch.models.rrg import RRG
 from vilmedic_torch.ops.beam_cache_attention import (
     fused_beam_cache_attention, fused_beam_cache_attention_reference,
 )
+from vilmedic_torch.models.vision_language import VisionLanguage, make_vl_generate_fn
 from vilmedic_torch.ops.blocked_lm_head import (
     NEG, lm_head_blocked_stats, lm_head_blocked_stats_reference,
 )
+from vilmedic_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from vilmedic_torch.ops.image_preproc import crop_normalize, crop_normalize_reference
 
 pytestmark = pytest.mark.cuda
@@ -58,6 +61,64 @@ def test_beam_cache_attention_kernel(cuda, dtype, d, rows, index):
     ref = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index)
     torch.testing.assert_close(out, ref, rtol=TOL[dtype], atol=TOL[dtype])
     assert torch.equal(kc1, kc2) and torch.equal(vc1, vc2)  # bitwise, row index only
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", [0, 11])
+def test_beam_cache_attention_stats_kernel(cuda, dtype, index):
+    """Stage (b) at the first and the last index: out, m, l and the write."""
+    t, heads, d, rows, groups = 12, 3, 64, 8, 2
+    n = groups * rows
+    gen = torch.Generator().manual_seed(7 + index)
+    kc = torch.randn(t, n, heads * d, generator=gen).to(cuda, dtype)
+    vc = torch.randn(t, n, heads * d, generator=gen).to(cuda, dtype)
+    q, kn, vn = (torch.randn(n, heads, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    mask = (torch.rand(groups, rows, t * rows, generator=gen) < 0.3).to(cuda)
+    kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out, m, l = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index, return_stats=True)
+    ref, rm, rl = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index,
+                                                       return_stats=True)
+    torch.testing.assert_close(out, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=1e-5)
+    assert torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("tq,tk,causal", [
+    (50, 50, False), (64, 64, False), (130, 130, False),  # below, at, above a tile
+    (64, 64, True), (130, 130, True), (70, 200, True),   # causal, Tq < Tk
+    (33, 129, False),
+])
+def test_flash_attention_kernel(cuda, dtype, d, tq, tk, causal):
+    b, heads = 2, 3
+    gen = torch.Generator().manual_seed(d + tq + tk)
+    q = torch.randn(b, tq, heads, d, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(b, tk, heads, d, generator=gen).to(cuda, dtype) for _ in range(2))
+    key_mask = torch.ones(b, tk, dtype=torch.bool)
+    key_mask[1, tk - tk // 3:] = False  # a masked key tail
+    key_mask = key_mask.to(cuda)
+    for km in (None, key_mask):
+        out = flash_attention(q, k, v, km, causal)
+        ref = flash_attention_reference(q, k, v, km, causal)
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_item(cuda, dtype):
+    """Every key of item 0 masked: its rows average V (the finite -1e9)."""
+    b, t, heads, d = 2, 100, 2, 64
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(b, t, heads, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    key_mask = torch.ones(b, t, dtype=torch.bool, device=cuda)
+    key_mask[0] = False
+    out = flash_attention(q, k, v, key_mask)
+    torch.testing.assert_close(out.float(), flash_attention_reference(q, k, v, key_mask).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    mean_v = v[0].float().mean(dim=0, keepdim=True).expand(t, heads, d)
+    torch.testing.assert_close(out[0].float(), mean_v, rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -104,6 +165,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # int64 offsets
         crop_normalize(img, torch.zeros(1, dtype=torch.long, device=cuda),
                        torch.zeros(1, dtype=torch.long, device=cuda), 4)
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError):  # float16
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):  # head dim 48
+        x = torch.zeros(1, 8, 2, 48, device=cuda)
+        flash_attention(x, x, x)
+    with pytest.raises(ValueError):  # mixed dtypes
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):  # not contiguous
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError):  # key mask of the wrong shape
+        flash_attention(q, q, q, key_mask=torch.ones(1, 7, device=cuda))
+    with pytest.raises(ValueError):  # contiguous, 4 bytes off
+        x = torch.zeros(8 * 2 * 64 + 1, device=cuda)[1:].view(1, 8, 2, 64)
+        flash_attention(x, x, x)
 
 
 @pytest.mark.parametrize("g", [1, 2])
@@ -126,6 +202,28 @@ def test_tiny_slice_card_equals_cpu(cuda, monkeypatch, g):
         generate = make_generate_fn([model], 4, 12, 0, 2, 1, ancestry_group_items=g)
         on = finalize_device_preproc({k: v.to(device) for k, v in batch.items()}, 32)
         res = generate(model.encoder_inputs(on))
+        results[str(device)] = (res.sequences.cpu(), res.scores.cpu())
+    (s_cpu, sc_cpu), (s_gpu, sc_gpu) = results["cpu"], results["cuda"]
+    assert torch.equal(s_cpu, s_gpu)
+    torch.testing.assert_close(sc_gpu, sc_cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_tiny_vl_slice_card_equals_cpu(cuda):
+    """f32 beam sequences of a small VisionLanguage (DINOv2 tower and prefix
+    LM at flash lengths): kernels on the card == plain versions on the CPU."""
+    tower = dict(model_type="dinov2", hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, patch_size=4, image_size=128)
+    decoder = dict(proto=None, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                   intermediate_size=192, max_position_embeddings=1100, layer_norm_eps=1e-5)
+    images = torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(2))
+    results = {}
+    for device in ("cpu", cuda):
+        model = VisionLanguage(decoder=dict(decoder), vision={"vision_model_name": "tiny",
+                                                              "image_size": 128},
+                               vision_hf_config=tower, vocab_size=4500, bos_token_id=0,
+                               eos_token_id=2, pad_token_id=1, device=device, seed=5)
+        assert model.module.num_image_tokens == 1025  # >= FLASH_MIN_LEN: flash
+        res = make_vl_generate_fn(model, 4, 12, 0, 2, 1)(images.to(device))
         results[str(device)] = (res.sequences.cpu(), res.scores.cpu())
     (s_cpu, sc_cpu), (s_gpu, sc_gpu) = results["cpu"], results["cuda"]
     assert torch.equal(s_cpu, s_gpu)

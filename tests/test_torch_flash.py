@@ -1,0 +1,115 @@
+"""The port's flash attention (its plain PyTorch version, what the CUDA kernel
+is held against on the card) against the JAX package's Pallas flash kernels
+in interpret mode, on the CPU, float32.
+
+Both JAX entries are reached: ``_flash_bthd`` (v2, H*D a multiple of 128)
+and ``_flash_bhtd`` (v1: H*D = 96 with D = 48, or ``VILMEDIC_FLASH_IMPL=v1``).
+The cases are those of ``tests/test_flash_attention.py``: ragged 100/130
+axes that the JAX wrapper pads to its 64-wide blocks, random key masks, and
+suffix key masks under the causal mask.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vilmedic_torch.ops import attention as tattn
+from vilmedic_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from vilmedic_tpu.ops import attention as jattn
+from vilmedic_tpu.ops.flash_attention import flash_attention as jax_flash
+
+# f32 sums in another order (the JAX kernel's online softmax over 64-key
+# blocks vs one softmax), the tolerance of the JAX package's own flash tests
+TOL = 2e-4
+# (heads, head dim, VILMEDIC_FLASH_IMPL): v2, v1 by layout, v1 by the switch
+LAYOUTS = [(4, 32, "v2"), (2, 48, "v2"), (4, 32, "v1")]
+
+
+def _inputs(seed, b, tq, tk, h, d):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, t, h, d)).astype(np.float32) for t in (tq, tk, tk)], rng
+
+
+def _run_jax(q, k, v, key_mask, causal):
+    out = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    key_mask=None if key_mask is None else jnp.asarray(key_mask),
+                    block_q=64, block_k=64, interpret=True, causal=causal)
+    return np.asarray(out)
+
+
+def _run_port(q, k, v, key_mask, causal):
+    out = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          key_mask=None if key_mask is None else torch.from_numpy(key_mask),
+                          causal=causal)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("h,d,impl", LAYOUTS)
+@pytest.mark.parametrize("tq,tk,mask", [(128, 256, False), (100, 130, True)])
+def test_flash_matches_jax(monkeypatch, h, d, impl, tq, tk, mask):
+    monkeypatch.setenv("VILMEDIC_FLASH_IMPL", impl)
+    (q, k, v), rng = _inputs(0, 2, tq, tk, h, d)
+    key_mask = (rng.random((2, tk)) > 0.3).astype(np.int32) if mask else None
+    np.testing.assert_allclose(_run_port(q, k, v, key_mask, False),
+                               _run_jax(q, k, v, key_mask, False), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("h,d,impl", LAYOUTS)
+@pytest.mark.parametrize("tq,tk,mask", [(128, 128, False), (100, 130, True), (130, 130, True)])
+def test_causal_flash_matches_jax(monkeypatch, h, d, impl, tq, tk, mask):
+    """causal: query r sees key c iff c <= r + Tk - Tq. Suffix key masks;
+    every row sees at least one unmasked key."""
+    monkeypatch.setenv("VILMEDIC_FLASH_IMPL", impl)
+    (q, k, v), _ = _inputs(1, 2, tq, tk, h, d)
+    key_mask = None
+    if mask:
+        key_mask = (np.arange(tk) < tk - 17)[None].repeat(2, 0).astype(np.int32)
+    np.testing.assert_allclose(_run_port(q, k, v, key_mask, True),
+                               _run_jax(q, k, v, key_mask, True), rtol=TOL, atol=TOL)
+
+
+def test_fully_masked_row_averages_values():
+    """The mask value is the finite -1e9: a row whose keys are all masked
+    averages V over the real keys, instead of giving 0 or NaN."""
+    (q, k, v), _ = _inputs(2, 1, 5, 9, 2, 32)
+    out = flash_attention_reference(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), key_mask=torch.zeros(1, 9))
+    want = torch.from_numpy(v).mean(dim=1, keepdim=True).expand(1, 5, 2, 32)
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+
+
+def test_dot_product_attention_takes_the_flash_route(monkeypatch):
+    """Both axes at or above FLASH_MIN_LEN with a key-padding bias: the port
+    and the JAX package both route to flash (the threshold is a module
+    global read at call time) and agree."""
+    monkeypatch.setattr(tattn, "FLASH_MIN_LEN", 64)
+    monkeypatch.setattr(jattn, "FLASH_MIN_LEN", 64)
+    (q, k, v), _ = _inputs(3, 2, 100, 100, 4, 32)
+    key_mask = np.ones((2, 100), np.int32)
+    key_mask[1, -30:] = 0
+    want = jattn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       bias=jattn.make_attention_bias(jnp.asarray(key_mask)),
+                                       causal=True)
+    bias = tattn.make_attention_bias(key_mask=torch.from_numpy(key_mask))
+    got = tattn.dot_product_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                      torch.from_numpy(v), bias=bias, causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    # on CPU tensors the route runs the kernel's plain version
+    torch.testing.assert_close(got, flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        key_mask=torch.from_numpy(key_mask), causal=True), rtol=0, atol=0)
+
+
+def test_bf16_rounds_p_before_the_value_product():
+    """bf16 operands: the plain version rounds p to bf16 before P V and
+    returns bf16, as the kernel does."""
+    (q, k, v), _ = _inputs(4, 1, 7, 11, 2, 32)
+    qb, kb, vb = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    out = flash_attention_reference(qb, kb, vb)
+    assert out.dtype == torch.bfloat16
+    s = torch.einsum("bqhd,bkhd->bhqk", qb.float(), kb.float()) * 32 ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    want = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), vb.float())
+    want = (want / p.sum(-1).transpose(1, 2)[..., None]).bfloat16()
+    torch.testing.assert_close(out, want, rtol=0, atol=0)

@@ -22,6 +22,7 @@ from vilmedic_tpu.ops.image_preproc import crop_normalize as jax_crop_normalize
 from vilmedic_torch.ops import attention as tattn
 from vilmedic_torch.ops.beam_cache_attention import fused_beam_cache_attention
 from vilmedic_torch.ops.blocked_lm_head import NEG, lm_head_blocked_stats
+from vilmedic_torch.ops.flash_attention import flash_attention_reference
 from vilmedic_torch.ops.image_preproc import crop_normalize
 
 # float32 sums of the same products in another order (online softmax in
@@ -61,6 +62,44 @@ def test_beam_cache_attention_matches_jax(g, idx):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=TOL_KERNEL,
                                atol=TOL_KERNEL)
     # the in-place cache write: row idx replaced, every other row untouched
+    np.testing.assert_array_equal(kc_t.numpy(), np.asarray(kc_j))
+    np.testing.assert_array_equal(vc_t.numpy(), np.asarray(vc_j))
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("idx", [0, 5, 7])
+def test_beam_cache_attention_stats_match_jax(g, idx):
+    """Stage (b): ``return_stats=True`` gives ``(out, m, l)``, the softmax max
+    and denominator over the ancestor lanes plus the current-step lane, in
+    the scaled-score domain (the case of the JAX package's own stats test)."""
+    B, K, T, H, D = 2, 4, 8, 4, 32
+    N = B * K
+    rng = np.random.default_rng(1 + idx + 10 * g)
+    kc = rng.normal(size=(T, N, H * D)).astype(np.float32)
+    vc = rng.normal(size=(T, N, H * D)).astype(np.float32)
+    q, k_new, v_new = (rng.normal(size=(N, H, D)).astype(np.float32) for _ in range(3))
+    anc_idx = rng.integers(0, K, (B, K, T))
+    anc = np.zeros((B, K, K, T), np.float32)
+    for b in range(B):
+        for qq in range(K):
+            for t in range(idx):
+                anc[b, anc_idx[b, qq, t], qq, t] = 1.0
+    mask = np.asarray(make_ancestry_mask(jnp.asarray(anc), g=g)).astype(np.float32)
+
+    out_j, kc_j, vc_j, m_j, l_j = jax_beam_attention(
+        jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(q), jnp.asarray(k_new),
+        jnp.asarray(v_new), jnp.asarray(mask), jnp.asarray(idx, jnp.int32),
+        interpret=True, return_stats=True,
+    )
+    kc_t, vc_t = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    out_t, m_t, l_t = fused_beam_cache_attention(
+        kc_t, vc_t, torch.from_numpy(q), torch.from_numpy(k_new),
+        torch.from_numpy(v_new), torch.from_numpy(mask) != 0, idx, return_stats=True,
+    )
+    assert m_t.shape == (N, H) and l_t.shape == (N, H)
+    for got, want in ((out_t, out_j), (m_t, m_j), (l_t, l_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL_KERNEL,
+                                   atol=TOL_KERNEL)
     np.testing.assert_array_equal(kc_t.numpy(), np.asarray(kc_j))
     np.testing.assert_array_equal(vc_t.numpy(), np.asarray(vc_j))
 
@@ -176,9 +215,11 @@ def test_mask_to_bias_matches_jax():
 
 
 def test_flash_length_attention_runs_dense_on_cpu():
-    """Where the JAX package would take its flash kernel, the port runs the
-    dense math on CPU tensors (and raises on CUDA tensors)."""
+    """Where the JAX package takes its flash kernel, so does the port: on CPU
+    tensors that is the kernel's plain version (dense math with the kernel's
+    rounding points); on CUDA tensors the kernel."""
     n = tattn.FLASH_MIN_LEN
-    q = torch.zeros(1, n, 1, 8)
+    q = torch.from_numpy(np.random.default_rng(0).normal(size=(1, n, 1, 8)).astype(np.float32))
     out = tattn.dot_product_attention(q, q, q)
     assert out.shape == (1, n, 1, 8)
+    torch.testing.assert_close(out, flash_attention_reference(q, q, q), rtol=0, atol=0)

@@ -113,6 +113,45 @@ def test_reference_state_dict_through_convert_and_bridge():
         torch.testing.assert_close(bridged[key], value, rtol=0, atol=0, msg=key)
 
 
+def test_vl_variables_load_without_missing_or_unexpected_keys(monkeypatch):
+    """Every parameter of a JAX VisionLanguage (DINOv2 tower with its CLS
+    token, position table and LayerScales, projection, image marker, prefix
+    LM) reaches the port, and nothing else."""
+    from vilmedic_torch.models.vision_language import VisionLanguage as TVL
+    from vilmedic_torch.zoo.from_jax import vl_state_dict_from_jax
+    from vilmedic_tpu.models import hf_compat
+    from vilmedic_tpu.models.vision_language import VisionLanguage as JVL
+
+    dino = dict(model_type="dinov2", hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                mlp_ratio=2.0, patch_size=8, image_size=16, use_swiglu_ffn=True)
+    decoder = dict(proto=None, hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                   intermediate_size=96, max_position_embeddings=32, vocab_size=40,
+                   bos_token_id=0, eos_token_id=2, pad_token_id=1)
+    vision = {"vision_model_name": "tiny/dinov2"}
+    monkeypatch.setattr(hf_compat, "_resolve_hf_config", lambda name: dict(dino))
+    jmodel = JVL(decoder=dict(decoder), vision=dict(vision))
+    batch = {"images": jnp.zeros((1, 16, 16, 3)), "input_ids": jnp.zeros((1, 4), jnp.int32),
+             "attention_mask": jnp.ones((1, 4), jnp.int32)}
+    variables = jax.tree.map(np.asarray,
+                             jax.jit(jmodel.init_variables)(jax.random.key(0), batch))
+    sd = vl_state_dict_from_jax(variables)
+    tmodel = TVL(decoder=dict(decoder), vision=dict(vision), vision_hf_config=dino, device="cpu")
+    result = tmodel.module.load_state_dict(sd, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    params = variables["params"]
+    tower = tmodel.module.vision.model
+    np.testing.assert_array_equal(tower.patch_embed.weight.detach().numpy(),
+                                  params["vision"]["model"]["patch_embed"]["kernel"]
+                                  .transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(tower.layer_1.ls2.detach().numpy(),
+                                  params["vision"]["model"]["layer_1"]["ls2"])
+    np.testing.assert_array_equal(tower.layer_0.ffn.weights_in.weight.detach().numpy(),
+                                  params["vision"]["model"]["layer_0"]["ffn"]["weights_in"]
+                                  ["kernel"].T)
+    np.testing.assert_array_equal(tmodel.module.image_token_embedding.detach().numpy(),
+                                  params["image_token_embedding"])
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports without jax, flax or vilmedic_tpu."""
     code = (

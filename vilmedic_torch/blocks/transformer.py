@@ -12,6 +12,9 @@ module (``mode=``):
 - ``decode``: one token at ``decode_index`` over the fused-kernel cache layout
   (``to_kernel_cache``), updated in place by the beam-cache kernel.
 
+``MultiHeadAttention.prefix_decode`` is the VisionLanguage prefix LM's decode
+step: the beam-cache kernel's segment merged with a beam-shared prefix.
+
 Numerics follow the Flax modules: Linear/Embedding weights are stored in the
 compute dtype (Flax casts its f32 params to the compute dtype per op, which
 rounds the same way); LayerNorm computes in f32 with f32 params and casts its
@@ -184,6 +187,57 @@ class MultiHeadAttention(nn.Module):
         out = dot_product_attention(q, k, v, bias=bias, dtype=cfg.dtype, causal=causal)
         b, t = out.shape[:2]
         return self.o(out.reshape(b, t, cfg.hidden_size))
+
+    def prefix_decode(self, x, prefix_kv, cache, decode_index: int, ancestry):
+        """One-token decode over a beam-shared prefix plus the per-beam
+        generated cache, in one joint softmax (the kernel-cache route of the
+        JAX ``prefix_decode``).
+
+        ``prefix_kv`` is ``(pk, pv)`` from :func:`prefix_operands`, (B, H, P,
+        D) f32 at batch B, while ``x`` carries N = B * fold beam-major rows;
+        ``cache`` is the (k_tnf, v_tnf) kernel self cache, updated in place.
+        The generated segment runs the beam-cache kernel with its softmax
+        stats; the prefix segment folds the beams into the query axis; the two
+        merge by their (m, l)."""
+        cfg = self.config
+        heads, d = cfg.num_attention_heads, cfg.head_dim
+        q = self._split(self.q(x))  # (N, 1, H, D)
+        k_new = self._split(self.k(x))
+        v_new = self._split(self.v(x))
+        n = q.shape[0]
+        shape = (n, heads, d)
+        out_g, m_g, l_g = fused_beam_cache_attention(
+            cache[0], cache[1], q.reshape(shape), k_new.reshape(shape), v_new.reshape(shape),
+            ancestry, decode_index, return_stats=True,
+        )
+        pk, pv = prefix_kv
+        b = pk.shape[0]
+        fold = n // b
+        # compute-dtype operands (the f32-scaled query rounded to it) with f32
+        # sums, as the JAX package's f32-output products of the stored prefix
+        qf = (q[:, 0].float() * (d ** -0.5)).to(cfg.dtype).float()
+        sp = qf.view(b, fold, heads, d).transpose(1, 2) @ pk.transpose(-1, -2)  # (B, H, fold, P)
+        mp = sp.amax(dim=-1, keepdim=True)
+        ep = torch.exp(sp - mp)
+        lp = ep.sum(dim=-1, keepdim=True)
+        accp = ep.to(cfg.dtype).float() @ pv  # (B, H, fold, D), unnormalized
+        # online-softmax merge, term for term, in the (B, H, fold) layout
+        m_g, l_g = (t.view(b, fold, heads).transpose(1, 2)[..., None] for t in (m_g, l_g))
+        out_g = out_g.view(b, fold, heads, d).transpose(1, 2)
+        big = torch.maximum(m_g, mp)
+        cg = torch.exp(m_g - big) * l_g
+        cp = torch.exp(mp - big)
+        out = (cg * out_g + cp * accp) / (cg + cp * lp)
+        return self.o(out.transpose(1, 2).to(cfg.dtype).reshape(n, 1, cfg.hidden_size))
+
+
+def prefix_operands(prefix_kv):
+    """Per-layer prefix ``(K, V)`` (B, P, H, D) in the compute dtype ->
+    ``(K, V)`` (B, H, P, D) f32, the operands of
+    :meth:`MultiHeadAttention.prefix_decode`'s products. Made once per
+    generate: compute-dtype values are exact in f32, and the decode loop then
+    reads them with no per-step cast or transpose."""
+    return tuple(tuple(x.transpose(1, 2).float().contiguous() for x in kv) for kv in prefix_kv)
 
 
 class FeedForward(nn.Module):

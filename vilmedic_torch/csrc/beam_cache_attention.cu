@@ -2,8 +2,9 @@
 // written for Hopper (sm_90a).
 //
 // Replaces: vilmedic_tpu/ops/beam_cache_attention.py::_kernel, reached through
-// `_fused_impl` / `fused_beam_cache_attention` (stage (a): no return_stats, no
-// int8 cache, no fused prefix).
+// `_fused_impl` / `fused_beam_cache_attention`: stage (a), and stage (b)
+// `return_stats` when the stats pointers are given (no int8 cache, no fused
+// prefix).
 //
 // What it computes, per (row n, head h): one decode step of attention for the
 // beam living in row n. The keys are the cache entries K[t, group*rows + j]
@@ -25,6 +26,11 @@
 // f32, so skipping them gives the same numbers. Warp 0 is seeded with the
 // current-step lane (m = s_cur, l = 1, acc = v_new), as the TPU kernel seeds
 // its online softmax; the four warps merge through shared memory at the end.
+//
+// Stage (b): with m_out/l_out non-null, warp 0 also writes the per-(row, head)
+// softmax max and denominator it holds after the merge, in the scaled-score
+// domain, over the ancestor lanes plus the current-step lane. The prefix-LM
+// decode merges them with its beam-shared prefix segment.
 //
 // Rounding points follow the TPU kernel: q * scale is rounded to the cache
 // type for the cache dots; the current-step score uses the f32 q * scale and
@@ -80,7 +86,8 @@ __global__ void __launch_bounds__(32 * kWarps)
                                 const T* __restrict__ knew,
                                 const T* __restrict__ vnew,
                                 const uint8_t* __restrict__ mask,
-                                float* __restrict__ out, int N, int H,
+                                float* __restrict__ out, float* __restrict__ m_out,
+                                float* __restrict__ l_out, int N, int H,
                                 int T_len, int rows, int index, float scale) {
   constexpr int E = D / 32;  // head-dim values per lane
   const int n = blockIdx.x;
@@ -169,6 +176,10 @@ __global__ void __launch_bounds__(32 * kWarps)
     }
 #pragma unroll
     for (int e = 0; e < E; ++e) out[row_off + e] = o[e] / lsum;
+    if (m_out != nullptr && lane == 0) {
+      m_out[(long long)n * H + h] = mx;
+      l_out[(long long)n * H + h] = lsum;
+    }
 
     // this step's K/V into the caches at t == index (never read above)
     const long long woff = ((long long)index * N + n) * HD + col;
@@ -182,8 +193,8 @@ __global__ void __launch_bounds__(32 * kWarps)
 
 template <typename T>
 int launch(void* kc, void* vc, const void* q, const void* knew, const void* vnew,
-           const void* mask, void* out, int N, int H, int D, int T_len, int rows,
-           int index, float scale, void* stream) {
+           const void* mask, void* out, void* m_out, void* l_out, int N, int H, int D,
+           int T_len, int rows, int index, float scale, void* stream) {
   const dim3 grid(N, H);
   const dim3 block(32, kWarps);
   cudaStream_t s = (cudaStream_t)stream;
@@ -191,7 +202,8 @@ int launch(void* kc, void* vc, const void* q, const void* knew, const void* vnew
   case DD:                                                                     \
     beam_cache_attention_kernel<T, DD><<<grid, block, 0, s>>>(                 \
         (T*)kc, (T*)vc, (const T*)q, (const T*)knew, (const T*)vnew,           \
-        (const uint8_t*)mask, (float*)out, N, H, T_len, rows, index, scale);   \
+        (const uint8_t*)mask, (float*)out, (float*)m_out, (float*)l_out, N, H, \
+        T_len, rows, index, scale);                                            \
     break;
   switch (D) {
     VT_BEAM_ATTN_CASE(32)
@@ -206,20 +218,23 @@ int launch(void* kc, void* vc, const void* q, const void* knew, const void* vnew
 
 }  // namespace
 
+// m_out/l_out: (N, H) f32 softmax stats (stage b), or both null (stage a)
 extern "C" int vt_beam_cache_attention_f32(void* kc, void* vc, const void* q,
                                            const void* knew, const void* vnew,
-                                           const void* mask, void* out, int N,
-                                           int H, int D, int T_len, int rows,
-                                           int index, float scale, void* stream) {
-  return launch<float>(kc, vc, q, knew, vnew, mask, out, N, H, D, T_len, rows,
-                       index, scale, stream);
+                                           const void* mask, void* out, void* m_out,
+                                           void* l_out, int N, int H, int D,
+                                           int T_len, int rows, int index,
+                                           float scale, void* stream) {
+  return launch<float>(kc, vc, q, knew, vnew, mask, out, m_out, l_out, N, H, D,
+                       T_len, rows, index, scale, stream);
 }
 
 extern "C" int vt_beam_cache_attention_bf16(void* kc, void* vc, const void* q,
                                             const void* knew, const void* vnew,
-                                            const void* mask, void* out, int N,
-                                            int H, int D, int T_len, int rows,
-                                            int index, float scale, void* stream) {
-  return launch<__nv_bfloat16>(kc, vc, q, knew, vnew, mask, out, N, H, D, T_len,
-                               rows, index, scale, stream);
+                                            const void* mask, void* out, void* m_out,
+                                            void* l_out, int N, int H, int D,
+                                            int T_len, int rows, int index,
+                                            float scale, void* stream) {
+  return launch<__nv_bfloat16>(kc, vc, q, knew, vnew, mask, out, m_out, l_out, N,
+                               H, D, T_len, rows, index, scale, stream);
 }

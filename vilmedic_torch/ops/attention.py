@@ -1,12 +1,11 @@
 """Dense attention and attention biases (port of ``ops/attention.py``).
 
 Scores and softmax are f32 whatever the compute dtype; masks are additive
-biases of 0 / -1e9. The JAX package routes attention whose query and key axes
-are both long (>= ``FLASH_MIN_LEN``; a lower threshold for training steps,
-which are not ported) with a key-padding-only bias to its Pallas flash kernel. That kernel is
-not ported yet: on such a call :func:`dot_product_attention` raises for CUDA
-tensors, and for CPU tensors runs the dense math, which is the flash kernel's
-plain version.
+biases of 0 / -1e9. Attention whose query and key axes are both long (>=
+``FLASH_MIN_LEN``) and whose bias is key-padding only goes to
+:func:`~.flash_attention.flash_attention`, as in the JAX package (its lower
+threshold for training steps is not ported): the CUDA kernel on the card, its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -15,10 +14,13 @@ from typing import Optional
 
 import torch
 
+from .flash_attention import flash_attention
+
 NEG_INF = -1e9  # additive mask value; safe in f32 and bf16
 
-# the JAX package's flash-route threshold, kept so the port refuses (on CUDA)
-# exactly the calls the reference would send to flash attention
+# the JAX package's flash-route threshold (measured there on a TPU; kept so
+# the port takes the flash kernel exactly where the reference does). Read at
+# call time.
 FLASH_MIN_LEN = 1024
 
 
@@ -46,12 +48,9 @@ def dot_product_attention(
     key_bias_only = bias is None or (
         bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1
     )
-    if (q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN and key_bias_only
-            and q.device.type == "cuda"):
-        raise NotImplementedError(
-            f"attention over {q.shape[1]} x {k.shape[1]} tokens takes the flash "
-            "kernel, which the port has not ported yet"
-        )
+    if q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN and key_bias_only:
+        key_mask = None if bias is None else bias[:, 0, 0, :] >= -0.5
+        return flash_attention(q, k, v, key_mask=key_mask, causal=causal).to(dtype)
 
     depth = q.shape[-1]
     q = q * (depth ** -0.5)

@@ -1,5 +1,5 @@
 """Reorder-free beam-decode self-attention with an in-place KV-cache write
-(port of ``ops/beam_cache_attention.py``, stage (a)).
+(port of ``ops/beam_cache_attention.py``, stages (a) and (b)).
 
 Beam search never permutes the KV caches: each beam's history is named by a
 dense 0/1 ancestry mask over the joint (t, slot) axis of its item-group, and
@@ -11,7 +11,11 @@ K/V into the caches at ``t = index``.
 :func:`fused_beam_cache_attention` launches ``csrc/beam_cache_attention.cu``
 for CUDA tensors and runs :func:`fused_beam_cache_attention_reference`, the
 same function in plain PyTorch, for CPU tensors. Both update ``kc``/``vc`` IN
-PLACE (the JAX kernel aliases them input to output) and return only ``out``.
+PLACE (the JAX kernel aliases them input to output) and return ``out``; with
+``return_stats=True`` (stage (b)) they return ``(out, m, l)``, the per-(row,
+head) softmax max and denominator in the scaled-score domain, over the
+ancestor lanes plus the current-step lane, so that a caller can merge this
+segment with another (the prefix-LM decode does).
 """
 
 from __future__ import annotations
@@ -39,13 +43,15 @@ def _dims(kc, vc, q, k_new, v_new, mask, index: int):
     return t, n, q.shape[1], q.shape[2], groups, rows
 
 
-def fused_beam_cache_attention_reference(kc, vc, q, k_new, v_new, mask, index) -> torch.Tensor:
+def fused_beam_cache_attention_reference(kc, vc, q, k_new, v_new, mask, index,
+                                         return_stats: bool = False):
     """Plain PyTorch version of the kernel, with its rounding points.
 
     kc/vc: (T, N, H*D) caches, updated in place at ``index``; q/k_new/v_new:
     (N, H, D) in the cache dtype; mask: (groups, rows, T*rows), nonzero at the
-    ancestor lanes; index: the decode position. Returns out (N, H, D) f32.
-    Lanes with ``t >= index`` are never read, whatever the mask holds there.
+    ancestor lanes; index: the decode position. Returns out (N, H, D) f32,
+    and with ``return_stats`` also m and l, each (N, H) f32. Lanes with
+    ``t >= index`` are never read, whatever the mask holds there.
     """
     index = int(index)
     t, n, heads, d, groups, rows = _dims(kc, vc, q, k_new, v_new, mask, index)
@@ -68,17 +74,20 @@ def fused_beam_cache_attention_reference(kc, vc, q, k_new, v_new, mask, index) -
     out = (acc / denom[..., None]).reshape(n, heads, d)
     kc[index] = k_new.reshape(n, heads * d)
     vc[index] = v_new.reshape(n, heads * d)
+    if return_stats:
+        return out, m.reshape(n, heads), denom.reshape(n, heads)
     return out
 
 
-def fused_beam_cache_attention(kc, vc, q, k_new, v_new, mask, index) -> torch.Tensor:
+def fused_beam_cache_attention(kc, vc, q, k_new, v_new, mask, index, return_stats: bool = False):
     """One decode step of reorder-free beam self-attention; see the module doc.
 
     CPU tensors take :func:`fused_beam_cache_attention_reference`. CUDA
     tensors launch the kernel or raise: caches and q/k_new/v_new f32 or bf16
     (one dtype), mask bool or uint8, all contiguous."""
     if kc.device.type == "cpu":
-        return fused_beam_cache_attention_reference(kc, vc, q, k_new, v_new, mask, index)
+        return fused_beam_cache_attention_reference(kc, vc, q, k_new, v_new, mask, index,
+                                                    return_stats)
     index = int(index)
     t, n, heads, d, groups, rows = _dims(kc, vc, q, k_new, v_new, mask, index)
     dev = cuda_lib.require_cuda("fused_beam_cache_attention", kc, vc, q, k_new, v_new, mask)
@@ -92,6 +101,8 @@ def fused_beam_cache_attention(kc, vc, q, k_new, v_new, mask, index) -> torch.Te
     if d not in (32, 64, 128):
         raise ValueError(f"fused_beam_cache_attention: head dim {d} not in (32, 64, 128)")
     out = torch.empty((n, heads, d), dtype=torch.float32, device=dev)
+    stats = (torch.empty((n, heads), dtype=torch.float32, device=dev),
+             torch.empty((n, heads), dtype=torch.float32, device=dev)) if return_stats else None
     lib = cuda_lib.lib()
     fn = (lib.vt_beam_cache_attention_bf16 if kc.dtype == torch.bfloat16
           else lib.vt_beam_cache_attention_f32)
@@ -99,11 +110,12 @@ def fused_beam_cache_attention(kc, vc, q, k_new, v_new, mask, index) -> torch.Te
         status = fn(
             kc.data_ptr(), vc.data_ptr(), q.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            *((stats[0].data_ptr(), stats[1].data_ptr()) if stats else (0, 0)),
             n, heads, d, t, rows, index, d ** -0.5, cuda_lib.stream_of(out),
         )
     cuda_lib.check(status, "fused_beam_cache_attention")
     fused_beam_cache_attention.launches += 1
-    return out
+    return (out, *stats) if stats else out
 
 
 fused_beam_cache_attention.launches = 0

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels (``vilmedic_torch/csrc``).
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use, into ``vilmedic_torch/_build/`` (git-ignored), under a file name
-that hashes the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import time.
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a``, one ``nvcc``
+per source, all started together, and link into ONE shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at first use, into
+``vilmedic_torch/_build/`` (git-ignored), under a file name that hashes the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused. Nothing here runs at import time.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 turns a non-zero status into an exception naming the kernel.
@@ -27,7 +28,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -37,10 +38,12 @@ _F = ctypes.c_float
 # C entry -> argtypes (every entry returns an int status)
 SIGNATURES = {
     "vt_crop_normalize": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
-    "vt_beam_cache_attention_f32": [_P, _P, _P, _P, _P, _P, _P,
+    "vt_beam_cache_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _F, _P],
-    "vt_beam_cache_attention_bf16": [_P, _P, _P, _P, _P, _P, _P,
+    "vt_beam_cache_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _F, _P],
+    "vt_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "vt_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "vt_lm_head_blocked_stats_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_blocked_stats_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -70,30 +73,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvilmedic_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _wait(jobs) -> None:
+    """Wait for every (cmd, process); raise with the first failure's output."""
+    failed = []
+    for cmd, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the .so.
 
-    The compiler writes to a temporary file that is renamed into place, so a
-    concurrent or interrupted build never leaves a partial library behind.
+    Objects and the library are written in a temporary directory and the
+    library is renamed into place, so a concurrent or interrupted build never
+    leaves a partial library behind.
     """
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        _wait([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+               for src, obj in zip(sources(), objs)])
+        lib_tmp = Path(tmp) / path.name
+        _wait([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib_tmp), *map(str, objs)])])
+        os.replace(lib_tmp, path)
     return path
 
 
@@ -130,3 +143,4 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"{name}: expects CUDA or CPU tensors, got {dev}")
     return dev
+

@@ -1,5 +1,5 @@
-"""Weight bridge from the JAX package's RRG variables to the port's state dict
-(counterpart of ``zoo/convert.py``).
+"""Weight bridge from the JAX package's RRG and VisionLanguage variables to the
+port's state dicts (counterpart of ``zoo/convert.py``).
 
 The port keeps the Flax tree's module names, so the bridge is a rename plus
 transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
@@ -7,7 +7,9 @@ transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in); conv ``kernel`` HWIO ->
   ``weight`` OIHW; ``bias`` -> ``bias``;
 - LayerNorm/BatchNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
-- BatchNorm statistics ``mean``/``var`` -> ``running_mean``/``running_var``.
+- BatchNorm statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
+- bare parameters (DINOv2's ``cls_token``, ``pos_embed``, LayerScale
+  ``ls1``/``ls2``, VisionLanguage's ``image_token_embedding``) as they are.
 
 A reference ``.pth`` state dict reaches the port through the JAX package's
 ``convert_reference_rrg`` and then this function.
@@ -30,6 +32,9 @@ def _flatten(tree: Dict, prefix: str = ""):
             yield path, value
 
 
+_BARE = ("cls_token", "pos_embed", "ls1", "ls2", "image_token_embedding")
+
+
 def _param(path: str, value) -> tuple:
     module, _, leaf = path.rpartition(".")
     arr = np.asarray(value)
@@ -43,9 +48,9 @@ def _param(path: str, value) -> tuple:
         leaf = "weight"
     elif leaf in ("scale", "embedding"):
         leaf = "weight"
-    elif leaf != "bias":
+    elif leaf != "bias" and leaf not in _BARE:
         raise ValueError(f"{path}: unknown parameter leaf {leaf!r}")
-    return f"{module}.{leaf}", arr
+    return f"{module}.{leaf}" if module else leaf, arr
 
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -65,3 +70,10 @@ def rrg_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{path}: unknown batch statistic {leaf!r}")
         out[f"{module}.{_STATS[leaf]}"] = torch.tensor(np.asarray(value), dtype=torch.float32)
     return out
+
+
+def vl_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX VisionLanguage ``{"params"}`` (numpy leaves) -> the port's
+    ``VisionLanguageModule`` state dict (f32 tensors; ``load_state_dict``
+    casts them to each parameter's dtype). The tower has no batch statistics."""
+    return rrg_state_dict_from_jax({"params": variables["params"]})
