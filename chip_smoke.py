@@ -6,8 +6,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. requires a CUDA device and prints the card's name and power limit;
 2. builds the hand-written CUDA kernels from ``vilmedic_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the two slices below, in float32 (TF32 off) and bfloat16, and
-   times both;
+   shapes of the paths below, in float32 (TF32 off) and bfloat16, and times
+   both (the flash backward K5 and K4's LSE output at the VisionLanguage
+   training shape: B 16, T 1470, H 12, D 64, causal, padded text keys);
 4. serves the flagship RRG beam-8 slice (``config/RRG/baseline-mimic.yml``,
    vocab 50265, random weights from a seed, bf16) on 16 uint8 images, checks
    the output and that every kernel ran, and times reports/s at batch 16 and
@@ -22,7 +23,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    times reports/s at batch 16 and splits one batch into tower, prefill and
    decode;
 7. generates a batch of 2 VisionLanguage reports in float32 on the card and
-   on the CPU and requires equal beam sequences.
+   on the CPU and requires equal beam sequences;
+8. trains the VisionLanguage model in bf16 at full width and depth through
+   the port's ``Trainor`` (the config's ``trainor:`` block: batch 16, AdamW
+   lr 5e-5, warmup ratio 0.1, grad_accu 4) on 8 synthetic microbatches:
+   finite losses, the frozen tower bitwise unchanged, every trainable tensor
+   moved by the second update (the first runs at lr 0), 12 launches per
+   microbatch each of K4 with LSE, K5's two kernels and the tower's K4; times
+   microbatches and updates and splits one by stage with ``torch.profiler``;
+9. requires the loss to fall over 10 updates on one repeated batch
+   (grad_accu 1, constant lr 1e-4);
+10. takes one f32 training microbatch and AdamW update at batch 2 on the card
+    and on the CPU from the same weights and requires equal gradients and
+    parameters within the stated tolerances.
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -33,6 +46,7 @@ repository's files, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -257,6 +271,113 @@ def check_flash_attention(results):
     )
 
 
+def train_key_mask(b: int, t: int, device):
+    """The VisionLanguage training key mask: the last 20 text keys are
+    padding on half of the items."""
+    import torch
+
+    mask = torch.ones(b, t, dtype=torch.bool, device=device)
+    mask[b // 2:, t - 20:] = False
+    return mask
+
+
+def check_flash_attention_backward(results):
+    """K4 with LSE and K5 (dq kernel, dk/dv/dbias kernel) at the VisionLanguage
+    training shape: B 16, T 1370 + 100, H 12, D 64, causal, padded text keys."""
+    import torch
+
+    from vilmedic_torch.ops.flash_attention import (
+        _delta, _key_bias, flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_reference,
+        flash_attention_with_lse,
+    )
+
+    b, t, heads, d = 16, VL_TOKENS + T_MAX, 12, 64
+    # out: as K4; lse: f32 max plus log of a sum in another order; dq/dk/dv
+    # relative to each tensor's largest entry: f32 sums in another order, and
+    # in bf16 p and dS rounded to bf16 from f32 values that differ in the last
+    # bits (one bf16 step, 2^-8, now and then); dbias sums unrounded f32 dS
+    tol_out = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    tol_lse = 1e-5
+    tol_grad = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    tol_dbias = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    key_mask = train_key_mask(b, t, "cuda")
+    worst = {"lse": 0.0, "dq": 0.0, "dkv": 0.0}
+    timing = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (torch.randn(b, t, heads, d, generator=gen, device="cuda").to(dtype)
+                         for _ in range(4))
+        out, lse = flash_attention_with_lse(q, k, v, key_mask, causal=True)
+        rout, rlse = flash_attention_reference(q, k, v, key_mask, causal=True, return_lse=True)
+        grads = flash_attention_backward(q, k, v, key_mask, out, lse, dout, causal=True)
+        ref = flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal=True)
+        torch.cuda.synchronize()
+        err_out = (out.float() - rout.float()).abs().max().item()
+        err_lse = (lse - rlse).abs().max().item()
+        errs = {name: (g.float() - r.float()).abs().max().item()
+                for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, ref)}
+        rel = {name: errs[name] / r.float().abs().max().item()
+               for name, r in zip(("dq", "dk", "dv", "dbias"), ref)}
+        worst["lse"] = max(worst["lse"], err_out, err_lse)
+        worst["dq"] = max(worst["dq"], errs["dq"])
+        worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"], errs["dbias"])
+        print(f"K4+LSE / K5 {str(dtype)[6:]:8s} B={b} T={t} H={heads} D={d} causal, padded "
+              f"keys: max|err| out {err_out:.3e} (tol {tol_out[dtype]:.0e}), lse {err_lse:.3e} "
+              f"(tol {tol_lse:.0e}); relative dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv "
+              f"{rel['dv']:.3e} (tol {tol_grad[dtype]:.0e}), dbias {rel['dbias']:.3e} "
+              f"(tol {tol_dbias[dtype]:.0e})")
+        bad = [n for n in ("dq", "dk", "dv") if not rel[n] <= tol_grad[dtype]]
+        if not rel["dbias"] <= tol_dbias[dtype]:
+            bad.append("dbias")
+        if not err_out <= tol_out[dtype] or not err_lse <= tol_lse:
+            bad.append("out/lse")
+        if bad:
+            fail(f"flash attention backward {dtype}: {bad}")
+        del rout, rlse, ref
+        torch.cuda.empty_cache()
+        bias = _key_bias(key_mask, b, t, "cuda").contiguous()
+        delta = _delta(out, dout)
+        timing[dtype] = dict(
+            lse=cuda_ms(lambda: flash_attention_with_lse(q, k, v, key_mask, causal=True)),
+            lse_plain=cuda_ms(lambda: flash_attention_reference(q, k, v, key_mask, causal=True,
+                                                                return_lse=True)),
+            dq=cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, True)),
+            dkv=cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, True)),
+            bwd=cuda_ms(lambda: flash_attention_backward(q, k, v, key_mask, out, lse, dout,
+                                                         causal=True)),
+            bwd_plain=cuda_ms(lambda: flash_attention_backward_reference(
+                q, k, v, key_mask, out, lse, dout, causal=True)),
+        )
+        del q, k, v, dout, out, lse, grads
+        torch.cuda.empty_cache()
+    # two T x T x D products forward; seven backward (S and dP recomputed in
+    # both kernels), causal: half of each
+    fwd_flops = 4 * b * heads * t * t * d / 2
+    for dtype, tm in timing.items():
+        bwd_k = tm["dq"] + tm["dkv"]
+        print(f"K4+LSE {str(dtype)[6:]} T={t} causal: kernel {tm['lse']:.4f} ms "
+              f"({fwd_flops / tm['lse'] / 1e9:.1f} TFLOP/s), plain {tm['lse_plain']:.4f} ms; "
+              f"K5 dq {tm['dq']:.4f} ms + dk/dv/dbias {tm['dkv']:.4f} ms = {bwd_k:.4f} ms "
+              f"({3.5 * fwd_flops / bwd_k / 1e9:.1f} TFLOP/s), whole backward with delta "
+              f"{tm['bwd']:.4f} ms, plain backward {tm['bwd_plain']:.4f} ms")
+    tm = timing[torch.bfloat16]
+    common = dict(route="cuda", path="vl_train")
+    results["flash_attention_with_lse"] = dict(
+        common, source="vilmedic_torch/csrc/flash_attention.cu",
+        replaces="vilmedic_tpu/ops/flash_attention.py:352", max_abs_err=worst["lse"],
+        ms=tm["lse"], plain_ms=tm["lse_plain"], counter="flash_attention_with_lse")
+    # each K5 kernel against the whole plain backward, which computes both
+    results["flash_attention_bwd_dq"] = dict(
+        common, source="vilmedic_torch/csrc/flash_attention_bwd.cu",
+        replaces="vilmedic_tpu/ops/flash_attention.py:598", max_abs_err=worst["dq"],
+        ms=tm["dq"], plain_ms=tm["bwd_plain"], counter="flash_attention_bwd_dq")
+    results["flash_attention_bwd_dkv"] = dict(
+        common, source="vilmedic_torch/csrc/flash_attention_bwd.cu",
+        replaces="vilmedic_tpu/ops/flash_attention.py:665", max_abs_err=worst["dkv"],
+        ms=tm["dkv"], plain_ms=tm["bwd_plain"], counter="flash_attention_bwd_dkv")
+
+
 def check_blocked_lm_head(results):
     import torch
 
@@ -347,6 +468,7 @@ def phase_kernels():
     check_blocked_lm_head(results)
     check_crop_normalize(results)
     check_flash_attention(results)
+    check_flash_attention_backward(results)
     return results
 
 
@@ -356,13 +478,18 @@ def phase_kernels():
 def kernel_wrappers():
     from vilmedic_torch.ops.beam_cache_attention import fused_beam_cache_attention
     from vilmedic_torch.ops.blocked_lm_head import lm_head_blocked_stats
-    from vilmedic_torch.ops.flash_attention import flash_attention
+    from vilmedic_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_with_lse,
+    )
     from vilmedic_torch.ops.image_preproc import crop_normalize
 
     return {"fused_beam_cache_attention": fused_beam_cache_attention,
             "lm_head_blocked_stats": lm_head_blocked_stats,
             "crop_normalize": crop_normalize,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_with_lse": flash_attention_with_lse,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
 
 
 def build_flagship(dtype: str, device: str):
@@ -619,6 +746,272 @@ def phase_vl_parity():
         fail("VL f32 beam sequences differ between the card and the CPU")
 
 
+# ------------------------------------------------ VisionLanguage training
+
+
+def vl_trainor(overrides, device: str, tower=None, batches=()):
+    """The port's ``Trainor`` over the VisionLanguage config's ``model:`` and
+    ``trainor:`` blocks (with dotlist ``overrides``), random weights from
+    SEED, on a list of batches."""
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.config.config import executor_config
+    from vilmedic_torch.executors import Trainor
+
+    cfg, _ = load_config(VL_CONFIG, list(overrides))
+    return Trainor(executor_config(cfg, "trainor"), seed=SEED, loader=list(batches),
+                   device=device,
+                   model_kwargs=dict(vision_hf_config=tower or VL_TOWER, vocab_size=VL_VOCAB,
+                                     bos_token_id=VL_BOS, eos_token_id=VL_EOS,
+                                     pad_token_id=VL_PAD))
+
+
+def to_device(batch, device):
+    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def vl_train_batches(n: int, b: int, size: int, seed: int):
+    """``n`` training batches made from ``seed``: float (b, 3, size, size)
+    images in pinned host memory, and ids of length T_MAX (BOS, random
+    tokens, EOS) with a padded tail of random length."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    batches = []
+    for _ in range(n):
+        lengths = torch.randint(T_MAX // 2, T_MAX + 1, (b,), generator=gen)
+        ids = torch.randint(0, VL_BOS, (b, T_MAX), generator=gen)
+        pos = torch.arange(T_MAX)[None, :]
+        ids[:, 0] = VL_BOS
+        ids = torch.where(pos == lengths[:, None] - 1, VL_EOS, ids)
+        mask = (pos < lengths[:, None]).long()
+        ids = torch.where(mask.bool(), ids, VL_PAD)
+        images = torch.randn(b, 3, size, size, generator=gen)
+        batches.append({"images": images.pin_memory(), "input_ids": ids,
+                        "attention_mask": mask})
+    return batches
+
+
+def device_ms(fn):
+    """(host ms, device-busy ms) of ``fn`` ended by a synchronize; device
+    busy sums the CUDA kernels, copies and sets that ``torch.profiler``
+    records, K5's and K4's among them by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    dev = {"all": 0.0, "K5": 0.0, "K4": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        dev["all"] += us / 1e3
+        if "flash_bwd" in e.name:
+            dev["K5"] += us / 1e3
+        elif "flash_fwd" in e.name:
+            dev["K4"] += us / 1e3
+    return out, host, dev
+
+
+def phase_vl_train():
+    """bf16 at full width and depth: 8 microbatches of 16 (2 AdamW updates
+    at grad_accu 4) through the trainer, checked and timed."""
+    import torch
+
+    set_tf32(False)
+    gen_batches = vl_train_batches(8, 16, 518, SEED + 11)
+    trainer = vl_trainor([], "cuda", batches=gen_batches)
+    model, module = trainer.model, trainer.model.module
+    layers = model.dec_config.num_hidden_layers
+    n_params = sum(p.numel() for p in trainer.tx.params)
+    print(f"VL train: {os.path.relpath(VL_CONFIG, ROOT)} trainor: batch 16, "
+          f"{trainer.config.optimizer} lr {trainer.base_lr:g}, grad_accu {trainer.grad_accu}, "
+          f"warmup {trainer.training_scheduler.warmup_steps} updates; {layers}-layer LM over "
+          f"{module.num_image_tokens} + {T_MAX} tokens, bf16, dropout "
+          f"{model.dec_config.hidden_dropout_prob}; {len(trainer.tx.params)} trainable tensors "
+          f"({n_params / 1e6:.1f} M f32), frozen {model.frozen_prefixes}")
+    tower = {n: p.detach().clone() for n, p in module.named_parameters()
+             if n.startswith("vision.")}
+    before = [p.detach().clone() for p in trainer.tx.params]
+    updates = []
+    real_apply = trainer.apply_step
+
+    def apply_and_record(lr, gate_loss):
+        stepped = real_apply(lr, gate_loss)
+        moved = sum(not torch.equal(p, p0) for p, p0 in zip(trainer.tx.params, before))
+        updates.append((lr, stepped, moved))
+        return stepped
+
+    trainer.apply_step = apply_and_record
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses = trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    trainer.apply_step = real_apply
+
+    n = len(gen_batches)
+    print(f"VL train: {n} microbatches, losses {[round(x, 4) for x in losses]}, launches "
+          f"{launches}")
+    for i, (lr, stepped, moved) in enumerate(updates, start=1):
+        print(f"  update {i} at lr {lr:.4g}{' (the warmup starts at 0)' if lr == 0 else ''}: "
+              f"{'stepped' if stepped else 'SKIPPED'}, {moved} of {len(before)} trainable "
+              f"tensors differ from the initial weights")
+    checks = {
+        "every loss finite": len(losses) == n and all(map(math.isfinite, losses)),
+        "tower bitwise unchanged": all(torch.equal(p, tower[n_]) for n_, p in
+                                       module.named_parameters() if n_.startswith("vision.")),
+        "2 updates, the first at lr 0 moves nothing": len(updates) == 2 and updates[0][0] == 0
+        and updates[0][2] == 0,
+        "every trainable tensor moved after update 2": len(updates) == 2 and updates[1][1]
+        and updates[1][2] == len(before),
+        "K4 with LSE = LM layers per microbatch": launches["flash_attention_with_lse"] == layers * n,
+        "K5 dq = LM layers per microbatch": launches["flash_attention_bwd_dq"] == layers * n,
+        "K5 dk/dv = LM layers per microbatch": launches["flash_attention_bwd_dkv"] == layers * n,
+        "tower K4 = tower layers per microbatch": launches["flash_attention"]
+        == module.vision.model.config.num_hidden_layers * n,
+    }
+    for name, ok in checks.items():
+        print(f"  check {name}: {'ok' if ok else 'FAILED'}")
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"VL train checks {bad}")
+    del tower, before
+
+    # timing: microbatches and updates by the host clock, each ended by a
+    # synchronize (the epoch above was the warm-up)
+    torch.cuda.reset_peak_memory_stats()
+    batches = [to_device(b, "cuda") for b in gen_batches[:4]]
+    lr = trainer.training_scheduler.current_lr()
+    micro, per_update = [], []
+    for _ in range(3):
+        t_update = 0.0
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.grad_step(batch)
+            torch.cuda.synchronize()
+            micro.append(time.perf_counter() - t0)
+            t_update += micro[-1]
+        t0 = time.perf_counter()
+        trainer.apply_step(lr, loss)
+        torch.cuda.synchronize()
+        per_update.append(t_update + time.perf_counter() - t0)
+    ms_micro, ms_update = statistics.median(micro) * 1e3, statistics.median(per_update) * 1e3
+    tokens = 16 * (module.num_image_tokens + T_MAX)
+    print(f"VL train bf16 batch 16: {ms_micro:.1f} ms per microbatch (median of {len(micro)}, "
+          f"{min(micro) * 1e3:.1f}-{max(micro) * 1e3:.1f}), {ms_update:.1f} ms per update of "
+          f"{trainer.grad_accu} microbatches (median of 3), {tokens / ms_micro * 1e3:.0f} tokens/s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # one microbatch and its update split by stage: host ms and device-busy
+    # ms per stage (torch.profiler); LM forward = forward minus the tower
+    batch = batches[0]
+    trainer.zero_grads()
+    with torch.no_grad():
+        _, tower_host, tower_dev = device_ms(lambda: module.vision(batch["images"]))
+    out, fwd_host, fwd_dev = device_ms(lambda: model.apply_train(batch, trainer.generator))
+    _, bwd_host, bwd_dev = device_ms(lambda: out["loss"].backward())
+    _, opt_host, opt_dev = device_ms(lambda: trainer.apply_step(lr, out["loss"].detach()))
+    print(f"VL train split (host ms / device-busy ms): tower {tower_host:.1f} / "
+          f"{tower_dev['all']:.1f} (K4 {tower_dev['K4']:.1f}); LM forward "
+          f"{fwd_host - tower_host:.1f} / {fwd_dev['all'] - tower_dev['all']:.1f} (K4+LSE "
+          f"{fwd_dev['K4'] - tower_dev['K4']:.1f}); LM backward {bwd_host:.1f} / "
+          f"{bwd_dev['all']:.1f} (K5 {bwd_dev['K5']:.1f}); optimizer {opt_host:.1f} / "
+          f"{opt_dev['all']:.1f}")
+    del trainer, model, module, batches, batch, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vl_train_sanity():
+    """The loss falls on one repeated batch: the config at grad_accu 1 and a
+    constant lr of 1e-4 (no warmup), 11 microbatches."""
+    import torch
+
+    set_tf32(False)
+    batch = vl_train_batches(1, 16, 518, SEED + 12)[0]
+    trainer = vl_trainor(["trainor.grad_accu=1", "trainor.optim_params.lr=1e-4",
+                          "trainor.lr_decay_params.warmup_ratio=0"], "cuda",
+                         batches=[batch] * 11)
+    lrs = set()
+    real_current_lr = trainer.training_scheduler.current_lr
+
+    def current_lr():
+        lrs.add(real_current_lr())
+        return real_current_lr()
+
+    trainer.training_scheduler.current_lr = current_lr
+    losses = trainer.train_epoch(0)
+    print(f"VL train sanity (one batch repeated, grad_accu {trainer.grad_accu}, lr "
+          f"{sorted(lrs)}): losses {[round(x, 4) for x in losses]}")
+    if not (len(losses) == 11 and lrs == {1e-4} and losses[-1] < losses[0]):
+        fail("the loss did not fall over 10 updates on a repeated batch")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_vl_train_parity():
+    """f32, TF32 off, batch 2: one microbatch's gradients and one AdamW
+    update on the card (kernels) and on the CPU (plain versions), from the
+    same weights; the LM at full depth and width, the tower cut to 2 layers
+    to bound the CPU half's time, dropout off (the two devices draw other
+    masks)."""
+    import torch
+
+    set_tf32(False)
+    overrides = ["model.dtype=float32", "model.decoder.hidden_dropout_prob=0.0",
+                 "model.decoder.attention_probs_dropout_prob=0.0"]
+    tower = dict(VL_TOWER, num_hidden_layers=2)
+    batch = vl_train_batches(1, 2, 518, SEED + 13)[0]
+    lr = 5e-5  # the config's
+    # f32 sums in another order through 12 layers at T 1470; relative to each
+    # tensor's largest gradient entry. A key-projection bias has an exactly 0
+    # gradient (softmax is shift-invariant per row): held against its weight's
+    tol = 1e-3
+    got = {}
+    state = None
+    for device in ("cpu", "cuda"):
+        trainer = vl_trainor(overrides, device, tower=tower, batches=[batch])
+        if state is None:
+            state = {k: v.clone() for k, v in trainer.model.module.state_dict().items()}
+        else:
+            trainer.model.module.load_state_dict(state)
+        t0 = time.perf_counter()
+        loss = trainer.grad_step(to_device(batch, device))
+        grads = {n: p.grad.detach().cpu().clone() for n, p in zip(trainer.tx.names,
+                                                                   trainer.tx.params)}
+        trainer.apply_step(lr, loss)
+        params = {n: p.detach().cpu().clone() for n, p in zip(trainer.tx.names, trainer.tx.params)}
+        got[device] = (float(loss), grads, params, time.perf_counter() - t0)
+        lm_layers = trainer.model.dec_config.num_hidden_layers
+        del trainer
+    (l_cpu, g_cpu, p_cpu, s_cpu), (l_gpu, g_gpu, p_gpu, _) = got["cpu"], got["cuda"]
+    worst_rel, worst_name, bad = 0.0, "", []
+    for name, want in g_cpu.items():
+        ref = name[:-len("bias")] + "weight" if name.endswith("self_attn.k.bias") else name
+        rel = (g_gpu[name] - want).abs().max().item() / g_cpu[ref].abs().max().item()
+        if rel > worst_rel:
+            worst_rel, worst_name = rel, name
+        if not rel <= tol:
+            bad.append(name)
+    step_err = max((p_gpu[n] - p_cpu[n]).abs().max().item() for n in p_cpu)
+    print(f"VL train parity f32 batch 2 ({tower['num_hidden_layers']} "
+          f"tower + {lm_layers} LM layers, CPU half {s_cpu:.1f} s): loss {l_gpu:.6f} card vs {l_cpu:.6f} "
+          f"CPU; {len(g_cpu)} gradients, worst relative error {worst_rel:.3e} ({worst_name}, tol "
+          f"{tol:.0e}); params after one AdamW step at lr {lr:g}: max |diff| {step_err:.3e} (tol "
+          f"{2 * lr:.0e})")
+    if bad or not step_err <= 2 * lr or not abs(l_gpu - l_cpu) <= tol * abs(l_cpu):
+        fail(f"VL train f32 card vs CPU: gradients {bad[:5]}, step {step_err:.3e}")
+    torch.cuda.empty_cache()
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "vilmedic_torch", "csrc")):
         fail(f"no vilmedic_torch/csrc beside {__file__}: run it from a checkout")
@@ -640,9 +1033,13 @@ def main():
     phase_parity()
     launches["vl"] = phase_vl_slice()
     phase_vl_parity()
+    launches["vl_train"] = phase_vl_train()
+    phase_vl_train_sanity()
+    phase_vl_train_parity()
 
     # each kernel's launches are those of the path that runs it: the RRG
-    # slice (K1 stage a, K2, K3) or the VisionLanguage slice (K1 stage b, K4)
+    # slice (K1 stage a, K2, K3), the VisionLanguage slice (K1 stage b, K4)
+    # or the VisionLanguage training phase (K4 with LSE, K5)
     kernels = [{"name": name, "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": launches[r["path"]][r["counter"]],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}

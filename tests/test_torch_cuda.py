@@ -3,7 +3,9 @@
 These need an NVIDIA GPU and the CUDA toolkit, and skip elsewhere. They cover
 shapes off the slices' main paths (odd row counts, groups wider than a warp,
 every head dim the kernels take, pad-heavy vocabularies, out-of-range crop
-offsets, ragged and fully masked flash tiles, Tq != Tk). Run them on the card
+offsets, ragged and fully masked flash tiles, Tq != Tk, the flash backward's
+ragged tails and all-padding items), and a tiny VisionLanguage training step
+card vs CPU. Run them on the card
 from the repository root, without the JAX conftest (the card's machine has no
 JAX):
 
@@ -24,7 +26,11 @@ from vilmedic_torch.models.vision_language import VisionLanguage, make_vl_genera
 from vilmedic_torch.ops.blocked_lm_head import (
     NEG, lm_head_blocked_stats, lm_head_blocked_stats_reference,
 )
-from vilmedic_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from vilmedic_torch.ops.flash_attention import (
+    flash_attention, flash_attention_backward, flash_attention_backward_reference,
+    flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_reference,
+    flash_attention_with_lse,
+)
 from vilmedic_torch.ops.image_preproc import crop_normalize, crop_normalize_reference
 
 pytestmark = pytest.mark.cuda
@@ -119,6 +125,171 @@ def test_flash_attention_fully_masked_item(cuda, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
     mean_v = v[0].float().mean(dim=0, keepdim=True).expand(t, heads, d)
     torch.testing.assert_close(out[0].float(), mean_v, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# backward: relative to each gradient's largest entry; f32 sums in another
+# order, bf16 p and dS rounded from f32 values that differ in the last bits;
+# dbias sums unrounded f32 dS; lse f32 (absolute)
+TOL_GRAD = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL_DBIAS, TOL_LSE = 1e-4, 1e-5
+
+
+def _flash_grads_match(q, k, v, key_mask, causal):
+    """K4 with LSE and K5 against the plain versions, on the same inputs."""
+    dtype = q.dtype
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(q.device, dtype)
+    out, lse = flash_attention_with_lse(q, k, v, key_mask, causal)
+    rout, rlse = flash_attention_reference(q, k, v, key_mask, causal, return_lse=True)
+    torch.testing.assert_close(out.float(), rout.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
+    got = flash_attention_backward(q, k, v, key_mask, out, lse, dout, causal)
+    want = flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = TOL_DBIAS if name == "dbias" else TOL_GRAD[dtype]
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * scale, f"{name}: {err:.3e} vs {tol * scale:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("tq,tk,causal", [
+    (50, 50, False), (130, 130, True), (70, 200, True), (200, 70, False), (129, 129, False),
+])
+def test_flash_backward_kernel(cuda, dtype, d, tq, tk, causal):
+    b, heads = 2, 3
+    gen = torch.Generator().manual_seed(d + tq + tk)
+    q = torch.randn(b, tq, heads, d, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(b, tk, heads, d, generator=gen).to(cuda, dtype) for _ in range(2))
+    key_mask = torch.ones(b, tk, dtype=torch.bool)
+    key_mask[1, tk - tk // 3:] = False
+    for km in (None, key_mask.to(cuda)):
+        _flash_grads_match(q, k, v, km, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_ragged_training_length(cuda, dtype):
+    """T 1470 = 22 x 64 + 62, causal, the last 20 keys padding on item 1."""
+    b, t, heads, d = 2, 1470, 2, 64
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(b, t, heads, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    key_mask = torch.ones(b, t, dtype=torch.bool, device=cuda)
+    key_mask[1, t - 20:] = False
+    _flash_grads_match(q, k, v, key_mask, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kept", [0, 10])
+def test_flash_backward_padding_heavy_item(cuda, dtype, kept):
+    """Item 0 keeps only its first ``kept`` keys. kept 0, non-causal: every
+    key is padding, its rows average V over the real keys (the finite -1e9)
+    and the gradients follow the plain version's. kept 10, causal: every row
+    sees the kept keys (as every VisionLanguage row sees the image prefix)
+    and none of the padding. (A causal row whose visible keys are all
+    padding is undefined: the kernels walk only the tiles up to the causal
+    limit, the plain version weighs every key alike, and the JAX kernels'
+    answer depends on their block size.)"""
+    b, t, heads, d = 2, 100, 2, 64
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(b, t, heads, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    key_mask = torch.ones(b, t, dtype=torch.bool, device=cuda)
+    key_mask[0, kept:] = False
+    _flash_grads_match(q, k, v, key_mask, kept > 0)
+
+
+def test_flash_autograd_runs_the_kernels(cuda):
+    """With grad, ``flash_attention`` is the autograd Function: one K4 launch
+    with LSE forward, one launch of each K5 kernel backward, and the
+    gradients of the plain backward."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, v, dout = (torch.randn(2, 80, 2, 64, generator=gen).to(cuda, torch.bfloat16)
+                     for _ in range(4))
+    key_mask = torch.ones(2, 80, dtype=torch.bool, device=cuda)
+    key_mask[1, 60:] = False
+    counters = (flash_attention, flash_attention_with_lse, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    start = [fn.launches for fn in counters]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, key_mask=key_mask, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [fn.launches - s for fn, s in zip(counters, start)] == [0, 1, 1, 1]
+    o, lse = flash_attention_reference(q, k, v, key_mask, True, return_lse=True)
+    want = flash_attention_backward_reference(q, k, v, key_mask, out.detach(), lse, dout, True)
+    for leaf, w in zip(leaves, want):
+        scale = w.float().abs().max().item()
+        assert (leaf.grad.float() - w.float()).abs().max().item() <= TOL_GRAD[torch.bfloat16] * scale
+
+
+def test_flash_backward_wrappers_refuse(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    stats = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError):  # float16
+        x = q.half()
+        flash_attention_bwd_dq(x, x, x, None, x, stats, stats)
+    with pytest.raises(ValueError):  # head dim 48
+        x = torch.zeros(1, 8, 2, 48, device=cuda)
+        flash_attention_bwd_dkv(x, x, x, None, x, stats, stats)
+    with pytest.raises(ValueError):  # contiguous, 4 bytes off
+        x = torch.zeros(8 * 2 * 64 + 1, device=cuda)[1:].view(1, 8, 2, 64)
+        flash_attention_bwd_dq(x, x, x, None, x, stats, stats)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        flash_attention_bwd_dkv(q, q, q, None, q, torch.zeros(1, 8, 2, device=cuda), stats)
+    with pytest.raises(ValueError):  # lse not f32
+        flash_attention_bwd_dq(q, q, q, None, q, stats.bfloat16(), stats)
+    with pytest.raises(ValueError):  # dO of another shape
+        flash_attention_bwd_dq(q, q, q, None, q[:, :4].contiguous(), stats, stats)
+    with pytest.raises(ValueError):  # out of another dtype than q
+        flash_attention_backward(q, q, q, None, q.bfloat16(), stats, q)
+
+
+def test_tiny_vl_train_step_card_equals_cpu(cuda):
+    """f32, dropout off: one microbatch's gradients and one AdamW update of a
+    small VisionLanguage (LM attention at a flash training length) on the
+    card equal those of the CPU plain versions."""
+    from vilmedic_torch.executors.train_state import create_optimizer, gated_update
+
+    tower = dict(model_type="dinov2", hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, patch_size=4, image_size=96)
+    decoder = dict(proto=None, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                   intermediate_size=192, max_position_embeddings=1024, layer_norm_eps=1e-5,
+                   hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(3, 4500, (2, 20), generator=gen)
+    ids[:, 0] = 0
+    mask = torch.ones(2, 20, dtype=torch.long)
+    mask[1, 15:] = 0
+    batch = {"images": torch.randn(2, 3, 96, 96, generator=gen), "input_ids": ids,
+             "attention_mask": mask}
+    results, state = {}, None
+    for device in ("cpu", cuda):
+        model = VisionLanguage(decoder=dict(decoder), vision={"vision_model_name": "tiny",
+                                                              "image_size": 96},
+                               vision_hf_config=tower, vocab_size=4500, bos_token_id=0,
+                               eos_token_id=2, pad_token_id=1, device=device, seed=5)
+        assert model.module.num_image_tokens + 20 >= 512  # FLASH_MIN_LEN_TRAIN: flash
+        if state is None:
+            state = {k: x.clone() for k, x in model.module.state_dict().items()}
+        else:
+            model.module.load_state_dict(state)
+        start = flash_attention_bwd_dq.launches
+        loss = model.apply_train({k: x.to(device) for k, x in batch.items()})["loss"]
+        loss.backward()
+        tx = create_optimizer("adamw", {"lr": 5e-5}, None, model.frozen_prefixes,
+                              named_parameters=model.module.named_parameters())
+        grads = {n: p.grad.cpu().clone() for n, p in zip(tx.names, tx.params)}
+        assert gated_update(tx, 5e-5, loss.detach())
+        params = {n: p.detach().cpu().clone() for n, p in zip(tx.names, tx.params)}
+        results[str(device)] = (loss.item(), grads, params, flash_attention_bwd_dq.launches - start)
+    (l_cpu, g_cpu, p_cpu, _), (l_gpu, g_gpu, p_gpu, n_dq) = results["cpu"], results["cuda"]
+    assert n_dq == 2  # one K5 dq launch per LM layer on the card
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for name, want in g_cpu.items():
+        ref = name[:-len("bias")] + "weight" if name.endswith("self_attn.k.bias") else name
+        scale = g_cpu[ref].abs().max().item()
+        assert (g_gpu[name] - want).abs().max().item() <= 1e-4 * scale, name
+        assert (p_gpu[name] - p_cpu[name]).abs().max().item() <= 2 * 5e-5, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

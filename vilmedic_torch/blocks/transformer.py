@@ -15,13 +15,16 @@ module (``mode=``):
 ``MultiHeadAttention.prefix_decode`` is the VisionLanguage prefix LM's decode
 step: the beam-cache kernel's segment merged with a beam-shared prefix.
 
-Numerics follow the Flax modules: Linear/Embedding weights are stored in the
-compute dtype (Flax casts its f32 params to the compute dtype per op, which
-rounds the same way); LayerNorm computes in f32 with f32 params and casts its
-output to the compute dtype; attention scores and softmax are f32.
-Parameter names follow the Flax tree (``layer_0.self_attn.q.weight``), so the
-weight bridge (``zoo/from_jax.py``) is a rename plus transposes. Dropout is
-left out: it acts only in training, which a later slice ports.
+Numerics follow the Flax modules: parameters are f32 (the optimizer's master
+weights), and every :class:`Linear` and :class:`Embedding` casts its weight
+(and bias) to the compute dtype at use, as Flax's ``param_dtype=float32``
+with ``dtype=`` does; LayerNorm computes in f32 with f32 params and casts its
+output to the compute dtype; attention scores and softmax are f32. Hidden
+dropout (:func:`dropout`) sits where the Flax modules have it, on the FFN
+output and the embeddings; attention-probability dropout is folded away, as
+in the JAX package. Parameter names follow the Flax tree
+(``layer_0.self_attn.q.weight``), so the weight bridge (``zoo/from_jax.py``)
+is a rename plus transposes.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ class TransformerConfig:
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
     intermediate_size: int = 3072
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     max_position_embeddings: int = 512
     layer_norm_eps: float = 1e-12
     pad_token_id: int = 0
@@ -59,9 +64,8 @@ class TransformerConfig:
 
     @classmethod
     def from_dict(cls, d: Dict, **overrides) -> "TransformerConfig":
-        """Build from an HF-style config dict, ignoring unknown keys (dropout
-        and gradient checkpointing act only in training, which is not
-        ported)."""
+        """Build from an HF-style config dict, ignoring unknown keys
+        (gradient checkpointing is not ported)."""
         from ..config.config import Config
 
         if isinstance(d, Config):
@@ -92,8 +96,60 @@ class LayerNorm(nn.LayerNorm):
         ).to(self.out_dtype)
 
 
-def _linear(cfg: TransformerConfig, n_in: int, n_out: int) -> nn.Linear:
-    return nn.Linear(n_in, n_out, dtype=cfg.dtype)
+class Linear(nn.Linear):
+    """Flax ``nn.Dense(dtype=..., param_dtype=float32)``: f32 parameters; the
+    input, weight and bias are cast to the compute dtype at use.
+
+    A forward without grad (serving) keeps the cast weight and bias until a
+    parameter changes (another storage or an in-place update, which bumps
+    its version counter), so a decode loop casts them once per generate and
+    not once per step: the same values, and 144 fewer cast kernels per step of
+    the 12-layer VisionLanguage decoder (6 Linears a layer, weight and
+    bias)."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype):
+        super().__init__(n_in, n_out)
+        self.compute_dtype = dtype
+        self._cast = (None, None)  # (key of the f32 parameters, cast (weight, bias))
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        x = x if x.dtype == dt else x.to(dt)
+        w, b = self.weight, self.bias
+        if w.dtype == dt or torch.is_grad_enabled():
+            return F.linear(x, w.to(dt), b.to(dt))
+        key = (w.device, dt, w.data_ptr(), w._version, b.data_ptr(), b._version)
+        if self._cast[0] != key:
+            self._cast = (key, (w.to(dt), b.to(dt)))
+        return F.linear(x, *self._cast[1])
+
+
+class Embedding(nn.Embedding):
+    """Flax ``nn.Embed(dtype=..., param_dtype=float32)``: an f32 table whose
+    looked-up rows are cast to the compute dtype (the same values as casting
+    the table first; the backward sums repeated ids in f32)."""
+
+    def __init__(self, num: int, dim: int, dtype: torch.dtype):
+        super().__init__(num, dim)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return super().forward(ids).to(self.compute_dtype)
+
+
+def dropout(x, p: float, generator: Optional[torch.Generator]):
+    """Flax ``nn.Dropout``: keep each value with probability ``1 - p`` and
+    scale the kept ones by ``1 / (1 - p)``, with masks drawn from
+    ``generator`` on ``x``'s device; ``generator=None`` (eval) or ``p == 0``
+    is the identity."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _linear(cfg: TransformerConfig, n_in: int, n_out: int) -> Linear:
+    return Linear(n_in, n_out, cfg.dtype)
 
 
 def make_blocked_head_weights(decoder: "TransformerDecoder", block: int = 128):
@@ -151,10 +207,11 @@ class MultiHeadAttention(nn.Module):
         return self._split(self.k(kv_input)), self._split(self.v(kv_input))
 
     def forward(self, x, kv_input=None, bias=None, cache=None, decode_index=None,
-                ancestry=None, causal: bool = False):
+                ancestry=None, causal: bool = False, train: bool = False):
         """``cache``: the (K, V) cross cache at batch B for cross-attention, or
         the (k_tnf, v_tnf) kernel self cache for a decode step (updated in
-        place, with ``ancestry`` the kernel's (groups, rows, T*rows) mask)."""
+        place, with ``ancestry`` the kernel's (groups, rows, T*rows) mask).
+        ``train=True`` routes as a training step (``FLASH_MIN_LEN_TRAIN``)."""
         cfg = self.config
         q = self._split(self.q(x))
         if self.cross:
@@ -184,7 +241,8 @@ class MultiHeadAttention(nn.Module):
                 )
                 return self.o(out.to(cfg.dtype).reshape(n, 1, cfg.hidden_size))
             k, v = k_new, v_new
-        out = dot_product_attention(q, k, v, bias=bias, dtype=cfg.dtype, causal=causal)
+        out = dot_product_attention(q, k, v, bias=bias, dtype=cfg.dtype, causal=causal,
+                                    train=train)
         b, t = out.shape[:2]
         return self.o(out.reshape(b, t, cfg.hidden_size))
 
@@ -247,7 +305,7 @@ class FeedForward(nn.Module):
         self.fc1 = _linear(config, config.hidden_size, config.intermediate_size)
         self.fc2 = _linear(config, config.intermediate_size, config.hidden_size)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         h = self.fc1(x)
         act = self.config.hidden_act
         if act == "gelu":
@@ -256,20 +314,21 @@ class FeedForward(nn.Module):
             h = F.gelu(h, approximate="tanh")
         else:
             h = F.relu(h)
-        return self.fc2(h)
+        return dropout(self.fc2(h), self.config.hidden_dropout_prob, generator)
 
 
 class Embeddings(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
-        self.word_embeddings = nn.Embedding(config.vocab_size, config.hidden_size,
-                                            dtype=config.dtype)
-        self.position_embeddings = nn.Embedding(config.max_position_embeddings,
-                                                config.hidden_size, dtype=config.dtype)
+        self.config = config
+        self.word_embeddings = Embedding(config.vocab_size, config.hidden_size, config.dtype)
+        self.position_embeddings = Embedding(config.max_position_embeddings,
+                                             config.hidden_size, config.dtype)
         self.ln = LayerNorm(config.hidden_size, config.layer_norm_eps, config.dtype)
 
-    def forward(self, input_ids, position_ids):
-        return self.ln(self.word_embeddings(input_ids) + self.position_embeddings(position_ids))
+    def forward(self, input_ids, position_ids, generator: Optional[torch.Generator] = None):
+        h = self.ln(self.word_embeddings(input_ids) + self.position_embeddings(position_ids))
+        return dropout(h, self.config.hidden_dropout_prob, generator)
 
 
 class DecoderLayer(nn.Module):

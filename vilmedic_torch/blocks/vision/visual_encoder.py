@@ -3,7 +3,10 @@
 
 Images are NCHW. Flattening (B, C, h, w) with ``flatten(2).transpose(1, 2)``
 gives the same (h, w) token order as the JAX NHWC reshape (``batch_first``).
-The feature mask comes from the pre-projection features. Two towers: DenseNet
+The feature mask comes from the pre-projection features. ``freeze`` takes the
+backbone out of training: its parameters get no gradient (``requires_grad``
+False) and so no optimizer state, the counterpart of the JAX package's
+``stop_gradient`` plus frozen optimizer prefixes. Two towers: DenseNet
 with its ``features`` output (``batch_first``), and DINOv2, whose
 (B, 1 + S, D) tokens are returned as they are (as the JAX package returns
 its ViT-family towers, whatever ``permute`` says; the VisionLanguage config
@@ -18,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..transformer import Linear
 from .densenet import CONFIGS as DENSENET_CONFIGS
 from .densenet import make_densenet
 from .dinov2 import make_dinov2
@@ -26,7 +30,7 @@ from .dinov2 import make_dinov2
 class VisualEncoder(nn.Module):
     def __init__(self, backbone: str, output_layer: Optional[str] = None,
                  projection_dim: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 permute: str = "batch_first", **backbone_kwargs):
+                 permute: str = "batch_first", freeze: bool = False, **backbone_kwargs):
         super().__init__()
         name = backbone.lower()
         self.is_vit = "dinov2" in name
@@ -45,9 +49,12 @@ class VisualEncoder(nn.Module):
         else:
             raise NotImplementedError(f"vision backbone {backbone!r} is not ported")
         self.width = width  # of the backbone's tokens, before any projection
+        self.freeze = freeze
+        if freeze:
+            self.model.requires_grad_(False)
         self.visual_projection = None
         if projection_dim is not None:
-            self.visual_projection = nn.Linear(width, projection_dim, dtype=dtype)
+            self.visual_projection = Linear(width, projection_dim, dtype)
 
     def forward(self, images):
         """Backbone forward. DINOv2: its (B, 1 + S, D) tokens as they are.
@@ -71,15 +78,15 @@ class VisualEncoder(nn.Module):
 
 def build_visual_encoder(cfg, dtype=torch.float32) -> VisualEncoder:
     """Build from a reference-style ``cnn:`` config block (backbone,
-    output_layer, permute, visual_projection, and a ViT-family tower's
-    architecture keys; dropout_out and freeze act only in training, which is
-    not ported, and are ignored)."""
+    output_layer, permute, visual_projection, freeze, and a ViT-family
+    tower's architecture keys; ``dropout_out`` is not ported and is
+    ignored)."""
     from ...config.config import Config
 
     if isinstance(cfg, Config):
         cfg = cfg.to_dict()
     cfg = dict(cfg)
-    for key in ("proto", "pretrained", "dropout_out", "freeze"):
+    for key in ("proto", "pretrained", "dropout_out"):
         cfg.pop(key, None)
     permute = cfg.pop("permute", "batch_first")
     if permute not in ("batch_first", "no_permute"):
@@ -88,4 +95,4 @@ def build_visual_encoder(cfg, dtype=torch.float32) -> VisualEncoder:
     projection_dim = vp.get("out_features") if isinstance(vp, dict) else None
     backbone, output_layer = cfg.pop("backbone"), cfg.pop("output_layer", None)
     return VisualEncoder(backbone, output_layer, projection_dim, dtype=dtype, permute=permute,
-                         **cfg)
+                         freeze=bool(cfg.pop("freeze", False)), **cfg)

@@ -3,13 +3,15 @@
 // Replaces: vilmedic_tpu/ops/flash_attention.py::_kernel_v2 (reached through
 // `_flash_bthd`, the (B, T, H*D) layout) and ::_kernel (through `_flash_bhtd`,
 // the (B*H, T, D) layout). The two differ only in how they lay heads out on
-// the TPU's 128 lanes; one kernel covers both. The per-row log-sum-exp the
-// TPU forward saves for its backward is not written (no backward yet).
+// the TPU's 128 lanes; one kernel covers both. With a non-null `lse` it also
+// writes the per-row log-sum-exp the backward (flash_attention_bwd.cu)
+// recomputes probabilities from, as the TPU forward's `with_lse` does.
 //
 // What it computes, per (batch b, head h, query row r):
 //   s[c]  = (q[r] . k[c]) * scale + bias[b, c]      f32, over keys c < Tk
 //   s[c]  = -1e9 where causal and c > r + Tk - Tq   (replaced, as the TPU does)
 //   out[r] = sum_c exp(s[c] - m) v[c] / max(sum_c exp(s[c] - m), 1e-30)
+//   lse[b, h, r] = m + log(max(sum_c exp(s[c] - m), 1e-30))   (f32, if asked)
 // with the running max m starting at -1e9. q, k, v are read in place from the
 // (B, T, H*D) layout through the head stride; out is written in q's dtype.
 //
@@ -90,7 +92,8 @@ __global__ void __launch_bounds__(128)
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
-                          int Tq, int Tk, int H, int causal, float scale) {
+                          float* __restrict__ lse, int Tq, int Tk, int H, int causal,
+                          float scale) {
   constexpr int BK = 64;
   constexpr int LD = D + 8;  // shared row stride (bf16): 16-byte rows, no bank conflicts
   constexpr int KC = D / 16; // k-steps of Q K^T
@@ -246,6 +249,11 @@ __global__ void __launch_bounds__(128)
     if (r1 < Tq)
       *reinterpret_cast<uint32_t*>(ob + r1 * HD + c) = pack_f32(acc[dn][2] / d1, acc[dn][3] / d1);
   }
+  if (lse != nullptr && t4 == 0) {
+    float* lb = lse + ((long long)b * H + h) * Tq;
+    if (r0 < Tq) lb[r0] = m0 + logf(d0);
+    if (r1 < Tq) lb[r1] = m1 + logf(d1);
+  }
 }
 
 // ------------------------------------------------------------------- f32 path
@@ -253,8 +261,8 @@ template <int D>
 __global__ void __launch_bounds__(256)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ bias,
-                         float* __restrict__ o, int Tq, int Tk, int H, int causal,
-                         float scale) {
+                         float* __restrict__ o, float* __restrict__ lse, int Tq, int Tk,
+                         int H, int causal, float scale) {
   constexpr int BK = 32;
   constexpr int E = D / 4;  // head-dim values per thread: columns e * 4 + quad
   __shared__ __align__(16) float ks[BK * D];
@@ -339,12 +347,13 @@ __global__ void __launch_bounds__(256)
     float* orow = o + ((long long)b * Tq + row) * HD + (long long)h * D;
 #pragma unroll
     for (int e = 0; e < E; ++e) orow[e * 4 + quad] = acc[e] / den;
+    if (lse != nullptr && quad == 0) lse[((long long)b * H + h) * Tq + row] = m + logf(den);
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* bias, void* o, int B,
-           int Tq, int Tk, int H, int D, int causal, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
+           int B, int Tq, int Tk, int H, int D, int causal, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
@@ -355,11 +364,11 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
     if (bf16)                                                                          \
       flash_fwd_bf16_kernel<DD><<<grid, 128, 0, s>>>(                                  \
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,  \
-          (const float*)bias, (__nv_bfloat16*)o, Tq, Tk, H, causal, scale);            \
+          (const float*)bias, (__nv_bfloat16*)o, (float*)lse, Tq, Tk, H, causal, scale); \
     else                                                                               \
       flash_fwd_f32_kernel<DD><<<grid, 256, 0, s>>>(                                   \
           (const float*)q, (const float*)k, (const float*)v, (const float*)bias,       \
-          (float*)o, Tq, Tk, H, causal, scale);                                        \
+          (float*)o, (float*)lse, Tq, Tk, H, causal, scale);                           \
     break;
   switch (D) {
     VT_FLASH_CASE(32)
@@ -374,15 +383,18 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
 
 }  // namespace
 
-// q (B, Tq, H*D), k/v (B, Tk, H*D), bias (B, Tk) f32 additive or null, o like q
+// q (B, Tq, H*D), k/v (B, Tk, H*D), bias (B, Tk) f32 additive or null, o like q,
+// lse (B, H, Tq) f32 or null
 extern "C" int vt_flash_attention_f32(const void* q, const void* k, const void* v,
-                                      const void* bias, void* o, int B, int Tq, int Tk,
-                                      int H, int D, int causal, float scale, void* stream) {
-  return launch<float>(q, k, v, bias, o, B, Tq, Tk, H, D, causal, scale, stream);
+                                      const void* bias, void* o, void* lse, int B, int Tq,
+                                      int Tk, int H, int D, int causal, float scale,
+                                      void* stream) {
+  return launch<float>(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale, stream);
 }
 
 extern "C" int vt_flash_attention_bf16(const void* q, const void* k, const void* v,
-                                       const void* bias, void* o, int B, int Tq, int Tk,
-                                       int H, int D, int causal, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, bias, o, B, Tq, Tk, H, D, causal, scale, stream);
+                                       const void* bias, void* o, void* lse, int B, int Tq,
+                                       int Tk, int H, int D, int causal, float scale,
+                                       void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale, stream);
 }

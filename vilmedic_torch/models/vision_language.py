@@ -10,12 +10,18 @@ attends jointly over the beam-shared prefix K/V (batch B, never tiled) and
 the per-beam generated cache (the beam-cache kernel with its softmax stats,
 ``MultiHeadAttention.prefix_decode``).
 
-Ported: the teacher-forced forward (logits and loss, no gradient), the bf16
-prefix K/V prefill, the kernel-cache decode step with the blocked LM head,
-and :func:`make_vl_generate_fn`, the single-device counterpart of
-``vl_evaluation``'s ``generate``. Not ported: the int8 prefix and generated
-caches, the fused prefix, greedy decoding, sharded evaluation, the tokenizer
-half of ``vl_evaluation`` and training.
+Training (``forward(..., train=True)``, :meth:`VisionLanguage.apply_train`)
+runs the frozen tower under ``torch.no_grad()`` (the JAX ``stop_gradient``),
+hidden dropout from an explicit generator where the Flax modules have it, and
+the LM's causal self-attention at 1470 tokens through the flash kernels'
+forward with LSE and their backward (``ops/flash_attention.py``).
+
+Ported: the teacher-forced forward (logits and loss, with or without
+gradient), the bf16 prefix K/V prefill, the kernel-cache decode step with the
+blocked LM head, and :func:`make_vl_generate_fn`, the single-device
+counterpart of ``vl_evaluation``'s ``generate``. Not ported: the int8 prefix
+and generated caches, the fused prefix, greedy decoding, sharded evaluation,
+the tokenizer half of ``vl_evaluation`` and gradient checkpointing.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..blocks.transformer import (
-    Embeddings, FeedForward, LayerNorm, MultiHeadAttention, TransformerConfig, causal_lm_loss,
-    make_blocked_head_weights, prefix_operands, to_kernel_cache,
+    Embeddings, FeedForward, LayerNorm, Linear, MultiHeadAttention, TransformerConfig,
+    causal_lm_loss, dropout, make_blocked_head_weights, prefix_operands, to_kernel_cache,
 )
 from ..blocks.vision.dinov2 import DINOV2_KEYS, SwiGLUFFN
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
@@ -51,9 +57,13 @@ class CausalLayer(nn.Module):
         self.ffn = FeedForward(config)
         self.ffn_ln = LayerNorm(config.hidden_size, eps, dt)
 
-    def forward(self, x, bias=None, causal: bool = False):
-        x = self.self_ln(x + self.self_attn(x, bias=bias, causal=causal))
-        return self.ffn_ln(x + self.ffn(x))
+    def forward(self, x, bias=None, causal: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``train`` routes the attention as a training step; ``generator``
+        draws the hidden-dropout masks (None: no dropout)."""
+        attn = self.self_attn(x, bias=bias, causal=causal, train=train)
+        x = self.self_ln(x + dropout(attn, self.self_attn.config.hidden_dropout_prob, generator))
+        return self.ffn_ln(x + self.ffn(x, generator))
 
     def decode(self, x, prefix_kv, cache, decode_index: int, ancestry):
         attn = self.self_attn.prefix_decode(x, prefix_kv, cache, decode_index, ancestry)
@@ -73,9 +83,9 @@ class VisionLanguageModule(nn.Module):
         for i in range(config.num_hidden_layers):
             self.add_module(f"layer_{i}", CausalLayer(config))
         h, dt = config.hidden_size, config.dtype
-        self.lm_head = nn.Linear(h, config.vocab_size, dtype=dt)
-        self.proj_fc1 = nn.Linear(vision.width, h, dtype=dt)
-        self.proj_fc2 = nn.Linear(h, h, dtype=dt)
+        self.lm_head = Linear(h, config.vocab_size, dt)
+        self.proj_fc1 = Linear(vision.width, h, dt)
+        self.proj_fc2 = Linear(h, h, dt)
         self.image_token_embedding = nn.Parameter(torch.zeros(1, 1, h))
 
     @property
@@ -83,31 +93,35 @@ class VisionLanguageModule(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.config.num_hidden_layers)]
 
     def image_prefix(self, images):
-        """(B, P, hidden): the marker token, then the projected patch tokens."""
-        feats = self.vision(images)
+        """(B, P, hidden): the marker token, then the projected patch tokens.
+        No gradient reaches the tower (JAX's ``stop_gradient``)."""
+        with torch.no_grad():
+            feats = self.vision(images)
         if self.drop_cls_token:
             feats = feats[:, 1:]
         proj = self.proj_fc2(F.gelu(self.proj_fc1(feats), approximate="tanh"))
         marker = self.image_token_embedding.to(proj.dtype).expand(proj.shape[0], -1, -1)
         return torch.cat([marker, proj], dim=1)
 
-    def _text_embed(self, input_ids, offset: int):
+    def _text_embed(self, input_ids, offset: int, generator=None):
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :] + offset
-        return self.embeddings(input_ids, positions)
+        return self.embeddings(input_ids, positions, generator)
 
-    def forward(self, images, input_ids, attention_mask):
+    def forward(self, images, input_ids, attention_mask, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Teacher-forced logits over the text positions and the shifted
-        causal-LM loss over them."""
+        causal-LM loss over them. ``train=True`` routes attention as a
+        training step; ``generator`` draws the dropout masks (None: none)."""
         prefix = self.image_prefix(images)
         p = prefix.shape[1]
-        text = self._text_embed(input_ids, p)
+        text = self._text_embed(input_ids, p, generator)
         h = torch.cat([prefix.to(text.dtype), text], dim=1)
         key_mask = torch.cat([torch.ones(h.shape[0], p, dtype=attention_mask.dtype,
                                          device=attention_mask.device), attention_mask], dim=1)
         # a key-padding bias plus the causal flag, so long prefixes take flash
         bias = make_attention_bias(key_mask=key_mask)
         for layer in self.layers:
-            h = layer(h, bias=bias, causal=True)
+            h = layer(h, bias=bias, causal=True, train=train, generator=generator)
         logits = self.lm_head(h[:, p:]).float()
         return {"loss": causal_lm_loss(logits, input_ids, attention_mask), "logits": logits}
 
@@ -223,7 +237,9 @@ class VisionLanguage:
     lookup for ``vision_model_name`` (a DINOv2 architecture dict); with it,
     the prefix drops the tower's CLS token. ``vocab_size`` and the special
     ids take the place of the tokenizer. Weights are random from ``seed``
-    unless a state dict is loaded after."""
+    unless a state dict is loaded after. The tower is frozen unless the
+    config's ``vision`` block says ``freeze: false``: ``frozen_prefixes`` is
+    then ``("vision",)`` and its parameters take no gradient."""
 
     def __init__(self, decoder=None, vision=None, vision_model_name: Optional[str] = None,
                  vision_hf_config=None, dtype="float32", vocab_size: Optional[int] = None,
@@ -259,6 +275,8 @@ class VisionLanguage:
             dec_args, **{k: v for k, v in ids.items() if v is not None}, dtype=compute_dtype)
         vision.setdefault("backbone", "vit")
         vision.setdefault("permute", "no_permute")
+        vision.setdefault("freeze", True)
+        self.frozen_prefixes = ("vision",) if vision["freeze"] else ()
         enc = build_visual_encoder(vision, dtype=compute_dtype)
         image_size, patch = vision.get("image_size", 224), vision.get("patch_size", 16)
         # prefix = patches + marker (+ CLS unless the tower's is dropped)
@@ -266,6 +284,14 @@ class VisionLanguage:
         self.module = VisionLanguageModule(self.dec_config, enc, num_image_tokens, drop_cls_token)
         init_vl_weights_(self.module, torch.Generator().manual_seed(seed))
         self.module.to(device).eval()
+
+    def apply_train(self, batch, generator: Optional[torch.Generator] = None):
+        """One training forward over a batch ``{"images", "input_ids",
+        "attention_mask"}``: ``{"loss", "logits"}`` with the graph for the
+        backward; ``generator`` (on the model's device) draws the dropout
+        masks."""
+        return self.module(batch["images"], batch["input_ids"], batch["attention_mask"],
+                           train=True, generator=generator)
 
     def __repr__(self):
         return "model: VisionLanguage (frozen DINOv2 + prefix-conditioned causal LM)"

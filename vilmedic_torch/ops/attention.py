@@ -2,10 +2,10 @@
 
 Scores and softmax are f32 whatever the compute dtype; masks are additive
 biases of 0 / -1e9. Attention whose query and key axes are both long (>=
-``FLASH_MIN_LEN``) and whose bias is key-padding only goes to
-:func:`~.flash_attention.flash_attention`, as in the JAX package (its lower
-threshold for training steps is not ported): the CUDA kernel on the card, its
-plain version on the CPU.
+``FLASH_MIN_LEN``, or ``FLASH_MIN_LEN_TRAIN`` when ``train=True``: a forward
+whose backward will run) and whose bias is key-padding only goes to
+:func:`~.flash_attention.flash_attention`, as in the JAX package: the CUDA
+kernels on the card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -18,10 +18,11 @@ from .flash_attention import flash_attention
 
 NEG_INF = -1e9  # additive mask value; safe in f32 and bf16
 
-# the JAX package's flash-route threshold (measured there on a TPU; kept so
-# the port takes the flash kernel exactly where the reference does). Read at
-# call time.
+# the JAX package's flash-route thresholds, for inference and for training
+# steps (measured there on a TPU; kept so the port takes the flash kernels
+# exactly where the reference does). Read at call time.
 FLASH_MIN_LEN = 1024
+FLASH_MIN_LEN_TRAIN = 512
 
 
 def _softmax_f32(x: torch.Tensor) -> torch.Tensor:
@@ -38,17 +39,20 @@ def dot_product_attention(
     bias: Optional[torch.Tensor] = None,
     dtype: torch.dtype = torch.float32,
     causal: bool = False,
+    train: bool = False,
 ) -> torch.Tensor:
     """Scaled dot-product attention.
 
     q: (B, Tq, H, D), k/v: (B, Tk, H, D), bias broadcastable to (B, H, Tq, Tk).
     ``causal=True`` adds the causal constraint (query r sees key c iff
-    c <= r + Tk - Tq) on top of ``bias``. Returns (B, Tq, H, D) in ``dtype``.
+    c <= r + Tk - Tq) on top of ``bias``. ``train=True`` lowers the flash
+    threshold to ``FLASH_MIN_LEN_TRAIN``. Returns (B, Tq, H, D) in ``dtype``.
     """
     key_bias_only = bias is None or (
         bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1
     )
-    if q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN and key_bias_only:
+    min_len = FLASH_MIN_LEN_TRAIN if train else FLASH_MIN_LEN
+    if q.shape[1] >= min_len and k.shape[1] >= min_len and key_bias_only:
         key_mask = None if bias is None else bias[:, 0, 0, :] >= -0.5
         return flash_attention(q, k, v, key_mask=key_mask, causal=causal).to(dtype)
 

@@ -42,8 +42,12 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _F, _P],
     "vt_beam_cache_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _F, _P],
-    "vt_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "vt_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "vt_flash_attention_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dq_f32": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dq_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dkv_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dkv_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
     "vt_lm_head_blocked_stats_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_blocked_stats_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

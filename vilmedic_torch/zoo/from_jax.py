@@ -11,6 +11,13 @@ transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
 - bare parameters (DINOv2's ``cls_token``, ``pos_embed``, LayerScale
   ``ls1``/``ls2``, VisionLanguage's ``image_token_embedding``) as they are.
 
+The values stay f32, as the Flax parameters are: the port's Linear and
+Embedding parameters are f32 too and cast to the compute dtype at use. Only
+the frozen towers' convolutions (DenseNet, the DINOv2 patch embedding) and
+DINOv2's SwiGLU projections are held in the compute dtype, so
+``load_state_dict`` rounds those once, where Flax rounds at use to the same
+values.
+
 A reference ``.pth`` state dict reaches the port through the JAX package's
 ``convert_reference_rrg`` and then this function.
 """
@@ -58,8 +65,7 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 
 def rrg_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX RRG ``{"params", "batch_stats"}`` (numpy leaves) -> the port's
-    ``RRGModule`` state dict (f32 tensors; ``load_state_dict`` casts them to
-    each parameter's dtype)."""
+    ``RRGModule`` state dict of f32 tensors."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables["params"]):
         key, arr = _param(path, value)
@@ -74,6 +80,6 @@ def rrg_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
 
 def vl_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX VisionLanguage ``{"params"}`` (numpy leaves) -> the port's
-    ``VisionLanguageModule`` state dict (f32 tensors; ``load_state_dict``
-    casts them to each parameter's dtype). The tower has no batch statistics."""
+    ``VisionLanguageModule`` state dict of f32 tensors. The tower has no
+    batch statistics."""
     return rrg_state_dict_from_jax({"params": variables["params"]})
