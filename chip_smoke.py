@@ -75,6 +75,15 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def require(checks: dict, phase: str):
+    """Print every named check; fail the phase if any is false."""
+    for name, ok in checks.items():
+        print(f"  check {name}: {'ok' if ok else 'FAILED'}")
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"{phase} checks {bad}")
+
+
 def cuda_ms(fn, reps: int = 9, warmup: int = 2) -> float:
     """Median milliseconds of ``fn`` on the current stream, by CUDA events."""
     import torch
@@ -92,6 +101,23 @@ def cuda_ms(fn, reps: int = 9, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes
+# per second, and dense operations per second by operand type (bf16 on the
+# tensor cores, f32 outside them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def bound(nbytes: float, ops: float, dtype) -> dict:
+    """The least time the card could take for a kernel's work: the larger of
+    its bytes (each input read once, each output written once) over the HBM
+    rate and its operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[str(dtype).rpartition(".")[2]] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def set_tf32(enabled: bool):
@@ -112,6 +138,30 @@ def random_ancestry_mask(groups: int, rows: int, t: int, gen, device):
     mask = torch.zeros(groups, rows, t, rows, dtype=torch.bool)
     mask.scatter_(3, j[..., None], True)
     return mask.view(groups, rows, t * rows).to(device)
+
+
+def beam_cache_bound(kc, q, mask, index: int, rows: int, stats: bool = False, scales=None,
+                     prefix=None) -> dict:
+    """K1's bound on this run's inputs. Read: the ancestor cache rows the
+    mask names below ``index`` (K and V, each distinct row once), q, k_new,
+    v_new, the mask's live part, the scales, the prefix's ``p_real``
+    positions; written: out, the stats, the cache rows at ``index``.
+    Operations: 4 * D per head for every attended (row, key) pair."""
+    t, n, hd = kc.shape
+    groups = n // rows
+    live = mask.view(groups, rows, t, rows)[:, :, :index] != 0
+    pairs = int(live.sum()) + n  # the current step's lane included
+    nbytes = (2 * int(live.any(dim=1).sum()) * hd * kc.element_size()
+              + 3 * n * hd * q.element_size() + groups * rows * index * rows * mask.element_size()
+              + n * hd * 4 + 2 * n * hd * kc.element_size())
+    if stats:
+        nbytes += 2 * n * q.shape[1] * 4
+    if scales is not None:
+        nbytes += scales.numel() * 4
+    if prefix is not None:
+        nbytes += 2 * prefix.pk.shape[0] * prefix.p_real * hd * prefix.pk.element_size()
+        pairs += n * prefix.p_real
+    return bound(nbytes, 4 * pairs * hd, q.dtype)
 
 
 def check_beam_cache_attention(results):
@@ -157,14 +207,16 @@ def check_beam_cache_attention(results):
                 timing[n] = (
                     cuda_ms(lambda: fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 99)),
                     cuda_ms(lambda: fused_beam_cache_attention_reference(kc, vc, q, kn, vn, mask, 99)),
+                    beam_cache_bound(kc, q, mask, 99, rows),
                 )
-    for n, (ms, plain) in timing.items():
-        print(f"K1 bf16 N={n} index=99: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    for n, (ms, plain, bd) in timing.items():
+        print(f"K1 bf16 N={n} index=99: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     results["fused_beam_cache_attention"] = dict(
         route="cuda", source="vilmedic_torch/csrc/beam_cache_attention.cu",
         replaces="vilmedic_tpu/ops/beam_cache_attention.py:94",
-        max_abs_err=worst, ms=timing[1024][0], plain_ms=timing[1024][1],
-        path="rrg", counter="fused_beam_cache_attention",
+        max_abs_err=worst, ms=timing[1024][0], plain_ms=timing[1024][1], **timing[1024][2],
+        library_ms=None, path="rrg", counter="fused_beam_cache_attention",
     )
 
 
@@ -211,19 +263,172 @@ def check_beam_cache_attention_stats(results):
                                                     return_stats=True))
     plain = cuda_ms(lambda: fused_beam_cache_attention_reference(kc, vc, q, kn, vn, mask, 99,
                                                                  return_stats=True))
-    print(f"K1 stats bf16 N={n} index=99: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    bd = beam_cache_bound(kc, q, mask, 99, rows, stats=True)
+    print(f"K1 stats bf16 N={n} index=99: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     results["fused_beam_cache_attention_stats"] = dict(
         route="cuda", source="vilmedic_torch/csrc/beam_cache_attention.cu",
         replaces="vilmedic_tpu/ops/beam_cache_attention.py:94",
-        max_abs_err=worst, ms=ms, plain_ms=plain,
-        path="vl", counter="fused_beam_cache_attention",
+        max_abs_err=worst, ms=ms, plain_ms=plain, **bd, library_ms=None,
+        path="vl", counter="fused_beam_cache_attention.launches_stats",
     )
+
+
+def check_beam_cache_attention_int8(results):
+    """Stage (c) at the VisionLanguage decode shape (16 items x beam 8): int8
+    caches with per-lane scales under which about a third of k_new/v_new
+    saturates, q/k_new/v_new in f32 and bf16, with the stats the merge route
+    asks for; the int8 write bitwise against the plain version on the card
+    and on the CPU."""
+    import torch
+
+    from vilmedic_torch.ops.beam_cache_attention import (
+        fused_beam_cache_attention, fused_beam_cache_attention_reference, quantize_cache_rows,
+    )
+
+    t, heads, d, rows, n = T_MAX, 12, 64, BEAM, 128
+    # as stage (b): out f32 sums in another order, bf16 p rounded against the
+    # running max in the kernel and the final max in the plain version
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    tol_m, tol_l = 1e-5, 1e-4
+    worst = 0.0
+    gen = torch.Generator().manual_seed(SEED + 6)
+    for dtype in (torch.float32, torch.bfloat16):
+        kc, vc = (torch.randint(-127, 128, (t, n, heads * d), generator=gen, dtype=torch.int8)
+                  .cuda() for _ in range(2))
+        q, kn, vn = (torch.randn(n, heads, d, generator=gen).to("cuda", dtype)
+                     for _ in range(3))
+        scales = ((torch.rand(2, heads * d, generator=gen) * 1.5 + 0.5) / 127.0).cuda()
+        mask = random_ancestry_mask(n // rows, rows, t, gen, "cuda")
+        for index in (0, 1, 57, 99):
+            kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            out, m, l = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index, True,
+                                                   kv_scales=scales)
+            ref, rm, rl = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index,
+                                                               True, kv_scales=scales)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            err_m = (m - rm).abs().max().item()
+            rel_l = ((l - rl).abs() / rl).max().item()
+            worst = max(worst, err, err_m)
+            write_cpu = quantize_cache_rows(kn.float().cpu(), scales[0].cpu().view(heads, d))
+            write_ok = (torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
+                        and torch.equal(kc1[index].cpu(), write_cpu.view(n, -1)))
+            saturated = (kc1[index].abs() == 127).float().mean().item()
+            print(f"K1 int8 {str(dtype)[6:]:8s} N={n} index={index:2d}: max|err| out {err:.3e} "
+                  f"(tol {tol[dtype]:.0e}), m {err_m:.3e} (tol {tol_m:.0e}), l rel {rel_l:.3e} "
+                  f"(tol {tol_l:.0e}), int8 write bitwise vs card and CPU "
+                  f"{'ok' if write_ok else 'WRONG'} ({saturated:.0%} of it saturated)")
+            if err > tol[dtype] or err_m > tol_m or rel_l > tol_l or not write_ok:
+                fail(f"beam cache attention int8 {dtype} index={index}")
+    ms = cuda_ms(lambda: fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 99, True,
+                                                    kv_scales=scales))
+    plain = cuda_ms(lambda: fused_beam_cache_attention_reference(kc, vc, q, kn, vn, mask, 99,
+                                                                 True, kv_scales=scales))
+    bd = beam_cache_bound(kc, q, mask, 99, rows, stats=True, scales=scales)
+    print(f"K1 int8 bf16 N={n} index=99: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    results["fused_beam_cache_attention_int8"] = dict(
+        route="cuda", source="vilmedic_torch/csrc/beam_cache_attention.cu",
+        replaces="vilmedic_tpu/ops/beam_cache_attention.py:94",
+        max_abs_err=worst, ms=ms, plain_ms=plain, **bd, library_ms=None,
+        path="vl_int8", counter="fused_beam_cache_attention.launches_int8",
+    )
+
+
+def check_beam_cache_attention_prefix(results):
+    """Stage (d) at the VisionLanguage decode shape: a 1370-position prefix
+    per item (batch 16), f32 and bf16, with and without the stats."""
+    import torch
+
+    from vilmedic_torch.ops.beam_cache_attention import (
+        KernelPrefix, fused_beam_cache_attention, fused_beam_cache_attention_reference,
+    )
+
+    t, heads, d, rows, n, b = T_MAX, 12, 64, BEAM, 128, 16
+    # out: sums over 1370 + 100 keys in another order; bf16 p rounded against
+    # the running max in the kernel and the final max in the plain version
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    tol_m, tol_l = 1e-5, 1e-4
+    worst = 0.0
+    gen = torch.Generator().manual_seed(SEED + 8)
+    for dtype in (torch.float32, torch.bfloat16):
+        kc, vc = (torch.randn(t, n, heads * d, generator=gen).to("cuda", dtype)
+                  for _ in range(2))
+        q, kn, vn = (torch.randn(n, heads, d, generator=gen).to("cuda", dtype)
+                     for _ in range(3))
+        pk, pv = (torch.randn(b, VL_TOKENS, heads * d, generator=gen).to("cuda", dtype)
+                  for _ in range(2))
+        prefix = KernelPrefix(pk, pv, VL_TOKENS, BEAM)
+        mask = random_ancestry_mask(n // rows, rows, t, gen, "cuda")
+        for index, stats in ((0, True), (57, True), (99, True), (99, False)):
+            kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            got = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index, stats,
+                                             prefix=prefix)
+            want = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index, stats,
+                                                        prefix=prefix)
+            torch.cuda.synchronize()
+            got, want = (x if stats else (x,) for x in (got, want))
+            err = (got[0] - want[0]).abs().max().item()
+            err_m = (got[1] - want[1]).abs().max().item() if stats else 0.0
+            rel_l = ((got[2] - want[2]).abs() / want[2]).max().item() if stats else 0.0
+            worst = max(worst, err, err_m)
+            write_ok = torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
+            print(f"K1 prefix {str(dtype)[6:]:8s} N={n} P={VL_TOKENS} index={index:2d} "
+                  f"stats={stats!s:5s}: max|err| out {err:.3e} (tol {tol[dtype]:.0e}), m "
+                  f"{err_m:.3e} (tol {tol_m:.0e}), l rel {rel_l:.3e} (tol {tol_l:.0e}), cache "
+                  f"write bitwise {'ok' if write_ok else 'WRONG'}")
+            if err > tol[dtype] or err_m > tol_m or rel_l > tol_l or not write_ok:
+                fail(f"beam cache attention prefix {dtype} index={index}")
+    ms = cuda_ms(lambda: fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 99, prefix=prefix))
+    plain = cuda_ms(lambda: fused_beam_cache_attention_reference(kc, vc, q, kn, vn, mask, 99,
+                                                                 prefix=prefix))
+    bd = beam_cache_bound(kc, q, mask, 99, rows, prefix=prefix)
+    once = 2 * b * VL_TOKENS * heads * d * 2 / HBM_BYTES_PER_S * 1e3
+    print(f"K1 prefix bf16 N={n} P={VL_TOKENS} index=99: kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; the prefix read once "
+          f"{once:.4f} ms, 8 times {8 * once:.4f} ms)")
+    results["fused_beam_cache_attention_prefix"] = dict(
+        route="cuda", source="vilmedic_torch/csrc/beam_cache_attention.cu",
+        replaces="vilmedic_tpu/ops/beam_cache_attention.py:94",
+        max_abs_err=worst, ms=ms, plain_ms=plain, **bd, library_ms=None,
+        path="vl_fused", counter="fused_beam_cache_attention.launches_prefix",
+    )
+
+
+def sdpa_layout(*xs):
+    """(B, T, H, D) -> (B, H, T, D) contiguous, the layout
+    ``scaled_dot_product_attention`` takes."""
+    return [x.transpose(1, 2).contiguous() for x in xs]
+
+
+def flash_bound(q, k, causal: bool, key_mask=None, tensors: int = 4, extra_bytes: int = 0,
+                products: int = 2) -> dict:
+    """A flash kernel's bound: ``tensors`` tensors of q's shape and dtype
+    read or written plus ``extra_bytes``; ``products`` matrix products of
+    2 * D operations per head for every (query, key) pair that the causal
+    limit and the key mask leave."""
+    import torch
+
+    b, tq, heads, d = q.shape
+    tk = k.shape[1]
+    keep = torch.ones(b, tk, device=q.device) if key_mask is None else key_mask.float()
+    # queries that see key j: all, or under the causal limit (query i sees
+    # keys j <= i + tk - tq) those with i >= j - (tk - tq)
+    j = torch.arange(tk, device=q.device)
+    seers = (tq - (j - (tk - tq))).clamp(0, tq) if causal else torch.full_like(j, tq)
+    pairs = float((keep * seers).sum())
+    nbytes = tensors * q.numel() * q.element_size() + extra_bytes
+    return bound(nbytes, products * 2 * d * heads * pairs, q.dtype)
 
 
 def check_flash_attention(results):
     """K4 at the VisionLanguage tower and prefill shapes, plus a padded key
-    mask and a Tq < Tk causal case."""
+    mask and a Tq < Tk causal case. The library call beside it is
+    ``scaled_dot_product_attention`` on the same inputs in its (B, H, T, D)
+    layout."""
     import torch
+    import torch.nn.functional as F
 
     from vilmedic_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
@@ -256,18 +461,24 @@ def check_flash_attention(results):
             if not err <= tol[dtype]:
                 fail(f"flash attention {dtype} {name}")
             if dtype == torch.bfloat16 and name in ("tower", "prefill"):
-                timing[name] = (cuda_ms(lambda: flash_attention(q, k, v, None, causal)),
-                                cuda_ms(lambda: flash_attention_reference(q, k, v, None, causal)))
+                qh, kh, vh = sdpa_layout(q, k, v)
+                timing[name] = dict(
+                    ms=cuda_ms(lambda: flash_attention(q, k, v, None, causal)),
+                    plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, None, causal)),
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=causal)),
+                    **flash_bound(q, k, causal))
+                del qh, kh, vh
             del q, k, v, out, ref
-    for name, (ms, plain) in timing.items():
+    for name, tm in timing.items():
         flops = 4 * b * heads * t * t * d / (2 if name == "prefill" else 1)
-        print(f"K4 bf16 {name} T={t}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-              f"plain {plain:.4f} ms")
+        print(f"K4 bf16 {name} T={t}: kernel {tm['ms']:.4f} ms ({flops / tm['ms'] / 1e9:.1f} "
+              f"TFLOP/s), plain {tm['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
     results["flash_attention"] = dict(
         route="cuda", source="vilmedic_torch/csrc/flash_attention.cu",
         replaces="vilmedic_tpu/ops/flash_attention.py:287",
-        max_abs_err=worst, ms=timing["tower"][0], plain_ms=timing["tower"][1],
-        path="vl", counter="flash_attention",
+        max_abs_err=worst, **timing["tower"], path="vl", counter="flash_attention",
     )
 
 
@@ -283,8 +494,12 @@ def train_key_mask(b: int, t: int, device):
 
 def check_flash_attention_backward(results):
     """K4 with LSE and K5 (dq kernel, dk/dv/dbias kernel) at the VisionLanguage
-    training shape: B 16, T 1370 + 100, H 12, D 64, causal, padded text keys."""
+    training shape: B 16, T 1370 + 100, H 12, D 64, causal, padded text keys.
+    The library calls beside them: ``scaled_dot_product_attention`` forward
+    with the causal and key masks as one boolean mask, and its backward by
+    autograd (forward and backward timed together, less the forward)."""
     import torch
+    import torch.nn.functional as F
 
     from vilmedic_torch.ops.flash_attention import (
         _delta, _key_bias, flash_attention_backward, flash_attention_backward_reference,
@@ -349,6 +564,27 @@ def check_flash_attention_backward(results):
             bwd_plain=cuda_ms(lambda: flash_attention_backward_reference(
                 q, k, v, key_mask, out, lse, dout, causal=True)),
         )
+        if dtype == torch.bfloat16:
+            stats = 2 * b * heads * t * 4 + bias.numel() * 4  # lse, delta; the key bias
+            timing[dtype].update(
+                bound_lse=flash_bound(q, k, True, key_mask, extra_bytes=key_mask.numel()
+                                      + b * heads * t * 4),
+                bound_dq=flash_bound(q, k, True, key_mask, tensors=5, extra_bytes=stats,
+                                     products=3),
+                bound_dkv=flash_bound(q, k, True, key_mask, tensors=6,
+                                      extra_bytes=stats + b * heads * t * 4, products=4))
+            leaves = [x.requires_grad_() for x in sdpa_layout(q, k, v)]
+            (dout_h,) = sdpa_layout(dout)
+            allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
+                       & key_mask[:, None, None, :])
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+                torch.autograd.grad(o, leaves, dout_h)
+
+            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed))
+            timing[dtype].update(lib_fwd=lib_fwd, lib_bwd=cuda_ms(sdpa_fwd_bwd) - lib_fwd)
+            del leaves, dout_h, allowed
         del q, k, v, dout, out, lse, grads
         torch.cuda.empty_cache()
     # two T x T x D products forward; seven backward (S and dP recomputed in
@@ -362,20 +598,28 @@ def check_flash_attention_backward(results):
               f"({3.5 * fwd_flops / bwd_k / 1e9:.1f} TFLOP/s), whole backward with delta "
               f"{tm['bwd']:.4f} ms, plain backward {tm['bwd_plain']:.4f} ms")
     tm = timing[torch.bfloat16]
+    print(f"K4+LSE bf16 bound {tm['bound_lse']['bound_ms']:.4f} ms, scaled_dot_product_attention "
+          f"forward {tm['lib_fwd']:.4f} ms; K5 bound dq {tm['bound_dq']['bound_ms']:.4f} + "
+          f"dk/dv/dbias {tm['bound_dkv']['bound_ms']:.4f} ms, autograd backward of "
+          f"scaled_dot_product_attention {tm['lib_bwd']:.4f} ms")
     common = dict(route="cuda", path="vl_train")
     results["flash_attention_with_lse"] = dict(
         common, source="vilmedic_torch/csrc/flash_attention.cu",
         replaces="vilmedic_tpu/ops/flash_attention.py:352", max_abs_err=worst["lse"],
-        ms=tm["lse"], plain_ms=tm["lse_plain"], counter="flash_attention_with_lse")
-    # each K5 kernel against the whole plain backward, which computes both
+        ms=tm["lse"], plain_ms=tm["lse_plain"], **tm["bound_lse"], library_ms=tm["lib_fwd"],
+        counter="flash_attention_with_lse")
+    # each K5 kernel against the whole plain backward and the whole library
+    # backward, which compute both
     results["flash_attention_bwd_dq"] = dict(
         common, source="vilmedic_torch/csrc/flash_attention_bwd.cu",
         replaces="vilmedic_tpu/ops/flash_attention.py:598", max_abs_err=worst["dq"],
-        ms=tm["dq"], plain_ms=tm["bwd_plain"], counter="flash_attention_bwd_dq")
+        ms=tm["dq"], plain_ms=tm["bwd_plain"], **tm["bound_dq"], library_ms=tm["lib_bwd"],
+        counter="flash_attention_bwd_dq")
     results["flash_attention_bwd_dkv"] = dict(
         common, source="vilmedic_torch/csrc/flash_attention_bwd.cu",
         replaces="vilmedic_tpu/ops/flash_attention.py:665", max_abs_err=worst["dkv"],
-        ms=tm["dkv"], plain_ms=tm["bwd_plain"], counter="flash_attention_bwd_dkv")
+        ms=tm["dkv"], plain_ms=tm["bwd_plain"], **tm["bound_dkv"], library_ms=tm["lib_bwd"],
+        counter="flash_attention_bwd_dkv")
 
 
 def check_blocked_lm_head(results):
@@ -412,17 +656,25 @@ def check_blocked_lm_head(results):
             if err > tol_abs or rel > tol_rel_sum:
                 fail(f"blocked lm head {dtype} N={n}")
             if dtype == torch.bfloat16:
-                timing[n] = (cuda_ms(lambda: lm_head_blocked_stats(h, w, b)),
-                             cuda_ms(lambda: lm_head_blocked_stats_reference(h, w, b)))
-    for n, (ms, plain) in timing.items():
+                # read h, w, b; write the logits and two (N, Vp / 128) stats
+                nbytes = (h.numel() + w.numel()) * 2 + vp * 4 + n * vp * 4 + 2 * n * (vp // 128) * 4
+                timing[n] = dict(
+                    ms=cuda_ms(lambda: lm_head_blocked_stats(h, w, b)),
+                    plain_ms=cuda_ms(lambda: lm_head_blocked_stats_reference(h, w, b)),
+                    product_ms=cuda_ms(lambda: torch.matmul(h, w.t())),
+                    **bound(nbytes, 2 * n * hidden * vp, dtype))
+    for n, tm in timing.items():
         flops = 2 * n * hidden * vp
-        print(f"K2 bf16 N={n}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-              f"plain {plain:.4f} ms")
+        print(f"K2 bf16 N={n}: kernel {tm['ms']:.4f} ms ({flops / tm['ms'] / 1e9:.1f} TFLOP/s), "
+              f"plain {tm['plain_ms']:.4f} ms, torch.matmul of the product only "
+              f"{tm['product_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+    tm = timing[1024]
+    # no single library call computes the logits with their block stats
     results["lm_head_blocked_stats"] = dict(
         route="cuda", source="vilmedic_torch/csrc/blocked_lm_head.cu",
-        replaces="vilmedic_tpu/ops/blocked_lm_head.py:52",
-        max_abs_err=worst, ms=timing[1024][0], plain_ms=timing[1024][1],
-        path="rrg", counter="lm_head_blocked_stats",
+        replaces="vilmedic_tpu/ops/blocked_lm_head.py:52", max_abs_err=worst, ms=tm["ms"],
+        plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+        library_ms=None, path="rrg", counter="lm_head_blocked_stats",
     )
 
 
@@ -446,11 +698,15 @@ def check_crop_normalize(results):
         fail("crop_normalize")
     ms = cuda_ms(lambda: crop_normalize(img, tops, lefts, crop))
     plain = cuda_ms(lambda: crop_normalize_reference(img, tops, lefts, crop))
-    print(f"K3 B={b}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    # read the crop windows (uint8) and the offsets, write f32; 2 ops a value
+    values = b * crop * crop * 3
+    bd = bound(values + 2 * b * 4 + values * 4, 2 * values, torch.float32)
+    print(f"K3 B={b}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']})")
     results["crop_normalize"] = dict(
         route="cuda", source="vilmedic_torch/csrc/image_preproc.cu",
         replaces="vilmedic_tpu/ops/image_preproc.py:48",
-        max_abs_err=err, ms=ms, plain_ms=plain,
+        max_abs_err=err, ms=ms, plain_ms=plain, **bd, library_ms=None,
         path="rrg", counter="crop_normalize",
     )
 
@@ -465,6 +721,8 @@ def phase_kernels():
     results = {}
     check_beam_cache_attention(results)
     check_beam_cache_attention_stats(results)
+    check_beam_cache_attention_int8(results)
+    check_beam_cache_attention_prefix(results)
     check_blocked_lm_head(results)
     check_crop_normalize(results)
     check_flash_attention(results)
@@ -475,7 +733,10 @@ def phase_kernels():
 # ------------------------------------------------------------------ slice
 
 
-def kernel_wrappers():
+def launch_counters():
+    """Every launch count, by name: (wrapper, attribute). The beam-cache
+    wrapper counts all its launches and, apart, those of stages (b), (c)
+    and (d)."""
     from vilmedic_torch.ops.beam_cache_attention import fused_beam_cache_attention
     from vilmedic_torch.ops.blocked_lm_head import lm_head_blocked_stats
     from vilmedic_torch.ops.flash_attention import (
@@ -483,13 +744,26 @@ def kernel_wrappers():
     )
     from vilmedic_torch.ops.image_preproc import crop_normalize
 
-    return {"fused_beam_cache_attention": fused_beam_cache_attention,
-            "lm_head_blocked_stats": lm_head_blocked_stats,
-            "crop_normalize": crop_normalize,
-            "flash_attention": flash_attention,
-            "flash_attention_with_lse": flash_attention_with_lse,
-            "flash_attention_bwd_dq": flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+    counters = {name: (fn, "launches") for name, fn in (
+        ("fused_beam_cache_attention", fused_beam_cache_attention),
+        ("lm_head_blocked_stats", lm_head_blocked_stats),
+        ("crop_normalize", crop_normalize),
+        ("flash_attention", flash_attention),
+        ("flash_attention_with_lse", flash_attention_with_lse),
+        ("flash_attention_bwd_dq", flash_attention_bwd_dq),
+        ("flash_attention_bwd_dkv", flash_attention_bwd_dkv))}
+    for stage in ("launches_stats", "launches_int8", "launches_prefix"):
+        counters[f"fused_beam_cache_attention.{stage}"] = (fused_beam_cache_attention, stage)
+    return counters
+
+
+def reset_launches():
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches():
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
 def build_flagship(dtype: str, device: str):
@@ -541,12 +815,10 @@ def phase_slice():
           f"{model.dec_config.vocab_size}, bf16, beam {BEAM}, max_len {max_len}")
     batch = host_batch(16, crop, SEED)
 
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     result = serve(model, generate, batch, crop, "cuda")
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches()
 
     seqs, scores, steps = result.sequences, result.scores, result.steps
     print(f"slice batch 16: sequences {tuple(seqs.shape)}, {steps} decode steps, "
@@ -561,11 +833,7 @@ def phase_slice():
         "lm head = steps": launches["lm_head_blocked_stats"] == steps,
         "steps > 0": steps > 0,
     }
-    for name, ok in checks.items():
-        print(f"  check {name}: {'ok' if ok else 'FAILED'}")
-    bad = [name for name, ok in checks.items() if not ok]
-    if bad:
-        fail(f"slice checks {bad}")
+    require(checks, "slice")
 
     for b in (16, 128):
         batch = host_batch(b, crop, SEED + b)
@@ -613,23 +881,27 @@ def phase_parity():
 # --------------------------------------------------------- VisionLanguage
 
 
-def build_vl(dtype: str, device: str):
-    """VisionLanguage from its config at full width: vocab 50368, random
-    weights from SEED. Returns the model, its generate and the config's
+def build_vl(dtype: str, device: str, overrides=(), tower=None):
+    """VisionLanguage from its config (with dotlist ``overrides``) at full
+    width: vocab 50368, random weights from SEED. Returns the model, its
+    generate with the ``ensemblor:`` block's cache dtypes and the config's
     serving settings."""
     from vilmedic_torch import registry
     from vilmedic_torch.config import load_config
     from vilmedic_torch.models.vision_language import make_vl_generate_fn
 
-    cfg, _ = load_config(VL_CONFIG, [f"model.dtype={dtype}"])
-    model = registry.build("model", cfg.model, vision_hf_config=VL_TOWER, vocab_size=VL_VOCAB,
-                           bos_token_id=VL_BOS, eos_token_id=VL_EOS, pad_token_id=VL_PAD,
-                           device=device, seed=SEED)
+    cfg, _ = load_config(VL_CONFIG, [f"model.dtype={dtype}", *overrides])
+    model = registry.build("model", cfg.model, vision_hf_config=tower or VL_TOWER,
+                           vocab_size=VL_VOCAB, bos_token_id=VL_BOS, eos_token_id=VL_EOS,
+                           pad_token_id=VL_PAD, device=device, seed=SEED)
     serving = dict(max_len=int(cfg.dataset.seq.tokenizer_max_len),
                    beam=int(cfg.ensemblor.beam_width), batch=int(cfg.ensemblor.batch_size),
-                   image=int(cfg.dataset.image.crop))
+                   image=int(cfg.dataset.image.crop),
+                   prefix_kv_dtype=cfg.ensemblor.get("prefix_kv_dtype"),
+                   gen_kv_dtype=cfg.ensemblor.get("gen_kv_dtype"))
     generate = make_vl_generate_fn(model, serving["beam"], serving["max_len"], VL_BOS, VL_EOS,
-                                   VL_PAD)
+                                   VL_PAD, prefix_kv_dtype=serving["prefix_kv_dtype"],
+                                   gen_kv_dtype=serving["gen_kv_dtype"])
     return model, generate, serving
 
 
@@ -661,12 +933,10 @@ def phase_vl_slice():
     def serve():  # H2D of the float batch, then generate
         return generate(images.to("cuda", non_blocking=True))
 
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     result = serve()
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches()
 
     seqs, scores, steps = result.sequences, result.scores, result.steps
     print(f"VL batch {b}: sequences {tuple(seqs.shape)}, {steps} decode steps, "
@@ -680,11 +950,7 @@ def phase_vl_slice():
         "beam attention = layers x steps": launches["fused_beam_cache_attention"] == layers * steps,
         "steps > 0": steps > 0,
     }
-    for name, ok in checks.items():
-        print(f"  check {name}: {'ok' if ok else 'FAILED'}")
-    bad = [name for name, ok in checks.items() if not ok]
-    if bad:
-        fail(f"VL slice checks {bad}")
+    require(checks, "VL slice")
 
     torch.cuda.reset_peak_memory_stats()
     times, steps_seen = [], []
@@ -744,6 +1010,180 @@ def phase_vl_parity():
           f"max |score diff| {diff:.3e}")
     if not same:
         fail("VL f32 beam sequences differ between the card and the CPU")
+
+
+# ------------------------------- VisionLanguage int8 and fused-prefix routes
+
+# the eval keys that turn on the int8 prefix and generated caches
+INT8_SERVING = ("ensemblor.prefix_kv_dtype=int8", "ensemblor.gen_kv_dtype=int8")
+OPS_LEN = 12  # max_len of the short generates whose device ops are counted
+
+
+def device_ops(fn):
+    """(fn's result, the number of CUDA kernel, copy and set events that
+    ``torch.profiler`` records while it runs, their summed ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return out, len(events), sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+
+
+def phase_vl_routes():
+    """bf16, full width, one model: the int8-cache route (the config with
+    the ensemblor's prefix_kv_dtype and gen_kv_dtype at int8) and the
+    fused-prefix route beside the merge route, each checked, then timed in
+    alternated blocks (merge, int8, fused, fused, int8, merge)."""
+    import torch
+
+    from vilmedic_torch.blocks.transformer import to_kernel_cache
+    from vilmedic_torch.decoding import tile_for_beams
+    from vilmedic_torch.models.vision_language import derive_gen_kv_scales, make_vl_generate_fn
+
+    set_tf32(False)
+    model, generate_int8, sv = build_vl("bfloat16", "cuda", INT8_SERVING)
+    module = model.module
+    layers = model.dec_config.num_hidden_layers
+    tower_layers = module.vision.model.config.num_hidden_layers
+    b = sv["batch"]
+    images = vl_images(b, sv["image"], SEED)
+    args = (model, sv["beam"], sv["max_len"], VL_BOS, VL_EOS, VL_PAD)
+    routes = {
+        "merge": (make_vl_generate_fn(*args), {}),
+        "int8": (generate_int8, dict(prefix_kv_dtype=sv["prefix_kv_dtype"],
+                                     gen_kv_dtype=sv["gen_kv_dtype"])),
+        "fused": (make_vl_generate_fn(*args, fused_prefix=True), dict(fused_prefix=True)),
+    }
+    print(f"VL routes: {os.path.relpath(VL_CONFIG, ROOT)} with {', '.join(INT8_SERVING)}, and "
+          f"make_vl_generate_fn(fused_prefix=True); bf16, batch {b}, beam {sv['beam']}, max_len "
+          f"{sv['max_len']}")
+    img = images.to("cuda")
+    with torch.inference_mode():  # the int8 route's caches, as its generate makes them
+        cache, pkv, _ = module.prefill(img, sv["max_len"], quantize_prefix=True)
+        kcache = to_kernel_cache(tile_for_beams(cache, sv["beam"]),
+                                 scales=derive_gen_kv_scales(pkv))
+        int8_leaves = (
+            all(kv[0].dtype == kv[2].dtype == torch.int8 for kv in pkv)
+            and all(lc["self_k_tnf"].dtype == lc["self_v_tnf"].dtype == torch.int8
+                    and tuple(lc["self_kv_sc"].shape) == (2, model.dec_config.hidden_size)
+                    for lc in kcache))
+        del cache, pkv, kcache
+
+    runs = {}
+    for name, (generate, _) in routes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = generate(img)
+        torch.cuda.synchronize()
+        runs[name] = (res, read_launches(), torch.cuda.max_memory_allocated() / 2**30)
+    merge_seqs = runs["merge"][0].sequences
+    for name, stage, letter in (("int8", "launches_int8", "c"), ("fused", "launches_prefix", "d")):
+        res, launches, _ = runs[name]
+        seqs, steps = res.sequences, res.steps
+        print(f"VL {name} route batch {b}: sequences {tuple(seqs.shape)}, {steps} decode steps, "
+              f"launches {launches}")
+        per_step = layers * steps
+        checks = {
+            f"shape ({b}, max_len)": tuple(seqs.shape) == (b, sv["max_len"]),
+            "BOS in column 0": bool((seqs[:, 0] == VL_BOS).all()),
+            "ids in the vocabulary": bool(((seqs >= 0) & (seqs < VL_VOCAB)).all()),
+            "finite scores": bool(torch.isfinite(res.scores).all()),
+            "flash = tower + LM layers": launches["flash_attention"] == tower_layers + layers,
+            f"stage ({letter}) = layers x steps":
+                launches[f"fused_beam_cache_attention.{stage}"] == per_step,
+            "beam attention = layers x steps": launches["fused_beam_cache_attention"] == per_step,
+            "steps > 0": steps > 0,
+        }
+        if name == "int8":
+            checks["int8 prefix and generated-cache leaves"] = int8_leaves
+            checks["stage (b) stats for the merge = layers x steps"] = (
+                launches["fused_beam_cache_attention.launches_stats"] == per_step)
+        else:
+            checks["no stage (b) launches"] = launches["fused_beam_cache_attention.launches_stats"] == 0
+        require(checks, f"VL {name} route")
+        agree = (seqs == merge_seqs).all(dim=1).float().mean().item()
+        diff = (res.scores - runs["merge"][0].scores).abs().max().item()
+        print(f"VL {name} route: {agree:.4f} of {b} beam sequences equal to the merge route's "
+              f"(reported, not required), max |score diff| {diff:.3e}")
+
+    # device ops and device-busy ms per decode step: a short generate's
+    # events less its prefill's
+    ops = {}
+    for name, (_, kwargs) in routes.items():
+        short = make_vl_generate_fn(model, sv["beam"], OPS_LEN, VL_BOS, VL_EOS, VL_PAD, **kwargs)
+        res, n_all, ms_all = device_ops(lambda: short(img))
+        with torch.inference_mode():
+            _, n_prefill, ms_prefill = device_ops(lambda: module.prefill(
+                img, OPS_LEN, quantize_prefix=name == "int8"))
+        ops[name] = ((n_all - n_prefill) / res.steps, (ms_all - ms_prefill) / res.steps)
+
+    times = {name: [] for name in routes}
+    for name in ("merge", "int8", "fused", "fused", "int8", "merge"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[name][0](images.to("cuda", non_blocking=True))
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        med = statistics.median(ts)
+        print(f"VL {name:5s} route batch {b}: {b / med:.2f} reports/s (median of {len(ts)} in two "
+              f"alternated blocks: {b / statistics.median(ts[:3]):.2f} / "
+              f"{b / statistics.median(ts[3:]):.2f}; spread {(max(ts) - min(ts)) / med * 100:.1f}%), "
+              f"{ops[name][0]:.1f} device ops and {ops[name][1]:.3f} device-busy ms per decode "
+              f"step, peak {runs[name][2]:.2f} GiB")
+    launches = {"vl_int8": runs["int8"][1], "vl_fused": runs["fused"][1]}
+    del model, module, routes, runs, img
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vl_routes_parity():
+    """f32, TF32 off, batch 2: the int8-cache and fused-prefix routes on the
+    card (stages c and d) and on the CPU (plain versions) must choose the same
+    beams. The LM at full depth and width; the tower cut to 2 layers to bound
+    the CPU half's time. Each route's agreement with the merge route on the
+    card is reported beside it."""
+    import torch
+
+    from vilmedic_torch.models.vision_language import make_vl_generate_fn
+
+    set_tf32(False)
+    tower = dict(VL_TOWER, num_hidden_layers=2)
+    model, generate_int8, sv = build_vl("float32", "cpu", INT8_SERVING, tower=tower)
+    generates = {"int8": generate_int8, "fused": make_vl_generate_fn(
+        model, sv["beam"], sv["max_len"], VL_BOS, VL_EOS, VL_PAD, fused_prefix=True)}
+    images = vl_images(2, sv["image"], SEED + 7)
+    t0 = time.perf_counter()
+    res_cpu = {name: generate(images) for name, generate in generates.items()}
+    cpu_s = time.perf_counter() - t0
+    model.module.to("cuda")
+    merge = make_vl_generate_fn(model, sv["beam"], sv["max_len"], VL_BOS, VL_EOS,
+                                VL_PAD)(images.to("cuda")).sequences.cpu()
+    bad = []
+    for name, generate in generates.items():
+        res = generate(images.to("cuda"))
+        torch.cuda.synchronize()
+        same = torch.equal(res.sequences.cpu(), res_cpu[name].sequences)
+        diff = (res.scores.cpu() - res_cpu[name].scores).abs().max().item()
+        agree = (res.sequences.cpu() == merge).all(dim=1).float().mean().item()
+        print(f"VL {name} route parity f32 batch 2 ({tower['num_hidden_layers']} tower + "
+              f"{model.dec_config.num_hidden_layers} LM layers, CPU half of both routes "
+              f"{cpu_s:.1f} s): sequences {'equal' if same else 'DIFFER'} ({res.steps} vs "
+              f"{res_cpu[name].steps} steps), max |score diff| {diff:.3e}; {agree:.2f} of the "
+              f"sequences equal to the f32 merge route's on the card (reported)")
+        if not same:
+            bad.append(name)
+    if bad:
+        fail(f"VL f32 beam sequences differ between the card and the CPU on routes {bad}")
+    del model, generates
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------ VisionLanguage training
@@ -848,12 +1288,10 @@ def phase_vl_train():
         return stepped
 
     trainer.apply_step = apply_and_record
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     losses = trainer.train_epoch(0)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches()
     trainer.apply_step = real_apply
 
     n = len(gen_batches)
@@ -877,11 +1315,7 @@ def phase_vl_train():
         "tower K4 = tower layers per microbatch": launches["flash_attention"]
         == module.vision.model.config.num_hidden_layers * n,
     }
-    for name, ok in checks.items():
-        print(f"  check {name}: {'ok' if ok else 'FAILED'}")
-    bad = [name for name, ok in checks.items() if not ok]
-    if bad:
-        fail(f"VL train checks {bad}")
+    require(checks, "VL train")
     del tower, before
 
     # timing: microbatches and updates by the host clock, each ended by a
@@ -1033,16 +1467,20 @@ def main():
     phase_parity()
     launches["vl"] = phase_vl_slice()
     phase_vl_parity()
+    launches.update(phase_vl_routes())
+    phase_vl_routes_parity()
     launches["vl_train"] = phase_vl_train()
     phase_vl_train_sanity()
     phase_vl_train_parity()
 
     # each kernel's launches are those of the path that runs it: the RRG
-    # slice (K1 stage a, K2, K3), the VisionLanguage slice (K1 stage b, K4)
+    # slice (K1 stage a, K2, K3), the VisionLanguage slice (K1 stage b, K4),
+    # its int8-cache route (K1 stage c), its fused-prefix route (K1 stage d)
     # or the VisionLanguage training phase (K4 with LSE, K5)
-    kernels = [{"name": name, "route": r["route"], "source": r["source"],
-                "replaces": r["replaces"], "launches": launches[r["path"]][r["counter"]],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
+                                 else r[key] for key in keys}}
                for name, r in results.items()]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

@@ -4,8 +4,9 @@ These need an NVIDIA GPU and the CUDA toolkit, and skip elsewhere. They cover
 shapes off the slices' main paths (odd row counts, groups wider than a warp,
 every head dim the kernels take, pad-heavy vocabularies, out-of-range crop
 offsets, ragged and fully masked flash tiles, Tq != Tk, the flash backward's
-ragged tails and all-padding items), and a tiny VisionLanguage training step
-card vs CPU. Run them on the card
+ragged tails and all-padding items, the beam kernel's int8 cache and prefix
+stages at ragged prefix lengths and saturating writes), tiny VisionLanguage
+serving routes and a tiny training step card vs CPU. Run them on the card
 from the repository root, without the JAX conftest (the card's machine has no
 JAX):
 
@@ -20,7 +21,8 @@ from vilmedic_torch.data.image import finalize_device_preproc
 from vilmedic_torch.models.evaluation_nlg import make_generate_fn
 from vilmedic_torch.models.rrg import RRG
 from vilmedic_torch.ops.beam_cache_attention import (
-    fused_beam_cache_attention, fused_beam_cache_attention_reference,
+    KernelPrefix, fused_beam_cache_attention, fused_beam_cache_attention_reference,
+    pack_kernel_prefix,
 )
 from vilmedic_torch.models.vision_language import VisionLanguage, make_vl_generate_fn
 from vilmedic_torch.ops.blocked_lm_head import (
@@ -88,6 +90,110 @@ def test_beam_cache_attention_stats_kernel(cuda, dtype, index):
     torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(l, rl, rtol=1e-4, atol=1e-5)
     assert torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
+
+
+def _stage_inputs(cuda, dtype, d, rows, int8: bool, seed: int):
+    """Caches, q/k_new/v_new and an ancestry mask with several live slots per
+    position (lanes past the index set too); with ``int8``, int8 caches,
+    per-lane scales and k_new/v_new past 127 * scale on about a third of the
+    lanes (the saturating write)."""
+    t, heads, groups = 12, 2, 3
+    n = groups * rows
+    gen = torch.Generator().manual_seed(seed)
+    q, kn, vn = (torch.randn(n, heads, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    mask = (torch.rand(groups, rows, t * rows, generator=gen) < 0.3).to(cuda)
+    if not int8:
+        kc, vc = (torch.randn(t, n, heads * d, generator=gen).to(cuda, dtype) for _ in range(2))
+        return kc, vc, q, kn, vn, mask, None
+    kc, vc = (torch.randint(-127, 128, (t, n, heads * d), generator=gen, dtype=torch.int8)
+              .to(cuda) for _ in range(2))
+    scales = (torch.rand(2, heads * d, generator=gen) * 1.5 + 0.5) / 127.0
+    return kc, vc, q, kn, vn, mask, scales.to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rows", [4, 40])
+@pytest.mark.parametrize("index", [0, 11])
+@pytest.mark.parametrize("return_stats", [False, True])
+def test_beam_cache_attention_int8_kernel(cuda, dtype, d, rows, index, return_stats):
+    """Stage (c): out (and m, l) against the plain version, the int8 write
+    bitwise (round half to even, saturated at ±127), a launch counted."""
+    kc, vc, q, kn, vn, mask, scales = _stage_inputs(cuda, dtype, d, rows, True,
+                                                    d + rows + index)
+    kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = (fused_beam_cache_attention.launches, fused_beam_cache_attention.launches_int8)
+    got = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index, return_stats,
+                                     kv_scales=scales)
+    want = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index, return_stats,
+                                                kv_scales=scales)
+    assert (fused_beam_cache_attention.launches - before[0],
+            fused_beam_cache_attention.launches_int8 - before[1]) == (1, 1)
+    got, want = (x if return_stats else (x,) for x in (got, want))
+    torch.testing.assert_close(got[0], want[0], rtol=TOL[dtype], atol=TOL[dtype])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    assert kc1.dtype == torch.int8 and torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
+    assert (kc1[index].abs() == 127).float().mean() > 0.15
+    assert not (kc1[index] == -128).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rows", [4, 40])
+@pytest.mark.parametrize("index", [0, 11])
+@pytest.mark.parametrize("p,p_real", [(37, 37), (64, 50), (1, 1)])
+def test_beam_cache_attention_prefix_kernel(cuda, dtype, d, rows, index, p, p_real):
+    """Stage (d), with and without stats: ragged prefix lengths (not a
+    multiple of the 16 keys a block walks per step), a buffer longer than
+    ``p_real`` whose tail is garbage, 1 and 10 items per row group."""
+    beams = 4
+    kc, vc, q, kn, vn, mask, _ = _stage_inputs(cuda, dtype, d, rows, False, d + p + index)
+    n, heads = q.shape[:2]
+    gen = torch.Generator().manual_seed(p + index)
+    pk, pv = (torch.randn(n // beams, p, heads * d, generator=gen).to(cuda, dtype)
+              for _ in range(2))
+    pk[:, p_real:], pv[:, p_real:] = float("nan"), 1e9
+    prefix = KernelPrefix(pk, pv, p_real, beams)
+    for return_stats in (False, True):
+        kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        before = fused_beam_cache_attention.launches_prefix
+        got = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index, return_stats,
+                                         prefix=prefix)
+        want = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index,
+                                                    return_stats, prefix=prefix)
+        assert fused_beam_cache_attention.launches_prefix - before == 1
+        got, want = (x if return_stats else (x,) for x in (got, want))
+        torch.testing.assert_close(got[0], want[0], rtol=TOL[dtype], atol=TOL[dtype])
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        assert torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
+
+
+def test_beam_cache_attention_stages_refuse(cuda):
+    """CUDA tensors the stages do not take raise; nothing falls back."""
+    kc, vc, q, kn, vn, mask, scales = _stage_inputs(cuda, torch.bfloat16, 64, 4, True, 1)
+    with pytest.raises(ValueError):  # int8 caches without scales
+        fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 3)
+    with pytest.raises(ValueError):  # float16 q
+        fused_beam_cache_attention(kc, vc, q.half(), kn.half(), vn.half(), mask, 3,
+                                   kv_scales=scales)
+    with pytest.raises(ValueError):  # bf16 scales
+        fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 3, kv_scales=scales.bfloat16())
+    with pytest.raises(ValueError):  # scales on the CPU
+        fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 3, kv_scales=scales.cpu())
+    kc, vc, q, kn, vn, mask, _ = _stage_inputs(cuda, torch.bfloat16, 64, 4, False, 2)
+    pk = torch.zeros(3, 5, 2, 64, device=cuda)
+    with pytest.raises(ValueError):  # an f32 prefix beside bf16 caches
+        fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 3, prefix=pack_kernel_prefix(
+            pk, pk, 4))
+    with pytest.raises(ValueError):  # scales and a prefix together
+        fused_beam_cache_attention(kc.to(torch.int8), vc.to(torch.int8), q, kn, vn, mask, 3,
+                                   kv_scales=scales, prefix=pack_kernel_prefix(
+                                       pk.bfloat16(), pk.bfloat16(), 4))
+    with pytest.raises(ValueError):  # a prefix that is not contiguous
+        x = torch.zeros(3, 5, 256, device=cuda, dtype=torch.bfloat16)[:, :, :128]
+        fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 3, prefix=KernelPrefix(x, x, 5, 4))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -397,5 +503,37 @@ def test_tiny_vl_slice_card_equals_cpu(cuda):
         res = make_vl_generate_fn(model, 4, 12, 0, 2, 1)(images.to(device))
         results[str(device)] = (res.sequences.cpu(), res.scores.cpu())
     (s_cpu, sc_cpu), (s_gpu, sc_gpu) = results["cpu"], results["cuda"]
+    assert torch.equal(s_cpu, s_gpu)
+    torch.testing.assert_close(sc_gpu, sc_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("prefix_kv_dtype,gen_kv_dtype,fused_prefix", [
+    ("int8", "int8", False), (None, "int8", False), ("int8", None, False), (None, None, True),
+])
+def test_tiny_vl_routes_card_equals_cpu(cuda, prefix_kv_dtype, gen_kv_dtype, fused_prefix):
+    """The int8-cache and fused-prefix serving routes of a small
+    VisionLanguage, f32: beam sequences on the card (stages c and d) equal
+    those of the CPU plain versions."""
+    tower = dict(model_type="dinov2", hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, patch_size=8, image_size=64)
+    decoder = dict(proto=None, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                   intermediate_size=192, max_position_embeddings=128, layer_norm_eps=1e-5)
+    images = torch.randn(4, 3, 64, 64, generator=torch.Generator().manual_seed(4))
+    results = {}
+    for device in ("cpu", cuda):
+        model = VisionLanguage(decoder=dict(decoder), vision={"vision_model_name": "tiny",
+                                                              "image_size": 64},
+                               vision_hf_config=tower, vocab_size=4500, bos_token_id=0,
+                               eos_token_id=2, pad_token_id=1, device=device, seed=6)
+        start = (fused_beam_cache_attention.launches_int8,
+                 fused_beam_cache_attention.launches_prefix)
+        res = make_vl_generate_fn(model, 4, 12, 0, 2, 1, ancestry_group_items=2,
+                                  prefix_kv_dtype=prefix_kv_dtype, gen_kv_dtype=gen_kv_dtype,
+                                  fused_prefix=fused_prefix)(images.to(device))
+        launched = (fused_beam_cache_attention.launches_int8 - start[0],
+                    fused_beam_cache_attention.launches_prefix - start[1])
+        results[str(device)] = (res.sequences.cpu(), res.scores.cpu(), launched, res.steps)
+    (s_cpu, sc_cpu, _, _), (s_gpu, sc_gpu, launched, steps) = results["cpu"], results["cuda"]
+    assert launched == ((2 * steps if gen_kv_dtype else 0), (2 * steps if fused_prefix else 0))
     assert torch.equal(s_cpu, s_gpu)
     torch.testing.assert_close(sc_gpu, sc_cpu, rtol=1e-4, atol=1e-4)

@@ -284,4 +284,4 @@ def test_vl_builds_from_flagship_config():
     assert model.module.num_image_tokens == 17 and model.module.drop_cls_token
     assert model.module.vision.model.patch_embed.weight.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError):  # no HF config lookup in the port
-        tregistry.build("model", cfg.model, vocab_size=VOCAB)
+        tregistry.build("model", cfg.model, vocab_size=VOCAB, device="cpu")

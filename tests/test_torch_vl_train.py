@@ -412,7 +412,7 @@ class _Loader(list):
 
 def _trainor(grad_accu, warmup_ratio, batches, params, lr=LR):
     config = _tiny_config(grad_accu, warmup_ratio, lr=lr)
-    tr = Trainor(config, seed=0, loader=_Loader(_torch_batch(b) for b in batches),
+    tr = Trainor(config, seed=0, loader=_Loader(_torch_batch(b) for b in batches), device="cpu",
                  model_kwargs=dict(vision_hf_config=DINO, vocab_size=VOCAB, bos_token_id=BOS,
                                    eos_token_id=EOS, pad_token_id=PAD))
     tr.model.module.load_state_dict(vl_state_dict_from_jax({"params": params}), strict=True)

@@ -37,7 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention, make_attention_bias
-from ..ops.beam_cache_attention import fused_beam_cache_attention
+from ..ops.beam_cache_attention import (
+    KernelPrefix, fused_beam_cache_attention, quantize_cache_rows,
+)
 from ..ops.blocked_lm_head import NEG, lm_head_blocked_stats
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -170,18 +172,44 @@ def make_blocked_head_weights(decoder: "TransformerDecoder", block: int = 128):
     return wb.contiguous(), bb
 
 
-def to_kernel_cache(self_cache):
+def to_kernel_cache(self_cache, scales=None):
     """Per-layer ``self_k``/``self_v`` (N, T, H, D) -> ``self_k_tnf``/
     ``self_v_tnf`` (T, N, H*D): the layout the beam-cache kernel reads and
-    writes in place."""
+    writes in place.
+
+    ``scales`` (per-layer (2, H*D) f32, ``models.vision_language.
+    derive_gen_kv_scales``) makes the leaves int8 (the zeroed cache casts
+    exactly) and adds each layer's scales as a ``self_kv_sc`` leaf: the
+    kernel's stage (c) then quantizes each step's write and dequantizes its
+    reads. Apply it after ``tile_for_beams``: the scale leaf has no batch
+    axis."""
     out = []
-    for layer in self_cache:
+    for i, layer in enumerate(self_cache):
         n, t, h, d = layer["self_k"].shape
-        out.append({
+        entry = {
             "self_k_tnf": layer["self_k"].permute(1, 0, 2, 3).reshape(t, n, h * d).contiguous(),
             "self_v_tnf": layer["self_v"].permute(1, 0, 2, 3).reshape(t, n, h * d).contiguous(),
-        })
+        }
+        if scales is not None:
+            entry = {k: v.to(torch.int8) for k, v in entry.items()}
+            entry["self_kv_sc"] = scales[i].float().contiguous()
+        out.append(entry)
     return tuple(out)
+
+
+def quantize_kv(x):
+    """Symmetric int8 quantization of a (B, S, H, D) K/V tensor with
+    per-(token, head) scales: ``(q int8, scale f32 (B, S, H))`` with
+    ``q * scale[..., None] ~= x``. The scale is max |x| / 127, floored at
+    1e-8; values round half to even and saturate at ±127.
+
+    Both divisions are tensor by tensor: PyTorch divides a CUDA tensor by a
+    Python scalar as a multiply by its reciprocal, which can move the scale
+    by an ulp and flip int8 values against the CPU and the JAX package."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
+    return quantize_cache_rows(xf, scale[..., None]), scale
 
 
 class MultiHeadAttention(nn.Module):
@@ -248,15 +276,27 @@ class MultiHeadAttention(nn.Module):
 
     def prefix_decode(self, x, prefix_kv, cache, decode_index: int, ancestry):
         """One-token decode over a beam-shared prefix plus the per-beam
-        generated cache, in one joint softmax (the kernel-cache route of the
+        generated cache, in one joint softmax (the kernel-cache routes of the
         JAX ``prefix_decode``).
 
-        ``prefix_kv`` is ``(pk, pv)`` from :func:`prefix_operands`, (B, H, P,
-        D) f32 at batch B, while ``x`` carries N = B * fold beam-major rows;
-        ``cache`` is the (k_tnf, v_tnf) kernel self cache, updated in place.
-        The generated segment runs the beam-cache kernel with its softmax
-        stats; the prefix segment folds the beams into the query axis; the two
-        merge by their (m, l)."""
+        ``x`` carries N = B * fold beam-major rows; ``cache`` is ``(k_tnf,
+        v_tnf, kv_sc)``, the kernel self cache (updated in place) and its
+        int8 scales or None. ``prefix_kv`` is one of:
+
+        - a :class:`~vilmedic_torch.ops.beam_cache_attention.KernelPrefix`:
+          one beam-cache kernel call streams the prefix, the generated cache
+          and the current step (stage d), no merge;
+        - ``(pk, pv)`` from :func:`prefix_operands`, (B, H, P, D) f32 at
+          batch B, or its int8 form ``(pk, k_sc, pv, v_sc)``: the generated
+          segment runs the kernel with its softmax stats, the prefix segment
+          folds the beams into the query axis, and the two merge by their
+          (m, l).
+
+        The prefix products take the stored prefix's dtype: the compute
+        dtype for ``(pk, pv)``, bf16 for int8 (whose values are exact in
+        bf16) even in an f32 model, so there the scaled query and the
+        V-scaled weights round to bf16. The K scale multiplies the f32
+        scores."""
         cfg = self.config
         heads, d = cfg.num_attention_heads, cfg.head_dim
         q = self._split(self.q(x))  # (N, 1, H, D)
@@ -264,21 +304,32 @@ class MultiHeadAttention(nn.Module):
         v_new = self._split(self.v(x))
         n = q.shape[0]
         shape = (n, heads, d)
-        out_g, m_g, l_g = fused_beam_cache_attention(
-            cache[0], cache[1], q.reshape(shape), k_new.reshape(shape), v_new.reshape(shape),
-            ancestry, decode_index, return_stats=True,
-        )
-        pk, pv = prefix_kv
+        kc, vc, kv_sc = cache
+        args = (kc, vc, q.reshape(shape), k_new.reshape(shape), v_new.reshape(shape), ancestry,
+                decode_index)
+        if isinstance(prefix_kv, KernelPrefix):
+            out = fused_beam_cache_attention(*args, prefix=prefix_kv)
+            return self.o(out.to(cfg.dtype).reshape(n, 1, cfg.hidden_size))
+        out_g, m_g, l_g = fused_beam_cache_attention(*args, return_stats=True, kv_scales=kv_sc)
+        if len(prefix_kv) == 4:
+            pk, k_sc, pv, v_sc = prefix_kv
+            mm_dtype = torch.bfloat16
+        else:
+            (pk, pv), k_sc, v_sc = prefix_kv, None, None
+            mm_dtype = cfg.dtype
         b = pk.shape[0]
         fold = n // b
-        # compute-dtype operands (the f32-scaled query rounded to it) with f32
+        # mm_dtype operands (the f32-scaled query rounded to it) with f32
         # sums, as the JAX package's f32-output products of the stored prefix
-        qf = (q[:, 0].float() * (d ** -0.5)).to(cfg.dtype).float()
+        qf = (q[:, 0].float() * (d ** -0.5)).to(mm_dtype).float()
         sp = qf.view(b, fold, heads, d).transpose(1, 2) @ pk.transpose(-1, -2)  # (B, H, fold, P)
+        if k_sc is not None:
+            sp = sp * k_sc
         mp = sp.amax(dim=-1, keepdim=True)
         ep = torch.exp(sp - mp)
         lp = ep.sum(dim=-1, keepdim=True)
-        accp = ep.to(cfg.dtype).float() @ pv  # (B, H, fold, D), unnormalized
+        wp = ep if v_sc is None else ep * v_sc
+        accp = wp.to(mm_dtype).float() @ pv  # (B, H, fold, D), unnormalized
         # online-softmax merge, term for term, in the (B, H, fold) layout
         m_g, l_g = (t.view(b, fold, heads).transpose(1, 2)[..., None] for t in (m_g, l_g))
         out_g = out_g.view(b, fold, heads, d).transpose(1, 2)
@@ -290,12 +341,26 @@ class MultiHeadAttention(nn.Module):
 
 
 def prefix_operands(prefix_kv):
-    """Per-layer prefix ``(K, V)`` (B, P, H, D) in the compute dtype ->
-    ``(K, V)`` (B, H, P, D) f32, the operands of
-    :meth:`MultiHeadAttention.prefix_decode`'s products. Made once per
-    generate: compute-dtype values are exact in f32, and the decode loop then
-    reads them with no per-step cast or transpose."""
-    return tuple(tuple(x.transpose(1, 2).float().contiguous() for x in kv) for kv in prefix_kv)
+    """Per-layer prefix K/V from ``prefill`` -> the operands of
+    :meth:`MultiHeadAttention.prefix_decode`'s products, made once per
+    generate so that the decode loop reads them with no per-step cast or
+    transpose.
+
+    ``(K, V)`` (B, P, H, D) in the compute dtype -> ``(K, V)`` (B, H, P, D)
+    f32 (compute-dtype values are exact in f32). The int8 form ``(K_q,
+    k_scale, V_q, v_scale)`` (int8 (B, P, H, D), f32 (B, P, H)) -> ``(K,
+    k_scale, V, v_scale)``: K and V (B, H, P, D) f32 (int8 values are exact),
+    the scales (B, H, 1, P) f32, broadcast over the beams."""
+    def layer(kv):
+        if len(kv) == 4:
+            pk, k_sc, pv, v_sc = kv
+            return (pk.transpose(1, 2).float().contiguous(),
+                    k_sc.transpose(1, 2)[:, :, None].float().contiguous(),
+                    pv.transpose(1, 2).float().contiguous(),
+                    v_sc.transpose(1, 2)[:, :, None].float().contiguous())
+        return tuple(x.transpose(1, 2).float().contiguous() for x in kv)
+
+    return tuple(layer(kv) for kv in prefix_kv)
 
 
 class FeedForward(nn.Module):

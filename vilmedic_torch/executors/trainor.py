@@ -35,17 +35,19 @@ import torch
 
 from ..config.config import Config
 from .train_state import create_optimizer, gated_update
+from ..models.base import resolve_device
 from .utils import create_model, create_training_scheduler
 
 
 class Trainor:
-    def __init__(self, config, seed: int, loader, device="cpu", model_kwargs=None):
+    def __init__(self, config, seed: int, loader, device="cuda", model_kwargs=None):
         """``config`` is the trainor view of an experiment config
         (``executor_config(config, "trainor")``: the ``trainor:`` keys plus
-        ``model:``); ``model_kwargs`` are :func:`create_model` overrides."""
+        ``model:``); ``model_kwargs`` are :func:`create_model` overrides.
+        Trains on the card unless ``device`` names another."""
         self.config = config
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.grad_accu = int(config.get("grad_accu", 1) or 1)
         self.logger = logging.getLogger(str(seed))
         self.dl = loader

@@ -15,9 +15,9 @@ from ..config.config import Config
 from .scheduler import TrainingScheduler
 
 
-def create_model(config, seed: int = 0, device="cpu", **overrides):
+def create_model(config, seed: int = 0, device="cuda", **overrides):
     """Instantiate ``config.model`` (its ``proto``) with random weights from
-    ``seed`` on ``device``."""
+    ``seed`` on ``device``: the card unless the caller names another."""
     from ..models import rrg, vision_language  # noqa: F401  (register the protos)
 
     return registry.build("model", config.model, seed=seed, device=device, **overrides)

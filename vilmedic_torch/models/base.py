@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import torch
+
 
 def get_special_token_ids(model_config) -> Tuple[int, int, int]:
     """BOS/EOS/PAD from the decoder config. (The JAX package falls back to
@@ -13,6 +15,17 @@ def get_special_token_ids(model_config) -> Tuple[int, int, int]:
     if None in ids:
         raise ValueError("special token ids are missing from the decoder config")
     return tuple(int(i) for i in ids)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on. The entry points default to the
+    card (``"cuda"``); without one that raises, so nothing quietly builds on
+    the CPU unless the caller asks for it with ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available; "
+                           "pass device='cpu' to build on the CPU")
+    return dev
 
 
 def resolve_block(block_cfg):

@@ -15,7 +15,7 @@ from ..blocks.transformer import (
 from ..blocks.vision.densenet import BatchNorm
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
 from ..registry import register
-from .base import resolve_block
+from .base import resolve_block, resolve_device
 
 
 class RRGModule(nn.Module):
@@ -78,7 +78,8 @@ class RRG:
     weights are random from ``seed`` unless a state dict is loaded after."""
 
     def __init__(self, decoder, cnn, dtype="float32", vocab_size: Optional[int] = None,
-                 device="cpu", seed: int = 0, **kwargs):
+                 device="cuda", seed: int = 0, **kwargs):
+        device = resolve_device(device)
         compute_dtype = torch.bfloat16 if str(dtype) in ("bfloat16", "bf16") else torch.float32
         dec_args, _ = resolve_block(decoder)
         self.dec_config = TransformerConfig.from_dict(

@@ -7,8 +7,12 @@ tokens (CLS dropped for DINOv2) projected by a 2-layer MLP with the tanh GELU
 prefix through the LM (causal self-attention over ~1.4k tokens at 518² / 14,
 which takes the flash kernel), then beam search where every decode step
 attends jointly over the beam-shared prefix K/V (batch B, never tiled) and
-the per-beam generated cache (the beam-cache kernel with its softmax stats,
-``MultiHeadAttention.prefix_decode``).
+the per-beam generated cache (``MultiHeadAttention.prefix_decode``): the
+beam-cache kernel with its softmax stats merged with the prefix products, or
+with ``fused_prefix`` the kernel's stage (d) streaming the prefix itself.
+The eval keys ``prefix_kv_dtype: int8`` and ``gen_kv_dtype: int8`` store the
+prefix K/V as int8 with per-(token, head) scales and the generated cache as
+int8 with per-lane scales derived from the prefix (the kernel's stage (c)).
 
 Training (``forward(..., train=True)``, :meth:`VisionLanguage.apply_train`)
 runs the frozen tower under ``torch.no_grad()`` (the JAX ``stop_gradient``),
@@ -17,11 +21,13 @@ the LM's causal self-attention at 1470 tokens through the flash kernels'
 forward with LSE and their backward (``ops/flash_attention.py``).
 
 Ported: the teacher-forced forward (logits and loss, with or without
-gradient), the bf16 prefix K/V prefill, the kernel-cache decode step with the
-blocked LM head, and :func:`make_vl_generate_fn`, the single-device
-counterpart of ``vl_evaluation``'s ``generate``. Not ported: the int8 prefix
-and generated caches, the fused prefix, greedy decoding, sharded evaluation,
-the tokenizer half of ``vl_evaluation`` and gradient checkpointing.
+gradient), the prefix K/V prefill (compute dtype or int8), the kernel-cache
+decode step with the blocked LM head, the int8 generated cache
+(:func:`derive_gen_kv_scales`), the fused prefix (:func:`maybe_fuse_prefix`)
+and :func:`make_vl_generate_fn`, the single-device counterpart of
+``vl_evaluation``'s ``generate``. Not ported: greedy decoding, sharded
+evaluation, the tokenizer half of ``vl_evaluation`` and gradient
+checkpointing.
 """
 
 from __future__ import annotations
@@ -35,14 +41,16 @@ from torch import nn
 
 from ..blocks.transformer import (
     Embeddings, FeedForward, LayerNorm, Linear, MultiHeadAttention, TransformerConfig,
-    causal_lm_loss, dropout, make_blocked_head_weights, prefix_operands, to_kernel_cache,
+    causal_lm_loss, dropout, make_blocked_head_weights, prefix_operands, quantize_kv,
+    to_kernel_cache,
 )
 from ..blocks.vision.dinov2 import DINOV2_KEYS, SwiGLUFFN
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
 from ..decoding import BeamResult, beam_search, tile_for_beams
 from ..ops.attention import make_attention_bias
+from ..ops.beam_cache_attention import KernelPrefix, pack_kernel_prefix, prefix_fusable
 from ..registry import register
-from .base import resolve_block
+from .base import resolve_block, resolve_device
 from .evaluation_nlg import BLOCKED_MIN_VOCAB
 
 
@@ -125,11 +133,14 @@ class VisionLanguageModule(nn.Module):
         logits = self.lm_head(h[:, p:]).float()
         return {"loss": causal_lm_loss(logits, input_ids, attention_mask), "logits": logits}
 
-    def prefill(self, images, max_text_len: int):
+    def prefill(self, images, max_text_len: int, quantize_prefix: bool = False):
         """Run the image prefix through the stack. Returns ``(gen_cache,
         prefix_kv, prefix_len)``: per layer the zeroed (B, max_text_len, H, D)
         generated-token cache and the prefix (K, V) in the compute dtype,
-        which stay at batch B as decode-loop invariants."""
+        which stay at batch B as decode-loop invariants.
+        ``quantize_prefix=True`` stores each layer's prefix as ``quantize_kv(K)
+        + quantize_kv(V)``: ``(K_q, k_scale, V_q, v_scale)``, int8 with
+        per-(token, head) f32 scales."""
         cfg = self.config
         h = self.image_prefix(images).to(cfg.dtype)
         b, p, _ = h.shape
@@ -138,7 +149,8 @@ class VisionLanguageModule(nn.Module):
         for layer in self.layers:
             # this layer's K/V projections of its prefix input are the prefix
             # segment of the decode-time cache
-            prefix_kv.append(layer.self_attn.kv(h))
+            kv = layer.self_attn.kv(h)
+            prefix_kv.append(quantize_kv(kv[0]) + quantize_kv(kv[1]) if quantize_prefix else kv)
             h = layer(h, causal=True)
             gen_cache.append({"self_k": torch.zeros(shape, dtype=cfg.dtype, device=h.device),
                               "self_v": torch.zeros(shape, dtype=cfg.dtype, device=h.device)})
@@ -148,27 +160,83 @@ class VisionLanguageModule(nn.Module):
                     blocked_head, ancestry):
         """One token at absolute position ``prefix_len + index`` for every
         beam row; ``cache`` is the kernel-layout generated cache (updated in
-        place), ``prefix_kv`` the per-layer ``prefix_operands``,
+        place; int8 with a ``self_kv_sc`` leaf for stage (c)), ``prefix_kv``
+        the per-layer ``prefix_operands`` or ``KernelPrefix`` bundles,
         ``blocked_head`` the padded head ``(weight (Vp, H) f32, bias (Vp,)
         f32)``. Returns (N, Vp // 128, 128) f32 blocked logits."""
         h = self._text_embed(tokens, prefix_len + index)
         for layer, lc, pkv in zip(self.layers, cache, prefix_kv):
-            h = layer.decode(h, pkv, (lc["self_k_tnf"], lc["self_v_tnf"]), index, ancestry)
+            h = layer.decode(h, pkv, (lc["self_k_tnf"], lc["self_v_tnf"], lc.get("self_kv_sc")),
+                             index, ancestry)
         w, bias = blocked_head
         # compute-dtype operands, f32 sums (the weight holds compute-dtype values)
         out = h[:, -1].to(self.config.dtype).float() @ w.t() + bias
         return out.reshape(out.shape[0], -1, 128)
 
 
+def derive_gen_kv_scales(prefix_kvs, margin: float = 1.25):
+    """Per-layer (2, H*D) f32 per-lane scales (row 0 K, row 1 V) for the int8
+    generated cache (``gen_kv_dtype: int8``), from the prefix K/V.
+
+    The generated cache needs scales fixed across the decode (past entries
+    must dequantize alike) and known before the first write. The prefix went
+    through the same K/V projections as the generated tokens will, so its
+    per-lane maximum |x| over (B, P), times ``margin / 127``, is the
+    estimate; the kernel's saturating write bounds any lane that still
+    overshoots. Floored at 1e-8. Takes both prefill formats: ``(K, V)``, and
+    the int8 ``(K_q, k_scale, V_q, v_scale)`` whose |x| is |q| * scale."""
+    def amax_lanes(x, sc=None):
+        xf = x.float().abs()
+        if sc is not None:
+            xf = xf * sc.float()[..., None]
+        return xf.amax(dim=(0, 1)).flatten()
+
+    out = []
+    for pkv in prefix_kvs:
+        if len(pkv) == 4:
+            pk_q, k_sc, pv_q, v_sc = pkv
+            ka, va = amax_lanes(pk_q, k_sc), amax_lanes(pv_q, v_sc)
+        else:
+            ka, va = amax_lanes(pkv[0]), amax_lanes(pkv[1])
+        out.append(torch.clamp_min(torch.stack([ka, va]) * (margin / 127.0), 1e-8))
+    return tuple(out)
+
+
+def maybe_fuse_prefix(prefix_kv, group_items: int, beam_width: int, prefix_len: int):
+    """Per-layer ``(K, V)`` prefix -> :class:`KernelPrefix` bundles for the
+    kernel's stage (d), when :func:`prefix_fusable` allows it; an int8
+    4-tuple (which keeps the products and the merge) and a prefix that cannot
+    fuse come back unchanged.
+
+    The JAX package's ``maybe_fuse_prefix`` fuses only under
+    ``VILMEDIC_FUSED_PREFIX=1`` and, on the TPU, only at ``group_items % 8
+    == 0`` (a Mosaic rule; on its CPU it always fuses). The port reads no
+    environment: ``make_vl_generate_fn(fused_prefix=True)`` calls this, and
+    ``prefix_fusable`` holds what the CUDA kernel needs."""
+    if len(prefix_kv[0]) == 2 and prefix_fusable(beam_width, group_items, prefix_len):
+        return tuple(pack_kernel_prefix(pk, pv, beam_width) for pk, pv in prefix_kv)
+    return prefix_kv
+
+
 def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_id: int,
-                        pad_id: int, length_penalty: float = 1.0, ancestry_group_items: int = 1):
+                        pad_id: int, length_penalty: float = 1.0, ancestry_group_items: int = 1,
+                        prefix_kv_dtype=None, gen_kv_dtype=None, fused_prefix: bool = False):
     """``generate(images (B, 3, H, W) float) -> BeamResult`` for one
     VisionLanguage model, on the model's device.
 
-    Prefill; tile only the generated cache for the beams and convert it to
-    the kernel layout; pad the LM head once; beam search on the bare blocked
-    logits. ``ancestry_group_items`` sets the items per beam-cache mask group;
-    any divisor of the batch gives the same sequences."""
+    The order of ``vl_evaluation``'s generate: prefill; with ``gen_kv_dtype
+    == "int8"`` derive the generated cache's scales from the prefix; tile
+    only the generated cache for the beams and convert it to the kernel
+    layout (int8 with those scales); with ``fused_prefix`` and no int8
+    generated cache, pack the prefix for the kernel's stage (d); pad the LM
+    head once; beam search on the bare blocked logits.
+
+    ``prefix_kv_dtype`` and ``gen_kv_dtype`` take the eval block's keys of
+    those names and mean int8 where ``str(x or "") == "int8"``, as in
+    ``vl_evaluation``. ``fused_prefix=True`` stands for the JAX package's
+    ``VILMEDIC_FUSED_PREFIX=1``; the port reads no environment variable.
+    ``ancestry_group_items`` sets the items per beam-cache mask group; any
+    divisor of the batch gives the same sequences."""
     if not beam_width or beam_width < 2:
         raise NotImplementedError("greedy decoding is not ported")
     if model.dec_config.vocab_size < BLOCKED_MIN_VOCAB:
@@ -176,12 +244,20 @@ def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_i
             f"vocab {model.dec_config.vocab_size} < {BLOCKED_MIN_VOCAB}: the unblocked "
             "candidate route is not ported")
     module = model.module
+    quantize_prefix = str(prefix_kv_dtype or "") == "int8"
+    quantize_gen = str(gen_kv_dtype or "") == "int8"
 
     @torch.inference_mode()
     def generate(images) -> BeamResult:
-        cache, prefix_kv, prefix_len = module.prefill(images, max_len)
-        prefix_kv = prefix_operands(prefix_kv)
-        cache = to_kernel_cache(tile_for_beams(cache, beam_width))
+        cache, prefix_kv, prefix_len = module.prefill(images, max_len,
+                                                      quantize_prefix=quantize_prefix)
+        gen_scales = derive_gen_kv_scales(prefix_kv) if quantize_gen else None
+        cache = to_kernel_cache(tile_for_beams(cache, beam_width), scales=gen_scales)
+        if fused_prefix and gen_scales is None:
+            prefix_kv = maybe_fuse_prefix(prefix_kv, ancestry_group_items, beam_width,
+                                          prefix_len)
+        if not isinstance(prefix_kv[0], KernelPrefix):
+            prefix_kv = prefix_operands(prefix_kv)
         wb, bb = make_blocked_head_weights(module)
         blocked = (wb.float(), bb)  # upcast once, not every step
 
@@ -235,7 +311,8 @@ class VisionLanguage:
 
     ``vision_hf_config`` takes the place of the JAX package's HF config
     lookup for ``vision_model_name`` (a DINOv2 architecture dict); with it,
-    the prefix drops the tower's CLS token. ``vocab_size`` and the special
+    the prefix drops the tower's CLS token. It builds on the card unless
+    ``device`` names another. ``vocab_size`` and the special
     ids take the place of the tokenizer. Weights are random from ``seed``
     unless a state dict is loaded after. The tower is frozen unless the
     config's ``vision`` block says ``freeze: false``: ``frozen_prefixes`` is
@@ -244,9 +321,10 @@ class VisionLanguage:
     def __init__(self, decoder=None, vision=None, vision_model_name: Optional[str] = None,
                  vision_hf_config=None, dtype="float32", vocab_size: Optional[int] = None,
                  bos_token_id: Optional[int] = None, eos_token_id: Optional[int] = None,
-                 pad_token_id: Optional[int] = None, device="cpu", seed: int = 0, **kwargs):
+                 pad_token_id: Optional[int] = None, device="cuda", seed: int = 0, **kwargs):
         from ..config.config import Config
 
+        device = resolve_device(device)
         compute_dtype = torch.bfloat16 if str(dtype) in ("bfloat16", "bf16") else torch.float32
         dec_args, _ = resolve_block(decoder)
         if isinstance(vision, str):

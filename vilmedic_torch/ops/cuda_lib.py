@@ -38,10 +38,8 @@ _F = ctypes.c_float
 # C entry -> argtypes (every entry returns an int status)
 SIGNATURES = {
     "vt_crop_normalize": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
-    "vt_beam_cache_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _F, _P],
-    "vt_beam_cache_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _F, _P],
+    "vt_beam_cache_attention_f32": [_P] * 12 + [_I] * 9 + [_F, _P],
+    "vt_beam_cache_attention_bf16": [_P] * 12 + [_I] * 9 + [_F, _P],
     "vt_flash_attention_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dq_f32": [_P] * 8 + [_I] * 6 + [_F, _P],

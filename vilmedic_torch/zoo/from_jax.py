@@ -20,6 +20,12 @@ values.
 
 A reference ``.pth`` state dict reaches the port through the JAX package's
 ``convert_reference_rrg`` and then this function.
+
+The VisionLanguage serving routes with the int8 prefix and generated caches
+and with the fused prefix add no parameters: their scales are derived from
+the prefill's activations at run time, so the same state dict serves every
+route (``tests/test_torch_vl_int8.py`` holds all four against the JAX
+package).
 """
 
 from __future__ import annotations
