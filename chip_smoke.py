@@ -16,6 +16,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 5. generates a batch of 2 RRG reports in float32 (TF32 off) on the card and
    on the CPU, where the plain versions run, and requires equal beam
    sequences;
+   then checks K6 (the fused LM head top-16 + logsumexp, at the flagship
+   head: H 768, vocab 50265 padded to 51200, N 128 and 1024) and the three
+   fp8 probes K7 (a)-(c) at the JAX spike's shapes, runs K6 on the
+   flagship's own head against ``_topk_and_lse`` and the spike's main
+   through K7, serves the flagship's other decode routes in bf16 at batch 16
+   (ensembling of two members, greedy, the cache-permute route; launch
+   counts, reports/s alternated with the kernel route) and requires their f32
+   beam sequences on the card to equal the CPU's (and the permute route's the
+   kernel route's);
 6. serves the VisionLanguage beam-8 slice
    (``config/VL/vl-dinov2-modernbert.yml``: DINOv2-B/14 at 518², 12-layer
    prefix LM, vocab 50368, random weights from a seed, bf16) on 16 float
@@ -104,10 +113,10 @@ def cuda_ms(fn, reps: int = 9, warmup: int = 2) -> float:
 
 
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes
-# per second, and dense operations per second by operand type (bf16 on the
-# tensor cores, f32 outside them)
+# per second, and dense operations per second by operand type (bf16 and fp8
+# on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12}
 
 
 def bound(nbytes: float, ops: float, dtype) -> dict:
@@ -711,6 +720,178 @@ def check_crop_normalize(results):
     )
 
 
+def topk_agrees(vals, idx, logits, ref, tol: float) -> bool:
+    """A kernel's top-r (vals, idx) against f32 logits and a reference top
+    r + 1 of them, ``ref = (values, columns)``: values within ``tol``;
+    distinct columns, each as good as the reference's entry at its rank;
+    equal columns wherever the reference's value lies more than ``tol`` from
+    its neighbours (near-ties compare as sets)."""
+    r = vals.shape[1]
+    ref_v, ref_i = ref
+    picked = logits.gather(1, idx.long())
+    gaps = ref_v[:, :-1] - ref_v[:, 1:]
+    lone = gaps[:, :r] > tol
+    lone[:, 1:] &= gaps[:, :r - 1] > tol
+    distinct = bool((idx.sort(dim=1).values.diff(dim=1) != 0).all())
+    return bool((vals - ref_v[:, :r]).abs().max() <= tol
+                and (picked - ref_v[:, :r]).abs().max() <= tol and distinct
+                and (idx.long() == ref_i[:, :r])[lone].all())
+
+
+TOPK_R, TOPK_TILE = 16, 2048  # r = 2 x beam 8; the JAX kernel's tile_v
+# K6: f32 sums of 768 products of |h| ~ 1, |w| ~ 0.02 in another order
+# (~1e-5); lse: a sum of exp in another order (128-column partials merged
+# across blocks against one logsumexp), relative
+TOL_TOPK, TOL_TOPK_LSE = 1e-4, 1e-5
+
+
+def topk_bound(h, w, r: int) -> dict:
+    """K6's bound: read h, w (H, Vp) and the f32 bias, write the (N, r) f32
+    values and int32 columns and the (N,) lse; 2 * N * H * Vp operations."""
+    n, hidden = h.shape
+    vp = w.shape[1]
+    nbytes = (h.numel() + w.numel()) * h.element_size() + vp * 4 + n * r * 8 + n * 4
+    return bound(nbytes, 2 * n * hidden * vp, h.dtype)
+
+
+def check_fused_lm_head(results):
+    """K6 at the flagship head: H 768, vocab 50265 padded to 51200, r 16,
+    N 128 and 1024, f32 (TF32 off) and bf16. No single library call computes
+    it: the product alone (``torch.matmul``) and matmul + topk + logsumexp
+    as three calls are timed beside it."""
+    import torch
+
+    from vilmedic_torch.decoding.decode import top_k
+    from vilmedic_torch.ops.fused_lm_head import (
+        lm_head_topk_lse, lm_head_topk_lse_reference, pad_lm_head_weights,
+    )
+
+    hidden = 768
+    gen = torch.Generator().manual_seed(SEED + 9)
+    w32, b32 = pad_lm_head_weights(torch.randn(hidden, VOCAB, generator=gen) * 0.02,
+                                   torch.randn(VOCAB, generator=gen) * 0.02, TOPK_TILE)
+    b = b32.cuda()
+    worst, timing = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w = w32.to("cuda", dtype)
+        for n in (128, 1024):
+            h = torch.randn(n, hidden, generator=gen).to("cuda", dtype)
+            vals, idx, lse = lm_head_topk_lse(h, w, b, TOPK_R, TOPK_TILE)
+            rvals, _, rlse = lm_head_topk_lse_reference(h, w, b, TOPK_R, TOPK_TILE)
+            logits = h.float() @ w.float() + b
+            torch.cuda.synchronize()
+            ok = topk_agrees(vals, idx, logits, top_k(logits, TOPK_R + 1), TOL_TOPK)
+            err = (vals - rvals).abs().max().item()
+            rel = ((lse - rlse).abs() / rlse.abs()).max().item()
+            worst = max(worst, err)
+            print(f"K6 lm_head_topk_lse {str(dtype)[6:]:8s} N={n:5d} r={TOPK_R}: max|err| "
+                  f"values {err:.3e} (tol {TOL_TOPK:.0e}), columns "
+                  f"{'agree' if ok else 'DIFFER'}, lse rel {rel:.3e} (tol {TOL_TOPK_LSE:.0e})")
+            if not ok or rel > TOL_TOPK_LSE:
+                fail(f"fused lm head {dtype} N={n}")
+            if dtype == torch.bfloat16:
+                def three_calls():
+                    x = torch.matmul(h, w).float() + b
+                    torch.topk(x, TOPK_R)
+                    torch.logsumexp(x, dim=-1)
+
+                timing[n] = dict(
+                    ms=cuda_ms(lambda: lm_head_topk_lse(h, w, b, TOPK_R, TOPK_TILE)),
+                    plain_ms=cuda_ms(lambda: lm_head_topk_lse_reference(h, w, b, TOPK_R,
+                                                                        TOPK_TILE)),
+                    product_ms=cuda_ms(lambda: torch.matmul(h, w)),
+                    three_ms=cuda_ms(three_calls), **topk_bound(h, w, TOPK_R))
+            del h, logits
+    for n, tm in timing.items():
+        flops = 2 * n * hidden * w32.shape[1]
+        print(f"K6 bf16 N={n}: kernel {tm['ms']:.4f} ms ({flops / tm['ms'] / 1e9:.1f} TFLOP/s), "
+              f"plain {tm['plain_ms']:.4f} ms, torch.matmul of the product only "
+              f"{tm['product_ms']:.4f} ms, matmul + topk + logsumexp {tm['three_ms']:.4f} ms, "
+              f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+    tm = timing[1024]
+    results["lm_head_topk_lse"] = dict(
+        route="cuda", source="vilmedic_torch/csrc/fused_lm_head.cu",
+        replaces="vilmedic_tpu/ops/fused_lm_head.py:61", max_abs_err=worst, ms=tm["ms"],
+        plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+        library_ms=None, path="topk_head", counter="lm_head_topk_lse",
+    )
+
+
+# K7 (b): the tensor cores may add e4m3 products with fewer bits than f32's
+# 24; held to 2^-10 of sum |a| |b| for each output
+TOL_FP8_MM = 2.0 ** -10
+
+
+def check_fp8_probe(results):
+    """K7 (a), (b), (c) at the spike's shapes against their plain versions on
+    the card: (a) and (c) bitwise, with every e4m3 code (NaN, and values
+    whose doubling overflows) among the inputs, and (a) at the rounding edge
+    (8 x 58 = 464 -> 448) and at infinity; (b) within ``TOL_FP8_MM``. These
+    are latency probes: each moves under 100 KB."""
+    import torch
+
+    from vilmedic_torch.ops.fp8_probe import (
+        E4M3, fp8_matmul, fp8_matmul_reference, fp8_scale2, fp8_scale2_reference, fp8_slab_copy,
+        fp8_slab_copy_reference, spike_inputs,
+    )
+
+    x, a, b = spike_inputs("cuda")
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8).cuda()
+    x.view(torch.uint8)[0] = codes  # every code in the first row, NaN included
+    x.view(torch.uint8)[9] = codes
+    slab = x[:16].contiguous()
+    checks = {}
+    for scale in (2.0, 58.0, 1e38):
+        got = fp8_scale2(x, scale).view(torch.uint8)
+        want = fp8_scale2_reference(x, scale).view(torch.uint8)
+        checks[f"(a) x {scale:g} bitwise"] = torch.equal(got, want)
+    edge = fp8_scale2(codes.view(E4M3), 58.0).view(torch.uint8)
+    checks["(a) 8 x 58 = 464 -> 448, 16 x 58 -> NaN"] = (edge[0x50].item() == 0x7E
+                                                         and edge[0x58].item() == 0x7F)
+    mm = fp8_matmul(a, b)
+    mm_err = ((mm - fp8_matmul_reference(a, b)).abs()
+              / (a.float().abs() @ b.float().abs())).max().item()
+    checks[f"(b) within {TOL_FP8_MM:.1e} of sum |a||b|"] = mm_err <= TOL_FP8_MM
+    got_c = fp8_slab_copy(slab, 8)
+    checks["(c) bitwise, NaN bits included"] = torch.equal(
+        got_c.view(torch.int32), fp8_slab_copy_reference(slab, 8).view(torch.int32))
+    torch.cuda.synchronize()
+    print(f"K7 fp8 probes: (b) max error relative to sum |a||b| {mm_err:.3e}")
+    require(checks, "K7 fp8 probes")
+    b_cm = b.t().contiguous().t()  # the column-major operand _scaled_mm takes
+    one = torch.ones((), device="cuda")
+    lib_mm = cuda_ms(lambda: torch._scaled_mm(a, b_cm, one, one, out_dtype=torch.float32))
+    lib_err = (torch._scaled_mm(a, b_cm, one, one, out_dtype=torch.float32)
+               - fp8_matmul_reference(a, b)).abs().max().item()
+    n_a, (m, k), n_b = x.numel(), a.shape, b.shape[1]
+    rows = {
+        "fp8_scale2": dict(
+            replaces="experiments/spike_fp8_cache.py:26", max_abs_err=0.0,
+            ms=cuda_ms(lambda: fp8_scale2(x)), plain_ms=cuda_ms(lambda: fp8_scale2_reference(x)),
+            **bound(2 * n_a, n_a, torch.float32), library_ms=None),
+        "fp8_matmul": dict(
+            replaces="experiments/spike_fp8_cache.py:47", max_abs_err=mm_err,
+            ms=cuda_ms(lambda: fp8_matmul(a, b)),
+            plain_ms=cuda_ms(lambda: fp8_matmul_reference(a, b)),
+            **bound(m * k + k * n_b + m * n_b * 4, 2 * m * k * n_b, E4M3), library_ms=lib_mm),
+        "fp8_slab_copy": dict(
+            replaces="experiments/spike_fp8_cache.py:72", max_abs_err=0.0,
+            ms=cuda_ms(lambda: fp8_slab_copy(slab, 8)),
+            plain_ms=cuda_ms(lambda: fp8_slab_copy_reference(slab, 8)),
+            **bound(8 * 256 * 5, 0, torch.float32),
+            library_ms=cuda_ms(lambda: slab[:8].float())),
+    }
+    for name, row in rows.items():
+        print(f"K7 {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}), library "
+              + ("none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
+              + " (latency probes: launch time, not bytes)")
+        results[name] = dict(route="cuda", source="vilmedic_torch/csrc/fp8_probe.cu", **row,
+                             path="fp8_probe", counter=name)
+    print(f"K7 fp8_matmul library: torch._scaled_mm (cuBLAS fp8, f32 out) {lib_mm:.4f} ms, "
+          f"max |diff| to the plain version {lib_err:.3e}")
+
+
 def phase_kernels():
     from vilmedic_torch.ops import cuda_lib
 
@@ -724,6 +905,8 @@ def phase_kernels():
     check_beam_cache_attention_int8(results)
     check_beam_cache_attention_prefix(results)
     check_blocked_lm_head(results)
+    check_fused_lm_head(results)
+    check_fp8_probe(results)
     check_crop_normalize(results)
     check_flash_attention(results)
     check_flash_attention_backward(results)
@@ -742,6 +925,8 @@ def launch_counters():
     from vilmedic_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_with_lse,
     )
+    from vilmedic_torch.ops.fp8_probe import fp8_matmul, fp8_scale2, fp8_slab_copy
+    from vilmedic_torch.ops.fused_lm_head import lm_head_topk_lse
     from vilmedic_torch.ops.image_preproc import crop_normalize
 
     counters = {name: (fn, "launches") for name, fn in (
@@ -751,7 +936,11 @@ def launch_counters():
         ("flash_attention", flash_attention),
         ("flash_attention_with_lse", flash_attention_with_lse),
         ("flash_attention_bwd_dq", flash_attention_bwd_dq),
-        ("flash_attention_bwd_dkv", flash_attention_bwd_dkv))}
+        ("flash_attention_bwd_dkv", flash_attention_bwd_dkv),
+        ("lm_head_topk_lse", lm_head_topk_lse),
+        ("fp8_scale2", fp8_scale2),
+        ("fp8_matmul", fp8_matmul),
+        ("fp8_slab_copy", fp8_slab_copy))}
     for stage in ("launches_stats", "launches_int8", "launches_prefix"):
         counters[f"fused_beam_cache_attention.{stage}"] = (fused_beam_cache_attention, stage)
     return counters
@@ -766,8 +955,9 @@ def read_launches():
     return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
-def build_flagship(dtype: str, device: str):
-    """The flagship RRG from its config, vocab 50265, random weights from SEED."""
+def build_flagship(dtype: str, device: str, seed: int = SEED):
+    """The flagship RRG from its config, vocab 50265, random weights from
+    ``seed``, with its single-model beam-8 generate (the kernel route)."""
     from vilmedic_torch import registry
     from vilmedic_torch.config import load_config
     from vilmedic_torch.models import rrg  # noqa: F401  (registers RRG)
@@ -775,7 +965,7 @@ def build_flagship(dtype: str, device: str):
     from vilmedic_torch.models.evaluation_nlg import make_generate_fn
 
     cfg, _ = load_config(CONFIG, [f"model.dtype={dtype}"])
-    model = registry.build("model", cfg.model, vocab_size=VOCAB, device=device, seed=SEED)
+    model = registry.build("model", cfg.model, vocab_size=VOCAB, device=device, seed=seed)
     max_len = int(cfg.dataset.seq.tokenizer_max_len)
     bos, eos, pad = get_special_token_ids(model.dec_config)
     generate = make_generate_fn([model], BEAM, max_len, bos, eos, pad, length_penalty=1.0)
@@ -876,6 +1066,258 @@ def phase_parity():
           f"({n_gpu} vs {n_cpu} steps), max |score diff| {diff:.3e}")
     if not same:
         fail("f32 beam sequences differ between the card and the CPU")
+
+
+def phase_topk_head():
+    """K6's own path: ``lm_head_topk_lse`` on the flagship RRG's LM head
+    (its (V, H) weight transposed to the JAX layout, rounded to bf16 as the
+    bf16 head computes, and padded once; the f32 bias), N(0, 1) bf16 hidden
+    states at N 128 and 1024, r 16. Its columns must agree with
+    ``_topk_and_lse`` over that head's f32 logits (bf16 products, f32
+    sums)."""
+    import torch
+
+    from vilmedic_torch.decoding.decode import _topk_and_lse
+    from vilmedic_torch.ops.fused_lm_head import lm_head_topk_lse, pad_lm_head_weights
+
+    set_tf32(False)
+    model = build_flagship("bfloat16", "cuda")[0]
+    head = model.module.dec.lm_head
+    with torch.no_grad():
+        w, b = pad_lm_head_weights(head.weight.t().to(torch.bfloat16), head.bias, TOPK_TILE)
+    gen = torch.Generator("cuda").manual_seed(SEED + 10)
+    hs = [torch.randn(n, w.shape[0], generator=gen, device="cuda").to(torch.bfloat16)
+          for n in (128, 1024)]
+    reset_launches()
+    outs = [lm_head_topk_lse(h, w, b, TOPK_R, TOPK_TILE) for h in hs]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    checks = {"K6 = 2 launches": launches["lm_head_topk_lse"] == 2}
+    vocab = head.weight.shape[0]
+    for h, (vals, idx, lse) in zip(hs, outs):
+        logits = h.float() @ w[:, :vocab].float() + b[:vocab]
+        ref_v, ref_i, ref_lse = _topk_and_lse(logits, TOPK_R + 1)
+        rel = ((lse - ref_lse).abs() / ref_lse.abs()).max().item()
+        checks[f"N {h.shape[0]}: top-{TOPK_R} columns agree with _topk_and_lse"] = topk_agrees(
+            vals, idx, logits, (ref_v, ref_i), TOL_TOPK)
+        checks[f"N {h.shape[0]}: lse rel {rel:.2e} <= {TOL_TOPK_LSE:.0e}"] = rel <= TOL_TOPK_LSE
+    print(f"topk head: flagship LM head {tuple(head.weight.shape)} -> w {tuple(w.shape)} bf16, "
+          f"launches {launches['lm_head_topk_lse']}")
+    require(checks, "topk head")
+    del model, w, b, hs, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fp8_probe():
+    """K7's own path: the spike's main (``fp8_probe.probe``) on the card."""
+    import torch
+
+    from vilmedic_torch.ops.fp8_probe import probe
+
+    reset_launches()
+    res = probe("cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    errs = {name: err for name, (_, err) in res.items()}
+    print(f"fp8 probe (the spike's checks): {errs}, launches "
+          f"{[launches[n] for n in ('fp8_scale2', 'fp8_matmul', 'fp8_slab_copy')]}")
+    require({"(a) x * 2 exact": errs["scale2"] == 0.0,
+             "(b) within 1e-2 of |ref| + 1e-3 (the spike's check)": errs["matmul"] <= 1e-2,
+             "(c) the rows exact": errs["slab"] == 0.0,
+             "one launch each": all(launches[n] == 1 for n in ("fp8_scale2", "fp8_matmul",
+                                                               "fp8_slab_copy"))}, "fp8 probe")
+    return launches
+
+
+def permute_generate(model, max_len: int, ids):
+    """The cache-permute route at the flagship's width. ``make_generate_fn``
+    takes it only for a decoder whose head dim K1 is not built for, and the
+    flagship's 64 is one K1 takes, so this drives the port's ``beam_search``
+    over the plain self cache directly, after make_generate_fn's one-member
+    set-up: encode, ``init_cache``, the self cache tiled for the beams, the
+    blocked-stats head (K2)."""
+    import torch
+    from vilmedic_torch.blocks.transformer import make_blocked_head_weights
+    from vilmedic_torch.decoding import beam_search, tile_for_beams
+
+    module = model.module
+
+    @torch.inference_mode()
+    def generate(enc_inputs):
+        images = enc_inputs["images"]
+        enc_h, enc_m = module.encode(images, enc_inputs.get("images_mask"))
+        self_cache, cross_cache = module.init_cache(enc_h, max_len)
+        self_cache = tile_for_beams(self_cache, BEAM)
+        head = make_blocked_head_weights(module.dec) + ("stats",)
+        enc_m = enc_m.to(torch.int32)
+
+        def step_fn(tokens, index):
+            return module.decode_step(tokens, self_cache, cross_cache, enc_m, index,
+                                      blocked_head=head)
+
+        return beam_search(step_fn, images.shape[0], BEAM, max_len, *ids, images.device,
+                           caches=self_cache)
+
+    return generate
+
+
+def rrg_routes(models, max_len: int):
+    """The flagship's decode routes: the kernel route (one member, beam 8),
+    ensembling (every member, beam 8), greedy (one member) and the permute
+    route (one member, beam 8, :func:`permute_generate`)."""
+    from vilmedic_torch.models.base import get_special_token_ids
+    from vilmedic_torch.models.evaluation_nlg import make_generate_fn
+
+    ids = get_special_token_ids(models[0].dec_config)
+    return {
+        "kernel": make_generate_fn(models[:1], BEAM, max_len, *ids),
+        "ensemble": make_generate_fn(models, BEAM, max_len, *ids),
+        "greedy": make_generate_fn(models[:1], 1, max_len, *ids),
+        "permute": permute_generate(models[0], max_len, ids),
+    }
+
+
+def phase_rrg_routes():
+    """bf16, batch 16, the flagship config: ensembling of two members (seeds
+    0 and 1), greedy and the permute route beside the kernel route, each
+    checked with its launch counts, then timed in alternated blocks (kernel,
+    ensemble, greedy, permute, then back); greedy at batch 128 too. Also the
+    f32 blocked head that ensembling runs per member per step."""
+    import torch
+
+    set_tf32(False)
+    first, _, crop, max_len, bos = build_flagship("bfloat16", "cuda")
+    models = [first, build_flagship("bfloat16", "cuda", SEED + 1)[0]]
+    routes = rrg_routes(models, max_len)
+    layers = models[0].dec_config.num_hidden_layers
+    print(f"RRG routes: {os.path.relpath(CONFIG, ROOT)}, bf16, batch 16: ensemble of 2 "
+          f"(seeds {SEED}, {SEED + 1}) beam {BEAM}, greedy, permute beam {BEAM}")
+    batch = host_batch(16, crop, SEED + 20)
+    runs = {}
+    for name, generate in routes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = serve(models[0], generate, batch, crop, "cuda")
+        torch.cuda.synchronize()
+        runs[name] = (res, read_launches(), torch.cuda.max_memory_allocated() / 2**30)
+    kernel_seqs = runs["kernel"][0].sequences
+    for name in ("ensemble", "greedy", "permute"):
+        res, launches, _ = runs[name]
+        seqs, steps = res.sequences, res.steps
+        k1, k2 = launches["fused_beam_cache_attention"], launches["lm_head_blocked_stats"]
+        print(f"RRG {name} route batch 16: sequences {tuple(seqs.shape)}, {steps} decode steps "
+              f"({steps} host syncs), launches K1 {k1}, K2 {k2}, K3 {launches['crop_normalize']}")
+        checks = {
+            "shape (16, max_len)": tuple(seqs.shape) == (16, max_len),
+            "BOS in column 0": bool((seqs[:, 0] == bos).all()),
+            "ids in the vocabulary": bool(((seqs >= 0) & (seqs < VOCAB)).all()),
+            "crop_normalize launched": launches["crop_normalize"] >= 1,
+            "steps > 0": steps > 0,
+        }
+        if name == "greedy":
+            checks["lengths in [1, max_len]"] = bool(((res.lengths >= 1)
+                                                      & (res.lengths <= max_len)).all())
+            checks["K1 = 0, K2 = 0"] = k1 == 0 and k2 == 0
+        else:
+            checks["finite scores"] = bool(torch.isfinite(res.scores).all())
+        if name == "ensemble":
+            checks["K1 = members x layers x steps"] = k1 == 2 * layers * steps
+            checks["K2 = 0 (no stats head for two members)"] = k2 == 0
+        if name == "permute":
+            checks["K1 = 0"] = k1 == 0
+            checks["K2 = steps"] = k2 == steps
+        require(checks, f"RRG {name} route")
+    agree = (runs["permute"][0].sequences == kernel_seqs).all(dim=1).float().mean().item()
+    print(f"RRG permute route: {agree:.4f} of 16 beam sequences equal to the kernel route's in "
+          f"bf16 (reported; f32 equality is required in the parity phase)")
+
+    times = {name: [] for name in routes}
+    for name in ("kernel", "ensemble", "greedy", "permute", "permute", "greedy", "ensemble",
+                 "kernel"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(models[0], routes[name], batch, crop, "cuda")
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        med = statistics.median(ts)
+        print(f"RRG {name:8s} route batch 16: {16 / med:.2f} reports/s (median of {len(ts)} in "
+              f"two alternated blocks: {16 / statistics.median(ts[:3]):.2f} / "
+              f"{16 / statistics.median(ts[3:]):.2f}; spread {(max(ts) - min(ts)) / med * 100:.1f}%), "
+              f"{runs[name][0].steps} steps, peak {runs[name][2]:.2f} GiB")
+    big = host_batch(128, crop, SEED + 21)
+    serve(models[0], routes["greedy"], big, crop, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts, steps_seen = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = serve(models[0], routes["greedy"], big, crop, "cuda")
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+        steps_seen.append(res.steps)
+    med = statistics.median(ts)
+    print(f"RRG greedy route batch 128: {128 / med:.2f} reports/s (median of 3, spread "
+          f"{(max(ts) - min(ts)) / med * 100:.1f}%, steps = host syncs {steps_seen}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+
+    # the f32 blocked head each ensemble member runs per step
+    from vilmedic_torch.blocks.transformer import make_blocked_head_weights
+
+    dec = models[0].module.dec
+    blocked = make_blocked_head_weights(dec)
+    with torch.inference_mode():
+        for n in (128, 1024):
+            h = torch.randn(n, 1, dec.config.hidden_size, device="cuda").to(torch.bfloat16)
+            ms = cuda_ms(lambda: dec._head_blocked(h, blocked))
+            flops = 2 * n * dec.config.hidden_size * blocked[0].shape[0]
+            print(f"RRG ensemble head (_head_blocked, f32 product) N={n}: {ms:.4f} ms per member "
+                  f"per step ({flops / ms / 1e9:.1f} TFLOP/s; f32 peak outside the tensor cores "
+                  f"67 TFLOP/s)")
+    del first, models, routes, runs
+    torch.cuda.empty_cache()
+
+
+def phase_rrg_routes_parity():
+    """f32, TF32 off, batch 2: each new route's sequences on the card
+    (kernels) equal the CPU plain versions'; the permute route's equal the
+    kernel route's on the card."""
+    import torch
+
+    set_tf32(False)
+    got = {}
+    for device in ("cuda", "cpu"):
+        first, _, crop, max_len, _ = build_flagship("float32", device)
+        models = [first, build_flagship("float32", device, SEED + 1)[0]]
+        routes = rrg_routes(models, max_len)
+        if device == "cpu":
+            del routes["kernel"]
+        batch = host_batch(2, crop, SEED + 7)
+        t0 = time.perf_counter()
+        got[device] = {name: serve(models[0], generate, batch, crop, device)
+                       for name, generate in routes.items()}
+        got[device]["seconds"] = time.perf_counter() - t0
+        del first, models, routes
+    bad = []
+    for name in ("ensemble", "greedy", "permute"):
+        card, cpu = got["cuda"][name], got["cpu"][name]
+        same = torch.equal(card.sequences.cpu(), cpu.sequences)
+        diff = ("" if name == "greedy" else
+                f", max |score diff| {(card.scores.cpu() - cpu.scores).abs().max().item():.3e}")
+        print(f"RRG {name} route parity f32 batch 2: sequences {'equal' if same else 'DIFFER'} "
+              f"({card.steps} vs {cpu.steps} steps){diff}")
+        if not same:
+            bad.append(name)
+    same_kernel = torch.equal(got["cuda"]["permute"].sequences, got["cuda"]["kernel"].sequences)
+    print(f"RRG permute vs kernel route on the card, f32: sequences "
+          f"{'equal' if same_kernel else 'DIFFER'} (CPU half {got['cpu']['seconds']:.1f} s)")
+    if bad or not same_kernel:
+        fail(f"RRG f32 route parity: card vs CPU differ on {bad}, permute vs kernel "
+             f"{'equal' if same_kernel else 'differ'}")
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------- VisionLanguage
@@ -1465,6 +1907,10 @@ def main():
     results = phase_kernels()
     launches = {"rrg": phase_slice()}
     phase_parity()
+    launches["topk_head"] = phase_topk_head()
+    launches["fp8_probe"] = phase_fp8_probe()
+    phase_rrg_routes()
+    phase_rrg_routes_parity()
     launches["vl"] = phase_vl_slice()
     phase_vl_parity()
     launches.update(phase_vl_routes())
@@ -1475,8 +1921,9 @@ def main():
 
     # each kernel's launches are those of the path that runs it: the RRG
     # slice (K1 stage a, K2, K3), the VisionLanguage slice (K1 stage b, K4),
-    # its int8-cache route (K1 stage c), its fused-prefix route (K1 stage d)
-    # or the VisionLanguage training phase (K4 with LSE, K5)
+    # its int8-cache route (K1 stage c), its fused-prefix route (K1 stage d),
+    # the VisionLanguage training phase (K4 with LSE, K5), K6's top-k head
+    # and K7's fp8 probe
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"

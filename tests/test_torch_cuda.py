@@ -5,8 +5,11 @@ shapes off the slices' main paths (odd row counts, groups wider than a warp,
 every head dim the kernels take, pad-heavy vocabularies, out-of-range crop
 offsets, ragged and fully masked flash tiles, Tq != Tk, the flash backward's
 ragged tails and all-padding items, the beam kernel's int8 cache and prefix
-stages at ragged prefix lengths and saturating writes), tiny VisionLanguage
-serving routes and a tiny training step card vs CPU. Run them on the card
+stages at ragged prefix lengths and saturating writes, the fused LM head's
+top-r at ragged vocab tails, r 1 to 32 and exact ties, the fp8 probes on
+every e4m3 code at the rounding edge and at infinity), tiny VisionLanguage
+serving routes, the tiny RRG's ensembling, greedy, small-vocab and
+cache-permute routes, and a tiny training step card vs CPU. Run them on the card
 from the repository root, without the JAX conftest (the card's machine has no
 JAX):
 
@@ -33,7 +36,15 @@ from vilmedic_torch.ops.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_reference,
     flash_attention_with_lse,
 )
+from vilmedic_torch.ops.fp8_probe import (
+    E4M3, MAX_SLAB_BYTES, e4m3_from_f32, fp8_matmul, fp8_matmul_reference, fp8_scale2,
+    fp8_scale2_reference, fp8_slab_copy, fp8_slab_copy_reference, probe,
+)
+from vilmedic_torch.ops.fused_lm_head import (
+    lm_head_topk_lse, lm_head_topk_lse_reference, pad_lm_head_weights,
+)
 from vilmedic_torch.ops.image_preproc import crop_normalize, crop_normalize_reference
+from vilmedic_torch.ops.topk import top_k
 
 pytestmark = pytest.mark.cuda
 
@@ -537,3 +548,197 @@ def test_tiny_vl_routes_card_equals_cpu(cuda, prefix_kv_dtype, gen_kv_dtype, fus
     assert launched == ((2 * steps if gen_kv_dtype else 0), (2 * steps if fused_prefix else 0))
     assert torch.equal(s_cpu, s_gpu)
     torch.testing.assert_close(sc_gpu, sc_cpu, rtol=1e-4, atol=1e-4)
+
+
+# K6: f32 sums of up to 768 products in another order (the plain version's
+# one matmul against the kernel's k-tiles); lse: f32 sums of exp in another
+# order (128-column partials merged across blocks), relative
+TOL_TOPK, TOL_LSE = 1e-4, 1e-5
+
+
+def topk_agrees(vals, idx, logits, tol: float) -> bool:
+    """The kernel's (vals, idx) against the f32 logits: values within
+    ``tol`` of the stable top-r; distinct columns each as good as the
+    reference's entry at that rank; equal columns wherever the reference's
+    value is more than ``tol`` from its neighbours (near-ties compare as
+    sets)."""
+    r = vals.shape[1]
+    ref_v, ref_i = top_k(logits, min(r + 1, logits.shape[1]))
+    picked = logits.gather(1, idx.long())
+    gaps = ref_v[:, :-1] - ref_v[:, 1:]
+    lone = torch.ones_like(ref_v[:, :r], dtype=torch.bool)
+    lone[:, 1:] &= gaps[:, :r - 1] > tol
+    if ref_v.shape[1] > r:
+        lone &= gaps[:, :r] > tol
+    distinct = (idx.sort(dim=1).values.diff(dim=1) != 0).all()
+    return bool((vals - ref_v[:, :r]).abs().max() <= tol
+                and (picked - ref_v[:, :r]).abs().max() <= tol and distinct
+                and (idx.long() == ref_i[:, :r])[lone].all())
+
+
+def _head(cuda, n, k, vocab, tile_v, seed, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn(n, k, generator=gen)
+    w, b = pad_lm_head_weights(torch.randn(k, vocab, generator=gen) * 0.05,
+                               torch.randn(vocab, generator=gen) * 0.05, tile_v)
+    return h.to(cuda, dtype), w.to(cuda, dtype), b.to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 130])
+@pytest.mark.parametrize("r", [1, 16, 32])
+@pytest.mark.parametrize("k,vocab,tile_v", [(64, 4500, 1024), (768, 5000, 2048)])
+def test_fused_lm_head_kernel(cuda, dtype, n, r, k, vocab, tile_v):
+    """Ragged vocab tails (pad columns at -1e30), rows not a multiple of the
+    128-row tile."""
+    h, w, b = _head(cuda, n, k, vocab, tile_v, n + r + k, dtype)
+    vals, idx, lse = lm_head_topk_lse(h, w, b, r, tile_v)
+    logits = h.float() @ w.float() + b
+    assert vals.shape == (n, r) and idx.dtype == torch.int32 and lse.shape == (n,)
+    assert int(idx.max()) < vocab
+    assert topk_agrees(vals, idx, logits, TOL_TOPK)
+    _, _, want = lm_head_topk_lse_reference(h, w, b, r, tile_v)
+    assert ((lse - want).abs() / want.abs()).max().item() <= TOL_LSE
+
+
+def test_fused_lm_head_exact_ties(cuda):
+    """Integer-valued h and w: the f32 sums are exact, so many logits tie and
+    the kernel's columns equal the stable top-r's bitwise."""
+    gen = torch.Generator().manual_seed(3)
+    h = torch.randint(-2, 3, (70, 64), generator=gen).float()
+    w, b = pad_lm_head_weights(torch.randint(-1, 2, (64, 3000), generator=gen).float(),
+                               torch.zeros(3000), 1024)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = lm_head_topk_lse(h.to(cuda, dtype), w.to(cuda, dtype), b.to(cuda), 32, 1024)
+        want = lm_head_topk_lse_reference(h, w, b, 32, 1024)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_fused_lm_head_refuses(cuda):
+    h, w, b = _head(cuda, 4, 64, 1000, 1024, 0, torch.float32)
+    with pytest.raises(ValueError):  # h on the CPU, w and b on the card
+        lm_head_topk_lse(h.cpu(), w, b, 8, 1024)
+    with pytest.raises(ValueError):
+        lm_head_topk_lse(h, w.cpu(), b, 8, 1024)
+    with pytest.raises(ValueError):  # not contiguous
+        lm_head_topk_lse(h.t().contiguous().t(), w, b, 8, 1024)
+    with pytest.raises(ValueError):  # Vp % tile_v != 0
+        lm_head_topk_lse(h, w, b, 8, 2048)
+    with pytest.raises(ValueError):  # r beyond a warp
+        lm_head_topk_lse(h, w, b, 33, 1024)
+    with pytest.raises(ValueError):  # mixed dtypes
+        lm_head_topk_lse(h, w.bfloat16(), b, 8, 1024)
+
+
+def _all_e4m3_codes(cuda):
+    return torch.arange(256, dtype=torch.int32).to(torch.uint8).view(E4M3).to(cuda)
+
+
+@pytest.mark.parametrize("scale", [2.0, 58.0, 1e38, -0.5])
+def test_fp8_scale2_kernel(cuda, scale):
+    """Every e4m3 code (NaN, and the values whose doubling overflows), times
+    2, times 58 (8 * 58 = 464 rounds to 448, 16 * 58 to NaN), times 1e38
+    (infinities): bitwise equal to the plain version on the card and on the
+    CPU."""
+    x = _all_e4m3_codes(cuda)
+    got = fp8_scale2(x, scale).view(torch.uint8)
+    assert torch.equal(got, fp8_scale2_reference(x, scale).view(torch.uint8))
+    assert torch.equal(got.cpu(), fp8_scale2_reference(x.cpu(), scale).view(torch.uint8))
+    if scale == 58.0:
+        assert got[0x50].item() == 0x7E  # 8 -> 464 -> 448
+        assert got[0x58].item() == 0x7F  # 16 -> 928 -> NaN
+
+
+@pytest.mark.parametrize("m,n,k", [(16, 8, 32), (128, 128, 128), (48, 40, 96)])
+def test_fp8_matmul_kernel(cuda, m, n, k):
+    """Within 2^-10 of sum |a||b| per output (the tensor cores may add fp8
+    products with fewer bits than f32's 24)."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = e4m3_from_f32(torch.randn(m, k, generator=gen) * 4).to(cuda)
+    b = e4m3_from_f32(torch.randn(k, n, generator=gen)).to(cuda)
+    got = fp8_matmul(a, b)
+    scale = a.float().abs() @ b.float().abs()
+    assert ((got - fp8_matmul_reference(a, b)).abs() <= 2.0 ** -10 * scale).all()
+
+
+@pytest.mark.parametrize("rows,width", [(8, 256), (1, 16), (3, 4096),
+                                        (16, MAX_SLAB_BYTES // 16)])
+def test_fp8_slab_copy_kernel(cuda, rows, width):
+    """Every code, NaN included, bitwise equal to the plain version's f32;
+    the last case copies the largest slab the wrapper takes."""
+    codes = torch.arange(16 * width, dtype=torch.int32).remainder(256).to(torch.uint8)
+    x = codes.view(16, width).view(E4M3).to(cuda)
+    got = fp8_slab_copy(x, rows)
+    assert torch.equal(got.view(torch.int32), fp8_slab_copy_reference(x, rows).view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32),
+                       fp8_slab_copy_reference(x.cpu(), rows).view(torch.int32))
+
+
+def test_fp8_probe_runs_the_kernels(cuda):
+    """The spike's main on the card: one launch of each kernel, no error."""
+    start = (fp8_scale2.launches, fp8_matmul.launches, fp8_slab_copy.launches)
+    res = probe(cuda)
+    assert (fp8_scale2.launches, fp8_matmul.launches, fp8_slab_copy.launches) == tuple(
+        s + 1 for s in start)
+    assert res["scale2"][1] == 0.0 and res["slab"][1] == 0.0 and res["matmul"][1] <= 1e-2
+
+
+def test_fp8_wrappers_refuse(cuda):
+    x = _all_e4m3_codes(cuda).view(16, 16)
+    with pytest.raises(ValueError):  # not e4m3
+        fp8_scale2(x.float())
+    with pytest.raises(ValueError):  # not contiguous
+        fp8_scale2(x.t())
+    with pytest.raises(ValueError):  # K not a multiple of 32
+        fp8_matmul(x, x)
+    with pytest.raises(ValueError):  # a on the card, b on the CPU
+        a = x.view(8, 32)
+        fp8_matmul(a, a.t().contiguous().cpu())
+    with pytest.raises(ValueError):  # 3 * 5 bytes: not a multiple of 16
+        fp8_slab_copy(x.view(torch.uint8)[:, :5].contiguous().view(E4M3), 3)
+    with pytest.raises(ValueError):  # more rows than the slab has
+        fp8_slab_copy(x, 17)
+    with pytest.raises(ValueError):  # 16 bytes past the cap
+        big = torch.zeros((16, MAX_SLAB_BYTES // 16 + 1), dtype=torch.uint8, device=cuda)
+        fp8_slab_copy(big.view(E4M3), 16)
+
+
+@pytest.mark.parametrize("route,vocab,members,beam", [
+    ("greedy", 4500, 1, 1), ("greedy", 4500, 2, 1), ("ensemble", 4500, 2, 4),
+    ("permute", 4500, 1, 4), ("permute", 300, 2, 4), ("small vocab", 300, 1, 4),
+])
+def test_tiny_rrg_routes_card_equals_cpu(cuda, monkeypatch, route, vocab, members, beam):
+    """The RRG decode routes of a small model, f32: sequences (and beam
+    scores) on the card equal the CPU plain versions'; K1 runs once per
+    member, layer and step on the reorder-free routes and never on greedy or
+    permute (8 heads of 16, a head dim K1 is not built for); K2 only for one
+    member over a large vocabulary."""
+    monkeypatch.setitem(tdensenet.CONFIGS, "densenet_tiny", (8, (2, 2), 16))
+    heads = 8 if route == "permute" else 2
+    decoder = dict(proto=None, hidden_size=128, num_hidden_layers=2, num_attention_heads=heads,
+                   intermediate_size=256, max_position_embeddings=64, layer_norm_eps=1e-5,
+                   vocab_size=vocab, bos_token_id=0, eos_token_id=2, pad_token_id=1)
+    cnn = dict(backbone="densenet_tiny", visual_projection={"out_features": 128})
+    gen = torch.Generator().manual_seed(2)
+    batch = {"images_u8": torch.randint(0, 256, (4, 40, 40, 3), generator=gen,
+                                        dtype=torch.uint8),
+             "preproc_tops": torch.tensor([0, 3, 8, 5], dtype=torch.int32),
+             "preproc_lefts": torch.tensor([2, 0, 8, 7], dtype=torch.int32)}
+    results = {}
+    for device in ("cpu", cuda):
+        models = [RRG(decoder=dict(decoder), cnn=dict(cnn), device=device, seed=7 + i)
+                  for i in range(members)]
+        generate = make_generate_fn(models, beam, 12, 0, 2, 1)
+        on = finalize_device_preproc({k: v.to(device) for k, v in batch.items()}, 32)
+        start = (fused_beam_cache_attention.launches, lm_head_blocked_stats.launches)
+        res = generate(models[0].encoder_inputs(on))
+        launched = (fused_beam_cache_attention.launches - start[0],
+                    lm_head_blocked_stats.launches - start[1])
+        results[str(device)] = (res, launched)
+    (cpu, _), (gpu, launched) = results["cpu"], results["cuda"]
+    assert torch.equal(cpu.sequences, gpu.sequences.cpu())
+    if beam > 1:
+        torch.testing.assert_close(gpu.scores.cpu(), cpu.scores, rtol=1e-4, atol=1e-4)
+    k1 = 2 * members * gpu.steps if route != "permute" and beam > 1 else 0
+    k2 = gpu.steps if beam > 1 and members == 1 and vocab >= 4096 else 0
+    assert launched == (k1, k2)

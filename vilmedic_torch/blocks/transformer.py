@@ -9,8 +9,12 @@ module (``mode=``):
 - ``train``: teacher forcing over a whole sequence -> f32 logits (B, T, V);
 - ``init_cache``: zeroed self K/V at ``max_len`` plus the cross K/V of the
   encoder memory, computed once;
-- ``decode``: one token at ``decode_index`` over the fused-kernel cache layout
-  (``to_kernel_cache``), updated in place by the beam-cache kernel.
+- ``decode``: one token at ``decode_index`` over either the fused-kernel
+  cache layout (``to_kernel_cache``), updated in place by the beam-cache
+  kernel, or the plain ``self_k``/``self_v`` (N, T, H, D) cache of
+  ``init_cache``, where the step's K/V are written in place at
+  ``decode_index`` (the JAX module's ``dynamic_update_slice``) and attention
+  runs over all T positions under the causal decode bias.
 
 ``MultiHeadAttention.prefix_decode`` is the VisionLanguage prefix LM's decode
 step: the beam-cache kernel's segment merged with a beam-shared prefix.
@@ -236,9 +240,11 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, kv_input=None, bias=None, cache=None, decode_index=None,
                 ancestry=None, causal: bool = False, train: bool = False):
-        """``cache``: the (K, V) cross cache at batch B for cross-attention, or
-        the (k_tnf, v_tnf) kernel self cache for a decode step (updated in
-        place, with ``ancestry`` the kernel's (groups, rows, T*rows) mask).
+        """``cache``: the (K, V) cross cache at batch B for cross-attention;
+        for a decode step the (k_tnf, v_tnf) kernel self cache (updated in
+        place, with ``ancestry`` the kernel's (groups, rows, T*rows) mask) or
+        the plain (K, V) (N, T, H, D) self cache (step ``decode_index``
+        written in place, ``bias`` the causal decode bias).
         ``train=True`` routes as a training step (``FLASH_MIN_LEN_TRAIN``)."""
         cfg = self.config
         q = self._split(self.q(x))
@@ -258,7 +264,13 @@ class MultiHeadAttention(nn.Module):
         else:
             k_new = self._split(self.k(x))
             v_new = self._split(self.v(x))
-            if cache is not None:
+            if cache is not None and cache[0].ndim == 4:
+                if decode_index is None:
+                    raise ValueError("plain-cache decode needs decode_index")
+                cache[0][:, decode_index] = k_new[:, 0].to(cache[0].dtype)
+                cache[1][:, decode_index] = v_new[:, 0].to(cache[1].dtype)
+                k, v = cache
+            elif cache is not None:
                 if ancestry is None or decode_index is None:
                     raise ValueError("kernel-cache decode needs ancestry and decode_index")
                 n = q.shape[0]
@@ -268,7 +280,8 @@ class MultiHeadAttention(nn.Module):
                     v_new.reshape(shape), ancestry, decode_index,
                 )
                 return self.o(out.to(cfg.dtype).reshape(n, 1, cfg.hidden_size))
-            k, v = k_new, v_new
+            else:
+                k, v = k_new, v_new
         out = dot_product_attention(q, k, v, bias=bias, dtype=cfg.dtype, causal=causal,
                                     train=train)
         b, t = out.shape[:2]
@@ -474,21 +487,21 @@ class TransformerDecoder(nn.Module):
             return tuple(self_cache), tuple(cross_cache)
 
         if mode == "decode":
-            # input_ids (N, 1); cache (self_cache, cross_cache); the self cache
-            # must be in the kernel layout and is updated in place
+            # input_ids (N, 1); cache (self_cache, cross_cache); the self cache,
+            # kernel layout or plain, is updated in place
             self_cache, cross_cache = cache
-            if "self_k_tnf" not in self_cache[0]:
-                raise NotImplementedError(
-                    "decode runs on the fused-kernel cache layout (to_kernel_cache); "
-                    "the cache-permute route is not ported yet"
-                )
+            kernel = "self_k_tnf" in self_cache[0]
+            names = ("self_k_tnf", "self_v_tnf") if kernel else ("self_k", "self_v")
             positions = torch.full((1, 1), int(decode_index), dtype=torch.long,
                                    device=input_ids.device)
             h = self.embeddings(input_ids, positions)
+            self_bias = None if kernel else make_attention_bias(
+                causal=True, key_len=self_cache[0]["self_k"].shape[1],
+                decode_index=int(decode_index), device=input_ids.device)
             cross_bias = make_attention_bias(key_mask=encoder_attention_mask)
             for layer, self_lc, cross_lc in zip(self.layers, self_cache, cross_cache):
-                h = layer(h, None, None, cross_bias,
-                          (self_lc["self_k_tnf"], self_lc["self_v_tnf"]),
+                h = layer(h, None, self_bias, cross_bias,
+                          (self_lc[names[0]], self_lc[names[1]]),
                           (cross_lc["cross_k"], cross_lc["cross_v"]),
                           decode_index, ancestry)
             if blocked_head is not None:

@@ -1,1 +1,3 @@
-from .decode import BeamResult, beam_search, tile_for_beams  # noqa: F401
+from .decode import (  # noqa: F401
+    BeamResult, RolloutResult, beam_search, greedy_search, tile_for_beams,
+)

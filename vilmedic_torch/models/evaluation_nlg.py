@@ -1,12 +1,31 @@
-"""Single-model beam-search generation (port of ``make_generate_fn`` of
-``models/evaluation_nlg.py``).
+"""Ensembling beam-search and greedy generation (port of ``make_generate_fn``
+of ``models/evaluation_nlg.py``).
 
-The order is the JAX package's: encode; ``init_cache``; tile the self cache
-(only) for the beams; convert it to the kernel layout; pad the LM head once;
-beam search with the blocked-stats head and the reorder-free beam-cache
-kernel. On the card the port always takes these kernel routes; the v5e
-routing thresholds of the JAX package do not apply. Ensembling, greedy and
-sampled decoding and sharded evaluation are not ported.
+The order is the JAX package's: per member, encode and ``init_cache``; tile
+the self cache (only) for the beams; convert it to the kernel layout on the
+reorder-free route; pad each member's LM head once; then one decode loop
+whose per-step logits are the sum of the members' raw logits (the reference's
+ensembling). Routes, by the models and the beam width:
+
+- beam search, one member, vocab >= 4096: the blocked-stats head (K2) and
+  the reorder-free beam-cache kernel (K1);
+- beam search, several members, vocab >= 4096: each member's blocked f32
+  head (``_head_blocked``), summed in f32 into the (N, nb, 128) blocks that
+  candidate selection reads (block stats cannot be summed across members),
+  each member with its own kernel cache and K1 calls, one shared ancestry
+  mask;
+- beam search, vocab < 4096: the plain f32 head, summed, and the two-stage
+  candidate selection;
+- beam search where a member's head dim is one the beam-cache kernel is not
+  built for (:func:`kernel_route_ok`): the plain (N, T, H, D) self cache,
+  reordered by every step's beams, as the JAX package falls back when its
+  kernel cannot run;
+- ``beam_width`` <= 1: greedy decoding over the plain cache and the plain
+  head, without forced EOS.
+
+On the card the port takes these kernel routes wherever the JAX package may;
+the v5e routing thresholds do not apply. Sampled and constrained decoding and
+sharded evaluation are not ported.
 """
 
 from __future__ import annotations
@@ -14,48 +33,76 @@ from __future__ import annotations
 import torch
 
 from ..blocks.transformer import make_blocked_head_weights, to_kernel_cache
-from ..decoding import BeamResult, beam_search, tile_for_beams
+from ..decoding import beam_search, greedy_search, tile_for_beams
+from ..ops.beam_cache_attention import HEAD_DIMS
 
 # the blocked head pays off only over a large vocabulary (a model property)
 BLOCKED_MIN_VOCAB = 4096
 
 
+def kernel_route_ok(models, beam_width: int) -> bool:
+    """Whether beam search can keep every member's self cache in the
+    beam-cache kernel's never-reordered layout: a beam, and head dims the
+    kernel is built for (the JAX package's ``kernel_ok``)."""
+    return (bool(beam_width) and beam_width > 1
+            and all(m.dec_config.head_dim in HEAD_DIMS for m in models))
+
+
 def make_generate_fn(models, beam_width: int, max_len: int, bos_id: int, eos_id: int,
                      pad_id: int, length_penalty: float = 1.0,
                      ancestry_group_items: int = 1):
-    """``generate(enc_inputs) -> BeamResult`` for one model, where
-    ``enc_inputs`` is ``model.encoder_inputs(batch)`` on the model's device.
+    """``generate(enc_inputs)`` for one model or an ensemble, where
+    ``enc_inputs`` is ``models[0].encoder_inputs(batch)`` on the models'
+    device. Returns a ``BeamResult`` for beam search and a ``RolloutResult``
+    for greedy decoding (``beam_width`` <= 1).
 
     ``ancestry_group_items`` sets the items per beam-cache mask group; any
     divisor of the batch gives the same sequences."""
-    if len(models) != 1:
-        raise NotImplementedError("ensembling is not ported")
-    model = models[0]
-    if not beam_width or beam_width < 2:
-        raise NotImplementedError("greedy decoding is not ported")
-    if model.dec_config.vocab_size < BLOCKED_MIN_VOCAB:
-        raise NotImplementedError(
-            f"vocab {model.dec_config.vocab_size} < {BLOCKED_MIN_VOCAB}: the unblocked "
-            "candidate route is not ported")
-    module = model.module
+    modules = [m.module for m in models]
+    vocabs = {m.dec_config.vocab_size for m in models}
+    beam = bool(beam_width) and beam_width > 1
+    blocked = beam and len(vocabs) == 1 and min(vocabs) >= BLOCKED_MIN_VOCAB
+    kernel_cache = kernel_route_ok(models, beam_width)
 
     @torch.inference_mode()
-    def generate(enc_inputs) -> BeamResult:
+    def generate(enc_inputs):
         images = enc_inputs["images"]
-        enc_h, enc_m = module.encode(images, enc_inputs.get("images_mask"))
-        self_cache, cross_cache = module.init_cache(enc_h, max_len)
-        enc_m = enc_m.to(torch.int32)
-        # only the self cache tiles to B*beam rows; the cross K/V and mask stay
-        # at batch B and the cross-attention folds the beams into its queries
-        self_cache = to_kernel_cache(tile_for_beams(self_cache, beam_width))
-        blocked = make_blocked_head_weights(module.dec) + ("stats",)
+        members = []
+        for module in modules:
+            enc_h, enc_m = module.encode(images, enc_inputs.get("images_mask"))
+            self_cache, cross_cache = module.init_cache(enc_h, max_len)
+            # only the self cache tiles to B*beam rows; the cross K/V and mask
+            # stay at batch B and the cross-attention folds the beams into its
+            # queries
+            if beam:
+                self_cache = tile_for_beams(self_cache, beam_width)
+            if kernel_cache:
+                self_cache = to_kernel_cache(self_cache)
+            head = None
+            if blocked:
+                head = make_blocked_head_weights(module.dec)
+                if len(modules) == 1:
+                    head += ("stats",)
+            members.append((module, self_cache, cross_cache, enc_m.to(torch.int32), head))
 
-        def step_fn(tokens, index, anc):
-            return module.decode_step(tokens, self_cache, cross_cache, enc_m, index,
-                                      blocked_head=blocked, ancestry=anc)
+        def step_fn(tokens, index, anc=None):
+            total = None
+            for module, self_cache, cross_cache, enc_m, head in members:
+                out = module.decode_step(tokens, self_cache, cross_cache, enc_m, index,
+                                         blocked_head=head, ancestry=anc)
+                if isinstance(out, tuple):  # the blocked-stats head: one member
+                    return out
+                if head is None:
+                    out = out[:, -1].float()
+                total = out if total is None else total + out
+            return total
 
+        if not beam:
+            return greedy_search(step_fn, images.shape[0], max_len, bos_id, eos_id, pad_id,
+                                 images.device, forced_eos=False)
         return beam_search(step_fn, images.shape[0], beam_width, max_len, bos_id, eos_id,
                            pad_id, images.device, length_penalty=length_penalty,
-                           ancestry_group_items=ancestry_group_items)
+                           ancestry_group_items=ancestry_group_items, blocked=blocked,
+                           caches=None if kernel_cache else [m[1] for m in members])
 
     return generate

@@ -40,6 +40,7 @@ import torch
 from . import cuda_lib
 
 NEG_INF = -1e9
+HEAD_DIMS = (32, 64, 128)  # the head dims the kernel is built for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,8 +224,8 @@ def fused_beam_cache_attention(kc, vc, q, k_new, v_new, mask, index, return_stat
                          "(or int8 with kv_scales)")
     if mask.dtype not in (torch.bool, torch.uint8):
         raise ValueError("fused_beam_cache_attention: mask must be bool or uint8 on CUDA")
-    if d not in (32, 64, 128):
-        raise ValueError(f"fused_beam_cache_attention: head dim {d} not in (32, 64, 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"fused_beam_cache_attention: head dim {d} not in {HEAD_DIMS}")
     out = torch.empty((n, heads, d), dtype=torch.float32, device=dev)
     stats = (torch.empty((n, heads), dtype=torch.float32, device=dev),
              torch.empty((n, heads), dtype=torch.float32, device=dev)) if return_stats else None

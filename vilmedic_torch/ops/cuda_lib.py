@@ -48,6 +48,11 @@ SIGNATURES = {
     "vt_flash_attention_bwd_dkv_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
     "vt_lm_head_blocked_stats_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_blocked_stats_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vt_lm_head_topk_lse_f32": [_P] * 10 + [_I] * 5 + [_P],
+    "vt_lm_head_topk_lse_bf16": [_P] * 10 + [_I] * 5 + [_P],
+    "vt_fp8_scale2": [_P, _P, _I, _F, _P],
+    "vt_fp8_matmul": [_P, _P, _P, _I, _I, _I, _P],
+    "vt_fp8_slab_copy": [_P, _P, _I, _P],
 }
 
 
