@@ -8,7 +8,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the paths below, in float32 (TF32 off) and bfloat16, and times
    both (the flash backward K5 and K4's LSE output at the VisionLanguage
-   training shape: B 16, T 1470, H 12, D 64, causal, padded text keys);
+   training shape: B 16, T 1470, H 12, D 64, causal, padded text keys; the
+   flash kernels' TFLOP/s and share of their bound beside
+   ``scaled_dot_product_attention``, and K4 against the dense attention
+   path at T 256 to 2048);
 4. serves the flagship RRG beam-8 slice (``config/RRG/baseline-mimic.yml``,
    vocab 50265, random weights from a seed, bf16) on 16 uint8 images, checks
    the output and that every kernel ran, and times reports/s at batch 16 and
@@ -32,7 +35,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    times reports/s at batch 16 and splits one batch into tower, prefill and
    decode;
 7. generates a batch of 2 VisionLanguage reports in float32 on the card and
-   on the CPU and requires equal beam sequences;
+   on the CPU and requires equal beam sequences; then serves the int8-cache
+   and fused-prefix routes in bf16 and requires their f32 sequences, and
+   those of the permute route (48 heads of 16, which the beam-cache kernel
+   is not built for: a plain cache reordered every step), equal card vs
+   CPU;
 8. trains the VisionLanguage model in bf16 at full width and depth through
    the port's ``Trainor`` (the config's ``trainor:`` block: batch 16, AdamW
    lr 5e-5, warmup ratio 0.1, grad_accu 4) on 8 synthetic microbatches:
@@ -447,13 +454,16 @@ def check_flash_attention(results):
     # running max in the kernel and against the final max in the plain version
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
-    cases = [("tower", t, t, False, False), ("prefill", t, t, True, False),
-             ("padded keys", t, t, False, True), ("Tq<Tk causal", 1000, t, True, False)]
+    # the last case is the permute route's prefill (the LM at 48 heads of 16)
+    cases = [("tower", t, t, False, False, heads, d), ("prefill", t, t, True, False, heads, d),
+             ("padded keys", t, t, False, True, heads, d),
+             ("Tq<Tk causal", 1000, t, True, False, heads, d),
+             ("prefill D 16", t, t, True, False, 48, 16)]
     worst, timing = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, tq, tk, causal, padded in cases:
-            q = torch.randn(b, tq, heads, d, generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn(b, tk, heads, d, generator=gen, device="cuda").to(dtype)
+        for name, tq, tk, causal, padded, hc, dc in cases:
+            q = torch.randn(b, tq, hc, dc, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, tk, hc, dc, generator=gen, device="cuda").to(dtype)
                     for _ in range(2))
             key_mask = None
             if padded:  # suffix padding of another length per item, one item fully masked
@@ -466,10 +476,10 @@ def check_flash_attention(results):
             err = (out.float() - ref.float()).abs().max().item()
             worst = max(worst, err)
             print(f"K4 flash_attention {str(dtype)[6:]:8s} {name:13s} B={b} Tq={tq} Tk={tk} "
-                  f"H={heads} D={d}: max|err|={err:.3e} (tol {tol[dtype]:.0e})")
+                  f"H={hc} D={dc}: max|err|={err:.3e} (tol {tol[dtype]:.0e})")
             if not err <= tol[dtype]:
                 fail(f"flash attention {dtype} {name}")
-            if dtype == torch.bfloat16 and name in ("tower", "prefill"):
+            if dtype == torch.bfloat16 and name in ("tower", "prefill", "prefill D 16"):
                 qh, kh, vh = sdpa_layout(q, k, v)
                 timing[name] = dict(
                     ms=cuda_ms(lambda: flash_attention(q, k, v, None, causal)),
@@ -480,15 +490,46 @@ def check_flash_attention(results):
                 del qh, kh, vh
             del q, k, v, out, ref
     for name, tm in timing.items():
-        flops = 4 * b * heads * t * t * d / (2 if name == "prefill" else 1)
+        flops = 4 * b * heads * t * t * d / (1 if name == "tower" else 2)  # H * D 768 in each
         print(f"K4 bf16 {name} T={t}: kernel {tm['ms']:.4f} ms ({flops / tm['ms'] / 1e9:.1f} "
-              f"TFLOP/s), plain {tm['plain_ms']:.4f} ms, scaled_dot_product_attention "
-              f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+              f"TFLOP/s, {tm['bound_ms'] / tm['ms'] * 100:.1f}% of the bound), plain "
+              f"{tm['plain_ms']:.4f} ms, scaled_dot_product_attention {tm['library_ms']:.4f} ms, "
+              f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+    flash_dense_crossover(b, heads, d, gen)
     results["flash_attention"] = dict(
         route="cuda", source="vilmedic_torch/csrc/flash_attention.cu",
         replaces="vilmedic_tpu/ops/flash_attention.py:287",
         max_abs_err=worst, **timing["tower"], path="vl", counter="flash_attention",
     )
+
+
+def flash_dense_crossover(b: int, heads: int, d: int, gen):
+    """K4 against the port's dense attention (``dot_product_attention`` with
+    the flash threshold out of reach) at T 256 to 2048, bf16, with and
+    without the causal mask: where flash starts to pay on this card (the
+    thresholds ``FLASH_MIN_LEN(_TRAIN)`` are the JAX package's)."""
+    import torch
+
+    import vilmedic_torch.ops.attention as attn
+
+    for causal in (False, True):
+        row = []
+        for t in (256, 512, 1024, 1370, 2048):
+            q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
+                       for _ in range(3))
+            flash = cuda_ms(lambda: attn.flash_attention(q, k, v, None, causal))
+            threshold = attn.FLASH_MIN_LEN
+            attn.FLASH_MIN_LEN = 1 << 30
+            try:
+                dense = cuda_ms(lambda: attn.dot_product_attention(q, k, v, dtype=q.dtype,
+                                                                   causal=causal))
+            finally:
+                attn.FLASH_MIN_LEN = threshold
+            row.append(f"T {t}: K4 {flash:.4f} / dense {dense:.4f} ms")
+            del q, k, v
+            torch.cuda.empty_cache()
+        print(f"K4 vs dense attention bf16 B={b} H={heads} D={d} "
+              f"{'causal' if causal else 'non-causal'}: " + "; ".join(row))
 
 
 def train_key_mask(b: int, t: int, device):
@@ -607,9 +648,12 @@ def check_flash_attention_backward(results):
               f"({3.5 * fwd_flops / bwd_k / 1e9:.1f} TFLOP/s), whole backward with delta "
               f"{tm['bwd']:.4f} ms, plain backward {tm['bwd_plain']:.4f} ms")
     tm = timing[torch.bfloat16]
-    print(f"K4+LSE bf16 bound {tm['bound_lse']['bound_ms']:.4f} ms, scaled_dot_product_attention "
-          f"forward {tm['lib_fwd']:.4f} ms; K5 bound dq {tm['bound_dq']['bound_ms']:.4f} + "
-          f"dk/dv/dbias {tm['bound_dkv']['bound_ms']:.4f} ms, autograd backward of "
+    bwd_bound = tm["bound_dq"]["bound_ms"] + tm["bound_dkv"]["bound_ms"]
+    print(f"K4+LSE bf16 bound {tm['bound_lse']['bound_ms']:.4f} ms "
+          f"({tm['bound_lse']['bound_ms'] / tm['lse'] * 100:.1f}% reached), "
+          f"scaled_dot_product_attention forward {tm['lib_fwd']:.4f} ms; K5 bound dq "
+          f"{tm['bound_dq']['bound_ms']:.4f} + dk/dv/dbias {tm['bound_dkv']['bound_ms']:.4f} ms "
+          f"({bwd_bound / (tm['dq'] + tm['dkv']) * 100:.1f}% reached), autograd backward of "
           f"scaled_dot_product_attention {tm['lib_bwd']:.4f} ms")
     common = dict(route="cuda", path="vl_train")
     results["flash_attention_with_lse"] = dict(
@@ -1626,6 +1670,45 @@ def phase_vl_routes_parity():
         fail(f"VL f32 beam sequences differ between the card and the CPU on routes {bad}")
     del model, generates
     torch.cuda.empty_cache()
+    vl_permute_parity(tower, images)
+
+
+def vl_permute_parity(tower, images):
+    """The permute route: the LM at full width and depth with 48 heads of 16,
+    a head dim the beam-cache kernel is not built for, so
+    ``make_vl_generate_fn`` keeps the plain generated cache and beam search
+    reorders it; the prefill's attention runs K4 at head dim 16. f32
+    sequences on the card must equal the CPU's, with no K1 launch."""
+    import torch
+
+    from vilmedic_torch.models.evaluation_nlg import kernel_route_ok
+
+    model, generate, sv = build_vl("float32", "cpu", ["model.decoder.num_attention_heads=48"],
+                                   tower=tower)
+    head_dim = model.dec_config.head_dim
+    t0 = time.perf_counter()
+    res_cpu = generate(images)
+    cpu_s = time.perf_counter() - t0
+    model.module.to("cuda")
+    reset_launches()
+    res = generate(images.to("cuda"))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    same = torch.equal(res.sequences.cpu(), res_cpu.sequences)
+    diff = (res.scores.cpu() - res_cpu.scores).abs().max().item()
+    print(f"VL permute route parity f32 batch 2 (head dim {head_dim}, "
+          f"{tower['num_hidden_layers']} tower + {model.dec_config.num_hidden_layers} LM layers, "
+          f"CPU half {cpu_s:.1f} s): sequences {'equal' if same else 'DIFFER'} ({res.steps} vs "
+          f"{res_cpu.steps} steps), max |score diff| {diff:.3e}; launches {launches}")
+    require({
+        "head dim 16 takes the permute route": not kernel_route_ok([model], sv["beam"]),
+        "sequences equal card vs CPU": same,
+        "no beam-cache kernel launch": launches["fused_beam_cache_attention"] == 0,
+        "flash = tower + LM layers": launches["flash_attention"]
+        == tower["num_hidden_layers"] + model.dec_config.num_hidden_layers,
+    }, "VL permute route")
+    del model, generate
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------ VisionLanguage training
@@ -1888,6 +1971,13 @@ def phase_vl_train_parity():
     torch.cuda.empty_cache()
 
 
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "vilmedic_torch", "csrc")):
         fail(f"no vilmedic_torch/csrc beside {__file__}: run it from a checkout")
@@ -1897,10 +1987,7 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 

@@ -208,11 +208,15 @@ def test_beam_cache_attention_stages_refuse(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("tq,tk,causal", [
     (50, 50, False), (64, 64, False), (130, 130, False),  # below, at, above a tile
     (64, 64, True), (130, 130, True), (70, 200, True),   # causal, Tq < Tk
     (33, 129, False),
+    # the bf16 kernel's 128-row CTAs and 128- (64- at D 128) key tiles: ragged
+    # on both axes, Tq < Tk causal, and rows that see no key (Tq > Tk causal:
+    # the first CTAs visit every key tile, as the finite mask averages V)
+    (127, 129, False), (255, 191, True), (129, 257, True), (100, 300, True), (300, 100, True),
 ])
 def test_flash_attention_kernel(cuda, dtype, d, tq, tk, causal):
     b, heads = 2, 3
@@ -270,9 +274,11 @@ def _flash_grads_match(q, k, v, key_mask, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("tq,tk,causal", [
     (50, 50, False), (130, 130, True), (70, 200, True), (200, 70, False), (129, 129, False),
+    # ragged 128-row CTAs and 64-row tiles, Tq < Tk causal, rows that see no key
+    (127, 129, True), (257, 191, False), (100, 300, True), (300, 100, True),
 ])
 def test_flash_backward_kernel(cuda, dtype, d, tq, tk, causal):
     b, heads = 2, 3
@@ -283,6 +289,37 @@ def test_flash_backward_kernel(cuda, dtype, d, tq, tk, causal):
     key_mask[1, tk - tk // 3:] = False
     for km in (None, key_mask.to(cuda)):
         _flash_grads_match(q, k, v, km, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_single_item_and_head(cuda, dtype, d, causal):
+    """B 1, H 1: the tensor maps' outer dims at their smallest; forward, LSE
+    and backward against the plain versions."""
+    gen = torch.Generator().manual_seed(d + causal)
+    q, k, v = (torch.randn(1, 150, 1, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    key_mask = torch.ones(1, 150, dtype=torch.bool, device=cuda)
+    key_mask[0, 140:] = False
+    out = flash_attention(q, k, v, None, causal)
+    ref = flash_attention_reference(q, k, v, None, causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    _flash_grads_match(q, k, v, key_mask, causal)
+
+
+def test_flash_backward_is_deterministic(cuda):
+    """K5 writes every output element from one block in a fixed order (no
+    atomics): two runs agree bit for bit."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, dout = (torch.randn(2, 300, 3, 64, generator=gen).to(cuda, torch.bfloat16)
+                     for _ in range(4))
+    key_mask = torch.ones(2, 300, dtype=torch.bool, device=cuda)
+    key_mask[1, 250:] = False
+    out, lse = flash_attention_with_lse(q, k, v, key_mask, True)
+    first = flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)
+    second = flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -513,6 +550,37 @@ def test_tiny_vl_slice_card_equals_cpu(cuda):
         assert model.module.num_image_tokens == 1025  # >= FLASH_MIN_LEN: flash
         res = make_vl_generate_fn(model, 4, 12, 0, 2, 1)(images.to(device))
         results[str(device)] = (res.sequences.cpu(), res.scores.cpu())
+    (s_cpu, sc_cpu), (s_gpu, sc_gpu) = results["cpu"], results["cuda"]
+    assert torch.equal(s_cpu, s_gpu)
+    torch.testing.assert_close(sc_gpu, sc_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("prefix_kv_dtype", [None, "int8"])
+def test_tiny_vl_permute_route_card_equals_cpu(cuda, prefix_kv_dtype):
+    """A small VisionLanguage whose decoder has heads of 16 (which the
+    beam-cache kernel is not built for) at a flash-length prefix: the
+    permute route, with no beam-cache launch, its prefill through K4 at head
+    dim 16 (one launch per tower and LM layer); f32 beam sequences on the
+    card equal the CPU's."""
+    tower = dict(model_type="dinov2", hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, patch_size=4, image_size=128)
+    decoder = dict(proto=None, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                   intermediate_size=128, max_position_embeddings=1100, layer_norm_eps=1e-5)
+    images = torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(8))
+    results = {}
+    for device in ("cpu", cuda):
+        model = VisionLanguage(decoder=dict(decoder), vision={"vision_model_name": "tiny",
+                                                              "image_size": 128},
+                               vision_hf_config=tower, vocab_size=4500, bos_token_id=0,
+                               eos_token_id=2, pad_token_id=1, device=device, seed=7)
+        assert model.dec_config.head_dim == 16 and model.module.num_image_tokens == 1025
+        start = fused_beam_cache_attention.launches, flash_attention.launches
+        res = make_vl_generate_fn(model, 4, 12, 0, 2, 1,
+                                  prefix_kv_dtype=prefix_kv_dtype)(images.to(device))
+        results[str(device)] = (res.sequences.cpu(), res.scores.cpu())
+        flash = 4 if device == cuda else 0  # 2 tower + 2 LM layers
+        assert (fused_beam_cache_attention.launches, flash_attention.launches) == (
+            start[0], start[1] + flash)
     (s_cpu, sc_cpu), (s_gpu, sc_gpu) = results["cpu"], results["cuda"]
     assert torch.equal(s_cpu, s_gpu)
     torch.testing.assert_close(sc_gpu, sc_cpu, rtol=1e-4, atol=1e-4)

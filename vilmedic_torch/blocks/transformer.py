@@ -17,7 +17,9 @@ module (``mode=``):
   runs over all T positions under the causal decode bias.
 
 ``MultiHeadAttention.prefix_decode`` is the VisionLanguage prefix LM's decode
-step: the beam-cache kernel's segment merged with a beam-shared prefix.
+step: the beam-cache kernel's segment merged with a beam-shared prefix, or,
+over a plain cache that beam search reorders, one softmax over the prefix
+and the generated slots.
 
 Numerics follow the Flax modules: parameters are f32 (the optimizer's master
 weights), and every :class:`Linear` and :class:`Embedding` casts its weight
@@ -40,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import dot_product_attention, make_attention_bias
+from ..ops.attention import NEG_INF, dot_product_attention, make_attention_bias
 from ..ops.beam_cache_attention import (
     KernelPrefix, fused_beam_cache_attention, quantize_cache_rows,
 )
@@ -289,16 +291,19 @@ class MultiHeadAttention(nn.Module):
 
     def prefix_decode(self, x, prefix_kv, cache, decode_index: int, ancestry):
         """One-token decode over a beam-shared prefix plus the per-beam
-        generated cache, in one joint softmax (the kernel-cache routes of the
-        JAX ``prefix_decode``).
+        generated cache, in one joint softmax (the JAX ``prefix_decode``).
 
-        ``x`` carries N = B * fold beam-major rows; ``cache`` is ``(k_tnf,
-        v_tnf, kv_sc)``, the kernel self cache (updated in place) and its
-        int8 scales or None. ``prefix_kv`` is one of:
+        ``x`` carries N = B * fold beam-major rows. ``cache`` is either
+        ``(k_tnf, v_tnf, kv_sc)``, the kernel self cache (updated in place)
+        and its int8 scales or None, or ``(k, v)``, the plain (N, T, H, D)
+        self cache of the permute route (``ancestry`` unused): the step's K/V
+        are written at ``decode_index`` and one softmax runs over the prefix
+        and the generated slots up to it (:meth:`_prefix_decode_plain`).
+        ``prefix_kv`` is one of:
 
-        - a :class:`~vilmedic_torch.ops.beam_cache_attention.KernelPrefix`:
-          one beam-cache kernel call streams the prefix, the generated cache
-          and the current step (stage d), no merge;
+        - a :class:`~vilmedic_torch.ops.beam_cache_attention.KernelPrefix`
+          (kernel cache only): one beam-cache kernel call streams the prefix,
+          the generated cache and the current step (stage d), no merge;
         - ``(pk, pv)`` from :func:`prefix_operands`, (B, H, P, D) f32 at
           batch B, or its int8 form ``(pk, k_sc, pv, v_sc)``: the generated
           segment runs the kernel with its softmax stats, the prefix segment
@@ -315,6 +320,8 @@ class MultiHeadAttention(nn.Module):
         q = self._split(self.q(x))  # (N, 1, H, D)
         k_new = self._split(self.k(x))
         v_new = self._split(self.v(x))
+        if len(cache) == 2:
+            return self._prefix_decode_plain(q, k_new, v_new, prefix_kv, cache, decode_index)
         n = q.shape[0]
         shape = (n, heads, d)
         kc, vc, kv_sc = cache
@@ -324,12 +331,7 @@ class MultiHeadAttention(nn.Module):
             out = fused_beam_cache_attention(*args, prefix=prefix_kv)
             return self.o(out.to(cfg.dtype).reshape(n, 1, cfg.hidden_size))
         out_g, m_g, l_g = fused_beam_cache_attention(*args, return_stats=True, kv_scales=kv_sc)
-        if len(prefix_kv) == 4:
-            pk, k_sc, pv, v_sc = prefix_kv
-            mm_dtype = torch.bfloat16
-        else:
-            (pk, pv), k_sc, v_sc = prefix_kv, None, None
-            mm_dtype = cfg.dtype
+        pk, k_sc, pv, v_sc, mm_dtype = self._prefix_parts(prefix_kv)
         b = pk.shape[0]
         fold = n // b
         # mm_dtype operands (the f32-scaled query rounded to it) with f32
@@ -351,6 +353,50 @@ class MultiHeadAttention(nn.Module):
         cp = torch.exp(mp - big)
         out = (cg * out_g + cp * accp) / (cg + cp * lp)
         return self.o(out.transpose(1, 2).to(cfg.dtype).reshape(n, 1, cfg.hidden_size))
+
+    def _prefix_parts(self, prefix_kv):
+        """``(pk, k_sc, pv, v_sc, matmul dtype)`` of a :func:`prefix_operands`
+        bundle; the scales are None for a compute-dtype prefix."""
+        if len(prefix_kv) == 4:
+            pk, k_sc, pv, v_sc = prefix_kv
+            return pk, k_sc, pv, v_sc, torch.bfloat16
+        pk, pv = prefix_kv
+        return pk, None, pv, None, self.config.dtype
+
+    def _prefix_decode_plain(self, q, k_new, v_new, prefix_kv, cache, decode_index: int):
+        """The permute route of :meth:`prefix_decode` (the JAX package's
+        non-kernel branch): write the step's K/V into the plain (N, T, H, D)
+        cache at ``decode_index``; prefix scores fold the beams into the
+        query axis, generated-slot scores stay per row (slots past the index
+        at -1e9), and one f32 softmax runs over the (P + T) keys. The query
+        is scaled in the compute dtype; the prefix products keep the stored
+        prefix's dtype with the int8 scales factored out; the generated
+        weights round to the compute dtype before their product."""
+        cfg = self.config
+        heads, d = cfg.num_attention_heads, cfg.head_dim
+        kc, vc = cache
+        kc[:, decode_index] = k_new[:, 0].to(kc.dtype)
+        vc[:, decode_index] = v_new[:, 0].to(vc.dtype)
+        pk, k_sc, pv, v_sc, mm_dtype = self._prefix_parts(prefix_kv)
+        n, t = kc.shape[:2]
+        b, p = pk.shape[0], pk.shape[2]
+        fold = n // b
+        qs = (q[:, 0] * (d ** -0.5)).float()  # (N, H, D)
+        qf = qs.to(mm_dtype).float().view(b, fold, heads, d).transpose(1, 2)
+        sp = qf @ pk.transpose(-1, -2)  # (B, H, fold, P)
+        if k_sc is not None:
+            sp = sp * k_sc
+        sg = torch.einsum("nhd,nthd->nht", qs, kc.float())
+        sg = torch.where(torch.arange(t, device=sg.device) <= decode_index, sg, NEG_INF)
+        sg = sg.view(b, fold, heads, t).transpose(1, 2)  # (B, H, fold, T)
+        s = torch.cat([sp, sg], dim=-1)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        w = e / e.sum(dim=-1, keepdim=True)
+        wp = w[..., :p] if v_sc is None else w[..., :p] * v_sc
+        out = (wp.to(mm_dtype).float() @ pv).to(cfg.dtype).transpose(1, 2)  # (B, fold, H, D)
+        wg = w[..., p:].to(cfg.dtype).transpose(1, 2).reshape(n, heads, t)
+        out = out.reshape(n, heads, d) + torch.einsum("nht,nthd->nhd", wg, vc)
+        return self.o(out.reshape(n, 1, cfg.hidden_size))
 
 
 def prefix_operands(prefix_kv):

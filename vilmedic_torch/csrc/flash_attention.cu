@@ -14,246 +14,291 @@
 //   lse[b, h, r] = m + log(max(sum_c exp(s[c] - m), 1e-30))   (f32, if asked)
 // with the running max m starting at -1e9. q, k, v are read in place from the
 // (B, T, H*D) layout through the head stride; out is written in q's dtype.
+// A causal row that sees no key (Tq > Tk) averages every V, as the finite
+// mask gives: a block holding such a row visits every key tile.
 //
 // What bounds it on the H100: at the VisionLanguage shapes (B 16, T 1370,
 // H 12, D 64) one call is 4 * B * H * Tq * Tk * D = 92 GFLOP against 54 MB
 // of q, k, v and out, so the tensor cores (bf16) or the FMA units (f32) bound
 // it, not memory: K and V tiles are re-read from L2 by every query tile.
 //
-// Design, kept simple first (no TMA, no wgmma, no warp specialisation):
-//   - bf16: one block of 4 warps owns a (b, h, 64-query) tile; each warp owns
-//     16 query rows whose Q fragments stay in registers. The block loops over
-//     64-key tiles of K and V staged in shared memory. S = Q K^T and O += P V
-//     are mma.sync m16n8k16 bf16 products with f32 accumulation; the S
-//     accumulators are reused in registers as the A operand of P V (rounded
-//     to bf16 there, as the TPU rounds p to V's dtype), so S never leaves the
-//     registers. Online softmax in f32: each quad of lanes shares a row, its
-//     max is a two-step shuffle, its denominator a per-lane partial summed at
-//     the end.
-//   - f32: CUDA-core FMA, no TF32 (its 10-bit mantissa would break f32
-//     parity). One block of 256 threads owns 64 query rows, 4 threads per
-//     row, each holding a quarter of the head dimension (strided, so the
-//     four read neighbouring shared-memory words); the score is a quad
-//     shuffle sum, and the key tiles are 32 wide.
-//   - Causal: key tiles wholly above the diagonal of the block's last row are
-//     never loaded; the others mask per element.
-//   - The ragged last key tile is masked in the kernel (keys >= Tk get
-//     exp(-inf) = 0 and zero V), and query rows >= Tq are computed on zero Q
-//     and not stored; the wrapper pads nothing.
+// Design (bf16), warp-specialised for Hopper (helpers in hopper_common.cuh):
+//   - A CTA of 384 threads owns a (b, h, 128-query) tile: warpgroup 0 is the
+//     producer (its registers cut to 40 by setmaxnreg), warpgroups 1 and 2
+//     consume 64 query rows each (raised to 232 registers).
+//   - One producer thread loads Q once and then K and V tiles of BK keys
+//     (128, or 64 at D 128) into a 2-stage ring in dynamic shared memory by
+//     TMA (cp.async.bulk.tensor over a (B, T, H, D) tensor map, 128-byte
+//     swizzle; 64-byte at D 32, 32-byte at D 16), completing on a full
+//     mbarrier per stage;
+//     its warp writes the tile's key bias (times log2 e; -inf past Tk) beside
+//     it. The consumers release a stage on its empty mbarrier. The copies of
+//     the next tile run while the tensor cores work on this one. The tensor
+//     maps are encoded on the host for each call (cuTensorMapEncodeTiled,
+//     found through cudaGetDriverEntryPoint) and passed as
+//     __grid_constant__.
+//   - S = Q K^T is one wgmma.mma_async m64nBKk16 per 16 columns of D, both
+//     operands read from shared memory through swizzled descriptors (K is
+//     K-major, D contiguous); O += P V is the register-A wgmma m64nDk16 per 16
+//     keys, P packed from the S accumulator as bf16 (the TPU rounds p to V's
+//     dtype) and V read MN-major through the descriptor. Both accumulate in
+//     f32 registers; S never leaves them.
+//   - Online softmax in the log2 domain: scale * log2(e) is folded into one
+//     FMA per score (the bias was scaled when staged), exponentials are
+//     ex2.approx, the mask value and running-max floor are -1e9 * log2(e),
+//     and the LSE goes back to natural log in the epilogue. The row max and
+//     sum follow the accumulator layout (a quad of lanes per row).
+//   - Only tiles that cross the causal diagonal take the masked body; the
+//     ragged last tile needs none (its keys carry a -inf bias). Causal tiles
+//     wholly above the diagonal of the CTA's last row are never loaded; a
+//     warpgroup skips (but releases) those above its own rows.
+//   - Epilogue: O / max(l, 1e-30) in bf16, staged through the warpgroup's
+//     own Q rows in shared memory and written with 16-byte stores (rows past
+//     Tq are not written); the f32 LSE, when asked, from one lane per row.
+//   - f32 (parity checks only): CUDA-core FMA, no TF32 (its 10-bit mantissa
+//     would break f32 parity). One block of 256 threads owns 64 query rows,
+//     4 threads per row, each holding a quarter of the head dimension
+//     (strided, so the four read neighbouring shared-memory words); the
+//     score is a quad shuffle sum, and the key tiles are 32 wide. The
+//     ragged last key tile is masked in the kernel (keys >= Tk get exp(-inf)
+//     = 0 and zero V), and query rows >= Tq are computed on zero Q and not
+//     stored; the wrapper pads nothing.
+//
+// What bounds the bf16 kernel now (PERF.md, K4 row): not memory. Each
+// consumer warpgroup runs S, the softmax and P V of a tile in series, and
+// the softmax's work grows with the scores (B * H * Tq * Tk), not with the
+// products' operations: PERF.md splits the measured time between the two by
+// timing one H * D split into heads of 16 to 128 (time_port.py). No hardware
+// counters could be read where it was measured (ncu's counter library does
+// not load there). Pipelining P V under the next tile's softmax (with a
+// 3-stage ring), the 3-stage ring alone, and turn-taking between the two
+// warpgroups were each timed against this design in one call and changed
+// nothing beyond the spread, so none is kept.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr float kMaskValue = -1e9f;  // the TPU kernel's finite mask value
-constexpr int BQ = 64;               // query rows per block
+constexpr int BQ = 64;               // query rows per f32 block
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Number of key tiles a block visits: all of them, or under the causal mask
-// those up to the one holding the last key its last real row may see.
-__device__ __forceinline__ int key_tiles(int q0, int Tq, int Tk, int bk, int causal) {
+// Number of key tiles a block of query rows [q0, q0 + rows) visits: all of
+// them, or under the causal mask those up to the one holding the last key its
+// last real row may see. A block holding a row that sees no key at all
+// (Tq > Tk) visits every tile: under the finite mask such a row averages V.
+__device__ __forceinline__ int key_tiles(int q0, int rows, int Tq, int Tk, int bk, int causal) {
   int n = (Tk + bk - 1) / bk;
-  if (causal) {
-    const int last_key = min(q0 + BQ, Tq) - 1 + (Tk - Tq);
-    n = last_key < 0 ? 0 : min(n, last_key / bk + 1);
-  }
+  const int off = Tk - Tq;
+  if (causal && q0 + off >= 0) n = min(n, (min(q0 + rows, Tq) - 1 + off) / bk + 1);
   return n;
 }
 
 // ------------------------------------------------------------------ bf16 path
+
+constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kRows = 128;     // query rows per CTA, 64 per consumer warpgroup
+constexpr int kStages = 2;     // K/V ring depth
+constexpr float kMaskL2 = kMaskValue * hopper::kLog2e;  // the finite mask, log2 domain
+
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
+struct FwdTiles {
+  static constexpr int BK = D == 128 ? 64 : 128;  // keys per tile
+  static constexpr int Q = 0;                     // shared-memory offsets (bytes)
+  static constexpr int K = Q + kRows * D * 2;
+  static constexpr int V = K + kStages * BK * D * 2;
+  static constexpr int BIAS = V + kStages * BK * D * 2;
+  static constexpr int BAR = BIAS + kStages * BK * 4;  // q_full, full[kStages], empty[kStages]
+  static constexpr int SMEM = BAR + (1 + 2 * kStages) * 8 + 1024;  // + alignment slack
+};
+
+// one key tile's scores -> probabilities, in place (log2 domain), with the
+// running max and this lane's part of the row sums updated and the factors
+// (alpha) that rescale the output accumulator returned
+template <bool MASK, int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], const float* bs, int k0, int r0,
+                                             int r1, int off, int Tk, int t4, float sl2,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float& alpha0, float& alpha1) {
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float2 bv = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float b = e ? bv.y : bv.x;
+      float x0 = fmaf(sc[4 * j + e], sl2, b);
+      float x1 = fmaf(sc[4 * j + 2 + e], sl2, b);
+      if (MASK) {
+        const int c = k0 + 8 * j + 2 * t4 + e;
+        if (c < Tk) {
+          if (c > r0 + off) x0 = kMaskL2;
+          if (c > r1 + off) x1 = kMaskL2;
+        }
+      }
+      sc[4 * j + e] = x0;
+      sc[4 * j + 2 + e] = x1;
+      mx0 = fmaxf(mx0, x0);
+      mx1 = fmaxf(mx1, x1);
+    }
+  }
+  mx0 = hopper::quad_max(mx0);
+  mx1 = hopper::quad_max(mx1);
+  alpha0 = hopper::fast_exp2(m0 - mx0);
+  alpha1 = hopper::fast_exp2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * j + e] = hopper::fast_exp2(sc[4 * j + e] - mx0);
+      sc[4 * j + 2 + e] = hopper::fast_exp2(sc[4 * j + 2 + e] - mx1);
+      ps0 += sc[4 * j + e];
+      ps1 += sc[4 * j + 2 + e];
+    }
+  }
+  l0 = l0 * alpha0 + ps0;
+  l1 = l1 * alpha1 + ps1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
                           const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int Tq, int Tk, int H, int causal,
-                          float scale) {
-  constexpr int BK = 64;
-  constexpr int LD = D + 8;  // shared row stride (bf16): 16-byte rows, no bank conflicts
-  constexpr int KC = D / 16; // k-steps of Q K^T
-  constexpr int DN = D / 8;  // 8-wide output column tiles
-  constexpr int NT = BK / 8; // 8-key score tiles
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LD];
-  __shared__ float bs[BK];
-
-  const int q0 = blockIdx.x * BQ;
+                          float scale_log2) {
+  using L = FwdTiles<D>;
+  constexpr int BK = L::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  const int q0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;   // fragment row group
-  const int t4 = lane % 4;  // position in the quad
-  const long long HD = (long long)H * D;
   const int off = Tk - Tq;
-  const __nv_bfloat16* qb = q + (long long)b * Tq * HD + (long long)h * D;
-  const __nv_bfloat16* kb = k + (long long)b * Tk * HD + (long long)h * D;
-  const __nv_bfloat16* vb = v + (long long)b * Tk * HD + (long long)h * D;
-  const int r0 = q0 + warp * 16 + g;  // this lane's two rows
+  const int n_tiles = key_tiles(q0, kRows, Tq, Tk, BK, causal);
+  float* bias_s = reinterpret_cast<float*>(smem + L::BIAS);
+  hopper::init_ring<kStages>(bars, 2 * 128);
+
+  if (threadIdx.x < 128) {  // ---- producer warpgroup: Q once, then K/V tiles and key bias
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x < 32)
+      hopper::ring_producer<D, kStages, kRows, BK>(
+          smem, bars, &tm_q, L::Q, nullptr, 0, &tm_k, L::K, &tm_v, L::V, q0, 0, n_tiles, h, b,
+          [&](int s, int k0, int lane) {
+            hopper::key_bias_log2(bias_s + s * BK, bias, b, Tk, k0, BK, lane);
+          });
+    return;
+  }
+
+  // ---- consumer warpgroups
+  hopper::setmaxnreg_inc<232>();
+  const int cw = threadIdx.x / 128 - 1;  // 0 or 1
+  const int tw = threadIdx.x % 128;
+  const int warp = tw / 32;
+  const int lane = tw % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int wq0 = q0 + cw * 64;  // this warpgroup's first row
+  const int r0 = wq0 + warp * 16 + g;
   const int r1 = r0 + 8;
+  const int w_last = min(wq0 + 63, Tq - 1);
+  const bool nokey = causal && wq0 + off < 0;  // holds a row that sees no key
+  const uint32_t qs = hopper::smem_u32(smem + L::Q);
 
-  uint32_t qa[KC][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    qa[kc][0] = r0 < Tq ? ld_u32(qb + r0 * HD + c) : 0u;
-    qa[kc][1] = r1 < Tq ? ld_u32(qb + r1 * HD + c) : 0u;
-    qa[kc][2] = r0 < Tq ? ld_u32(qb + r0 * HD + c + 8) : 0u;
-    qa[kc][3] = r1 < Tq ? ld_u32(qb + r1 * HD + c + 8) : 0u;
-  }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = kMaskL2, m1 = kMaskL2;  // running row maxima (log2 domain)
+  float l0 = 0.f, l1 = 0.f;          // this lane's part of the denominators
 
-  float acc[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  float m0 = kMaskValue, m1 = kMaskValue;  // running row maxima
-  float l0 = 0.f, l1 = 0.f;                // this lane's part of the denominators
-
-  const int n_tiles = key_tiles(q0, Tq, Tk, BK, causal);
+  hopper::mbar_wait(&bars[0], 0);
   for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
     const int k0 = it * BK;
-    for (int i = tid; i < BK * D / 8; i += 128) {
-      const int r = i / (D / 8);
-      const int c = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < Tk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * HD + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * HD + c);
+    hopper::mbar_wait(&bars[1 + s], (it / kStages) & 1);
+    if (!causal || nokey || k0 <= w_last + off) {
+      const uint32_t ks = hopper::smem_u32(smem + L::K + s * BK * D * 2);
+      const uint32_t vs = hopper::smem_u32(smem + L::V + s * BK * D * 2);
+      float sc[BK / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BK>(sc, hopper::desc_k<D>(qs, kRows, cw * 64, kk),
+                             hopper::desc_k<D>(ks, BK, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_operand(sc);
+      float alpha0, alpha1;
+      if (causal && (nokey || k0 + BK - 1 > wq0 + off))
+        softmax_tile<true, BK>(sc, bias_s + s * BK, k0, r0, r1, off, Tk, t4, scale_log2, m0, m1,
+                               l0, l1, alpha0, alpha1);
+      else
+        softmax_tile<false, BK>(sc, bias_s + s * BK, k0, r0, r1, off, Tk, t4, scale_log2, m0, m1,
+                                l0, l1, alpha0, alpha1);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 0] *= alpha0;
+        acc[4 * j + 1] *= alpha0;
+        acc[4 * j + 2] *= alpha1;
+        acc[4 * j + 3] *= alpha1;
       }
-      *reinterpret_cast<uint4*>(ks + r * LD + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * LD + c) = vv;
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) hopper::pack_a(pa[kc], sc, kc);
+      hopper::fence_operand(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        hopper::wgmma_rs<D>(acc, pa[kc], hopper::desc_mn<D>(vs, BK, kc), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_operand(acc);
     }
-    if (tid < BK)
-      bs[tid] = (bias != nullptr && k0 + tid < Tk) ? bias[(long long)b * Tk + k0 + tid] : 0.f;
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * LD + kc * 16 + t4 * 2;
-        mma_bf16(s[j], qa[kc], ld_u32(kr), ld_u32(kr + 8));
-      }
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kk = j * 8 + t4 * 2 + e;
-        const int c = k0 + kk;
-        float x0 = s[j][e] * scale + bs[kk];
-        float x1 = s[j][2 + e] * scale + bs[kk];
-        if (causal) {
-          if (c > r0 + off) x0 = kMaskValue;
-          if (c > r1 + off) x1 = kMaskValue;
-        }
-        if (c >= Tk) x0 = x1 = -INFINITY;
-        s[j][e] = x0;
-        s[j][2 + e] = x1;
-        mx0 = fmaxf(mx0, x0);
-        mx1 = fmaxf(mx1, x1);
-      }
-    }
-#pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
-    }
-    const float alpha0 = expf(m0 - mx0);
-    const float alpha1 = expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = expf(s[j][e] - m0);
-        s[j][2 + e] = expf(s[j][2 + e] - m1);
-        ps0 += s[j][e];
-        ps1 += s[j][2 + e];
-      }
-    }
-    l0 = l0 * alpha0 + ps0;
-    l1 = l1 * alpha1 + ps1;
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      acc[dn][0] *= alpha0;
-      acc[dn][1] *= alpha0;
-      acc[dn][2] *= alpha1;
-      acc[dn][3] *= alpha1;
-    }
-
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      // two 8-key score tiles form the A operand of one 16-key step
-      const uint32_t pa[4] = {pack_f32(s[2 * kc][0], s[2 * kc][1]),
-                              pack_f32(s[2 * kc][2], s[2 * kc][3]),
-                              pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        const __nv_bfloat16* vr = vs + (kc * 16 + t4 * 2) * LD + dn * 8 + g;
-        mma_bf16(acc[dn], pa, pack_bf16(vr[0], vr[LD]), pack_bf16(vr[8 * LD], vr[9 * LD]));
-      }
-    }
-    __syncthreads();
+    hopper::mbar_arrive(&bars[1 + kStages + s]);  // release the stage
   }
 
-#pragma unroll
-  for (int o2 = 1; o2 < 4; o2 <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
-  }
+  // epilogue: normalise; the bf16 rows leave through this warpgroup's Q rows
+  l0 = hopper::quad_sum(l0);
+  l1 = hopper::quad_sum(l1);
   const float d0 = fmaxf(l0, 1e-30f);
   const float d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = o + (long long)b * Tq * HD + (long long)h * D;
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
-    const int c = dn * 8 + t4 * 2;
-    if (r0 < Tq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * HD + c) = pack_f32(acc[dn][0] / d0, acc[dn][1] / d0);
-    if (r1 < Tq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * HD + c) = pack_f32(acc[dn][2] / d1, acc[dn][3] / d1);
-  }
+  hopper::store_rows<D>(acc, 1.f / d0, 1.f / d1, smem + L::Q, kRows, cw * 64,
+                        o + (((long long)b * Tq + wq0) * H + h) * D, (long long)H * D, Tq - wq0,
+                        1 + cw);
   if (lse != nullptr && t4 == 0) {
     float* lb = lse + ((long long)b * H + h) * Tq;
-    if (r0 < Tq) lb[r0] = m0 + logf(d0);
-    if (r1 < Tq) lb[r1] = m1 + logf(d1);
+    if (r0 < Tq) lb[r0] = m0 * hopper::kLn2 + logf(d0);
+    if (r1 < Tq) lb[r1] = m1 * hopper::kLn2 + logf(d1);
   }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
+                void* lse, int B, int Tq, int Tk, int H, int causal, float scale,
+                cudaStream_t stream) {
+  using L = FwdTiles<D>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  int st = hopper::make_tensor_map<D>(&tm_q, q, B, Tq, H, kRows);
+  if (st == 0) st = hopper::make_tensor_map<D>(&tm_k, k, B, Tk, H, L::BK);
+  if (st == 0) st = hopper::make_tensor_map<D>(&tm_v, v, B, Tk, H, L::BK);
+  if (st != 0) return st;
+  static bool smem_set[hopper::kMaxDevices] = {};
+  st = hopper::allow_dynamic_smem((const void*)flash_fwd_bf16_kernel<D>, L::SMEM, smem_set);
+  if (st != 0) return st;
+  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, L::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, (const float*)bias, (__nv_bfloat16*)o, (float*)lse, Tq, Tk, H, causal,
+      scale * hopper::kLog2e);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------- f32 path
@@ -289,7 +334,7 @@ __global__ void __launch_bounds__(256)
   }
   float m = kMaskValue, l = 0.f;
 
-  const int n_tiles = key_tiles(q0, Tq, Tk, BK, causal);
+  const int n_tiles = key_tiles(q0, BQ, Tq, Tk, BK, causal);
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BK;
     for (int i = tid; i < BK * D / 4; i += 256) {
@@ -351,26 +396,18 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
-           int B, int Tq, int Tk, int H, int D, int causal, float scale, void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
+int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
+               int B, int Tq, int Tk, int H, int D, int causal, float scale,
+               cudaStream_t stream) {
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool bf16 = sizeof(T) == 2;
-#define VT_FLASH_CASE(DD)                                                              \
-  case DD:                                                                             \
-    if (bf16)                                                                          \
-      flash_fwd_bf16_kernel<DD><<<grid, 128, 0, s>>>(                                  \
-          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,  \
-          (const float*)bias, (__nv_bfloat16*)o, (float*)lse, Tq, Tk, H, causal, scale); \
-    else                                                                               \
-      flash_fwd_f32_kernel<DD><<<grid, 256, 0, s>>>(                                   \
-          (const float*)q, (const float*)k, (const float*)v, (const float*)bias,       \
-          (float*)o, (float*)lse, Tq, Tk, H, causal, scale);                           \
+#define VT_FLASH_CASE(DD)                                                                  \
+  case DD:                                                                                 \
+    flash_fwd_f32_kernel<DD><<<grid, 256, 0, stream>>>(                                    \
+        (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)o, \
+        (float*)lse, Tq, Tk, H, causal, scale);                                            \
     break;
   switch (D) {
+    VT_FLASH_CASE(16)
     VT_FLASH_CASE(32)
     VT_FLASH_CASE(64)
     VT_FLASH_CASE(128)
@@ -381,6 +418,10 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
   return (int)cudaGetLastError();
 }
 
+bool bad_shape(int B, int Tq, int Tk, int H) {
+  return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535;
+}
+
 }  // namespace
 
 // q (B, Tq, H*D), k/v (B, Tk, H*D), bias (B, Tk) f32 additive or null, o like q,
@@ -389,12 +430,26 @@ extern "C" int vt_flash_attention_f32(const void* q, const void* k, const void* 
                                       const void* bias, void* o, void* lse, int B, int Tq,
                                       int Tk, int H, int D, int causal, float scale,
                                       void* stream) {
-  return launch<float>(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale, stream);
+  if (bad_shape(B, Tq, Tk, H)) return (int)cudaErrorInvalidValue;
+  return launch_f32(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale, (cudaStream_t)stream);
 }
 
 extern "C" int vt_flash_attention_bf16(const void* q, const void* k, const void* v,
                                        const void* bias, void* o, void* lse, int B, int Tq,
                                        int Tk, int H, int D, int causal, float scale,
                                        void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale, stream);
+  if (bad_shape(B, Tq, Tk, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 16:
+      return launch_bf16<16>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
+    case 32:
+      return launch_bf16<32>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
+    case 64:
+      return launch_bf16<64>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
+    case 128:
+      return launch_bf16<128>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

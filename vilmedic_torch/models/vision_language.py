@@ -13,6 +13,10 @@ with ``fused_prefix`` the kernel's stage (d) streaming the prefix itself.
 The eval keys ``prefix_kv_dtype: int8`` and ``gen_kv_dtype: int8`` store the
 prefix K/V as int8 with per-(token, head) scales and the generated cache as
 int8 with per-lane scales derived from the prefix (the kernel's stage (c)).
+A decoder whose head dim the beam-cache kernel is not built for takes the
+permute route instead, as the JAX package falls back when its kernel cannot
+run: a plain (N, T, H, D) generated cache that beam search reorders every
+step, attended in plain PyTorch (the int8 prefix still applies there).
 
 Training (``forward(..., train=True)``, :meth:`VisionLanguage.apply_train`)
 runs the frozen tower under ``torch.no_grad()`` (the JAX ``stop_gradient``),
@@ -22,10 +26,10 @@ forward with LSE and their backward (``ops/flash_attention.py``).
 
 Ported: the teacher-forced forward (logits and loss, with or without
 gradient), the prefix K/V prefill (compute dtype or int8), the kernel-cache
-decode step with the blocked LM head, the int8 generated cache
-(:func:`derive_gen_kv_scales`), the fused prefix (:func:`maybe_fuse_prefix`)
-and :func:`make_vl_generate_fn`, the single-device counterpart of
-``vl_evaluation``'s ``generate``. Not ported: greedy decoding, sharded
+and plain-cache decode steps with the blocked LM head, the int8 generated
+cache (:func:`derive_gen_kv_scales`), the fused prefix
+(:func:`maybe_fuse_prefix`) and :func:`make_vl_generate_fn`, the
+single-device counterpart of ``vl_evaluation``'s ``generate``. Not ported: greedy decoding, sharded
 evaluation, the tokenizer half of ``vl_evaluation`` and gradient
 checkpointing.
 """
@@ -51,7 +55,7 @@ from ..ops.attention import make_attention_bias
 from ..ops.beam_cache_attention import KernelPrefix, pack_kernel_prefix, prefix_fusable
 from ..registry import register
 from .base import resolve_block, resolve_device
-from .evaluation_nlg import BLOCKED_MIN_VOCAB
+from .evaluation_nlg import BLOCKED_MIN_VOCAB, kernel_route_ok
 
 
 class CausalLayer(nn.Module):
@@ -159,15 +163,19 @@ class VisionLanguageModule(nn.Module):
     def decode_step(self, tokens, cache, prefix_kv, index: int, prefix_len: int,
                     blocked_head, ancestry):
         """One token at absolute position ``prefix_len + index`` for every
-        beam row; ``cache`` is the kernel-layout generated cache (updated in
-        place; int8 with a ``self_kv_sc`` leaf for stage (c)), ``prefix_kv``
-        the per-layer ``prefix_operands`` or ``KernelPrefix`` bundles,
-        ``blocked_head`` the padded head ``(weight (Vp, H) f32, bias (Vp,)
-        f32)``. Returns (N, Vp // 128, 128) f32 blocked logits."""
+        beam row; ``cache`` is the generated cache, updated in place: the
+        kernel layout (int8 with a ``self_kv_sc`` leaf for stage (c)), or the
+        plain ``self_k``/``self_v`` (N, T, H, D) of the permute route
+        (``ancestry`` unused). ``prefix_kv`` holds the per-layer
+        ``prefix_operands`` or ``KernelPrefix`` bundles, ``blocked_head`` the
+        padded head ``(weight (Vp, H) f32, bias (Vp,) f32)``. Returns
+        (N, Vp // 128, 128) f32 blocked logits."""
         h = self._text_embed(tokens, prefix_len + index)
+        kernel = "self_k_tnf" in cache[0]
         for layer, lc, pkv in zip(self.layers, cache, prefix_kv):
-            h = layer.decode(h, pkv, (lc["self_k_tnf"], lc["self_v_tnf"], lc.get("self_kv_sc")),
-                             index, ancestry)
+            layer_cache = ((lc["self_k_tnf"], lc["self_v_tnf"], lc.get("self_kv_sc")) if kernel
+                           else (lc["self_k"], lc["self_v"]))
+            h = layer.decode(h, pkv, layer_cache, index, ancestry)
         w, bias = blocked_head
         # compute-dtype operands, f32 sums (the weight holds compute-dtype values)
         out = h[:, -1].to(self.config.dtype).float() @ w.t() + bias
@@ -224,12 +232,20 @@ def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_i
     """``generate(images (B, 3, H, W) float) -> BeamResult`` for one
     VisionLanguage model, on the model's device.
 
-    The order of ``vl_evaluation``'s generate: prefill; with ``gen_kv_dtype
-    == "int8"`` derive the generated cache's scales from the prefix; tile
-    only the generated cache for the beams and convert it to the kernel
-    layout (int8 with those scales); with ``fused_prefix`` and no int8
-    generated cache, pack the prefix for the kernel's stage (d); pad the LM
-    head once; beam search on the bare blocked logits.
+    The order of ``vl_evaluation``'s generate: prefill; tile only the
+    generated cache for the beams; on the kernel route, with ``gen_kv_dtype
+    == "int8"`` derive the generated cache's scales from the prefix and
+    convert the cache to the kernel layout (int8 with those scales), and
+    with ``fused_prefix`` and no int8 generated cache pack the prefix for
+    the kernel's stage (d); pad the LM head once; beam search on the bare
+    blocked logits.
+
+    The route follows the model (:func:`~.evaluation_nlg.kernel_route_ok`):
+    the never-reordered kernel cache where the beam-cache kernel is built
+    for the decoder's head dim, else the permute route, whose plain cache
+    beam search reorders every step; there ``gen_kv_dtype`` and
+    ``fused_prefix``, features of the kernel cache, are ignored, as in
+    ``vl_evaluation``.
 
     ``prefix_kv_dtype`` and ``gen_kv_dtype`` take the eval block's keys of
     those names and mean int8 where ``str(x or "") == "int8"``, as in
@@ -244,29 +260,33 @@ def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_i
             f"vocab {model.dec_config.vocab_size} < {BLOCKED_MIN_VOCAB}: the unblocked "
             "candidate route is not ported")
     module = model.module
+    kernel_cache = kernel_route_ok([model], beam_width)
     quantize_prefix = str(prefix_kv_dtype or "") == "int8"
-    quantize_gen = str(gen_kv_dtype or "") == "int8"
+    quantize_gen = kernel_cache and str(gen_kv_dtype or "") == "int8"
 
     @torch.inference_mode()
     def generate(images) -> BeamResult:
         cache, prefix_kv, prefix_len = module.prefill(images, max_len,
                                                       quantize_prefix=quantize_prefix)
-        gen_scales = derive_gen_kv_scales(prefix_kv) if quantize_gen else None
-        cache = to_kernel_cache(tile_for_beams(cache, beam_width), scales=gen_scales)
-        if fused_prefix and gen_scales is None:
-            prefix_kv = maybe_fuse_prefix(prefix_kv, ancestry_group_items, beam_width,
-                                          prefix_len)
+        cache = tile_for_beams(cache, beam_width)
+        if kernel_cache:
+            gen_scales = derive_gen_kv_scales(prefix_kv) if quantize_gen else None
+            cache = to_kernel_cache(cache, scales=gen_scales)
+            if fused_prefix and gen_scales is None:
+                prefix_kv = maybe_fuse_prefix(prefix_kv, ancestry_group_items, beam_width,
+                                              prefix_len)
         if not isinstance(prefix_kv[0], KernelPrefix):
             prefix_kv = prefix_operands(prefix_kv)
         wb, bb = make_blocked_head_weights(module)
         blocked = (wb.float(), bb)  # upcast once, not every step
 
-        def step_fn(tokens, index, anc):
+        def step_fn(tokens, index, anc=None):
             return module.decode_step(tokens, cache, prefix_kv, index, prefix_len, blocked, anc)
 
         return beam_search(step_fn, images.shape[0], beam_width, max_len, bos_id, eos_id,
                            pad_id, images.device, length_penalty=length_penalty,
-                           ancestry_group_items=ancestry_group_items)
+                           ancestry_group_items=ancestry_group_items,
+                           caches=None if kernel_cache else cache)
 
     return generate
 

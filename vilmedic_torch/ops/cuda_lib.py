@@ -1,11 +1,15 @@
 """Build and load the port's hand-written CUDA kernels (``vilmedic_torch/csrc``).
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a``, one ``nvcc``
-per source, all started together, and link into ONE shared library with a
-plain C interface, loaded with ``ctypes``. The build runs at first use, into
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` (the ``a``:
+``wgmma`` and ``setmaxnreg`` exist only for that target), one ``nvcc`` per
+source, all started together, and link into ONE shared library with a plain
+C interface, loaded with ``ctypes``. The build runs at first use, into
 ``vilmedic_torch/_build/`` (git-ignored), under a file name that hashes the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import time.
+sources, the headers they share (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. The library needs
+no link flag beyond the runtime's: kernels that take TMA tensor maps encode
+them with ``cuTensorMapEncodeTiled``, found through the runtime's
+``cudaGetDriverEntryPoint``. Nothing here runs at import time.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 turns a non-zero status into an exception naming the kernel.
@@ -71,9 +75,13 @@ def nvcc_path() -> str:
     return str(nvcc)
 
 
+def headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

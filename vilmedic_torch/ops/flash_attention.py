@@ -8,8 +8,8 @@ kept: the mask value is the finite -1e9, so a row whose keys are all masked
 averages V instead of giving 0 or NaN; the running max starts at -1e9; the
 denominator is floored at 1e-30. Keys past Tk do not exist (the kernel masks
 its ragged last tile instead of padding), so such a row averages the real
-keys only. A causal row that sees no key at all (Tq > Tk) is undefined, as in
-the JAX package.
+keys only. A causal row that sees no key at all (Tq > Tk) averages every V,
+in the kernels as in the plain version.
 
 Differentiation: when grad is enabled and an input requires it,
 ``flash_attention`` runs :class:`FlashAttentionFunction`, whose forward also
@@ -35,6 +35,7 @@ import torch
 from . import cuda_lib
 
 NEG_INF = -1e9
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
 
 
 def _key_bias(key_mask: Optional[torch.Tensor], b: int, tk: int, device) -> Optional[torch.Tensor]:
@@ -112,14 +113,14 @@ def flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal
 
 def _check_kernel_operands(name: str, *tensors) -> torch.device:
     """One CUDA device, contiguous, one dtype (float32 or bfloat16), head
-    dim 32/64/128, 16-byte aligned; returns the device."""
+    dim in HEAD_DIMS, 16-byte aligned; returns the device."""
     dev = cuda_lib.require_cuda(name, *tensors)
     dtype = tensors[0].dtype
     if dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != dtype for t in tensors):
         raise ValueError(f"{name}: q, k, v (and dO, O) must share one dtype, float32 or bfloat16")
     d = tensors[0].shape[-1]
-    if d not in (32, 64, 128):
-        raise ValueError(f"{name}: head dim {d} not in (32, 64, 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
     if any(t.shape[1] == 0 for t in tensors):
         raise ValueError(f"{name}: empty query or key axis")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -158,7 +159,7 @@ def flash_attention(q, k, v, key_mask=None, causal: bool = False) -> torch.Tenso
     :class:`FlashAttentionFunction`. Otherwise CPU tensors take
     :func:`flash_attention_reference` and CUDA tensors launch K4 or raise:
     q/k/v (B, T, H, D) contiguous, one dtype (float32 or bfloat16), head dim
-    32, 64 or 128; ``key_mask`` (B, Tk), nonzero = keep."""
+    16, 32, 64 or 128; ``key_mask`` (B, Tk), nonzero = keep."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, key_mask, causal)
     if q.device.type == "cpu":
