@@ -10,8 +10,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    both (the flash backward K5 and K4's LSE output at the VisionLanguage
    training shape: B 16, T 1470, H 12, D 64, causal, padded text keys; the
    flash kernels' TFLOP/s and share of their bound beside
-   ``scaled_dot_product_attention``, and K4 against the dense attention
-   path at T 256 to 2048);
+   ``scaled_dot_product_attention``, K4 at the permute route's padded head
+   dim 48, and K4 against the dense attention path at T 256 to 2048; the
+   beam-cache kernel K1 L2-cold, 12 layers' caches in a row, and the LM
+   head K2 at N 128 and 1024, by ``torch.profiler`` device time, K1 beside
+   ``scaled_dot_product_attention`` over the same keys);
 4. serves the flagship RRG beam-8 slice (``config/RRG/baseline-mimic.yml``,
    vocab 50265, random weights from a seed, bf16) on 16 uint8 images, checks
    the output and that every kernel ran, and times reports/s at batch 16 and
@@ -119,6 +122,25 @@ def cuda_ms(fn, reps: int = 9, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms_per_call(fn, calls: int) -> float:
+    """Device milliseconds per call: the CUDA kernels, copies and sets that
+    ``torch.profiler`` records while ``fn`` (``calls`` calls, after one
+    warm-up run) executes, summed over their own durations. Unlike events
+    around back-to-back launches, the host's time between launches is not
+    counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / calls
+
+
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes
 # per second, and dense operations per second by operand type (bf16 and fp8
 # on the tensor cores, f32 outside them)
@@ -180,6 +202,111 @@ def beam_cache_bound(kc, q, mask, index: int, rows: int, stats: bool = False, sc
     return bound(nbytes, 4 * pairs * hd, q.dtype)
 
 
+LAYERS = 12  # the decoders' depth: a decode step calls K1 once per layer
+
+
+def beam_cache_sdpa_inputs(kc, vc, q, k_new, v_new, mask, index: int, prefix=None):
+    """The keys one K1 call attends, arranged for one
+    ``scaled_dot_product_attention`` call: per item-group, its (t, slot)
+    lanes below ``index`` (all of them, under the ancestry mask), the
+    prefix (one item per group), then the group's current-step lanes (each
+    row its own). Returns (q, k, v) as (groups, H, L, D) and the boolean
+    mask (groups, 1, rows, L)."""
+    import torch
+
+    t, n, hd = kc.shape
+    heads, d = q.shape[1:]
+    groups, rows = mask.shape[:2]
+
+    def lanes(c):
+        return (c[:index].view(index, groups, rows, heads, d).permute(1, 3, 0, 2, 4)
+                .reshape(groups, heads, index * rows, d))
+
+    def own(x):
+        return x.view(groups, rows, heads, d).permute(0, 2, 1, 3)
+
+    ks, vs = [lanes(kc)], [lanes(vc)]
+    allowed = [mask[:, :, :index * rows] != 0]
+    if prefix is not None:
+        p = prefix.p_real
+        ks.append(prefix.pk[:, :p].view(groups, p, heads, d).permute(0, 2, 1, 3))
+        vs.append(prefix.pv[:, :p].view(groups, p, heads, d).permute(0, 2, 1, 3))
+        allowed.append(torch.ones(groups, rows, p, dtype=torch.bool, device=q.device))
+    ks.append(own(k_new))
+    vs.append(own(v_new))
+    allowed.append(torch.eye(rows, dtype=torch.bool, device=q.device).expand(groups, rows, rows))
+    return (own(q).contiguous(), torch.cat(ks, dim=2).contiguous(),
+            torch.cat(vs, dim=2).contiguous(), torch.cat(allowed, dim=-1)[:, None])
+
+
+def beam_cache_cold(stage: str, n: int, seed: int, library: bool = True) -> dict:
+    """K1 in bf16 at the decode shape (T 100, 12 heads of 64, beam 8, index
+    99; stage d with a 1370-position prefix), L2-cold: LAYERS layers' own
+    caches (and prefixes) called in a row as a decode step calls them;
+    device ms per call (``ms``) and, host-paced, events around the whole
+    step (``events_ms``). Beside it, with ``library``,
+    ``scaled_dot_product_attention`` over the same keys
+    (:func:`beam_cache_sdpa_inputs`, arranged beforehand), L2-cold alike,
+    device ms. The bound from the first layer's inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from vilmedic_torch.ops.beam_cache_attention import KernelPrefix, fused_beam_cache_attention
+
+    t, heads, d, index = T_MAX, 12, 64, T_MAX - 1
+    gen = torch.Generator().manual_seed(seed)
+
+    def bf16(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
+
+    layers = []
+    for _ in range(LAYERS):
+        if stage == "c":
+            kc, vc = (torch.randint(-127, 128, (t, n, heads * d), generator=gen,
+                                    dtype=torch.int8).cuda() for _ in range(2))
+        else:
+            kc, vc = bf16(t, n, heads * d), bf16(t, n, heads * d)
+        kw = dict(return_stats=stage in "bc")
+        if stage == "c":
+            kw["kv_scales"] = ((torch.rand(2, heads * d, generator=gen) * 1.5 + 0.5)
+                               / 127.0).cuda()
+        if stage == "d":
+            kw["prefix"] = KernelPrefix(bf16(n // BEAM, VL_TOKENS, heads * d),
+                                        bf16(n // BEAM, VL_TOKENS, heads * d), VL_TOKENS, BEAM)
+        layers.append((kc, vc, bf16(n, heads, d), bf16(n, heads, d), bf16(n, heads, d),
+                       random_ancestry_mask(n // BEAM, BEAM, t, gen, "cuda"), kw))
+
+    def step():
+        for kc, vc, q, kn, vn, mask, kw in layers:
+            fused_beam_cache_attention(kc, vc, q, kn, vn, mask, index, **kw)
+
+    kc, vc, q, kn, vn, mask, kw = layers[0]
+    out = dict(ms=device_ms_per_call(step, LAYERS), events_ms=cuda_ms(step) / LAYERS,
+               **beam_cache_bound(kc, q, mask, index, BEAM, stats=kw["return_stats"],
+                                  scales=kw.get("kv_scales"), prefix=kw.get("prefix")))
+    out["library_ms"] = None
+    if library:
+        arranged = [beam_cache_sdpa_inputs(kc, vc, q, kn, vn, mask, index, kw.get("prefix"))
+                    for kc, vc, q, kn, vn, mask, kw in layers]
+        del layers
+        out["library_ms"] = device_ms_per_call(lambda: [F.scaled_dot_product_attention(
+            qa, ka, va, attn_mask=ma) for qa, ka, va, ma in arranged], LAYERS)
+        del arranged
+    else:
+        del layers
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_cold(label: str, cold: dict):
+    lib = "none" if cold["library_ms"] is None else f"{cold['library_ms']:.4f} ms"
+    print(f"{label} L2-cold ({LAYERS} layers' caches in a row): kernel {cold['ms']:.4f} device "
+          f"ms per call ({cold['bound_ms'] / cold['ms'] * 100:.1f}% of the bound "
+          f"{cold['bound_ms']:.4f} ms, {cold['bound_by']}; events around the step "
+          f"{cold['events_ms']:.4f} ms per call), scaled_dot_product_attention over the same "
+          f"keys {lib} device ms")
+
+
 def check_beam_cache_attention(results):
     import torch
 
@@ -226,13 +353,16 @@ def check_beam_cache_attention(results):
                     beam_cache_bound(kc, q, mask, 99, rows),
                 )
     for n, (ms, plain, bd) in timing.items():
-        print(f"K1 bf16 N={n} index=99: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        print(f"K1 bf16 N={n} index=99 (one cache, L2-warm): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    del kc, vc, q, kn, vn, mask
+    cold = beam_cache_cold("a", 1024, SEED + 14)
+    print_cold("K1 (a) bf16 N=1024 index=99", cold)
     results["fused_beam_cache_attention"] = dict(
         route="cuda", source="vilmedic_torch/csrc/beam_cache_attention.cu",
         replaces="vilmedic_tpu/ops/beam_cache_attention.py:94",
-        max_abs_err=worst, ms=timing[1024][0], plain_ms=timing[1024][1], **timing[1024][2],
-        library_ms=None, path="rrg", counter="fused_beam_cache_attention",
+        max_abs_err=worst, plain_ms=timing[1024][1], **cold,
+        path="rrg", counter="fused_beam_cache_attention",
     )
 
 
@@ -280,12 +410,14 @@ def check_beam_cache_attention_stats(results):
     plain = cuda_ms(lambda: fused_beam_cache_attention_reference(kc, vc, q, kn, vn, mask, 99,
                                                                  return_stats=True))
     bd = beam_cache_bound(kc, q, mask, 99, rows, stats=True)
-    print(f"K1 stats bf16 N={n} index=99: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    print(f"K1 stats bf16 N={n} index=99 (one cache, L2-warm): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    cold = beam_cache_cold("b", n, SEED + 15)
+    print_cold(f"K1 (b) bf16 N={n} index=99", cold)
     results["fused_beam_cache_attention_stats"] = dict(
         route="cuda", source="vilmedic_torch/csrc/beam_cache_attention.cu",
         replaces="vilmedic_tpu/ops/beam_cache_attention.py:94",
-        max_abs_err=worst, ms=ms, plain_ms=plain, **bd, library_ms=None,
+        max_abs_err=worst, plain_ms=plain, **cold,
         path="vl", counter="fused_beam_cache_attention.launches_stats",
     )
 
@@ -342,12 +474,15 @@ def check_beam_cache_attention_int8(results):
     plain = cuda_ms(lambda: fused_beam_cache_attention_reference(kc, vc, q, kn, vn, mask, 99,
                                                                  True, kv_scales=scales))
     bd = beam_cache_bound(kc, q, mask, 99, rows, stats=True, scales=scales)
-    print(f"K1 int8 bf16 N={n} index=99: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    print(f"K1 int8 bf16 N={n} index=99 (one cache, L2-warm): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    # no single library call attends over int8 keys with per-lane scales
+    cold = beam_cache_cold("c", n, SEED + 16, library=False)
+    print_cold(f"K1 (c) bf16 N={n} index=99", cold)
     results["fused_beam_cache_attention_int8"] = dict(
         route="cuda", source="vilmedic_torch/csrc/beam_cache_attention.cu",
         replaces="vilmedic_tpu/ops/beam_cache_attention.py:94",
-        max_abs_err=worst, ms=ms, plain_ms=plain, **bd, library_ms=None,
+        max_abs_err=worst, plain_ms=plain, **cold,
         path="vl_int8", counter="fused_beam_cache_attention.launches_int8",
     )
 
@@ -401,13 +536,17 @@ def check_beam_cache_attention_prefix(results):
                                                                  prefix=prefix))
     bd = beam_cache_bound(kc, q, mask, 99, rows, prefix=prefix)
     once = 2 * b * VL_TOKENS * heads * d * 2 / HBM_BYTES_PER_S * 1e3
-    print(f"K1 prefix bf16 N={n} P={VL_TOKENS} index=99: kernel {ms:.4f} ms, plain {plain:.4f} "
+    print(f"K1 prefix bf16 N={n} P={VL_TOKENS} index=99 (one cache, L2-warm): kernel {ms:.4f} "
+          f"ms, plain {plain:.4f} "
           f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; the prefix read once "
           f"{once:.4f} ms, 8 times {8 * once:.4f} ms)")
+    del kc, vc, q, kn, vn, pk, pv, prefix, mask
+    cold = beam_cache_cold("d", n, SEED + 17)
+    print_cold(f"K1 (d) bf16 N={n} P={VL_TOKENS} index=99", cold)
     results["fused_beam_cache_attention_prefix"] = dict(
         route="cuda", source="vilmedic_torch/csrc/beam_cache_attention.cu",
         replaces="vilmedic_tpu/ops/beam_cache_attention.py:94",
-        max_abs_err=worst, ms=ms, plain_ms=plain, **bd, library_ms=None,
+        max_abs_err=worst, plain_ms=plain, **cold,
         path="vl_fused", counter="fused_beam_cache_attention.launches_prefix",
     )
 
@@ -454,11 +593,13 @@ def check_flash_attention(results):
     # running max in the kernel and against the final max in the plain version
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
-    # the last case is the permute route's prefill (the LM at 48 heads of 16)
+    # the last cases are the permute route's prefill: the LM at 48 heads of
+    # 16, and at 16 heads of 48 (a head dim K4 runs padded to 64)
     cases = [("tower", t, t, False, False, heads, d), ("prefill", t, t, True, False, heads, d),
              ("padded keys", t, t, False, True, heads, d),
              ("Tq<Tk causal", 1000, t, True, False, heads, d),
-             ("prefill D 16", t, t, True, False, 48, 16)]
+             ("prefill D 16", t, t, True, False, 48, 16),
+             ("prefill D 48", t, t, True, False, 16, 48)]
     worst, timing = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, tq, tk, causal, padded, hc, dc in cases:
@@ -479,7 +620,8 @@ def check_flash_attention(results):
                   f"H={hc} D={dc}: max|err|={err:.3e} (tol {tol[dtype]:.0e})")
             if not err <= tol[dtype]:
                 fail(f"flash attention {dtype} {name}")
-            if dtype == torch.bfloat16 and name in ("tower", "prefill", "prefill D 16"):
+            if dtype == torch.bfloat16 and name in ("tower", "prefill", "prefill D 16",
+                                                    "prefill D 48"):
                 qh, kh, vh = sdpa_layout(q, k, v)
                 timing[name] = dict(
                     ms=cuda_ms(lambda: flash_attention(q, k, v, None, causal)),
@@ -712,15 +854,20 @@ def check_blocked_lm_head(results):
                 # read h, w, b; write the logits and two (N, Vp / 128) stats
                 nbytes = (h.numel() + w.numel()) * 2 + vp * 4 + n * vp * 4 + 2 * n * (vp // 128) * 4
                 timing[n] = dict(
-                    ms=cuda_ms(lambda: lm_head_blocked_stats(h, w, b)),
+                    ms=device_ms_per_call(lambda: [lm_head_blocked_stats(h, w, b)
+                                                   for _ in range(9)], 9),
+                    events_ms=cuda_ms(lambda: lm_head_blocked_stats(h, w, b)),
                     plain_ms=cuda_ms(lambda: lm_head_blocked_stats_reference(h, w, b)),
-                    product_ms=cuda_ms(lambda: torch.matmul(h, w.t())),
+                    product_ms=device_ms_per_call(lambda: [torch.matmul(h, w.t())
+                                                           for _ in range(9)], 9),
                     **bound(nbytes, 2 * n * hidden * vp, dtype))
     for n, tm in timing.items():
         flops = 2 * n * hidden * vp
-        print(f"K2 bf16 N={n}: kernel {tm['ms']:.4f} ms ({flops / tm['ms'] / 1e9:.1f} TFLOP/s), "
-              f"plain {tm['plain_ms']:.4f} ms, torch.matmul of the product only "
-              f"{tm['product_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+        print(f"K2 bf16 N={n}: kernel {tm['ms']:.4f} device ms ({flops / tm['ms'] / 1e9:.1f} "
+              f"TFLOP/s, {tm['bound_ms'] / tm['ms'] * 100:.1f}% of the bound; events around one "
+              f"call {tm['events_ms']:.4f} ms), plain {tm['plain_ms']:.4f} ms, torch.matmul of the "
+              f"product only {tm['product_ms']:.4f} device ms, bound {tm['bound_ms']:.4f} ms "
+              f"({tm['bound_by']})")
     tm = timing[1024]
     # no single library call computes the logits with their block stats
     results["lm_head_blocked_stats"] = dict(

@@ -25,7 +25,7 @@ from vilmedic_torch.models.evaluation_nlg import make_generate_fn
 from vilmedic_torch.models.rrg import RRG
 from vilmedic_torch.ops.beam_cache_attention import (
     KernelPrefix, fused_beam_cache_attention, fused_beam_cache_attention_reference,
-    pack_kernel_prefix,
+    pack_kernel_prefix, quantize_cache_rows,
 )
 from vilmedic_torch.models.vision_language import VisionLanguage, make_vl_generate_fn
 from vilmedic_torch.ops.blocked_lm_head import (
@@ -207,6 +207,104 @@ def test_beam_cache_attention_stages_refuse(cuda):
         fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 3, prefix=KernelPrefix(x, x, 5, 4))
 
 
+def _ancestry_mask(groups: int, rows: int, t: int, gen, dense: bool = False):
+    """One ancestor slot per (row, t), as beam search leaves it; or every
+    slot live (``dense``: 8 positions at 8 rows fill one 64-key tile)."""
+    if dense:
+        return torch.ones(groups, rows, t * rows, dtype=torch.bool)
+    j = torch.randint(0, rows, (groups, rows, t), generator=gen)
+    mask = torch.zeros(groups, rows, t, rows, dtype=torch.bool)
+    mask.scatter_(3, j[..., None], True)
+    return mask.view(groups, rows, t * rows)
+
+
+def _stage_matches(stage: str, kc, vc, q, kn, vn, mask, index: int, prefix=None, scales=None):
+    """One bf16 call of stage (a), (b) (stats), (c) (int8 with stats) or (d)
+    (prefix with stats) against the plain version on the same inputs: out
+    within 2e-2, m within 1e-5, l within 1e-4 relative, the caches bitwise,
+    this step's write bitwise (int8: also against the CPU's quantization)."""
+    n, heads, d = q.shape
+    stats = stage != "a"
+    kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = fused_beam_cache_attention.launches
+    got = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index, stats, kv_scales=scales,
+                                     prefix=prefix)
+    want = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index, stats,
+                                                kv_scales=scales, prefix=prefix)
+    assert fused_beam_cache_attention.launches - before == 1
+    got, want = (x if stats else (x,) for x in (got, want))
+    torch.testing.assert_close(got[0], want[0], rtol=2e-2, atol=2e-2)
+    if stats:
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+        assert ((got[2] - want[2]).abs() / want[2]).max().item() <= 1e-4
+    assert torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
+    if scales is None:
+        assert torch.equal(kc1[index], kn.reshape(n, -1))
+        assert torch.equal(vc1[index], vn.reshape(n, -1))
+    else:
+        cpu = quantize_cache_rows(kn.float().cpu(), scales[0].cpu().view(heads, d))
+        assert torch.equal(kc1[index].cpu(), cpu.view(n, -1))
+
+
+def _stage_tensors(cuda, stage, t, n, heads, d, beams, gen, p=0, p_real=0):
+    """bf16 q/k_new/v_new and caches for a stage: int8 caches and scales
+    for (c), a (n / beams, p, H*D) prefix with ``p_real`` keys (a NaN tail)
+    for (d)."""
+    q, kn, vn = (torch.randn(n, heads, d, generator=gen).to(cuda, torch.bfloat16)
+                 for _ in range(3))
+    scales = prefix = None
+    if stage == "c":
+        kc, vc = (torch.randint(-127, 128, (t, n, heads * d), generator=gen, dtype=torch.int8)
+                  .to(cuda) for _ in range(2))
+        scales = ((torch.rand(2, heads * d, generator=gen) * 1.5 + 0.5) / 127.0).to(cuda)
+    else:
+        kc, vc = (torch.randn(t, n, heads * d, generator=gen).to(cuda, torch.bfloat16)
+                  for _ in range(2))
+    if stage == "d":
+        pk, pv = (torch.randn(n // beams, p, heads * d, generator=gen).to(cuda, torch.bfloat16)
+                  for _ in range(2))
+        pk[:, p_real:], pv[:, p_real:] = float("nan"), 1e9
+        prefix = KernelPrefix(pk, pv, p_real, beams)
+    return kc, vc, q, kn, vn, scales, prefix
+
+
+@pytest.mark.parametrize("stage", ["a", "b", "c", "d"])
+@pytest.mark.parametrize("n", [128, 1024])
+@pytest.mark.parametrize("index,dense", [(0, False), (1, False), (8, True), (9, True),
+                                         (57, False), (99, False)])
+def test_beam_cache_attention_decode_shapes(cuda, stage, n, index, dense):
+    """The bf16 kernel at the decode shapes: T 100, 12 heads of 64, beam 8,
+    N 128 (the VisionLanguage batch, split across CTAs of a cluster) and
+    1024 (the RRG batch); index 0 (the current lane alone), 1, 8 and 9 with
+    every slot live (64 lanes fill one tile exactly, 72 need a second), 57
+    and 99 under beam-search ancestry. Stage (d): a 1370-position prefix
+    whose last 33 keys are not real (N 128), or 200 with 150 real (N 1024)."""
+    gen = torch.Generator().manual_seed(n + index + ord(stage))
+    p, p_real = (1370, 1337) if n == 128 else (200, 150)
+    kc, vc, q, kn, vn, scales, prefix = _stage_tensors(cuda, stage, 100, n, 12, 64, 8, gen,
+                                                       p, p_real)
+    mask = _ancestry_mask(n // 8, 8, 100, gen, dense).to(cuda)
+    _stage_matches(stage, kc, vc, q, kn, vn, mask, index, prefix, scales)
+
+
+@pytest.mark.parametrize("stage", ["a", "b", "c", "d"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("beams,items", [(8, 1), (4, 1), (4, 2), (8, 2), (3, 7)])
+def test_beam_cache_attention_groups(cuda, stage, d, beams, items):
+    """The bf16 kernel at every head dim it is built for, beam 4 and 8, one
+    or two items per row group (``ancestry_group_items`` 2: two items' rows
+    in one 16-row block, each seeing its own prefix), and 21-row groups of
+    beam 3 (a block of 16 rows and one of 5, items across the block edge, a
+    mask read byte by byte)."""
+    gen = torch.Generator().manual_seed(d + beams + items + ord(stage))
+    rows, n_items, t, index = beams * items, 14, 20, 17
+    n = n_items * beams
+    kc, vc, q, kn, vn, scales, prefix = _stage_tensors(cuda, stage, t, n, 3, d, beams, gen,
+                                                       100, 77)
+    mask = _ancestry_mask(n // rows, rows, t, gen).to(cuda)
+    _stage_matches(stage, kc, vc, q, kn, vn, mask, index, prefix, scales)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("tq,tk,causal", [
@@ -307,6 +405,31 @@ def test_flash_single_item_and_head(cuda, dtype, d, causal):
     _flash_grads_match(q, k, v, key_mask, causal)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 48, 96])
+@pytest.mark.parametrize("tq,tk,causal", [(70, 200, True), (130, 130, False)])
+def test_flash_padded_head_dims(cuda, dtype, d, tq, tk, causal):
+    """Head dims the kernels are not built for run at the next built one
+    (zero columns, the true scale): K4, K4 with LSE and K5 launch, and match
+    the plain versions at the head dim itself."""
+    b, heads = 2, 3
+    gen = torch.Generator().manual_seed(d + tq)
+    q = torch.randn(b, tq, heads, d, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(b, tk, heads, d, generator=gen).to(cuda, dtype) for _ in range(2))
+    key_mask = torch.ones(b, tk, dtype=torch.bool)
+    key_mask[1, tk - tk // 3:] = False
+    key_mask = key_mask.to(cuda)
+    counters = (flash_attention, flash_attention_with_lse, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    start = [fn.launches for fn in counters]
+    out = flash_attention(q, k, v, key_mask, causal)
+    assert out.shape == q.shape and out.is_contiguous()
+    torch.testing.assert_close(out.float(), flash_attention_reference(q, k, v, key_mask, causal)
+                               .float(), rtol=TOL[dtype], atol=TOL[dtype])
+    _flash_grads_match(q, k, v, key_mask, causal)
+    assert [fn.launches - s for fn, s in zip(counters, start)] == [1, 1, 1, 1]
+
+
 def test_flash_backward_is_deterministic(cuda):
     """K5 writes every output element from one block in a fixed order (no
     atomics): two runs agree bit for bit."""
@@ -382,8 +505,8 @@ def test_flash_backward_wrappers_refuse(cuda):
     with pytest.raises(ValueError):  # float16
         x = q.half()
         flash_attention_bwd_dq(x, x, x, None, x, stats, stats)
-    with pytest.raises(ValueError):  # head dim 48
-        x = torch.zeros(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError):  # head dim 256, above the largest built (128)
+        x = torch.zeros(1, 8, 2, 256, device=cuda)
         flash_attention_bwd_dkv(x, x, x, None, x, stats, stats)
     with pytest.raises(ValueError):  # contiguous, 4 bytes off
         x = torch.zeros(8 * 2 * 64 + 1, device=cuda)[1:].view(1, 8, 2, 64)
@@ -448,7 +571,7 @@ def test_tiny_vl_train_step_card_equals_cpu(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1, 5, 130])
-@pytest.mark.parametrize("k", [64, 768])
+@pytest.mark.parametrize("k", [32, 64, 96, 768])
 def test_blocked_lm_head_kernel(cuda, dtype, n, k):
     vocab, vp = 4500, 4608
     gen = torch.Generator().manual_seed(n + k)
@@ -459,6 +582,27 @@ def test_blocked_lm_head_kernel(cuda, dtype, n, k):
     h = torch.randn(n, k, generator=gen).to(cuda, dtype)
     w, b = w.to(cuda, dtype), b.to(cuda)
     got = lm_head_blocked_stats(h, w, b)
+    want = lm_head_blocked_stats_reference(h, w, b)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 128, 1000, 1024])
+def test_blocked_lm_head_decode_shapes(cuda, n):
+    """The bf16 kernel at the flagship head (K 768, vocab 50265 padded to
+    50304: 393 blocks of 128, an odd count) for one row, the VisionLanguage
+    and RRG beam batches and a ragged 1000; one launch each."""
+    vocab, vp, k = 50265, 50304, 768
+    gen = torch.Generator().manual_seed(n)
+    w = torch.randn(vp, k, generator=gen) * 0.02
+    w[vocab:] = 0.0
+    b = torch.randn(vp, generator=gen) * 0.02
+    b[vocab:] = NEG
+    h = torch.randn(n, k, generator=gen).to(cuda, torch.bfloat16)
+    w, b = w.to(cuda, torch.bfloat16), b.to(cuda)
+    before = lm_head_blocked_stats.launches
+    got = lm_head_blocked_stats(h, w, b)
+    assert lm_head_blocked_stats.launches - before == 1
     want = lm_head_blocked_stats_reference(h, w, b)
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
@@ -493,8 +637,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError):  # float16
         flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError):  # head dim 48
-        x = torch.zeros(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError):  # head dim 256, above the largest built (128)
+        x = torch.zeros(1, 8, 2, 256, device=cuda)
         flash_attention(x, x, x)
     with pytest.raises(ValueError):  # mixed dtypes
         flash_attention(q, q.bfloat16(), q)

@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from vilmedic_torch.ops import attention as tattn
-from vilmedic_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from vilmedic_torch.ops.flash_attention import (
+    flash_attention, flash_attention_backward_reference, flash_attention_reference,
+    pad_head_dim, padded_head_dim,
+)
 from vilmedic_tpu.ops import attention as jattn
 from vilmedic_tpu.ops.flash_attention import flash_attention as jax_flash
 
@@ -113,3 +116,38 @@ def test_bf16_rounds_p_before_the_value_product():
     want = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), vb.float())
     want = (want / p.sum(-1).transpose(1, 2)[..., None]).bfloat16()
     torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_head_dim_matches_jax_v1(causal):
+    """Head dim 48 as the card runs it: q, k, v zero-padded to the built head
+    dim 64, the plain version at that width with the true scale 48 ** -0.5,
+    the output sliced back. It equals the unpadded plain version (zero
+    columns change no score) and JAX's v1 kernel, which takes D 48 itself;
+    the padded backward equals the unpadded one."""
+    (q, k, v), rng = _inputs(5, 2, 100, 130 if not causal else 100, 2, 48)
+    key_mask = (rng.random((2, k.shape[1])) > 0.2).astype(np.int32)
+    key_mask[:, 0] = 1
+    width = padded_head_dim(48)
+    assert width == 64 and padded_head_dim(8) == 16 and padded_head_dim(96) == 128
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tm = torch.from_numpy(key_mask)
+    padded = [pad_head_dim(x, width) for x in (tq, tk, tv)]
+    out_p, lse_p = flash_attention_reference(*padded, tm, causal, return_lse=True,
+                                             scale=48 ** -0.5)
+    assert torch.equal(out_p[..., 48:], torch.zeros_like(out_p[..., 48:]))
+    out, lse = flash_attention_reference(tq, tk, tv, tm, causal, return_lse=True)
+    torch.testing.assert_close(out_p[..., :48], out, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out_p[..., :48].numpy(), _run_jax(q, k, v, key_mask, causal),
+                               rtol=TOL, atol=TOL)
+    dout = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    got = flash_attention_backward_reference(*padded, tm, out_p, lse_p, pad_head_dim(dout, width),
+                                             causal, scale=48 ** -0.5)
+    want = flash_attention_backward_reference(tq, tk, tv, tm, out, lse, dout, causal)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g[..., 48:], torch.zeros_like(g[..., 48:]))
+        torch.testing.assert_close(g[..., :48], w, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        padded_head_dim(129)

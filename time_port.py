@@ -14,6 +14,21 @@ one JSON line:
   ``flash_attention_backward`` at a shape whose kernels take a few
   microseconds (B 1, T 128, H 1, D 64), the launches not waited for, and
   per call of the forward's C entry (``vt_flash_attention_bf16``) alone;
+- the beam-cache attention (K1) through ``fused_beam_cache_attention`` at
+  the decode shapes (T 100, 12 heads of 64, beam 8, index 99, bf16): stage
+  (a) at N 1024 (the RRG batch of 128), (b), (c) and (d) (P 1370) at N 128
+  (the VisionLanguage batch of 16), L2-cold: 12 layers' own caches (and
+  prefixes) called in a row, as a decode step calls them; device ms per
+  call from ``torch.profiler`` and, host-paced, events around the step
+  (``chip_smoke.beam_cache_cold``); the blocked LM head (K2) through
+  ``lm_head_blocked_stats`` at N 128 and 1024 (K 768, Vp 50304), device
+  ms; the host's microseconds per call of both wrappers and of their C
+  entries;
+- serving through the slices' generate functions (the helpers of
+  ``chip_smoke.py``, random weights from seed 0, bf16): RRG reports/s at
+  batch 16 and 128; VisionLanguage reports/s at batch 16 on the merge, int8
+  and fused-prefix routes, each with its device ops and device-busy ms per
+  decode step (``torch.profiler``, a 12-token generate less its prefill);
 - the VisionLanguage training microbatch through the port's ``Trainor``
   (``config/VL/vl-dinov2-modernbert.yml``, batch 16, bf16, random weights
   from seed 0): ms per ``grad_step`` by the host clock, each ended by a
@@ -27,12 +42,15 @@ ROOT's kernels into ROOT's own build directory.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 SEED = 0
 B, HEADS, D = 16, 12, 64
@@ -130,6 +148,115 @@ def time_flash() -> dict:
     return {"ms": ms, "host_us": host}
 
 
+def helpers():
+    """``chip_smoke.py`` beside this script, as a module: its timing helpers
+    and the builders of the slices, which drive the public entry points of
+    the package on ``sys.path``."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def time_decode_kernels() -> dict:
+    import torch
+
+    from vilmedic_torch.ops import cuda_lib
+    from vilmedic_torch.ops.beam_cache_attention import fused_beam_cache_attention
+    from vilmedic_torch.ops.blocked_lm_head import lm_head_blocked_stats
+
+    cs = helpers()
+    ms, host = {}, {}
+    for stage, n in (("a", 1024), ("b", 128), ("c", 128), ("d", 128)):
+        cold = cs.beam_cache_cold(stage, n, SEED + 20, library=False)
+        ms[f"k1_{stage}"], ms[f"k1_{stage}_events"] = cold["ms"], cold["events_ms"]
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
+
+    def bf16(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    # host time per call at the VisionLanguage shape of stage (b)
+    t, n, index = T_MAX, 128, T_MAX - 1
+    kc, vc, q, kn, vn = (bf16(t, n, HEADS * D), bf16(t, n, HEADS * D), bf16(n, HEADS, D),
+                         bf16(n, HEADS, D), bf16(n, HEADS, D))
+    mask = cs.random_ancestry_mask(n // 8, 8, t, torch.Generator().manual_seed(SEED), "cuda")
+    host["k1_b"] = host_us(lambda: fused_beam_cache_attention(kc, vc, q, kn, vn, mask, index,
+                                                              return_stats=True))
+    lib = cuda_lib.lib()
+    out, m, l = (torch.empty(n, HEADS, D, device="cuda"), torch.empty(n, HEADS, device="cuda"),
+                 torch.empty(n, HEADS, device="cuda"))
+    args = (kc.data_ptr(), vc.data_ptr(), q.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+            mask.data_ptr(), 0, 0, 0, out.data_ptr(), m.data_ptr(), l.data_ptr(), n, HEADS, D,
+            t, 8, index, 0, 0, 1, D ** -0.5, cuda_lib.stream_of(out))
+    host["k1_b_c_entry"] = host_us(lambda: lib.vt_beam_cache_attention_bf16(*args), calls=2000)
+    w = bf16(50304, 768) * 0.02
+    b = torch.randn(50304, generator=gen, device="cuda") * 0.02
+    for rows in (128, 1024):
+        h = bf16(rows, 768)
+        ms[f"k2_n{rows}"] = cs.device_ms_per_call(
+            lambda: [lm_head_blocked_stats(h, w, b) for _ in range(9)], 9)
+    host["k2"] = host_us(lambda: lm_head_blocked_stats(h, w, b), calls=100)
+    lg = torch.empty(1024, 50304, device="cuda")
+    mx, sm = torch.empty(1024, 393, device="cuda"), torch.empty(1024, 393, device="cuda")
+    args = (h.data_ptr(), w.data_ptr(), b.data_ptr(), lg.data_ptr(), mx.data_ptr(), sm.data_ptr(),
+            1024, 768, 50304, cuda_lib.stream_of(h))
+    host["k2_c_entry"] = host_us(lambda: lib.vt_lm_head_blocked_stats_bf16(*args), calls=100)
+    return {"ms": ms, "host_us": host}
+
+
+def time_serving() -> dict:
+    """Reports/s through the generate functions (median of 3 after a
+    warm-up), and the VisionLanguage routes' device ops and device-busy ms
+    per decode step."""
+    import torch
+
+    from vilmedic_torch.models.vision_language import make_vl_generate_fn
+
+    cs = helpers()
+    def rate(fn, b: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return b / statistics.median(times)
+
+    out = {}
+    model, generate, crop, _, _ = cs.build_flagship("bfloat16", "cuda")
+    for b in (16, 128):
+        batch = cs.host_batch(b, crop, SEED + b)
+        out[f"rrg_b{b}_reports_per_s"] = rate(lambda: cs.serve(model, generate, batch, crop,
+                                                               "cuda"), b)
+    del model, generate
+    torch.cuda.empty_cache()
+    model, generate_int8, sv = cs.build_vl("bfloat16", "cuda", cs.INT8_SERVING)
+    args = (model, sv["beam"], sv["max_len"], cs.VL_BOS, cs.VL_EOS, cs.VL_PAD)
+    kwargs = {"merge": {}, "int8": dict(prefix_kv_dtype=sv["prefix_kv_dtype"],
+                                        gen_kv_dtype=sv["gen_kv_dtype"]),
+              "fused": dict(fused_prefix=True)}
+    images = cs.vl_images(sv["batch"], sv["image"], SEED)
+    img = images.to("cuda")
+    for name, kw in kwargs.items():
+        generate = make_vl_generate_fn(*args, **kw)
+        out[f"vl_{name}_reports_per_s"] = rate(
+            lambda: generate(images.to("cuda", non_blocking=True)), sv["batch"])
+        short = make_vl_generate_fn(model, sv["beam"], cs.OPS_LEN, cs.VL_BOS, cs.VL_EOS,
+                                    cs.VL_PAD, **kw)
+        res, n_all, ms_all = cs.device_ops(lambda: short(img))
+        with torch.inference_mode():
+            _, n_pre, ms_pre = cs.device_ops(lambda: model.module.prefill(
+                img, cs.OPS_LEN, quantize_prefix=name == "int8"))
+        out[f"vl_{name}_device_ops_per_step"] = (n_all - n_pre) / res.steps
+        out[f"vl_{name}_device_busy_ms_per_step"] = (ms_all - ms_pre) / res.steps
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_batches(n: int, seed: int):
     """``n`` batches of 16: float images at 518², ids of length T_MAX (BOS,
     random tokens, EOS) with a padded tail of random length."""
@@ -203,6 +330,8 @@ def main():
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     result = {"root": root, "card": card, "library": cuda_lib.library_path().name}
     result.update(time_flash())
+    result["decode_kernels"] = time_decode_kernels()
+    result["serving"] = time_serving()
     result["train"] = time_training(root)
     print(json.dumps(result))
 

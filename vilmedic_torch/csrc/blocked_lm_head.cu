@@ -10,37 +10,41 @@
 // reads only those stats and the few blocks it picks.
 //
 // What bounds it on the H100: at N = 128 rows the weight stream (Vp * K
-// values) and the f32 logits write are the bytes that matter; at N = 1024 the
-// 2 * N * K * Vp FLOPs (79 GFLOP at K = 768, Vp = 50304) are.
+// values) and the f32 logits write are the bytes that matter; at N = 1024
+// bytes (the 206 MB of f32 logits) and the 2 * N * K * Vp operations (79
+// GFLOP at K = 768, Vp = 50304) weigh about the same.
 //
-// Design: one thread block per (128-row tile, 128-column vocab block), so a
-// block's output tile is exactly one statistics block. Blocks with the same
-// vocab block run next to each other (row tile is blockIdx.x), so the weight
-// tile they share is read from device memory once and from L2 after.
-//   - bf16: 8 warps, nvcuda::wmma 16x16x16 bf16 products with f32
-//     accumulation; A and B tiles of 32 k-values double-buffered in shared
-//     memory, the next tile's global loads issued before the current tile's
-//     products.
-//   - f32: the same tiling on the CUDA cores (8x8 outputs per thread, 8
-//     k-values per tile), full f32 products, no TF32.
-// Epilogue (shared): the f32 tile goes to shared memory; each warp then owns
-// 16 rows, adds the bias, writes the logits row-major (N, Vp) with float4
-// stores, and reduces the row's 128 values to max and sum-exp while they are
-// in registers, so the statistics cost no extra pass over the logits.
-// Simple first: no TMA, no wgmma; those come with the work to make it fast.
+// Output tiles are 128 rows x 128 vocab columns, so a tile is exactly one
+// statistics block.
+//   - bf16, warp-specialised wgmma: one producer warp keeps a 3-stage ring of
+//     (h, W) k-tiles of 64 in flight by TMA (128B swizzle; rows past N and
+//     columns past K read zeros), two consumer warpgroups each take 64 rows
+//     of the tile by wgmma m64n128k16 with f32 accumulators. The CTAs are
+//     persistent and walk the tiles vocab-major (the row tiles of one vocab
+//     block next to each other, so W comes from L2 after its first read);
+//     the producer runs ahead into the next tile while the consumers'
+//     epilogue runs, and two CTAs share an SM, so one's epilogue overlaps
+//     the other's products. The epilogue works from the accumulator
+//     registers: the bias, the row's max and sum-exp over the 128 columns by
+//     two quad shuffles each (a row's columns lie in one quad), and the f32
+//     logits written row-major, each quad 32 contiguous bytes.
+//   - f32: the CUDA cores (8x8 outputs per thread, 8 k-values per tile), full
+//     f32 products, no TF32; the tile goes through shared memory to the same
+//     row-wise epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
 constexpr int BM = 128;       // rows per block
 constexpr int BN = 128;       // vocab columns per block == statistics block
 constexpr int CS_LD = BN + 4; // f32 epilogue tile stride
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the f32 path
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -84,100 +88,118 @@ __device__ void epilogue(const float* cs, const float* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int BK16 = 32;
-constexpr int AB_LD = BK16 + 8;  // bf16 tile stride (80 bytes: 16-byte rows)
-constexpr int TILE16 = BM * AB_LD;  // elements of one A (or B) tile
+constexpr int BK = 64;             // k-values per stage: one 128B-swizzled chunk
+constexpr int STAGES = 3;
+constexpr int kConsumers = 256;    // two warpgroups
+constexpr int kWgThreads = kConsumers + 32;  // and the producer warp
+constexpr int kStageBytes = 2 * BM * BK * 2;  // h tile + W tile
+constexpr int kWgSmem = STAGES * kStageBytes + 1024;  // + the 1024-byte alignment
 
-__global__ void __launch_bounds__(kThreads)
-    lm_head_bf16_kernel(const __nv_bfloat16* __restrict__ h,
-                        const __nv_bfloat16* __restrict__ w,
-                        const float* __restrict__ bias,
-                        float* __restrict__ logits, float* __restrict__ bmax,
-                        float* __restrict__ bsum, int N, int K, int Vp) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  // [buf][A | B] tiles of (128, AB_LD) bf16 during the main loop; reused as
-  // the (BM, CS_LD) f32 tile by the epilogue
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* cs = reinterpret_cast<float*>(smem_raw);
+// wait until at most one committed group of wgmma products is in flight
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int row0 = blockIdx.x * BM;
-  const int blk = blockIdx.y;
-  const int col0 = blk * BN;
-  const int wm = (warp / 2) * 32;  // warp's 32-row slice
-  const int wn = (warp % 2) * 64;  // warp's 64-column slice
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // each thread moves two 16-byte vectors of A and two of B per k-tile
-  uint4 ra[2], rb[2];
-  auto load_global = [&](int k0) {
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int idx = tid + v * kThreads;  // 0..511
-      const int m = idx / 4;
-      const int kq = (idx % 4) * 8;
-      const int row = row0 + m;
-      ra[v] = row < N ? *reinterpret_cast<const uint4*>(h + (long long)row * K + k0 + kq)
-                      : make_uint4(0u, 0u, 0u, 0u);
-      rb[v] = *reinterpret_cast<const uint4*>(w + (long long)(col0 + m) * K + k0 + kq);
+__global__ void __launch_bounds__(kWgThreads, 2)
+    lm_head_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         const float* __restrict__ bias, float* __restrict__ logits,
+                         float* __restrict__ bmax, float* __restrict__ bsum, int N, int Vp,
+                         int ksteps, int mtiles, int ntiles) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
     }
-  };
-  auto store_shared = [&](int buf) {
-    __nv_bfloat16* a = tiles + buf * 2 * TILE16;
-    __nv_bfloat16* b = a + TILE16;
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int idx = tid + v * kThreads;
-      const int m = idx / 4;
-      const int kq = (idx % 4) * 8;
-      *reinterpret_cast<uint4*>(a + m * AB_LD + kq) = ra[v];
-      *reinterpret_cast<uint4*>(b + m * AB_LD + kq) = rb[v];
-    }
-  };
-
-  const int ktiles = K / BK16;
-  load_global(0);
-  store_shared(0);
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < ktiles) load_global((kt + 1) * BK16);
-    const __nv_bfloat16* a = tiles + buf * 2 * TILE16;
-    const __nv_bfloat16* b = a + TILE16;
-#pragma unroll
-    for (int kk = 0; kk < BK16; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm + i * 16) * AB_LD + kk, AB_LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], b + (wn + j * 16) * AB_LD + kk, AB_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  const int nb = Vp / BN;
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int row0 = (tile % mtiles) * BM, col0 = (tile / mtiles) * BN;
+        for (int k = 0; k < ksteps; ++k, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          uint8_t* a = smem + s * kStageBytes;
+          hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+          hopper::tma_load_2d(a, &tm_h, k * BK, row0, &full[s]);
+          hopper::tma_load_2d(a + BM * BK * 2, &tm_w, k * BK, col0, &full[s]);
+        }
+      }
     }
-    if (kt + 1 < ktiles) store_shared(buf ^ 1);
-    __syncthreads();
+    return;
   }
 
+  const int wg = threadIdx.x / 128;  // the consumer warpgroup: rows 64 wg ..
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int row0 = (tile % mtiles) * BM, blk = tile / mtiles, col0 = blk * BN;
+    float d[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    // one k-step's products stay in flight while the next one's are issued;
+    // a stage is released once the products that read it are done
+    for (int k = 0; k < ksteps; ++k, ++it) {
+      const int s = it % STAGES;
+      hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+      const uint32_t a = hopper::smem_u32(smem + s * kStageBytes);
+      const uint32_t b = a + BM * BK * 2;
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(cs + (wm + i * 16) * CS_LD + wn + j * 16, acc[i][j],
-                              CS_LD, wmma::mem_row_major);
-  __syncthreads();
-  epilogue(cs, bias, logits, bmax, bsum, N, Vp, row0, blk);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_ss_n128(d, hopper::desc_k<64>(a, BM, 64 * wg, kk),
+                              hopper::desc_k<64>(b, BN, 0, kk), 1);
+      hopper::wgmma_commit();
+      wgmma_wait_one();
+      if (k > 0) hopper::mbar_arrive(&empty[(it + STAGES - 1) % STAGES]);
+    }
+    hopper::wgmma_wait_all();
+    hopper::fence_operand(d);
+    hopper::mbar_arrive(&empty[(it + STAGES - 1) % STAGES]);
+    // epilogue from the registers: row 16 warp + g (+ 8) of the warpgroup's
+    // 64, columns 8 j + 2 t4 (+ 1)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 64 * wg + 16 * warp + g + 8 * half;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 bj = *reinterpret_cast<const float2*>(bias + col0 + 8 * j + 2 * t4);
+        d[4 * j + 2 * half] += bj.x;
+        d[4 * j + 2 * half + 1] += bj.y;
+        mx = fmaxf(mx, fmaxf(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]));
+      }
+      mx = hopper::quad_max(mx);
+      const float mxl = mx * hopper::kLog2e;
+      float se = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        se += hopper::fast_exp2(fmaf(d[4 * j + 2 * half], hopper::kLog2e, -mxl));
+        se += hopper::fast_exp2(fmaf(d[4 * j + 2 * half + 1], hopper::kLog2e, -mxl));
+      }
+      se = hopper::quad_sum(se);
+      if (row < N) {
+        float* out = logits + (long long)row * Vp + col0 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(out + 8 * j) =
+              make_float2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+        if (t4 == 0) {
+          bmax[(long long)row * nb + blk] = mx;
+          bsum[(long long)row * nb + blk] = se;
+        }
+      }
+    }
+  }
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -247,28 +269,70 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 constexpr size_t kSmemBytes = (size_t)BM * CS_LD * sizeof(float);
-static_assert(4 * TILE16 * sizeof(__nv_bfloat16) <= kSmemBytes, "bf16 tiles fit");
 static_assert(2 * BK32 * T_LD * sizeof(float) <= kSmemBytes, "f32 tiles fit");
+
+// the tensor map of a (rows, K) bf16 matrix, encoded once per (pointer,
+// shape, device): the weight lives for a whole generate and the hidden
+// states' buffer is usually reused step to step
+struct MapCache {
+  static constexpr int kSlots = 8;
+  struct Slot {
+    const void* ptr;
+    int rows, K, dev;
+    CUtensorMap map;
+  } slots[kSlots] = {};
+  int next = 0;
+
+  int get(const CUtensorMap** out, const void* ptr, int rows, int K) {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    for (Slot& s : slots)
+      if (s.ptr == ptr && s.rows == rows && s.K == K && s.dev == dev) {
+        *out = &s.map;
+        return 0;
+      }
+    Slot& s = slots[next];
+    next = (next + 1) % kSlots;
+    s.ptr = nullptr;
+    const int st = hopper::make_matrix_map(&s.map, ptr, rows, K, BM);
+    if (st != 0) return st;
+    s.ptr = ptr;
+    s.rows = rows;
+    s.K = K;
+    s.dev = dev;
+    *out = &s.map;
+    return 0;
+  }
+};
 
 }  // namespace
 
-// Above 48 KB a block's shared memory must be opted into, once per kernel.
+// h (N, K) and w (Vp, K) start 16-byte aligned with K a multiple of 8 (the
+// tensor maps' rule); persistent CTAs, two per SM.
 extern "C" int vt_lm_head_blocked_stats_bf16(const void* h, const void* w,
                                              const void* bias, void* logits,
                                              void* bmax, void* bsum, int N,
                                              int K, int Vp, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lm_head_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
+  static bool allowed[hopper::kMaxDevices] = {};
+  int st = hopper::allow_dynamic_smem((const void*)lm_head_wgmma_kernel, kWgSmem, allowed);
+  if (st != 0) return st;
+  static MapCache cache_h, cache_w;
+  const CUtensorMap *mh = nullptr, *mw = nullptr;
+  if ((st = cache_h.get(&mh, h, N, K)) != 0) return st;
+  if ((st = cache_w.get(&mw, w, Vp, K)) != 0) return st;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  const dim3 grid((N + BM - 1) / BM, Vp / BN);
-  lm_head_bf16_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)h, (const __nv_bfloat16*)w, (const float*)bias,
-      (float*)logits, (float*)bmax, (float*)bsum, N, K, Vp);
+  const int mtiles = (N + BM - 1) / BM;
+  const int ntiles = mtiles * (Vp / BN);
+  const int grid = ntiles < 2 * sms ? ntiles : 2 * sms;
+  lm_head_wgmma_kernel<<<grid, kWgThreads, kWgSmem, (cudaStream_t)stream>>>(
+      *mh, *mw, (const float*)bias, (float*)logits, (float*)bmax, (float*)bsum, N, Vp,
+      (K + BK - 1) / BK, mtiles, ntiles);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention.cu, K4, and flash_attention_bwd.cu, K5): mbarriers, TMA
+// (flash_attention.cu, K4, and flash_attention_bwd.cu, K5), the LM head
+// (blocked_lm_head.cu, K2) and the beam-cache attention
+// (beam_cache_attention.cu, K1): mbarriers, TMA
 // tile loads through tensor maps, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, warp-specialisation helpers, and the host
 // side that encodes a tensor map.
@@ -105,6 +107,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of a 2-D tensor map (coordinates innermost first)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -523,6 +535,23 @@ inline int make_tensor_map(CUtensorMap* map, const void* ptr, int B, int T, int 
                             : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                           : CU_TENSOR_MAP_SWIZZLE_32B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a tensor map over a (rows, K) row-major bf16 matrix whose box is 64
+// columns of `box_rows` rows, swizzled 128B as desc_k<64> reads it; boxes
+// past either edge read zeros. Returns a cudaError_t.
+inline int make_matrix_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -24,6 +24,13 @@ Every entry launches ``csrc/flash_attention.cu`` (K4) or
 ``csrc/flash_attention_bwd.cu`` (K5) for CUDA tensors, or raises, and runs the
 same function in plain PyTorch (``*_reference``) for CPU tensors, so autograd
 on the CPU goes through the port's own backward too.
+
+The kernels are built for the head dims in ``HEAD_DIMS``. Any other head dim
+d up to 128 runs at the next built one: q, k, v (and dO, O) get zero columns
+along D, the kernels take the true scale ``d ** -0.5``, and the outputs are
+sliced back to d. Zero columns change no score, no output column, no LSE and
+no ``delta``, so this is the same function (the JAX package's v1 kernel pads
+its head dim alike). A head dim above 128 raises on the card.
 """
 
 from __future__ import annotations
@@ -54,12 +61,27 @@ def _check(q, k, v):
         raise ValueError(f"flash attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
 
 
-def _scores(q, k, key_mask, causal: bool) -> torch.Tensor:
-    """(B, H, Tq, Tk) f32 scores of the input-dtype operands: scaled, plus the
-    key bias, causal-masked to -1e9."""
+def padded_head_dim(d: int) -> int:
+    """The built head dim that head dim ``d`` runs at on the card: the least
+    one in ``HEAD_DIMS`` at or above ``d``; raises above the largest."""
+    for built in HEAD_DIMS:
+        if d <= built:
+            return built
+    raise ValueError(f"flash attention: head dim {d} above {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with zero columns appended along its last axis up to ``width``."""
+    return x if x.shape[-1] == width else torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _scores(q, k, key_mask, causal: bool, scale: Optional[float] = None) -> torch.Tensor:
+    """(B, H, Tq, Tk) f32 scores of the input-dtype operands: times ``scale``
+    (``D ** -0.5`` unless given), plus the key bias, causal-masked to -1e9."""
     b, tq, _, d = q.shape
     tk = k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d ** -0.5)
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     bias = _key_bias(key_mask, b, tk, q.device)
     if bias is not None:
         s = s + bias[:, None, None, :]
@@ -71,14 +93,15 @@ def _scores(q, k, key_mask, causal: bool) -> torch.Tensor:
 
 
 def flash_attention_reference(q, k, v, key_mask=None, causal: bool = False,
-                              return_lse: bool = False):
+                              return_lse: bool = False, scale: Optional[float] = None):
     """Plain PyTorch version of K4, with its rounding points: f32 scores of
-    the input-dtype operands, the scale applied to the f32 scores,
-    ``p = exp(s - m)`` rounded to V's dtype before the PV product, and
-    ``acc / max(l, 1e-30)`` cast to q's dtype. (B, Tq, H, D) out, and with
-    ``return_lse`` also ``lse = m + log(max(l, 1e-30))`` (B, H, Tq) f32."""
+    the input-dtype operands, the scale (``D ** -0.5`` unless given) applied
+    to the f32 scores, ``p = exp(s - m)`` rounded to V's dtype before the PV
+    product, and ``acc / max(l, 1e-30)`` cast to q's dtype. (B, Tq, H, D)
+    out, and with ``return_lse`` also ``lse = m + log(max(l, 1e-30))`` (B,
+    H, Tq) f32."""
     _check(q, k, v)
-    s = _scores(q, k, key_mask, causal)
+    s = _scores(q, k, key_mask, causal, scale)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp(s - m)
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
@@ -95,14 +118,16 @@ def _delta(out, dout) -> torch.Tensor:
     return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal: bool = False):
+def flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal: bool = False,
+                                       scale: Optional[float] = None):
     """Plain PyTorch version of K5, with the TPU kernels' rounding points: dS
     rounded to K's dtype before dS K and to Q's before dS^T Q, p rounded to
     dO's dtype before p^T dO; dbias sums the unrounded f32 dS over heads and
-    query rows. Returns ``(dq, dk, dv, dbias (B, Tk) f32)``."""
+    query rows. ``scale`` as in :func:`flash_attention_reference`. Returns
+    ``(dq, dk, dv, dbias (B, Tk) f32)``."""
     _check(q, k, v)
-    scale = q.shape[-1] ** -0.5
-    p = torch.exp(_scores(q, k, key_mask, causal) - lse[..., None])
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p = torch.exp(_scores(q, k, key_mask, causal, scale) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
     ds = p * (dp - _delta(out, dout)[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float()) * scale
@@ -111,29 +136,35 @@ def flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=(1, 2))
 
 
-def _check_kernel_operands(name: str, *tensors) -> torch.device:
+def _kernel_operands(name: str, *tensors):
     """One CUDA device, contiguous, one dtype (float32 or bfloat16), head
-    dim in HEAD_DIMS, 16-byte aligned; returns the device."""
+    dim at most 128, 16-byte aligned. Returns ``(device, d, tensors)``, the
+    tensors zero-padded along D to :func:`padded_head_dim`."""
     dev = cuda_lib.require_cuda(name, *tensors)
     dtype = tensors[0].dtype
     if dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != dtype for t in tensors):
         raise ValueError(f"{name}: q, k, v (and dO, O) must share one dtype, float32 or bfloat16")
     d = tensors[0].shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {d} above {HEAD_DIMS[-1]}")
     if any(t.shape[1] == 0 for t in tensors):
         raise ValueError(f"{name}: empty query or key axis")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: operands must start on 16-byte boundaries")
-    return dev
+    width = padded_head_dim(d)
+    return dev, d, [pad_head_dim(t, width) for t in tensors]
+
+
+def _unpad(x: torch.Tensor, d: int) -> torch.Tensor:
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def _kernel_forward(q, k, v, key_mask, causal: bool, with_lse: bool):
     """Launch K4; returns ``(out, lse or None)``."""
     _check(q, k, v)
-    b, tq, h, d = q.shape
+    b, tq, h, _ = q.shape
     tk = k.shape[1]
-    dev = _check_kernel_operands("flash_attention", q, k, v)
+    dev, d, (q, k, v) = _kernel_operands("flash_attention", q, k, v)
     bias = _key_bias(key_mask, b, tk, dev)
     if bias is not None:
         bias = bias.contiguous()
@@ -146,10 +177,10 @@ def _kernel_forward(q, k, v, key_mask, causal: bool, with_lse: bool):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if bias is None else bias.data_ptr(), out.data_ptr(),
             0 if lse is None else lse.data_ptr(),
-            b, tq, tk, h, d, int(bool(causal)), d ** -0.5, cuda_lib.stream_of(out),
+            b, tq, tk, h, q.shape[-1], int(bool(causal)), d ** -0.5, cuda_lib.stream_of(out),
         )
     cuda_lib.check(status, "flash_attention")
-    return out, lse
+    return _unpad(out, d), lse
 
 
 def flash_attention(q, k, v, key_mask=None, causal: bool = False) -> torch.Tensor:
@@ -198,10 +229,10 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal: bool = False
     forward's operands, the f32 key ``bias`` (B, Tk) or None, dO, lse and
     delta (B, H, Tq) f32."""
     _check(q, k, v)
-    b, tq, h, d = q.shape
-    dev = _check_kernel_operands("flash_attention_bwd_dq", q, k, v, dout)
+    b, tq, h, _ = q.shape
     if dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd_dq: dO {tuple(dout.shape)} vs q {tuple(q.shape)}")
+    dev, d, (q, k, v, dout) = _kernel_operands("flash_attention_bwd_dq", q, k, v, dout)
     _check_stats("flash_attention_bwd_dq", lse, delta, b, h, tq, dev)
     dq = torch.empty_like(q)
     lib = cuda_lib.lib()
@@ -210,11 +241,11 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal: bool = False
     with torch.cuda.device(dev):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dq.data_ptr(), b, tq, k.shape[1], h, d,
+                    delta.data_ptr(), dq.data_ptr(), b, tq, k.shape[1], h, q.shape[-1],
                     int(bool(causal)), d ** -0.5, cuda_lib.stream_of(dq))
     cuda_lib.check(status, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, d)
 
 
 flash_attention_bwd_dq.launches = 0
@@ -225,11 +256,11 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, causal: bool = Fals
     :func:`flash_attention_bwd_dq`: ``(dk, dv, dbias (B, H, Tk) f32 per
     head)``."""
     _check(q, k, v)
-    b, tq, h, d = q.shape
+    b, tq, h, _ = q.shape
     tk = k.shape[1]
-    dev = _check_kernel_operands("flash_attention_bwd_dkv", q, k, v, dout)
     if dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd_dkv: dO {tuple(dout.shape)} vs q {tuple(q.shape)}")
+    dev, d, (q, k, v, dout) = _kernel_operands("flash_attention_bwd_dkv", q, k, v, dout)
     _check_stats("flash_attention_bwd_dkv", lse, delta, b, h, tq, dev)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((b, h, tk), dtype=torch.float32, device=dev)
@@ -240,10 +271,11 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, causal: bool = Fals
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                     delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-                    b, tq, tk, h, d, int(bool(causal)), d ** -0.5, cuda_lib.stream_of(dk))
+                    b, tq, tk, h, q.shape[-1], int(bool(causal)), d ** -0.5,
+                    cuda_lib.stream_of(dk))
     cuda_lib.check(status, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv, dbias
+    return _unpad(dk, d), _unpad(dv, d), dbias
 
 
 flash_attention_bwd_dkv.launches = 0
