@@ -13,8 +13,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``scaled_dot_product_attention``, K4 at the permute route's padded head
    dim 48, and K4 against the dense attention path at T 256 to 2048; the
    beam-cache kernel K1 L2-cold, 12 layers' caches in a row, and the LM
-   head K2 at N 128 and 1024, by ``torch.profiler`` device time, K1 beside
-   ``scaled_dot_product_attention`` over the same keys);
+   heads K2 and K6 at N 128 and 1024, the crop + normalize K3 at B 16 and
+   128 (bitwise) and the fp8 probes K7, by ``torch.profiler`` device time,
+   K1 beside ``scaled_dot_product_attention`` over the same keys; K4 and
+   K5 above head dim 128: at 3 heads of 256 (B 16, T 1370) beside their
+   bounds and SDPA, and at D 320 and 160 against the plain versions);
 4. serves the flagship RRG beam-8 slice (``config/RRG/baseline-mimic.yml``,
    vocab 50265, random weights from a seed, bf16) on 16 uint8 images, checks
    the output and that every kernel ran, and times reports/s at batch 16 and
@@ -64,6 +67,7 @@ repository's files, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -122,23 +126,40 @@ def cuda_ms(fn, reps: int = 9, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms_per_call(fn, calls: int) -> float:
+def device_ms_per_call(fn, calls: int, kernels: dict | None = None) -> float:
     """Device milliseconds per call: the CUDA kernels, copies and sets that
     ``torch.profiler`` records while ``fn`` (``calls`` calls, after one
     warm-up run) executes, summed over their own durations. Unlike events
     around back-to-back launches, the host's time between launches is not
-    counted."""
+    counted.
+
+    A trace counts only when it is whole: every device event name recurs a
+    multiple of ``calls`` times (the calls are alike), and each name in
+    ``kernels`` (a part of a kernel's name: its launches per call) appears
+    exactly ``calls`` times that often. A trace that falls short is printed
+    and discarded; five short traces in a row fail the phase."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / calls
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        names = collections.Counter(e.name for e in events)
+        short = [f"{part}: {sum(n for name, n in names.items() if part in name)} of "
+                 f"{per_call * calls}" for part, per_call in (kernels or {}).items()
+                 if sum(n for name, n in names.items() if part in name) != per_call * calls]
+        short += [f"{name[:60]}: {n}, not a multiple of {calls}"
+                  for name, n in names.items() if n % calls]
+        if events and not short:
+            return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / calls
+        print(f"  device_ms_per_call: trace {attempt + 1} discarded, incomplete: "
+              f"{'; '.join(short) or 'no device event'}")
+    fail("torch.profiler recorded no whole trace in five")
 
 
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes
@@ -281,7 +302,8 @@ def beam_cache_cold(stage: str, n: int, seed: int, library: bool = True) -> dict
             fused_beam_cache_attention(kc, vc, q, kn, vn, mask, index, **kw)
 
     kc, vc, q, kn, vn, mask, kw = layers[0]
-    out = dict(ms=device_ms_per_call(step, LAYERS), events_ms=cuda_ms(step) / LAYERS,
+    out = dict(ms=device_ms_per_call(step, LAYERS, {"beam_attention_mma_kernel": 1}),
+               events_ms=cuda_ms(step) / LAYERS,
                **beam_cache_bound(kc, q, mask, index, BEAM, stats=kw["return_stats"],
                                   scales=kw.get("kv_scales"), prefix=kw.get("prefix")))
     out["library_ms"] = None
@@ -562,7 +584,10 @@ def flash_bound(q, k, causal: bool, key_mask=None, tensors: int = 4, extra_bytes
     """A flash kernel's bound: ``tensors`` tensors of q's shape and dtype
     read or written plus ``extra_bytes``; ``products`` matrix products of
     2 * D operations per head for every (query, key) pair that the causal
-    limit and the key mask leave."""
+    limit and the key mask leave: 2 forward (S = QKᵀ, PV); 5 for the whole
+    backward (S recomputed, dP = dO Vᵀ, dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q),
+    of which the dq kernel alone needs 3 (S, dP, dQ) and the dk/dv kernel
+    4 (S, dP, dV, dK)."""
     import torch
 
     b, tq, heads, d = q.shape
@@ -672,6 +697,158 @@ def flash_dense_crossover(b: int, heads: int, d: int, gen):
             torch.cuda.empty_cache()
         print(f"K4 vs dense attention bf16 B={b} H={heads} D={d} "
               f"{'causal' if causal else 'non-causal'}: " + "; ".join(row))
+
+
+def flash_head_dims() -> str:
+    """The head dims K4/K5 are built for and the kernels that run each, from
+    ``flash_attention``'s own ``HEAD_DIMS``, ``WIDE_STEP`` and ``wide_route``."""
+    import torch
+
+    from vilmedic_torch.ops import flash_attention as fa
+
+    def wgmma(dtype, backward: bool) -> str:
+        return "/".join(str(d) for d in fa.HEAD_DIMS if not fa.wide_route(dtype, d, backward))
+
+    wide = [d for d in fa.HEAD_DIMS if fa.wide_route(torch.float32, d, False)]
+    return (f"built {'/'.join(map(str, fa.HEAD_DIMS))}; wgmma: bf16 forward "
+            f"{wgmma(torch.bfloat16, False)}, bf16 backward {wgmma(torch.bfloat16, True)}, f32 "
+            f"{wgmma(torch.float32, False)}; flash_attention_wide.cu: the rest of "
+            f"{'/'.join(map(str, wide))} and multiples of {fa.WIDE_STEP} above "
+            f"{fa.HEAD_DIMS[-1]}; other head dims zero-padded to the next of these")
+
+
+def check_flash_wide(results):
+    """K4 and K5 above head dim 128. bf16 at the VisionLanguage width split
+    into 3 heads of 256 (B 16, T 1370): K4 (the wgmma kernel at D 256)
+    unmasked and causal, K4 with LSE and K5 (the wide kernels) causal with
+    padded keys, against the plain versions and timed beside their bounds and
+    ``scaled_dot_product_attention`` (forward; forward and backward by
+    autograd, less the forward). Then D 320 (the wide kernels) and D 160
+    (zero-padded to 256) in f32 and bf16 against the plain versions at B 2,
+    T 300 / 200, 3 heads, causal with a key mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from vilmedic_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_reference, flash_attention_with_lse,
+    )
+
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    tol_lse = 1e-5
+    gen = torch.Generator("cuda").manual_seed(SEED + 6)
+
+    def grads_match(q, k, v, key_mask, causal, label):
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        out, lse = flash_attention_with_lse(q, k, v, key_mask, causal)
+        rout, rlse = flash_attention_reference(q, k, v, key_mask, causal, return_lse=True)
+        got = flash_attention_backward(q, k, v, key_mask, out, lse, dout, causal)
+        want = flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal)
+        torch.cuda.synchronize()
+        errs = {"out": (out.float() - rout.float()).abs().max().item(),
+                "lse": (lse - rlse).abs().max().item()}
+        for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            errs[name] = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        dtype = q.dtype
+        limits = {"out": tol[dtype], "lse": tol_lse, "dq": tol[dtype], "dk": tol[dtype],
+                  "dv": tol[dtype], "dbias": 1e-4}
+        print(f"K4/K5 {label} {str(dtype)[6:]}: max|err| out {errs['out']:.3e}, lse "
+              f"{errs['lse']:.3e}; relative dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv "
+              f"{errs['dv']:.3e} dbias {errs['dbias']:.3e} (tol {tol[dtype]:.0e}, lse "
+              f"{tol_lse:.0e}, dbias 1e-4)")
+        bad = [n for n, e in errs.items() if not e <= limits[n]]
+        if bad:
+            fail(f"flash attention {label} {dtype}: {bad}")
+        return out, lse, dout, errs
+
+    b, t, heads, d = 16, VL_TOKENS, 3, 256
+    key_mask = train_key_mask(b, t, "cuda")
+    q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    worst = 0.0
+    for causal in (False, True):
+        err = (flash_attention(q, k, v, None, causal).float()
+               - flash_attention_reference(q, k, v, None, causal).float()).abs().max().item()
+        worst = max(worst, err)
+        if not err <= tol[torch.bfloat16]:
+            fail(f"flash attention D 256 bf16 causal={causal}: {err:.3e}")
+    out, lse, dout, errs = grads_match(q, k, v, key_mask, True, f"B={b} T={t} H={heads} D={d}")
+    qh, kh, vh = sdpa_layout(q, k, v)
+    tm = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in (
+        ("fwd", lambda: flash_attention(q, k, v, None, False)),
+        ("fwd_causal", lambda: flash_attention(q, k, v, None, True)),
+        ("lse", lambda: flash_attention_with_lse(q, k, v, key_mask, True)),
+        ("bwd", lambda: flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)),
+        ("sdpa", lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+        ("sdpa_causal", lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)))}
+    tm["plain"] = cuda_ms(lambda: flash_attention_reference(q, k, v, None, False), reps=3)
+    leaves = [x.requires_grad_() for x in (qh, kh, vh)]
+    (dout_h,) = sdpa_layout(dout)
+    allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
+               & key_mask[:, None, None, :])
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+        torch.autograd.grad(o, leaves, dout_h)
+
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed), reps=5)
+    tm["sdpa_bwd"] = cuda_ms(sdpa_fwd_bwd, reps=5) - lib_fwd
+    stats = 2 * b * heads * t * 4 + b * t * 4
+    bounds = {"fwd": flash_bound(q, k, False), "fwd_causal": flash_bound(q, k, True),
+              "lse": flash_bound(q, k, True, key_mask, extra_bytes=key_mask.numel()
+                                 + b * heads * t * 4),
+              "bwd": flash_bound(q, k, True, key_mask, tensors=8, extra_bytes=stats,
+                                 products=5)}
+    for name in ("fwd", "fwd_causal", "lse", "bwd"):
+        bd = bounds[name]
+        lib = {"fwd": tm["sdpa"], "fwd_causal": tm["sdpa_causal"], "lse": lib_fwd,
+               "bwd": tm["sdpa_bwd"]}[name]
+        print(f"K4/K5 bf16 D 256 {name} (B {b}, T {t}, 3 heads of 256): kernel {tm[name]:.4f} ms "
+              f"({bd['bound_ms'] / tm[name] * 100:.1f}% of the bound), bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), scaled_dot_product_attention "
+              f"{lib:.4f} ms")
+    print(f"K4 bf16 D 256 plain version {tm['plain']:.4f} ms")
+    del q, k, v, qh, kh, vh, leaves, dout_h, allowed, out, lse, dout
+    torch.cuda.empty_cache()
+    for d, tq, tk in ((320, 300, 300), (160, 200, 300)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(2, tq, 3, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(2, tk, 3, d, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            mask = torch.ones(2, tk, dtype=torch.bool, device="cuda")
+            mask[1, tk - tk // 3:] = False
+            grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal")
+    # the wide kernels' speed at 3 heads of 320 (B 16, T 1370), not on any path
+    q, k, v, dout = (torch.randn(b, t, heads, 320, generator=gen, device="cuda").bfloat16()
+                     for _ in range(4))
+    out, lse = flash_attention_with_lse(q, k, v, key_mask, True)
+    qh, kh, vh = sdpa_layout(q, k, v)
+    wide = {"fwd": cuda_ms(lambda: flash_attention(q, k, v, None, False), reps=3, warmup=1),
+            "bwd": cuda_ms(lambda: flash_attention_backward(q, k, v, key_mask, out, lse, dout,
+                                                            True), reps=3, warmup=1),
+            "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), reps=3)}
+    leaves = [x.requires_grad_() for x in (qh, kh, vh)]
+    (dout_h,) = sdpa_layout(dout)
+    allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
+               & key_mask[:, None, None, :])
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed), reps=3)
+    wide["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, attn_mask=allowed), leaves, dout_h),
+        reps=3) - lib_fwd
+    bd_f = flash_bound(q, k, False)
+    bd_b = flash_bound(q, k, True, key_mask, tensors=8, extra_bytes=stats, products=5)
+    print(f"K4/K5 bf16 D 320 (B {b}, T {t}, 3 heads of 320, the wide kernels): forward "
+          f"{wide['fwd']:.4f} ms (bound {bd_f['bound_ms']:.4f}, {bd_f['bound_by']}; "
+          f"scaled_dot_product_attention {wide['sdpa']:.4f} ms), causal backward with padded "
+          f"keys {wide['bwd']:.4f} ms (bound {bd_b['bound_ms']:.4f}, {bd_b['bound_by']}; autograd "
+          f"backward of scaled_dot_product_attention {wide['sdpa_bwd']:.4f} ms)")
+    del q, k, v, dout, out, lse, qh, kh, vh, leaves, dout_h, allowed
+    torch.cuda.empty_cache()
+    results["flash_attention"]["d256"] = dict(
+        ms=tm["fwd"], causal_ms=tm["fwd_causal"], lse_ms=tm["lse"], backward_ms=tm["bwd"],
+        bound_ms=bounds["fwd"]["bound_ms"], backward_bound_ms=bounds["bwd"]["bound_ms"],
+        library_ms=tm["sdpa"], library_backward_ms=tm["sdpa_bwd"], max_abs_err=worst,
+        backward_rel_err=max(errs[n] for n in ("dq", "dk", "dv")))
 
 
 def train_key_mask(b: int, t: int, device):
@@ -855,7 +1032,8 @@ def check_blocked_lm_head(results):
                 nbytes = (h.numel() + w.numel()) * 2 + vp * 4 + n * vp * 4 + 2 * n * (vp // 128) * 4
                 timing[n] = dict(
                     ms=device_ms_per_call(lambda: [lm_head_blocked_stats(h, w, b)
-                                                   for _ in range(9)], 9),
+                                                   for _ in range(9)], 9,
+                                          {"lm_head_wgmma_kernel": 1}),
                     events_ms=cuda_ms(lambda: lm_head_blocked_stats(h, w, b)),
                     plain_ms=cuda_ms(lambda: lm_head_blocked_stats_reference(h, w, b)),
                     product_ms=device_ms_per_call(lambda: [torch.matmul(h, w.t())
@@ -879,35 +1057,50 @@ def check_blocked_lm_head(results):
 
 
 def check_crop_normalize(results):
+    """K3 bitwise against its plain version at B 16 and 128, at two shapes:
+    R 256, crop 224 at random in-range offsets, and R = crop = 224 at zero
+    offsets, what the serving path's ``host_batch`` feeds it (the row of the
+    kernels line). Device time from ``torch.profiler``, events beside it."""
     import torch
 
     from vilmedic_torch.ops.image_preproc import crop_normalize, crop_normalize_reference
 
-    b, r, crop = 16, 256, 224
-    tol = 1e-6  # the same IEEE f32 ops in the same order: expected exact
     gen = torch.Generator().manual_seed(SEED + 2)
-    img = torch.randint(0, 256, (b, r, r, 3), generator=gen, dtype=torch.uint8).cuda()
-    tops = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
-    lefts = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
-    out = crop_normalize(img, tops, lefts, crop)
-    ref = crop_normalize_reference(img, tops, lefts, crop)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    print(f"K3 crop_normalize B={b} R={r} crop={crop}: max|err|={err:.3e} (tol {tol:.0e})")
-    if err > tol:
-        fail("crop_normalize")
-    ms = cuda_ms(lambda: crop_normalize(img, tops, lefts, crop))
-    plain = cuda_ms(lambda: crop_normalize_reference(img, tops, lefts, crop))
-    # read the crop windows (uint8) and the offsets, write f32; 2 ops a value
-    values = b * crop * crop * 3
-    bd = bound(values + 2 * b * 4 + values * 4, 2 * values, torch.float32)
-    print(f"K3 B={b}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-          f"({bd['bound_by']})")
+    timing = {}
+    for b in (16, 128):
+        for r, crop in ((256, 224), (224, 224)):
+            img = torch.randint(0, 256, (b, r, r, 3), generator=gen, dtype=torch.uint8).cuda()
+            tops = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
+            lefts = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
+            out = crop_normalize(img, tops, lefts, crop)
+            ref = crop_normalize_reference(img, tops, lefts, crop)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            if not torch.equal(out, ref):
+                fail(f"crop_normalize B={b} R={r}: not bitwise the plain version ({err:.3e})")
+            # read the crop windows (uint8) and the offsets, write f32; 2 ops a value
+            values = b * crop * crop * 3
+            timing[b, r] = dict(
+                ms=device_ms_per_call(lambda: [crop_normalize(img, tops, lefts, crop)
+                                               for _ in range(20)], 20,
+                                      {"crop_normalize_kernel": 1}),
+                events_ms=cuda_ms(lambda: crop_normalize(img, tops, lefts, crop)),
+                plain_ms=cuda_ms(lambda: crop_normalize_reference(img, tops, lefts, crop)),
+                max_abs_err=err, **bound(values + 2 * b * 4 + values * 4, 2 * values,
+                                         torch.float32))
+            tm = timing[b, r]
+            print(f"K3 crop_normalize B={b} R={r} crop={crop}: bitwise; kernel {tm['ms']:.4f} "
+                  f"device ms ({tm['bound_ms'] / tm['ms'] * 100:.1f}% of the bound; events "
+                  f"around one call {tm['events_ms']:.4f} ms), plain {tm['plain_ms']:.4f} ms, "
+                  f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+            del img, out, ref
+    tm = timing[16, 224]
     results["crop_normalize"] = dict(
         route="cuda", source="vilmedic_torch/csrc/image_preproc.cu",
-        replaces="vilmedic_tpu/ops/image_preproc.py:48",
-        max_abs_err=err, ms=ms, plain_ms=plain, **bd, library_ms=None,
-        path="rrg", counter="crop_normalize",
+        replaces="vilmedic_tpu/ops/image_preproc.py:74",
+        max_abs_err=max(t["max_abs_err"] for t in timing.values()), ms=tm["ms"],
+        plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+        library_ms=None, path="rrg", counter="crop_normalize",
     )
 
 
@@ -987,22 +1180,29 @@ def check_fused_lm_head(results):
                     torch.logsumexp(x, dim=-1)
 
                 timing[n] = dict(
-                    ms=cuda_ms(lambda: lm_head_topk_lse(h, w, b, TOPK_R, TOPK_TILE)),
+                    ms=device_ms_per_call(lambda: [lm_head_topk_lse(h, w, b, TOPK_R, TOPK_TILE)
+                                                   for _ in range(9)], 9,
+                                          {"topk_wgmma": 1, "topk_merge": 1}),
+                    events_ms=cuda_ms(lambda: lm_head_topk_lse(h, w, b, TOPK_R, TOPK_TILE)),
                     plain_ms=cuda_ms(lambda: lm_head_topk_lse_reference(h, w, b, TOPK_R,
                                                                         TOPK_TILE)),
-                    product_ms=cuda_ms(lambda: torch.matmul(h, w)),
-                    three_ms=cuda_ms(three_calls), **topk_bound(h, w, TOPK_R))
+                    product_ms=device_ms_per_call(lambda: [torch.matmul(h, w)
+                                                           for _ in range(9)], 9),
+                    three_ms=device_ms_per_call(lambda: [three_calls() for _ in range(9)], 9),
+                    values_err=err, lse_rel=rel, **topk_bound(h, w, TOPK_R))
             del h, logits
     for n, tm in timing.items():
         flops = 2 * n * hidden * w32.shape[1]
-        print(f"K6 bf16 N={n}: kernel {tm['ms']:.4f} ms ({flops / tm['ms'] / 1e9:.1f} TFLOP/s), "
-              f"plain {tm['plain_ms']:.4f} ms, torch.matmul of the product only "
-              f"{tm['product_ms']:.4f} ms, matmul + topk + logsumexp {tm['three_ms']:.4f} ms, "
-              f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+        print(f"K6 bf16 N={n}: kernel {tm['ms']:.4f} device ms ({flops / tm['ms'] / 1e9:.1f} "
+              f"TFLOP/s, {tm['bound_ms'] / tm['ms'] * 100:.1f}% of the bound; events around one "
+              f"call {tm['events_ms']:.4f} ms), plain {tm['plain_ms']:.4f} ms, torch.matmul of "
+              f"the product only {tm['product_ms']:.4f} device ms, matmul + topk + logsumexp "
+              f"{tm['three_ms']:.4f} device ms, bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}); "
+              f"max|err| values {tm['values_err']:.3e}, lse rel {tm['lse_rel']:.3e}")
     tm = timing[1024]
     results["lm_head_topk_lse"] = dict(
         route="cuda", source="vilmedic_torch/csrc/fused_lm_head.cu",
-        replaces="vilmedic_tpu/ops/fused_lm_head.py:61", max_abs_err=worst, ms=tm["ms"],
+        replaces="vilmedic_tpu/ops/fused_lm_head.py:112", max_abs_err=worst, ms=tm["ms"],
         plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
         library_ms=None, path="topk_head", counter="lm_head_topk_lse",
     )
@@ -1055,31 +1255,45 @@ def check_fp8_probe(results):
     lib_err = (torch._scaled_mm(a, b_cm, one, one, out_dtype=torch.float32)
                - fp8_matmul_reference(a, b)).abs().max().item()
     n_a, (m, k), n_b = x.numel(), a.shape, b.shape[1]
+
+    def device(fn, kernel=None):  # device ms per call, 20 calls in a row
+        return device_ms_per_call(lambda: [fn() for _ in range(20)], 20,
+                                  kernel and {kernel: 1})
+
     rows = {
         "fp8_scale2": dict(
-            replaces="experiments/spike_fp8_cache.py:26", max_abs_err=0.0,
-            ms=cuda_ms(lambda: fp8_scale2(x)), plain_ms=cuda_ms(lambda: fp8_scale2_reference(x)),
+            replaces="experiments/spike_fp8_cache.py:34", max_abs_err=0.0,
+            ms=device(lambda: fp8_scale2(x), "fp8_scale2_kernel"), events_ms=cuda_ms(lambda: fp8_scale2(x)),
+            plain_ms=cuda_ms(lambda: fp8_scale2_reference(x)),
             **bound(2 * n_a, n_a, torch.float32), library_ms=None),
         "fp8_matmul": dict(
-            replaces="experiments/spike_fp8_cache.py:47", max_abs_err=mm_err,
-            ms=cuda_ms(lambda: fp8_matmul(a, b)),
+            replaces="experiments/spike_fp8_cache.py:60", max_abs_err=mm_err,
+            ms=device(lambda: fp8_matmul(a, b), "fp8_matmul_kernel"), events_ms=cuda_ms(lambda: fp8_matmul(a, b)),
             plain_ms=cuda_ms(lambda: fp8_matmul_reference(a, b)),
-            **bound(m * k + k * n_b + m * n_b * 4, 2 * m * k * n_b, E4M3), library_ms=lib_mm),
+            **bound(m * k + k * n_b + m * n_b * 4, 2 * m * k * n_b, E4M3),
+            library_ms=device(lambda: torch._scaled_mm(a, b_cm, one, one,
+                                                       out_dtype=torch.float32)),
+            library_events_ms=lib_mm),
         "fp8_slab_copy": dict(
-            replaces="experiments/spike_fp8_cache.py:72", max_abs_err=0.0,
-            ms=cuda_ms(lambda: fp8_slab_copy(slab, 8)),
+            replaces="experiments/spike_fp8_cache.py:79", max_abs_err=0.0,
+            ms=device(lambda: fp8_slab_copy(slab, 8), "fp8_slab_copy_kernel"),
+            events_ms=cuda_ms(lambda: fp8_slab_copy(slab, 8)),
             plain_ms=cuda_ms(lambda: fp8_slab_copy_reference(slab, 8)),
             **bound(8 * 256 * 5, 0, torch.float32),
-            library_ms=cuda_ms(lambda: slab[:8].float())),
+            library_ms=device(lambda: slab[:8].float()),
+            library_events_ms=cuda_ms(lambda: slab[:8].float())),
     }
     for name, row in rows.items():
-        print(f"K7 {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        print(f"K7 {name}: kernel {row['ms']:.4f} device ms (events around one call "
+              f"{row.pop('events_ms'):.4f} ms), plain {row['plain_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.6f} ms ({row['bound_by']}), library "
-              + ("none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
+              + ("none" if row["library_ms"] is None else
+                 f"{row['library_ms']:.4f} device ms (events {row.pop('library_events_ms'):.4f})")
               + " (latency probes: launch time, not bytes)")
         results[name] = dict(route="cuda", source="vilmedic_torch/csrc/fp8_probe.cu", **row,
                              path="fp8_probe", counter=name)
-    print(f"K7 fp8_matmul library: torch._scaled_mm (cuBLAS fp8, f32 out) {lib_mm:.4f} ms, "
+    print(f"K7 fp8_matmul library: torch._scaled_mm (cuBLAS fp8, f32 out) {lib_mm:.4f} ms "
+          f"(events), "
           f"max |diff| to the plain version {lib_err:.3e}")
 
 
@@ -1101,6 +1315,11 @@ def phase_kernels():
     check_crop_normalize(results)
     check_flash_attention(results)
     check_flash_attention_backward(results)
+    check_flash_wide(results)
+    head_dims = flash_head_dims()
+    for name in ("flash_attention", "flash_attention_with_lse", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        results[name]["head_dims"] = head_dims
     return results
 
 
@@ -2160,8 +2379,10 @@ def main():
     # and K7's fp8 probe
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    extra = ("head_dims", "d256")  # the flash kernels' head dims; K4/K5 at D 256
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
-                                 else r[key] for key in keys}}
+                                 else r[key] for key in keys},
+                **{key: r[key] for key in extra if key in r}}
                for name, r in results.items()]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

@@ -430,6 +430,33 @@ def test_flash_padded_head_dims(cuda, dtype, d, tq, tk, causal):
     assert [fn.launches - s for fn, s in zip(counters, start)] == [1, 1, 1, 1]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [160, 192, 256, 320])
+@pytest.mark.parametrize("tq,tk,causal", [(70, 200, True), (130, 130, False), (300, 100, True)])
+def test_flash_wide_head_dims(cuda, dtype, d, tq, tk, causal):
+    """Head dims above 128, which JAX's v1 kernel takes: D 160 and 192 run
+    padded to 256, 256 itself (bf16 forward on the wgmma kernel), 320 on the
+    wide kernels. K4, K4 with LSE and K5 launch and match the plain versions
+    at the head dim itself, ragged on both axes, with rows that see no key."""
+    b, heads = 2, 3
+    gen = torch.Generator().manual_seed(d + tq + causal)
+    q = torch.randn(b, tq, heads, d, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(b, tk, heads, d, generator=gen).to(cuda, dtype) for _ in range(2))
+    key_mask = torch.ones(b, tk, dtype=torch.bool)
+    key_mask[1, tk - tk // 3:] = False
+    key_mask = key_mask.to(cuda)
+    counters = (flash_attention, flash_attention_with_lse, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    start = [fn.launches for fn in counters]
+    for km in (None, key_mask):
+        out = flash_attention(q, k, v, km, causal)
+        assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+        torch.testing.assert_close(out.float(), flash_attention_reference(q, k, v, km, causal)
+                                   .float(), rtol=TOL[dtype], atol=TOL[dtype])
+        _flash_grads_match(q, k, v, km, causal)
+    assert [fn.launches - s for fn, s in zip(counters, start)] == [2, 2, 2, 2]
+
+
 def test_flash_backward_is_deterministic(cuda):
     """K5 writes every output element from one block in a fixed order (no
     atomics): two runs agree bit for bit."""
@@ -505,9 +532,8 @@ def test_flash_backward_wrappers_refuse(cuda):
     with pytest.raises(ValueError):  # float16
         x = q.half()
         flash_attention_bwd_dq(x, x, x, None, x, stats, stats)
-    with pytest.raises(ValueError):  # head dim 256, above the largest built (128)
-        x = torch.zeros(1, 8, 2, 256, device=cuda)
-        flash_attention_bwd_dkv(x, x, x, None, x, stats, stats)
+    with pytest.raises(ValueError):  # dO in another dtype than q, k, v
+        flash_attention_bwd_dkv(q, q, q, None, q.bfloat16(), stats, stats)
     with pytest.raises(ValueError):  # contiguous, 4 bytes off
         x = torch.zeros(8 * 2 * 64 + 1, device=cuda)[1:].view(1, 8, 2, 64)
         flash_attention_bwd_dq(x, x, x, None, x, stats, stats)
@@ -618,6 +644,34 @@ def test_crop_normalize_kernel(cuda):
                                rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("b", [1, 16, 128])
+@pytest.mark.parametrize("r,crop", [(256, 224), (224, 224), (256, 223), (40, 32)])
+def test_crop_normalize_shapes(cuda, b, r, crop):
+    """Bitwise the plain version: in-range, negative (from the end) and
+    out-of-range (clamped) offsets; a crop that is not a multiple of 4 (the
+    scalar tail path); the serving path's uncropped R = crop."""
+    gen = torch.Generator().manual_seed(b + r + crop)
+    img = torch.randint(0, 256, (b, r, r, 3), generator=gen, dtype=torch.uint8).to(cuda)
+    tops = torch.randint(-r, r + 5, (b,), generator=gen, dtype=torch.int32).to(cuda)
+    lefts = torch.randint(-r, r + 5, (b,), generator=gen, dtype=torch.int32).to(cuda)
+    before = crop_normalize.launches
+    got = crop_normalize(img, tops, lefts, crop)
+    assert crop_normalize.launches - before == 1
+    assert torch.equal(got, crop_normalize_reference(img, tops, lefts, crop))
+
+
+@pytest.mark.parametrize("mean,std", [(None, None), ((0.5, 0.25, 0.75), (0.2, 0.3, 0.4))])
+def test_crop_normalize_table_is_the_plain_arithmetic(cuda, mean, std):
+    """Every byte of every channel through the kernel (its table built in
+    the kernel) and the plain version on the card: equal to the bit."""
+    kw = {} if mean is None else dict(mean=mean, std=std)
+    img = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    img = img[None, :, None, None].expand(1, 256, 256, 3).contiguous().to(cuda)
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
+    assert torch.equal(crop_normalize(img, zero, zero, 256, **kw),
+                       crop_normalize_reference(img, zero, zero, 256, **kw))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 2, 64, device=cuda, dtype=torch.float16)
     cache = torch.zeros(3, 4, 128, device=cuda, dtype=torch.float16)
@@ -637,9 +691,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError):  # float16
         flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError):  # head dim 256, above the largest built (128)
-        x = torch.zeros(1, 8, 2, 256, device=cuda)
-        flash_attention(x, x, x)
+    with pytest.raises(ValueError):  # an empty key axis
+        x = torch.zeros(1, 0, 2, 64, device=cuda)
+        flash_attention(q, x, x)
     with pytest.raises(ValueError):  # mixed dtypes
         flash_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError):  # not contiguous
@@ -824,6 +878,37 @@ def test_fused_lm_head_exact_ties(cuda):
         got = lm_head_topk_lse(h.to(cuda, dtype), w.to(cuda, dtype), b.to(cuda), 32, 1024)
         want = lm_head_topk_lse_reference(h, w, b, 32, 1024)
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 127, 1024])
+@pytest.mark.parametrize("r", [1, 16, 32])
+def test_fused_lm_head_decode_shapes(cuda, dtype, n, r):
+    """The flagship head (H 768, vocab 50265 padded to 51200): one row, a
+    ragged row tile, and the RRG batch of 128 x beam 8, where a bf16 unit
+    walks many vocab tiles behind its threshold."""
+    h, w, b = _head(cuda, n, 768, 50265, 2048, n + r, dtype)
+    vals, idx, lse = lm_head_topk_lse(h, w, b, r, 2048)
+    logits = h.float() @ w.float() + b
+    assert topk_agrees(vals, idx, logits, TOL_TOPK)
+    _, _, want = lm_head_topk_lse_reference(h, w, b, r, 2048)
+    assert ((lse - want).abs() / want.abs()).max().item() <= TOL_LSE
+
+
+@pytest.mark.parametrize("n,vocab,r", [(1024, 30000, 32), (300, 12000, 16), (1, 5000, 1)])
+def test_fused_lm_head_exact_ties_across_units(cuda, n, vocab, r):
+    """Exact ties (integer h and w) where a bf16 unit walks several vocab
+    tiles and several units share a row: the columns equal the stable
+    top-r's bitwise in both dtypes."""
+    gen = torch.Generator().manual_seed(n + vocab)
+    h = torch.randint(-2, 3, (n, 64), generator=gen).float()
+    w, b = pad_lm_head_weights(torch.randint(-1, 2, (64, vocab), generator=gen).float(),
+                               torch.zeros(vocab), 2048)
+    want = lm_head_topk_lse_reference(h, w, b, r, 2048)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = lm_head_topk_lse(h.to(cuda, dtype), w.to(cuda, dtype), b.to(cuda), r, 2048)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        torch.testing.assert_close(got[2].cpu(), want[2], rtol=TOL_LSE, atol=0)
 
 
 def test_fused_lm_head_refuses(cuda):

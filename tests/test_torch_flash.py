@@ -17,7 +17,7 @@ import torch
 from vilmedic_torch.ops import attention as tattn
 from vilmedic_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward_reference, flash_attention_reference,
-    pad_head_dim, padded_head_dim,
+    pad_head_dim, padded_head_dim, wide_route,
 )
 from vilmedic_tpu.ops import attention as jattn
 from vilmedic_tpu.ops.flash_attention import flash_attention as jax_flash
@@ -149,5 +149,40 @@ def test_padded_head_dim_matches_jax_v1(causal):
         assert torch.equal(g[..., 48:], torch.zeros_like(g[..., 48:]))
         torch.testing.assert_close(g[..., :48], w, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError):
-        padded_head_dim(129)
+    assert padded_head_dim(129) == 256 and padded_head_dim(200) == 256
+
+
+@pytest.mark.parametrize("d,width", [(129, 256), (200, 256), (256, 256), (257, 320),
+                                     (320, 320), (321, 384), (1000, 1024)])
+def test_padded_head_dim_above_128(d, width):
+    """Above 128 the card runs 256 (the wgmma kernels' largest), above 256
+    the next multiple of 64 (the wide kernels' chunk), and says which
+    kernels take it."""
+    assert padded_head_dim(d) == width
+    for backward in (False, True):
+        assert wide_route(torch.float32, width, backward)
+        assert wide_route(torch.bfloat16, width, backward) is (backward or width > 256)
+
+
+@pytest.mark.parametrize("d", [160, 256, 320])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_dims_match_jax_v1(d, causal):
+    """Head dims above 128 (JAX's v1 kernel, which takes any D): the plain
+    forward equals JAX's in interpret mode, with a key mask; run as the card
+    runs it (zero-padded to ``padded_head_dim``, true scale) it equals the
+    unpadded plain version."""
+    (q, k, v), rng = _inputs(6 + d, 2, 100, 130 if not causal else 100, 2, d)
+    key_mask = (rng.random((2, k.shape[1])) > 0.2).astype(np.int32)
+    key_mask[:, 0] = 1
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tm = torch.from_numpy(key_mask)
+    out, lse = flash_attention_reference(tq, tk, tv, tm, causal, return_lse=True)
+    np.testing.assert_allclose(out.numpy(), _run_jax(q, k, v, key_mask, causal),
+                               rtol=TOL, atol=TOL)
+    width = padded_head_dim(d)
+    padded = [pad_head_dim(x, width) for x in (tq, tk, tv)]
+    out_p, lse_p = flash_attention_reference(*padded, tm, causal, return_lse=True,
+                                             scale=d ** -0.5)
+    assert torch.equal(out_p[..., d:], torch.zeros_like(out_p[..., d:]))
+    torch.testing.assert_close(out_p[..., :d], out, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)

@@ -20,7 +20,7 @@ import torch
 from vilmedic_torch.ops import attention as tattn
 from vilmedic_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_reference,
-    flash_attention_reference, flash_attention_with_lse,
+    flash_attention_reference, flash_attention_with_lse, pad_head_dim, padded_head_dim,
 )
 from vilmedic_tpu.ops import attention as jattn
 from vilmedic_tpu.ops import flash_attention as jfa
@@ -152,6 +152,38 @@ def test_lse_matches_jax(h, d, v2, causal):
                                        torch.from_numpy(mask), causal, return_lse=True)
     assert got.shape == (2, h, tq) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("d", [160, 256, 320])
+@pytest.mark.parametrize("tq,tk,causal", [(100, 100, True), (70, 130, True), (130, 70, False)])
+def test_wide_head_dims_match_jax_v1(d, tq, tk, causal):
+    """Head dims above 128 (JAX's v1 path, which takes any D): the port's
+    forward, LSE and gradients (its plain versions on the CPU) against JAX's
+    in interpret mode, with a padded key tail; the LSE against the v1
+    kernel's ``with_lse`` residual; and the backward as the card runs it
+    (zero columns up to ``padded_head_dim``, the true scale) against the
+    unpadded one."""
+    q, k, v, dout, mask = _inputs(d + tq + tk, tq, tk, 2, d, True)
+    want = _jax_grads(q, k, v, dout, mask, causal, jnp.float32)
+    got = _port_grads(q, k, v, dout, mask, causal, torch.float32)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL, err_msg=name)
+    _, jlse = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 _keybias(mask, tk), 64, 64, True, causal, with_lse=True)
+    qt, kt, vt, dt = (torch.from_numpy(x) for x in (q, k, v, dout))
+    mt = torch.from_numpy(mask)
+    out, lse = flash_attention_with_lse(qt, kt, vt, mt, causal)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse).reshape(2, 2, -1, jfa.STATS_LANES)
+                               [:, :, :tq, 0], rtol=TOL, atol=TOL)
+    width = padded_head_dim(d)
+    padded = [pad_head_dim(x, width) for x in (qt, kt, vt, out, dt)]
+    grads_p = flash_attention_backward_reference(*padded[:3], mt, padded[3], lse, padded[4],
+                                                 causal, scale=d ** -0.5)
+    grads = flash_attention_backward(qt, kt, vt, mt, out, lse, dt, causal)
+    for gp, g in zip(grads_p[:3], grads[:3]):
+        assert torch.equal(gp[..., d:], torch.zeros_like(gp[..., d:]))
+        torch.testing.assert_close(gp[..., :d], g, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads_p[3], grads[3], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -85,3 +85,21 @@ def test_refuses_an_unpadded_vocab():
         tf.lm_head_topk_lse(h, w, b, 4, 1024)
     with pytest.raises(ValueError):  # h and w disagree on H
         tf.lm_head_topk_lse(torch.zeros(2, 4), *tf.pad_lm_head_weights(w, b, 1024), 4, 1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 127, 128, 1024])
+@pytest.mark.parametrize("vp", [2048, 51200])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_work_split_covers_every_tile_once(dtype, n, vp, sms):
+    """The split's chunks (chunk c holds vocab tiles [c * sub, (c + 1) *
+    sub)) cover every vocab tile exactly once and none is empty, so every
+    (row tile, chunk) unit writes the partial list the merge reads; bf16
+    aims at one unit per SM: no more chunks than the SMs a row tile gets."""
+    sub, chunks = tf.work_split(n, vp, sms, dtype)
+    tiles, mtiles = vp // tf.BLK, -(-n // tf.BLK)
+    covered = [t for c in range(chunks) for t in range(c * sub, min(tiles, (c + 1) * sub))]
+    assert sub >= 1 and covered == list(range(tiles))
+    assert (chunks - 1) * sub < tiles  # the last chunk holds a tile
+    if dtype == torch.bfloat16:
+        assert chunks <= max(1, -(-sms // mtiles))

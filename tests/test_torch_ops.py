@@ -23,7 +23,7 @@ from vilmedic_torch.ops import attention as tattn
 from vilmedic_torch.ops.beam_cache_attention import fused_beam_cache_attention
 from vilmedic_torch.ops.blocked_lm_head import NEG, lm_head_blocked_stats
 from vilmedic_torch.ops.flash_attention import flash_attention_reference
-from vilmedic_torch.ops.image_preproc import crop_normalize
+from vilmedic_torch.ops.image_preproc import crop_normalize, crop_normalize_reference
 
 # float32 sums of the same products in another order (online softmax in
 # chunks vs one softmax; a K-blocked product vs one matmul)
@@ -168,6 +168,31 @@ def test_crop_normalize_matches_jax(tops, lefts):
                          torch.from_numpy(lefts), c)
     assert got.shape == (b, 3, c, c) and got.dtype == torch.float32
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, rtol=TOL_PREPROC,
+                               atol=TOL_PREPROC)
+
+
+@pytest.mark.parametrize("mean,std", [(None, None), ((0.5, 0.25, 0.75), (0.2, 0.3, 0.4))])
+def test_crop_normalize_table_is_the_plain_arithmetic(mean, std):
+    """The plain version's output depends only on (channel, byte), the
+    premise of the kernel's (3, 256) table: the table read off one column of
+    every byte of every channel gives, one lookup per value, the whole
+    output, to the bit; and the plain version equals JAX's XLA path there."""
+    kw = {} if mean is None else dict(mean=mean, std=std)
+    img = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    img = img[None, :, None, None].expand(1, 256, 256, 3).contiguous()
+    zero = torch.zeros(1, dtype=torch.int32)
+    want = crop_normalize_reference(img, zero, zero, 256, **kw)
+    table = want[0, :, :, 0]  # (3, 256): channel c, byte v
+    other = torch.randint(0, 256, (2, 40, 40, 3), generator=torch.Generator().manual_seed(0),
+                          dtype=torch.uint8)
+    zeros = torch.zeros(2, dtype=torch.int32)
+    assert torch.equal(table[torch.arange(3)[None, :, None, None], other.long().permute(0, 3, 1, 2)],
+                       crop_normalize_reference(other, zeros, zeros, 40, **kw))
+    jax_kw = {} if mean is None else dict(mean=np.asarray(mean), std=np.asarray(std))
+    jax_out = np.asarray(jax_crop_normalize(jnp.asarray(img.numpy()), jnp.asarray(zero.numpy()),
+                                            jnp.asarray(zero.numpy()), 256, use_pallas=False,
+                                            **jax_kw))
+    np.testing.assert_allclose(table.numpy().T, jax_out[0, :, 0, :], rtol=TOL_PREPROC,
                                atol=TOL_PREPROC)
 
 

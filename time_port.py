@@ -24,6 +24,17 @@ one JSON line:
   ``lm_head_blocked_stats`` at N 128 and 1024 (K 768, Vp 50304), device
   ms; the host's microseconds per call of both wrappers and of their C
   entries;
+- the uint8 crop + normalize (K3) through ``crop_normalize`` at B 16 and 128,
+  R 256 / crop 224 at random offsets and R = crop = 224 at zero offsets (the
+  serving path's batches); the fused LM head top-16 + logsumexp (K6) through
+  ``lm_head_topk_lse`` at N 128 and 1024 (H 768, vocab 50265 padded to
+  51200, bf16) beside ``torch.matmul`` of its product and matmul + topk +
+  logsumexp; the fp8 probes (K7 a-c) at the spike's shapes beside
+  ``torch._scaled_mm`` and ``x[:8].float()``: all device ms per call
+  (``torch.profiler``);
+- the flash kernels above head dim 128: bf16, B 16, T 1370, 3 heads of 256
+  (forward, causal forward, with LSE and the whole backward, causal, padded
+  text keys), CUDA events; ``null`` where the checkout raises;
 - serving through the slices' generate functions (the helpers of
   ``chip_smoke.py``, random weights from seed 0, bf16): RRG reports/s at
   batch 16 and 128; VisionLanguage reports/s at batch 16 on the merge, int8
@@ -148,6 +159,80 @@ def time_flash() -> dict:
     return {"ms": ms, "host_us": host}
 
 
+def time_small_kernels() -> dict:
+    """K3, K6 and K7 in device ms per call (``torch.profiler``), each beside
+    the library calls that compute the same function."""
+    import torch
+
+    from vilmedic_torch.ops.fp8_probe import fp8_matmul, fp8_scale2, fp8_slab_copy, spike_inputs
+    from vilmedic_torch.ops.fused_lm_head import lm_head_topk_lse, pad_lm_head_weights
+    from vilmedic_torch.ops.image_preproc import crop_normalize
+
+    cs = helpers()
+
+    def device(fn, calls: int = 20, kernel=None):
+        return cs.device_ms_per_call(lambda: [fn() for _ in range(calls)], calls,
+                                     kernel and {kernel: 1})
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    ms = {}
+    for b in (16, 128):
+        for r, crop in ((256, 224), (224, 224)):
+            img = torch.randint(0, 256, (b, r, r, 3), generator=gen, dtype=torch.uint8).cuda()
+            tops = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
+            lefts = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
+            ms[f"k3_b{b}_r{r}"] = device(lambda: crop_normalize(img, tops, lefts, crop),
+                                           kernel="crop_normalize_kernel")
+    w, bias = pad_lm_head_weights(torch.randn(768, 50265, generator=gen) * 0.02,
+                                  torch.randn(50265, generator=gen) * 0.02, 2048)
+    w, bias = w.to("cuda", torch.bfloat16), bias.cuda()
+    for n in (128, 1024):
+        h = torch.randn(n, 768, generator=gen).to("cuda", torch.bfloat16)
+
+        def three_calls():
+            x = torch.matmul(h, w).float() + bias
+            torch.topk(x, 16)
+            torch.logsumexp(x, dim=-1)
+
+        ms[f"k6_n{n}"] = device(lambda: lm_head_topk_lse(h, w, bias, 16, 2048), 9, "topk_merge")
+        ms[f"k6_n{n}_matmul"] = device(lambda: torch.matmul(h, w), 9)
+        ms[f"k6_n{n}_matmul_topk_logsumexp"] = device(three_calls, 9)
+    x, a, b = spike_inputs("cuda")
+    slab = x[:16].contiguous()
+    b_cm = b.t().contiguous().t()
+    one = torch.ones((), device="cuda")
+    ms["k7_a"] = device(lambda: fp8_scale2(x), kernel="fp8_scale2_kernel")
+    ms["k7_b"] = device(lambda: fp8_matmul(a, b), kernel="fp8_matmul_kernel")
+    ms["k7_b_scaled_mm"] = device(lambda: torch._scaled_mm(a, b_cm, one, one,
+                                                           out_dtype=torch.float32))
+    ms["k7_c"] = device(lambda: fp8_slab_copy(slab, 8), kernel="fp8_slab_copy_kernel")
+    ms["k7_c_slice_float"] = device(lambda: slab[:8].float())
+    return ms
+
+
+def time_flash_wide() -> dict:
+    """K4 and K5 at 3 heads of 256 (bf16, B 16, T 1370), CUDA events; None
+    for a call the checkout refuses."""
+    import torch
+
+    from vilmedic_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 6)
+    q, k, v, dout = (torch.randn(B, TOKENS, 3, 256, generator=gen, device="cuda").bfloat16()
+                     for _ in range(4))
+    mask = key_mask(B, TOKENS)
+    try:
+        out, lse = fa.flash_attention_with_lse(q, k, v, mask, causal=True)
+    except ValueError:
+        return {"forward": None, "causal": None, "lse": None, "backward": None}
+    return {"forward": cuda_ms(lambda: fa.flash_attention(q, k, v, None, False), reps=5),
+            "causal": cuda_ms(lambda: fa.flash_attention(q, k, v, None, True), reps=5),
+            "lse": cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, mask, causal=True),
+                           reps=5),
+            "backward": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, dout,
+                                                                    causal=True), reps=3)}
+
+
 def helpers():
     """``chip_smoke.py`` beside this script, as a module: its timing helpers
     and the builders of the slices, which drive the public entry points of
@@ -195,7 +280,8 @@ def time_decode_kernels() -> dict:
     for rows in (128, 1024):
         h = bf16(rows, 768)
         ms[f"k2_n{rows}"] = cs.device_ms_per_call(
-            lambda: [lm_head_blocked_stats(h, w, b) for _ in range(9)], 9)
+            lambda: [lm_head_blocked_stats(h, w, b) for _ in range(9)], 9,
+            {"lm_head_wgmma_kernel": 1})
     host["k2"] = host_us(lambda: lm_head_blocked_stats(h, w, b), calls=100)
     lg = torch.empty(1024, 50304, device="cuda")
     mx, sm = torch.empty(1024, 393, device="cuda"), torch.empty(1024, 393, device="cuda")
@@ -331,6 +417,8 @@ def main():
     result = {"root": root, "card": card, "library": cuda_lib.library_path().name}
     result.update(time_flash())
     result["decode_kernels"] = time_decode_kernels()
+    result["small_kernels_ms"] = time_small_kernels()
+    result["flash_d256_ms"] = time_flash_wide()
     result["serving"] = time_serving()
     result["train"] = time_training(root)
     print(json.dumps(result))

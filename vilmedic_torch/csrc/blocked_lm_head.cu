@@ -271,41 +271,6 @@ __global__ void __launch_bounds__(kThreads)
 constexpr size_t kSmemBytes = (size_t)BM * CS_LD * sizeof(float);
 static_assert(2 * BK32 * T_LD * sizeof(float) <= kSmemBytes, "f32 tiles fit");
 
-// the tensor map of a (rows, K) bf16 matrix, encoded once per (pointer,
-// shape, device): the weight lives for a whole generate and the hidden
-// states' buffer is usually reused step to step
-struct MapCache {
-  static constexpr int kSlots = 8;
-  struct Slot {
-    const void* ptr;
-    int rows, K, dev;
-    CUtensorMap map;
-  } slots[kSlots] = {};
-  int next = 0;
-
-  int get(const CUtensorMap** out, const void* ptr, int rows, int K) {
-    int dev = 0;
-    const cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    for (Slot& s : slots)
-      if (s.ptr == ptr && s.rows == rows && s.K == K && s.dev == dev) {
-        *out = &s.map;
-        return 0;
-      }
-    Slot& s = slots[next];
-    next = (next + 1) % kSlots;
-    s.ptr = nullptr;
-    const int st = hopper::make_matrix_map(&s.map, ptr, rows, K, BM);
-    if (st != 0) return st;
-    s.ptr = ptr;
-    s.rows = rows;
-    s.K = K;
-    s.dev = dev;
-    *out = &s.map;
-    return 0;
-  }
-};
-
 }  // namespace
 
 // h (N, K) and w (Vp, K) start 16-byte aligned with K a multiple of 8 (the
@@ -317,16 +282,11 @@ extern "C" int vt_lm_head_blocked_stats_bf16(const void* h, const void* w,
   static bool allowed[hopper::kMaxDevices] = {};
   int st = hopper::allow_dynamic_smem((const void*)lm_head_wgmma_kernel, kWgSmem, allowed);
   if (st != 0) return st;
-  static MapCache cache_h, cache_w;
+  static hopper::MapCache cache_h, cache_w;
   const CUtensorMap *mh = nullptr, *mw = nullptr;
-  if ((st = cache_h.get(&mh, h, N, K)) != 0) return st;
-  if ((st = cache_w.get(&mw, w, Vp, K)) != 0) return st;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  if ((st = cache_h.get(&mh, h, N, K, BM)) != 0) return st;
+  if ((st = cache_w.get(&mw, w, Vp, K, BN)) != 0) return st;
+  const int sms = hopper::sm_count();
   const int mtiles = (N + BM - 1) / BM;
   const int ntiles = mtiles * (Vp / BN);
   const int grid = ntiles < 2 * sms ? ntiles : 2 * sms;

@@ -27,7 +27,8 @@
 //     producer (its registers cut to 40 by setmaxnreg), warpgroups 1 and 2
 //     consume 64 query rows each (raised to 232 registers).
 //   - One producer thread loads Q once and then K and V tiles of BK keys
-//     (128, or 64 at D 128) into a 2-stage ring in dynamic shared memory by
+//     (128, or 64 at D 128 and 256) into a 2-stage ring in dynamic shared
+//     memory (at D 256: Q 64 KB, the ring 128 KB) by
 //     TMA (cp.async.bulk.tensor over a (B, T, H, D) tensor map, 128-byte
 //     swizzle; 64-byte at D 32, 32-byte at D 16), completing on a full
 //     mbarrier per stage;
@@ -40,9 +41,11 @@
 //   - S = Q K^T is one wgmma.mma_async m64nBKk16 per 16 columns of D, both
 //     operands read from shared memory through swizzled descriptors (K is
 //     K-major, D contiguous); O += P V is the register-A wgmma m64nDk16 per 16
-//     keys, P packed from the S accumulator as bf16 (the TPU rounds p to V's
-//     dtype) and V read MN-major through the descriptor. Both accumulate in
-//     f32 registers; S never leaves them.
+//     keys (two m64n128k16 halves at D 256), P packed from the S accumulator
+//     as bf16 (the TPU rounds p to V's dtype) and V read MN-major through the
+//     descriptor. Both accumulate in f32 registers; S never leaves them. At D
+//     256 the O accumulator is 128 registers a consumer thread, under the
+//     232 that setmaxnreg gives it.
 //   - Online softmax in the log2 domain: scale * log2(e) is folded into one
 //     FMA per score (the bias was scaled when staged), exponentials are
 //     ex2.approx, the mask value and running-max floor are -1e9 * log2(e),
@@ -63,6 +66,9 @@
 //     ragged last key tile is masked in the kernel (keys >= Tk get exp(-inf)
 //     = 0 and zero V), and query rows >= Tq are computed on zero Q and not
 //     stored; the wrapper pads nothing.
+//
+// Head dims: bf16 16, 32, 64, 128 and 256 here, f32 16 to 128; the f32
+// path at 256 and both paths above it are flash_attention_wide.cu.
 //
 // What bounds the bf16 kernel now (PERF.md, K4 row): not memory. Each
 // consumer warpgroup runs S, the softmax and P V of a tile in series, and
@@ -107,7 +113,7 @@ constexpr float kMaskL2 = kMaskValue * hopper::kLog2e;  // the finite mask, log2
 
 template <int D>
 struct FwdTiles {
-  static constexpr int BK = D == 128 ? 64 : 128;  // keys per tile
+  static constexpr int BK = D >= 128 ? 64 : 128;  // keys per tile
   static constexpr int Q = 0;                     // shared-memory offsets (bytes)
   static constexpr int K = Q + kRows * D * 2;
   static constexpr int V = K + kStages * BK * D * 2;
@@ -258,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BK / 16; ++kc)
-        hopper::wgmma_rs<D>(acc, pa[kc], hopper::desc_mn<D>(vs, BK, kc), 1);
+        hopper::wgmma_rs<D>(acc, pa[kc], hopper::desc_mn<D>(vs, BK, kc), 1, 2 * BK * 128);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_operand(acc);
@@ -449,6 +455,8 @@ extern "C" int vt_flash_attention_bf16(const void* q, const void* k, const void*
       return launch_bf16<64>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
     case 128:
       return launch_bf16<128>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
+    case 256:
+      return launch_bf16<256>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

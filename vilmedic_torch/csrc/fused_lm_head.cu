@@ -15,30 +15,51 @@
 // operations (80.5 GFLOP).
 //
 // Design: the TPU kernel walks the vocabulary tiles in order on one core and
-// carries a running top-r and logsumexp from tile to tile. Here the
-// vocabulary is split across blocks instead:
-//   - `topk_chunk_*`: one block per (128-row tile, chunk of `sub` 128-column
-//     vocab tiles). Per vocab tile it computes the (128 x 128) f32 logits
-//     (bf16: nvcuda::wmma 16x16x16 with f32 accumulation, double-buffered
-//     k-tiles of 32; f32: FMA on the CUDA cores, no TF32), stores them in
-//     shared memory, and each warp then folds its 16 rows into the row's
-//     running (max, sum-exp) and running top-r list. A list lives in shared
-//     memory, one entry per lane, best first; a tile's values enter by
-//     repeated warp argmax while the best remaining value beats the list's
-//     r-th entry, so after the first tile a row costs about one argmax per
-//     tile. Each block writes a partial top-r and (max, sum-exp) per row.
-//   - `topk_merge`: one warp per row merges the chunks' partial lists and
-//     partial sums into the final top-r and lse.
+// carries a running top-r and logsumexp from tile to tile. Here work units
+// of (128-row tile, chunk of `sub` 128-column vocab tiles) run in parallel,
+// each writes partial top-r lists and (max, sum-exp) per row, and a merge
+// kernel combines them.
+//   - bf16, `topk_wgmma`: persistent and warp-specialised, as K2
+//     (blocked_lm_head.cu). One CTA of 288 threads per SM walks the units,
+//     row tiles of one vocab chunk next to each other (so W is read from
+//     DRAM about once); its producer warp keeps a 4-stage ring (2 at r > 16)
+//     of (h, W) k-tiles of 64 in flight by TMA (128B swizzle). W is read in
+//     place from its (K, Vp) layout: its tile is the MN-major B operand of
+//     wgmma m64n128k16, whose descriptor transposes 16-bit B, so W needs no
+//     copy. Two consumer warpgroups take 64 rows each.
+//   - Its epilogue works from the accumulator registers: each thread holds 32
+//     columns of each of two rows, adds the bias and keeps its own running
+//     (max, sum-exp) per row (ex2.approx in the log2 domain). Its own sorted
+//     top-r list per row lives in shared memory (at 288 threads ptxas holds
+//     a thread to 168 registers), behind a row threshold in registers: at a
+//     unit's first tile a bound from the quad's values, then the best of
+//     the quad's lists' r-th entries and the least of their ceil(r/4)-th.
+//     Only values that beat it go to the thread's 16 candidate slots in
+//     shared memory; a warp inserts them, in registers, only when one of its
+//     lanes has any. At a unit's end the quad's four lists become the row's
+//     one by rank (an entry's place is the count of entries that beat it).
+//   - What bounds it now (PERF.md, K6 row): not the tensor cores. Each unit
+//     keeps an exact running top r of its columns, which changes ~100 times
+//     a row a unit; those inserts, on 8 consumer warps with the epilogue not
+//     overlapping the products, take about half of its time.
+//   - f32, `topk_chunk_f32`: the CUDA cores (8x8 outputs per thread, no
+//     TF32, f32 parity needs full f32 products) into a shared-memory tile,
+//     folded by warps into shared-memory lists (the first design).
+//   - `topk_merge`: one block per row. A row's top r lies at or above the
+//     best of the partial lists' r-th entries and the r-th best of their
+//     first entries; the entries that do are gathered in shared memory and
+//     each is placed by its rank among them; the (max, sum-exp) partials
+//     combine into the lse.
 // Every comparison is on (value, column) pairs, so the result does not
-// depend on the order in which chunks or lanes are visited. Speed is a later
-// PR's work: no TMA, no wgmma.
+// depend on the order in which units, lanes or entries are visited.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -46,7 +67,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int BM = 128;        // rows per block
 constexpr int BN = 128;        // vocab columns per tile
 constexpr int CS_LD = BN + 4;  // f32 logits tile stride
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the f32 chunk kernel and the merge
 constexpr int kMaxR = 32;      // one list entry per lane
 constexpr int kRowsPerWarp = BM / (kThreads / 32);
 
@@ -177,7 +198,7 @@ __device__ void fold_tile(const float* cs, const float* __restrict__ bias, RowSt
   }
 }
 
-// the block's partial results: part_v/part_c (N, nchunks, r), part_m/part_s (N, nchunks)
+// the block's partial results: part_v/part_c (N, r, nchunks), part_m/part_s (N, nchunks)
 __device__ void write_partials(const RowState* st, float* __restrict__ part_v,
                                int* __restrict__ part_c, float* __restrict__ part_m,
                                float* __restrict__ part_s, int N, int row0, int chunk,
@@ -188,9 +209,9 @@ __device__ void write_partials(const RowState* st, float* __restrict__ part_v,
     const int row = row0 + rr;
     if (row >= N) break;
     const long long at = (long long)row * nchunks + chunk;
-    if (lane < r) {
-      part_v[at * r + lane] = st->lv[rr][lane];
-      part_c[at * r + lane] = st->lc[rr][lane];
+    if (lane < r) {  // entry i of list l at (row, i, l)
+      part_v[((long long)row * r + lane) * nchunks + chunk] = st->lv[rr][lane];
+      part_c[((long long)row * r + lane) * nchunks + chunk] = st->lc[rr][lane];
     }
     if (lane == 0) {
       part_m[at] = st->m[rr];
@@ -199,110 +220,7 @@ __device__ void write_partials(const RowState* st, float* __restrict__ part_v,
   }
 }
 
-// ---------------------------------------------------------------- bf16 path
-constexpr int BK16 = 32;
-constexpr int A_LD = BK16 + 8;  // A tile (BM, BK16) stride: 80-byte rows
-constexpr int B_LD = BN + 8;    // B tile (BK16, BN) stride: 272-byte rows
-constexpr int A_TILE = BM * A_LD;
-constexpr int B_TILE = BK16 * B_LD;
 constexpr size_t kTileBytes = (size_t)BM * CS_LD * sizeof(float);
-static_assert(2 * (A_TILE + B_TILE) * sizeof(__nv_bfloat16) <= kTileBytes, "bf16 tiles fit");
-
-__global__ void __launch_bounds__(kThreads)
-    topk_chunk_bf16(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ part_v,
-                    int* __restrict__ part_c, float* __restrict__ part_m,
-                    float* __restrict__ part_s, int N, int K, int Vp, int r, int sub) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  // [buf][A | B] bf16 tiles during a tile's products, then the f32 logits
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* cs = reinterpret_cast<float*>(smem_raw);
-  RowState* st = reinterpret_cast<RowState*>(smem_raw + kTileBytes);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int row0 = blockIdx.x * BM;
-  const int chunk = blockIdx.y;
-  const int nchunks = gridDim.y;
-  const int wm = (warp / 2) * 32;  // warp's 32-row slice
-  const int wn = (warp % 2) * 64;  // warp's 64-column slice
-  const int nb = Vp / BN;
-  const int tile_end = min(nb, (chunk + 1) * sub);
-  init_rows(st);
-
-  uint4 ra[2], rb[2];
-  for (int tile = chunk * sub; tile < tile_end; ++tile) {
-    const int col0 = tile * BN;
-    // each thread moves two 16-byte vectors of A and two of B per k-tile
-    auto load_global = [&](int k0) {
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        const int idx = tid + v * kThreads;  // 0..511
-        const int m = idx / 4, kq = (idx % 4) * 8;
-        const int row = row0 + m;
-        ra[v] = row < N ? *reinterpret_cast<const uint4*>(h + (long long)row * K + k0 + kq)
-                        : make_uint4(0u, 0u, 0u, 0u);
-        const int kr = idx / 16, cq = (idx % 16) * 8;
-        rb[v] = *reinterpret_cast<const uint4*>(w + (long long)(k0 + kr) * Vp + col0 + cq);
-      }
-    };
-    auto store_shared = [&](int buf) {
-      __nv_bfloat16* a = tiles + buf * (A_TILE + B_TILE);
-      __nv_bfloat16* b = a + A_TILE;
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        const int idx = tid + v * kThreads;
-        *reinterpret_cast<uint4*>(a + (idx / 4) * A_LD + (idx % 4) * 8) = ra[v];
-        *reinterpret_cast<uint4*>(b + (idx / 16) * B_LD + (idx % 16) * 8) = rb[v];
-      }
-    };
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    const int ktiles = K / BK16;
-    load_global(0);
-    __syncthreads();  // the previous tile's fold has read cs
-    store_shared(0);
-    __syncthreads();
-    for (int kt = 0; kt < ktiles; ++kt) {
-      const int buf = kt & 1;
-      if (kt + 1 < ktiles) load_global((kt + 1) * BK16);
-      const __nv_bfloat16* a = tiles + buf * (A_TILE + B_TILE);
-      const __nv_bfloat16* b = a + A_TILE;
-#pragma unroll
-      for (int kk = 0; kk < BK16; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], a + (wm + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], b + kk * B_LD + wn + j * 16, B_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      if (kt + 1 < ktiles) store_shared(buf ^ 1);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(cs + (wm + i * 16) * CS_LD + wn + j * 16, acc[i][j], CS_LD,
-                                wmma::mem_row_major);
-    __syncthreads();
-    fold_tile(cs, bias, st, N, row0, tile, r);
-  }
-  write_partials(st, part_v, part_c, part_m, part_s, N, row0, chunk, nchunks, r);
-}
 
 // ----------------------------------------------------------------- f32 path
 constexpr int BK32 = 8;
@@ -375,85 +293,524 @@ __global__ void __launch_bounds__(kThreads)
   write_partials(st, part_v, part_c, part_m, part_s, N, row0, chunk, nchunks, r);
 }
 
-// ------------------------------------------------------------------- merge
-constexpr int kMergeWarps = 8;
+// ---------------------------------------------------------------- bf16 path
+constexpr int BK = 64;                        // k-values per stage: one 128B-swizzled chunk
+constexpr int kConsumers = 256;               // two warpgroups
+constexpr int kWgThreads = kConsumers + 32;   // and the producer warp
+constexpr int kHBytes = BM * BK * 2;          // h k-tile
+constexpr int kWChunk = BK * 64 * 2;          // 64 vocab columns of a W k-tile
+constexpr int kStageBytes = kHBytes + 2 * kWChunk;
+constexpr int kSlots = 16;                    // candidate slots a thread: 16 values at a time
 
-__global__ void __launch_bounds__(kMergeWarps * 32)
-    topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_c,
-               const float* __restrict__ part_m, const float* __restrict__ part_s,
-               float* __restrict__ vals, int* __restrict__ idx, float* __restrict__ lse, int N,
-               int nchunks, int r) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
-  if (row >= N) return;
-  float lv = -INFINITY, m = -INFINITY, s = 0.f;
-  int lc = INT_MAX;
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const long long at = (long long)row * nchunks + ch;
-    float x[1] = {-INFINITY};
-    int cols[1] = {INT_MAX};
-    if (lane < r) {
-      x[0] = part_v[at * r + lane];
-      cols[0] = part_c[at * r + lane];
+// Shared memory of the RC-entry lists (r <= RC): the TMA ring, the
+// candidate slots, then the lists; entry i of a thread's list for row half
+// h is word (h * RC + i) * kConsumers + thread (a warp's accesses are
+// consecutive words).
+template <int RC>
+struct Smem {
+  static constexpr int STAGES = RC <= 16 ? 4 : 2;
+  static constexpr int SLOTS = STAGES * kStageBytes;
+  static constexpr int LISTS = SLOTS + kSlots * kConsumers * 8;
+  static constexpr int BYTES = LISTS + 2 * RC * kConsumers * 8 + 1024;  // + the 1024 alignment
+};
+
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// the best (value, column) among a row's quad of lanes, in each of them
+__device__ __forceinline__ void quad_best(float& v, int& c) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    const float ov = __shfl_xor_sync(kFull, v, o);
+    const int oc = __shfl_xor_sync(kFull, c, o);
+    if (beats(ov, oc, v, c)) {
+      v = ov;
+      c = oc;
     }
-    fold(x, cols, lv, lc, r, lane);
-    const float pm = part_m[at];
-    const float m1 = fmaxf(m, pm);
-    s = s * expf(m - m1) + part_s[at] * expf(pm - m1);
-    m = m1;
   }
-  if (lane < r) {
-    vals[(long long)row * r + lane] = lv;
-    idx[(long long)row * r + lane] = lc;
+}
+
+// Insert this thread's n candidates from its slots into its sorted list of
+// r entries (capacity RC) in shared memory (entries kConsumers words
+// apart): the list is read into registers once, each candidate that beats
+// entry r - 1 (tv, tc) takes its place there, worse entries moving down,
+// and the list is written back once. Returns whether any was inserted.
+template <int RC>
+__device__ __forceinline__ bool insert_slots(const float* slot_v, const int* slot_c, int n,
+                                             float* lv, int* lc, int r, float& tv, int& tc) {
+  float v[RC];
+  int cc[RC];
+#pragma unroll
+  for (int i = 0; i < RC; ++i)
+    if (i < r) {
+      v[i] = lv[i * kConsumers];
+      cc[i] = lc[i * kConsumers];
+    }
+  bool inserted = false;
+  for (int s = 0; s < n; ++s) {
+    const float x = slot_v[s * kConsumers];
+    const int c = slot_c[s * kConsumers];
+    if (!beats(x, c, tv, tc)) continue;
+    inserted = true;
+    bool done = false;
+#pragma unroll
+    for (int i = RC - 1; i >= 0; --i) {
+      if (i < r && !done) {
+        if (i > 0 && beats(x, c, v[i - 1], cc[i - 1])) {
+          v[i] = v[i - 1];
+          cc[i] = cc[i - 1];
+        } else {
+          v[i] = x;
+          cc[i] = c;
+          done = true;
+        }
+      }
+      if (i == r - 1) {
+        tv = v[i];
+        tc = cc[i];
+      }
+    }
   }
-  if (lane == 0) lse[row] = logf(s) + m;
+  if (inserted) {
+#pragma unroll
+    for (int i = 0; i < RC; ++i)
+      if (i < r) {
+        lv[i * kConsumers] = v[i];
+        lc[i * kConsumers] = cc[i];
+      }
+  }
+  return inserted;
+}
+
+// A lower bound on a row's r-th value from the quad's 32 values a lane of
+// one row half: each lane's k-th largest (k = ceil(r / 4), so the quad
+// holds at least r values at or above the least of the four), the least
+// over the quad.
+template <int RC>
+__device__ __forceinline__ float quad_rth_bound(const float (&d)[64], int half, int r) {
+  constexpr int KMAX = RC / 4;
+  const int k = (r + 3) / 4;
+  float top[KMAX];
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) top[i] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = d[4 * j + 2 * half + e];
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {  // top stays sorted, largest first
+        const float hi = fmaxf(top[i], x);
+        x = fminf(top[i], x);
+        top[i] = hi;
+      }
+    }
+  float kth = top[0];
+#pragma unroll
+  for (int i = 1; i < KMAX; ++i)
+    if (i == k - 1) kth = top[i];
+  kth = fminf(kth, __shfl_xor_sync(kFull, kth, 1));
+  return fminf(kth, __shfl_xor_sync(kFull, kth, 2));
+}
+
+template <int RC>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    topk_wgmma(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w,
+               const float* __restrict__ bias, float* __restrict__ part_v,
+               int* __restrict__ part_c, float* __restrict__ part_m, float* __restrict__ part_s,
+               int N, int Vp, int ksteps, int r, int sub, int mtiles, int nchunks) {
+  using L = Smem<RC>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int nb = Vp / BN;
+  const int units = mtiles * nchunks;
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int row0 = (u % mtiles) * BM, t0 = (u / mtiles) * sub;
+        for (int tile = t0; tile < min(nb, t0 + sub); ++tile)
+          for (int k = 0; k < ksteps; ++k, ++it) {
+            const int s = it % STAGES;
+            hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            uint8_t* a = smem + s * kStageBytes;
+            hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+            hopper::tma_load_2d(a, &tm_h, k * BK, row0, &full[s]);
+            hopper::tma_load_2d(a + kHBytes, &tm_w, tile * BN, k * BK, &full[s]);
+            hopper::tma_load_2d(a + kHBytes + kWChunk, &tm_w, tile * BN + 64, k * BK, &full[s]);
+          }
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;  // the consumer warpgroup: rows 64 wg ..
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  float* slot_v = reinterpret_cast<float*>(smem + L::SLOTS) + tid;  // slot i at i * kConsumers
+  int* slot_c = reinterpret_cast<int*>(slot_v - tid + kSlots * kConsumers) + tid;
+  float* list_v = reinterpret_cast<float*>(smem + L::LISTS) + tid;
+  int* list_c = reinterpret_cast<int*>(list_v - tid + 2 * RC * kConsumers) + tid;
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int row0 = (u % mtiles) * BM, chunk = u / mtiles, t0 = chunk * sub;
+    // this thread's two rows (g, g + 8 of its warp's 16): running max and
+    // sum-exp over its own columns; its own list (entry r - 1: tv, tc) and
+    // the row's threshold (rv, rc), below which no value can be in the
+    // row's top r
+    float tv[2], rv[2], m[2], se[2];
+    int tc[2], rc[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      for (int i = 0; i < r; ++i) {
+        list_v[(half * RC + i) * kConsumers] = -INFINITY;
+        list_c[(half * RC + i) * kConsumers] = INT_MAX;
+      }
+      tv[half] = rv[half] = m[half] = -INFINITY;
+      tc[half] = rc[half] = INT_MAX;
+      se[half] = 0.f;
+    }
+    for (int tile = t0; tile < min(nb, t0 + sub); ++tile) {
+      const int col0 = tile * BN;
+      float d[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[i] = 0.f;
+      // one k-step's products stay in flight while the next one's are
+      // issued; a stage is released once the products that read it are done
+      for (int k = 0; k < ksteps; ++k, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint32_t a = hopper::smem_u32(smem + s * kStageBytes);
+        const uint32_t b = a + kHBytes;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::wgmma_ss_n128_mn(d, hopper::desc_k<64>(a, BM, 64 * wg, kk),
+                                   hopper::desc_mn<128>(b, BK, kk), 1);
+        hopper::wgmma_commit();
+        wgmma_wait_one();
+        if (k > 0) hopper::mbar_arrive(&empty[(it + STAGES - 1) % STAGES]);
+      }
+      hopper::wgmma_wait_all();
+      hopper::fence_operand(d);
+      hopper::mbar_arrive(&empty[(it + STAGES - 1) % STAGES]);
+      // epilogue from the registers: row 16 warp + g (+ 8) of the
+      // warpgroup's 64, columns 8 j + 2 t4 (+ 1)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 bj = *reinterpret_cast<const float2*>(bias + col0 + 8 * j + 2 * t4);
+          d[4 * j + 2 * half] += bj.x;
+          d[4 * j + 2 * half + 1] += bj.y;
+          mt = fmaxf(mt, fmaxf(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]));
+        }
+        // (x - max) before the scale, so a tile of -1e30 pad columns sums
+        // exp2(0), not the rounding error of -1e30 * log2(e)
+        const float mn = fmaxf(m[half], mt);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sum += hopper::fast_exp2((d[4 * j + 2 * half + e] - mn) * hopper::kLog2e);
+        se[half] = se[half] * hopper::fast_exp2((m[half] - mn) * hopper::kLog2e) + sum;
+        m[half] = mn;
+        if (tile == t0) {  // start the row's threshold at a bound from this tile
+          const float bound = quad_rth_bound<RC>(d, half, r);
+          if (beats(bound, INT_MAX, rv[half], rc[half])) {
+            rv[half] = bound;
+            rc[half] = INT_MAX;
+          }
+        }
+        // values that beat the row's threshold go to this thread's slots, 16
+        // at a time; a warp inserts them only when one of its lanes has any
+#pragma unroll
+        for (int grp = 0; grp < 32 / kSlots; ++grp) {
+          int n = 0;
+#pragma unroll
+          for (int q = 0; q < kSlots; ++q) {
+            const int j = (grp * kSlots + q) / 2, e = q % 2;
+            const float x = d[4 * j + 2 * half + e];
+            const int c = col0 + 8 * j + 2 * t4 + e;
+            if (beats(x, c, rv[half], rc[half])) {
+              slot_v[n * kConsumers] = x;
+              slot_c[n * kConsumers] = c;
+              ++n;
+            }
+          }
+          bool inserted = false;
+          if (n > 0)
+            inserted = insert_slots<RC>(slot_v, slot_c, n, list_v + half * RC * kConsumers,
+                                        list_c + half * RC * kConsumers, r, tv[half], tc[half]);
+          if (__any_sync(kFull, inserted)) {
+            const float* lv = list_v + half * RC * kConsumers;
+            // two bounds on the row's r-th value from the quad's lists: the
+            // best of their r-th entries, and the least of their
+            // ceil(r / 4)-th (four lanes hold r values at or above it)
+            float bv = tv[half];
+            int bc = tc[half];
+            quad_best(bv, bc);
+            float kth = lv[((r + 3) / 4 - 1) * kConsumers];
+            kth = fminf(kth, __shfl_xor_sync(kFull, kth, 1));
+            kth = fminf(kth, __shfl_xor_sync(kFull, kth, 2));
+            if (beats(kth, INT_MAX, bv, bc)) {
+              bv = kth;
+              bc = INT_MAX;
+            }
+            if (beats(bv, bc, rv[half], rc[half])) {
+              rv[half] = bv;
+              rc[half] = bc;
+            }
+          }
+        }
+      }
+    }
+    // the unit's partials: the row's top r from its quad's four lists (an
+    // entry's place is the count of the four lists' entries that beat it;
+    // the row's top r are all in them), and the quad's (max, sum-exp)
+    __syncwarp();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 64 * wg + 16 * warp + g + 8 * half;
+      const float mq = hopper::quad_max(m[half]);
+      const float sq =
+          hopper::quad_sum(se[half] * hopper::fast_exp2((m[half] - mq) * hopper::kLog2e));
+      if (row < N) {
+        const float* lv = list_v + half * RC * kConsumers;
+        const int* lc = list_c + half * RC * kConsumers;
+        for (int i = 0; i < r; ++i) {
+          const float x = lv[i * kConsumers];
+          const int c = lc[i * kConsumers];
+          int place = i;
+          for (int o = 1; o < 4; ++o) {
+            const float* ov = lv + ((tid ^ o) - tid);
+            const int* oc = lc + ((tid ^ o) - tid);
+            for (int j = 0; j < r; ++j) place += beats(ov[j * kConsumers], oc[j * kConsumers], x, c);
+          }
+          if (place < r) {  // entry i of list l at (row, i, l)
+            part_v[((long long)row * r + place) * nchunks + chunk] = x;
+            part_c[((long long)row * r + place) * nchunks + chunk] = c;
+          }
+        }
+        if (t4 == 0) {
+          part_m[(long long)row * nchunks + chunk] = mq;
+          part_s[(long long)row * nchunks + chunk] = sq;
+        }
+      }
+    }
+    __syncwarp();  // the lists are read before the next unit resets them
+  }
+}
+
+// ------------------------------------------------------------------- merge
+
+// (v, c) of the block that beats all others, in every thread
+__device__ void block_best(float& v, int& c, float* sv, int* sc) {
+  warp_best(v, c);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) {
+    sv[warp] = v;
+    sc[warp] = c;
+  }
+  __syncthreads();
+  v = lane < kThreads / 32 ? sv[lane] : -INFINITY;
+  c = lane < kThreads / 32 ? sc[lane] : INT_MAX;
+  warp_best(v, c);
+}
+
+// (max, sum-exp) pairs combined; a pair with sum 0 is empty
+__device__ __forceinline__ void lse_combine(float& m, float& s, float om, float os) {
+  const float mm = fmaxf(m, om);
+  s = (s == 0.f ? 0.f : s * expf(m - mm)) + (os == 0.f ? 0.f : os * expf(om - mm));
+  m = mm;
+}
+
+// (max, sum-exp) of the block, in every thread
+__device__ void block_lse(float& m, float& s, float* sv, float* ss) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    lse_combine(m, s, __shfl_xor_sync(kFull, m, o), __shfl_xor_sync(kFull, s, o));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) {
+    sv[warp] = m;
+    ss[warp] = s;
+  }
+  __syncthreads();
+  m = lane < kThreads / 32 ? sv[lane] : -INFINITY;
+  s = lane < kThreads / 32 ? ss[lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    lse_combine(m, s, __shfl_xor_sync(kFull, m, o), __shfl_xor_sync(kFull, s, o));
+}
+
+// One block per row: part_v/part_c (N, r, nlists), entry i of list l at
+// (row, i, l), each list r entries, best first; part_m/part_s (N, nstats).
+// A row's top r all lie at or above the best of the lists' r-th entries
+// (that list alone holds r values at least as good) and at or above the
+// r-th best of their first entries (r lists reach it); the entries that do
+// are gathered in shared memory (nlists * r entries of room), and each one's
+// place in the output is the count of gathered entries that beat it.
+__global__ void __launch_bounds__(kThreads)
+    topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_c, int nlists,
+               const float* __restrict__ part_m, const float* __restrict__ part_s, int nstats,
+               float* __restrict__ vals, int* __restrict__ idx, float* __restrict__ lse, int r) {
+  extern __shared__ float gathered[];  // values, then columns
+  __shared__ float red_v[kThreads / 32], red_s[kThreads / 32];
+  __shared__ int red_c[kThreads / 32];
+  __shared__ int count;
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int n = nlists * r;
+  int* gathered_c = reinterpret_cast<int*>(gathered + n);
+  if (tid == 0) count = 0;
+
+  float m = -INFINITY, s = 0.f;
+  for (int i = tid; i < nstats; i += kThreads)
+    lse_combine(m, s, part_m[(long long)row * nstats + i], part_s[(long long)row * nstats + i]);
+  block_lse(m, s, red_v, red_s);
+
+  const float* pv = part_v + (long long)row * n;
+  const int* pc = part_c + (long long)row * n;
+  float tv = -INFINITY;  // the best of the lists' r-th entries
+  int tc = INT_MAX;
+  for (int l = tid; l < nlists; l += kThreads)
+    if (beats(pv[(r - 1) * nlists + l], pc[(r - 1) * nlists + l], tv, tc)) {
+      tv = pv[(r - 1) * nlists + l];
+      tc = pc[(r - 1) * nlists + l];
+    }
+  block_best(tv, tc, red_v, red_c);
+  if (nlists >= r) {  // and the r-th best of the lists' first entries: r lists reach it
+    __syncthreads();  // block_best's reads of red_v are done
+    for (int l = tid; l < nlists; l += kThreads) {
+      int place = 0;
+      for (int j = 0; j < nlists; ++j) place += beats(pv[j], pc[j], pv[l], pc[l]);
+      if (place == r - 1) {
+        red_v[0] = pv[l];
+        red_c[0] = pc[l];
+      }
+    }
+    __syncthreads();
+    if (beats(red_v[0], red_c[0], tv, tc)) {
+      tv = red_v[0];
+      tc = red_c[0];
+    }
+  }
+  for (int e = tid; e < n; e += kThreads)
+    if (!beats(tv, tc, pv[e], pc[e])) {
+      const int at = atomicAdd(&count, 1);
+      gathered[at] = pv[e];
+      gathered_c[at] = pc[e];
+    }
+  __syncthreads();
+  const int cnt = count;
+  for (int i = tid; i < cnt; i += kThreads) {
+    const float x = gathered[i];
+    const int c = gathered_c[i];
+    int place = 0;
+    for (int j = 0; j < cnt; ++j) place += beats(gathered[j], gathered_c[j], x, c);
+    if (place < r) {
+      vals[(long long)row * r + place] = x;
+      idx[(long long)row * r + place] = c;
+    }
+  }
+  if (tid == 0) lse[row] = logf(s) + m;
 }
 
 constexpr size_t kSmemBytes = kTileBytes + sizeof(RowState);
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, const void* h, const void* w, const void* bias, void* vals, void* idx,
-           void* lse, void* part_v, void* part_c, void* part_m, void* part_s, int N, int K,
-           int Vp, int r, int sub, void* stream, bool& configured) {
-  if (!configured) {  // above 48 KB a block's shared memory must be opted into
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kSmemBytes);
+int launch_merge(const void* part_v, const void* part_c, int nlists, const void* part_m,
+                 const void* part_s, int nstats, void* vals, void* idx, void* lse, int N, int r,
+                 cudaStream_t s) {
+  const int bytes = nlists * r * 8;
+  if (bytes > 48 * 1024) {  // more than 1536 partial entries a row
+    const cudaError_t err =
+        cudaFuncSetAttribute(topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
   }
-  const int nb = Vp / BN;
-  const int nchunks = (nb + sub - 1) / sub;
-  const dim3 grid((N + BM - 1) / BM, nchunks);
-  cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<grid, kThreads, kSmemBytes, s>>>(
-      (const T*)h, (const T*)w, (const float*)bias, (float*)part_v, (int*)part_c,
-      (float*)part_m, (float*)part_s, N, K, Vp, r, sub);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  topk_merge<<<(N + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, s>>>(
-      (const float*)part_v, (const int*)part_c, (const float*)part_m, (const float*)part_s,
-      (float*)vals, (int*)idx, (float*)lse, N, nchunks, r);
+  topk_merge<<<N, kThreads, bytes, s>>>((const float*)part_v, (const int*)part_c, nlists,
+                                        (const float*)part_m, (const float*)part_s, nstats,
+                                        (float*)vals, (int*)idx, (float*)lse, r);
+  return (int)cudaGetLastError();
+}
+
+template <int RC>
+int launch_wgmma(const CUtensorMap* mh, const CUtensorMap* mw, const void* bias, void* part_v,
+                 void* part_c, void* part_m, void* part_s, int N, int K, int Vp, int r, int sub,
+                 cudaStream_t s) {
+  static bool allowed[hopper::kMaxDevices] = {};
+  const int st = hopper::allow_dynamic_smem((const void*)topk_wgmma<RC>, Smem<RC>::BYTES, allowed);
+  if (st != 0) return st;
+  const int mtiles = (N + BM - 1) / BM;
+  const int nchunks = (Vp / BN + sub - 1) / sub;
+  const int units = mtiles * nchunks;
+  const int sms = hopper::sm_count();
+  topk_wgmma<RC><<<units < sms ? units : sms, kWgThreads, Smem<RC>::BYTES, s>>>(
+      *mh, *mw, (const float*)bias, (float*)part_v, (int*)part_c, (float*)part_m,
+      (float*)part_s, N, Vp, (K + BK - 1) / BK, r, sub, mtiles, nchunks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Partials: part_v/part_c (N, nchunks, r), part_m/part_s (N, nchunks) with
+// h (N, K) and w (K, Vp) start 16-byte aligned with K a multiple of 8 (the
+// tensor maps' rule), Vp a multiple of 128, 1 <= r <= 32. Partials:
+// part_v/part_c (N, r, nchunks), part_m/part_s (N, nchunks) with
 // nchunks = ceil(Vp / 128 / sub); outputs vals/idx (N, r), lse (N,).
 extern "C" int vt_lm_head_topk_lse_bf16(const void* h, const void* w, const void* bias,
                                         void* vals, void* idx, void* lse, void* part_v,
                                         void* part_c, void* part_m, void* part_s, int N, int K,
                                         int Vp, int r, int sub, void* stream) {
-  static bool configured = false;
-  return launch<__nv_bfloat16>(topk_chunk_bf16, h, w, bias, vals, idx, lse, part_v, part_c,
-                               part_m, part_s, N, K, Vp, r, sub, stream, configured);
+  if (N <= 0 || K <= 0 || Vp % BN != 0 || r < 1 || r > kMaxR || sub < 1)
+    return (int)cudaErrorInvalidValue;
+  static hopper::MapCache cache_h, cache_w;
+  const CUtensorMap *mh = nullptr, *mw = nullptr;
+  int st = cache_h.get(&mh, h, N, K, BM);
+  if (st == 0) st = cache_w.get(&mw, w, K, Vp, BK);
+  if (st != 0) return st;
+  const cudaStream_t s = (cudaStream_t)stream;
+  st = r <= 16 ? launch_wgmma<16>(mh, mw, bias, part_v, part_c, part_m, part_s, N, K, Vp, r, sub, s)
+               : launch_wgmma<32>(mh, mw, bias, part_v, part_c, part_m, part_s, N, K, Vp, r, sub, s);
+  if (st != 0) return st;
+  const int nchunks = (Vp / BN + sub - 1) / sub;
+  return launch_merge(part_v, part_c, nchunks, part_m, part_s, nchunks, vals, idx, lse, N, r, s);
 }
 
+// the same with h, w float32; part_v/part_c (N, r, nchunks)
 extern "C" int vt_lm_head_topk_lse_f32(const void* h, const void* w, const void* bias,
                                        void* vals, void* idx, void* lse, void* part_v,
                                        void* part_c, void* part_m, void* part_s, int N, int K,
                                        int Vp, int r, int sub, void* stream) {
+  if (N <= 0 || K <= 0 || Vp % BN != 0 || r < 1 || r > kMaxR || sub < 1)
+    return (int)cudaErrorInvalidValue;
   static bool configured = false;
-  return launch<float>(topk_chunk_f32, h, w, bias, vals, idx, lse, part_v, part_c, part_m,
-                       part_s, N, K, Vp, r, sub, stream, configured);
+  if (!configured) {  // above 48 KB a block's shared memory must be opted into
+    const cudaError_t err = cudaFuncSetAttribute(
+        topk_chunk_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int nchunks = (Vp / BN + sub - 1) / sub;
+  const cudaStream_t s = (cudaStream_t)stream;
+  topk_chunk_f32<<<dim3((N + BM - 1) / BM, nchunks), kThreads, kSmemBytes, s>>>(
+      (const float*)h, (const float*)w, (const float*)bias, (float*)part_v, (int*)part_c,
+      (float*)part_m, (float*)part_s, N, K, Vp, r, sub);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_merge(part_v, part_c, nchunks, part_m, part_s, nchunks, vals, idx, lse, N, r, s);
 }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention.cu, K4, and flash_attention_bwd.cu, K5), the LM head
-// (blocked_lm_head.cu, K2) and the beam-cache attention
-// (beam_cache_attention.cu, K1): mbarriers, TMA
+// (flash_attention.cu, K4, and flash_attention_bwd.cu, K5), the LM heads
+// (blocked_lm_head.cu, K2, and fused_lm_head.cu, K6) and the beam-cache
+// attention (beam_cache_attention.cu, K1): mbarriers, TMA
 // tile loads through tensor maps, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, warp-specialisation helpers, and the host
 // side that encodes a tensor map.
@@ -186,7 +186,8 @@ struct Tile {
   static constexpr int NCH = D / CW;          // chunks per row
   // descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
   static constexpr uint64_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "head dim 16, 32, 64, 128 or 256");
 };
 
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -274,6 +275,31 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (m64n128, f32) (+)= A (m64k16 bf16, shared, K-major) * B (k16n128
+// bf16, shared, MN-major: the N columns contiguous, read through desc_mn)
+__device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D (m64nN, f32) (+)= A (m64k16 bf16, registers, pack_a) * B (k16nN bf16,
 // shared, MN-major); scale_d 0 overwrites D
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
@@ -350,13 +376,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
   else wgmma_ss_n128(d, a, b, scale_d);
 }
 
+// N 256 runs as two n128 products: the B tile's columns 128.. start
+// `half_bytes` past its first (two Tile<256> chunks of a desc_mn tile, so
+// the descriptor's address field moves by half_bytes / 16)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
-                                         int scale_d) {
+                                         int scale_d, uint32_t half_bytes = 0) {
   if constexpr (N == 16) wgmma_rs_n16(d, a, b, scale_d);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, b, scale_d);
-  else wgmma_rs_n128(d, a, b, scale_d);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, b, scale_d);
+  else {
+    static_assert(N == 256, "wgmma_rs: N 16 to 256");
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, b, scale_d);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, b + (half_bytes >> 4), scale_d);
+  }
 }
 
 // ------------------------------------------------- warp-specialised ring
@@ -553,6 +587,57 @@ inline int make_matrix_map(CUtensorMap* map, const void* ptr, int rows, int K, i
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// make_matrix_map's maps, encoded once per (pointer, shape, box, device):
+// an LM head's weight lives for a whole generate and the hidden states'
+// buffer is usually reused step to step. A kernel source keeps one cache
+// per operand.
+struct MapCache {
+  static constexpr int kSlots = 8;
+  struct Slot {
+    const void* ptr;
+    int rows, K, box_rows, dev;
+    CUtensorMap map;
+  } slots[kSlots] = {};
+  int next = 0;
+
+  int get(const CUtensorMap** out, const void* ptr, int rows, int K, int box_rows) {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    for (Slot& s : slots)
+      if (s.ptr == ptr && s.rows == rows && s.K == K && s.box_rows == box_rows && s.dev == dev) {
+        *out = &s.map;
+        return 0;
+      }
+    Slot& s = slots[next];
+    next = (next + 1) % kSlots;
+    s.ptr = nullptr;
+    const int st = make_matrix_map(&s.map, ptr, rows, K, box_rows);
+    if (st != 0) return st;
+    s.ptr = ptr;
+    s.rows = rows;
+    s.K = K;
+    s.box_rows = box_rows;
+    s.dev = dev;
+    *out = &s.map;
+    return 0;
+  }
+};
+
+// the current device's number of SMs (cached per device)
+inline int sm_count() {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev >= kMaxDevices) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
 }
 
 }  // namespace hopper

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 
 # C entry -> argtypes (every entry returns an int status)
 SIGNATURES = {
-    "vt_crop_normalize": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    "vt_crop_normalize": [_P] * 4 + [_I] * 3 + [_F] * 6 + [_P],
     "vt_beam_cache_attention_f32": [_P] * 12 + [_I] * 9 + [_F, _P],
     "vt_beam_cache_attention_bf16": [_P] * 12 + [_I] * 9 + [_F, _P],
     "vt_flash_attention_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
@@ -50,6 +50,9 @@ SIGNATURES = {
     "vt_flash_attention_bwd_dq_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dkv_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dkv_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_wide": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dq_wide": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dkv_wide": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
     "vt_lm_head_blocked_stats_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_blocked_stats_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_topk_lse_f32": [_P] * 10 + [_I] * 5 + [_P],

@@ -25,12 +25,15 @@ Every entry launches ``csrc/flash_attention.cu`` (K4) or
 same function in plain PyTorch (``*_reference``) for CPU tensors, so autograd
 on the CPU goes through the port's own backward too.
 
-The kernels are built for the head dims in ``HEAD_DIMS``. Any other head dim
-d up to 128 runs at the next built one: q, k, v (and dO, O) get zero columns
-along D, the kernels take the true scale ``d ** -0.5``, and the outputs are
-sliced back to d. Zero columns change no score, no output column, no LSE and
-no ``delta``, so this is the same function (the JAX package's v1 kernel pads
-its head dim alike). A head dim above 128 raises on the card.
+Head dims: every d runs on the card, at :func:`padded_head_dim` (d): the
+least of ``HEAD_DIMS`` (16, 32, 64, 128, 256) at or above it, and above 256
+the next multiple of ``WIDE_STEP`` (64). q, k, v (and dO, O) get zero
+columns along D, the kernels take the true scale ``d ** -0.5``, and the
+outputs are sliced back to d. Zero columns change no score, no output
+column, no LSE and no ``delta``, so this is the same function (the JAX
+package's v1 kernel, which takes any head dim, pads its VMEM tile alike).
+The wgmma kernels run bf16 up to 256 (the backward up to 128) and f32 up to
+128; above that ``csrc/flash_attention_wide.cu`` runs (:func:`wide_route`).
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ import torch
 from . import cuda_lib
 
 NEG_INF = -1e9
-HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are built for
+WIDE_STEP = 64  # above 256: the wide kernels' head-dim chunk
 
 
 def _key_bias(key_mask: Optional[torch.Tensor], b: int, tk: int, device) -> Optional[torch.Tensor]:
@@ -62,12 +66,22 @@ def _check(q, k, v):
 
 
 def padded_head_dim(d: int) -> int:
-    """The built head dim that head dim ``d`` runs at on the card: the least
-    one in ``HEAD_DIMS`` at or above ``d``; raises above the largest."""
+    """The head dim that head dim ``d`` runs at on the card: the least one in
+    ``HEAD_DIMS`` at or above ``d``; above the largest, ``d`` rounded up to a
+    multiple of ``WIDE_STEP``."""
+    if d < 1:
+        raise ValueError(f"flash attention: head dim {d}")
     for built in HEAD_DIMS:
         if d <= built:
             return built
-    raise ValueError(f"flash attention: head dim {d} above {HEAD_DIMS[-1]}")
+    return -(-d // WIDE_STEP) * WIDE_STEP
+
+
+def wide_route(dtype, width: int, backward: bool) -> bool:
+    """Whether the padded head dim ``width`` runs on the wide kernels
+    (``csrc/flash_attention_wide.cu``) rather than the wgmma ones: f32 above
+    128, bf16 above 256 forward and above 128 backward."""
+    return width > (256 if dtype == torch.bfloat16 and not backward else 128)
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -137,22 +151,31 @@ def flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal
 
 
 def _kernel_operands(name: str, *tensors):
-    """One CUDA device, contiguous, one dtype (float32 or bfloat16), head
-    dim at most 128, 16-byte aligned. Returns ``(device, d, tensors)``, the
-    tensors zero-padded along D to :func:`padded_head_dim`."""
+    """One CUDA device, contiguous, one dtype (float32 or bfloat16), 16-byte
+    aligned. Returns ``(device, d, tensors)``, the tensors zero-padded along
+    D to :func:`padded_head_dim`."""
     dev = cuda_lib.require_cuda(name, *tensors)
     dtype = tensors[0].dtype
     if dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != dtype for t in tensors):
         raise ValueError(f"{name}: q, k, v (and dO, O) must share one dtype, float32 or bfloat16")
     d = tensors[0].shape[-1]
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {d} above {HEAD_DIMS[-1]}")
     if any(t.shape[1] == 0 for t in tensors):
         raise ValueError(f"{name}: empty query or key axis")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: operands must start on 16-byte boundaries")
     width = padded_head_dim(d)
     return dev, d, [pad_head_dim(t, width) for t in tensors]
+
+
+def _entry(name: str, dtype, width: int, backward: bool):
+    """The C entry ``name`` for ``dtype`` at the padded head dim ``width``:
+    ``name_bf16`` / ``name_f32``, or ``name_wide`` with the dtype bound as
+    its first argument."""
+    lib = cuda_lib.lib()
+    if wide_route(dtype, width, backward):
+        wide = getattr(lib, f"{name}_wide")
+        return lambda *args: wide(int(dtype == torch.bfloat16), *args)
+    return getattr(lib, f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
 
 
 def _unpad(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -170,8 +193,7 @@ def _kernel_forward(q, k, v, key_mask, causal: bool, with_lse: bool):
         bias = bias.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev) if with_lse else None
-    lib = cuda_lib.lib()
-    fn = lib.vt_flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.vt_flash_attention_f32
+    fn = _entry("vt_flash_attention", q.dtype, q.shape[-1], backward=False)
     with torch.cuda.device(dev):
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -189,8 +211,8 @@ def flash_attention(q, k, v, key_mask=None, causal: bool = False) -> torch.Tenso
     With grad enabled and an input that requires it, this is
     :class:`FlashAttentionFunction`. Otherwise CPU tensors take
     :func:`flash_attention_reference` and CUDA tensors launch K4 or raise:
-    q/k/v (B, T, H, D) contiguous, one dtype (float32 or bfloat16), head dim
-    16, 32, 64 or 128; ``key_mask`` (B, Tk), nonzero = keep."""
+    q/k/v (B, T, H, D) contiguous, one dtype (float32 or bfloat16), any head
+    dim (see the module doc); ``key_mask`` (B, Tk), nonzero = keep."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, key_mask, causal)
     if q.device.type == "cpu":
@@ -235,9 +257,7 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal: bool = False
     dev, d, (q, k, v, dout) = _kernel_operands("flash_attention_bwd_dq", q, k, v, dout)
     _check_stats("flash_attention_bwd_dq", lse, delta, b, h, tq, dev)
     dq = torch.empty_like(q)
-    lib = cuda_lib.lib()
-    fn = (lib.vt_flash_attention_bwd_dq_bf16 if q.dtype == torch.bfloat16
-          else lib.vt_flash_attention_bwd_dq_f32)
+    fn = _entry("vt_flash_attention_bwd_dq", q.dtype, q.shape[-1], backward=True)
     with torch.cuda.device(dev):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -264,9 +284,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, causal: bool = Fals
     _check_stats("flash_attention_bwd_dkv", lse, delta, b, h, tq, dev)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((b, h, tk), dtype=torch.float32, device=dev)
-    lib = cuda_lib.lib()
-    fn = (lib.vt_flash_attention_bwd_dkv_bf16 if q.dtype == torch.bfloat16
-          else lib.vt_flash_attention_bwd_dkv_f32)
+    fn = _entry("vt_flash_attention_bwd_dkv", q.dtype, q.shape[-1], backward=True)
     with torch.cuda.device(dev):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),

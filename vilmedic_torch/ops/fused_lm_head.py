@@ -8,6 +8,12 @@ the (n, Vp) logits. It launches ``csrc/fused_lm_head.cu`` for CUDA tensors
 and runs :func:`lm_head_topk_lse_reference`, the same function in plain
 PyTorch, for CPU tensors. Like the JAX package, beam search does not call it.
 
+The kernels split the work into units of (128-row tile, chunk of ``sub``
+128-column vocab tiles), each writing partial top-r lists and (max,
+sum-exp) per row that a merge kernel combines; :func:`work_split` picks
+``sub`` and the chunk count, and chunk c holds tiles ``[c * sub, (c + 1) *
+sub)``.
+
 Layout and contract are the JAX kernel's: ``w`` is the (H, Vp) kernel padded
 once by :func:`pad_lm_head_weights` (Vp a multiple of ``tile_v``; pad columns
 have weight 0 and bias ``NEG``, so they never enter the top-r and add exactly
@@ -24,10 +30,9 @@ from . import cuda_lib
 from .topk import top_k
 
 NEG = -1.0e30
-BLK = 128  # the kernel's vocab tile
+BLK = 128  # the kernels' row tile and vocab tile
 MAX_R = 32  # one list entry per lane of a warp
-# the vocab split aims at two blocks per SM over the grid; the chunk kernel's
-# registers (164 a thread in bf16) let one reside at a time, so two waves
+# the f32 chunk kernel's vocab split aims at two blocks per SM over the grid
 BLOCKS_PER_SM = 2
 
 
@@ -53,6 +58,20 @@ def _dims(h, w, b, r: int, tile_v: int):
     if not 1 <= r <= vp:
         raise ValueError(f"lm_head_topk_lse: r {r} of a vocab of {vp}")
     return h.shape[0], h.shape[1], vp
+
+
+def work_split(n: int, vp: int, sms: int, dtype=torch.bfloat16):
+    """The kernels' work units: ``(sub, nchunks)``, ``sub`` 128-column vocab
+    tiles to a chunk and ``nchunks`` chunks, so the units are the (128-row
+    tile, chunk) pairs. bf16: one unit per persistent CTA (one per SM) where
+    the tiles allow, so a CTA walks ``sub`` tiles; f32: one block per unit,
+    about two per SM."""
+    tiles, mtiles = vp // BLK, -(-n // BLK)
+    if dtype == torch.bfloat16:
+        sub = -(-(mtiles * tiles) // sms)
+    else:
+        sub = max(1, round(mtiles * tiles / (sms * BLOCKS_PER_SM)))
+    return sub, -(-tiles // sub)
 
 
 def lm_head_topk_lse_reference(h, w, b, r: int = 16, tile_v: int = 2048):
@@ -90,15 +109,12 @@ def lm_head_topk_lse(h, w, b, r: int = 16, tile_v: int = 2048):
     if any(t.data_ptr() % 16 for t in (h, w, b)):
         raise ValueError("lm_head_topk_lse: the kernel reads 16-byte vectors; h, w and b must "
                          "start 16-byte aligned")
-    # vocab tiles per block
-    slots = torch.cuda.get_device_properties(dev).multi_processor_count * BLOCKS_PER_SM
-    tiles = -(-n // BLK) * (vp // BLK)
-    sub = max(1, round(tiles / slots))
-    chunks = -(-(vp // BLK) // sub)
+    sub, chunks = work_split(n, vp, torch.cuda.get_device_properties(dev).multi_processor_count,
+                             h.dtype)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     vals, idx, lse = torch.empty((n, r), **f32), torch.empty((n, r), **i32), torch.empty(n, **f32)
-    part_v, part_c = torch.empty((n, chunks, r), **f32), torch.empty((n, chunks, r), **i32)
+    part_v, part_c = torch.empty((n, r, chunks), **f32), torch.empty((n, r, chunks), **i32)
     part_m, part_s = torch.empty((n, chunks), **f32), torch.empty((n, chunks), **f32)
     lib = cuda_lib.lib()
     fn = lib.vt_lm_head_topk_lse_bf16 if h.dtype == torch.bfloat16 else lib.vt_lm_head_topk_lse_f32

@@ -6,6 +6,11 @@ per-image offsets, scales by 1/255 and normalizes per channel in one pass.
 CUDA tensors and runs :func:`crop_normalize_reference`, the same math in plain
 PyTorch, for CPU tensors.
 
+Every output is ``(v / 255 - mean_c) / std_c`` of one byte v and channel
+c, so the kernel computes that once per (channel, byte) into a table, with
+the IEEE ops the plain version runs on the card, and looks every value up:
+it matches the plain version to the bit.
+
 Layout: input (B, R, R, 3) uint8 as the host collates it; output NCHW
 (B, 3, crop, crop) f32, what ``conv2d`` reads. (The JAX op returns NHWC.)
 """
