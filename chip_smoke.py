@@ -57,7 +57,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (grad_accu 1, constant lr 1e-4);
 10. takes one f32 training microbatch and AdamW update at batch 2 on the card
     and on the CPU from the same weights and requires equal gradients and
-    parameters within the stated tolerances.
+    parameters within the stated tolerances;
+11. serves the VisionLanguage model's greedy route (beam 1: no beam-cache
+    kernel) and, with ``vocab_size`` 4000, its small-vocabulary route (the
+    plain head and two-stage candidates over the kernel cache) in bf16 at
+    batch 16, timed beside the merge route, and requires their f32
+    sequences on the card to equal the CPU's (tower cut to 2 layers);
+12. trains the flagship RRG through the port's train CLI
+    (``vilmedic_torch.bin.train.main`` with dotlist overrides) on a
+    synthetic corpus written from the seed (512 + 32 reports over 5000
+    words, so the built vocabulary takes the blocked head; JPEGs through
+    ``device_preproc``): 4 RAdam steps at batch 128 in bf16 (ms per step,
+    images/s, peak memory), the Validator at beam 8 (reports/s, BLEU /
+    ROUGEL / CIDERD), a best-only checkpoint, and the launches of K1, K2
+    and K3 on that path (``rrg_train``); requires the loss to fall over 10
+    updates on one repeated batch and the running means to leave 0
+    (``rrg_train_sanity``); and runs the same CLI in f32 on the card and on
+    the CPU with ``densenet_tiny`` at batch 2, requiring equal losses,
+    parameters, running statistics, hypotheses and scores within the stated
+    tolerances and the reloaded checkpoint to generate the same hypotheses
+    (``rrg_train_parity``).
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -74,6 +93,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -329,6 +349,45 @@ def print_cold(label: str, cold: dict):
           f"keys {lib} device ms")
 
 
+def hold_beam_cache_attention(dtype, n: int, gen, t: int = T_MAX, heads: int = 12, d: int = 64,
+                              rows: int = BEAM, label: str = ""):
+    """K1 stage (a) against its plain version at one shape, at indices 0, 1,
+    57 and t - 1: output within 1e-5 (f32) or 2e-2 (bf16), the cache write
+    bitwise. Returns the worst error and the inputs."""
+    import torch
+
+    from vilmedic_torch.ops.beam_cache_attention import (
+        fused_beam_cache_attention, fused_beam_cache_attention_reference,
+    )
+
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}[dtype]
+    kc = torch.randn(t, n, heads * d, generator=gen).to("cuda", dtype)
+    vc = torch.randn(t, n, heads * d, generator=gen).to("cuda", dtype)
+    q, kn, vn = (torch.randn(n, heads, d, generator=gen).to("cuda", dtype) for _ in range(3))
+    mask = random_ancestry_mask(n // rows, rows, t, gen, "cuda")
+    worst = 0.0
+    for index in (0, 1, 57, t - 1):
+        kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        out = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index)
+        ref = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        others = torch.ones(t, dtype=torch.bool, device="cuda")
+        others[index] = False
+        cache_ok = (
+            torch.equal(kc1[others], kc[others]) and torch.equal(vc1[others], vc[others])
+            and torch.equal(kc1[index], kn.reshape(n, -1))
+            and torch.equal(vc1[index], vn.reshape(n, -1))
+        )
+        print(f"K1 fused_beam_cache_attention{label} {str(dtype)[6:]:8s} N={n:5d} T={t} "
+              f"{heads}x{d} index={index:2d}: max|err|={err:.3e} (tol {tol:.0e}), "
+              f"cache write bitwise {'ok' if cache_ok else 'WRONG'}")
+        if not (err <= tol and cache_ok):
+            fail(f"beam cache attention{label} {dtype} N={n} T={t} index={index}")
+    return worst, (kc, vc, q, kn, vn, mask)
+
+
 def check_beam_cache_attention(results):
     import torch
 
@@ -336,38 +395,14 @@ def check_beam_cache_attention(results):
         fused_beam_cache_attention, fused_beam_cache_attention_reference,
     )
 
-    t, heads, d, rows = T_MAX, 12, 64, BEAM
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    rows = BEAM
     worst = 0.0
     timing = {}
     gen = torch.Generator().manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
         for n in (128, 1024):
-            kc = torch.randn(t, n, heads * d, generator=gen).to("cuda", dtype)
-            vc = torch.randn(t, n, heads * d, generator=gen).to("cuda", dtype)
-            q, kn, vn = (torch.randn(n, heads, d, generator=gen).to("cuda", dtype)
-                         for _ in range(3))
-            mask = random_ancestry_mask(n // rows, rows, t, gen, "cuda")
-            for index in (0, 1, 57, 99):
-                kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-                out = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index)
-                ref = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index)
-                torch.cuda.synchronize()
-                err = (out - ref).abs().max().item()
-                worst = max(worst, err)
-                others = torch.ones(t, dtype=torch.bool, device="cuda")
-                others[index] = False
-                cache_ok = (
-                    torch.equal(kc1[others], kc[others]) and torch.equal(vc1[others], vc[others])
-                    and torch.equal(kc1[index], kn.reshape(n, -1))
-                    and torch.equal(vc1[index], vn.reshape(n, -1))
-                )
-                ok = err <= tol[dtype] and cache_ok
-                print(f"K1 fused_beam_cache_attention {str(dtype)[6:]:8s} N={n:5d} "
-                      f"index={index:2d}: max|err|={err:.3e} (tol {tol[dtype]:.0e}), "
-                      f"cache write bitwise {'ok' if cache_ok else 'WRONG'}")
-                if not ok:
-                    fail(f"beam cache attention {dtype} N={n} index={index}")
+            err, (kc, vc, q, kn, vn, mask) = hold_beam_cache_attention(dtype, n, gen)
+            worst = max(worst, err)
             if dtype == torch.bfloat16:
                 timing[n] = (
                     cuda_ms(lambda: fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 99)),
@@ -994,39 +1029,65 @@ def check_flash_attention_backward(results):
         counter="flash_attention_bwd_dkv")
 
 
+def lm_head_weights(vocab: int, gen, hidden: int = 768):
+    """A head's f32 weight and bias on the CPU, padded to a multiple of 128
+    rows as the decoder pads them (zero rows, bias NEG)."""
+    import torch
+
+    from vilmedic_torch.ops.blocked_lm_head import NEG
+
+    vp = -(-vocab // 128) * 128
+    w32 = torch.randn(vp, hidden, generator=gen) * 0.02
+    w32[vocab:] = 0.0
+    b = torch.randn(vp, generator=gen) * 0.02
+    b[vocab:] = NEG
+    return w32, b
+
+
+def hold_blocked_lm_head(h, w, b, label: str = "") -> float:
+    """K2 against its plain version on these inputs: logits and block
+    maxima within 1e-4 absolute, block sums of exponentials within 1e-4
+    relative (f32 sums of 768 products of |h| ~ 1, |w| ~ 0.02 in another
+    order differ by ~1e-5). Returns the logits' and maxima's error."""
+    import torch
+
+    from vilmedic_torch.ops.blocked_lm_head import (
+        lm_head_blocked_stats, lm_head_blocked_stats_reference,
+    )
+
+    tol_abs, tol_rel_sum = 1e-4, 1e-4
+    lg, mx, sm = lm_head_blocked_stats(h, w, b)
+    rlg, rmx, rsm = lm_head_blocked_stats_reference(h, w, b)
+    torch.cuda.synchronize()
+    err = max((lg - rlg).abs().max().item(), (mx - rmx).abs().max().item())
+    rel = ((sm - rsm).abs() / rsm).max().item()
+    print(f"K2 lm_head_blocked_stats{label} {str(h.dtype)[6:]:8s} N={h.shape[0]:5d} "
+          f"Vp={w.shape[0]}: max|err| logits/max={err:.3e} (tol {tol_abs:.0e}), "
+          f"sumexp rel={rel:.3e} (tol {tol_rel_sum:.0e})")
+    if err > tol_abs or rel > tol_rel_sum:
+        fail(f"blocked lm head{label} {h.dtype} N={h.shape[0]} Vp={w.shape[0]}")
+    return err
+
+
 def check_blocked_lm_head(results):
     import torch
 
     from vilmedic_torch.ops.blocked_lm_head import (
-        NEG, lm_head_blocked_stats, lm_head_blocked_stats_reference,
+        lm_head_blocked_stats, lm_head_blocked_stats_reference,
     )
 
-    hidden, vp = 768, -(-VOCAB // 128) * 128
-    # f32 sums of 768 products of |h| ~ 1, |w| ~ 0.02 in another order: ~1e-5
-    tol_abs, tol_rel_sum = 1e-4, 1e-4
+    hidden = 768
     worst = 0.0
     timing = {}
     gen = torch.Generator().manual_seed(SEED + 1)
-    w32 = torch.randn(vp, hidden, generator=gen) * 0.02
-    w32[VOCAB:] = 0.0
-    b = torch.randn(vp, generator=gen) * 0.02
-    b[VOCAB:] = NEG
+    w32, b = lm_head_weights(VOCAB, gen, hidden)
+    vp = w32.shape[0]
     b = b.cuda()
     for dtype in (torch.float32, torch.bfloat16):
         w = w32.to("cuda", dtype)
         for n in (128, 1024):
             h = torch.randn(n, hidden, generator=gen).to("cuda", dtype)
-            lg, mx, sm = lm_head_blocked_stats(h, w, b)
-            rlg, rmx, rsm = lm_head_blocked_stats_reference(h, w, b)
-            torch.cuda.synchronize()
-            err = max((lg - rlg).abs().max().item(), (mx - rmx).abs().max().item())
-            rel = ((sm - rsm).abs() / rsm).max().item()
-            worst = max(worst, err)
-            print(f"K2 lm_head_blocked_stats {str(dtype)[6:]:8s} N={n:5d}: "
-                  f"max|err| logits/max={err:.3e} (tol {tol_abs:.0e}), "
-                  f"sumexp rel={rel:.3e} (tol {tol_rel_sum:.0e})")
-            if err > tol_abs or rel > tol_rel_sum:
-                fail(f"blocked lm head {dtype} N={n}")
+            worst = max(worst, hold_blocked_lm_head(h, w, b))
             if dtype == torch.bfloat16:
                 # read h, w, b; write the logits and two (N, Vp / 128) stats
                 nbytes = (h.numel() + w.numel()) * 2 + vp * 4 + n * vp * 4 + 2 * n * (vp // 128) * 4
@@ -1056,6 +1117,25 @@ def check_blocked_lm_head(results):
     )
 
 
+def hold_crop_normalize(b: int, r: int, crop: int, gen, label: str = ""):
+    """K3 bitwise against its plain version at one shape, at random
+    in-range offsets (zero where R = crop). Returns the inputs."""
+    import torch
+
+    from vilmedic_torch.ops.image_preproc import crop_normalize, crop_normalize_reference
+
+    img = torch.randint(0, 256, (b, r, r, 3), generator=gen, dtype=torch.uint8).cuda()
+    tops = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
+    lefts = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
+    out = crop_normalize(img, tops, lefts, crop)
+    ref = crop_normalize_reference(img, tops, lefts, crop)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        fail(f"crop_normalize{label} B={b} R={r}: not bitwise the plain version "
+             f"({(out - ref).abs().max().item():.3e})")
+    return img, tops, lefts
+
+
 def check_crop_normalize(results):
     """K3 bitwise against its plain version at B 16 and 128, at two shapes:
     R 256, crop 224 at random in-range offsets, and R = crop = 224 at zero
@@ -1069,15 +1149,7 @@ def check_crop_normalize(results):
     timing = {}
     for b in (16, 128):
         for r, crop in ((256, 224), (224, 224)):
-            img = torch.randint(0, 256, (b, r, r, 3), generator=gen, dtype=torch.uint8).cuda()
-            tops = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
-            lefts = torch.randint(0, r - crop + 1, (b,), generator=gen, dtype=torch.int32).cuda()
-            out = crop_normalize(img, tops, lefts, crop)
-            ref = crop_normalize_reference(img, tops, lefts, crop)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            if not torch.equal(out, ref):
-                fail(f"crop_normalize B={b} R={r}: not bitwise the plain version ({err:.3e})")
+            img, tops, lefts = hold_crop_normalize(b, r, crop, gen)
             # read the crop windows (uint8) and the offsets, write f32; 2 ops a value
             values = b * crop * crop * 3
             timing[b, r] = dict(
@@ -1086,14 +1158,14 @@ def check_crop_normalize(results):
                                       {"crop_normalize_kernel": 1}),
                 events_ms=cuda_ms(lambda: crop_normalize(img, tops, lefts, crop)),
                 plain_ms=cuda_ms(lambda: crop_normalize_reference(img, tops, lefts, crop)),
-                max_abs_err=err, **bound(values + 2 * b * 4 + values * 4, 2 * values,
+                max_abs_err=0.0, **bound(values + 2 * b * 4 + values * 4, 2 * values,
                                          torch.float32))
             tm = timing[b, r]
             print(f"K3 crop_normalize B={b} R={r} crop={crop}: bitwise; kernel {tm['ms']:.4f} "
                   f"device ms ({tm['bound_ms'] / tm['ms'] * 100:.1f}% of the bound; events "
                   f"around one call {tm['events_ms']:.4f} ms), plain {tm['plain_ms']:.4f} ms, "
                   f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
-            del img, out, ref
+            del img
     tm = timing[16, 224]
     results["crop_normalize"] = dict(
         route="cuda", source="vilmedic_torch/csrc/image_preproc.cu",
@@ -1733,9 +1805,11 @@ def phase_rrg_routes_parity():
 # --------------------------------------------------------- VisionLanguage
 
 
-def build_vl(dtype: str, device: str, overrides=(), tower=None):
+def build_vl(dtype: str, device: str, overrides=(), tower=None, vocab: int = VL_VOCAB,
+             ids=(VL_BOS, VL_EOS, VL_PAD)):
     """VisionLanguage from its config (with dotlist ``overrides``) at full
-    width: vocab 50368, random weights from SEED. Returns the model, its
+    width: vocab 50368 and ModernBERT's special ids (or ``vocab`` and
+    ``ids``: BOS, EOS, PAD), random weights from SEED. Returns the model, its
     generate with the ``ensemblor:`` block's cache dtypes and the config's
     serving settings."""
     from vilmedic_torch import registry
@@ -1744,15 +1818,15 @@ def build_vl(dtype: str, device: str, overrides=(), tower=None):
 
     cfg, _ = load_config(VL_CONFIG, [f"model.dtype={dtype}", *overrides])
     model = registry.build("model", cfg.model, vision_hf_config=tower or VL_TOWER,
-                           vocab_size=VL_VOCAB, bos_token_id=VL_BOS, eos_token_id=VL_EOS,
-                           pad_token_id=VL_PAD, device=device, seed=SEED)
+                           vocab_size=vocab, bos_token_id=ids[0], eos_token_id=ids[1],
+                           pad_token_id=ids[2], device=device, seed=SEED)
     serving = dict(max_len=int(cfg.dataset.seq.tokenizer_max_len),
                    beam=int(cfg.ensemblor.beam_width), batch=int(cfg.ensemblor.batch_size),
                    image=int(cfg.dataset.image.crop),
                    prefix_kv_dtype=cfg.ensemblor.get("prefix_kv_dtype"),
                    gen_kv_dtype=cfg.ensemblor.get("gen_kv_dtype"))
-    generate = make_vl_generate_fn(model, serving["beam"], serving["max_len"], VL_BOS, VL_EOS,
-                                   VL_PAD, prefix_kv_dtype=serving["prefix_kv_dtype"],
+    generate = make_vl_generate_fn(model, serving["beam"], serving["max_len"], *ids,
+                                   prefix_kv_dtype=serving["prefix_kv_dtype"],
                                    gen_kv_dtype=serving["gen_kv_dtype"])
     return model, generate, serving
 
@@ -2337,6 +2411,481 @@ def phase_vl_train_parity():
     torch.cuda.empty_cache()
 
 
+# ---------------------------- VisionLanguage greedy and small-vocab routes
+
+SMALL_VOCAB = 4000  # below the blocked head's 4096: the plain head's route
+SMALL_IDS = (0, 2, 1)  # BOS, EOS, PAD inside it, as a corpus vocabulary orders them
+
+
+def vl_route_checks(res, b: int, max_len: int, vocab: int, bos: int, launches,
+                    tower_layers: int, layers: int, k1_per_step: int) -> dict:
+    seqs, steps = res.sequences, res.steps
+    return {
+        f"shape ({b}, max_len)": tuple(seqs.shape) == (b, max_len),
+        "BOS in column 0": bool((seqs[:, 0] == bos).all()),
+        "ids in the vocabulary": bool(((seqs >= 0) & (seqs < vocab)).all()),
+        "steps > 0": steps > 0,
+        "flash = tower + LM layers": launches["flash_attention"] == tower_layers + layers,
+        f"beam attention = {k1_per_step} x steps":
+            launches["fused_beam_cache_attention"] == k1_per_step * steps,
+    }
+
+
+def phase_vl_greedy_small_vocab():
+    """bf16, full width, batch 16: greedy decoding (beam 1: the plain cache
+    and head, no beam-cache kernel) and beam 8 over a vocabulary of 4000
+    (``vocab_size`` overridden; the kernel cache with K1 stage b, the plain
+    f32 head and two-stage candidates), checked, then timed beside the merge
+    route in alternated blocks."""
+    import torch
+
+    from vilmedic_torch.models.vision_language import make_vl_generate_fn
+
+    set_tf32(False)
+    model, merge, sv = build_vl("bfloat16", "cuda")
+    small, _, _ = build_vl("bfloat16", "cuda", vocab=SMALL_VOCAB, ids=SMALL_IDS)
+    layers = model.dec_config.num_hidden_layers
+    tower_layers = model.module.vision.model.config.num_hidden_layers
+    b, beam, max_len = sv["batch"], sv["beam"], sv["max_len"]
+    routes = {
+        "merge": (merge, VL_VOCAB, VL_BOS, layers),
+        "greedy": (make_vl_generate_fn(model, 1, max_len, VL_BOS, VL_EOS, VL_PAD), VL_VOCAB,
+                   VL_BOS, 0),
+        "small_vocab": (make_vl_generate_fn(small, beam, max_len, *SMALL_IDS), SMALL_VOCAB,
+                        SMALL_IDS[0], layers),
+    }
+    print(f"VL greedy and small-vocab routes: {os.path.relpath(VL_CONFIG, ROOT)}, bf16, batch "
+          f"{b}, max_len {max_len}; greedy at beam 1; beam {beam} over vocab {SMALL_VOCAB} "
+          "(no configuration of the repo has such a VL vocabulary)")
+    images = vl_images(b, sv["image"], SEED + 21)
+    img = images.to("cuda")
+    launches = {}
+    for name in ("greedy", "small_vocab"):
+        generate, vocab, bos, k1 = routes[name]
+        reset_launches()
+        res = generate(img)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        print(f"VL {name} route batch {b}: sequences {tuple(res.sequences.shape)}, {res.steps} "
+              f"decode steps, launches {launches[name]}")
+        require(vl_route_checks(res, b, max_len, vocab, bos, launches[name], tower_layers,
+                                layers, k1), f"VL {name} route")
+    times = {name: [] for name in routes}
+    for name in ("merge", "greedy", "small_vocab", "small_vocab", "greedy", "merge"):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = routes[name][0](images.to("cuda", non_blocking=True))
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0, res.steps))
+    for name, ts in times.items():
+        med = statistics.median(t for t, _ in ts)
+        print(f"VL {name:11s} route batch {b} bf16: {b / med:.2f} reports/s (median of "
+              f"{len(ts)} in two alternated blocks, spread "
+              f"{(max(t for t, _ in ts) - min(t for t, _ in ts)) / med * 100:.1f}%, steps "
+              f"{[s for _, s in ts]})")
+    del model, small, routes, img
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vl_greedy_small_vocab_parity():
+    """f32, TF32 off, batch 2, the tower cut to 2 layers as in the other VL
+    route parities: greedy and small-vocab sequences on the card (K1 on the
+    small-vocab route) equal the CPU's (plain versions)."""
+    import torch
+
+    from vilmedic_torch.models.vision_language import make_vl_generate_fn
+
+    set_tf32(False)
+    tower = dict(VL_TOWER, num_hidden_layers=2)
+    images = vl_images(2, 518, SEED + 7)
+    bad = []
+    for name, vocab, ids, beam in (("greedy", VL_VOCAB, (VL_BOS, VL_EOS, VL_PAD), 1),
+                                   ("small_vocab", SMALL_VOCAB, SMALL_IDS, BEAM)):
+        model, _, sv = build_vl("float32", "cpu", tower=tower, vocab=vocab, ids=ids)
+        generate = make_vl_generate_fn(model, beam, sv["max_len"], *ids)
+        t0 = time.perf_counter()
+        res_cpu = generate(images)
+        cpu_s = time.perf_counter() - t0
+        model.module.to("cuda")
+        reset_launches()
+        res = generate(images.to("cuda"))
+        torch.cuda.synchronize()
+        k1 = read_launches()["fused_beam_cache_attention"]
+        same = torch.equal(res.sequences.cpu(), res_cpu.sequences)
+        print(f"VL {name} route parity f32 batch 2 ({tower['num_hidden_layers']} tower + "
+              f"{model.dec_config.num_hidden_layers} LM layers, CPU half {cpu_s:.1f} s): "
+              f"sequences {'equal' if same else 'DIFFER'} ({res.steps} vs {res_cpu.steps} "
+              f"steps), beam attention launches {k1}")
+        if not same or (k1 == 0) != (beam == 1):
+            bad.append(name)
+        del model, generate
+    if bad:
+        fail(f"VL f32 sequences differ between the card and the CPU (or K1 ran where it must "
+             f"not) on routes {bad}")
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------ RRG training and evaluation
+
+RRG_WORDS = 5000  # distinct words of the synthetic corpus: the vocab takes K2
+RRG_TRAIN, RRG_VALIDATE = 512, 32  # 4 steps at batch 128, 8 validator batches of 4
+
+
+def synthetic_corpus(root: str, n_train: int, n_validate: int, seed: int, image: int,
+                     sweep: bool = False):
+    """Reports and JPEGs made from ``seed`` under ``root``, in the files the
+    flagship config names (``{split}.image.tok``, ``{split}.impression.tok``).
+    Words are ``RRG_WORDS`` letter strings; reports are sentences of 3 to 14
+    words, 1 to 140 words long (so some pass ``tokenizer_max_len``), drawn
+    uniformly; with ``sweep`` the train reports instead split the whole word
+    list between them (every word in a small corpus; each report far past
+    ``tokenizer_max_len``). Images are smooth RGB noise of (image + 32) x
+    image pixels."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, rng.integers(4, 11))) for _ in range(3 * RRG_WORDS)})
+    words = [words[i] for i in rng.permutation(len(words))[:RRG_WORDS]]
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    cursor = 0
+    for split, n in (("train", n_train), ("validate", n_validate)):
+        reports, paths = [], []
+        for i in range(n):
+            if sweep and split == "train":
+                length = -(-len(words) // n)
+                picked = words[cursor:cursor + length]
+                cursor += length
+                length = len(picked)
+            else:
+                length = int(rng.integers(1, 141))
+                picked = list(rng.choice(words, length))
+            sentences, k = [], 0
+            while k < length:
+                step = int(rng.integers(3, 15))
+                sentences.append(" ".join(picked[k:k + step]) + " .")
+                k += step
+            reports.append(" ".join(sentences))
+            low = rng.integers(0, 256, (image // 16 + 2, image // 16 + 1, 3)).astype(np.uint8)
+            im = Image.fromarray(low).resize((image, image + 32), Image.BILINEAR)
+            path = os.path.join(root, "images", f"{split}_{i}.jpg")
+            im.save(path, quality=90)
+            paths.append(path)
+        with open(os.path.join(root, f"{split}.impression.tok"), "w") as f:
+            f.write("\n".join(reports))
+        with open(os.path.join(root, f"{split}.image.tok"), "w") as f:
+            f.write("\n".join(paths))
+
+
+def rrg_train_overrides(data: str, ckpt: str, name: str, device: str):
+    """The dotlist that points the flagship config at a synthetic corpus."""
+    return [CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
+            f"dataset.image.root={data}", f"dataset.seq.root={data}",
+            "dataset.image.device_preproc=true", "trainor.epochs=0",
+            "trainor.early_stop_metric=BLEU", "validator.metrics=[BLEU,ROUGEL,CIDERD]"]
+
+
+def cpu_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()}
+
+
+def update_agreement(initial, want, got, steps: int):
+    """Each parameter tensor's change over a run, ``got`` against ``want``:
+    the worst ratio of max|Δ_got − Δ_want| to its tolerance, 1e-4 of the
+    largest |Δ_want| plus one f32 rounding of the largest |parameter| per
+    step (a last-bit difference of an update can move ``p + u`` by an ulp).
+    The key biases (softmax is shift-invariant: their gradient is 0 up to
+    rounding) are held against their weights' change, the stem BatchNorm's
+    scale (its gradient nearly cancels through the batch-normalized layers
+    after it) against its bias's, as the CPU tests hold their gradients.
+    Returns (ratio, tensor name)."""
+    import torch
+
+    eps = torch.finfo(torch.float32).eps
+    delta = {k: (want[k] - initial[0][k], got[k] - initial[1][k])
+             for k in want if "running" not in k and want[k].is_floating_point()}
+    worst = (0.0, None)
+    for k, (dw, dg) in delta.items():
+        sibling = k
+        if k.endswith("self_attn.k.bias") or k.endswith("cross_attn.k.bias"):
+            sibling = k[:-len("bias")] + "weight"
+        elif k == "enc.model.norm0.weight":
+            sibling = "enc.model.norm0.bias"
+        tol = 1e-4 * delta[sibling][0].abs().max().item() + steps * eps * want[k].abs().max().item()
+        ratio = (dg - dw).abs().max().item() / tol if tol > 0 else float((dg != dw).any())
+        worst = max(worst, (ratio, k), key=lambda x: x[0])
+    return worst
+
+
+class StepRecorder:
+    """Wraps ``Trainor.train_epoch`` and ``Trainor.train_step`` for a run, on
+    the host clock, each time ended by a synchronize: ``iterations``, each
+    whole training iteration (the wait for the loader's batch, its copy to
+    the card, K3 and the step: from the end of the previous step, or the
+    epoch's start, to the end of this one); ``times``, the step alone (from
+    a synchronize after K3); ``epochs``, each epoch's training wall time;
+    and each step's loss. ``initial`` is a CPU copy of the model's state at
+    the first epoch's start."""
+
+    def __enter__(self):
+        import torch
+
+        from vilmedic_torch.executors.trainor import Trainor
+
+        self.iterations, self.times, self.epochs, self.losses = [], [], [], []
+        self.initial = None
+        self.real = Trainor.train_step, Trainor.train_epoch
+        real_step, real_epoch = self.real
+        recorder = self
+
+        def sync(trainer):
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize()
+            return time.perf_counter()
+
+        def timed_epoch(trainer, epoch):
+            if recorder.initial is None:
+                recorder.initial = cpu_state(trainer.model)
+            recorder.mark = start = sync(trainer)
+            losses = real_epoch(trainer, epoch)
+            recorder.epochs.append(sync(trainer) - start)
+            return losses
+
+        def timed_step(trainer, batch, lr):
+            t0 = sync(trainer)
+            loss = real_step(trainer, batch, lr)
+            t1 = sync(trainer)
+            recorder.times.append(t1 - t0)
+            recorder.iterations.append(t1 - recorder.mark)
+            recorder.mark = t1
+            recorder.losses.append(float(loss))
+            return loss
+
+        Trainor.train_step, Trainor.train_epoch = timed_step, timed_epoch
+        return self
+
+    def __exit__(self, *exc):
+        from vilmedic_torch.executors.trainor import Trainor
+
+        Trainor.train_step, Trainor.train_epoch = self.real
+
+
+def phase_rrg_train(tmp: str):
+    """The flagship config through the port's train CLI at full width, bf16:
+    512 train reports (4 RAdam steps at batch 128, DenseNet-169 at 224² in
+    training mode, uint8 batches through K3), one epoch, the Validator at
+    beam 8 over 32 reports (batch 4: K1 stage a and K2 at N 32), BLEU /
+    ROUGEL / CIDERD, a best-only checkpoint. Then times the Validator
+    again, and holds K1 (a), K2 and K3 against their plain versions at the
+    shapes this path gave them."""
+    import glob
+
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    data = os.path.join(tmp, "rrg_data")
+    t0 = time.perf_counter()
+    synthetic_corpus(data, RRG_TRAIN, RRG_VALIDATE, SEED, 256)
+    print(f"RRG train: synthetic corpus of {RRG_TRAIN} + {RRG_VALIDATE} reports over "
+          f"{RRG_WORDS} words, JPEGs of 288 x 256, written in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with StepRecorder() as steps:
+        trainor = main(rrg_train_overrides(data, tmp, "rrg_train", "cuda"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, evaluator = trainor.model, trainor.evaluator
+    cfg = trainor.config
+    batch = int(cfg.batch_size)
+    scores = evaluator.scores[0]
+    ckpts = glob.glob(os.path.join(tmp, "rrg_train", "*.ckpt"))
+    iter_ms = statistics.median(steps.iterations[1:]) * 1e3
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    n_steps = len(steps.iterations)
+    print(f"RRG train: {cfg.model.cnn.backbone} at {trainor.dl.dataset.image.crop}², "
+          f"{model.dec_config.num_hidden_layers}-layer decoder of {model.dec_config.hidden_size}, "
+          f"vocab {model.dec_config.vocab_size} (built from the train split), "
+          f"{model.dec_config.dtype}, {cfg.optimizer} lr {trainor.base_lr:g}, batch {batch}, "
+          f"{trainor.dl.num_workers} loader threads, {n_steps} steps, run {run_s:.1f} s; "
+          f"losses {[round(x, 4) for x in steps.losses]}")
+    print(f"RRG train bf16 batch {batch}: {iter_ms:.1f} ms per training step (whole iteration: "
+          f"loader wait, H2D, K3, step; median of steps 2-{n_steps}: "
+          f"{[round(t * 1e3, 1) for t in steps.iterations]}), {batch / iter_ms * 1e3:.1f} "
+          f"images/s; the epoch's training {steps.epochs[0]:.2f} s, "
+          f"{n_steps * batch / steps.epochs[0]:.1f} images/s with the first step; the model "
+          f"step alone {step_ms:.1f} ms ({[round(t * 1e3, 1) for t in steps.times]}); "
+          f"peak {peak:.2f} GiB")
+    print(f"RRG train: scores {scores}; checkpoint {[os.path.basename(p) for p in ckpts]}; "
+          f"launches K1 {launches['fused_beam_cache_attention']}, K2 "
+          f"{launches['lm_head_blocked_stats']}, K3 {launches['crop_normalize']}")
+    # the Validator again, timed: 32 reports at beam 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.start()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    n_val = len(evaluator.splits[0][1].dataset)
+    print(f"RRG train: Validator {n_val / val_s:.2f} reports/s bf16 (batch "
+          f"{evaluator.splits[0][1].batch_size}, beam {evaluator.config.beam_width}: {val_s:.2f} s "
+          f"for {n_val} reports, after the run's own evaluation)")
+    require({
+        "checkpoint exists": len(ckpts) == 1,
+        "iteration_count 4": trainor.training_scheduler.iteration_count == 4,
+        "4 finite losses": len(steps.losses) == 4 and all(map(math.isfinite, steps.losses)),
+        "finite BLEU / ROUGEL / CIDERD": all(scores.get(k) is not None and math.isfinite(scores[k])
+                                             for k in ("BLEU", "ROUGEL", "CIDERD")),
+        "vocab takes the blocked head": model.dec_config.vocab_size >= 4096,
+        "K1 launched": launches["fused_beam_cache_attention"] > 0,
+        "K2 launched": launches["lm_head_blocked_stats"] > 0,
+        "K3 = train + validator batches":
+            launches["crop_normalize"] == 4 + RRG_VALIDATE // evaluator.splits[0][1].batch_size,
+    }, "rrg_train")
+    # the kernels held against their plain versions at the shapes this path
+    # gave them: K1 (a) and K2 at the Validator's N = batch x beam, K3 at
+    # the Validator's and the train batch, uint8 already cropped (R = crop)
+    val_dl = evaluator.splits[0][1]
+    val_batch, beam = val_dl.batch_size, int(evaluator.config.beam_width)
+    dec = model.dec_config
+    crop = int(trainor.dl.dataset.image.crop)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    hold_beam_cache_attention(torch.bfloat16, val_batch * beam, gen,
+                              t=int(val_dl.dataset.tokenizer_max_len),
+                              heads=dec.num_attention_heads,
+                              d=dec.hidden_size // dec.num_attention_heads, rows=beam,
+                              label=" (rrg_train)")
+    w32, b = lm_head_weights(dec.vocab_size, gen, dec.hidden_size)
+    h = torch.randn(val_batch * beam, dec.hidden_size, generator=gen)
+    hold_blocked_lm_head(h.to("cuda", torch.bfloat16), w32.to("cuda", torch.bfloat16), b.cuda(),
+                         label=" (rrg_train)")
+    for b_images in (val_batch, batch):
+        hold_crop_normalize(b_images, crop, crop, gen, label=" (rrg_train)")
+    print(f"RRG train: K1 (a) bf16 at N {val_batch * beam}, K2 bf16 at N {val_batch * beam} "
+          f"Vp {w32.shape[0]}, K3 at B {val_batch} and {batch} (R = crop = {crop}) agree with "
+          "their plain versions")
+    first = next(iter(trainor.dl))
+    vocab = dec.vocab_size
+    del trainor, model, evaluator
+    torch.cuda.empty_cache()
+    return {"fused_beam_cache_attention": launches["fused_beam_cache_attention"],
+            "lm_head_blocked_stats": launches["lm_head_blocked_stats"],
+            "crop_normalize": launches["crop_normalize"], "vocab": vocab}, first
+
+
+def phase_rrg_train_sanity(batch, vocab: int):
+    """bf16 at full width: 10 RAdam updates at lr 1e-3 on one repeated batch
+    (the first six RAdam's un-rectified steps) lower the loss, and the
+    tower's running means leave 0."""
+    import torch
+
+    from vilmedic_torch.blocks.vision.densenet import BatchNorm
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.config.config import executor_config
+    from vilmedic_torch.data.image import finalize_device_preproc
+    from vilmedic_torch.executors import Trainor
+
+    set_tf32(False)
+    cfg, _ = load_config(CONFIG)
+    on_device = finalize_device_preproc(to_device(batch, "cuda"), int(cfg.dataset.image.crop))
+    trainer = Trainor(executor_config(cfg, "trainor"), seed=SEED, loader=[on_device] * 10,
+                      device="cuda", model_kwargs=dict(vocab_size=vocab))
+    losses = trainer.train_epoch(0)
+    moved = sum(bool(m.running_mean.abs().max() > 0) for m in trainer.model.module.modules()
+                if isinstance(m, BatchNorm))
+    print(f"RRG train sanity (one batch repeated, {trainer.config.optimizer} lr "
+          f"{trainer.base_lr:g}): losses {[round(x, 4) for x in losses]}; {moved} BatchNorm "
+          "running means moved from 0")
+    if not (len(losses) == 10 and losses[-1] < losses[0] and moved > 0):
+        fail("RRG training did not lower the loss over 10 updates, or no running mean moved")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_rrg_train_parity(tmp: str):
+    """f32, TF32 off: the train CLI on the card and on the CPU from the same
+    seed (the same weights) at batch 2 with ``densenet_tiny`` and dropout 0,
+    on 8 train reports that cover 5000 words (the blocked head, K2) and 4
+    validate reports (one Validator batch at beam 8): per-step losses within
+    1e-5 relative, the same initial weights, each tensor's change over the
+    run as :func:`update_agreement` holds it, running statistics within
+    1e-5, equal validation hypotheses and scores; then the saved checkpoint,
+    reloaded into a fresh model on the card, generates the same
+    hypotheses."""
+    import glob
+
+    import torch
+
+    import vilmedic_torch.blocks.vision.densenet as densenet
+    from vilmedic_torch.bin.train import main
+    from vilmedic_torch.config.config import Config
+    from vilmedic_torch.executors.checkpoint import load_checkpoint
+    from vilmedic_torch.executors.utils import create_model
+    from vilmedic_torch.models.evaluation_nlg import evaluation
+
+    set_tf32(False)
+    densenet.CONFIGS["densenet_tiny"] = (8, (2, 2), 16)
+    data = os.path.join(tmp, "rrg_parity_data")
+    synthetic_corpus(data, 8, 4, SEED + 1, 64, sweep=True)
+    extra = ["trainor.batch_size=2", "model.dtype=float32", "model.cnn.backbone=densenet_tiny",
+             "model.cnn.visual_projection.in_features=32", "model.decoder.hidden_dropout_prob=0.0",
+             "dataset.image.resize=64", "dataset.image.crop=56", "dataset.num_workers=0"]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        with StepRecorder() as steps:
+            trainor = main(rrg_train_overrides(data, tmp, f"rrg_parity_{device}", device) + extra)
+        state = cpu_state(trainor.model)
+        hyps = open(os.path.join(tmp, f"rrg_parity_{device}", f"validate_{SEED}_hyps.txt")).read()
+        runs[device] = (steps.losses, state, hyps, trainor.evaluator.scores[0],
+                        time.perf_counter() - t0, steps.initial)
+        if device == "cuda":
+            reset_launches()
+            trainor.evaluator.start()
+            launches = read_launches()
+            ckpt = glob.glob(os.path.join(tmp, "rrg_parity_cuda", "*.ckpt"))[0]
+            loaded = load_checkpoint(ckpt)
+            fresh = create_model(Config(loaded["config"]), dl=trainor.dl, state_dict=loaded)
+            reloaded = evaluation([fresh], trainor.evaluator.config, trainor.evaluator.splits[0][1])
+            vocab, lr = trainor.model.dec_config.vocab_size, trainor.base_lr
+        del trainor
+    (l_cpu, s_cpu, h_cpu, sc_cpu, t_cpu, i_cpu), (l_gpu, s_gpu, h_gpu, sc_gpu, _, i_gpu) = (
+        runs["cpu"], runs["cuda"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    same_start = all(torch.equal(i_gpu[k], i_cpu[k]) for k in i_cpu)
+    ratio, worst_name = update_agreement((i_cpu, i_gpu), s_cpu, s_gpu, len(l_cpu))
+    param_err = max((s_gpu[k] - s_cpu[k]).abs().max().item() for k in s_cpu
+                    if "running" not in k)
+    stats_err = max((s_gpu[k] - s_cpu[k]).abs().max().item() for k in s_cpu if "running" in k)
+    print(f"RRG train parity f32 batch 2 (densenet_tiny, full-width decoder, vocab {vocab}, "
+          f"{lr:g} lr, CPU run {t_cpu:.1f} s): losses {l_gpu} card vs {l_cpu} CPU (max relative "
+          f"diff {loss_rel:.2e}); initial weights {'equal' if same_start else 'DIFFER'}; "
+          f"parameter changes: worst |diff| / tol {ratio:.3g} ({worst_name}); params max |diff| "
+          f"{param_err:.2e}; running stats max |diff| {stats_err:.2e}; "
+          f"hyps {'equal' if h_gpu == h_cpu else 'DIFFER'}; scores "
+          f"{sc_gpu} vs {sc_cpu}; validation launches {launches}; reloaded checkpoint "
+          f"{os.path.basename(ckpt)}")
+    require({
+        "4 steps each": len(l_gpu) == len(l_cpu) == 4,
+        "losses within 1e-5 relative": loss_rel <= 1e-5,
+        "the same initial weights": same_start,
+        "each tensor's change within 1e-4 of its largest": ratio <= 1.0,
+        "running statistics within 1e-5": stats_err <= 1e-5,
+        "hypotheses equal": h_gpu == h_cpu,
+        "scores equal": sc_gpu == sc_cpu,
+        "K1 and K2 in the validation": launches["fused_beam_cache_attention"] > 0
+        and launches["lm_head_blocked_stats"] > 0,
+        "reloaded checkpoint, same hypotheses": "\n".join(reloaded["hyps"]) == h_gpu,
+    }, "rrg_train_parity")
+    torch.cuda.empty_cache()
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2368,9 +2917,19 @@ def main():
     phase_vl_parity()
     launches.update(phase_vl_routes())
     phase_vl_routes_parity()
+    launches.update(phase_vl_greedy_small_vocab())
+    phase_vl_greedy_small_vocab_parity()
     launches["vl_train"] = phase_vl_train()
     phase_vl_train_sanity()
     phase_vl_train_parity()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["rrg_train"], batch = phase_rrg_train(tmp)
+        phase_rrg_train_sanity(batch, launches["rrg_train"]["vocab"])
+        phase_rrg_train_parity(tmp)
+    # the training path's launches of the kernels it runs (K1 stage a, K2, K3)
+    for name, counter in launches["rrg_train"].items():
+        if name in results:
+            results[name]["rrg_train_launches"] = counter
 
     # each kernel's launches are those of the path that runs it: the RRG
     # slice (K1 stage a, K2, K3), the VisionLanguage slice (K1 stage b, K4),
@@ -2379,7 +2938,8 @@ def main():
     # and K7's fp8 probe
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("head_dims", "d256")  # the flash kernels' head dims; K4/K5 at D 256
+    # the flash kernels' head dims; K4/K5 at D 256; launches on the RRG training path
+    extra = ("head_dims", "d256", "rrg_train_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
                                  else r[key] for key in keys},
                 **{key: r[key] for key in extra if key in r}}

@@ -1039,3 +1039,72 @@ def test_tiny_rrg_routes_card_equals_cpu(cuda, monkeypatch, route, vocab, member
     k1 = 2 * members * gpu.steps if route != "permute" and beam > 1 else 0
     k2 = gpu.steps if beam > 1 and members == 1 and vocab >= 4096 else 0
     assert launched == (k1, k2)
+
+
+@pytest.mark.parametrize("route,vocab,beam", [("greedy", 4500, 1), ("small vocab", 4000, 4)])
+def test_tiny_vl_greedy_and_small_vocab_card_equals_cpu(cuda, route, vocab, beam):
+    """The VisionLanguage routes that follow from the beam width and the
+    vocabulary, f32: sequences on the card equal the CPU plain versions';
+    K1 runs once per layer and step under the small-vocabulary beam search
+    and never under greedy decoding."""
+    tower = dict(model_type="dinov2", hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, patch_size=8, image_size=64)
+    decoder = dict(proto=None, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                   intermediate_size=192, max_position_embeddings=128, layer_norm_eps=1e-5)
+    images = torch.randn(3, 3, 64, 64, generator=torch.Generator().manual_seed(4))
+    results = {}
+    for device in ("cpu", cuda):
+        model = VisionLanguage(decoder=dict(decoder), vision={"vision_model_name": "tiny",
+                                                              "image_size": 64},
+                               vision_hf_config=tower, vocab_size=vocab, bos_token_id=0,
+                               eos_token_id=2, pad_token_id=1, device=device, seed=6)
+        generate = make_vl_generate_fn(model, beam, 12, 0, 2, 1)
+        start = fused_beam_cache_attention.launches
+        res = generate(images.to(device))
+        results[str(device)] = (res, fused_beam_cache_attention.launches - start)
+    (cpu, _), (gpu, launched) = results["cpu"], results["cuda"]
+    assert torch.equal(cpu.sequences, gpu.sequences.cpu())
+    assert launched == (2 * gpu.steps if beam > 1 else 0)
+
+
+def test_tiny_rrg_training_card_equals_cpu(cuda, monkeypatch):
+    """Three RAdam steps of a small RRG in training mode (DenseNet with
+    batch-statistics BatchNorm, uint8 images through the crop+normalize
+    kernel on the card), f32, dropout 0: losses within 1e-5 relative,
+    parameters within 1e-6 and running statistics within 1e-5 of the CPU's,
+    from the same seed."""
+    from vilmedic_torch.config.config import Config
+    from vilmedic_torch.executors import Trainor
+
+    monkeypatch.setitem(tdensenet.CONFIGS, "densenet_tiny", (8, (2, 2), 16))
+    decoder = dict(proto=None, hidden_size=128, num_hidden_layers=1, num_attention_heads=2,
+                   intermediate_size=256, max_position_embeddings=64, layer_norm_eps=1e-5,
+                   vocab_size=4500, bos_token_id=0, eos_token_id=2, pad_token_id=1,
+                   hidden_dropout_prob=0.0)
+    config = Config({"model": {"proto": "RRG", "decoder": decoder, "dtype": "float32",
+                               "cnn": {"backbone": "densenet_tiny",
+                                       "visual_projection": {"out_features": 128}}},
+                     "optimizer": "RAdam", "optim_params": {"lr": 1e-3}, "epochs": 0})
+    gen = torch.Generator().manual_seed(8)
+    ids = torch.randint(3, 4500, (4, 16), generator=gen)
+    ids[:, 0] = 0
+    mask = torch.ones(4, 16, dtype=torch.long)
+    mask[2, 10:] = 0
+    batch = {"images_u8": torch.randint(0, 256, (4, 32, 32, 3), generator=gen,
+                                        dtype=torch.uint8),
+             "preproc_tops": torch.zeros(4, dtype=torch.int32),
+             "preproc_lefts": torch.zeros(4, dtype=torch.int32),
+             "input_ids": ids, "attention_mask": mask}
+    results = {}
+    for device in ("cpu", cuda):
+        trainer = Trainor(config, seed=3, loader=[batch], device=device)
+        on = finalize_device_preproc({k: v.to(device) for k, v in batch.items()}, 32)
+        losses = [trainer.train_step(on, 1e-3).item() for _ in range(3)]
+        results[str(device)] = (losses, {k: v.cpu() for k, v in
+                                         trainer.model.module.state_dict().items()})
+    (l_cpu, s_cpu), (l_gpu, s_gpu) = results["cpu"], results["cuda"]
+    for a, b in zip(l_gpu, l_cpu):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for name, want in s_cpu.items():
+        tol = 1e-5 if "running" in name else 1e-6
+        assert (s_gpu[name] - want).abs().max().item() <= tol, name

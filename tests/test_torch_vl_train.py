@@ -578,7 +578,7 @@ def test_optimizer_factory_follows_optax():
     assert isinstance(tx2.optimizer, torch.optim.Adam) and len(tx2.params) == 4
     assert tx2.optimizer.param_groups[0]["weight_decay"] == 0.01
     with pytest.raises(NotImplementedError):
-        create_optimizer("radam", {"lr": 1e-3}, named_parameters=named)
+        create_optimizer("lamb", {"lr": 1e-3}, named_parameters=named)
 
     # against optax: clip 1.0 (the gradient norm here is above it), L2 adam
     rng = np.random.default_rng(4)

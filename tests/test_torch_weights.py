@@ -167,3 +167,23 @@ def test_port_imports_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 15  # every port module was imported
+
+
+def test_port_imports_no_tokenizer_scorer_or_image_packages():
+    """Every module of the port imports without transformers, rouge_score,
+    nltk or Pillow: the tokenizer, ROUGE and its stemmer are the port's own,
+    and Pillow is imported only inside ``data.image.open_image``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vilmedic_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(vilmedic_torch.__path__, 'vilmedic_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('transformers', 'rouge_score', 'nltk', 'PIL')]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 30  # the data, scorer and executor modules included

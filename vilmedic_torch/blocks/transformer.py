@@ -467,13 +467,18 @@ class DecoderLayer(nn.Module):
         self.ffn_ln = LayerNorm(config.hidden_size, eps, dt)
 
     def forward(self, x, enc_hidden=None, self_bias=None, cross_bias=None,
-                self_cache=None, cross_cache=None, decode_index=None, ancestry=None):
+                self_cache=None, cross_cache=None, decode_index=None, ancestry=None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
+        """``train`` routes attention as a training step; ``generator``
+        draws the hidden-dropout masks (None: no dropout)."""
+        p = self.self_attn.config.hidden_dropout_prob
         attn = self.self_attn(x, bias=self_bias, cache=self_cache,
-                              decode_index=decode_index, ancestry=ancestry)
-        x = self.self_ln(x + attn)
-        cross = self.cross_attn(x, kv_input=enc_hidden, bias=cross_bias, cache=cross_cache)
-        x = self.cross_ln(x + cross)
-        return self.ffn_ln(x + self.ffn(x))
+                              decode_index=decode_index, ancestry=ancestry, train=train)
+        x = self.self_ln(x + dropout(attn, p, generator))
+        cross = self.cross_attn(x, kv_input=enc_hidden, bias=cross_bias, cache=cross_cache,
+                                train=train)
+        x = self.cross_ln(x + dropout(cross, p, generator))
+        return self.ffn_ln(x + self.ffn(x, generator))
 
 
 class TransformerDecoder(nn.Module):
@@ -514,7 +519,10 @@ class TransformerDecoder(nn.Module):
     def forward(self, input_ids=None, attention_mask=None, encoder_hidden_states=None,
                 encoder_attention_mask=None, mode: str = "train", cache=None,
                 decode_index: Optional[int] = None, max_len: Optional[int] = None,
-                blocked_head=None, ancestry=None):
+                blocked_head=None, ancestry=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``train`` and ``generator`` apply to ``mode="train"``: attention
+        routed as a training step, hidden dropout from ``generator``."""
         cfg = self.config
         if mode == "init_cache":
             # (self_cache, cross_cache): the per-beam mutable state and the
@@ -560,14 +568,14 @@ class TransformerDecoder(nn.Module):
             raise ValueError(f"unknown mode {mode!r}")
         t = input_ids.shape[1]
         positions = torch.arange(t, device=input_ids.device)[None, :]
-        h = self.embeddings(input_ids, positions)
+        h = self.embeddings(input_ids, positions, generator)
         self_bias = make_attention_bias(key_mask=attention_mask, causal=True,
                                         query_len=t, key_len=t, device=input_ids.device)
         cross_bias = make_attention_bias(key_mask=encoder_attention_mask)
         enc_h = (encoder_hidden_states.to(cfg.dtype)
                  if encoder_hidden_states is not None else None)
         for layer in self.layers:
-            h = layer(h, enc_h, self_bias, cross_bias)
+            h = layer(h, enc_h, self_bias, cross_bias, train=train, generator=generator)
         return self._head(h)
 
 

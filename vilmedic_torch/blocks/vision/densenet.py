@@ -3,12 +3,20 @@
 Architecture as torchvision's densenets; the output is the ``features``
 layer, the final BatchNorm with no ReLU (the pooled ``avgpool`` output is not
 ported). Convolutions are ``torch.nn.functional.conv2d`` (XLA ran them
-outside any Pallas kernel).
-BatchNorm is the inference form with running statistics, computed in f32 with
-f32 parameters and cast to the compute dtype, as Flax does. Parameter names
-follow the Flax tree (``block0_layer0.BatchNorm_0.running_mean``). The
-MXU-packed 3x3 convolution of the JAX module, off by default there, is not
-ported.
+outside any Pallas kernel) over f32 weights cast to the compute dtype at use,
+as Flax's ``param_dtype=float32`` with ``dtype=``, so that an optimizer's
+small updates are not rounded away in bf16.
+
+BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``. In
+eval (``train=False``) it normalizes with the running statistics, in f32
+with f32 parameters, output cast to the compute dtype. In training it
+normalizes with the batch's statistics and keeps them (mean and the
+**biased** variance, f32) as ``pending_stats``: the trainer folds them into
+the running statistics (``0.9 * old + 0.1 * batch``) with
+:func:`commit_batch_stats` only when the step's loss is finite, as the JAX
+trainer gates its updated ``batch_stats``. Parameter names follow the Flax
+tree (``block0_layer0.BatchNorm_0.running_mean``). The MXU-packed 3x3
+convolution of the JAX module, off by default there, is not ported.
 """
 
 from __future__ import annotations
@@ -28,8 +36,11 @@ CONFIGS = {
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW channels: ``(x - mean) * (rsqrt(var + eps)
-    * weight) + bias`` in f32, output in ``out_dtype``."""
+    """BatchNorm over NCHW channels: ``(x - mean) * (rsqrt(var + eps) *
+    weight) + bias`` in f32, output in ``out_dtype``; running statistics in
+    eval, the batch's in training (module doc)."""
+
+    momentum = 0.9  # Flax's: new running = momentum * old + (1 - momentum) * batch
 
     def __init__(self, channels: int, out_dtype: torch.dtype, eps: float = 1e-5):
         super().__init__()
@@ -39,29 +50,69 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.pending_stats = None  # (mean, biased var) of the last training forward
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train:
+            return self._train_forward(x)
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(self.out_dtype)
 
+    def _train_forward(self, x):
+        """Normalize by the batch's statistics, gradients flowing through
+        them, in f32 arithmetic. ``F.batch_norm`` writes the batch mean and
+        the unbiased variance into scratch buffers at momentum 1; the biased
+        variance Flax keeps is that times (n - 1) / n."""
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, training=True, momentum=1.0,
+                         eps=self.eps)
+        self.pending_stats = (mean, var * ((n - 1) / n))
+        return y.to(self.out_dtype)
 
-def _conv(c_in: int, c_out: int, k: int, stride: int, dtype) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, k, stride=stride, padding=k // 2, bias=False, dtype=dtype)
+
+@torch.no_grad()
+def commit_batch_stats(module: nn.Module, good) -> None:
+    """Fold every BatchNorm's ``pending_stats`` into its running statistics
+    where ``good`` holds (a bool, or a bool tensor on the module's device,
+    read there: no host sync), and clear them. Flax's update,
+    ``momentum * old + (1 - momentum) * batch``, in f32."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm) and m.pending_stats is not None:
+            for buf, new in zip((m.running_mean, m.running_var), m.pending_stats):
+                upd = m.momentum * buf + (1 - m.momentum) * new
+                buf.copy_(torch.where(torch.as_tensor(good, device=buf.device), upd, buf))
+            m.pending_stats = None
+
+
+class Conv2d(nn.Conv2d):
+    """Flax ``nn.Conv(use_bias=False, dtype=..., param_dtype=float32)``: an
+    f32 weight; input and weight cast to the compute dtype at use; padding
+    ``k // 2``."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int, dtype: torch.dtype):
+        super().__init__(c_in, c_out, k, stride=stride, padding=k // 2, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
 
 
 class DenseLayer(nn.Module):
     def __init__(self, c_in: int, growth_rate: int, dtype: torch.dtype):
         super().__init__()
         self.BatchNorm_0 = BatchNorm(c_in, dtype)
-        self.Conv_0 = _conv(c_in, 4 * growth_rate, 1, 1, dtype)
+        self.Conv_0 = Conv2d(c_in, 4 * growth_rate, 1, 1, dtype)
         self.BatchNorm_1 = BatchNorm(4 * growth_rate, dtype)
-        self.Conv_1 = _conv(4 * growth_rate, growth_rate, 3, 1, dtype)
+        self.Conv_1 = Conv2d(4 * growth_rate, growth_rate, 3, 1, dtype)
 
-    def forward(self, x):
-        y = self.Conv_0(F.relu(self.BatchNorm_0(x)))
-        y = self.Conv_1(F.relu(self.BatchNorm_1(y)))
+    def forward(self, x, train: bool = False):
+        y = self.Conv_0(F.relu(self.BatchNorm_0(x, train)))
+        y = self.Conv_1(F.relu(self.BatchNorm_1(y, train)))
         return torch.cat([x, y], dim=1)
 
 
@@ -71,7 +122,7 @@ class DenseNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.block_config = tuple(block_config)
-        self.conv0 = _conv(3, num_init_features, 7, 2, dtype)
+        self.conv0 = Conv2d(3, num_init_features, 7, 2, dtype)
         self.norm0 = BatchNorm(num_init_features, dtype)
         ch = num_init_features
         for i, num_layers in enumerate(self.block_config):
@@ -80,23 +131,24 @@ class DenseNet(nn.Module):
                 ch += growth_rate
             if i < len(self.block_config) - 1:
                 self.add_module(f"transition{i}_norm", BatchNorm(ch, dtype))
-                self.add_module(f"transition{i}_conv", _conv(ch, ch // 2, 1, 1, dtype))
+                self.add_module(f"transition{i}_conv", Conv2d(ch, ch // 2, 1, 1, dtype))
                 ch //= 2
         self.norm_final = BatchNorm(ch, dtype)
         self.out_channels = ch
 
-    def forward(self, x):
-        """(B, 3, H, W) -> (B, C, h, w) features."""
-        x = F.relu(self.norm0(self.conv0(x.to(self.dtype))))
+    def forward(self, x, train: bool = False):
+        """(B, 3, H, W) -> (B, C, h, w) features; ``train`` normalizes with
+        the batch's statistics."""
+        x = F.relu(self.norm0(self.conv0(x), train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i, num_layers in enumerate(self.block_config):
             for j in range(num_layers):
-                x = getattr(self, f"block{i}_layer{j}")(x)
+                x = getattr(self, f"block{i}_layer{j}")(x, train)
             if i < len(self.block_config) - 1:
-                x = F.relu(getattr(self, f"transition{i}_norm")(x))
+                x = F.relu(getattr(self, f"transition{i}_norm")(x, train))
                 x = getattr(self, f"transition{i}_conv")(x)
                 x = F.avg_pool2d(x, 2, stride=2)
-        return self.norm_final(x)
+        return self.norm_final(x, train)
 
 
 def make_densenet(backbone: str, dtype: torch.dtype = torch.float32) -> DenseNet:

@@ -1,0 +1,127 @@
+"""Report text cleaners, dispatched through the port's processing registry
+(a copy of ``data/processing.py`` of the JAX package, which the port never
+imports).
+
+The regex semantics must match the JAX package's exactly for tokenizer,
+vocabulary and metric parity, historical quirks included (the character
+class of ``r2gen_clean_report`` whose ``:-[`` span also removes
+``;<=>?@``). ``ifcc_clean_report``, ``gloria_clean_report_chexpert`` and the
+stemming ``rouge`` cleaner import NLTK when they run, never at import.
+"""
+
+from __future__ import annotations
+
+import re
+
+from ..registry import register
+
+_R2GEN_SENT_PUNCT = re.compile(r"[.,?;*!%^&_+():-\[\]{}]")
+_MULTI_UNDERSCORE = re.compile(r"_{2,}")
+_MULTI_SPACE = re.compile(r" {2,}")
+_MULTI_DOT = re.compile(r"\.{2,}")
+
+
+@register("processing")
+def r2gen_clean_report(report: str) -> str:
+    """R2Gen (Memory-driven Transformer) report cleaner.
+
+    Reference report_preprocessing.py:8-23; upstream
+    github.com/cuhksz-nlp/R2Gen modules/tokenizers.py.
+    """
+
+    def report_cleaner(t: str):
+        t = t.replace("\n", " ")
+        t = _MULTI_UNDERSCORE.sub("_", t)
+        t = _MULTI_SPACE.sub(" ", t)
+        t = _MULTI_DOT.sub(".", t)
+        t = (
+            t.replace("1. ", "")
+            .replace(". 2. ", ". ")
+            .replace(". 3. ", ". ")
+            .replace(". 4. ", ". ")
+            .replace(". 5. ", ". ")
+            .replace(" 2. ", ". ")
+            .replace(" 3. ", ". ")
+            .replace(" 4. ", ". ")
+            .replace(" 5. ", ". ")
+        )
+        return t.strip().lower().split(". ")
+
+    def sent_cleaner(t: str):
+        t = (
+            t.replace('"', "")
+            .replace("/", "")
+            .replace("\\", "")
+            .replace("'", "")
+            .strip()
+            .lower()
+        )
+        return _R2GEN_SENT_PUNCT.sub("", t)
+
+    # NOTE: upstream filters on `!= []`, which is vacuously true for strings —
+    # empty sentences are kept, reproduced here for output parity.
+    tokens = [sent_cleaner(sent) for sent in report_cleaner(report) if sent_cleaner(sent) != []]
+    if tokens == [""]:
+        return ""
+    return " . ".join(tokens) + " ."
+
+
+@register("processing")
+def ifcc_clean_report(report: str) -> str:
+    """IFCC cleaner: lowercase + wordpunct tokenization
+    (reference report_preprocessing.py:28-31)."""
+    from nltk.tokenize import wordpunct_tokenize
+
+    return " ".join(wordpunct_tokenize(report.lower()))
+
+
+@register("processing")
+def gloria_clean_report_chexpert(report: str) -> str:
+    """GLoRIA CheXpert report cleaner (reference report_preprocessing.py:36-67)."""
+    from nltk.tokenize import RegexpTokenizer
+
+    t = report.replace("\n", " ")
+    captions = re.split(r"[0-9]+\.", t)
+    captions = [sent for point in captions for sent in point.split(".")]
+
+    tokenizer = RegexpTokenizer(r"\w+")
+    all_sents = []
+    for cap in captions:
+        cap = cap.replace("��", " ")
+        tokens = tokenizer.tokenize(cap.lower())
+        if len(tokens) <= 1:
+            continue
+        included = [w for w in (tok.encode("ascii", "ignore").decode("ascii") for tok in tokens) if w]
+        all_sents.append(" ".join(included))
+    return " ".join(all_sents)
+
+
+@register("processing")
+def rouge(text: str, use_stemmer: bool = False) -> str:
+    """Google-ROUGE tokenizer-as-cleaner (reference report_preprocessing.py:71-103)."""
+    text = text.lower()
+    text = re.sub(r"[^a-z0-9]+", " ", text)
+    tokens = re.split(r"\s+", text)
+    if use_stemmer:
+        from nltk.stem import porter
+
+        stemmer = porter.PorterStemmer()
+        tokens = [stemmer.stem(x) if len(x) > 3 else x for x in tokens]
+    tokens = [x for x in tokens if re.match(r"^[a-z0-9]+$", x)]
+    return " ".join(tokens)
+
+
+@register("processing")
+def identity(text: str) -> str:
+    return text
+
+
+def get_processing(name):
+    """Resolve a processing function by name (``None`` -> identity)."""
+    from .. import registry
+
+    if name is None:
+        return identity
+    if callable(name):
+        return name
+    return registry.get("processing", name)

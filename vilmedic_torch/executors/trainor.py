@@ -11,47 +11,80 @@ The step semantics of the JAX package (and of the reference torch trainer):
   :meth:`Trainor.apply_step` runs every ``grad_accu`` microbatches, gated on
   the boundary microbatch's loss, and a final partial accumulation is
   applied at the end of the epoch;
+- a BatchNorm tower trains on batch statistics, and its running statistics
+  take a step's batch statistics only when that step's loss is finite
+  (``densenet.commit_batch_stats``, the JAX trainer's ``_gate_stats``);
 - the learning rate is read from the scheduler every iteration, and
   ``scheduler.iteration_step`` runs once per update;
 - losses are read on the host one microbatch late, for the epoch mean;
 - frozen parameters take no gradient and are not in the optimizer, so they
   stay bitwise unchanged.
 
+:meth:`Trainor.start` runs the JAX package's epoch loop
+(``range(scheduler.epoch, epochs + 1)``): per epoch the loader's shuffle,
+the steps, ``scheduler.epoch_step``, then from ``eval_start`` the
+``evaluator`` (a :class:`~.validator.Validator`, set by the caller), the
+early-stop score (``early_stop_metric`` averaged over the evaluated splits,
+or ``training_loss``), ``scheduler.eval_step``, a best-only checkpoint, and
+"Early stop reached". A ``ckpt`` key resumes the model, optimizer and
+scheduler from a checkpoint.
+
 Dropout masks come from one ``torch.Generator`` on the model's device,
-seeded with the trainer's seed. The loader is a constructor argument, an
-iterable of ``{"images", "input_ids", "attention_mask"}`` batches (what the
-JAX trainer's ``_device_batches`` yields) with a length, until ``data/`` is
-ported. Not ported: checkpointing, the ``Validator`` and evaluation-driven
-early stopping, multi-device meshes, ``DevicePrefetch``, profiling and the
-CLI.
+seeded with the trainer's seed. The loader is the config's ``dataset:``
+(``create_data_loader``), or an iterable of batches with a length given as
+``loader``. Not ported: multi-device meshes, ``DevicePrefetch``,
+``save_every_epoch``, ``eval_only`` and ``profile_dir`` (which raise), and
+SCST's model-owned steps.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import time
 
 import torch
 
+from .. import __version__
+from ..blocks.vision.densenet import commit_batch_stats
 from ..config.config import Config
-from .train_state import create_optimizer, gated_update
+from ..data.image import prepare_batch
 from ..models.base import resolve_device
-from .utils import create_model, create_training_scheduler
+from .checkpoint import CheckpointSaver, load_checkpoint, snapshot
+from .train_state import create_optimizer, gated_update
+from .utils import create_data_loader, create_model, create_training_scheduler
 
 
 class Trainor:
-    def __init__(self, config, seed: int, loader, device="cuda", model_kwargs=None):
+    def __init__(self, config, seed: int, loader=None, device="cuda", model_kwargs=None):
         """``config`` is the trainor view of an experiment config
         (``executor_config(config, "trainor")``: the ``trainor:`` keys plus
-        ``model:``); ``model_kwargs`` are :func:`create_model` overrides.
-        Trains on the card unless ``device`` names another."""
+        ``model:``, ``dataset:`` and ``ckpt_dir``); ``loader`` replaces the
+        config's data loader; ``model_kwargs`` are :func:`create_model`
+        overrides. Trains on the card unless ``device`` names another."""
+        for key in ("save_every_epoch", "eval_only", "profile_dir"):
+            if config.get(key):
+                raise NotImplementedError(f"trainor key {key!r} is not ported")
         self.config = config
         self.seed = seed
         self.device = resolve_device(device)
+        self.ckpt_dir = config.get("ckpt_dir")
+        self.ckpt = config.get("ckpt")
+        self.eval_start = config.get("eval_start", 0)
+        self.decay_metric_start = config.get("decay_metric_start", 0)
+        self.early_stop_start = config.get("early_stop_start", 0)
         self.grad_accu = int(config.get("grad_accu", 1) or 1)
         self.logger = logging.getLogger(str(seed))
-        self.dl = loader
-        self.model = create_model(config, seed=seed, device=device, **(model_kwargs or {}))
+        self.state_dict = load_checkpoint(self.ckpt) if self.ckpt else None
+        self.saver = CheckpointSaver(self.ckpt_dir, self.logger, seed, ckpt=self.ckpt)
+
+        self.dl = loader if loader is not None else create_data_loader(config, "train",
+                                                                       self.logger)
+        model_kwargs = dict(model_kwargs or {})
+        if loader is None:
+            model_kwargs["dl"] = self.dl
+        self.model = create_model(config, logger=self.logger, state_dict=self.state_dict,
+                                  seed=seed, device=device, **model_kwargs)
 
         optim_params = config.get("optim_params") or {}
         if isinstance(optim_params, Config):
@@ -62,9 +95,13 @@ class Trainor:
             frozen_prefixes=getattr(self.model, "frozen_prefixes", ()),
             named_parameters=self.model.module.named_parameters(),
         )
+        if self.state_dict is not None and self.state_dict.get("opt_state"):
+            self.tx.optimizer.load_state_dict(self.state_dict["opt_state"])
         self.training_scheduler = create_training_scheduler(
-            config, self.base_lr, total_steps=len(self.dl) * int(config.get("epochs", 1)))
+            config, self.base_lr, total_steps=len(self.dl) * int(config.get("epochs", 1)),
+            state_dict=self.state_dict)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.evaluator = None  # set by the caller (bin/train.py)
         self.epoch_losses = []  # mean train loss per epoch
 
     # ------------------------------------------------------------------
@@ -81,12 +118,14 @@ class Trainor:
         self.zero_grads()
         loss = self._loss(batch)
         loss.backward()
-        gated_update(self.tx, lr, loss)
+        stepped = gated_update(self.tx, lr, loss)
+        commit_batch_stats(self.model.module, stepped)
         return loss.detach()
 
     def grad_step(self, batch) -> torch.Tensor:
         """Add this microbatch's gradients to the accumulation in ``.grad``;
-        a non-finite loss resets the accumulation to zero. Returns the loss."""
+        a non-finite loss resets the accumulation to zero and keeps the
+        running statistics. Returns the loss."""
         loss = self._loss(batch)
         loss.backward()
         good = torch.isfinite(loss.detach())
@@ -94,6 +133,7 @@ class Trainor:
             if p.grad is not None:
                 p.grad = torch.where(good, p.grad, torch.zeros((), dtype=p.grad.dtype,
                                                                device=p.grad.device))
+        commit_batch_stats(self.model.module, good)
         return loss.detach()
 
     def apply_step(self, lr: float, gate_loss: torch.Tensor) -> bool:
@@ -116,8 +156,11 @@ class Trainor:
             self.logger.warning(f"NaN/Inf loss at epoch {epoch + 1}, iter {it}. Step skipped.")
         return None
 
-    def _to_device(self, batch):
-        return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+    def _model_batch(self, batch):
+        """The batch on the model's device, with the dataset's pending
+        device preprocessing done (uint8 -> normalized float images)."""
+        batch = {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+        return prepare_batch(batch, getattr(self.dl, "dataset", None))
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int):
@@ -125,9 +168,10 @@ class Trainor:
         scheduler = self.training_scheduler
         n = max(1, len(self.dl))
         losses, pending, iteration, loss = [], None, 0, None
+        t0 = time.perf_counter()
         self.zero_grads()
         for iteration, batch in enumerate(self.dl, start=1):
-            batch = self._to_device(batch)
+            batch = self._model_batch(batch)
             lr = scheduler.current_lr()
             if self.grad_accu == 1:
                 loss = self.train_step(batch, lr)
@@ -141,6 +185,14 @@ class Trainor:
                 if iteration % self.grad_accu == 0:
                     self.apply_step(lr, loss)
                     scheduler.iteration_step(epoch + iteration / n)
+            if iteration % 10 == 0 or iteration == n:
+                pending = self._drain_loss(pending, losses, epoch)
+                mean = sum(losses) / len(losses) if losses else float("nan")
+                eta = (time.perf_counter() - t0) / iteration * (n - iteration)
+                self.logger.info(
+                    f"Epoch {epoch + 1}, Lr {scheduler.current_lr():.3g}, Loss {mean:.4f}, "
+                    f"{scheduler.early_stop_metric} {scheduler.current_best_metric:.4g}, "
+                    f"ES {scheduler.early_stop}, {iteration}/{n} it, ETA {eta:.0f}s")
         self._drain_loss(pending, losses, epoch)
         # the final partial accumulation (reference trainor.py:143-155)
         if self.grad_accu > 1 and iteration % self.grad_accu != 0 and losses:
@@ -149,10 +201,48 @@ class Trainor:
         return losses
 
     def start(self) -> None:
-        """The epoch loop (``range(scheduler.epoch, epochs + 1)``, as the
-        reference counts it), without evaluation or checkpoints."""
-        scheduler = self.training_scheduler
-        for epoch in range(int(scheduler.epoch), int(self.config.epochs) + 1):
+        """The epoch loop; the background checkpoint writer is joined
+        before it returns, whatever happens."""
+        try:
+            self._run_epochs()
+        finally:
+            self.saver.wait()
+
+    def _run_epochs(self) -> None:
+        config, scheduler = self.config, self.training_scheduler
+        early_stop_metric = config.get("early_stop_metric")
+        for epoch in range(int(scheduler.epoch), int(config.epochs) + 1):
+            if hasattr(self.dl, "set_epoch"):
+                self.dl.set_epoch(epoch)
             losses = self.train_epoch(epoch)
-            self.epoch_losses.append(sum(losses) / len(losses) if losses else float("inf"))
             scheduler.epoch_step()
+            training_loss = sum(losses) / len(losses) if losses else float("inf")
+            self.epoch_losses.append(training_loss)
+
+            early_stop_score, decay_metric = None, None
+            do_early_stop = epoch + 1 >= self.early_stop_start
+            if early_stop_metric == "training_loss" and do_early_stop:
+                early_stop_score = training_loss
+            if epoch + 1 >= self.eval_start and self.evaluator is not None:
+                self.evaluator.epoch = epoch
+                self.evaluator.start()
+                if early_stop_metric != "training_loss" and do_early_stop:
+                    scores = [s[early_stop_metric] for s in self.evaluator.scores]
+                    early_stop_score = sum(scores) / len(scores)
+            if epoch + 1 >= self.decay_metric_start:
+                decay_metric = (training_loss if scheduler.decay_on_training_loss
+                                else early_stop_score)
+
+            ret = scheduler.eval_step(decay_metric=decay_metric,
+                                      early_stop_score=early_stop_score)
+            if ret["save_state"]:
+                self.saver.save(payload={
+                    "model": snapshot(self.model.module.state_dict()),
+                    "opt_state": snapshot(self.tx.optimizer.state_dict()),
+                    "training_scheduler": scheduler.state_dict(),
+                    "config": config.to_dict() if isinstance(config, Config) else dict(config),
+                    "__version__": __version__,
+                }, tag=early_stop_score, current_epoch=epoch + 1)
+            if ret["done_training"]:
+                self.logger.info("Early stop reached")
+                return

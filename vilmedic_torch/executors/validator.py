@@ -1,0 +1,57 @@
+"""Validator: the per-split evaluation executor (port of
+``executors/validator.py``, one process).
+
+One loader per split of the config's ``splits`` (``["val"]`` when none is
+given); :meth:`Validator.start` runs the models' ``eval_func`` on each,
+scores its refs and hyps with :func:`~vilmedic_torch.scorers.compute_scores`
+and records ``{"validation_loss", <metrics>}`` per split in ``scores``.
+Unported metrics raise when the Validator is built, before any training.
+Post-processing is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+
+from ..scorers.scores import check_metrics, compute_scores
+from .utils import create_data_loader, get_eval_func
+
+
+class Validator:
+    def __init__(self, config, models, seed=None, from_training: bool = True):
+        self.seed = seed
+        self.config = config
+        self.logger = logging.getLogger(str(seed))
+        self.models = models
+        self.epoch = 0
+        self.scores = []
+        metrics = config.get("metrics", []) or []
+        self.metrics = list(metrics) if isinstance(metrics, (list, tuple)) else [metrics]
+        check_metrics(self.metrics)
+        if config.get("post_processing") is not None:
+            raise NotImplementedError("validator post_processing is not ported")
+        splits = config.get("splits")
+        if splits is None:
+            self.logger.warning("No splits defined in config, using ['val'] as default")
+            splits = ["val"]
+        self.splits = [(split, create_data_loader(config, split, self.logger,
+                                                  called_by_validator=True,
+                                                  called_by_ensemblor=not from_training))
+                       for split in splits]
+
+    def start(self):
+        self.scores = []
+        for split, dl in self.splits:
+            self.logger.info(f"Running split: {split} by ensembling {len(self.models)} models.")
+            results = get_eval_func(self.models)(models=self.models, config=self.config, dl=dl)
+            if not any(key in results for key in ("loss", "refs", "hyps")):
+                raise ValueError("the evaluation function returned no evaluation keys")
+            scores = {"validation_loss": float(results.pop("loss", 0.0))}
+            scores.update(compute_scores(
+                metrics=self.metrics, refs=results.pop("refs", None),
+                hyps=results.pop("hyps", None), split=split, seed=self.seed,
+                config=self.config, epoch=self.epoch, logger=self.logger))
+            self.logger.info(json.dumps(scores, indent=4, sort_keys=False, default=str))
+            self.scores.append(scores)
+        return self.scores

@@ -8,12 +8,15 @@ from typing import Tuple
 import torch
 
 
-def get_special_token_ids(model_config) -> Tuple[int, int, int]:
-    """BOS/EOS/PAD from the decoder config. (The JAX package falls back to
-    the tokenizer's ids; tokenizers are not ported.)"""
+def get_special_token_ids(model_config, tokenizer=None) -> Tuple[int, int, int]:
+    """BOS/EOS/PAD from the decoder config, or, where the config lacks one,
+    the tokenizer's ``[CLS]``/``[SEP]``/``[PAD]`` ids."""
     ids = [getattr(model_config, f"{name}_token_id", None) for name in ("bos", "eos", "pad")]
     if None in ids:
-        raise ValueError("special token ids are missing from the decoder config")
+        if tokenizer is None:
+            raise ValueError("special token ids are missing from the decoder config")
+        ids = [tokenizer.vocab[t] for t in
+               (tokenizer.cls_token, tokenizer.sep_token, tokenizer.pad_token)]
     return tuple(int(i) for i in ids)
 
 

@@ -24,17 +24,26 @@ ensembling). Routes, by the models and the beam width:
   head, without forced EOS.
 
 On the card the port takes these kernel routes wherever the JAX package may;
-the v5e routing thresholds do not apply. Sampled and constrained decoding and
-sharded evaluation are not ported.
+the v5e routing thresholds do not apply.
+
+:func:`evaluation` is the RRG's ``eval_func``: every batch of a loader goes
+to the device, through the dataset's device preprocessing, into one
+``generate``; the generated and the reference ids are decoded with the
+dataset's tokenizer (``skip_special_tokens``) into ``hyps`` and ``refs``.
+Sampled and constrained decoding and sharded evaluation are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
+from typing import Any, Dict, List
+
 from ..blocks.transformer import make_blocked_head_weights, to_kernel_cache
+from ..data.image import prepare_batch
 from ..decoding import beam_search, greedy_search, tile_for_beams
 from ..ops.beam_cache_attention import HEAD_DIMS
+from .base import get_special_token_ids
 
 # the blocked head pays off only over a large vocabulary (a model property)
 BLOCKED_MIN_VOCAB = 4096
@@ -106,3 +115,53 @@ def make_generate_fn(models, beam_width: int, max_len: int, bos_id: int, eos_id:
                            caches=None if kernel_cache else [m[1] for m in members])
 
     return generate
+
+
+def pipelined_decode(dl, tokenizer, prepare, launch) -> Dict[str, List[str]]:
+    """``{"refs", "hyps"}`` over a loader: ``prepare(batch) -> (inputs,
+    ref_ids, n)`` builds the device inputs, ``launch(inputs)`` generates;
+    batch i is decoded to text after batch i + 1 is launched."""
+    refs: List[str] = []
+    hyps: List[str] = []
+
+    def flush(prev):
+        if prev is None:
+            return
+        ref_ids, seqs, n = prev
+        for h, r in zip(seqs.cpu().numpy()[:n], ref_ids.cpu().numpy()):
+            hyps.append(tokenizer.decode(h, skip_special_tokens=True,
+                                         clean_up_tokenization_spaces=False))
+            refs.append(tokenizer.decode(r, skip_special_tokens=True,
+                                         clean_up_tokenization_spaces=False))
+
+    prev = None
+    for batch in dl:
+        inputs, ref_ids, n = prepare(batch)
+        seqs = launch(inputs)
+        flush(prev)
+        prev = (ref_ids, seqs, n)
+    flush(prev)
+    return {"refs": refs, "hyps": hyps}
+
+
+def evaluation(models, config, dl) -> Dict[str, Any]:
+    """The ``eval_func`` of RRG-style models: ``make_generate_fn`` at the
+    config's ``beam_width`` (default 1) and ``length_penalty`` (default 1),
+    up to the dataset's ``tokenizer_max_len``, over every batch of ``dl`` on
+    the models' device."""
+    dataset = dl.dataset
+    tokenizer = dataset.tokenizer
+    bos_id, eos_id, pad_id = get_special_token_ids(models[0].dec_config, tokenizer)
+    length_penalty = config.get("length_penalty", None)
+    length_penalty = 1.0 if length_penalty is None else float(length_penalty)
+    generate = make_generate_fn(models, config.get("beam_width", 1),
+                                int(dataset.tokenizer_max_len), bos_id, eos_id, pad_id,
+                                length_penalty)
+    device = next(models[0].module.parameters()).device
+
+    def prepare(batch):
+        on_device = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+        on_device = prepare_batch(on_device, dataset)
+        return models[0].encoder_inputs(on_device), batch["input_ids"], batch["input_ids"].shape[0]
+
+    return pipelined_decode(dl, tokenizer, prepare, lambda inputs: generate(inputs).sequences)

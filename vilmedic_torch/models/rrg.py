@@ -16,6 +16,7 @@ from ..blocks.vision.densenet import BatchNorm
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
 from ..registry import register
 from .base import resolve_block, resolve_device
+from .evaluation_nlg import evaluation
 
 
 class RRGModule(nn.Module):
@@ -24,11 +25,17 @@ class RRGModule(nn.Module):
         self.enc = enc
         self.dec = TransformerDecoder(dec_config)
 
-    def forward(self, images, input_ids, attention_mask, images_mask=None):
-        """Teacher-forced logits and the shifted causal-LM loss."""
-        enc_hidden, enc_mask = self.enc.encode(images, images_mask)
+    def forward(self, images, input_ids, attention_mask, images_mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Teacher-forced logits and the shifted causal-LM loss. ``train``:
+        the tower's batch statistics (kept as pending statistics, see
+        ``densenet.commit_batch_stats``) and attention routed as a training
+        step; ``generator`` draws the dropout masks (None: no dropout)."""
+        enc_hidden, enc_mask = self.enc.encode(images, images_mask, train=train,
+                                               generator=generator)
         logits = self.dec(input_ids, attention_mask, encoder_hidden_states=enc_hidden,
-                          encoder_attention_mask=enc_mask.to(torch.int32))
+                          encoder_attention_mask=enc_mask.to(torch.int32), train=train,
+                          generator=generator)
         return {"loss": causal_lm_loss(logits, input_ids, attention_mask), "logits": logits}
 
     def encode(self, images, images_mask=None):
@@ -74,13 +81,18 @@ def init_rrg_weights_(module: RRGModule, generator: torch.Generator) -> None:
 @register("model")
 class RRG:
     """Host-side task model around :class:`RRGModule`, built from a config's
-    ``model:`` block. ``vocab_size`` stands in for the tokenizer's size;
-    weights are random from ``seed`` unless a state dict is loaded after."""
+    ``model:`` block. The vocabulary size comes from the data loader's
+    tokenizer (``dl``), or from ``vocab_size`` without one. Weights are random
+    from ``seed`` unless a state dict is loaded after. ``cnn.freeze`` keeps
+    the backbone out of training (``frozen_prefixes``); the projection stays
+    trainable. ``eval_func`` is :func:`~.evaluation_nlg.evaluation`."""
 
-    def __init__(self, decoder, cnn, dtype="float32", vocab_size: Optional[int] = None,
+    def __init__(self, decoder, cnn, dl=None, dtype="float32", vocab_size: Optional[int] = None,
                  device="cuda", seed: int = 0, **kwargs):
         device = resolve_device(device)
         compute_dtype = torch.bfloat16 if str(dtype) in ("bfloat16", "bf16") else torch.float32
+        if dl is not None:
+            vocab_size = dl.dataset.tokenizer.vocab_size
         dec_args, _ = resolve_block(decoder)
         self.dec_config = TransformerConfig.from_dict(
             dec_args, **({"vocab_size": vocab_size} if vocab_size else {}), dtype=compute_dtype,
@@ -88,6 +100,18 @@ class RRG:
         self.module = RRGModule(build_visual_encoder(cnn, dtype=compute_dtype), self.dec_config)
         init_rrg_weights_(self.module, torch.Generator().manual_seed(seed))
         self.module.to(device).eval()
+        self.frozen_prefixes = ("enc/model",) if (cnn or {}).get("freeze") else ()
+        self.eval_func = evaluation
+
+    def apply_train(self, batch, generator: Optional[torch.Generator] = None):
+        """One training forward over ``{"images", "input_ids",
+        "attention_mask"}``: ``{"loss", "logits"}`` with the graph for the
+        backward. The tower's batch statistics wait as pending statistics
+        for the trainer to commit (on a finite loss); ``generator`` (on the
+        model's device) draws the dropout masks."""
+        return self.module(batch["images"], batch["input_ids"], batch["attention_mask"],
+                           images_mask=batch.get("images_mask"), train=True,
+                           generator=generator)
 
     def encoder_inputs(self, batch) -> Dict[str, Any]:
         return {"images": batch["images"], "images_mask": batch.get("images_mask")}

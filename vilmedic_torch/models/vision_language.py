@@ -29,7 +29,8 @@ gradient), the prefix K/V prefill (compute dtype or int8), the kernel-cache
 and plain-cache decode steps with the blocked LM head, the int8 generated
 cache (:func:`derive_gen_kv_scales`), the fused prefix
 (:func:`maybe_fuse_prefix`) and :func:`make_vl_generate_fn`, the
-single-device counterpart of ``vl_evaluation``'s ``generate``. Not ported: greedy decoding, sharded
+single-device counterpart of ``vl_evaluation``'s ``generate`` with its
+greedy, small-vocabulary, permute and kernel routes. Not ported: sharded
 evaluation, the tokenizer half of ``vl_evaluation`` and gradient
 checkpointing.
 """
@@ -50,7 +51,7 @@ from ..blocks.transformer import (
 )
 from ..blocks.vision.dinov2 import DINOV2_KEYS, SwiGLUFFN
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
-from ..decoding import BeamResult, beam_search, tile_for_beams
+from ..decoding import beam_search, greedy_search, tile_for_beams
 from ..ops.attention import make_attention_bias
 from ..ops.beam_cache_attention import KernelPrefix, pack_kernel_prefix, prefix_fusable
 from ..registry import register
@@ -168,14 +169,17 @@ class VisionLanguageModule(nn.Module):
         plain ``self_k``/``self_v`` (N, T, H, D) of the permute route
         (``ancestry`` unused). ``prefix_kv`` holds the per-layer
         ``prefix_operands`` or ``KernelPrefix`` bundles, ``blocked_head`` the
-        padded head ``(weight (Vp, H) f32, bias (Vp,) f32)``. Returns
-        (N, Vp // 128, 128) f32 blocked logits."""
+        padded head ``(weight (Vp, H) f32, bias (Vp,) f32)`` or None. Returns
+        (N, Vp // 128, 128) f32 blocked logits, or without a blocked head the
+        plain head's (N, V) logits in f32."""
         h = self._text_embed(tokens, prefix_len + index)
         kernel = "self_k_tnf" in cache[0]
         for layer, lc, pkv in zip(self.layers, cache, prefix_kv):
             layer_cache = ((lc["self_k_tnf"], lc["self_v_tnf"], lc.get("self_kv_sc")) if kernel
                            else (lc["self_k"], lc["self_v"]))
             h = layer.decode(h, pkv, layer_cache, index, ancestry)
+        if blocked_head is None:
+            return self.lm_head(h)[:, -1].float()
         w, bias = blocked_head
         # compute-dtype operands, f32 sums (the weight holds compute-dtype values)
         out = h[:, -1].to(self.config.dtype).float() @ w.t() + bias
@@ -229,23 +233,29 @@ def maybe_fuse_prefix(prefix_kv, group_items: int, beam_width: int, prefix_len: 
 def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_id: int,
                         pad_id: int, length_penalty: float = 1.0, ancestry_group_items: int = 1,
                         prefix_kv_dtype=None, gen_kv_dtype=None, fused_prefix: bool = False):
-    """``generate(images (B, 3, H, W) float) -> BeamResult`` for one
-    VisionLanguage model, on the model's device.
+    """``generate(images (B, 3, H, W) float)`` for one VisionLanguage model,
+    on the model's device: a ``BeamResult`` for beam search, a
+    ``RolloutResult`` for greedy decoding (``beam_width`` <= 1).
 
     The order of ``vl_evaluation``'s generate: prefill; tile only the
     generated cache for the beams; on the kernel route, with ``gen_kv_dtype
     == "int8"`` derive the generated cache's scales from the prefix and
     convert the cache to the kernel layout (int8 with those scales), and
     with ``fused_prefix`` and no int8 generated cache pack the prefix for
-    the kernel's stage (d); pad the LM head once; beam search on the bare
-    blocked logits.
+    the kernel's stage (d); pad the LM head once; decode.
 
-    The route follows the model (:func:`~.evaluation_nlg.kernel_route_ok`):
-    the never-reordered kernel cache where the beam-cache kernel is built
-    for the decoder's head dim, else the permute route, whose plain cache
-    beam search reorders every step; there ``gen_kv_dtype`` and
-    ``fused_prefix``, features of the kernel cache, are ignored, as in
-    ``vl_evaluation``.
+    The routes follow the model and the beam width, as in ``vl_evaluation``:
+
+    - beam search where the beam-cache kernel is built for the decoder's
+      head dim (:func:`~.evaluation_nlg.kernel_route_ok`): the
+      never-reordered kernel cache; else the permute route, whose plain
+      cache beam search reorders every step (there ``gen_kv_dtype`` and
+      ``fused_prefix``, features of the kernel cache, are ignored);
+    - beam search over a vocabulary of ``BLOCKED_MIN_VOCAB`` or more: the
+      padded blocked head; below it, the plain head's f32 logits and the
+      two-stage candidates;
+    - ``beam_width`` <= 1: greedy decoding over the plain (B, T, H, D)
+      cache and the plain head, without forced EOS.
 
     ``prefix_kv_dtype`` and ``gen_kv_dtype`` take the eval block's keys of
     those names and mean int8 where ``str(x or "") == "int8"``, as in
@@ -253,22 +263,19 @@ def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_i
     ``VILMEDIC_FUSED_PREFIX=1``; the port reads no environment variable.
     ``ancestry_group_items`` sets the items per beam-cache mask group; any
     divisor of the batch gives the same sequences."""
-    if not beam_width or beam_width < 2:
-        raise NotImplementedError("greedy decoding is not ported")
-    if model.dec_config.vocab_size < BLOCKED_MIN_VOCAB:
-        raise NotImplementedError(
-            f"vocab {model.dec_config.vocab_size} < {BLOCKED_MIN_VOCAB}: the unblocked "
-            "candidate route is not ported")
     module = model.module
+    beam = bool(beam_width) and beam_width > 1
+    blocked = beam and model.dec_config.vocab_size >= BLOCKED_MIN_VOCAB
     kernel_cache = kernel_route_ok([model], beam_width)
     quantize_prefix = str(prefix_kv_dtype or "") == "int8"
     quantize_gen = kernel_cache and str(gen_kv_dtype or "") == "int8"
 
     @torch.inference_mode()
-    def generate(images) -> BeamResult:
+    def generate(images):
         cache, prefix_kv, prefix_len = module.prefill(images, max_len,
                                                       quantize_prefix=quantize_prefix)
-        cache = tile_for_beams(cache, beam_width)
+        if beam:
+            cache = tile_for_beams(cache, beam_width)
         if kernel_cache:
             gen_scales = derive_gen_kv_scales(prefix_kv) if quantize_gen else None
             cache = to_kernel_cache(cache, scales=gen_scales)
@@ -277,15 +284,20 @@ def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_i
                                               prefix_len)
         if not isinstance(prefix_kv[0], KernelPrefix):
             prefix_kv = prefix_operands(prefix_kv)
-        wb, bb = make_blocked_head_weights(module)
-        blocked = (wb.float(), bb)  # upcast once, not every step
+        head = None
+        if blocked:
+            wb, bb = make_blocked_head_weights(module)
+            head = (wb.float(), bb)  # upcast once, not every step
 
         def step_fn(tokens, index, anc=None):
-            return module.decode_step(tokens, cache, prefix_kv, index, prefix_len, blocked, anc)
+            return module.decode_step(tokens, cache, prefix_kv, index, prefix_len, head, anc)
 
+        if not beam:
+            return greedy_search(step_fn, images.shape[0], max_len, bos_id, eos_id, pad_id,
+                                 images.device, forced_eos=False)
         return beam_search(step_fn, images.shape[0], beam_width, max_len, bos_id, eos_id,
                            pad_id, images.device, length_penalty=length_penalty,
-                           ancestry_group_items=ancestry_group_items,
+                           ancestry_group_items=ancestry_group_items, blocked=blocked,
                            caches=None if kernel_cache else cache)
 
     return generate

@@ -11,12 +11,11 @@ transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
 - bare parameters (DINOv2's ``cls_token``, ``pos_embed``, LayerScale
   ``ls1``/``ls2``, VisionLanguage's ``image_token_embedding``) as they are.
 
-The values stay f32, as the Flax parameters are: the port's Linear and
-Embedding parameters are f32 too and cast to the compute dtype at use. Only
-the frozen towers' convolutions (DenseNet, the DINOv2 patch embedding) and
-DINOv2's SwiGLU projections are held in the compute dtype, so
-``load_state_dict`` rounds those once, where Flax rounds at use to the same
-values.
+The values stay f32, as the Flax parameters are: the port's Linear,
+Embedding and DenseNet convolution parameters are f32 too and cast to the
+compute dtype at use. Only the frozen DINOv2 tower's patch embedding and
+SwiGLU projections are held in the compute dtype, so ``load_state_dict``
+rounds those once, where Flax rounds at use to the same values.
 
 A reference ``.pth`` state dict reaches the port through the JAX package's
 ``convert_reference_rrg`` and then this function.
