@@ -76,7 +76,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     the CPU with ``densenet_tiny`` at batch 2, requiring equal losses,
     parameters, running statistics, hypotheses and scores within the stated
     tolerances and the reloaded checkpoint to generate the same hypotheses
-    (``rrg_train_parity``).
+    (``rrg_train_parity``);
+13. fine-tunes that run's best checkpoint with SCST
+    (``config/RRG/rrg-scst-mimic.yml`` through the train CLI, bf16: 4
+    iterations at batch 32, top-k 25, ROUGE-L rewards; rollout, reward and
+    gradient ms, samples/s, the Validator's reports/s; no K1 or K2 inside
+    the rollouts, K1 (a) = K2 = Validator decode steps, K3 = batches;
+    ``scst_train``), trains RRS (``config/RRS/baseline-transformer-mimic.yml``
+    at full width, 6 + 6 layers of 768, on synthetic findings/impression
+    pairs whose target vocabulary passes 4096: 4 steps at batch 64, the
+    Validator at batch 16, beam 8; K1 (a) = 6 x decode steps, K2 = decode
+    steps; K1 (a) and K2 held at N 128 against their plain versions;
+    ``rrs_train``), and holds the new generation paths card vs CPU in f32
+    (one SCST iteration under the same injected Gumbel noise, the RRS CLI at
+    2 + 2 layers, RRG_FORCE's constrained decoding; ``generation_parity``).
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -2886,6 +2899,560 @@ def phase_rrg_train_parity(tmp: str):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- SCST, RRS, generation
+
+SCST_CONFIG = os.path.join(ROOT, "config", "RRG", "rrg-scst-mimic.yml")
+SCST_TRAIN = 128  # 4 iterations at the config's batch 32
+RRS_CONFIG = os.path.join(ROOT, "config", "RRS", "baseline-transformer-mimic.yml")
+RRS_WORDS = 6000  # the train impressions split them: the built target vocab takes K2
+RRS_TRAIN, RRS_VALIDATE = 256, 32  # 4 steps at batch 64, 2 validator batches of 16
+K1, K2, K3 = "fused_beam_cache_attention", "lm_head_blocked_stats", "crop_normalize"
+PARITY_DEVICES = ("cpu", "cuda")  # the reference first
+
+
+class DecodeSteps:
+    """Sums the ``steps`` of every beam search that ``evaluation`` runs
+    (each step one K1 call per decoder layer and one K2 call on the
+    kernel route)."""
+
+    def __enter__(self):
+        from vilmedic_torch.models import evaluation_nlg
+
+        self.steps = 0
+        self.real = evaluation_nlg.beam_search
+
+        def counted(*args, **kwargs):
+            result = self.real(*args, **kwargs)
+            self.steps += result.steps
+            return result
+
+        evaluation_nlg.beam_search = counted
+        return self
+
+    def __exit__(self, *exc):
+        from vilmedic_torch.models import evaluation_nlg
+
+        evaluation_nlg.beam_search = self.real
+
+
+class ScstRecorder:
+    """Wraps the SCST model's ``train_iteration`` and ``rollouts`` for a
+    run: each whole iteration on the host clock, ended by a synchronize
+    (from the end of the previous one, or the epoch's start: the loader's
+    wait, the copy to the card and K3 included), its loss and mean rewards
+    (sampled, greedy), its rollout / reward / gradient seconds (from the
+    model's ``timing``), and the K1 and K2 launches made inside the
+    rollouts. ``initial`` is a CPU copy of the model's state at the epoch's
+    start."""
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+
+        from vilmedic_torch.executors.trainor import Trainor
+        from vilmedic_torch.models.scst_models import _SCSTBase
+
+        self.iterations, self.losses, self.rewards, self.splits = [], [], [], []
+        self.rollout_launches, self.initial, self.mark = 0, None, None
+        self.real = (_SCSTBase.train_iteration, _SCSTBase.rollouts, Trainor.train_epoch)
+        real_iteration, real_rollouts, real_epoch = self.real
+        rec = self
+
+        def epoch(trainer, n):
+            rec.initial = cpu_state(trainer.model)
+            torch.cuda.synchronize()
+            rec.mark = time.perf_counter()
+            return real_epoch(trainer, n)
+
+        def iteration(model, trainor, batch, lr):
+            before = dict(model.timing)
+            loss, custom = real_iteration(model, trainor, batch, lr)
+            rec.splits.append({k: model.timing[f"{k}_s"] - before[f"{k}_s"]
+                               for k in ("rollout", "reward", "grad")})
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            rec.iterations.append(now - rec.mark)
+            rec.mark = now
+            rec.losses.append(float(loss))
+            rec.rewards.append((float(np.mean(model.last["reward_sampling"])),
+                                float(np.mean(model.last["reward_greedy"]))))
+            return loss, custom
+
+        def kernel_launches():
+            counts = read_launches()
+            return counts[K1] + counts[K2]
+
+        def rollouts(model, enc_inputs):
+            before = kernel_launches()
+            out = real_rollouts(model, enc_inputs)
+            rec.rollout_launches += kernel_launches() - before
+            return out
+
+        _SCSTBase.train_iteration, _SCSTBase.rollouts, Trainor.train_epoch = (
+            iteration, rollouts, epoch)
+        return self
+
+    def __exit__(self, *exc):
+        from vilmedic_torch.executors.trainor import Trainor
+        from vilmedic_torch.models.scst_models import _SCSTBase
+
+        _SCSTBase.train_iteration, _SCSTBase.rollouts, Trainor.train_epoch = self.real
+
+
+def scst_corpus(src: str, dst: str, n_train: int):
+    """The ``rrg_train`` corpus in ``dst``, its train split cut to the
+    first ``n_train`` reports (the JPEG paths are absolute)."""
+    os.makedirs(dst, exist_ok=True)
+    for split, n in (("train", n_train), ("validate", None)):
+        for kind in ("impression", "image"):
+            with open(os.path.join(src, f"{split}.{kind}.tok")) as f:
+                lines = f.read().split("\n")
+            with open(os.path.join(dst, f"{split}.{kind}.tok"), "w") as f:
+                f.write("\n".join(lines[:n]))
+
+
+def scst_overrides(data: str, ckpt_dir: str, name: str, device: str, ckpt=None):
+    """The dotlist that points the SCST config at a corpus (and a trained
+    RRG checkpoint)."""
+    out = [SCST_CONFIG, f"ckpt_dir={ckpt_dir}", f"name={name}", f"device={device}",
+           f"seed={SEED}", f"dataset.image.root={data}", f"dataset.seq.root={data}",
+           "dataset.image.device_preproc=true", "trainor.epochs=0",
+           "validator.metrics=[BLEU,ROUGEL,CIDERD]"]
+    return out + ([f"model.ckpt={ckpt}"] if ckpt else [])
+
+
+def unchanged_tensors(initial, final):
+    """Names of the floating tensors (running statistics left out) that
+    did not change over a run."""
+    return sorted(k for k in initial if "running" not in k and initial[k].is_floating_point()
+                  and bool(final[k].eq(initial[k]).all()))
+
+
+def phase_scst_train(tmp: str):
+    """``config/RRG/rrg-scst-mimic.yml`` at full width, bf16, through the
+    train CLI with dotlist overrides only: the ``rrg_train`` corpus cut to
+    128 train reports (4 SCST iterations at the config's batch 32, top-k
+    25, ROUGE-L reward, RAdam lr 5e-6) through ``device_preproc`` (K3), the
+    base RRG from the best checkpoint ``rrg_train`` wrote (``model.ckpt``;
+    its vocabulary file copied beside the run), then the Validator at beam
+    8 (K1 stage a, K2). Rollouts take the plain cache and head: no K1 or K2
+    inside them. Returns the path's launches of K1, K2 and K3."""
+    import glob
+    import shutil
+
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    data = os.path.join(tmp, "scst_data")
+    scst_corpus(os.path.join(tmp, "rrg_data"), data, SCST_TRAIN)
+    ckpt = glob.glob(os.path.join(tmp, "rrg_train", "*.ckpt"))[0]
+    os.makedirs(os.path.join(tmp, "scst_train"), exist_ok=True)
+    shutil.copy(os.path.join(tmp, "rrg_train", "vocab.tgt"), os.path.join(tmp, "scst_train"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ScstRecorder() as rec, DecodeSteps() as val_steps:
+        trainor = main(scst_overrides(data, tmp, "scst_train", "cuda", ckpt))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, evaluator, cfg = trainor.model, trainor.evaluator, trainor.config
+    still = unchanged_tensors(rec.initial, cpu_state(model))
+    # the last iteration's gradients are still in .grad
+    no_grad = [n for n, p in zip(trainor.tx.names, trainor.tx.params)
+               if p.grad is None or not (bool(p.grad.abs().max() > 0)
+                                         and bool(torch.isfinite(p.grad).all()))]
+    timing = dict(model.timing)
+    iters = timing["iters"]
+    batch = int(cfg.batch_size)
+    val_dl = evaluator.splits[0][1]
+    n_val_batches = len(val_dl)
+    iter_ms = statistics.median(rec.iterations[1:]) * 1e3
+    split = {k: statistics.median(x[k] for x in rec.splits[1:]) * 1e3
+             for k in ("rollout", "reward", "grad")}
+    scores = evaluator.scores[0]
+    print(f"SCST train: {os.path.basename(SCST_CONFIG)} from {os.path.basename(ckpt)}, "
+          f"{cfg.model.cnn.backbone}, {model.dec_config.num_hidden_layers}-layer decoder of "
+          f"{model.dec_config.hidden_size}, vocab {model.dec_config.vocab_size}, "
+          f"{model.dec_config.dtype}, {cfg.optimizer} lr {trainor.base_lr:g}, batch {batch}, "
+          f"top_k {model.scst.top_k}, rewards {model.scst.scores}, max_len "
+          f"{model.scst.max_length}, {iters} iterations, run {run_s:.1f} s; losses "
+          f"{[round(x, 6) for x in rec.losses]}; mean reward (sampled, greedy) per iteration "
+          f"{[(round(s, 4), round(g, 4)) for s, g in rec.rewards]}")
+    print(f"SCST train bf16 batch {batch}: {iter_ms:.1f} ms per iteration (whole: loader "
+          f"wait, H2D, K3, rollouts, rewards, update; median of iterations 2-{iters}: "
+          f"{[round(t * 1e3, 1) for t in rec.iterations]}), {batch / iter_ms * 1e3:.1f} "
+          f"samples/s; per iteration (median of 2-{iters}) rollout {split['rollout']:.1f} ms, "
+          f"reward {split['reward']:.1f} ms, gradient step {split['grad']:.1f} ms (the first: "
+          f"{', '.join(f'{k} {v * 1e3:.1f}' for k, v in rec.splits[0].items())}; model.timing "
+          f"over {iters}: {timing}); peak {peak:.2f} GiB")
+    print(f"SCST train: scores {scores}; launches K1 {launches[K1]}, K2 {launches[K2]}, K3 "
+          f"{launches[K3]}; {rec.rollout_launches} K1/K2 launches inside the rollouts; "
+          f"Validator {val_steps.steps} decode steps over {n_val_batches} batches; "
+          f"{len(trainor.tx.params)} trainable tensors, without a nonzero finite gradient in the "
+          f"last iteration: {no_grad}; {len(still)} tensors unchanged after {iters} updates "
+          f"(RAdam's first six updates are lr x the bias-corrected mean gradient, not normalized: "
+          f"at lr {trainor.base_lr:g} an update below half an f32 ulp of its weight rounds away; "
+          f"{sum('Norm' in k or 'norm' in k or '_ln' in k or '.ln.' in k for k in still)} of them "
+          f"norm scales near 1), e.g. {still[:4]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.start()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    n_val = len(val_dl.dataset)
+    print(f"SCST train: Validator {n_val / val_s:.2f} reports/s bf16 (batch {val_dl.batch_size}, "
+          f"beam {evaluator.config.beam_width}: {val_s:.2f} s for {n_val} reports)")
+    # where an iteration's time goes: host and device-busy ms of the
+    # rollouts and of the gradient step on one more batch (advantages drawn)
+    from vilmedic_torch.executors.train_state import gated_update
+
+    one = trainor._model_batch(next(iter(trainor.dl)))
+    enc = model.encoder_inputs(one)
+    (_, sampled), ro_host, ro_dev = device_ms(lambda: model.rollouts(enc))
+    adv = torch.randn(1, sampled.shape[0], generator=torch.Generator().manual_seed(SEED)).cuda()
+
+    def grad_step():
+        trainor.zero_grads()
+        loss = model.policy_loss(one, enc, sampled, adv)
+        loss.backward()
+        gated_update(trainor.tx, trainor.base_lr, loss)
+
+    _, gr_host, gr_dev = device_ms(grad_step)
+    print(f"SCST train split (torch.profiler, one more iteration): rollout host {ro_host:.1f} ms, "
+          f"device busy {ro_dev['all']:.1f} ms "
+          f"({int((sampled != model.scst.pad_token_id).sum(1).max())} tokens); gradient step host {gr_host:.1f} ms, device busy {gr_dev['all']:.1f} ms")
+    # the key biases' gradient is 0 up to rounding (softmax is shift-invariant)
+    no_grad = [k for k in no_grad if not k.endswith("attn.k.bias")]
+    require({
+        "4 iterations": iters == 4 and trainor.training_scheduler.iteration_count == 4,
+        "finite losses": len(rec.losses) == 4 and all(map(math.isfinite, rec.losses)),
+        "finite rewards": all(math.isfinite(s) and math.isfinite(g) for s, g in rec.rewards),
+        "finite BLEU / ROUGEL / CIDERD": all(scores.get(k) is not None and math.isfinite(scores[k])
+                                             for k in ("BLEU", "ROUGEL", "CIDERD")),
+        "no K1 or K2 in the rollouts": rec.rollout_launches == 0,
+        "K1 (a) = K2 = Validator decode steps":
+            launches[K1] == launches[K2] == val_steps.steps > 0,
+        "K3 = training + Validator batches": launches[K3] == iters + n_val_batches,
+        "every trainable tensor has a nonzero finite gradient": not no_grad,
+        "parameters moved": len(still) < len(rec.initial),
+    }, "scst_train")
+    del trainor, model, evaluator
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def rrs_corpus(root: str, n_train: int, n_validate: int, seed: int, sweep_words: int):
+    """Findings / impression pairs made from ``seed`` in the files the RRS
+    config names (``{split}.findings.tok``, ``{split}.impression.tok``):
+    letter-string words; findings of 20 to 110 words (some pass the source
+    length 128 after cleaning), in sentences of 3 to 14 words; validate
+    impressions of 3 to 30 words; the train impressions split the first
+    ``sweep_words`` words between them (the same number each), so the
+    built target vocabulary holds nearly all of them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, rng.integers(3, 11))) for _ in range(3 * RRS_WORDS)})
+    words = [words[i] for i in rng.permutation(len(words))[:RRS_WORDS]]
+
+    def text(picked):
+        out, k = [], 0
+        while k < len(picked):
+            step = int(rng.integers(3, 15))
+            out.append(" ".join(picked[k:k + step]) + " .")
+            k += step
+        return " ".join(out)
+
+    os.makedirs(root, exist_ok=True)
+    per = sweep_words // n_train
+    for split, n in (("train", n_train), ("validate", n_validate)):
+        findings = [text(list(rng.choice(words, int(rng.integers(20, 111))))) for _ in range(n)]
+        if split == "train":
+            impressions = [text(words[i * per:(i + 1) * per]) for i in range(n)]
+        else:
+            impressions = [text(list(rng.choice(words, int(rng.integers(3, 31)))))
+                           for _ in range(n)]
+        for kind, lines in (("findings", findings), ("impression", impressions)):
+            with open(os.path.join(root, f"{split}.{kind}.tok"), "w") as f:
+                f.write("\n".join(lines))
+
+
+def rrs_overrides(data: str, ckpt_dir: str, name: str, device: str):
+    return [RRS_CONFIG, f"ckpt_dir={ckpt_dir}", f"name={name}", f"device={device}",
+            f"seed={SEED}", f"dataset.src.root={data}", f"dataset.tgt.root={data}",
+            "trainor.epochs=0"]
+
+
+def phase_rrs_train(tmp: str):
+    """``config/RRS/baseline-transformer-mimic.yml`` at full width (6 + 6
+    layers of 768, 12 heads of 64), bf16, through the train CLI: 256
+    synthetic pairs (4 RAdam steps at batch 64, source 128, target 80), the
+    Validator over 32 pairs at batch 16, beam 8 (K1 stage a in each of the 6
+    decoder layers, K2 over the built vocabulary of more than 4096). Then
+    holds K1 (a) at N 128, T 80, 12 x 64 and K2 at N 128 over that
+    vocabulary against their plain versions. Returns the path's launches."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    data = os.path.join(tmp, "rrs_data")
+    rrs_corpus(data, RRS_TRAIN, RRS_VALIDATE, SEED, RRS_WORDS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with StepRecorder() as steps, DecodeSteps() as val_steps:
+        trainor = main(rrs_overrides(data, tmp, "rrs_train", "cuda"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, evaluator, cfg = trainor.model, trainor.evaluator, trainor.config
+    dec, enc = model.dec_config, model.enc_config
+    batch = int(cfg.batch_size)
+    src_len = int(cfg.dataset.src.tokenizer_max_len)
+    tgt_len = int(cfg.dataset.tgt.tokenizer_max_len)
+    iter_ms = statistics.median(steps.iterations[1:]) * 1e3
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    scores = evaluator.scores[0]
+    val_dl = evaluator.splits[0][1]
+    print(f"RRS train: {enc.num_hidden_layers} + {dec.num_hidden_layers} layers of "
+          f"{dec.hidden_size} ({dec.num_attention_heads} heads of {dec.head_dim}), vocab "
+          f"{enc.vocab_size} -> {dec.vocab_size} (built from the train split), {dec.dtype}, "
+          f"{cfg.optimizer} lr {trainor.base_lr:g}, batch {batch}, source {src_len}, target "
+          f"{tgt_len}, {len(steps.losses)} steps, run {run_s:.1f} s; losses "
+          f"{[round(x, 4) for x in steps.losses]}")
+    print(f"RRS train bf16 batch {batch}: {iter_ms:.1f} ms per training step (whole iteration; "
+          f"median of steps 2-{len(steps.iterations)}: "
+          f"{[round(t * 1e3, 1) for t in steps.iterations]}), "
+          f"{batch * (src_len + tgt_len) / iter_ms * 1e3:.0f} padded tokens/s (source + "
+          f"target); the model step alone {step_ms:.1f} ms; peak {peak:.2f} GiB")
+    print(f"RRS train: scores {scores}; launches K1 {launches[K1]}, K2 {launches[K2]}; "
+          f"Validator {val_steps.steps} decode steps over {len(val_dl)} batches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.start()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    n_val = len(val_dl.dataset)
+    print(f"RRS train: Validator {n_val / val_s:.2f} reports/s bf16 (batch {val_dl.batch_size}, "
+          f"beam {evaluator.config.beam_width}: {val_s:.2f} s for {n_val} reports)")
+    # where a step's time goes: one more step on a batch of the run
+    one = trainor._model_batch(next(iter(trainor.dl)))
+    trainor.zero_grads()
+    out, f_host, f_dev = device_ms(lambda: model.apply_train(one, trainor.generator))
+    _, b_host, b_dev = device_ms(lambda: out["loss"].backward())
+    _, o_host, o_dev = device_ms(lambda: trainor.apply_step(trainor.base_lr,
+                                                            out["loss"].detach()))
+    print(f"RRS train split (torch.profiler, one more step): forward host {f_host:.1f} / device "
+          f"busy {f_dev['all']:.1f} ms, backward {b_host:.1f} / {b_dev['all']:.1f} ms, RAdam "
+          f"{o_host:.1f} / {o_dev['all']:.1f} ms")
+    require({
+        "4 finite losses": len(steps.losses) == 4 and all(map(math.isfinite, steps.losses)),
+        "finite ROUGEL / BLEU": all(scores.get(k) is not None and math.isfinite(scores[k])
+                                    for k in ("ROUGEL", "BLEU")),
+        "target vocab takes the blocked head": dec.vocab_size >= 4096,
+        "K1 (a) = 6 x decode steps": launches[K1] == dec.num_hidden_layers * val_steps.steps > 0,
+        "K2 = decode steps": launches[K2] == val_steps.steps,
+    }, "rrs_train")
+    beam = int(evaluator.config.beam_width)
+    n = val_dl.batch_size * beam
+    gen = torch.Generator().manual_seed(SEED + 40)
+    hold_beam_cache_attention(torch.bfloat16, n, gen, t=tgt_len, heads=dec.num_attention_heads,
+                              d=dec.head_dim, rows=beam, label=" (rrs_train)")
+    w32, b = lm_head_weights(dec.vocab_size, gen, dec.hidden_size)
+    h = torch.randn(n, dec.hidden_size, generator=gen)
+    hold_blocked_lm_head(h.to("cuda", torch.bfloat16), w32.to("cuda", torch.bfloat16), b.cuda(),
+                         label=" (rrs_train)")
+    print(f"RRS train: K1 (a) bf16 at N {n}, T {tgt_len}, {dec.num_attention_heads} x "
+          f"{dec.head_dim} and K2 bf16 at N {n}, Vp {w32.shape[0]} agree with their plain versions")
+    del trainor, model, evaluator
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2]}
+
+
+class InjectedNoise:
+    """A stand-in for ``decoding.decode.gumbel_noise``: the same Gumbel
+    draws on every device, made on the CPU from ``seed`` and the call's
+    number, then moved to the device."""
+
+    def __init__(self, seed: int):
+        self.seed, self.calls = seed, 0
+
+    def __call__(self, shape, generator, device):
+        import torch
+
+        gen = torch.Generator().manual_seed(self.seed + self.calls)
+        self.calls += 1
+        return self.real(shape, gen, "cpu").to(device)
+
+    def __enter__(self):
+        from vilmedic_torch.decoding import decode
+
+        self.real = decode.gumbel_noise
+        decode.gumbel_noise = self
+        return self
+
+    def __exit__(self, *exc):
+        from vilmedic_torch.decoding import decode
+
+        decode.gumbel_noise = self.real
+
+
+def scst_parity(tmp: str):
+    """One SCST iteration on the card and on the CPU from the same weights
+    (random, from the seed) and the same Gumbel draws, f32: the SCST config
+    at full decoder width with ``densenet_tiny``, batch 2 of the
+    ``rrg_train_parity`` corpus (5000 words: the top-k threshold is
+    blockwise). Equal greedy and sampled ids and rewards, the loss within
+    1e-5 relative, each tensor's change as :func:`update_agreement` holds
+    it."""
+    import numpy as np
+    import torch
+
+    import vilmedic_torch.blocks.vision.densenet as densenet
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.config.config import executor_config
+    from vilmedic_torch.executors import Trainor
+
+    densenet.CONFIGS["densenet_tiny"] = (8, (2, 2), 16)
+    data = os.path.join(tmp, "rrg_parity_data")
+    runs = []
+    for i, device in enumerate(PARITY_DEVICES):
+        ckpt_dir = os.path.join(tmp, f"scst_parity_{i}")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        config, *overrides = scst_overrides(data, tmp, "unused", device)
+        cfg, _ = load_config(config, overrides + [
+            "trainor.batch_size=2", "model.dtype=float32", "model.cnn.backbone=densenet_tiny",
+            "model.cnn.visual_projection.in_features=32", "model.decoder.hidden_dropout_prob=0.0",
+            "dataset.image.resize=64", "dataset.image.crop=56", "dataset.num_workers=0"])
+        train_cfg = executor_config(cfg, "trainor")
+        train_cfg.ckpt_dir = ckpt_dir
+        trainor = Trainor(train_cfg, seed=SEED, device=device)
+        batch = trainor._model_batch(next(iter(trainor.dl)))
+        initial = cpu_state(trainor.model)
+        with InjectedNoise(SEED + 50):
+            loss, _ = trainor.model.train_iteration(trainor, batch, trainor.base_lr)
+        last = trainor.model.last
+        runs.append((last["greedy"], last["sampled"], last["reward_greedy"],
+                     last["reward_sampling"], float(loss), initial, cpu_state(trainor.model)))
+        vocab = trainor.model.dec_config.vocab_size
+        del trainor
+    (g_c, s_c, rg_c, rs_c, l_c, i_c, f_c), (g_g, s_g, rg_g, rs_g, l_g, i_g, f_g) = runs
+    ratio, worst = update_agreement((i_c, i_g), f_c, f_g, 1)
+    rel = abs(l_g - l_c) / abs(l_c)
+    same_rewards = all(np.array_equal(a, b) for a, b in zip(rg_c + rs_c, rg_g + rs_g))
+    print(f"generation parity, SCST f32 batch 2 (densenet_tiny, vocab {vocab}): greedy ids "
+          f"{'equal' if np.array_equal(g_c, g_g) else 'DIFFER'}, sampled ids "
+          f"{'equal' if np.array_equal(s_c, s_g) else 'DIFFER'}, rewards "
+          f"{'equal' if same_rewards else 'DIFFER'} (sampled {[list(map(float, r)) for r in rs_c]}"
+          f", greedy {[list(map(float, r)) for r in rg_c]}); loss {l_g!r} card vs {l_c!r} CPU "
+          f"(relative {rel:.2e}); parameter changes: worst |diff| / tol {ratio:.3g} ({worst})")
+    return {
+        "SCST greedy ids equal": np.array_equal(g_c, g_g),
+        "SCST sampled ids equal": np.array_equal(s_c, s_g),
+        "SCST sampled differ from greedy": not np.array_equal(g_c, s_c),
+        "SCST rewards equal": same_rewards,
+        "SCST loss within 1e-5 relative": rel <= 1e-5,
+        "SCST update within update_agreement": ratio <= 1.0,
+    }
+
+
+def rrs_parity(tmp: str):
+    """The RRS CLI in f32 on the card and on the CPU from the same seed:
+    full width, 2 + 2 layers, dropout 0, 8 train pairs whose impressions
+    cover 5000 words (the blocked head, K2) at batch 4, the Validator over
+    4 pairs at batch 4, beam 8. Per-step losses within 1e-5 relative,
+    equal hypotheses and scores."""
+    from vilmedic_torch.bin.train import main
+
+    data = os.path.join(tmp, "rrs_parity_data")
+    rrs_corpus(data, 8, 4, SEED + 2, 5000)
+    extra = ["model.dtype=float32", "model.encoder.num_hidden_layers=2",
+             "model.decoder.num_hidden_layers=2", "model.encoder.hidden_dropout_prob=0.0",
+             "model.decoder.hidden_dropout_prob=0.0", "trainor.batch_size=4",
+             "validator.batch_size=4", "dataset.num_workers=0"]
+    runs = []
+    for i, device in enumerate(PARITY_DEVICES):
+        with StepRecorder() as steps:
+            trainor = main(rrs_overrides(data, tmp, f"rrs_parity_{i}", device) + extra)
+        with open(os.path.join(tmp, f"rrs_parity_{i}", f"validate_{SEED}_hyps.txt")) as f:
+            hyps = f.read()
+        runs.append((steps.losses, hyps, trainor.evaluator.scores[0]))
+        vocab = trainor.model.dec_config.vocab_size
+        del trainor
+    (l_c, h_c, sc_c), (l_g, h_g, sc_g) = runs
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_g, l_c))
+    print(f"generation parity, RRS f32 (2 + 2 layers of 768, vocab {vocab}, beam 8): losses "
+          f"{l_g} card vs {l_c} CPU (max relative {rel:.2e}); hyps "
+          f"{'equal' if h_g == h_c else 'DIFFER'}; scores {sc_g} vs {sc_c}")
+    return {
+        "RRS 2 steps each": len(l_c) == len(l_g) == 2,
+        "RRS losses within 1e-5 relative": rel <= 1e-5,
+        "RRS hypotheses equal": h_g == h_c,
+        "RRS scores equal": sc_g == sc_c,
+        "RRS target vocab takes the blocked head": vocab >= 4096,
+    }
+
+
+def force_parity():
+    """RRG_FORCE: the flagship config with ``model.proto=RRG_FORCE`` in f32,
+    the same random weights on the card and on the CPU, constrained greedy
+    decoding of 2 reports with 3 forced tokens each: equal sequences, and
+    every forced token present."""
+    import torch
+
+    from vilmedic_torch import registry
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.models import rrg_force
+    from vilmedic_torch.models.base import get_special_token_ids
+
+    cfg, _ = load_config(CONFIG, ["model.dtype=float32", "model.proto=RRG_FORCE"])
+    max_len = int(cfg.dataset.seq.tokenizer_max_len)
+    crop = int(cfg.dataset.image.crop)
+    force = torch.randint(5, VOCAB, (2, 3), generator=torch.Generator().manual_seed(SEED + 60))
+    seqs = []
+    for device in PARITY_DEVICES:
+        model = registry.build("model", cfg.model, vocab_size=VOCAB, device=device, seed=SEED)
+        generate = rrg_force.make_force_generate_fn(model, max_len,
+                                                    *get_special_token_ids(model.dec_config))
+        batch = finalize_batch(host_batch(2, crop, SEED + 61), crop, device)
+        seqs.append(generate(model.encoder_inputs(batch), force.to(device)).sequences.cpu())
+        del model
+    same = torch.equal(*seqs)
+    present = all(int(t) in row.tolist() for row, f in zip(seqs[1], force) for t in f)
+    print(f"generation parity, RRG_FORCE f32 batch 2 (vocab {VOCAB}, forced {force.tolist()}): "
+          f"sequences {'equal' if same else 'DIFFER'}, forced tokens "
+          f"{'all present' if present else 'MISSING'}; lengths "
+          f"{(seqs[1] != 1).sum(dim=1).tolist()}")
+    return {"RRG_FORCE sequences equal": same, "RRG_FORCE forced tokens present": present}
+
+
+def finalize_batch(batch, crop: int, device: str):
+    from vilmedic_torch.data.image import finalize_device_preproc
+
+    return finalize_device_preproc(to_device(batch, device), crop)
+
+
+def phase_generation_parity(tmp: str):
+    """f32, TF32 off, card against CPU at small depth: one SCST iteration
+    under injected Gumbel noise, the RRS CLI, and RRG_FORCE's constrained
+    decoding."""
+    import torch
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    checks = {**scst_parity(tmp), **rrs_parity(tmp), **force_parity()}
+    print(f"generation parity: {time.perf_counter() - t0:.1f} s")
+    require(checks, "generation_parity")
+    torch.cuda.empty_cache()
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2926,10 +3493,16 @@ def main():
         launches["rrg_train"], batch = phase_rrg_train(tmp)
         phase_rrg_train_sanity(batch, launches["rrg_train"]["vocab"])
         phase_rrg_train_parity(tmp)
-    # the training path's launches of the kernels it runs (K1 stage a, K2, K3)
-    for name, counter in launches["rrg_train"].items():
-        if name in results:
-            results[name]["rrg_train_launches"] = counter
+        launches["scst_train"] = phase_scst_train(tmp)
+        launches["rrs_train"] = phase_rrs_train(tmp)
+        phase_generation_parity(tmp)
+    # the training paths' launches of the kernels they run (K1 stage a, K2,
+    # K3): RRG training, SCST fine-tuning, RRS training
+    for path, key in (("rrg_train", "rrg_train_launches"), ("scst_train", "scst_launches"),
+                      ("rrs_train", "rrs_launches")):
+        for name, counter in launches[path].items():
+            if name in results:
+                results[name][key] = counter
 
     # each kernel's launches are those of the path that runs it: the RRG
     # slice (K1 stage a, K2, K3), the VisionLanguage slice (K1 stage b, K4),
@@ -2938,8 +3511,8 @@ def main():
     # and K7's fp8 probe
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # the flash kernels' head dims; K4/K5 at D 256; launches on the RRG training path
-    extra = ("head_dims", "d256", "rrg_train_launches")
+    # the flash kernels' head dims; K4/K5 at D 256; launches on the training paths
+    extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "rrs_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
                                  else r[key] for key in keys},
                 **{key: r[key] for key in extra if key in r}}

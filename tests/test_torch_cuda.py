@@ -9,7 +9,9 @@ stages at ragged prefix lengths and saturating writes, the fused LM head's
 top-r at ragged vocab tails, r 1 to 32 and exact ties, the fp8 probes on
 every e4m3 code at the rounding edge and at infinity), tiny VisionLanguage
 serving routes, the tiny RRG's ensembling, greedy, small-vocab and
-cache-permute routes, and a tiny training step card vs CPU. Run them on the card
+cache-permute routes, a tiny training step card vs CPU, the sampler, K1 (a)
+and K2 at RRS's shapes, and small SCST, RRS and RRG_FORCE generation paths
+card vs CPU. Run them on the card
 from the repository root, without the JAX conftest (the card's machine has no
 JAX):
 
@@ -1108,3 +1110,184 @@ def test_tiny_rrg_training_card_equals_cpu(cuda, monkeypatch):
     for name, want in s_cpu.items():
         tol = 1e-5 if "running" in name else 1e-6
         assert (s_gpu[name] - want).abs().max().item() <= tol, name
+
+
+def test_sampler_on_the_card(cuda):
+    """The port's own sampler on the card: 200000 draws of one row under
+    top-k 4 and two bad words stay in the 5-token support (a tie at the
+    4th value) with frequencies within 5 standard errors (and 0.006) of the
+    renormalized softmax; the same noise gives the same tokens as the CPU."""
+    from vilmedic_torch.decoding import decode
+
+    logits = torch.tensor([[2.0, -1.0, 1.5, 0.3, 0.3, 1.0, -0.5, 0.3, 3.0, -2.0]])
+    n = 200_000
+    rows = logits.to(cuda).expand(n, -1)
+    draws = decode._categorical(decode._warp(rows, (8, 0), 4),
+                                torch.Generator(device=cuda).manual_seed(0)).cpu()
+    support = torch.zeros(10, dtype=torch.bool)
+    support[[2, 3, 4, 5, 7]] = True
+    p = torch.where(support, torch.softmax(torch.where(support, logits[0], -torch.inf), -1), 0.0)
+    freq = torch.bincount(draws, minlength=10).double() / n
+    assert set(draws.unique().tolist()) == {2, 3, 4, 5, 7}
+    se = torch.sqrt(p * (1 - p) / n)
+    assert ((freq - p).abs() <= torch.maximum(5 * se, torch.tensor(0.006))).all(), (freq, p)
+    wide = torch.randn(6, 5000, generator=torch.Generator().manual_seed(1)) * 3
+    noise = decode.gumbel_noise((6, 5000), torch.Generator().manual_seed(2), "cpu")
+    picks = [(decode._warp(wide.to(d), (1, 0), 25) + noise.to(d)).argmax(-1).cpu()
+             for d in ("cpu", cuda)]
+    assert torch.equal(*picks)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", [0, 1, 57, 79])
+def test_kernels_at_rrs_shapes(cuda, dtype, index):
+    """K1 stage (a) at RRS's Validator shape (N 128 = 16 x beam 8, T 80, 12
+    heads of 64) and K2 at N 128 over a built vocabulary of 4600 padded to
+    4608, against their plain versions."""
+    gen = torch.Generator().manual_seed(index)
+    t, n, heads, d, rows = 80, 128, 12, 64, 8
+    kc = torch.randn(t, n, heads * d, generator=gen).to(cuda, dtype)
+    vc = torch.randn(t, n, heads * d, generator=gen).to(cuda, dtype)
+    q, kn, vn = (torch.randn(n, heads, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    j = torch.randint(0, rows, (n // rows, rows, t), generator=gen)
+    mask = torch.zeros(n // rows, rows, t, rows, dtype=torch.bool)
+    mask.scatter_(3, j[..., None], True)
+    mask = mask.view(n // rows, rows, t * rows).to(cuda)
+    kc2, vc2 = kc.clone(), vc.clone()
+    out = fused_beam_cache_attention(kc, vc, q, kn, vn, mask, index)
+    ref = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    vocab, vp = 4600, 4608
+    w = torch.randn(vp, 768, generator=gen) * 0.02
+    w[vocab:] = 0
+    b = torch.randn(vp, generator=gen) * 0.02
+    b[vocab:] = NEG
+    h = torch.randn(n, 768, generator=gen)
+    args = (h.to(cuda, dtype), w.to(cuda, dtype), b.to(cuda))
+    lg, mx, sm = lm_head_blocked_stats(*args)
+    rlg, rmx, rsm = lm_head_blocked_stats_reference(*args)
+    assert max((lg - rlg).abs().max().item(), (mx - rmx).abs().max().item()) <= 1e-4
+    assert ((sm - rsm).abs() / rsm).max().item() <= 1e-4
+
+
+def _rrs_corpus(root):
+    words = [f"w{i}" for i in range(60)]
+    gen = torch.Generator().manual_seed(0)
+    for split in ("train", "validate"):
+        for kind, lo, hi in (("findings", 8, 20), ("impression", 2, 6)):
+            lines = [" ".join(words[int(k)] for k in torch.randint(0, 60, (int(length),),
+                                                                   generator=gen)) + " ."
+                     for length in torch.randint(lo, hi, (8,), generator=gen)]
+            (root / f"{split}.{kind}.tok").write_text("\n".join(lines))
+
+
+def _tiny_rrs_config(root, ckpt_dir, proto):
+    from vilmedic_torch.config.config import Config
+
+    block = dict(proto=None, hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                 intermediate_size=128, max_position_embeddings=32, hidden_dropout_prob=0.0)
+    return Config({
+        "ckpt_dir": str(ckpt_dir), "seed": 0,
+        "dataset": {"proto": "Seq2Seq",
+                    "src": {"root": str(root), "file": "findings.tok", "tokenizer_max_len": 24},
+                    "tgt": {"root": str(root), "file": "impression.tok", "tokenizer_max_len": 10},
+                    "num_workers": 0},
+        "model": {"proto": proto, "encoder": dict(block), "decoder": dict(block),
+                  "dtype": "float32", "scores": "rougel", "top_k": 5},
+        "batch_size": 4, "optimizer": "RAdam", "optim_params": {"lr": 1e-3}, "epochs": 0,
+        "beam_width": 4, "splits": ["validate"], "metrics": ["ROUGEL"]})
+
+
+def test_tiny_rrs_scst_iteration_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """One RRS_SCST iteration of a small model, f32, the same weights and
+    Gumbel draws on both devices: equal greedy and sampled ids and rewards,
+    the loss within 1e-5 relative, parameters within 1e-6 after RAdam's
+    first update, lr x the gradient (Adam's would divide each gradient
+    entry by its own size, so an entry near 0 would turn rounding into a
+    full step)."""
+    from vilmedic_torch.decoding import decode
+    from vilmedic_torch.executors import Trainor
+
+    _rrs_corpus(tmp_path)
+    real = decode.gumbel_noise
+    results = {}
+    for device in ("cpu", cuda):
+        calls = []
+
+        def noise(shape, generator, dev):
+            calls.append(1)
+            return real(shape, torch.Generator().manual_seed(len(calls)), "cpu").to(dev)
+
+        monkeypatch.setattr(decode, "gumbel_noise", noise)
+        (tmp_path / str(device)).mkdir()
+        trainer = Trainor(_tiny_rrs_config(tmp_path, tmp_path / str(device), "RRS_SCST"),
+                          seed=3, device=device)
+        batch = trainer._model_batch(next(iter(trainer.dl)))
+        loss, _ = trainer.model.train_iteration(trainer, batch, 1e-3)
+        results[str(device)] = (dict(trainer.model.last), float(loss),
+                                {k: v.cpu() for k, v in trainer.model.module.state_dict().items()})
+    (cpu, l_cpu, s_cpu), (gpu, l_gpu, s_gpu) = results["cpu"], results["cuda"]
+    for key in ("greedy", "sampled"):
+        assert (cpu[key] == gpu[key]).all()
+    for a, b in zip(cpu["reward_greedy"] + cpu["reward_sampling"],
+                    gpu["reward_greedy"] + gpu["reward_sampling"]):
+        assert (a == b).all()
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for name, want in s_cpu.items():
+        assert (s_gpu[name] - want).abs().max().item() <= 1e-6, name
+
+
+def test_tiny_rrs_beam_card_equals_cpu(cuda):
+    """A small RRS at beam 4 over a target vocabulary of 4500, f32: equal
+    sequences on both devices; on the card K1 once per layer and step, K2
+    once per step."""
+    from vilmedic_torch.models.rrs import RRS
+
+    block = dict(proto=None, hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                 intermediate_size=128, max_position_embeddings=32)
+    gen = torch.Generator().manual_seed(5)
+    ids = torch.randint(5, 97, (3, 12), generator=gen)
+    mask = torch.ones(3, 12, dtype=torch.long)
+    mask[1, 8:] = 0
+    results = {}
+    for device in ("cpu", cuda):
+        model = RRS(encoder=dict(block, vocab_size=97),
+                    decoder=dict(block, vocab_size=4500, bos_token_id=0, eos_token_id=2,
+                                 pad_token_id=1), device=device, seed=4)
+        generate = make_generate_fn([model], 4, 12, 0, 2, 1)
+        start = (fused_beam_cache_attention.launches, lm_head_blocked_stats.launches)
+        res = generate(model.encoder_inputs({"input_ids": ids.to(device),
+                                             "attention_mask": mask.to(device)}))
+        results[str(device)] = (res, (fused_beam_cache_attention.launches - start[0],
+                                      lm_head_blocked_stats.launches - start[1]))
+    (cpu, _), (gpu, launched) = results["cpu"], results["cuda"]
+    assert torch.equal(cpu.sequences, gpu.sequences.cpu())
+    assert launched == (2 * gpu.steps, gpu.steps)
+
+
+def test_tiny_rrg_force_card_equals_cpu(cuda, monkeypatch):
+    """Constrained greedy decoding of a small RRG_FORCE, f32: equal
+    sequences on both devices, every forced token present."""
+    from vilmedic_torch.models.rrg_force import RRG_FORCE, make_force_generate_fn
+
+    monkeypatch.setitem(tdensenet.CONFIGS, "densenet_tiny", (8, (2, 2), 16))
+    decoder = dict(proto=None, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                   intermediate_size=256, max_position_embeddings=64, layer_norm_eps=1e-5,
+                   vocab_size=4500, bos_token_id=0, eos_token_id=2, pad_token_id=1)
+    cnn = dict(backbone="densenet_tiny", visual_projection={"out_features": 128})
+    gen = torch.Generator().manual_seed(6)
+    images = torch.randint(0, 256, (3, 32, 32, 3), generator=gen, dtype=torch.uint8)
+    force = torch.tensor([[7, 99, -1], [4000, -1, -1], [12, 13, 14]])
+    seqs = {}
+    for device in ("cpu", cuda):
+        model = RRG_FORCE(decoder=dict(decoder), cnn=dict(cnn), device=device, seed=9)
+        on = finalize_device_preproc({"images_u8": images.to(device),
+                                      "preproc_tops": torch.zeros(3, dtype=torch.int32).to(device),
+                                      "preproc_lefts": torch.zeros(3, dtype=torch.int32).to(device)},
+                                     32)
+        generate = make_force_generate_fn(model, 16, 0, 2, 1)
+        seqs[str(device)] = generate(model.encoder_inputs(on), force.to(device)).sequences.cpu()
+    assert torch.equal(seqs["cpu"], seqs["cuda"])
+    for row, f in zip(seqs["cuda"], force):
+        assert set(f[f >= 0].tolist()) <= set(row.tolist())

@@ -16,6 +16,7 @@
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -110,6 +111,18 @@ def test_processing_matches_jax(name):
     ours, theirs = tprocessing.get_processing(name), jprocessing.get_processing(name)
     for report in RAW_REPORTS + VALIDATE_REPORTS:
         assert ours(report) == theirs(report), report
+
+
+def test_ifcc_clean_report_needs_no_nltk(monkeypatch):
+    """The RRS cleaner runs where NLTK is not installed (the card's
+    machine) and still splits as NLTK's ``wordpunct_tokenize``: runs of
+    punctuation stay together, ``_`` and digits are word characters."""
+    hard = ["Hx: s/p CABG... R-sided PICC (tip @ SVC)!!", "No e\u0301 change __x__ 3.5cm;;",
+            "ET tube 4.2 cm above carina.\nNG-tube,\tin stomach?", ""]
+    want = [jprocessing.get_processing("ifcc_clean_report")(r) for r in hard]
+    monkeypatch.setitem(sys.modules, "nltk", None)
+    monkeypatch.setitem(sys.modules, "nltk.tokenize", None)
+    assert [tprocessing.ifcc_clean_report(r) for r in hard] == want
 
 
 @pytest.fixture(scope="module")

@@ -12,8 +12,12 @@ fused-prefix, permute, greedy and small-vocabulary routes); VisionLanguage
 training steps (``executors.Trainor``); and RRG training and evaluation end
 to end through ``python -m vilmedic_torch.bin.train`` (``data``, the
 ``Trainor``'s epoch loop with checkpoints, the ``Validator`` and the host
-NLG ``scorers``), with the fused LM-head top-k (``ops.fused_lm_head``) and
-the fp8 probes (``ops.fp8_probe``) as their own entry points. Every Pallas
+NLG ``scorers``); SCST fine-tuning of RRG and RRS (``models.scst_models``:
+sampled rollouts from ``decoding``, host rewards from ``blocks.rl.scst``),
+RRG_FORCE's constrained decoding and RRS (findings -> impression, a text
+encoder and the decoder) through the same CLI; with the fused LM-head
+top-k (``ops.fused_lm_head``) and the fp8 probes (``ops.fp8_probe``) as
+their own entry points. Every Pallas
 kernel of the JAX package has a CUDA counterpart. Entry points build on the
 CUDA device unless the caller passes ``device="cpu"``.
 """

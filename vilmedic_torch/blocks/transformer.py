@@ -1,5 +1,5 @@
-"""BERT-generation-style decoder with cross-attention (port of the decoder half
-of ``blocks/transformer.py``).
+"""BERT-generation-style decoder with cross-attention, and the bidirectional
+text encoder (port of ``blocks/transformer.py``).
 
 A post-LayerNorm transformer with learned absolute positions, an exact-erf
 GELU FFN, causal self-attention and cross-attention over an encoder memory,
@@ -15,6 +15,11 @@ module (``mode=``):
   ``init_cache``, where the step's K/V are written in place at
   ``decode_index`` (the JAX module's ``dynamic_update_slice``) and attention
   runs over all T positions under the causal decode bias.
+
+:class:`TransformerEncoder` (RRS's findings encoder) is the same post-LN
+layer stack without the causal mask and the cross-attention: bidirectional
+self-attention under the key-padding bias, through
+``ops.attention.dot_product_attention`` as in the JAX package.
 
 ``MultiHeadAttention.prefix_decode`` is the VisionLanguage prefix LM's decode
 step: the beam-cache kernel's segment merged with a beam-shared prefix, or,
@@ -453,6 +458,53 @@ class Embeddings(nn.Module):
     def forward(self, input_ids, position_ids, generator: Optional[torch.Generator] = None):
         h = self.ln(self.word_embeddings(input_ids) + self.position_embeddings(position_ids))
         return dropout(h, self.config.hidden_dropout_prob, generator)
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN bidirectional layer: self-attention, then the FFN."""
+
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        eps, dt = config.layer_norm_eps, config.dtype
+        self.self_attn = MultiHeadAttention(config, cross=False)
+        self.self_ln = LayerNorm(config.hidden_size, eps, dt)
+        self.ffn = FeedForward(config)
+        self.ffn_ln = LayerNorm(config.hidden_size, eps, dt)
+
+    def forward(self, x, bias=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        attn = self.self_attn(x, bias=bias, train=train)
+        x = self.self_ln(x + dropout(attn, self.self_attn.config.hidden_dropout_prob, generator))
+        return self.ffn_ln(x + self.ffn(x, generator))
+
+
+class TransformerEncoder(nn.Module):
+    """Bidirectional text encoder (the reference's BertGeneration encoder):
+    learned positions, post-LN layers, the key-padding mask as a bias."""
+
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        self.config = config
+        self.embeddings = Embeddings(config)
+        for i in range(config.num_hidden_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(config))
+
+    @property
+    def layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.config.num_hidden_layers)]
+
+    def forward(self, input_ids, attention_mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """(B, T) ids -> (B, T, hidden) in the compute dtype. ``train``
+        routes attention as a training step; ``generator`` draws the
+        dropout masks (None: no dropout)."""
+        t = input_ids.shape[1]
+        positions = torch.arange(t, device=input_ids.device)[None, :]
+        h = self.embeddings(input_ids, positions, generator)
+        bias = make_attention_bias(key_mask=attention_mask, query_len=t, key_len=t)
+        for layer in self.layers:
+            h = layer(h, bias, train, generator)
+        return h
 
 
 class DecoderLayer(nn.Module):

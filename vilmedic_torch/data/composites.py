@@ -1,10 +1,13 @@
-"""Image + sequence dataset (port of ``ImSeq`` of ``data/composites.py``;
-the other composites wait for the models that read them)."""
+"""Composite datasets (port of ``ImSeq``, ``Seq2Seq`` and ``ImSeqAny`` of
+``data/composites.py``; the other composites wait for the models that read
+them). Each merges its children's items and collates and exposes the
+tokenizer attributes the models and the evaluation read."""
 
 from __future__ import annotations
 
 from ..config.config import Config
 from ..registry import register
+from .anyfield import AnyDataset
 from .image import ImageDataset
 from .text import TextDataset
 
@@ -52,3 +55,82 @@ class ImSeq:
 
     def __repr__(self):
         return "ImSeq\n" + str(self.seq) + "\n" + str(self.image)
+
+
+@register("dataset")
+class Seq2Seq:
+    """A source and a target :class:`TextDataset` (vocabularies
+    ``vocab.src`` and ``vocab.tgt`` built from the corpus); the target
+    collates to ``decoder_input_ids`` / ``decoder_attention_mask``."""
+
+    def __init__(self, src, tgt, split, ckpt_dir=None, **kwargs):
+        self.split = split
+        self.src = TextDataset(**{**_as_dict(src), "source": "src"}, split=split,
+                               ckpt_dir=ckpt_dir)
+        self.tgt = TextDataset(**{**_as_dict(tgt), "source": "tgt"}, split=split,
+                               ckpt_dir=ckpt_dir)
+        if len(self.src) != len(self.tgt):
+            raise ValueError(f"{len(self.src)} sources vs {len(self.tgt)} targets")
+        self.tgt_tokenizer = self.tgt.tokenizer
+        self.tgt_tokenizer_max_len = self.tgt.tokenizer_max_len
+
+    def __len__(self):
+        return len(self.src)
+
+    def __getitem__(self, index):
+        return {**self.src[index], **self.tgt[index]}
+
+    def get_collate_fn(self):
+        src_fn, tgt_fn = self.src.get_collate_fn(), self.tgt.get_collate_fn()
+
+        def collate_fn(batch):
+            tgt = tgt_fn(batch)
+            return {**src_fn(batch), "decoder_input_ids": tgt["input_ids"],
+                    "decoder_attention_mask": tgt["attention_mask"]}
+
+        return collate_fn
+
+    def __repr__(self):
+        return "Seq2Seq\n" + str(self.src) + "\n" + str(self.tgt)
+
+
+@register("dataset")
+class ImSeqAny:
+    """:class:`ImSeq` plus an :class:`~.anyfield.AnyDataset` payload (the
+    ``concepts`` of RRG_FORCE) under its ``name``."""
+
+    def __init__(self, seq, image, any, split, ckpt_dir=None, called_by_ensemblor=False,
+                 seed: int = 0, **kwargs):
+        self.split = split
+        self.imgseq = ImSeq(seq, image, split=split, ckpt_dir=ckpt_dir,
+                            called_by_ensemblor=called_by_ensemblor, seed=seed)
+        self.any = AnyDataset(**_as_dict(any), split=split)
+        if len(self.imgseq) != len(self.any):
+            raise ValueError(f"{len(self.imgseq)} image-report pairs vs {len(self.any)} lines")
+        self.image = self.imgseq.image  # the device preprocessing reads it
+        self.tokenizer = self.imgseq.tokenizer
+        self.tokenizer_max_len = self.imgseq.tokenizer_max_len
+
+    def __len__(self):
+        return len(self.any)
+
+    def decode(self, index):
+        return self.imgseq.decode(index), self.any[index]
+
+    def finish(self, decoded):
+        pair, payload = decoded
+        return {**self.imgseq.finish(pair), **payload}
+
+    def __getitem__(self, index):
+        return self.finish(self.decode(index))
+
+    def get_collate_fn(self):
+        imgseq_fn, any_fn = self.imgseq.get_collate_fn(), self.any.get_collate_fn()
+
+        def collate_fn(batch):
+            return {**imgseq_fn(batch), **any_fn(batch)}
+
+        return collate_fn
+
+    def __repr__(self):
+        return "ImSeqAny\n" + str(self.imgseq) + "\n" + str(self.any)

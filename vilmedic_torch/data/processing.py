@@ -5,8 +5,9 @@ imports).
 The regex semantics must match the JAX package's exactly for tokenizer,
 vocabulary and metric parity, historical quirks included (the character
 class of ``r2gen_clean_report`` whose ``:-[`` span also removes
-``;<=>?@``). ``ifcc_clean_report``, ``gloria_clean_report_chexpert`` and the
-stemming ``rouge`` cleaner import NLTK when they run, never at import.
+``;<=>?@``). ``ifcc_clean_report`` is NLTK's ``wordpunct_tokenize`` as a
+regular expression; ``gloria_clean_report_chexpert`` and the stemming
+``rouge`` cleaner import NLTK when they run, never at import.
 """
 
 from __future__ import annotations
@@ -66,13 +67,15 @@ def r2gen_clean_report(report: str) -> str:
     return " . ".join(tokens) + " ."
 
 
+# NLTK's ``wordpunct_tokenize``: its WordPunctTokenizer is this pattern's findall
+_WORDPUNCT = re.compile(r"\w+|[^\w\s]+", re.UNICODE | re.MULTILINE | re.DOTALL)
+
+
 @register("processing")
 def ifcc_clean_report(report: str) -> str:
     """IFCC cleaner: lowercase + wordpunct tokenization
-    (reference report_preprocessing.py:28-31)."""
-    from nltk.tokenize import wordpunct_tokenize
-
-    return " ".join(wordpunct_tokenize(report.lower()))
+    (reference report_preprocessing.py:28-31), without NLTK."""
+    return " ".join(_WORDPUNCT.findall(report.lower()))
 
 
 @register("processing")

@@ -100,6 +100,12 @@ class WordPieceTokenizer:
                     tokens.extend(self._wordpiece(word))
         return tokens
 
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        """One text's ids, with ``[CLS]`` ... ``[SEP]`` around them when
+        ``add_special_tokens``."""
+        ids = self.convert_tokens_to_ids(self.tokenize(text))
+        return [self.cls_token_id] + ids + [self.sep_token_id] if add_special_tokens else ids
+
     def encode_batch(self, texts: Sequence[str], max_length: Optional[int] = None,
                      add_special_tokens: bool = True) -> Tuple[np.ndarray, np.ndarray]:
         """``(input_ids, attention_mask)`` int64 arrays (B, L): ``L`` is

@@ -24,6 +24,14 @@ more (:func:`_batch_beam_candidates`), per beam and then over the pool below
 that. The ``lax.while_loop`` of the JAX package is a Python loop here, with
 one host sync per step for its condition.
 
+The rollouts (:func:`greedy_search`, :func:`sample`,
+:func:`greedy_and_sample`, :func:`constrained_greedy_search`) emit one token
+per row per step until every row has emitted EOS. Sampling is the JAX
+package's ``jax.random.categorical``: the argmax of the logits plus Gumbel
+noise, here drawn by :func:`gumbel_noise` from an explicit
+``torch.Generator`` (the formula of ``jax.random.gumbel``; the bits cannot
+be JAX's, so tests replace the function to feed JAX's noise).
+
 ``lax.top_k`` breaks ties toward the lower index, and ties are certain here
 (the finished pool starts as a row of ``NEG_INF``), so every top-k is a stable
 descending sort.
@@ -31,7 +39,7 @@ descending sort.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -188,11 +196,13 @@ def _gather_beams(caches, new_beam: torch.Tensor, batch: int, k: int) -> None:
 
 
 def _rollout(step_fn: Callable, batch_size: int, max_len: int, bos_id: int, eos_id: int,
-             pad_id: int, select_fn: Callable, device, forced_eos: bool = True) -> RolloutResult:
+             pad_id: int, select_fn: Callable, device, forced_eos: bool = True,
+             emitted: Optional[Callable] = None) -> RolloutResult:
     """One token per row per step from ``select_fn(logits, i)`` over
     ``step_fn(tokens (B, 1), i)``'s logits, until ``max_len - 1`` or every
     row has emitted EOS (a host sync each step); finished rows emit PAD.
-    ``forced_eos`` makes the last step's token EOS for unfinished rows."""
+    ``forced_eos`` makes the last step's token EOS for unfinished rows.
+    ``emitted(token)`` sees each step's tokens as they are written."""
     seqs = torch.full((batch_size, max_len), pad_id, dtype=torch.long, device=device)
     seqs[:, 0] = bos_id
     finished = torch.zeros(batch_size, dtype=torch.bool, device=device)
@@ -206,6 +216,8 @@ def _rollout(step_fn: Callable, batch_size: int, max_len: int, bos_id: int, eos_
             token = torch.where(finished, token, torch.full_like(token, eos_id))
         token = torch.where(finished, torch.full_like(token, pad_id), token)
         seqs[:, i + 1] = token
+        if emitted is not None:
+            emitted(token)
         lengths += (~finished).long()
         finished |= token == eos_id
         i += 1
@@ -217,6 +229,102 @@ def greedy_search(step_fn: Callable, batch_size: int, max_len: int, bos_id: int,
     """Argmax decoding (ties to the lower token, as ``jnp.argmax``)."""
     return _rollout(step_fn, batch_size, max_len, bos_id, eos_id, pad_id,
                     lambda logits, i: logits.argmax(dim=-1), device, forced_eos)
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel noise in f32, ``jax.random.gumbel``'s formula:
+    ``-log(-log(u))`` with ``u`` uniform in ``[tiny, 1)``, drawn from
+    ``generator`` (on ``device``; None: the default generator)."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min_(torch.finfo(torch.float32).tiny)))
+
+
+def _warp(logits: torch.Tensor, bad_words: Optional[Sequence[int]], top_k: Optional[int]):
+    """The sampling warp: bad words, then every logit below the k-th
+    largest, set to ``NEG_INF`` (ties at the k-th value stay in)."""
+    if bad_words:
+        mask = torch.zeros(logits.shape[-1], dtype=torch.bool, device=logits.device)
+        mask[list(bad_words)] = True
+        logits = torch.where(mask, NEG_INF, logits)
+    if top_k:
+        logits = torch.where(logits < _kth_largest(logits, top_k), NEG_INF, logits)
+    return logits
+
+
+def _categorical(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``jax.random.categorical``: argmax of the logits plus Gumbel noise in
+    the logits' dtype (the noise through the module's :func:`gumbel_noise`,
+    looked up at call time)."""
+    noise = gumbel_noise(tuple(logits.shape), generator, logits.device)
+    return (logits + noise.to(logits.dtype)).argmax(dim=-1)
+
+
+def sample(step_fn: Callable, batch_size: int, max_len: int, bos_id: int, eos_id: int,
+           pad_id: int, device, generator: Optional[torch.Generator] = None,
+           top_k: Optional[int] = None, bad_words: Optional[Sequence[int]] = None,
+           forced_eos: bool = True) -> RolloutResult:
+    """Ancestral sampling with the optional top-k warp and bad-words mask,
+    one noise draw of (B, V) per step."""
+    return _rollout(step_fn, batch_size, max_len, bos_id, eos_id, pad_id,
+                    lambda logits, i: _categorical(_warp(logits, bad_words, top_k), generator),
+                    device, forced_eos)
+
+
+def stack_for_rollouts(tree):
+    """Every tensor twice along the batch axis, interleaved (row 2i greedy,
+    2i + 1 sampled): ``tile_for_beams(tree, 2)``, the self-cache layout of
+    :func:`greedy_and_sample`. Beam-major, so a cross-attention cache left
+    at batch B serves both rollouts by folding them into its queries."""
+    return tile_for_beams(tree, 2)
+
+
+def greedy_and_sample(step_fn: Callable, batch_size: int, max_len: int, bos_id: int,
+                      eos_id: int, pad_id: int, device,
+                      generator: Optional[torch.Generator] = None,
+                      top_k: Optional[int] = None, bad_words: Optional[Sequence[int]] = None,
+                      forced_eos: bool = True):
+    """The greedy and the sampled rollout in one loop over 2B interleaved
+    rows (the self cache from :func:`stack_for_rollouts`). Returns
+    ``(greedy, sampled)`` RolloutResults whose sequences equal
+    :func:`greedy_search`'s and :func:`sample`'s on the same noise; their
+    ``steps`` are the fused loop's."""
+    b = batch_size
+
+    def select(logits, i):
+        greedy = logits[0::2].argmax(dim=-1)
+        sampled = _categorical(_warp(logits[1::2], bad_words, top_k), generator)
+        return torch.stack([greedy, sampled], dim=1).reshape(2 * b)
+
+    res = _rollout(step_fn, 2 * b, max_len, bos_id, eos_id, pad_id, select, device, forced_eos)
+    return (RolloutResult(res.sequences[0::2], res.lengths[0::2], res.steps),
+            RolloutResult(res.sequences[1::2], res.lengths[1::2], res.steps))
+
+
+def constrained_greedy_search(step_fn: Callable, batch_size: int, max_len: int, bos_id: int,
+                              eos_id: int, pad_id: int, force_ids: torch.Tensor, device,
+                              bias: float = 8.0) -> RolloutResult:
+    """Greedy decoding that must include the tokens of ``force_ids``
+    ((B, K), -1 padded): each step adds ``bias`` to every forced token not
+    yet emitted (once per unmet slot) and holds EOS back at ``NEG_INF``
+    while some are unmet and the steps left exceed their number; EOS is
+    forced at the last step."""
+    force_ids = force_ids.to(device=device, dtype=torch.long)
+    state = {"satisfied": force_ids < 0}  # padding slots count as met
+
+    def select(logits, i):
+        unmet = ~state["satisfied"]
+        counts = torch.zeros_like(logits).scatter_add_(
+            1, torch.where(unmet, force_ids, 0), unmet.to(logits.dtype))
+        logits = logits + bias * counts
+        hold = unmet.any(dim=1) & (max_len - 2 - i > unmet.sum(dim=1))
+        logits[:, eos_id] += torch.where(hold, NEG_INF, 0.0)
+        return logits.argmax(dim=-1)
+
+    def emitted(token):
+        state["satisfied"] |= force_ids == token[:, None]
+
+    return _rollout(step_fn, batch_size, max_len, bos_id, eos_id, pad_id, select, device,
+                    forced_eos=True, emitted=emitted)
 
 
 def _norm(i_len: int, length_penalty: float) -> float:

@@ -18,7 +18,13 @@ The step semantics of the JAX package (and of the reference torch trainer):
   ``scheduler.iteration_step`` runs once per update;
 - losses are read on the host one microbatch late, for the epoch mean;
 - frozen parameters take no gradient and are not in the optimizer, so they
-  stay bitwise unchanged.
+  stay bitwise unchanged;
+- a model with a ``train_iteration(trainor, batch, lr)`` owns its step
+  (SCST: rollouts, host rewards, the policy-gradient update through this
+  trainer's optimizer); it returns ``(loss on the device, log text)``, and
+  the loss is read one iteration late like the others. Its
+  ``finish_epoch(trainor, lr)``, where it has one, runs after the epoch's
+  last batch and returns None or one more ``(loss, log text)``.
 
 :meth:`Trainor.start` runs the JAX package's epoch loop
 (``range(scheduler.epoch, epochs + 1)``): per epoch the loader's shuffle,
@@ -32,9 +38,8 @@ scheduler from a checkpoint.
 Dropout masks come from one ``torch.Generator`` on the model's device,
 seeded with the trainer's seed. The loader is the config's ``dataset:``
 (``create_data_loader``), or an iterable of batches with a length given as
-``loader``. Not ported: multi-device meshes, ``DevicePrefetch``,
-``save_every_epoch``, ``eval_only`` and ``profile_dir`` (which raise), and
-SCST's model-owned steps.
+``loader``. Not ported: multi-device meshes, ``DevicePrefetch``, and
+``save_every_epoch``, ``eval_only`` and ``profile_dir``, which raise.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..blocks.vision.densenet import commit_batch_stats
 from ..config.config import Config
 from ..data.image import prepare_batch
 from ..models.base import resolve_device
+from ..models.evaluation_nlg import to_device
 from .checkpoint import CheckpointSaver, load_checkpoint, snapshot
 from .train_state import create_optimizer, gated_update
 from .utils import create_data_loader, create_model, create_training_scheduler
@@ -159,21 +165,26 @@ class Trainor:
     def _model_batch(self, batch):
         """The batch on the model's device, with the dataset's pending
         device preprocessing done (uint8 -> normalized float images)."""
-        batch = {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
-        return prepare_batch(batch, getattr(self.dl, "dataset", None))
+        return prepare_batch(to_device(batch, self.device), getattr(self.dl, "dataset", None))
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int):
         """One pass over the loader; returns the finite microbatch losses."""
         scheduler = self.training_scheduler
         n = max(1, len(self.dl))
-        losses, pending, iteration, loss = [], None, 0, None
+        losses, pending, iteration, loss, custom = [], None, 0, None, ""
+        owned = hasattr(self.model, "train_iteration")
         t0 = time.perf_counter()
         self.zero_grads()
         for iteration, batch in enumerate(self.dl, start=1):
             batch = self._model_batch(batch)
             lr = scheduler.current_lr()
-            if self.grad_accu == 1:
+            if owned:
+                loss, custom = self.model.train_iteration(self, batch, lr)
+                pending = self._drain_loss(pending, losses, epoch)
+                pending = (iteration, loss)
+                scheduler.iteration_step(epoch + iteration / n)
+            elif self.grad_accu == 1:
                 loss = self.train_step(batch, lr)
                 pending = self._drain_loss(pending, losses, epoch)
                 pending = (iteration, loss)
@@ -192,10 +203,16 @@ class Trainor:
                 self.logger.info(
                     f"Epoch {epoch + 1}, Lr {scheduler.current_lr():.3g}, Loss {mean:.4f}, "
                     f"{scheduler.early_stop_metric} {scheduler.current_best_metric:.4g}, "
-                    f"ES {scheduler.early_stop}, {iteration}/{n} it, ETA {eta:.0f}s")
+                    f"ES {scheduler.early_stop}, {iteration}/{n} it, ETA {eta:.0f}s {custom}")
+        tail = (self.model.finish_epoch(self, scheduler.current_lr())
+                if hasattr(self.model, "finish_epoch") else None)
+        if tail is not None:
+            tail_loss, custom = tail
+            pending = self._drain_loss(pending, losses, epoch)
+            pending = (iteration, tail_loss)
         self._drain_loss(pending, losses, epoch)
         # the final partial accumulation (reference trainor.py:143-155)
-        if self.grad_accu > 1 and iteration % self.grad_accu != 0 and losses:
+        if not owned and self.grad_accu > 1 and iteration % self.grad_accu != 0 and losses:
             self.apply_step(scheduler.current_lr(), loss)
             scheduler.iteration_step(epoch + 1.0)
         return losses

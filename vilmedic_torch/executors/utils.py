@@ -2,11 +2,12 @@
 ``executors/utils.py``).
 
 ``create_data_loader`` builds the config's ``dataset:`` block through the
-port's registry (``ImSeq``) and wraps it in the port's ``DataLoader``:
-shuffled with ``drop_last`` for the train split, in order otherwise.
-``create_model`` builds ``model:`` with the loader (the RRG takes its
-vocabulary size from the loader's tokenizer) and restores a checkpoint's
-``model`` state dict when given one.
+port's registry (``ImSeq``, ``Seq2Seq``, ``ImSeqAny``) and wraps it in the
+port's ``DataLoader``: shuffled with ``drop_last`` for the train split, in
+order otherwise. ``create_model`` builds ``model:`` (``RRG``, ``RRG_FORCE``,
+``RRG_SCST``, ``RRS``, ``RRS_SCST``, ``VisionLanguage``) with the loader
+(the models take their vocabulary sizes from its tokenizers) and restores a
+checkpoint's ``model`` state dict when given one.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def create_data_loader(config, split: str, logger=None, called_by_validator: boo
     """The loader of ``config.dataset`` for ``split``: the config's
     ``batch_size``, ``num_workers`` (default 4) from the dataset block, and
     ``seed`` (default 0) for the shuffle and the image transforms' draws."""
-    from ..data import composites  # noqa: F401  (registers ImSeq)
+    from ..data import composites  # noqa: F401  (registers the composite datasets)
     from ..data.loader import DataLoader
 
     logger = logger or logging.getLogger(__name__)
@@ -62,7 +63,9 @@ def create_model(config, dl=None, logger=None, state_dict=None, seed: int = 0, d
     load a checkpoint's ``model`` state dict if ``state_dict`` holds one.
     ``overrides`` stand in for what a tokenizer or HF config would supply
     (``vocab_size``, the special ids, ``vision_hf_config``)."""
-    from ..models import rrg, vision_language  # noqa: F401  (register the protos)
+    from ..models import (  # noqa: F401  (register the protos)
+        rrg, rrg_force, rrs, scst_models, vision_language,
+    )
 
     logger = logger or logging.getLogger(__name__)
     if dl is not None:

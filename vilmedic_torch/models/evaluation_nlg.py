@@ -23,6 +23,10 @@ ensembling). Routes, by the models and the beam width:
 - ``beam_width`` <= 1: greedy decoding over the plain cache and the plain
   head, without forced EOS.
 
+``generate`` takes any model's ``encoder_inputs(batch)`` and hands them to
+``module.encode`` as keywords (images for RRG, source ids and mask for
+RRS); the batch size and device are the encoder output's.
+
 On the card the port takes these kernel routes wherever the JAX package may;
 the v5e routing thresholds do not apply.
 
@@ -30,7 +34,9 @@ the v5e routing thresholds do not apply.
 to the device, through the dataset's device preprocessing, into one
 ``generate``; the generated and the reference ids are decoded with the
 dataset's tokenizer (``skip_special_tokens``) into ``hyps`` and ``refs``.
-Sampled and constrained decoding and sharded evaluation are not ported.
+A ``Seq2Seq`` dataset has no ``tokenizer``: its target side gives the
+references (``decoder_input_ids``), the tokenizer and the length. Sharded
+evaluation is not ported.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ def make_generate_fn(models, beam_width: int, max_len: int, bos_id: int, eos_id:
                      ancestry_group_items: int = 1):
     """``generate(enc_inputs)`` for one model or an ensemble, where
     ``enc_inputs`` is ``models[0].encoder_inputs(batch)`` on the models'
-    device. Returns a ``BeamResult`` for beam search and a ``RolloutResult``
+    device (the keywords of ``module.encode``). Returns a ``BeamResult`` for beam search and a ``RolloutResult``
     for greedy decoding (``beam_width`` <= 1).
 
     ``ancestry_group_items`` sets the items per beam-cache mask group; any
@@ -75,10 +81,9 @@ def make_generate_fn(models, beam_width: int, max_len: int, bos_id: int, eos_id:
 
     @torch.inference_mode()
     def generate(enc_inputs):
-        images = enc_inputs["images"]
         members = []
         for module in modules:
-            enc_h, enc_m = module.encode(images, enc_inputs.get("images_mask"))
+            enc_h, enc_m = module.encode(**enc_inputs)
             self_cache, cross_cache = module.init_cache(enc_h, max_len)
             # only the self cache tiles to B*beam rows; the cross K/V and mask
             # stay at batch B and the cross-attention folds the beams into its
@@ -106,11 +111,12 @@ def make_generate_fn(models, beam_width: int, max_len: int, bos_id: int, eos_id:
                 total = out if total is None else total + out
             return total
 
+        batch, device = enc_h.shape[0], enc_h.device
         if not beam:
-            return greedy_search(step_fn, images.shape[0], max_len, bos_id, eos_id, pad_id,
-                                 images.device, forced_eos=False)
-        return beam_search(step_fn, images.shape[0], beam_width, max_len, bos_id, eos_id,
-                           pad_id, images.device, length_penalty=length_penalty,
+            return greedy_search(step_fn, batch, max_len, bos_id, eos_id, pad_id, device,
+                                 forced_eos=False)
+        return beam_search(step_fn, batch, beam_width, max_len, bos_id, eos_id,
+                           pad_id, device, length_penalty=length_penalty,
                            ancestry_group_items=ancestry_group_items, blocked=blocked,
                            caches=None if kernel_cache else [m[1] for m in members])
 
@@ -144,24 +150,37 @@ def pipelined_decode(dl, tokenizer, prepare, launch) -> Dict[str, List[str]]:
     return {"refs": refs, "hyps": hyps}
 
 
+def target_side(dataset):
+    """``(reference key, tokenizer, max_len)`` of a dataset: its own
+    tokenizer and ``input_ids``, or a ``Seq2Seq`` target's
+    (``decoder_input_ids``)."""
+    if hasattr(dataset, "tokenizer"):
+        return "input_ids", dataset.tokenizer, int(dataset.tokenizer_max_len)
+    return "decoder_input_ids", dataset.tgt_tokenizer, int(dataset.tgt_tokenizer_max_len)
+
+
+def to_device(batch, device):
+    """A batch's tensors on ``device``; anything else (strings) as it is."""
+    return {k: v.to(device, non_blocking=True) if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items()}
+
+
 def evaluation(models, config, dl) -> Dict[str, Any]:
-    """The ``eval_func`` of RRG-style models: ``make_generate_fn`` at the
-    config's ``beam_width`` (default 1) and ``length_penalty`` (default 1),
-    up to the dataset's ``tokenizer_max_len``, over every batch of ``dl`` on
-    the models' device."""
+    """The ``eval_func`` of RRG- and RRS-style models: ``make_generate_fn``
+    at the config's ``beam_width`` (default 1) and ``length_penalty``
+    (default 1), up to the target's ``tokenizer_max_len``, over every batch
+    of ``dl`` on the models' device."""
     dataset = dl.dataset
-    tokenizer = dataset.tokenizer
+    ref_key, tokenizer, max_len = target_side(dataset)
     bos_id, eos_id, pad_id = get_special_token_ids(models[0].dec_config, tokenizer)
     length_penalty = config.get("length_penalty", None)
     length_penalty = 1.0 if length_penalty is None else float(length_penalty)
-    generate = make_generate_fn(models, config.get("beam_width", 1),
-                                int(dataset.tokenizer_max_len), bos_id, eos_id, pad_id,
-                                length_penalty)
+    generate = make_generate_fn(models, config.get("beam_width", 1), max_len, bos_id, eos_id,
+                                pad_id, length_penalty)
     device = next(models[0].module.parameters()).device
 
     def prepare(batch):
-        on_device = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
-        on_device = prepare_batch(on_device, dataset)
-        return models[0].encoder_inputs(on_device), batch["input_ids"], batch["input_ids"].shape[0]
+        on_device = prepare_batch(to_device(batch, device), dataset)
+        return models[0].encoder_inputs(on_device), batch[ref_key], batch[ref_key].shape[0]
 
     return pipelined_decode(dl, tokenizer, prepare, lambda inputs: generate(inputs).sequences)

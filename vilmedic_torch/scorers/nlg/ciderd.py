@@ -1,6 +1,6 @@
-"""CIDEr-D: the TF-IDF consensus n-gram metric (a copy of ``CiderD`` of
-``scorers/nlg/ciderd.py`` of the JAX package; its RL variant with a frozen
-document-frequency table waits for SCST).
+"""CIDEr-D: the TF-IDF consensus n-gram metric, and its SCST reward variant
+with a frozen document-frequency table (a copy of ``CiderD`` and
+``CiderDRL`` of ``scorers/nlg/ciderd.py`` of the JAX package).
 
 The COCO ``CiderScorer``: per-n-gram TF-IDF vectors with
 ``idf = log(N) - log(max(1, df))`` over the corpus's references, clipped
@@ -12,6 +12,7 @@ n = 1..4.
 from __future__ import annotations
 
 import math
+import os
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -92,6 +93,39 @@ class CiderD:
 
     def __call__(self, refs: List[str], hyps: List[str]) -> Tuple[float, np.ndarray]:
         scorer = _CiderScorer(self._n, self._sigma)
+        crefs = [[_cook(r, self._n) for r in (ref if isinstance(ref, list) else [ref])]
+                 for ref in refs]
+        ctest = [_cook(h, self._n) for h in hyps]
+        return scorer.score(crefs, ctest)
+
+
+class CiderDRL:
+    """CIDEr-D whose document frequencies are frozen from the reference
+    corpus file ``df`` (one report per line, cleaned by ``processing``), so
+    that per-batch rewards do not move with the batch. Without the file it
+    falls back to the batch's own frequencies, as :class:`CiderD`."""
+
+    def __init__(self, df: Optional[str] = None, processing=None, n: int = 4,
+                 sigma: float = 6.0, **kwargs):
+        from ...data.processing import get_processing
+        from ...data.utils import load_file
+
+        self._n = n
+        self._sigma = sigma
+        self.document_frequency = None
+        self.ref_len = None
+        if df is not None and os.path.exists(df):
+            proc = get_processing(processing)
+            tmp = _CiderScorer(n, sigma)
+            tmp.compute_df([[_cook(proc(s.strip()), n)] for s in load_file(df)])
+            self.document_frequency = tmp.document_frequency
+            self.ref_len = tmp.ref_len
+
+    def __call__(self, refs: List[str], hyps: List[str]) -> Tuple[float, np.ndarray]:
+        scorer = _CiderScorer(
+            self._n, self._sigma,
+            df_mode="precomputed" if self.document_frequency else "corpus",
+            document_frequency=self.document_frequency, ref_len=self.ref_len)
         crefs = [[_cook(r, self._n) for r in (ref if isinstance(ref, list) else [ref])]
                  for ref in refs]
         ctest = [_cook(h, self._n) for h in hyps]

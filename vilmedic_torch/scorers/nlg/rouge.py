@@ -11,7 +11,8 @@ subsequence, precision over the hypothesis, recall over the reference,
 F1 = 2PR / (P + R) (0 when P + R is 0, or for an empty side under
 ROUGE-L).
 
-``Rouge(rouges)(refs, hyps) -> (mean F1, [per-pair F1])``.
+``Rouge(rouges)(refs, hyps) -> (mean F1, [per-pair F1])``; ``Rouge1``,
+``Rouge2`` and ``RougeL`` fix the kind (the SCST rewards).
 """
 
 from __future__ import annotations
@@ -83,3 +84,18 @@ class Rouge:
             f1.append(rouge_l(ref, hyp) if self.kind == "rougel"
                       else rouge_n(ref, hyp, int(self.kind[-1])))
         return float(np.mean(f1)), f1
+
+
+class Rouge1(Rouge):
+    def __init__(self, **kwargs):
+        super().__init__(rouges=["rouge1"])
+
+
+class Rouge2(Rouge):
+    def __init__(self, **kwargs):
+        super().__init__(rouges=["rouge2"])
+
+
+class RougeL(Rouge):
+    def __init__(self, **kwargs):
+        super().__init__(rouges=["rougel"])

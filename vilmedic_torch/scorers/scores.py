@@ -1,4 +1,12 @@
-"""Metric dispatch (port of ``compute_scores`` of ``scorers/scores.py``).
+"""Metric dispatch and the SCST rewards (port of ``compute_scores`` and
+``REWARD_COMPLIANT`` of ``scorers/scores.py``).
+
+``REWARD_COMPLIANT`` maps each ported reward name (``rougel``, ``rouge1``,
+``rouge2``, ``bleu``, ``ciderdrl``) to its scorer class and the index of the
+scorer's per-sample output; the JAX package's other rewards (METEOR and the
+clinical scorers, which wait for weights outside the repository) are named
+in ``UNPORTED_REWARDS`` and raise ``NotImplementedError`` where SCST is
+built.
 
 BLEU, ROUGE1/ROUGE2/ROUGEL and CIDERD, the host NLG metrics; refs and hyps
 are dumped as ``{split}_{seed}_{refs,hyps}.txt`` and the scores appended to
@@ -19,10 +27,21 @@ from typing import Dict, List, Optional
 
 from ..utils.logger import get_logger_directory
 from .nlg.bleu import Bleu
-from .nlg.ciderd import CiderD
-from .nlg.rouge import Rouge
+from .nlg.ciderd import CiderD, CiderDRL
+from .nlg.rouge import Rouge, Rouge1, Rouge2, RougeL
 
 PORTED = ("bleu", "rouge1", "rouge2", "rougel", "ciderd")
+
+# reward name -> (scorer class, index of its per-sample output)
+REWARD_COMPLIANT = {
+    "rougel": (RougeL, 1),
+    "rouge2": (Rouge2, 1),
+    "rouge1": (Rouge1, 1),
+    "bleu": (Bleu, 1),
+    "ciderdrl": (CiderDRL, 1),
+}
+UNPORTED_REWARDS = ("meteor", "radentitymatchexact", "radentitynli", "chexbert", "radgraph",
+                    "bertscore")
 
 
 def _metric_name(metric) -> str:

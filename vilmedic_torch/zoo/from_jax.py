@@ -1,5 +1,5 @@
-"""Weight bridge from the JAX package's RRG and VisionLanguage variables to the
-port's state dicts (counterpart of ``zoo/convert.py``).
+"""Weight bridge from the JAX package's RRG, RRS, SCST and VisionLanguage
+variables to the port's state dicts (counterpart of ``zoo/convert.py``).
 
 The port keeps the Flax tree's module names, so the bridge is a rename plus
 transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
@@ -88,3 +88,16 @@ def vl_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     ``VisionLanguageModule`` state dict of f32 tensors. The tower has no
     batch statistics."""
     return rrg_state_dict_from_jax({"params": variables["params"]})
+
+
+def rrs_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX RRS ``{"params"}`` (numpy leaves: ``enc`` and ``dec``) -> the
+    port's ``RRSModule`` state dict of f32 tensors."""
+    return rrg_state_dict_from_jax({"params": variables["params"]})
+
+
+def scst_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``RRG_SCST`` / ``RRS_SCST`` variables, which are their base
+    model's, -> the state dict of the SCST model's ``module`` (its base
+    model's module)."""
+    return rrg_state_dict_from_jax(variables)
