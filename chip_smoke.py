@@ -69,7 +69,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     words, so the built vocabulary takes the blocked head; JPEGs through
     ``device_preproc``): 4 RAdam steps at batch 128 in bf16 (ms per step,
     images/s, peak memory), the Validator at beam 8 (reports/s, BLEU /
-    ROUGEL / CIDERD), a best-only checkpoint, and the launches of K1, K2
+    ROUGEL / METEOR / CIDERD), a best-only checkpoint, and the launches of K1, K2
     and K3 on that path (``rrg_train``); requires the loss to fall over 10
     updates on one repeated batch and the running means to leave 0
     (``rrg_train_sanity``); and runs the same CLI in f32 on the card and on
@@ -80,7 +80,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 13. fine-tunes that run's best checkpoint with SCST
     (``config/RRG/rrg-scst-mimic.yml`` through the train CLI, bf16: 4
     iterations at batch 32, top-k 25, ROUGE-L rewards; rollout, reward and
-    gradient ms, samples/s, the Validator's reports/s; no K1 or K2 inside
+    gradient ms, samples/s, the Validator's reports/s, the reward timed
+    with the native and the pure-Python scorers in turns; no K1 or K2 inside
     the rollouts, K1 (a) = K2 = Validator decode steps, K3 = batches;
     ``scst_train``), trains RRS (``config/RRS/baseline-transformer-mimic.yml``
     at full width, 6 + 6 layers of 768, on synthetic findings/impression
@@ -89,7 +90,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     steps; K1 (a) and K2 held at N 128 against their plain versions;
     ``rrs_train``), and holds the new generation paths card vs CPU in f32
     (one SCST iteration under the same injected Gumbel noise, the RRS CLI at
-    2 + 2 layers, RRG_FORCE's constrained decoding; ``generation_parity``).
+    2 + 2 layers, RRG_FORCE's constrained decoding; ``generation_parity``);
+14. trains RRG with a ViT-B/16 tower (``config/RRG/baseline-mimic-vit.yml``
+    through the train CLI on the ``rrg_train`` corpus, bf16, batch 128, 4
+    steps, ``device_preproc``; the Validator at beam 8 with ROUGEL / BLEU /
+    METEOR / CIDERD; K1 (a) = K2 = decode steps, K3 = batches, dense
+    attention in the tower; ``rrg_vit_train``), the MVQA config
+    (``config/MVQA/vqa.yml``: ResNet-50, 2 layers, 330 classes, 16 steps at
+    batch 64 over 1024 synthetic JPEGs, the Validator with accuracy and
+    f1-score, then the ensemble CLI over the run's checkpoint;
+    ``mvqa_train``) and the CLASS config (``config/CLASS/cvamd.yml``: 1
+    layer, 23 classes, 4 steps at batch 128, accuracy and auroc;
+    ``class_train``), printing for each ms per step, images/s, peak memory,
+    the Validator's rate and a ``torch.profiler`` host / device-busy split
+    of one more step with the card's name and power limit; and holds one
+    f32 training step of the MVQA config and of the ViT RRG config card vs
+    CPU at full width, and the MVQA validation logits and answers
+    (``tower_parity``).
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -100,6 +117,7 @@ repository's files, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import glob
 import json
 import math
 import os
@@ -2598,7 +2616,7 @@ def rrg_train_overrides(data: str, ckpt: str, name: str, device: str):
     return [CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
             f"dataset.image.root={data}", f"dataset.seq.root={data}",
             "dataset.image.device_preproc=true", "trainor.epochs=0",
-            "trainor.early_stop_metric=BLEU", "validator.metrics=[BLEU,ROUGEL,CIDERD]"]
+            "trainor.early_stop_metric=BLEU", "validator.metrics=[BLEU,ROUGEL,METEOR,CIDERD]"]
 
 
 def cpu_state(model):
@@ -2694,8 +2712,6 @@ def phase_rrg_train(tmp: str):
     ROUGEL / CIDERD, a best-only checkpoint. Then times the Validator
     again, and holds K1 (a), K2 and K3 against their plain versions at the
     shapes this path gave them."""
-    import glob
-
     import torch
 
     from vilmedic_torch.bin.train import main
@@ -2753,8 +2769,9 @@ def phase_rrg_train(tmp: str):
         "checkpoint exists": len(ckpts) == 1,
         "iteration_count 4": trainor.training_scheduler.iteration_count == 4,
         "4 finite losses": len(steps.losses) == 4 and all(map(math.isfinite, steps.losses)),
-        "finite BLEU / ROUGEL / CIDERD": all(scores.get(k) is not None and math.isfinite(scores[k])
-                                             for k in ("BLEU", "ROUGEL", "CIDERD")),
+        "finite BLEU / ROUGEL / METEOR / CIDERD": all(
+            scores.get(k) is not None and math.isfinite(scores[k])
+            for k in ("BLEU", "ROUGEL", "METEOR", "CIDERD")),
         "vocab takes the blocked head": model.dec_config.vocab_size >= 4096,
         "K1 launched": launches["fused_beam_cache_attention"] > 0,
         "K2 launched": launches["lm_head_blocked_stats"] > 0,
@@ -2831,8 +2848,6 @@ def phase_rrg_train_parity(tmp: str):
     1e-5, equal validation hypotheses and scores; then the saved checkpoint,
     reloaded into a fresh model on the card, generates the same
     hypotheses."""
-    import glob
-
     import torch
 
     import vilmedic_torch.blocks.vision.densenet as densenet
@@ -3037,7 +3052,6 @@ def phase_scst_train(tmp: str):
     its vocabulary file copied beside the run), then the Validator at beam
     8 (K1 stage a, K2). Rollouts take the plain cache and head: no K1 or K2
     inside them. Returns the path's launches of K1, K2 and K3."""
-    import glob
     import shutil
 
     import torch
@@ -3122,9 +3136,13 @@ def phase_scst_train(tmp: str):
         gated_update(trainor.tx, trainor.base_lr, loss)
 
     _, gr_host, gr_dev = device_ms(grad_step)
+    reward_native, reward_python = scst_reward_times(model, one, sampled)
     print(f"SCST train split (torch.profiler, one more iteration): rollout host {ro_host:.1f} ms, "
           f"device busy {ro_dev['all']:.1f} ms "
           f"({int((sampled != model.scst.pad_token_id).sum(1).max())} tokens); gradient step host {gr_host:.1f} ms, device busy {gr_dev['all']:.1f} ms")
+    print(f"SCST reward of {sampled.shape[0]} rollouts against their references "
+          f"({model.scst.scores}), alternated 5 x: native LCS {reward_native:.1f} ms, "
+          f"pure-Python LCS {reward_python:.1f} ms (medians)")
     # the key biases' gradient is 0 up to rounding (softmax is shift-invariant)
     no_grad = [k for k in no_grad if not k.endswith("attn.k.bias")]
     require({
@@ -3143,6 +3161,37 @@ def phase_scst_train(tmp: str):
     del trainor, model, evaluator
     torch.cuda.empty_cache()
     return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def scst_reward_times(model, batch, sampled, rounds: int = 5):
+    """Median ms of the SCST reward (decode + score) of ``sampled`` against
+    the batch's references with the native scorers and with the
+    pure-Python ones, alternated on the same rollouts (native, Python,
+    Python, native, ...); the two must give the same rewards."""
+    import numpy as np
+
+    from vilmedic_torch.scorers.scores import REWARD_COMPLIANT
+
+    scst = model.scst
+    rollouts = sampled.cpu().numpy()
+    refs = batch[model.ref_key].cpu().numpy()
+    kinds = {"native": True, "python": False}
+    scorers = {kind: [REWARD_COMPLIANT[s][0](use_native=flag) for s in scst.scores]
+               for kind, flag in kinds.items()}
+    real, times, rewards = scst.scorers, {k: [] for k in kinds}, {}
+    try:
+        for r in range(rounds):
+            for kind in (("native", "python") if r % 2 == 0 else ("python", "native")):
+                scst.scorers = scorers[kind]
+                t0 = time.perf_counter()
+                rewards[kind], _, _ = scst.get_reward(rollouts, refs)
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        scst.scorers = real
+    if not all(np.allclose(a, b, rtol=0, atol=1e-7)
+               for a, b in zip(rewards["native"], rewards["python"])):
+        fail("SCST rewards differ between the native and the pure-Python scorers")
+    return statistics.median(times["native"]), statistics.median(times["python"])
 
 
 def rrs_corpus(root: str, n_train: int, n_validate: int, seed: int, sweep_words: int):
@@ -3453,6 +3502,370 @@ def phase_generation_parity(tmp: str):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------- MVQA / CLASS, the ViT RRG tower
+
+MVQA_CONFIG = os.path.join(ROOT, "config", "MVQA", "vqa.yml")
+CLASS_CONFIG = os.path.join(ROOT, "config", "CLASS", "cvamd.yml")
+VIT_CONFIG = os.path.join(ROOT, "config", "RRG", "baseline-mimic-vit.yml")
+MVQA_TRAIN, MVQA_VALIDATE = 1024, 128  # 16 steps at the config's batch 64
+CLASS_TRAIN, CLASS_VALIDATE = 512, 128  # 4 steps at the config's batch 128
+
+
+def label_corpus(root: str, n_train: int, n_validate: int, n_classes: int, seed: int,
+                 image: int):
+    """JPEGs and labels made from ``seed`` in the files the MVQA and CLASS
+    configs name (``{split}.image.tok``, ``{split}.label.tok``). Labels are
+    ``n_classes`` names dealt round robin and then shuffled, so each split
+    holds every class it has room for. Images are smooth RGB noise of
+    (image + 32) x image pixels."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for split, n in (("train", n_train), ("validate", n_validate)):
+        labels = [f"class{i % n_classes:03d}" for i in range(n)]
+        labels = [labels[i] for i in rng.permutation(n)]
+        paths = []
+        for i in range(n):
+            low = rng.integers(0, 256, (image // 16 + 2, image // 16 + 1, 3)).astype(np.uint8)
+            path = os.path.join(root, "images", f"{split}_{i}.jpg")
+            Image.fromarray(low).resize((image, image + 32), Image.BILINEAR).save(path,
+                                                                                 quality=90)
+            paths.append(path)
+        with open(os.path.join(root, f"{split}.label.tok"), "w") as f:
+            f.write("\n".join(labels))
+        with open(os.path.join(root, f"{split}.image.tok"), "w") as f:
+            f.write("\n".join(paths))
+
+
+def label_overrides(config: str, data: str, ckpt: str, name: str, device: str):
+    return [config, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
+            f"dataset.image.root={data}", f"dataset.label.root={data}", "trainor.epochs=0",
+            "ensemblor.splits=[validate]"]
+
+
+class EvalRecorder:
+    """Keeps a copy of every result the classifier's ensemble evaluation
+    returns (the Validator pops its keys)."""
+
+    def __enter__(self):
+        from vilmedic_torch.models import mvqa
+
+        self.results, self.real = [], mvqa.evaluation
+
+        def recorded(*args, **kwargs):
+            out = self.real(*args, **kwargs)
+            self.results.append(dict(out))
+            return out
+
+        mvqa.evaluation = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from vilmedic_torch.models import mvqa
+
+        mvqa.evaluation = self.real
+
+
+def train_split(trainor, label: str, card: str):
+    """One more training step, traced: (host ms, device-busy ms)."""
+    one = trainor._model_batch(next(iter(trainor.dl)))
+    lr = trainor.training_scheduler.current_lr()
+    _, host, dev = device_ms(lambda: trainor.train_step(one, lr))
+    print(f"{label} split (torch.profiler, one more step, {card}): host {host:.1f} ms, device "
+          f"busy {dev['all']:.1f} ms ({100 * dev['all'] / host:.0f}% of the step)")
+    return host, dev["all"]
+
+
+def classifier_train(config: str, tmp: str, name: str, n_train: int, n_validate: int,
+                     n_classes: int, metrics, card: str):
+    """A classification config through the train CLI at full width, bf16:
+    its corpus, one epoch, the Validator, and timings. Returns (trainor,
+    steps, launches, validator seconds)."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    data = os.path.join(tmp, f"{name}_data")
+    t0 = time.perf_counter()
+    label_corpus(data, n_train, n_validate, n_classes, SEED, 256)
+    print(f"{name}: synthetic corpus of {n_train} + {n_validate} JPEGs of 288 x 256 over "
+          f"{n_classes} classes, written in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with StepRecorder() as steps:
+        trainor = main(label_overrides(config, data, tmp, name, "cuda"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, cfg = trainor.model, trainor.config
+    batch = int(cfg.batch_size)
+    n_steps = len(steps.iterations)
+    iter_ms = statistics.median(steps.iterations[1:]) * 1e3
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    tcfg = model.transformer_cfg
+    print(f"{name}: {cfg.model.cnn.backbone} to {cfg.model.cnn.output_layer} at "
+          f"{trainor.dl.dataset.image.crop}², adapter to {tcfg.hidden_size}, "
+          f"{tcfg.num_hidden_layers} layers of {tcfg.hidden_size} x {tcfg.num_attention_heads} "
+          f"heads, {model.num_classes} classes, {type(model.loss_fn).__name__}, {tcfg.dtype}, "
+          f"{cfg.optimizer} lr {trainor.base_lr:g}, batch {batch}, {trainor.dl.num_workers} "
+          f"loader threads, {n_steps} steps, run {run_s:.1f} s; losses "
+          f"{[round(x, 4) for x in steps.losses]}")
+    print(f"{name} bf16 batch {batch} ({card}): {iter_ms:.1f} ms per training step (whole "
+          f"iteration: loader wait, H2D, step; median of steps 2-{n_steps}: "
+          f"{[round(t * 1e3, 1) for t in steps.iterations]}), {batch / iter_ms * 1e3:.1f} images/s;"
+          f" the model step alone {step_ms:.1f} ms, {batch / step_ms * 1e3:.1f} images/s; the "
+          f"epoch's training {steps.epochs[0]:.2f} s; peak {peak:.2f} GiB")
+    evaluator = trainor.evaluator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.start()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    scores = evaluator.scores[0]
+    print(f"{name}: Validator {n_validate / val_s:.1f} images/s bf16 ({card}; batch "
+          f"{evaluator.splits[0][1].batch_size}: {val_s:.2f} s for {n_validate} images); scores "
+          f"{ {k: v for k, v in scores.items() if k != 'f1-score'} }")
+    train_split(trainor, name, card)
+    require({
+        f"{n_train // batch} steps": trainor.training_scheduler.iteration_count
+        == n_train // batch == n_steps,
+        "finite losses": all(map(math.isfinite, steps.losses)),
+        "checkpoint exists": len(glob.glob(os.path.join(tmp, name, "*.ckpt"))) == 1,
+        "metrics scored": all(scores.get(m) is not None for m in metrics),
+        "no K1, K2, K3 or K4 on this path": not any(
+            launches[k] for k in (K1, K2, K3, "flash_attention", "flash_attention_with_lse")),
+    }, name)
+    return trainor, launches, scores
+
+
+def phase_mvqa_train(tmp: str, card: str):
+    """``config/MVQA/vqa.yml`` at full width through the train CLI: 1024
+    JPEGs (16 Adam steps at batch 64, ResNet-50 to layer4 in training mode:
+    49 tokens of 2048, the adapter to 768, 2 post-LN layers, 330 classes,
+    label smoothing 0.1), the Validator with accuracy and f1-score over 128,
+    then ``python -m vilmedic_torch.bin.ensemble`` over the run's checkpoint
+    (one member: the same scores)."""
+    import torch
+
+    from vilmedic_torch.bin.ensemble import main as ensemble
+
+    trainor, launches, scores = classifier_train(
+        MVQA_CONFIG, tmp, "mvqa_train", MVQA_TRAIN, MVQA_VALIDATE, 330,
+        ("accuracy", "f1-score"), card)
+    data = os.path.join(tmp, "mvqa_train_data")
+    t0 = time.perf_counter()
+    ens = ensemble(label_overrides(MVQA_CONFIG, data, tmp, "mvqa_train", "cuda"))
+    ens_s = time.perf_counter() - t0
+    got = ens.scores[0]
+    print(f"mvqa_train: ensemble CLI over {len(ens.models)} checkpoint in {ens_s:.1f} s: "
+          f"accuracy {got['accuracy']} (the run's {scores['accuracy']}), validation loss "
+          f"{got['validation_loss']:.6f} (the run's {scores['validation_loss']:.6f})")
+    require({
+        "ensemble of the run's checkpoint": len(ens.models) == 1,
+        "ensemble scores the run's": got["accuracy"] == scores["accuracy"]
+        and got["f1-score"] == scores["f1-score"]
+        and abs(got["validation_loss"] - scores["validation_loss"]) <= 1e-3,
+    }, "mvqa_train")
+    del trainor, ens
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def phase_class_train(tmp: str, card: str):
+    """``config/CLASS/cvamd.yml`` the same way: 512 JPEGs (4 Adam steps at
+    batch 128; 1 layer, 23 classes, cross entropy), the Validator with
+    accuracy and auroc over 128 (every class present)."""
+    import torch
+
+    trainor, launches, _ = classifier_train(CLASS_CONFIG, tmp, "class_train", CLASS_TRAIN,
+                                            CLASS_VALIDATE, 23, ("accuracy", "auroc"), card)
+    del trainor
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def vit_overrides(data: str, ckpt: str, name: str, device: str):
+    return [VIT_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
+            f"dataset.image.root={data}", f"dataset.seq.root={data}", "trainor.epochs=0",
+            "trainor.early_stop_metric=BLEU", "validator.metrics=[ROUGEL,BLEU,METEOR,CIDERD]"]
+
+
+def phase_rrg_vit_train(tmp: str, card: str):
+    """``config/RRG/baseline-mimic-vit.yml`` through the train CLI on the
+    ``rrg_train`` corpus, bf16: ViT-B/16 at 224² (pre-LN, tanh GELU, 12
+    layers of 768, trained), the 1-layer decoder, RAdam lr 1e-3, batch 128,
+    ``device_preproc`` (K3), 4 steps; the Validator at batch 4, beam 8 (K1
+    stage a, K2) with ROUGEL, BLEU, METEOR and CIDERD."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    data = os.path.join(tmp, "rrg_data")
+    overrides = vit_overrides(data, tmp, "rrg_vit_train", "cuda") + [
+        "dataset.image.device_preproc=true"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with StepRecorder() as steps, DecodeSteps() as val_steps:
+        trainor = main(overrides)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, evaluator, cfg = trainor.model, trainor.evaluator, trainor.config
+    vit = model.module.enc.model
+    batch = int(cfg.batch_size)
+    n_steps = len(steps.iterations)
+    iter_ms = statistics.median(steps.iterations[1:]) * 1e3
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    scores = evaluator.scores[0]
+    print(f"rrg_vit_train: ViT pre_ln={vit.pre_ln} {vit.config.hidden_act}, "
+          f"{vit.config.num_hidden_layers} layers of {vit.config.hidden_size} at "
+          f"{trainor.dl.dataset.image.crop}² ({vit.pos_embed.shape[1]} tokens), "
+          f"{model.dec_config.num_hidden_layers}-layer decoder, vocab "
+          f"{model.dec_config.vocab_size}, {model.dec_config.dtype}, {cfg.optimizer} lr "
+          f"{trainor.base_lr:g}, batch {batch}, {n_steps} steps, run {run_s:.1f} s; losses "
+          f"{[round(x, 4) for x in steps.losses]}")
+    print(f"rrg_vit_train bf16 batch {batch} ({card}): {iter_ms:.1f} ms per training step "
+          f"(whole iteration; median of steps 2-{n_steps}: "
+          f"{[round(t * 1e3, 1) for t in steps.iterations]}), {batch / iter_ms * 1e3:.1f} "
+          f"images/s; the model step alone {step_ms:.1f} ms; peak {peak:.2f} GiB")
+    val_dl = evaluator.splits[0][1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.start()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    n_val = len(val_dl.dataset)
+    print(f"rrg_vit_train: Validator {n_val / val_s:.2f} reports/s bf16 ({card}; batch "
+          f"{val_dl.batch_size}, beam {evaluator.config.beam_width}: {val_s:.2f} s for {n_val} "
+          f"reports); scores {scores}; launches K1 {launches[K1]}, K2 {launches[K2]}, K3 "
+          f"{launches[K3]}, K4 {launches['flash_attention']}")
+    train_split(trainor, "rrg_vit_train", card)
+    require({
+        "4 steps": trainor.training_scheduler.iteration_count == 4 == n_steps,
+        "finite losses": all(map(math.isfinite, steps.losses)),
+        "the ViT trains": any(n.startswith("enc.model.layer_11.") for n in trainor.tx.names),
+        "finite ROUGEL / BLEU / METEOR / CIDERD": all(
+            scores.get(k) is not None and math.isfinite(scores[k])
+            for k in ("ROUGEL", "BLEU", "METEOR", "CIDERD")),
+        "K1 (a) = K2 = Validator decode steps": launches[K1] == launches[K2] == val_steps.steps > 0,
+        "K3 = training + Validator batches":
+            launches[K3] == 4 + RRG_VALIDATE // val_dl.batch_size,
+        "dense attention in the tower (197 tokens)": launches["flash_attention"] == 0
+        and launches["flash_attention_with_lse"] == 0,
+    }, "rrg_vit_train")
+    del trainor, model, evaluator
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def cli_parity(overrides, data_dir: str, tmp: str, name: str):
+    """The train CLI in f32 on the CPU and then the card: per device the
+    step losses, the initial and final states and the recorded
+    evaluations."""
+    from vilmedic_torch.bin.train import main
+
+    runs = []
+    for device in PARITY_DEVICES:
+        t0 = time.perf_counter()
+        with StepRecorder() as steps, EvalRecorder() as evals:
+            trainor = main(overrides(data_dir, tmp, f"{name}_{device}", device))
+        runs.append(dict(losses=steps.losses, initial=steps.initial,
+                         final=cpu_state(trainor.model), evals=evals.results,
+                         seconds=time.perf_counter() - t0))
+        del trainor
+    return runs
+
+
+def phase_class_parity(tmp: str):
+    """f32, TF32 off: ``config/MVQA/vqa.yml`` at full width through the
+    train CLI on the CPU and on the card from the same seed: one training
+    step at batch 4 (dropout 0; Adam with eps 1, so that a gradient entry
+    that is 0 up to rounding takes a step of its own size, not a full lr
+    step of either sign), then the Validator over 4 images: the loss within
+    1e-5 relative, each tensor's change as ``update_agreement`` holds it,
+    the validation logits within 1e-4 of their largest, equal answers."""
+    import numpy as np
+    import torch
+
+    set_tf32(False)
+    data = os.path.join(tmp, "mvqa_parity_data")
+    label_corpus(data, 4, 4, 330, SEED + 2, 256)
+
+    def overrides(d, ckpt, name, device):
+        return label_overrides(MVQA_CONFIG, d, ckpt, name, device) + [
+            "model.dtype=float32", "model.transformer.hidden_dropout_prob=0.0",
+            "trainor.batch_size=4", "validator.batch_size=4", "trainor.optim_params.eps=1.0",
+            "dataset.num_workers=0"]
+
+    cpu, gpu = cli_parity(overrides, data, tmp, "mvqa_parity")
+    loss_rel = abs(gpu["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+    same_start = all(torch.equal(gpu["initial"][k], cpu["initial"][k]) for k in cpu["initial"])
+    ratio, worst = update_agreement((cpu["initial"], gpu["initial"]), cpu["final"], gpu["final"],
+                                    1)
+    want, got = cpu["evals"][-1], gpu["evals"][-1]
+    logit_err = float(np.abs(got["hyps"] - want["hyps"]).max() / np.abs(want["hyps"]).max())
+    same_answers = bool((got["hyps"].argmax(-1) == want["hyps"].argmax(-1)).all())
+    print(f"mvqa parity f32 batch 4 (ResNet-50, 2 layers of 768, 330 classes; CPU run "
+          f"{cpu['seconds']:.1f} s): loss {gpu['losses']} card vs {cpu['losses']} CPU (relative "
+          f"diff {loss_rel:.2e}); initial weights {'equal' if same_start else 'DIFFER'}; parameter "
+          f"changes: worst |diff| / tol {ratio:.3g} ({worst}); validation logits max |diff| / max "
+          f"{logit_err:.2e}; answers {'equal' if same_answers else 'DIFFER'}")
+    return {"mvqa loss within 1e-5 relative": loss_rel <= 1e-5,
+            "mvqa the same initial weights": same_start,
+            "mvqa each tensor's change within tolerance": ratio <= 1.0,
+            "mvqa validation logits within 1e-4": logit_err <= 1e-4,
+            "mvqa equal answers": same_answers}
+
+
+def phase_vit_parity(tmp: str):
+    """f32, TF32 off: ``config/RRG/baseline-mimic-vit.yml`` at full width
+    (ViT-B/16, 12 layers) through the train CLI on the CPU and on the card:
+    one RAdam step at batch 2 (dropout 0; RAdam's first step is the
+    un-normalized mean gradient), no evaluation: the loss within 1e-5
+    relative and each tensor's change as ``update_agreement`` holds it."""
+    import torch
+
+    set_tf32(False)
+    data = os.path.join(tmp, "vit_parity_data")
+    synthetic_corpus(data, 2, 2, SEED + 3, 256)
+
+    def overrides(d, ckpt, name, device):
+        return vit_overrides(d, ckpt, name, device) + [
+            "model.dtype=float32", "model.decoder.hidden_dropout_prob=0.0",
+            "trainor.batch_size=2", "trainor.eval_start=99", "dataset.num_workers=0"]
+
+    cpu, gpu = cli_parity(overrides, data, tmp, "vit_parity")
+    loss_rel = abs(gpu["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+    same_start = all(torch.equal(gpu["initial"][k], cpu["initial"][k]) for k in cpu["initial"])
+    ratio, worst = update_agreement((cpu["initial"], gpu["initial"]), cpu["final"], gpu["final"],
+                                    1)
+    print(f"rrg_vit parity f32 batch 2 (ViT-B/16 12 layers, CPU run {cpu['seconds']:.1f} s): "
+          f"loss {gpu['losses']} card vs {cpu['losses']} CPU (relative diff {loss_rel:.2e}); "
+          f"initial weights {'equal' if same_start else 'DIFFER'}; parameter changes: worst "
+          f"|diff| / tol {ratio:.3g} ({worst})")
+    return {"vit loss within 1e-5 relative": loss_rel <= 1e-5,
+            "vit the same initial weights": same_start,
+            "vit each tensor's change within tolerance": ratio <= 1.0}
+
+
+def phase_tower_parity(tmp: str):
+    import torch
+
+    t0 = time.perf_counter()
+    checks = {**phase_class_parity(tmp), **phase_vit_parity(tmp)}
+    print(f"tower parity: {time.perf_counter() - t0:.1f} s")
+    require(checks, "tower_parity")
+    torch.cuda.empty_cache()
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3496,10 +3909,16 @@ def main():
         launches["scst_train"] = phase_scst_train(tmp)
         launches["rrs_train"] = phase_rrs_train(tmp)
         phase_generation_parity(tmp)
+        launches["rrg_vit_train"] = phase_rrg_vit_train(tmp, card)
+        launches["mvqa_train"] = phase_mvqa_train(tmp, card)
+        launches["class_train"] = phase_class_train(tmp, card)
+        phase_tower_parity(tmp)
     # the training paths' launches of the kernels they run (K1 stage a, K2,
-    # K3): RRG training, SCST fine-tuning, RRS training
+    # K3): RRG training, SCST fine-tuning, RRS training, RRG with the ViT
+    # tower, MVQA and CLASS (none)
     for path, key in (("rrg_train", "rrg_train_launches"), ("scst_train", "scst_launches"),
-                      ("rrs_train", "rrs_launches")):
+                      ("rrs_train", "rrs_launches"), ("rrg_vit_train", "rrg_vit_launches"),
+                      ("mvqa_train", "mvqa_launches"), ("class_train", "class_launches")):
         for name, counter in launches[path].items():
             if name in results:
                 results[name][key] = counter
@@ -3512,7 +3931,8 @@ def main():
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # the flash kernels' head dims; K4/K5 at D 256; launches on the training paths
-    extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "rrs_launches")
+    extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "rrs_launches",
+             "rrg_vit_launches", "mvqa_launches", "class_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
                                  else r[key] for key in keys},
                 **{key: r[key] for key in extra if key in r}}

@@ -12,7 +12,10 @@
   vocabulary files equal; the train split's random crops and flips equal
   too once JAX's transform draws from a generator of the same seed;
 - the ``DataLoader``'s batch order against the JAX loader's over three
-  epochs, and its threads drawing the crops and flips of one thread.
+  epochs, and its threads drawing the crops and flips of one thread;
+- the train CLI with no ``seed:`` in its config: the loader follows the
+  run's seed (different seeds, different first batches; equal seeds, equal
+  ones).
 """
 
 import os
@@ -280,3 +283,52 @@ def test_pretrained_tokenizer_name_raises(tmp_path):
         TextDataset(root=str(tmp_path), split="train", ckpt_dir=str(tmp_path), source="tgt",
                     tokenizer_max_len=8, tokenizer="allenai/biomed_roberta_base")
     assert not os.listdir(tmp_path)
+
+
+def _first_train_batch(image_root, tmp_path, run_seed, monkeypatch):
+    """The first batch the train CLI trains on, when the config sets no
+    ``seed:`` and the run draws ``run_seed`` (``bin/train.py`` draws it with
+    ``utils.seed.get_seed``)."""
+    import vilmedic_torch.blocks.vision.densenet as tdensenet
+    import vilmedic_torch.utils.seed as tseed
+    from vilmedic_torch.bin.train import main
+    from vilmedic_torch.executors.trainor import Trainor
+
+    monkeypatch.setattr(tseed, "randrange", lambda low, high: run_seed)
+    monkeypatch.setitem(tdensenet.CONFIGS, "densenet_tiny", (8, (2, 2), 16))
+    seen = []
+    real = Trainor._model_batch
+
+    def record(self, batch):
+        if not seen:
+            seen.append({k: v.clone() for k, v in batch.items() if torch.is_tensor(v)})
+        return real(self, batch)
+
+    monkeypatch.setattr(Trainor, "_model_batch", record)
+    trainor = main([
+        "config/RRG/baseline-mimic.yml", f"ckpt_dir={tmp_path}", "name=seeded", "device=cpu",
+        "model.dtype=float32", f"dataset.image.root={image_root}", "dataset.image.file=image.tok",
+        "dataset.image.resize=40", "dataset.image.crop=32", f"dataset.seq.root={image_root}",
+        "dataset.seq.file=report.tok", "dataset.seq.tokenizer_max_len=12",
+        "dataset.num_workers=0", "model.cnn.backbone=densenet_tiny",
+        "model.cnn.visual_projection.in_features=32", "model.cnn.visual_projection.out_features=32",
+        "model.decoder.hidden_size=32", "model.decoder.num_attention_heads=4",
+        "model.decoder.intermediate_size=64", "model.decoder.max_position_embeddings=64",
+        "trainor.batch_size=4", "trainor.epochs=0", "trainor.eval_start=10",
+        "trainor.early_stop_metric=training_loss", "validator.metrics=[]",
+    ])
+    assert trainor.seed == run_seed and trainor.dl.seed == run_seed
+    return seen[0]
+
+
+def test_cli_loader_follows_the_run_seed(image_root, tmp_path, monkeypatch):
+    """With no ``seed:`` in the config the loader's shuffle and train crops
+    come from the run's seed: two runs with different seeds draw different
+    first batches, two with the same seed equal ones."""
+    monkeypatch.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    a = _first_train_batch(image_root, tmp_path / "a", 111111, monkeypatch)
+    b = _first_train_batch(image_root, tmp_path / "b", 111111, monkeypatch)
+    c = _first_train_batch(image_root, tmp_path / "c", 222222, monkeypatch)
+    assert sorted(a) == sorted(b) == sorted(c) and "images" in a
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["images"], c["images"])

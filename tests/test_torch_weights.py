@@ -171,15 +171,16 @@ def test_port_imports_no_jax():
 
 def test_port_imports_no_tokenizer_scorer_or_image_packages():
     """Every module of the port imports without transformers, rouge_score,
-    nltk or Pillow: the tokenizer, ROUGE and its stemmer are the port's own,
-    and Pillow is imported only inside ``data.image.open_image``."""
+    nltk, scikit-learn or Pillow: the tokenizer, ROUGE, METEOR's stemmer and
+    the classification metrics are the port's own, and Pillow is imported
+    only inside ``data.image.open_image``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vilmedic_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vilmedic_torch.__path__, 'vilmedic_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('transformers', 'rouge_score', 'nltk', 'PIL')]\n"
+        "       if m.split('.')[0] in ('transformers', 'rouge_score', 'nltk', 'sklearn', 'PIL')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -187,3 +188,76 @@ def test_port_imports_no_tokenizer_scorer_or_image_packages():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 30  # the data, scorer and executor modules included
+
+
+def _all_mapped(variables, module, bridge):
+    """Every JAX leaf lands on a port tensor of its shape, and every port
+    parameter and buffer is set."""
+    sd = bridge(variables)
+    want = dict(module.state_dict())
+    assert sorted(sd) == sorted(want)
+    for key, value in sd.items():
+        assert tuple(value.shape) == tuple(want[key].shape), key
+    n_leaves = sum(len(jax.tree.leaves(variables.get(c) or {})) for c in ("params", "batch_stats"))
+    assert n_leaves == len(sd)
+    result = module.load_state_dict(sd, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+
+
+@pytest.mark.parametrize("pre_ln", [False, True])
+def test_vit_variables_map_onto_the_port(pre_ln):
+    from vilmedic_torch.blocks.vision.vit import make_vit as tmake_vit
+    from vilmedic_tpu.blocks.vision.vit import make_vit as jmake_vit
+
+    arch = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                intermediate_size=64, patch_size=8, image_size=32, pre_ln=pre_ln)
+    jvit = jmake_vit("vit", **arch)
+    variables = jax.tree.map(np.asarray, jax.jit(jvit.init)(jax.random.key(0),
+                                                          jnp.zeros((1, 32, 32, 3))))
+    tvit = tmake_vit("vit", **arch)
+    _all_mapped(variables, tvit, rrg_state_dict_from_jax)
+    np.testing.assert_array_equal(tvit.pos_embed.detach().numpy(), variables["params"]["pos_embed"])
+    kernel = variables["params"]["patch_embed"]["kernel"]
+    np.testing.assert_array_equal(tvit.patch_embed.weight.detach().numpy(),
+                                  kernel.transpose(3, 2, 0, 1))
+
+
+@pytest.mark.parametrize("backbone", ["resnet18", "resnet50"])
+def test_resnet_variables_map_onto_the_port(backbone):
+    from vilmedic_torch.blocks.vision.resnet import make_resnet as tmake_resnet
+    from vilmedic_tpu.blocks.vision.resnet import make_resnet as jmake_resnet
+
+    jnet = jmake_resnet(backbone, "avgpool")
+    variables = jax.tree.map(np.asarray, jax.jit(jnet.init)(jax.random.key(0),
+                                                          jnp.zeros((1, 32, 32, 3))))
+    tnet = tmake_resnet(backbone, "avgpool")
+    _all_mapped(variables, tnet, rrg_state_dict_from_jax)
+    np.testing.assert_array_equal(tnet.layer2_block0.conv_proj.weight.detach().numpy(),
+                                  variables["params"]["layer2_block0"]["conv_proj"]["kernel"]
+                                  .transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(tnet.bn_init.running_var.numpy(),
+                                  variables["batch_stats"]["bn_init"]["var"])
+
+
+@pytest.mark.parametrize("backbone", ["resnet50", "vit"])
+def test_mvqa_variables_map_onto_the_port(backbone):
+    from vilmedic_torch.models.mvqa import MVQA as TMVQA
+    from vilmedic_torch.zoo.from_jax import mvqa_state_dict_from_jax
+    from vilmedic_tpu.models.mvqa import MVQA as JMVQA
+
+    cnn = ({"backbone": "resnet50", "output_layer": "layer4", "permute": "batch_first"}
+           if backbone == "resnet50" else
+           {"backbone": "vit", "hidden_size": 32, "num_hidden_layers": 1, "num_attention_heads": 4,
+            "intermediate_size": 64, "patch_size": 16, "image_size": 32})
+    cfg = dict(cnn=cnn, classifier={"num_classes": 7, "dropout": 0.1},
+               adapter={"output_size": 32},
+               transformer={"hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 4,
+                            "intermediate_size": 64},
+               loss={"proto": "LabelSmoothingCrossEntropy", "smoothing": 0.1})
+    jmodel = JMVQA(**{k: dict(v) for k, v in cfg.items()})
+    variables = jax.tree.map(np.asarray, jax.jit(jmodel.init_variables)(
+        jax.random.key(0), {"images": jnp.zeros((1, 32, 32, 3))}))
+    tmodel = TMVQA(**{k: dict(v) for k, v in cfg.items()}, device="cpu")
+    _all_mapped(variables, tmodel.module, mvqa_state_dict_from_jax)
+    np.testing.assert_array_equal(tmodel.module.classifier.Dense_0.weight.detach().numpy(),
+                                  variables["params"]["classifier"]["Dense_0"]["kernel"].T)

@@ -15,9 +15,13 @@ to end through ``python -m vilmedic_torch.bin.train`` (``data``, the
 NLG ``scorers``); SCST fine-tuning of RRG and RRS (``models.scst_models``:
 sampled rollouts from ``decoding``, host rewards from ``blocks.rl.scst``),
 RRG_FORCE's constrained decoding and RRS (findings -> impression, a text
-encoder and the decoder) through the same CLI; with the fused LM-head
-top-k (``ops.fused_lm_head``) and the fp8 probes (``ops.fp8_probe``) as
-their own entry points. Every Pallas
+encoder and the decoder) through the same CLI; RRG with a trainable ViT
+tower, and the MVQA / CLASS classifiers (ResNet or ViT towers, a
+set transformer, ``models.mvqa``) through the same CLI, the ensemble CLI
+(``bin.ensemble``) and the metrics CLI (``bin.vilmedic_metrics``: BLEU and
+ROUGE-L on a native C++ core, METEOR, CIDEr-D, SPICE, the classification
+metrics); with the fused LM-head top-k (``ops.fused_lm_head``) and the fp8
+probes (``ops.fp8_probe``) as their own entry points. Every Pallas
 kernel of the JAX package has a CUDA counterpart. Entry points build on the
 CUDA device unless the caller passes ``device="cpu"``.
 """

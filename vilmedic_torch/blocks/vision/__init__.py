@@ -1,1 +1,1 @@
-"""Vision towers."""
+"""Vision towers: DenseNet, ResNet, ViT, DINOv2, and the VisualEncoder."""

@@ -1,11 +1,12 @@
 """DenseNet (2-D, NCHW), port of ``blocks/vision/densenet.py``.
 
-Architecture as torchvision's densenets; the output is the ``features``
-layer, the final BatchNorm with no ReLU (the pooled ``avgpool`` output is not
-ported). Convolutions are ``torch.nn.functional.conv2d`` (XLA ran them
-outside any Pallas kernel) over f32 weights cast to the compute dtype at use,
-as Flax's ``param_dtype=float32`` with ``dtype=``, so that an optimizer's
-small updates are not rounded away in bf16.
+Architecture as torchvision's densenets; ``output_layer`` ``features``
+(the default) is the final BatchNorm with no ReLU, (B, C, h, w); anything
+else is ``avgpool``, ReLU then the spatial mean, (B, C). Convolutions are
+``torch.nn.functional.conv2d`` (XLA ran them outside any Pallas kernel)
+over f32 weights cast to the compute dtype at use, as Flax's
+``param_dtype=float32`` with ``dtype=``, so that an optimizer's small
+updates are not rounded away in bf16.
 
 BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``. In
 eval (``train=False``) it normalizes with the running statistics, in f32
@@ -15,8 +16,9 @@ normalizes with the batch's statistics and keeps them (mean and the
 the running statistics (``0.9 * old + 0.1 * batch``) with
 :func:`commit_batch_stats` only when the step's loss is finite, as the JAX
 trainer gates its updated ``batch_stats``. Parameter names follow the Flax
-tree (``block0_layer0.BatchNorm_0.running_mean``). The MXU-packed 3x3
-convolution of the JAX module, off by default there, is not ported.
+tree (``block0_layer0.BatchNorm_0.running_mean``). The JAX module's
+``packed_growth`` option computes the same 3x3 convolution in a layout made
+for the TPU's matrix unit; it is accepted and changes nothing here.
 """
 
 from __future__ import annotations
@@ -118,9 +120,10 @@ class DenseLayer(nn.Module):
 
 class DenseNet(nn.Module):
     def __init__(self, growth_rate: int, block_config: Sequence[int], num_init_features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, output_layer: str = "features"):
         super().__init__()
         self.dtype = dtype
+        self.output_layer = output_layer
         self.block_config = tuple(block_config)
         self.conv0 = Conv2d(3, num_init_features, 7, 2, dtype)
         self.norm0 = BatchNorm(num_init_features, dtype)
@@ -137,8 +140,8 @@ class DenseNet(nn.Module):
         self.out_channels = ch
 
     def forward(self, x, train: bool = False):
-        """(B, 3, H, W) -> (B, C, h, w) features; ``train`` normalizes with
-        the batch's statistics."""
+        """(B, 3, H, W) -> (B, C, h, w) features, or (B, C) for
+        ``avgpool``; ``train`` normalizes with the batch's statistics."""
         x = F.relu(self.norm0(self.conv0(x), train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i, num_layers in enumerate(self.block_config):
@@ -148,9 +151,13 @@ class DenseNet(nn.Module):
                 x = F.relu(getattr(self, f"transition{i}_norm")(x, train))
                 x = getattr(self, f"transition{i}_conv")(x)
                 x = F.avg_pool2d(x, 2, stride=2)
-        return self.norm_final(x, train)
+        x = self.norm_final(x, train)
+        if self.output_layer == "features":
+            return x
+        return F.relu(x).mean(dim=(2, 3))
 
 
-def make_densenet(backbone: str, dtype: torch.dtype = torch.float32) -> DenseNet:
+def make_densenet(backbone: str, output_layer=None, dtype: torch.dtype = torch.float32,
+                  packed_growth=None) -> DenseNet:
     growth, blocks, init = CONFIGS[backbone]
-    return DenseNet(growth, blocks, init, dtype)
+    return DenseNet(growth, blocks, init, dtype, output_layer or "features")

@@ -1,20 +1,28 @@
-"""Vision tower: backbone + token flatten + projection (port of the 4-D
+"""Vision tower: backbone + permute + projection (port of the 4-D
 ``encode`` path of ``blocks/vision/visual_encoder.py``).
 
-Images are NCHW. Flattening (B, C, h, w) with ``flatten(2).transpose(1, 2)``
-gives the same (h, w) token order as the JAX NHWC reshape (``batch_first``).
-The feature mask comes from the pre-projection features. ``freeze`` takes the
-backbone out of training: its parameters get no gradient (``requires_grad``
-False) and so no optimizer state, the counterpart of the JAX package's
-``stop_gradient`` plus frozen optimizer prefixes, and it keeps normalizing
-with its running statistics. In training (``encode(..., train=True)``) an
-unfrozen DenseNet normalizes with batch statistics, and ``dropout_out``
-drops backbone outputs with masks from the caller's generator. Two towers: DenseNet
-with its ``features`` output (``batch_first``), and DINOv2, whose
-(B, 1 + S, D) tokens are returned as they are (as the JAX package returns
-its ViT-family towers, whatever ``permute`` says; the VisionLanguage config
-sets ``no_permute``). The other backbones and outputs, the ``spatial_first``
-permute, the 5-D multi-image path and ``slice_encode`` are not ported.
+Backbones (``make_backbone``): ``resnet18`` to ``resnet152`` (``output_layer``
+``stem``, ``layer1``-``layer4``, ``features`` = ``layer4``, or ``avgpool``,
+the default), the DenseNets (``features``, the default, or ``avgpool``),
+DINOv2, and the ViT family (``vit*``, ``deit*``). Images are NCHW.
+
+Permutes of a CNN's output, as the JAX package's NHWC ones: ``batch_first``
+flattens the (B, C, h, w) map to (B, h*w, C) tokens with
+``flatten(2).transpose(1, 2)`` (the JAX reshape's (h, w) order), and a
+single position to (B, C); ``spatial_first`` gives (h*w, B, C);
+``no_permute`` returns the map as the JAX package lays it out, (B, h, w, C).
+A pooled (B, C) output is returned as it is. A ViT-family tower returns its
+(B, 1 + S, D) tokens whatever ``permute`` says, as the JAX package's does.
+
+``freeze`` takes the backbone out of training: its parameters get no
+gradient (``requires_grad`` False) and so no optimizer state, the
+counterpart of the JAX package's ``stop_gradient`` plus frozen optimizer
+prefixes, and a BatchNorm tower keeps normalizing with its running
+statistics. In training (``train=True``) an unfrozen CNN normalizes with
+batch statistics, an unfrozen ViT routes attention as a training step and
+draws its dropout, and ``dropout_out`` drops the backbone's output, masks
+from the caller's generator. Training an unfrozen DINOv2 tower, the 5-D
+multi-image path and ``slice_encode`` are not ported.
 """
 
 from __future__ import annotations
@@ -28,59 +36,88 @@ from ..transformer import Linear, dropout
 from .densenet import CONFIGS as DENSENET_CONFIGS
 from .densenet import make_densenet
 from .dinov2 import make_dinov2
+from .resnet import STAGE_SIZES, make_resnet
+from .vit import make_vit
+
+PERMUTES = ("batch_first", "spatial_first", "no_permute")
+
+
+def make_backbone(backbone: str, output_layer: Optional[str], dtype=torch.float32,
+                  crop: Optional[int] = None, **kwargs):
+    """The backbone module and the width of its tokens. ``crop`` (the input
+    size) sizes a ViT's position table where ``kwargs`` give no
+    ``image_size``."""
+    name = backbone.lower()
+    if name in STAGE_SIZES:
+        model = make_resnet(name, output_layer or "avgpool", dtype=dtype)
+        return model, model.out_channels
+    if name in DENSENET_CONFIGS:
+        unknown = sorted(set(kwargs) - {"packed_growth"})
+        if unknown:
+            raise NotImplementedError(f"DenseNet options {unknown} are not ported")
+        model = make_densenet(name, output_layer, dtype=dtype, **kwargs)
+        return model, model.out_channels
+    if "dinov2" in name:
+        model = make_dinov2(name, output_layer, dtype=dtype, **kwargs)
+        return model, model.config.hidden_size
+    if "vit" in name or "deit" in name:
+        if crop is not None:
+            kwargs.setdefault("image_size", crop)
+        model = make_vit(name, output_layer, dtype=dtype, **kwargs)
+        return model, model.config.hidden_size
+    raise NotImplementedError(f"vision backbone {backbone!r} is not ported")
 
 
 class VisualEncoder(nn.Module):
     def __init__(self, backbone: str, output_layer: Optional[str] = None,
                  projection_dim: Optional[int] = None, dtype: torch.dtype = torch.float32,
                  permute: str = "batch_first", freeze: bool = False, dropout_out: float = 0.0,
-                 **backbone_kwargs):
+                 crop: Optional[int] = None, **backbone_kwargs):
         super().__init__()
-        name = backbone.lower()
-        self.is_vit = "dinov2" in name
-        if self.is_vit:
-            self.model = make_dinov2(name, output_layer, dtype=dtype, **backbone_kwargs)
-            width = self.model.config.hidden_size
-        elif name in DENSENET_CONFIGS:
-            if output_layer not in (None, "features"):
-                raise NotImplementedError(f"output_layer {output_layer!r} is not ported")
-            if permute != "batch_first":
-                raise NotImplementedError(f"permute {permute!r} is not ported for DenseNet")
-            if backbone_kwargs:
-                raise NotImplementedError(f"cnn options {sorted(backbone_kwargs)} are not ported")
-            self.model = make_densenet(name, dtype=dtype)
-            width = self.model.out_channels
-        else:
-            raise NotImplementedError(f"vision backbone {backbone!r} is not ported")
-        self.width = width  # of the backbone's tokens, before any projection
+        if permute not in PERMUTES:
+            raise ValueError(f"permute {permute!r}: one of {PERMUTES}")
+        self.backbone = backbone.lower()
+        self.is_vit = any(k in self.backbone for k in ("dinov2", "vit", "deit"))
+        self.model, self.width = make_backbone(backbone, output_layer, dtype, crop,
+                                               **backbone_kwargs)
+        self.permute = permute
         self.freeze = freeze
         self.dropout_out = float(dropout_out)
         if freeze:
             self.model.requires_grad_(False)
         self.visual_projection = None
         if projection_dim is not None:
-            self.visual_projection = Linear(width, projection_dim, dtype)
+            self.visual_projection = Linear(self.width, projection_dim, dtype)
 
     def forward(self, images, train: bool = False, generator=None):
-        """Backbone forward. DINOv2: its (B, 1 + S, D) tokens as they are.
-        DenseNet: ``batch_first`` flatten to (B, h*w, C) tokens, or (B, C)
-        when the feature map is a single position. ``train`` (ignored when
-        frozen): DenseNet's batch statistics, and ``dropout_out`` with masks
-        from ``generator``."""
+        """Backbone forward and permute (module doc). ``train`` (ignored when
+        frozen): batch statistics or the ViT's training route and dropout,
+        and ``dropout_out``, with masks from ``generator``."""
         train = train and not self.freeze
         if self.is_vit:
-            if train:
-                raise NotImplementedError("training an unfrozen ViT-family tower is not ported")
-            return self.model(images)
+            if "dinov2" in self.backbone:
+                if train:
+                    raise NotImplementedError("training an unfrozen DINOv2 tower is not ported")
+                out = self.model(images)
+            else:
+                out = self.model(images, train, generator)
+            return dropout(out, self.dropout_out, generator) if train else out
         out = self.model(images, train)
         if train:
             out = dropout(out, self.dropout_out, generator)
+        if out.ndim == 2:
+            return out
+        if self.permute == "no_permute":
+            return out.permute(0, 2, 3, 1)
         tokens = out.flatten(2).transpose(1, 2)
+        if self.permute == "spatial_first":
+            return tokens.transpose(0, 1)
         return tokens.squeeze(1) if tokens.shape[1] == 1 else tokens
 
     def encode(self, images, images_mask=None, train: bool = False, generator=None):
         """(features, features_mask) from (B, 3, H, W) images: for
-        generation, or for a training forward with ``train``."""
+        generation, or for a training forward with ``train``. The mask is
+        that of the pre-projection features."""
         if images.ndim != 4:
             raise NotImplementedError("only 4-D (single-image) batches are ported")
         features = self(images, train, generator)
@@ -90,23 +127,25 @@ class VisualEncoder(nn.Module):
         return features, features_mask
 
 
-def build_visual_encoder(cfg, dtype=torch.float32) -> VisualEncoder:
+def build_visual_encoder(cfg, dtype=torch.float32, crop: Optional[int] = None) -> VisualEncoder:
     """Build from a reference-style ``cnn:`` config block (backbone,
-    output_layer, permute, visual_projection, freeze, dropout_out, and a
-    ViT-family tower's architecture keys)."""
+    output_layer, permute, visual_projection, freeze, dropout_out, and the
+    backbone's own keys). ``crop`` (the loader's) sizes a ViT's position
+    table when the block has no ``image_size``."""
     from ...config.config import Config
 
     if isinstance(cfg, Config):
         cfg = cfg.to_dict()
     cfg = dict(cfg)
-    for key in ("proto", "pretrained"):
+    if cfg.pop("slice_encode", None):
+        raise NotImplementedError("slice_encode is not ported")
+    for key in ("proto", "pretrained", "slice_dim"):
         cfg.pop(key, None)
-    permute = cfg.pop("permute", "batch_first")
-    if permute not in ("batch_first", "no_permute"):
-        raise NotImplementedError(f"permute {permute!r} is not ported")
     vp = cfg.pop("visual_projection", None)
     projection_dim = vp.get("out_features") if isinstance(vp, dict) else None
     backbone, output_layer = cfg.pop("backbone"), cfg.pop("output_layer", None)
-    return VisualEncoder(backbone, output_layer, projection_dim, dtype=dtype, permute=permute,
+    return VisualEncoder(backbone, output_layer, projection_dim, dtype=dtype,
+                         permute=cfg.pop("permute", "batch_first") or "batch_first",
                          freeze=bool(cfg.pop("freeze", False)),
-                         dropout_out=cfg.pop("dropout_out", 0.0) or 0.0, **cfg)
+                         dropout_out=cfg.pop("dropout_out", 0.0) or 0.0,
+                         crop=crop, **cfg)

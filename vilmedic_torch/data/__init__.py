@@ -1,4 +1,4 @@
 """The data pipeline: report cleaning, the corpus vocabulary and its
-WordPiece tokenizer, image, text and payload datasets, the composites
-(``ImSeq``, ``Seq2Seq``, ``ImSeqAny``) and the loader, and the device half
-of the image preprocessing."""
+WordPiece tokenizer, image, text, label and payload datasets, the
+composites (``ImSeq``, ``Seq2Seq``, ``ImLabel``, ``ImSeqAny``) and the
+loader, and the device half of the image preprocessing."""

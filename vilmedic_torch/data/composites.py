@@ -1,7 +1,8 @@
-"""Composite datasets (port of ``ImSeq``, ``Seq2Seq`` and ``ImSeqAny`` of
-``data/composites.py``; the other composites wait for the models that read
-them). Each merges its children's items and collates and exposes the
-tokenizer attributes the models and the evaluation read."""
+"""Composite datasets (port of ``ImSeq``, ``Seq2Seq``, ``ImLabel`` and
+``ImSeqAny`` of ``data/composites.py``; the other composites wait for the
+models that read them). Each merges its children's items and collates and
+exposes the tokenizer or label-map attributes the models and the evaluation
+read."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from ..config.config import Config
 from ..registry import register
 from .anyfield import AnyDataset
 from .image import ImageDataset
+from .label import LabelDataset
 from .text import TextDataset
 
 
@@ -92,6 +94,46 @@ class Seq2Seq:
 
     def __repr__(self):
         return "Seq2Seq\n" + str(self.src) + "\n" + str(self.tgt)
+
+
+@register("dataset")
+class ImLabel:
+    """An :class:`ImageDataset` and a :class:`~.label.LabelDataset`, item by
+    item and batch by batch; exposes the label map."""
+
+    def __init__(self, label, image, split, ckpt_dir=None, called_by_ensemblor=False,
+                 seed: int = 0, **kwargs):
+        self.split = split
+        self.image = ImageDataset(**_as_dict(image), split=split,
+                                  called_by_ensemblor=called_by_ensemblor, seed=seed)
+        self.label = LabelDataset(**_as_dict(label), split=split, ckpt_dir=ckpt_dir)
+        if len(self.image) != len(self.label):
+            raise ValueError(f"{len(self.image)} images vs {len(self.label)} labels")
+        self.labels_map = self.label.labels_map
+
+    def __len__(self):
+        return len(self.image)
+
+    def decode(self, index):
+        return self.image.decode(index), self.label[index]
+
+    def finish(self, decoded):
+        images, label = decoded
+        return {**self.image.finish(images), **label}
+
+    def __getitem__(self, index):
+        return self.finish(self.decode(index))
+
+    def get_collate_fn(self):
+        image_fn, label_fn = self.image.get_collate_fn(), self.label.get_collate_fn()
+
+        def collate_fn(batch):
+            return {**image_fn(batch), **label_fn(batch)}
+
+        return collate_fn
+
+    def __repr__(self):
+        return "ImLabel\n" + str(self.image) + "\n" + str(self.label)
 
 
 @register("dataset")

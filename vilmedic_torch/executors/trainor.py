@@ -37,9 +37,12 @@ scheduler from a checkpoint.
 
 Dropout masks come from one ``torch.Generator`` on the model's device,
 seeded with the trainer's seed. The loader is the config's ``dataset:``
-(``create_data_loader``), or an iterable of batches with a length given as
-``loader``. Not ported: multi-device meshes, ``DevicePrefetch``, and
-``save_every_epoch``, ``eval_only`` and ``profile_dir``, which raise.
+(``create_data_loader``, its shuffle and crops seeded by the config's
+``seed:`` where it sets one, else by the trainer's seed), or an iterable of
+batches with a length given as ``loader``. Not ported: multi-device meshes,
+``DevicePrefetch``, and ``save_every_epoch``, ``eval_only`` and
+``profile_dir``, which raise; ``rng_impl`` (the JAX package's choice of PRNG
+for its dropout masks) has no counterpart and is logged once and ignored.
 """
 
 from __future__ import annotations
@@ -74,18 +77,21 @@ class Trainor:
         self.config = config
         self.seed = seed
         self.device = resolve_device(device)
+        self.logger = logging.getLogger(str(seed))
+        if config.get("rng_impl"):
+            self.logger.info(f"trainor key rng_impl={config.get('rng_impl')!r} has no effect: "
+                             "dropout masks come from a torch.Generator")
         self.ckpt_dir = config.get("ckpt_dir")
         self.ckpt = config.get("ckpt")
         self.eval_start = config.get("eval_start", 0)
         self.decay_metric_start = config.get("decay_metric_start", 0)
         self.early_stop_start = config.get("early_stop_start", 0)
         self.grad_accu = int(config.get("grad_accu", 1) or 1)
-        self.logger = logging.getLogger(str(seed))
         self.state_dict = load_checkpoint(self.ckpt) if self.ckpt else None
         self.saver = CheckpointSaver(self.ckpt_dir, self.logger, seed, ckpt=self.ckpt)
 
         self.dl = loader if loader is not None else create_data_loader(config, "train",
-                                                                       self.logger)
+                                                                       self.logger, seed=seed)
         model_kwargs = dict(model_kwargs or {})
         if loader is None:
             model_kwargs["dl"] = self.dl

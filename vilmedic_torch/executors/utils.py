@@ -2,12 +2,13 @@
 ``executors/utils.py``).
 
 ``create_data_loader`` builds the config's ``dataset:`` block through the
-port's registry (``ImSeq``, ``Seq2Seq``, ``ImSeqAny``) and wraps it in the
-port's ``DataLoader``: shuffled with ``drop_last`` for the train split, in
-order otherwise. ``create_model`` builds ``model:`` (``RRG``, ``RRG_FORCE``,
-``RRG_SCST``, ``RRS``, ``RRS_SCST``, ``VisionLanguage``) with the loader
-(the models take their vocabulary sizes from its tokenizers) and restores a
-checkpoint's ``model`` state dict when given one.
+port's registry (``ImSeq``, ``Seq2Seq``, ``ImLabel``, ``ImSeqAny``) and
+wraps it in the port's ``DataLoader``: shuffled with ``drop_last`` for the
+train split, in order otherwise. ``create_model`` builds ``model:``
+(``RRG``, ``RRG_FORCE``, ``RRG_SCST``, ``RRS``, ``RRS_SCST``,
+``VisionLanguage``, ``MVQA``) with the loader (the models take their
+vocabulary sizes from its tokenizers, a ViT tower its crop, MVQA its label
+map) and restores a checkpoint's ``model`` state dict when given one.
 """
 
 from __future__ import annotations
@@ -32,10 +33,12 @@ def get_eval_func(models):
 
 
 def create_data_loader(config, split: str, logger=None, called_by_validator: bool = False,
-                       called_by_ensemblor: bool = False):
+                       called_by_ensemblor: bool = False, seed=None):
     """The loader of ``config.dataset`` for ``split``: the config's
     ``batch_size``, ``num_workers`` (default 4) from the dataset block, and
-    ``seed`` (default 0) for the shuffle and the image transforms' draws."""
+    a seed for the shuffle and the image transforms' draws: the config's
+    ``seed`` where it sets one, else ``seed`` (the run's seed, which the
+    caller passes), else 0."""
     from ..data import composites  # noqa: F401  (registers the composite datasets)
     from ..data.loader import DataLoader
 
@@ -43,7 +46,9 @@ def create_data_loader(config, split: str, logger=None, called_by_validator: boo
     dataset_config = _as_dict(copy.deepcopy(config.dataset))
     proto = dataset_config.pop("proto")
     num_workers = dataset_config.pop("num_workers", 4)
-    seed = int(config.get("seed", 0) or 0)
+    if config.get("seed") is not None:
+        seed = config.get("seed")
+    seed = int(seed or 0)
     dataset = registry.get("dataset", proto)(
         split=split, ckpt_dir=config.get("ckpt_dir"), called_by_ensemblor=called_by_ensemblor,
         seed=seed, **dataset_config)
@@ -64,7 +69,7 @@ def create_model(config, dl=None, logger=None, state_dict=None, seed: int = 0, d
     ``overrides`` stand in for what a tokenizer or HF config would supply
     (``vocab_size``, the special ids, ``vision_hf_config``)."""
     from ..models import (  # noqa: F401  (register the protos)
-        rrg, rrg_force, rrs, scst_models, vision_language,
+        mvqa, rrg, rrg_force, rrs, scst_models, vision_language,
     )
 
     logger = logger or logging.getLogger(__name__)

@@ -37,7 +37,8 @@ class Validator:
             splits = ["val"]
         self.splits = [(split, create_data_loader(config, split, self.logger,
                                                   called_by_validator=True,
-                                                  called_by_ensemblor=not from_training))
+                                                  called_by_ensemblor=not from_training,
+                                                  seed=seed))
                        for split in splits]
 
     def start(self):

@@ -47,3 +47,53 @@ def resolve_block(block_cfg):
     if isinstance(proto, str) and proto:
         raise NotImplementedError(f"pretrained block config {proto!r} is not ported")
     return block_cfg, None
+
+
+def loader_crop(dl):
+    """The image crop of a loader's dataset (None without one): the input
+    size a ViT tower's position table is built for."""
+    image = getattr(getattr(dl, "dataset", None), "image", None)
+    crop = getattr(image, "crop", None)
+    return int(crop) if crop is not None else None
+
+
+def init_weights_(module, generator, std: float, in_layer) -> None:
+    """Random weights from ``generator``, drawn on the CPU, at the Flax
+    initializers' scales: Linear and convolution weights N(0, std) where
+    ``in_layer(name)`` (the transformer layers' ``normal(initializer_range)``)
+    and N(0, 1/fan_in) elsewhere (Flax's lecun_normal, untruncated);
+    Embedding tables N(0, std); biases 0; LayerNorm and BatchNorm at
+    identity with running statistics (0, 1), each residual block's last
+    BatchNorm scale 0; a ViT's positions N(0, 0.02) and CLS token 0."""
+    import math
+
+    from torch import nn
+
+    from ..blocks.transformer import LayerNorm
+    from ..blocks.vision.densenet import BatchNorm
+    from ..blocks.vision.resnet import zero_last_norm_scales_
+    from ..blocks.vision.vit import ViT
+
+    def normal_(p, s):
+        with torch.no_grad():
+            p.copy_(torch.randn(p.shape, generator=generator) * s)
+
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            normal_(m.weight, std if in_layer(name) else math.sqrt(1.0 / m.weight[0].numel()))
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            normal_(m.weight, std)
+        elif isinstance(m, (LayerNorm, BatchNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, ViT):
+            normal_(m.pos_embed, 0.02)
+            nn.init.zeros_(m.cls_token)
+    zero_last_norm_scales_(module)
+
+
+def in_transformer_layer(name: str) -> bool:
+    """A module of a transformer layer (attention or FFN), by its name."""
+    return ".self_attn." in f".{name}" or ".ffn." in f".{name}"

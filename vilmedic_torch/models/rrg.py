@@ -3,19 +3,15 @@ cross-attention decoder (port of ``models/rrg.py``)."""
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
-from ..blocks.transformer import (
-    LayerNorm, TransformerConfig, TransformerDecoder, causal_lm_loss,
-)
-from ..blocks.vision.densenet import BatchNorm
+from ..blocks.transformer import TransformerConfig, TransformerDecoder, causal_lm_loss
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
 from ..registry import register
-from .base import resolve_block, resolve_device
+from .base import init_weights_, in_transformer_layer, loader_crop, resolve_block, resolve_device
 from .evaluation_nlg import evaluation
 
 
@@ -53,29 +49,11 @@ class RRGModule(nn.Module):
 
 
 def init_rrg_weights_(module: RRGModule, generator: torch.Generator) -> None:
-    """Random weights from ``generator``, drawn on the CPU, with the Flax
-    initializers' scales: the decoder's Linear and Embedding weights
-    N(0, initializer_range); convolutions and the visual projection
-    N(0, 1/fan_in) (Flax's lecun_normal, untruncated); biases 0; norms at
-    identity with running statistics (0, 1)."""
-    std_dec = module.dec.config.initializer_range
-
-    def normal_(p, std):
-        with torch.no_grad():
-            p.copy_(torch.randn(p.shape, generator=generator) * std)
-
-    for name, m in module.named_modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            std = std_dec if name.startswith("dec.") else math.sqrt(1.0 / fan_in)
-            normal_(m.weight, std)
-            if m.bias is not None:
-                nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.Embedding):
-            normal_(m.weight, std_dec)
-        elif isinstance(m, (LayerNorm, BatchNorm)):
-            nn.init.ones_(m.weight)
-            nn.init.zeros_(m.bias)
+    """Random weights from ``generator`` (``base.init_weights_``): the
+    decoder's and a ViT tower's layers at the decoder's
+    ``initializer_range``."""
+    init_weights_(module, generator, module.dec.config.initializer_range,
+                  lambda name: name.startswith("dec.") or in_transformer_layer(name))
 
 
 @register("model")
@@ -97,7 +75,9 @@ class RRG:
         self.dec_config = TransformerConfig.from_dict(
             dec_args, **({"vocab_size": vocab_size} if vocab_size else {}), dtype=compute_dtype,
         )
-        self.module = RRGModule(build_visual_encoder(cnn, dtype=compute_dtype), self.dec_config)
+        self.module = RRGModule(build_visual_encoder(cnn, dtype=compute_dtype,
+                                                     crop=loader_crop(dl)),
+                                self.dec_config)
         init_rrg_weights_(self.module, torch.Generator().manual_seed(seed))
         self.module.to(device).eval()
         self.frozen_prefixes = ("enc/model",) if (cnn or {}).get("freeze") else ()

@@ -1,6 +1,5 @@
-"""Corpus + per-sentence BLEU with COCO-caption semantics (a copy of
-``scorers/nlg/bleu.py`` of the JAX package, in pure Python: the JAX
-package's native core computes the same numbers).
+"""Corpus + per-sentence BLEU with COCO-caption semantics (port of
+``scorers/nlg/bleu.py``).
 
 The COCO ``BleuScorer`` with ``option='closest'``:
 - clipped n-gram precision accumulated over the corpus,
@@ -11,6 +10,10 @@ The COCO ``BleuScorer`` with ``option='closest'``:
   (these feed SCST rewards, reference scores.py:17-29 ``[Bleu, 1]``).
 
 Call contract: ``Bleu(n)(refs, hyps) -> (corpus_bleu_n, [per-sentence bleu_n])``.
+Single-reference pairs go through the C++ core (:mod:`.native`), as in the
+JAX package; ``use_native=False``, or a list of references per hypothesis,
+takes the pure-Python path below, the plain version the tests hold the core
+against.
 """
 
 from __future__ import annotations
@@ -68,14 +71,19 @@ def _bleu_from_stats(testlen, reflen, guess, correct, n) -> List[float]:
 
 
 class Bleu:
-    def __init__(self, n: int = 4):
+    def __init__(self, n: int = 4, use_native: bool = True, **kwargs):
         self._n = n
+        self._use_native = use_native
 
     def __call__(self, refs: List[str], hyps: List[str]) -> Tuple[float, List[float]]:
         return self.compute_score(refs, hyps)
 
     def compute_score(self, refs, hyps):
         n = self._n
+        if self._use_native and refs and not isinstance(refs[0], list):
+            from .native import bleu_native
+
+            return bleu_native(list(refs), list(hyps), n)
         tot_testlen = tot_reflen = 0
         tot_guess = [0] * n
         tot_correct = [0] * n

@@ -12,7 +12,11 @@ F1 = 2PR / (P + R) (0 when P + R is 0, or for an empty side under
 ROUGE-L).
 
 ``Rouge(rouges)(refs, hyps) -> (mean F1, [per-pair F1])``; ``Rouge1``,
-``Rouge2`` and ``RougeL`` fix the kind (the SCST rewards).
+``Rouge2`` and ``RougeL`` fix the kind (the SCST rewards). ROUGE-L runs its
+LCS in the C++ core (:func:`.native.rouge_l_native`) over the tokens of
+:func:`tokenize` (the stemmer is cached), as the JAX package's
+``_rouge_l_fast`` does; ``use_native=False`` keeps the pure-Python LCS, the
+plain version the tests hold the core against.
 """
 
 from __future__ import annotations
@@ -68,16 +72,22 @@ def rouge_l(ref: List[str], hyp: List[str]) -> float:
 
 
 class Rouge:
-    def __init__(self, rouges, **kwargs):
+    def __init__(self, rouges, use_native: bool = True, **kwargs):
         kind = [r.lower() for r in rouges][0]
         if kind not in ("rouge1", "rouge2", "rougel"):
             raise NotImplementedError(f"{rouges[0]!r}: ROUGE-1, -2 and -L are ported")
         self.kind = kind
+        self.use_native = use_native
 
     def __call__(self, refs: List[str], hyps: List[str]) -> Tuple[float, List[float]]:
         if len(refs) != len(hyps):
             raise ValueError(f"refs and hyps must be the same length, got {len(refs)} refs "
                              f"vs {len(hyps)} hyps")
+        if self.kind == "rougel" and self.use_native:
+            from .native import rouge_l_native
+
+            f1 = rouge_l_native([tokenize(r) for r in refs], [tokenize(h) for h in hyps])
+            return float(np.mean(f1)), f1
         f1 = []
         for r, h in zip(refs, hyps):
             ref, hyp = tokenize(r), tokenize(h)
@@ -88,14 +98,14 @@ class Rouge:
 
 class Rouge1(Rouge):
     def __init__(self, **kwargs):
-        super().__init__(rouges=["rouge1"])
+        super().__init__(rouges=["rouge1"], **kwargs)
 
 
 class Rouge2(Rouge):
     def __init__(self, **kwargs):
-        super().__init__(rouges=["rouge2"])
+        super().__init__(rouges=["rouge2"], **kwargs)
 
 
 class RougeL(Rouge):
     def __init__(self, **kwargs):
-        super().__init__(rouges=["rougel"])
+        super().__init__(rouges=["rougel"], **kwargs)

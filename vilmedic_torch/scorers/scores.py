@@ -2,20 +2,22 @@
 ``REWARD_COMPLIANT`` of ``scorers/scores.py``).
 
 ``REWARD_COMPLIANT`` maps each ported reward name (``rougel``, ``rouge1``,
-``rouge2``, ``bleu``, ``ciderdrl``) to its scorer class and the index of the
-scorer's per-sample output; the JAX package's other rewards (METEOR and the
-clinical scorers, which wait for weights outside the repository) are named
-in ``UNPORTED_REWARDS`` and raise ``NotImplementedError`` where SCST is
-built.
+``rouge2``, ``bleu``, ``meteor``, ``ciderdrl``) to its scorer class and the
+index of the scorer's per-sample output; the JAX package's other rewards
+(the clinical scorers, which wait for weights outside the repository) are
+named in ``UNPORTED_REWARDS`` and raise ``NotImplementedError`` where SCST
+is built.
 
-BLEU, ROUGE1/ROUGE2/ROUGEL and CIDERD, the host NLG metrics; refs and hyps
-are dumped as ``{split}_{seed}_{refs,hyps}.txt`` and the scores appended to
+The metrics: BLEU, ROUGE1/ROUGE2/ROUGEL, METEOR, CIDERD and SPICE, the host
+NLG metrics, and ``accuracy``, ``f1-score`` and ``auroc`` over a
+classifier's labels (refs) and averaged logits (hyps), in numpy
+(:mod:`.classification`). Refs and hyps are dumped as
+``{split}_{seed}_{refs,hyps}.txt`` and the scores appended to
 ``{split}_{seed}_metrics.txt`` in the logger's directory, as the JAX package
 does. A metric that fails while it computes is logged and scored ``None``,
 so one broken scorer cannot end a training run (the JAX package's error
-isolation). Any other metric name (METEOR, SPICE, the clinical scorers with
-the weights they wait for, the classification metrics) raises
-``NotImplementedError`` before anything runs.
+isolation). Any other metric name (the clinical scorers with the weights
+they wait for) raises ``NotImplementedError`` before anything runs.
 """
 
 from __future__ import annotations
@@ -25,12 +27,18 @@ import logging
 import os
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from ..utils.logger import get_logger_directory
+from . import classification
 from .nlg.bleu import Bleu
 from .nlg.ciderd import CiderD, CiderDRL
+from .nlg.meteor import Meteor
 from .nlg.rouge import Rouge, Rouge1, Rouge2, RougeL
+from .nlg.spice import Spice
 
-PORTED = ("bleu", "rouge1", "rouge2", "rougel", "ciderd")
+PORTED = ("bleu", "rouge1", "rouge2", "rougel", "meteor", "ciderd", "spice", "accuracy",
+          "f1-score", "auroc")
 
 # reward name -> (scorer class, index of its per-sample output)
 REWARD_COMPLIANT = {
@@ -38,9 +46,10 @@ REWARD_COMPLIANT = {
     "rouge2": (Rouge2, 1),
     "rouge1": (Rouge1, 1),
     "bleu": (Bleu, 1),
+    "meteor": (Meteor, 1),
     "ciderdrl": (CiderDRL, 1),
 }
-UNPORTED_REWARDS = ("meteor", "radentitymatchexact", "radentitynli", "chexbert", "radgraph",
+UNPORTED_REWARDS = ("radentitymatchexact", "radentitynli", "chexbert", "radgraph",
                     "bertscore")
 
 
@@ -60,7 +69,7 @@ def check_metrics(metrics) -> None:
                if _metric_name(m).lower() not in PORTED]
     if missing:
         raise NotImplementedError(f"metrics {missing} are not ported; ported: "
-                                  "BLEU, ROUGE1, ROUGE2, ROUGEL, CIDERD")
+                                  f"{', '.join(PORTED)}")
 
 
 def compute_scores(metrics, refs: Optional[List[str]], hyps: Optional[List[str]], split: str,
@@ -88,8 +97,20 @@ def compute_scores(metrics, refs: Optional[List[str]], hyps: Optional[List[str]]
         try:
             if lower == "bleu":
                 scores["BLEU"] = Bleu()(refs, hyps)[0]
+            elif lower == "meteor":
+                scores["METEOR"] = Meteor()(refs, hyps)[0]
             elif lower == "ciderd":
                 scores["CIDERD"] = CiderD()(refs, hyps)[0]
+            elif lower == "spice":
+                scores["SPICE"] = Spice()(refs, hyps)[0]
+            elif lower == "accuracy":
+                scores["accuracy"] = classification.accuracy(refs, hyps)
+            elif lower == "f1-score":
+                scores["f1-score"] = classification.classification_report(
+                    refs, np.argmax(hyps, axis=-1))
+            elif lower == "auroc":
+                scores["auroc"] = classification.roc_auc_ovr(
+                    refs, classification.softmax(np.asarray(hyps), axis=-1))
             else:
                 scores[name.upper()] = Rouge(rouges=[lower])(refs, hyps)[0]
         except Exception as e:  # one broken scorer must not end the run

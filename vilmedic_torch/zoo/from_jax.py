@@ -1,5 +1,7 @@
-"""Weight bridge from the JAX package's RRG, RRS, SCST and VisionLanguage
-variables to the port's state dicts (counterpart of ``zoo/convert.py``).
+"""Weight bridge from the JAX package's RRG, RRS, SCST, VisionLanguage and
+MVQA variables to the port's state dicts (counterpart of
+``zoo/convert.py``); :func:`rrg_state_dict_from_jax` carries any tree of
+the port's modules, a ViT or ResNet tower's own variables among them.
 
 The port keeps the Flax tree's module names, so the bridge is a rename plus
 transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
@@ -8,8 +10,9 @@ transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
   ``weight`` OIHW; ``bias`` -> ``bias``;
 - LayerNorm/BatchNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
 - BatchNorm statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
-- bare parameters (DINOv2's ``cls_token``, ``pos_embed``, LayerScale
-  ``ls1``/``ls2``, VisionLanguage's ``image_token_embedding``) as they are.
+- bare parameters (the ViT and DINOv2 ``cls_token`` and ``pos_embed``,
+  LayerScale ``ls1``/``ls2``, VisionLanguage's ``image_token_embedding``)
+  as they are.
 
 The values stay f32, as the Flax parameters are: the port's Linear,
 Embedding and DenseNet convolution parameters are f32 too and cast to the
@@ -101,3 +104,11 @@ def scst_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     model's, -> the state dict of the SCST model's ``module`` (its base
     model's module)."""
     return rrg_state_dict_from_jax(variables)
+
+
+def mvqa_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX MVQA ``{"params", "batch_stats"}`` (numpy leaves: ``cnn``,
+    ``adapter``, ``adapter_ln``, ``layer_{i}``, ``pooler``, ``classifier``)
+    -> the port's ``MVQAModule`` state dict of f32 tensors."""
+    return rrg_state_dict_from_jax(variables)
+
