@@ -107,6 +107,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     f32 training step of the MVQA config and of the ViT RRG config card vs
     CPU at full width, and the MVQA validation logits and answers
     (``tower_parity``).
+15. serves the RoBERTa-width RRG (``config/RRG/biomed-roberta-baseline-mimic.yml``
+    with its decoder's pretrained name pointed at a roberta-base
+    ``config.json`` written into the temp dir: DenseNet-169, a 12-layer 768
+    decoder with cross-attention and the BERT/RoBERTa LM-head transform,
+    vocab 50265, beam 8, max_len 120) in bf16 at batch 16 and 128 (K1 (a) =
+    12 x decode steps, K2 = steps; reports/s, device ops and device-busy ms
+    per decode step; K1 (a) and K2 held at its shapes;
+    ``rrg_roberta_serve``), requires its f32 beam sequences at 2 decoder
+    layers equal card vs CPU (``roberta_parity``), trains ConVIRT and
+    GLoRIA (``config/SELFSUP/convirt-mimic.yml``, ``gloria-mimic.yml``)
+    at full width through the train CLI on the ``rrg_train`` corpus's
+    JPEGs and reports with the corpus vocabulary (one epoch: 16 RAdam steps
+    at batch 32, 10 Adam steps at batch 48; the Validator's
+    ``validation_loss``, images/s, peak memory, a host / device-busy split;
+    no kernel on these paths; GLoRIA's ensemble CLI gives the run's
+    validation loss; ``convirt_train``, ``gloria_train``), and holds one f32
+    training step of each card vs CPU at full width, batch 4, on the same
+    ReLU branches, and GLoRIA's zero-shot classes (``selfsup_parity``).
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -117,6 +135,7 @@ repository's files, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import glob
 import json
 import math
@@ -3866,6 +3885,459 @@ def phase_tower_parity(tmp: str):
     torch.cuda.empty_cache()
 
 
+ROBERTA_CONFIG = os.path.join(ROOT, "config", "RRG", "biomed-roberta-baseline-mimic.yml")
+CONVIRT_CONFIG = os.path.join(ROOT, "config", "SELFSUP", "convirt-mimic.yml")
+GLORIA_CONFIG = os.path.join(ROOT, "config", "SELFSUP", "gloria-mimic.yml")
+# roberta-base's published config.json keys; the decoder adds cross-attention
+ROBERTA_BASE = dict(model_type="roberta", num_hidden_layers=12, hidden_size=768,
+                    num_attention_heads=12, intermediate_size=3072, max_position_embeddings=514,
+                    layer_norm_eps=1e-5, pad_token_id=1, bos_token_id=0, eos_token_id=2,
+                    vocab_size=50265, type_vocab_size=1, add_cross_attention=True)
+SELFSUP_VALIDATE = 64  # the rrg_train corpus's 32 validate images and reports + 32 of train
+
+
+def roberta_config_dir(tmp: str) -> str:
+    """A directory holding roberta-base's ``config.json`` (written here from
+    its published keys, not fetched): the decoder's ``proto``."""
+    folder = os.path.join(tmp, "roberta-base")
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(ROBERTA_BASE, f)
+    return folder
+
+
+def build_roberta(dtype: str, device: str, folder: str, overrides=()):
+    """``config/RRG/biomed-roberta-baseline-mimic.yml`` with its decoder's
+    pretrained name pointed at ``folder``: vocab 50265 from the config file,
+    the LM-head transform, random weights from the seed; its single-model
+    beam-8 generate at the config's ``tokenizer_max_len``."""
+    from vilmedic_torch import registry
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.models import rrg  # noqa: F401  (registers RRG)
+    from vilmedic_torch.models.base import get_special_token_ids
+    from vilmedic_torch.models.evaluation_nlg import make_generate_fn
+
+    cfg, _ = load_config(ROBERTA_CONFIG, [f"model.dtype={dtype}",
+                                          f"model.decoder.proto={folder}", *overrides])
+    model = registry.build("model", cfg.model, device=device, seed=SEED)
+    max_len = int(cfg.dataset.seq.tokenizer_max_len)
+    bos, eos, pad = get_special_token_ids(model.dec_config)
+    generate = make_generate_fn([model], BEAM, max_len, bos, eos, pad, length_penalty=1.0)
+    return model, generate, int(cfg.dataset.image.crop), max_len, (bos, eos, pad)
+
+
+def phase_rrg_roberta_serve(tmp: str, card: str):
+    """The RoBERTa-width RRG (DenseNet-169 at 224², a 12-layer 768 decoder
+    with cross-attention and the BERT/RoBERTa LM-head transform, vocab
+    50265), bf16, beam 8, max_len 120, on uint8 batches of 16 and 128:
+    launches (K1 (a) = 12 x decode steps, K2 = steps, K3 = 1), reports/s,
+    and device ops and device-busy ms per decode step (a 24-token generate
+    less a 12-token one). Then holds K1 (a) and K2 at this path's shapes
+    against their plain versions."""
+    import torch
+
+    set_tf32(False)
+    folder = roberta_config_dir(tmp)
+    model, generate, crop, max_len, (bos, eos, pad) = build_roberta("bfloat16", "cuda", folder)
+    dec = model.dec_config
+    layers, vocab = dec.num_hidden_layers, dec.vocab_size
+    print(f"rrg_roberta_serve: RRG from {os.path.relpath(ROBERTA_CONFIG, ROOT)}, decoder.proto = "
+          f"a roberta-base config.json: densenet169 + {layers}-layer decoder of "
+          f"{dec.hidden_size} ({dec.num_attention_heads} heads), vocab {vocab}, LM-head transform "
+          f"{dec.lm_head_transform}, special ids {bos}/{eos}/{pad}, bf16, beam {BEAM}, max_len "
+          f"{max_len}")
+    reset_launches()
+    res = serve(model, generate, host_batch(16, crop, SEED), crop, "cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    seqs, steps = res.sequences, res.steps
+    print(f"rrg_roberta_serve batch 16: sequences {tuple(seqs.shape)}, {steps} decode steps, "
+          f"launches K1 {launches[K1]}, K2 {launches[K2]}, K3 {launches[K3]}")
+    require({
+        "the RoBERTa config resolved": dec.lm_head_transform and vocab == 50265
+        and dec.max_position_embeddings == 514 and (bos, eos, pad) == (0, 2, 1)
+        and hasattr(model.module.dec, "lm_transform_ln"),
+        "shape (16, max_len)": tuple(seqs.shape) == (16, max_len),
+        "BOS in column 0": bool((seqs[:, 0] == bos).all()),
+        "ids in the vocabulary": bool(((seqs >= 0) & (seqs < vocab)).all()),
+        "finite scores": bool(torch.isfinite(res.scores).all()),
+        "K1 (a) = layers x steps": launches[K1] == layers * steps > 0,
+        "K2 = steps": launches[K2] == steps,
+        "K3 = 1": launches[K3] == 1,
+    }, "rrg_roberta_serve")
+
+    from vilmedic_torch.models.evaluation_nlg import make_generate_fn
+
+    gen_short, gen_long = (make_generate_fn([model], BEAM, n, bos, eos, pad, length_penalty=1.0)
+                           for n in (OPS_LEN, 2 * OPS_LEN))
+    batch16 = host_batch(16, crop, SEED)
+    full, n_full, ms_full = device_ops(lambda: serve(model, gen_long, batch16, crop, "cuda"))
+    part, n_part, ms_part = device_ops(lambda: serve(model, gen_short, batch16, crop, "cuda"))
+    per_step = ((n_full - n_part) / (full.steps - part.steps),
+                (ms_full - ms_part) / (full.steps - part.steps))
+    rates = {}
+    for b in (16, 128):
+        batch = host_batch(b, crop, SEED + b)
+        serve(model, generate, batch, crop, "cuda")  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, steps_seen = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            r = serve(model, generate, batch, crop, "cuda")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            steps_seen.append(r.steps)
+        med = statistics.median(times)
+        rates[b] = b / med
+        print(f"rrg_roberta_serve batch {b} ({card}): {b / med:.2f} reports/s (median of 3: "
+              f"{med * 1e3:.1f} ms per batch, spread {(max(times) - min(times)) / med * 100:.1f}%, "
+              f"steps {steps_seen}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    print(f"rrg_roberta_serve batch 16 ({card}): {per_step[0]:.1f} device ops and "
+          f"{per_step[1]:.3f} device-busy ms per decode step (torch.profiler: a "
+          f"{2 * OPS_LEN}-token generate less a {OPS_LEN}-token one, {full.steps - part.steps} "
+          "steps)")
+    gen = torch.Generator().manual_seed(SEED + 50)
+    w32, b = lm_head_weights(vocab, gen, dec.hidden_size)
+    for n in (16 * BEAM, 128 * BEAM):
+        hold_beam_cache_attention(torch.bfloat16, n, gen, t=max_len, heads=dec.num_attention_heads,
+                                  d=dec.head_dim, label=" (rrg_roberta_serve)")
+        h = torch.randn(n, dec.hidden_size, generator=gen)
+        hold_blocked_lm_head(h.to("cuda", torch.bfloat16), w32.to("cuda", torch.bfloat16),
+                             b.cuda(), label=" (rrg_roberta_serve)")
+    print(f"rrg_roberta_serve: K1 (a) bf16 at N 128 and 1024, T {max_len}, "
+          f"{dec.num_attention_heads} x {dec.head_dim}, and K2 bf16 at N 128 and 1024, Vp "
+          f"{w32.shape[0]}, agree with their plain versions")
+    del model, generate, gen_short, gen_long
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def phase_roberta_parity(tmp: str):
+    """f32, TF32 off: the RoBERTa-width RRG cut to 2 decoder layers (the
+    LM-head transform kept) on the card and on the CPU from the same
+    weights, batch 2, beam 8: equal beam sequences."""
+    import torch
+
+    set_tf32(False)
+    folder = roberta_config_dir(tmp)
+    results = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        model, generate, crop, _, _ = build_roberta(
+            "float32", device, folder, ["model.decoder.num_hidden_layers=2"])
+        res = serve(model, generate, host_batch(2, crop, SEED + 7), crop, device)
+        results[device] = (res.sequences.cpu(), res.scores.float().cpu(), res.steps)
+        del model, generate
+    (s_gpu, sc_gpu, n_gpu), (s_cpu, sc_cpu, n_cpu) = results["cuda"], results["cpu"]
+    same = torch.equal(s_gpu, s_cpu)
+    print(f"roberta parity f32 batch 2 (2 decoder layers with the LM-head transform, "
+          f"{time.perf_counter() - t0:.1f} s): sequences {'equal' if same else 'DIFFER'} "
+          f"({n_gpu} vs {n_cpu} steps), max |score diff| {(sc_gpu - sc_cpu).abs().max().item():.3e}")
+    require({"equal f32 beam sequences card vs CPU": same}, "roberta_parity")
+    torch.cuda.empty_cache()
+
+
+def selfsup_corpus(tmp: str) -> str:
+    """The SELFSUP configs' files (``{split}.image.tok``,
+    ``{split}.report.tok``) over the ``rrg_train`` corpus: its 512 train
+    JPEGs and reports, and for validate its 32 plus the first 32 of train."""
+    src, data = os.path.join(tmp, "rrg_data"), os.path.join(tmp, "selfsup_data")
+    os.makedirs(data, exist_ok=True)
+    rows = {}
+    for split in ("train", "validate"):
+        with open(os.path.join(src, f"{split}.image.tok")) as f:
+            images = f.read().split("\n")
+        with open(os.path.join(src, f"{split}.impression.tok")) as f:
+            reports = f.read().split("\n")
+        rows[split] = (images, reports)
+    extra = SELFSUP_VALIDATE - len(rows["validate"][0])
+    rows["validate"] = tuple(v + t[:extra] for v, t in zip(rows["validate"], rows["train"]))
+    for split, (images, reports) in rows.items():
+        with open(os.path.join(data, f"{split}.image.tok"), "w") as f:
+            f.write("\n".join(images))
+        with open(os.path.join(data, f"{split}.report.tok"), "w") as f:
+            f.write("\n".join(reports))
+    return data
+
+
+def selfsup_overrides(config: str, data: str, ckpt: str, name: str, device: str):
+    """A SELFSUP config on the synthetic corpus: the tokens from the corpus
+    vocabulary (the pretrained tokenizers' files are not in the
+    repository), one epoch, the ensemblor on the validate split."""
+    return [config, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
+            f"dataset.image.root={data}", f"dataset.seq.root={data}",
+            "dataset.seq.tokenizer=null", "trainor.epochs=0", "ensemblor.splits=[validate]"]
+
+
+def selfsup_train(config: str, tmp: str, name: str, card: str):
+    """A SELFSUP config through the train CLI at full width, bf16: one epoch
+    over the corpus, the Validator (``validation_loss``), timings. Returns
+    (trainor, launches, scores)."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    data = selfsup_corpus(tmp)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with StepRecorder() as steps:
+        trainor = main(selfsup_overrides(config, data, tmp, name, "cuda"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, cfg = trainor.model, trainor.config
+    enc = model.enc_config
+    batch = int(cfg.batch_size)
+    n_steps = len(steps.iterations)
+    n_train = len(trainor.dl.dataset)
+    iter_ms = statistics.median(steps.iterations[1:]) * 1e3
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    n_params = sum(p.numel() for p in model.module.parameters())
+    print(f"{name}: {cfg.model.proto} from {os.path.relpath(config, ROOT)}: "
+          f"{cfg.model.cnn.backbone} at {trainor.dl.dataset.image.crop}², a "
+          f"{enc.num_hidden_layers}-layer encoder of {enc.hidden_size} ({enc.num_attention_heads} "
+          f"heads) at T {trainor.dl.dataset.tokenizer_max_len}, vocab {enc.vocab_size} (built "
+          f"from the train split), {n_params / 1e6:.1f} M parameters, {enc.dtype}, "
+          f"{type(model.loss_fn).__name__}, {cfg.optimizer} {dict(cfg.optim_params.to_dict())}, "
+          f"batch {batch}, {trainor.dl.num_workers} loader threads, {n_steps} steps, run "
+          f"{run_s:.1f} s; losses {[round(x, 4) for x in steps.losses]}")
+    print(f"{name} bf16 batch {batch} ({card}): {iter_ms:.1f} ms per training step (whole "
+          f"iteration: loader wait, H2D, step; median of steps 2-{n_steps}: "
+          f"{[round(t * 1e3, 1) for t in steps.iterations]}), {batch / iter_ms * 1e3:.1f} images/s;"
+          f" the model step alone {step_ms:.1f} ms, {batch / step_ms * 1e3:.1f} images/s; the "
+          f"epoch's training {steps.epochs[0]:.2f} s; peak {peak:.2f} GiB")
+    evaluator = trainor.evaluator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.start()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    scores = evaluator.scores[0]
+    n_val = len(evaluator.splits[0][1].dataset)
+    print(f"{name}: Validator {n_val / val_s:.1f} images/s bf16 ({card}; batch "
+          f"{evaluator.splits[0][1].batch_size}: {val_s:.2f} s for {n_val} image-report pairs); "
+          f"validation_loss {scores['validation_loss']:.6f}")
+    train_split(trainor, name, card)
+    require({
+        f"{n_train // batch} steps": trainor.training_scheduler.iteration_count
+        == n_train // batch == n_steps,
+        "finite losses": all(map(math.isfinite, steps.losses)),
+        "finite validation_loss": math.isfinite(scores["validation_loss"]),
+        "checkpoint exists": len(glob.glob(os.path.join(tmp, name, "*.ckpt"))) == 1,
+        "no K1, K2, K3 or K4 on this path (dense attention, host float images)": not any(
+            launches[k] for k in (K1, K2, K3, "flash_attention", "flash_attention_with_lse")),
+    }, name)
+    return trainor, launches, scores
+
+
+def phase_convirt_train(tmp: str, card: str):
+    """``config/SELFSUP/convirt-mimic.yml`` at full width through the train
+    CLI: ResNet-50 to avgpool (trained), a 12-layer 768 encoder at T 128
+    (the config's pretrained name does not resolve here, so the explicit
+    keys and BERT-base's defaults build it, as in the JAX package), the two
+    projections to 768, ConVIRTLoss, RAdam 5e-5, ReduceLROnPlateau (abs
+    threshold, min_lr), batch 32: 16 steps over 512 JPEGs, the Validator
+    over 64."""
+    import torch
+
+    trainor, launches, _ = selfsup_train(CONVIRT_CONFIG, tmp, "convirt_train", card)
+    del trainor
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def phase_gloria_train(tmp: str, card: str):
+    """``config/SELFSUP/gloria-mimic.yml`` the same way: ResNet-50 with
+    layer3 captured (14 x 14 = 196 regions of 1024 -> 768), a 12-layer
+    encoder at T 97, GLoRIALoss (the local loss over the 48 x 48 grid),
+    Adam 5e-5 with L2 1e-6, batch 48: 10 steps; then ``python -m
+    vilmedic_torch.bin.ensemble`` over the run's checkpoint, which must give
+    the run's validation loss within 1e-3."""
+    import torch
+
+    from vilmedic_torch.bin.ensemble import main as ensemble
+
+    trainor, launches, scores = selfsup_train(GLORIA_CONFIG, tmp, "gloria_train", card)
+    data = os.path.join(tmp, "selfsup_data")
+    t0 = time.perf_counter()
+    ens = ensemble(selfsup_overrides(GLORIA_CONFIG, data, tmp, "gloria_train", "cuda"))
+    ens_s = time.perf_counter() - t0
+    got = ens.scores[0]["validation_loss"]
+    print(f"gloria_train: ensemble CLI over {len(ens.models)} checkpoint in {ens_s:.1f} s: "
+          f"validation loss {got:.6f} (the run's {scores['validation_loss']:.6f})")
+    require({
+        "ensemble of the run's checkpoint": len(ens.models) == 1,
+        "ensemble gives the run's validation loss": abs(got - scores["validation_loss"]) <= 1e-3,
+    }, "gloria_train")
+    del trainor, ens
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+class ReluReplay:
+    """Holds two runs of a ReLU network to the same branches. A pre-activation
+    within rounding of 0 can land on either side of the kink on the card and
+    on the CPU; its element then passes the whole downstream gradient on one
+    device and none on the other, so a parameter's gradient (a sum over such
+    elements) moves by that term, far more than f32 rounding of the sums.
+    Recording (``masks`` None) keeps each ``F.relu`` call's mask z > 0 of
+    the ResNet tower and the SELFSUP projections, in call order; replaying
+    (``masks`` from a recording) applies them, and counts the elements whose
+    own mask differs (``flips``) and their largest |z| against that call's
+    largest (``worst``): flips are allowed only within rounding of 0."""
+
+    def __init__(self, masks=None):
+        self.recording = masks is None
+        self.masks = [] if masks is None else masks
+        self.calls = self.flips = 0
+        self.worst = 0.0
+
+    def relu(self, x, inplace: bool = False):
+        import torch
+
+        if self.recording:
+            self.masks.append((x > 0).cpu())
+            return torch.relu(x)
+        mask = self.masks[self.calls].to(x.device)
+        self.calls += 1
+        flipped = (x > 0) != mask
+        if bool(flipped.any()):
+            z = x.detach().abs()
+            self.flips += int(flipped.sum())
+            self.worst = max(self.worst, float(z[flipped].max() / z.max()))
+        return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from vilmedic_torch.blocks.vision import resnet
+        from vilmedic_torch.models import selfsup
+
+        replay = self
+
+        class Functional:
+            relu = staticmethod(replay.relu)
+
+            def __getattr__(self, name):
+                return getattr(F, name)
+
+        self.modules = (resnet, selfsup)
+        for m in self.modules:
+            m.F = Functional()
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        for m in self.modules:
+            m.F = F
+
+
+class _CorpusLoader:
+    """Stands in for a loader where a SELFSUP model reads its tokenizer."""
+
+    def __init__(self, tokenizer):
+        self.dataset = type("Dataset", (), {"tokenizer": tokenizer})()
+
+
+def selfsup_step(config: str, device: str, tokenizer, batch, eps=None, relu=None):
+    """One f32 training step of a SELFSUP config at full width on
+    ``device`` (dropout 0): the model from the seed, the loss, its backward
+    and one update with the config's optimizer (``eps`` replaces Adam's);
+    the forward under ``relu`` (a :class:`ReluReplay`) where given.
+    Returns (model, loss, initial state, final state)."""
+    import torch
+
+    from vilmedic_torch import registry
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.executors.train_state import create_optimizer, gated_update
+    from vilmedic_torch.models import selfsup  # noqa: F401  (registers the models)
+
+    cfg, _ = load_config(config, ["model.dtype=float32", "model.encoder.hidden_dropout_prob=0.0"])
+    model = registry.build("model", cfg.model, dl=_CorpusLoader(tokenizer), device=device,
+                           seed=SEED)
+    initial = cpu_state(model)
+    params = cfg.trainor.optim_params.to_dict()
+    if eps is not None:
+        params["eps"] = eps
+    tx = create_optimizer(cfg.trainor.optimizer, params,
+                          frozen_prefixes=getattr(model, "frozen_prefixes", ()),
+                          named_parameters=model.module.named_parameters())
+    with relu or contextlib.nullcontext():
+        out = model.apply_train({k: v.to(device) for k, v in batch.items()})
+    out["loss"].backward()
+    gated_update(tx, float(params["lr"]), out["loss"].detach())
+    return model, float(out["loss"].detach()), initial, cpu_state(model)
+
+
+def phase_selfsup_parity(tmp: str):
+    """f32, TF32 off, full width, batch 4, card against CPU from the same
+    weights and batch: one training step of each SELFSUP config (ConVIRT:
+    RAdam's first step, un-normalized; GLoRIA: Adam with eps 1, so that a
+    gradient entry that is 0 up to rounding steps by its own size, not by a
+    full lr of either sign) — the loss within 1e-5 relative and each
+    tensor's change as ``update_agreement`` holds it, the CPU run on the
+    card run's ReLU branches (:class:`ReluReplay`: the elements whose branch
+    differs must lie within 1e-5 of their call's largest pre-activation) —
+    and GLoRIA's ``zero_shot_classification`` (3 classes of 4 prompts): the
+    same classes."""
+    import torch
+
+    from vilmedic_torch.data.tokenizer import WordPieceTokenizer
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    checks = {}
+    gen = torch.Generator().manual_seed(SEED + 60)
+    images = torch.randn(4, 3, 224, 224, generator=gen)
+    for name, config, run, t, eps in (("convirt", CONVIRT_CONFIG, "convirt_train", 128, None),
+                                      ("gloria", GLORIA_CONFIG, "gloria_train", 97, 1.0)):
+        tokenizer = WordPieceTokenizer(os.path.join(tmp, run, "vocab.src"))
+        ids = torch.randint(5, tokenizer.vocab_size, (4, t), generator=gen)
+        mask = torch.ones(4, t, dtype=torch.int64)
+        for row, length in enumerate((t, t // 2, 7, t - 3)):
+            mask[row, length:] = 0
+        ids = ids * mask + tokenizer.pad_token_id * (1 - mask)
+        batch = {"input_ids": ids, "attention_mask": mask, "images": images}
+        record = ReluReplay()
+        m_gpu, l_gpu, i_gpu, f_gpu = selfsup_step(config, "cuda", tokenizer, batch, eps, record)
+        replay = ReluReplay(record.masks)
+        m_cpu, l_cpu, i_cpu, f_cpu = selfsup_step(config, "cpu", tokenizer, batch, eps, replay)
+        del record
+        loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        same_start = all(torch.equal(i_gpu[k], i_cpu[k]) for k in i_cpu)
+        ratio, worst = update_agreement((i_cpu, i_gpu), f_cpu, f_gpu, 1)
+        print(f"selfsup parity {name} f32 batch 4 (full width): loss {l_gpu:.8f} card vs "
+              f"{l_cpu:.8f} CPU (relative diff {loss_rel:.2e}); initial weights "
+              f"{'equal' if same_start else 'DIFFER'}; parameter changes: worst |diff| / tol "
+              f"{ratio:.3g} ({worst}); ReLU calls {replay.calls}, elements on the other branch "
+              f"on the CPU {replay.flips}, their largest |z| / the call's {replay.worst:.2e}")
+        checks.update({f"{name} loss within 1e-5 relative": loss_rel <= 1e-5,
+                       f"{name} ReLU branches differ only within rounding of 0":
+                       replay.calls == len(replay.masks) and replay.worst <= 1e-5,
+                       f"{name} the same initial weights": same_start,
+                       f"{name} each tensor's change within tolerance": ratio <= 1.0})
+        if name == "gloria":
+            prompts = {}
+            for cls in ("effusion", "pneumonia", "normal"):
+                p_ids = torch.randint(5, tokenizer.vocab_size, (4, 12), generator=gen)
+                prompts[cls] = {"input_ids": p_ids, "attention_mask": torch.ones_like(p_ids)}
+            picks = {}
+            for device, model in (("cpu", m_cpu), ("cuda", m_gpu)):
+                on = {c: {k: v.to(device) for k, v in p.items()} for c, p in prompts.items()}
+                picks[device] = model.zero_shot_classification(images.to(device), on)
+            print(f"selfsup parity gloria zero-shot: card {picks['cuda']} vs CPU {picks['cpu']}")
+            checks["gloria zero-shot classes equal"] = picks["cuda"] == picks["cpu"]
+        del replay, m_cpu, m_gpu
+    print(f"selfsup parity: {time.perf_counter() - t0:.1f} s")
+    require(checks, "selfsup_parity")
+    torch.cuda.empty_cache()
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3886,6 +4358,7 @@ def main():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    t_start = time.perf_counter()
     results = phase_kernels()
     launches = {"rrg": phase_slice()}
     phase_parity()
@@ -3913,12 +4386,22 @@ def main():
         launches["mvqa_train"] = phase_mvqa_train(tmp, card)
         launches["class_train"] = phase_class_train(tmp, card)
         phase_tower_parity(tmp)
-    # the training paths' launches of the kernels they run (K1 stage a, K2,
+        print(f"phases before rrg_roberta_serve: {time.perf_counter() - t_start:.1f} s")
+        launches["rrg_roberta_serve"] = phase_rrg_roberta_serve(tmp, card)
+        phase_roberta_parity(tmp)
+        launches["convirt_train"] = phase_convirt_train(tmp, card)
+        launches["gloria_train"] = phase_gloria_train(tmp, card)
+        phase_selfsup_parity(tmp)
+        print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    # the later paths' launches of the kernels they run (K1 stage a, K2,
     # K3): RRG training, SCST fine-tuning, RRS training, RRG with the ViT
-    # tower, MVQA and CLASS (none)
+    # tower, MVQA and CLASS (none), the RoBERTa-width RRG serving, ConVIRT
+    # and GLoRIA training (none)
     for path, key in (("rrg_train", "rrg_train_launches"), ("scst_train", "scst_launches"),
                       ("rrs_train", "rrs_launches"), ("rrg_vit_train", "rrg_vit_launches"),
-                      ("mvqa_train", "mvqa_launches"), ("class_train", "class_launches")):
+                      ("mvqa_train", "mvqa_launches"), ("class_train", "class_launches"),
+                      ("rrg_roberta_serve", "rrg_roberta_launches"),
+                      ("convirt_train", "convirt_launches"), ("gloria_train", "gloria_launches")):
         for name, counter in launches[path].items():
             if name in results:
                 results[name][key] = counter
@@ -3932,7 +4415,8 @@ def main():
             "bound_ms", "bound_by", "library_ms")
     # the flash kernels' head dims; K4/K5 at D 256; launches on the training paths
     extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "rrs_launches",
-             "rrg_vit_launches", "mvqa_launches", "class_launches")
+             "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
+             "convirt_launches", "gloria_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
                                  else r[key] for key in keys},
                 **{key: r[key] for key in extra if key in r}}

@@ -10,8 +10,10 @@ top-r at ragged vocab tails, r 1 to 32 and exact ties, the fp8 probes on
 every e4m3 code at the rounding edge and at infinity), tiny VisionLanguage
 serving routes, the tiny RRG's ensembling, greedy, small-vocab and
 cache-permute routes, a tiny training step card vs CPU, the sampler, K1 (a)
-and K2 at RRS's shapes, and small SCST, RRS and RRG_FORCE generation paths
-card vs CPU. Run them on the card
+and K2 at RRS's shapes, small SCST, RRS and RRG_FORCE generation paths
+card vs CPU, a tiny RoBERTa-type RRG (the LM-head transform before K2, the
+ensemble's blocked head and the plain head) and the GLoRIA loss card vs
+CPU. Run them on the card
 from the repository root, without the JAX conftest (the card's machine has no
 JAX):
 
@@ -1041,6 +1043,69 @@ def test_tiny_rrg_routes_card_equals_cpu(cuda, monkeypatch, route, vocab, member
     k1 = 2 * members * gpu.steps if route != "permute" and beam > 1 else 0
     k2 = gpu.steps if beam > 1 and members == 1 and vocab >= 4096 else 0
     assert launched == (k1, k2)
+
+
+@pytest.mark.parametrize("vocab,members", [(4500, 1), (4500, 2), (300, 1)],
+                         ids=["blocked-stats", "ensemble", "plain-head"])
+def test_tiny_roberta_rrg_card_equals_cpu(cuda, monkeypatch, vocab, members):
+    """A RoBERTa-type decoder (the LM-head transform before every head
+    route), f32: beam sequences and scores on the card equal the CPU's; K1
+    once per member, layer and step, K2 (behind the transform) only for one
+    member over a large vocabulary."""
+    monkeypatch.setitem(tdensenet.CONFIGS, "densenet_tiny", (8, (2, 2), 16))
+    decoder = dict(proto=None, model_type="roberta", hidden_size=128, num_hidden_layers=2,
+                   num_attention_heads=2, intermediate_size=256, max_position_embeddings=64,
+                   layer_norm_eps=1e-5, vocab_size=vocab, bos_token_id=0, eos_token_id=2,
+                   pad_token_id=1)
+    cnn = dict(backbone="densenet_tiny", visual_projection={"out_features": 128})
+    gen = torch.Generator().manual_seed(3)
+    batch = {"images_u8": torch.randint(0, 256, (3, 40, 40, 3), generator=gen,
+                                        dtype=torch.uint8),
+             "preproc_tops": torch.tensor([0, 3, 8], dtype=torch.int32),
+             "preproc_lefts": torch.tensor([2, 0, 8], dtype=torch.int32)}
+    results = {}
+    for device in ("cpu", cuda):
+        models = [RRG(decoder=dict(decoder), cnn=dict(cnn), device=device, seed=9 + i)
+                  for i in range(members)]
+        assert models[0].dec_config.lm_head_transform
+        generate = make_generate_fn(models, 4, 12, 0, 2, 1)
+        on = finalize_device_preproc({k: v.to(device) for k, v in batch.items()}, 32)
+        start = (fused_beam_cache_attention.launches, lm_head_blocked_stats.launches)
+        res = generate(models[0].encoder_inputs(on))
+        results[str(device)] = (res, (fused_beam_cache_attention.launches - start[0],
+                                      lm_head_blocked_stats.launches - start[1]))
+    (cpu, _), (gpu, launched) = results["cpu"], results["cuda"]
+    assert torch.equal(cpu.sequences, gpu.sequences.cpu())
+    torch.testing.assert_close(gpu.scores.cpu(), cpu.scores, rtol=1e-4, atol=1e-4)
+    k2 = gpu.steps if members == 1 and vocab >= 4096 else 0
+    assert launched == (2 * members * gpu.steps, k2)
+
+
+def test_gloria_loss_card_equals_cpu(cuda):
+    """GLoRIA's loss (the local loss over the (text, image) grid, ragged word
+    masks) and its input gradients, f32, TF32 off: within 1e-5 relative of
+    the CPU's."""
+    from vilmedic_torch.blocks.losses import GLoRIALoss
+
+    gen = torch.Generator().manual_seed(5)
+    inputs = [torch.randn(8, 32, generator=gen), torch.randn(8, 16, 32, generator=gen),
+              torch.randn(8, 12, 32, generator=gen), torch.randn(8, 32, generator=gen)]
+    mask = (torch.arange(12)[None] < torch.tensor([12, 3, 7, 1, 12, 5, 9, 2])[:, None]).float()
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cpu", cuda):
+            xs = [x.clone().to(device).requires_grad_(True) for x in inputs]
+            loss = GLoRIALoss()(*xs, mask.to(device))
+            loss.backward()
+            out[str(device)] = (loss.detach().cpu(), [x.grad.cpu() for x in xs])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-5, atol=0)
+    for a, b in zip(g_gpu, g_cpu):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("route,vocab,beam", [("greedy", 4500, 1), ("small vocab", 4000, 4)])

@@ -261,3 +261,50 @@ def test_mvqa_variables_map_onto_the_port(backbone):
     _all_mapped(variables, tmodel.module, mvqa_state_dict_from_jax)
     np.testing.assert_array_equal(tmodel.module.classifier.Dense_0.weight.detach().numpy(),
                                   variables["params"]["classifier"]["Dense_0"]["kernel"].T)
+
+
+@pytest.mark.parametrize("family", ["convirt", "gloria"])
+def test_selfsup_variables_map_onto_the_port(family):
+    """ConVIRT (ResNet-50 tower at avgpool, batch statistics included) and
+    GLoRIA (resnet18 with layer3 captured) through their bridges."""
+    from vilmedic_torch.models import selfsup as tselfsup
+    from vilmedic_torch.zoo import from_jax
+    from vilmedic_tpu.models import selfsup as jselfsup
+
+    enc = {"proto": None, "hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 4,
+           "intermediate_size": 64, "vocab_size": 40}
+    if family == "convirt":
+        cfg = dict(encoder=enc, cnn={"backbone": "resnet50", "output_layer": "avgpool"},
+                   projection={"projection_dim": 16},
+                   loss={"proto": "ConVIRTLoss", "tau": 0.1, "lambda_": 0.75})
+        jcls, tcls = jselfsup.ConVIRT, tselfsup.ConVIRT
+        bridge = from_jax.convirt_state_dict_from_jax
+    else:
+        cfg = dict(encoder=enc, cnn={"backbone": "resnet18", "feature_dim": 16})
+        jcls, tcls = jselfsup.GLoRIA, tselfsup.GLoRIA
+        bridge = from_jax.gloria_state_dict_from_jax
+    ids = jnp.ones((1, 6), jnp.int32)
+    batch = {"input_ids": ids, "attention_mask": ids, "images": jnp.zeros((1, 64, 64, 3))}
+    jmodel = jcls(**{k: dict(v) for k, v in cfg.items()})
+    variables = jax.tree.map(np.asarray, jax.jit(jmodel.init_variables)(jax.random.key(0), batch))
+    tmodel = tcls(**{k: dict(v) for k, v in cfg.items()}, device="cpu")
+    _all_mapped(variables, tmodel.module, bridge)
+
+
+def test_roberta_decoder_variables_map_onto_the_port():
+    """A RoBERTa-type decoder's LM-head transform leaves (``lm_transform``,
+    ``lm_transform_ln``) land on the port's."""
+    from vilmedic_torch.blocks.transformer import TransformerConfig as TConfig
+    from vilmedic_torch.blocks.transformer import TransformerDecoder as TDecoder
+    from vilmedic_tpu.blocks.transformer import TransformerConfig as JConfig
+    from vilmedic_tpu.blocks.transformer import TransformerDecoder as JDecoder
+
+    arch = dict(model_type="roberta", vocab_size=50, hidden_size=32, num_hidden_layers=1,
+                num_attention_heads=4, intermediate_size=64, max_position_embeddings=16)
+    jdec = JDecoder(JConfig.from_dict(arch))
+    variables = jax.tree.map(np.asarray, jax.jit(jdec.init)(
+        jax.random.key(0), jnp.ones((1, 4), jnp.int32), jnp.ones((1, 4), jnp.int32),
+        jnp.zeros((1, 3, 32))))
+    assert "lm_transform_ln" in variables["params"]
+    tdec = TDecoder(TConfig.from_dict(arch))
+    _all_mapped(variables, tdec, rrg_state_dict_from_jax)

@@ -3,8 +3,12 @@ text encoder (port of ``blocks/transformer.py``).
 
 A post-LayerNorm transformer with learned absolute positions, an exact-erf
 GELU FFN, causal self-attention and cross-attention over an encoder memory,
-and a bare linear LM head (BertGeneration). Three ways in, as in the JAX
-module (``mode=``):
+and a linear LM head: bare (BertGeneration), or, with ``lm_head_transform``
+(set by ``TransformerConfig.from_dict`` for a BERT or RoBERTa config), after
+the HF prediction head's transform, ``lm_transform`` (dense H -> H), an
+exact-erf GELU and ``lm_transform_ln``, on every head route (the plain head,
+the blocked head and the blocked-stats kernel K2). Encoders ignore the flag.
+Three ways in, as in the JAX module (``mode=``):
 
 - ``train``: teacher forcing over a whole sequence -> f32 logits (B, T, V);
 - ``init_cache``: zeroed self K/V at ``max_len`` plus the cross K/V of the
@@ -73,20 +77,26 @@ class TransformerConfig:
     eos_token_id: Optional[int] = None
     hidden_act: str = "gelu"
     initializer_range: float = 0.02
+    # BERT/RoBERTa prediction heads run dense + GELU + LayerNorm before the
+    # vocab projection (HF BertLMPredictionHead / RobertaLMHead)
+    lm_head_transform: bool = False
     dtype: torch.dtype = torch.float32
 
     @classmethod
     def from_dict(cls, d: Dict, **overrides) -> "TransformerConfig":
         """Build from an HF-style config dict, ignoring unknown keys
-        (gradient checkpointing is not ported)."""
+        (gradient checkpointing is not ported); a BERT or RoBERTa
+        ``model_type`` turns on ``lm_head_transform`` unless the dict sets
+        it."""
         from ..config.config import Config
 
         if isinstance(d, Config):
             d = d.to_dict()
         known = {f.name for f in dataclasses.fields(cls)}
         kwargs = {k: v for k, v in {**d, **overrides}.items() if k in known}
-        if d.get("model_type") in ("bert", "roberta", "camembert", "xlm-roberta"):
-            raise NotImplementedError("the BERT/RoBERTa LM-head transform is not ported")
+        if "lm_head_transform" not in kwargs and d.get("model_type") in (
+                "bert", "roberta", "camembert", "xlm-roberta"):
+            kwargs["lm_head_transform"] = True
         if isinstance(kwargs.get("dtype"), str):
             kwargs["dtype"] = _DTYPES[kwargs["dtype"]]
         return cls(**kwargs)
@@ -543,20 +553,31 @@ class TransformerDecoder(nn.Module):
         self.embeddings = Embeddings(config)
         for i in range(config.num_hidden_layers):
             self.add_module(f"layer_{i}", DecoderLayer(config))
+        if config.lm_head_transform:
+            self.lm_transform = _linear(config, config.hidden_size, config.hidden_size)
+            self.lm_transform_ln = LayerNorm(config.hidden_size, config.layer_norm_eps,
+                                             config.dtype)
         self.lm_head = _linear(config, config.hidden_size, config.vocab_size)
 
     @property
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.config.num_hidden_layers)]
 
+    def _transform(self, h):
+        """The BERT/RoBERTa prediction head's transform where the config has
+        one, else ``h``."""
+        if not self.config.lm_head_transform:
+            return h
+        return self.lm_transform_ln(F.gelu(self.lm_transform(h)))
+
     def _head(self, h):
-        return self.lm_head(h).float()
+        return self.lm_head(self._transform(h)).float()
 
     def _head_blocked(self, h, blocked_weights, block: int = 128):
         """(N, nb, block) f32 logits from the padded head, in plain PyTorch:
         the compute-dtype product with f32 accumulation, plus the f32 bias."""
         wb, bb = blocked_weights
-        h2 = h.reshape(-1, wb.shape[1]).to(self.config.dtype)
+        h2 = self._transform(h).reshape(-1, wb.shape[1]).to(self.config.dtype)
         out = h2.float() @ wb.float().t() + bb
         return out.reshape(out.shape[0], -1, block)
 
@@ -565,7 +586,7 @@ class TransformerDecoder(nn.Module):
         (N, nb, 128) f32, bmax (N, nb), bsum (N, nb))`` for beam search's
         ``_candidates_from_stats``."""
         wb, bb = blocked_weights
-        h2 = h.reshape(-1, wb.shape[1]).to(self.config.dtype)
+        h2 = self._transform(h).reshape(-1, wb.shape[1]).to(self.config.dtype)
         return lm_head_blocked_stats(h2.contiguous(), wb, bb)
 
     def forward(self, input_ids=None, attention_mask=None, encoder_hidden_states=None,

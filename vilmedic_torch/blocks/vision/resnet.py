@@ -17,9 +17,15 @@ weights cast to the compute dtype at use; BatchNorm is the DenseNet's
 (:class:`~.densenet.BatchNorm`, Flax's momentum 0.9: batch statistics in
 training, kept for the trainer to commit, running statistics otherwise).
 Each block's last BatchNorm starts with a zero scale, as in the JAX module.
+
+``capture_layer`` (``layer1`` to ``layer4``; GLoRIA's local features take
+``layer3``) makes the forward also return that stage's map, as the JAX
+module does, in its NHWC layout (B, h, w, C): ``(output, captured)``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -107,11 +113,14 @@ class BottleneckBlock(BasicBlock):
 
 class ResNet(nn.Module):
     def __init__(self, stage_sizes, kind: str, output_layer: str = "avgpool",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, capture_layer: Optional[str] = None):
         super().__init__()
         if output_layer not in OUTPUT_LAYERS:
             raise ValueError(f"ResNet output_layer {output_layer!r}: one of {OUTPUT_LAYERS}")
+        if capture_layer not in (None, "layer1", "layer2", "layer3", "layer4"):
+            raise ValueError(f"ResNet capture_layer {capture_layer!r}: layer1 to layer4")
         self.output_layer = output_layer
+        self.capture_layer = capture_layer
         block_cls = BasicBlock if kind == "basic" else BottleneckBlock
         self.conv_init = Conv2d(3, 64, 7, 2, dtype)  # Flax's explicit padding 3
         self.bn_init = BatchNorm(64, dtype)
@@ -126,26 +135,33 @@ class ResNet(nn.Module):
                 self.add_module(f"layer{i + 1}_block{j}", block)
                 ch = 64 * 2 ** i * block_cls.expansion
             self.out_channels = ch
+            if capture_layer == f"layer{i + 1}":
+                self.captured_channels = ch
         self.n_stages = last
 
     def forward(self, x, train: bool = False):
         """(B, 3, H, W) -> the ``output_layer``'s (B, C, h, w) map, or
-        (B, C) for ``avgpool``. ``train`` normalizes with the batch's
-        statistics."""
+        (B, C) for ``avgpool``; with ``capture_layer``, ``(that, the
+        captured stage's (B, h, w, C) map)`` (None past the output layer).
+        ``train`` normalizes with the batch's statistics."""
         x = F.relu(self.bn_init(self.conv_init(x), train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        captured = None
         for i in range(self.n_stages):
             for j in range(self.stage_sizes[i]):
                 x = getattr(self, f"layer{i + 1}_block{j}")(x, train)
-        return x.mean(dim=(2, 3)) if self.output_layer == "avgpool" else x
+            if self.capture_layer == f"layer{i + 1}":
+                captured = x.permute(0, 2, 3, 1)
+        out = x.mean(dim=(2, 3)) if self.output_layer == "avgpool" else x
+        return (out, captured) if self.capture_layer else out
 
 
 def make_resnet(backbone: str, output_layer: str = "avgpool",
-                dtype: torch.dtype = torch.float32) -> ResNet:
+                dtype: torch.dtype = torch.float32, capture_layer: Optional[str] = None) -> ResNet:
     sizes, kind = STAGE_SIZES[backbone]
     if output_layer in (None, "features"):
         output_layer = "layer4"
-    return ResNet(sizes, kind, output_layer, dtype)
+    return ResNet(sizes, kind, output_layer, dtype, capture_layer)
 
 
 @torch.no_grad()

@@ -5,9 +5,13 @@ imports).
 The regex semantics must match the JAX package's exactly for tokenizer,
 vocabulary and metric parity, historical quirks included (the character
 class of ``r2gen_clean_report`` whose ``:-[`` span also removes
-``;<=>?@``). ``ifcc_clean_report`` is NLTK's ``wordpunct_tokenize`` as a
-regular expression; ``gloria_clean_report_chexpert`` and the stemming
-``rouge`` cleaner import NLTK when they run, never at import.
+``;<=>?@``). None needs NLTK, which the card's machine does not have:
+``ifcc_clean_report`` is NLTK's ``wordpunct_tokenize`` as a regular
+expression, ``gloria_clean_report_chexpert`` its word-character
+``RegexpTokenizer`` (``re.findall`` under the tokenizer's flags), and the
+stemming ``rouge``
+cleaner uses the port's copy of NLTK's Porter stemmer
+(``scorers/nlg/porter.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from ..registry import register
 
 _R2GEN_SENT_PUNCT = re.compile(r"[.,?;*!%^&_+():-\[\]{}]")
 _MULTI_UNDERSCORE = re.compile(r"_{2,}")
+# NLTK's RegexpTokenizer(r"\w+"): findall under its default flags
+_WORDS = re.compile(r"\w+", re.UNICODE | re.MULTILINE | re.DOTALL)
 _MULTI_SPACE = re.compile(r" {2,}")
 _MULTI_DOT = re.compile(r"\.{2,}")
 
@@ -81,17 +87,14 @@ def ifcc_clean_report(report: str) -> str:
 @register("processing")
 def gloria_clean_report_chexpert(report: str) -> str:
     """GLoRIA CheXpert report cleaner (reference report_preprocessing.py:36-67)."""
-    from nltk.tokenize import RegexpTokenizer
-
     t = report.replace("\n", " ")
     captions = re.split(r"[0-9]+\.", t)
     captions = [sent for point in captions for sent in point.split(".")]
 
-    tokenizer = RegexpTokenizer(r"\w+")
     all_sents = []
     for cap in captions:
         cap = cap.replace("��", " ")
-        tokens = tokenizer.tokenize(cap.lower())
+        tokens = _WORDS.findall(cap.lower())
         if len(tokens) <= 1:
             continue
         included = [w for w in (tok.encode("ascii", "ignore").decode("ascii") for tok in tokens) if w]
@@ -106,10 +109,9 @@ def rouge(text: str, use_stemmer: bool = False) -> str:
     text = re.sub(r"[^a-z0-9]+", " ", text)
     tokens = re.split(r"\s+", text)
     if use_stemmer:
-        from nltk.stem import porter
+        from ..scorers.nlg.porter import stem
 
-        stemmer = porter.PorterStemmer()
-        tokens = [stemmer.stem(x) if len(x) > 3 else x for x in tokens]
+        tokens = [stem(x) if len(x) > 3 else x for x in tokens]
     tokens = [x for x in tokens if re.match(r"^[a-z0-9]+$", x)]
     return " ".join(tokens)
 

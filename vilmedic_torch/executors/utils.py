@@ -6,9 +6,9 @@ port's registry (``ImSeq``, ``Seq2Seq``, ``ImLabel``, ``ImSeqAny``) and
 wraps it in the port's ``DataLoader``: shuffled with ``drop_last`` for the
 train split, in order otherwise. ``create_model`` builds ``model:``
 (``RRG``, ``RRG_FORCE``, ``RRG_SCST``, ``RRS``, ``RRS_SCST``,
-``VisionLanguage``, ``MVQA``) with the loader (the models take their
-vocabulary sizes from its tokenizers, a ViT tower its crop, MVQA its label
-map) and restores a checkpoint's ``model`` state dict when given one.
+``VisionLanguage``, ``MVQA``, ``ConVIRT``, ``GLoRIA``) with the loader (the
+models take their vocabulary sizes from its tokenizers, a ViT tower its
+crop, MVQA its label map) and restores a checkpoint's ``model`` state dict when given one.
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ def create_model(config, dl=None, logger=None, state_dict=None, seed: int = 0, d
     ``overrides`` stand in for what a tokenizer or HF config would supply
     (``vocab_size``, the special ids, ``vision_hf_config``)."""
     from ..models import (  # noqa: F401  (register the protos)
-        mvqa, rrg, rrg_force, rrs, scst_models, vision_language,
+        mvqa, rrg, rrg_force, rrs, scst_models, selfsup, vision_language,
     )
 
     logger = logger or logging.getLogger(__name__)

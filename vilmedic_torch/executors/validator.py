@@ -5,8 +5,11 @@ One loader per split of the config's ``splits`` (``["val"]`` when none is
 given); :meth:`Validator.start` runs the models' ``eval_func`` on each,
 scores its refs and hyps with :func:`~vilmedic_torch.scorers.compute_scores`
 and records ``{"validation_loss", <metrics>}`` per split in ``scores``.
-Unported metrics raise when the Validator is built, before any training.
-Post-processing is not ported.
+Unported metrics and any ``post_processing`` step
+(:mod:`~vilmedic_torch.scorers.post_processing`) raise when the Validator is
+built, before any training. The ``eval_func`` is told ``from_training``, as
+in the JAX package (the ensemble CLI passes False: SELFSUP models then also
+return their embeddings).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import json
 import logging
 
+from ..scorers.post_processing import check_post_processing
 from ..scorers.scores import check_metrics, compute_scores
 from .utils import create_data_loader, get_eval_func
 
@@ -24,13 +28,13 @@ class Validator:
         self.config = config
         self.logger = logging.getLogger(str(seed))
         self.models = models
+        self.from_training = from_training
         self.epoch = 0
         self.scores = []
         metrics = config.get("metrics", []) or []
         self.metrics = list(metrics) if isinstance(metrics, (list, tuple)) else [metrics]
         check_metrics(self.metrics)
-        if config.get("post_processing") is not None:
-            raise NotImplementedError("validator post_processing is not ported")
+        check_post_processing(config.get("post_processing"))
         splits = config.get("splits")
         if splits is None:
             self.logger.warning("No splits defined in config, using ['val'] as default")
@@ -45,7 +49,8 @@ class Validator:
         self.scores = []
         for split, dl in self.splits:
             self.logger.info(f"Running split: {split} by ensembling {len(self.models)} models.")
-            results = get_eval_func(self.models)(models=self.models, config=self.config, dl=dl)
+            results = get_eval_func(self.models)(models=self.models, config=self.config, dl=dl,
+                                                 from_training=self.from_training)
             if not any(key in results for key in ("loss", "refs", "hyps")):
                 raise ValueError("the evaluation function returned no evaluation keys")
             scores = {"validation_loss": float(results.pop("loss", 0.0))}

@@ -3,7 +3,10 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+import json
+import logging
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,22 +34,90 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+#: ``AutoConfig.to_dict()`` fills the model class's defaults where a bare
+#: ``config.json`` omits a key: these are those defaults for the keys
+#: ``TransformerConfig`` reads (``transformers``' BertConfig and
+#: RobertaConfig), so that a config file builds the same blocks as in the JAX
+#: package, which resolves it through ``AutoConfig``.
+_BERT_DEFAULTS = dict(
+    vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+    intermediate_size=3072, hidden_act="gelu", hidden_dropout_prob=0.1,
+    attention_probs_dropout_prob=0.1, max_position_embeddings=512, initializer_range=0.02,
+    layer_norm_eps=1e-12, pad_token_id=0, bos_token_id=None, eos_token_id=None,
+    add_cross_attention=False)
+HF_CONFIG_DEFAULTS = {
+    "bert": _BERT_DEFAULTS,
+    "roberta": dict(_BERT_DEFAULTS, vocab_size=50265, pad_token_id=1, bos_token_id=0,
+                    eos_token_id=2),
+}
+#: The weight files ``from_pretrained`` would load from beside a config.
+HF_WEIGHT_FILES = ("model.safetensors", "model.safetensors.index.json", "pytorch_model.bin",
+                   "pytorch_model.bin.index.json")
+
+
+def hf_hub_cache() -> str:
+    """The HF hub cache that ``AutoConfig.from_pretrained(name,
+    local_files_only=True)`` reads: ``$HF_HUB_CACHE``, else
+    ``$HF_HOME/hub``, else ``~/.cache/huggingface/hub``."""
+    if os.environ.get("HF_HUB_CACHE"):
+        return os.environ["HF_HUB_CACHE"]
+    home = os.environ.get("HF_HOME") or os.path.join(os.path.expanduser("~"), ".cache",
+                                                     "huggingface")
+    return os.path.join(home, "hub")
+
+
+def local_hf_config_dir(name: str) -> Optional[str]:
+    """The directory holding ``name``'s ``config.json``: ``name`` itself
+    when it is such a directory, else the hub cache's snapshot that
+    ``models--{org}--{name}/refs/main`` names; None without either."""
+    if os.path.isfile(os.path.join(name, "config.json")):
+        return name
+    repo = os.path.join(hf_hub_cache(), "models--" + name.replace("/", "--"))
+    try:
+        with open(os.path.join(repo, "refs", "main")) as f:
+            revision = f.read().strip()
+    except OSError:
+        return None
+    snapshot = os.path.join(repo, "snapshots", revision)
+    return snapshot if os.path.isfile(os.path.join(snapshot, "config.json")) else None
+
+
 def resolve_block(block_cfg):
     """Resolve a reference-style encoder/decoder block config to
-    ``(config_dict, pretrained_name_or_None)``.
+    ``(config_dict, pretrained_name_or_None)``, as the JAX package does
+    without ``transformers``.
 
     ``proto: null`` keeps the explicit keys (the flagship RRG decoder). A
-    pretrained ``proto`` name needs the HF config cache and the zoo, which are
-    not ported yet."""
+    ``proto`` name is read as JSON from a local directory holding
+    ``config.json`` or from the HF hub cache (:func:`local_hf_config_dir`),
+    with the model class's defaults (:data:`HF_CONFIG_DEFAULTS`) under the
+    file's keys and the explicit keys over both; the name comes back beside
+    it. Without a local config the explicit keys are kept with JAX's
+    warning, and the name comes back as None. Pretrained weights beside the
+    config are not loaded: the zoo that converts them is not ported, so that
+    raises rather than train the block from random weights."""
     from ..config.config import Config
 
     if isinstance(block_cfg, Config):
         block_cfg = block_cfg.to_dict()
     block_cfg = dict(block_cfg or {})
     proto = block_cfg.pop("proto", None)
-    if isinstance(proto, str) and proto:
-        raise NotImplementedError(f"pretrained block config {proto!r} is not ported")
-    return block_cfg, None
+    if not (isinstance(proto, str) and proto):
+        return block_cfg, None
+    folder = local_hf_config_dir(proto)
+    if folder is None:
+        logging.getLogger(__name__).warning(
+            f"Pretrained config {proto!r} not in local cache; using explicit keys/defaults")
+        return block_cfg, None
+    weights = [f for f in HF_WEIGHT_FILES if os.path.exists(os.path.join(folder, f))]
+    if weights:
+        raise NotImplementedError(
+            f"pretrained weights {weights} of {proto!r}: loading HF weights needs the zoo "
+            "(zoo/convert.py), which is not ported")
+    with open(os.path.join(folder, "config.json")) as f:
+        hf = json.load(f)
+    resolved = {**HF_CONFIG_DEFAULTS.get(hf.get("model_type"), {}), **hf, **block_cfg}
+    return resolved, proto
 
 
 def loader_crop(dl):

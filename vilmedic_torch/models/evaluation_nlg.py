@@ -165,7 +165,7 @@ def to_device(batch, device):
             for k, v in batch.items()}
 
 
-def evaluation(models, config, dl) -> Dict[str, Any]:
+def evaluation(models, config, dl, **kwargs) -> Dict[str, Any]:
     """The ``eval_func`` of RRG- and RRS-style models: ``make_generate_fn``
     at the config's ``beam_width`` (default 1) and ``length_penalty``
     (default 1), up to the target's ``tokenizer_max_len``, over every batch

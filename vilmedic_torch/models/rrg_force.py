@@ -56,7 +56,7 @@ def make_force_generate_fn(model, max_len: int, bos_id: int, eos_id: int, pad_id
     return generate
 
 
-def evaluation_force(models, config, dl) -> Dict:
+def evaluation_force(models, config, dl, **kwargs) -> Dict:
     """The constrained-decoding ``eval_func``: ``{"refs", "hyps"}`` over
     ``dl``, with the first model."""
     model = models[0]

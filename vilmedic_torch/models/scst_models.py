@@ -46,7 +46,7 @@ from .base import get_special_token_ids
 from .evaluation_nlg import evaluation, target_side
 
 
-def scst_evaluation(models, config, dl) -> Dict:
+def scst_evaluation(models, config, dl, **kwargs) -> Dict:
     """The base models' NLG ``evaluation``."""
     return evaluation([m.model for m in models], config, dl)
 

@@ -1,5 +1,5 @@
-"""Weight bridge from the JAX package's RRG, RRS, SCST, VisionLanguage and
-MVQA variables to the port's state dicts (counterpart of
+"""Weight bridge from the JAX package's RRG, RRS, SCST, VisionLanguage,
+MVQA, ConVIRT and GLoRIA variables to the port's state dicts (counterpart of
 ``zoo/convert.py``); :func:`rrg_state_dict_from_jax` carries any tree of
 the port's modules, a ViT or ResNet tower's own variables among them.
 
@@ -10,6 +10,8 @@ transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
   ``weight`` OIHW; ``bias`` -> ``bias``;
 - LayerNorm/BatchNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
 - BatchNorm statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
+- a BERT/RoBERTa decoder's LM-head transform, ``lm_transform`` (Dense) and
+  ``lm_transform_ln`` (LayerNorm), by the same two rules;
 - bare parameters (the ViT and DINOv2 ``cls_token`` and ``pos_embed``,
   LayerScale ``ls1``/``ls2``, VisionLanguage's ``image_token_embedding``)
   as they are.
@@ -112,3 +114,16 @@ def mvqa_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     -> the port's ``MVQAModule`` state dict of f32 tensors."""
     return rrg_state_dict_from_jax(variables)
 
+
+def convirt_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ConVIRT ``{"params", "batch_stats"}`` (numpy leaves:
+    ``linguistic``, ``pooler``, ``lin_proj``, ``vis_proj``, ``visual``) ->
+    the port's ``ConVIRTModule`` state dict of f32 tensors."""
+    return rrg_state_dict_from_jax(variables)
+
+
+def gloria_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX GLoRIA ``{"params", "batch_stats"}`` (numpy leaves: ``cnn``,
+    ``text_encoder`` and the four embedders) -> the port's ``GLoRIAModule``
+    state dict of f32 tensors."""
+    return rrg_state_dict_from_jax(variables)
