@@ -124,7 +124,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     no kernel on these paths; GLoRIA's ensemble CLI gives the run's
     validation loss; ``convirt_train``, ``gloria_train``), and holds one f32
     training step of each card vs CPU at full width, batch 4, on the same
-    ReLU branches, and GLoRIA's zero-shot classes (``selfsup_parity``).
+    ReLU branches, and GLoRIA's zero-shot classes (``selfsup_parity``);
+16. trains RRG_HF (``config/RRG/baseline-mimic-HF.yml``: a DeiT-shaped
+    post-LN ViT-B/16 at 224², a 2-layer 768 decoder whose vocabulary and
+    special ids come from the corpus tokenizer) through the train CLI on
+    the ``rrg_train`` corpus's host float JPEGs at batch 128, the Validator
+    at beam 8 (K1 (a) = 2 x decode steps, K2 = steps; ``rrg_hf_train``);
+    the same with ``multi_image`` 2 over lines of one to three JPEGs at
+    batch 64, then serves it at beam 8, batch 16, over the 394-token masked
+    memory (``rrg_multi_image``); trains RRS_HF
+    (``config/RRS/baseline-mimic-HF.yml`` with both blocks named by a
+    roberta-base ``config.json``: 12 + 12 layers with the LM-head
+    transform, bf16, batch 128, the ``rrs_train`` pairs; the Validator at
+    beam 2: K1 (a) = 12 x decode steps; ``rrs_hf_train``), each with ms per
+    iteration and per step, images/s or tokens/s, peak memory, a host /
+    device-busy split and the Validator's reports/s; and holds f32 card vs
+    CPU: one RRG_HF CLI step on a multi-image batch with an image masked
+    and its beam-8 sequences, RRS_HF's beam-2 sequences at 2 + 2 layers,
+    and the ``3d_densenet121`` and ``slice_encode`` features
+    (``hf_parity``). The kernels phase also holds K1 (a) at beam 2, N 256.
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -459,6 +477,10 @@ def check_beam_cache_attention(results):
                     cuda_ms(lambda: fused_beam_cache_attention_reference(kc, vc, q, kn, vn, mask, 99)),
                     beam_cache_bound(kc, q, mask, 99, rows),
                 )
+    # beam 2 (the RRS_HF Validator's): 128 items of 2-row groups
+    for dtype in (torch.float32, torch.bfloat16):
+        err, _ = hold_beam_cache_attention(dtype, 256, gen, rows=2, label=" beam 2")
+        worst = max(worst, err)
     for n, (ms, plain, bd) in timing.items():
         print(f"K1 bf16 N={n} index=99 (one cache, L2-warm): kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
@@ -4338,6 +4360,478 @@ def phase_selfsup_parity(tmp: str):
     torch.cuda.empty_cache()
 
 
+HF_RRG_CONFIG = os.path.join(ROOT, "config", "RRG", "baseline-mimic-HF.yml")
+HF_RRS_CONFIG = os.path.join(ROOT, "config", "RRS", "baseline-mimic-HF.yml")
+MULTI_TRAIN, MULTI_VALIDATE = 256, 32  # 4 steps at batch 64, 8 validator batches of 4
+
+
+def rrg_hf_overrides(data: str, ckpt: str, name: str, device: str):
+    """The dotlist that points ``config/RRG/baseline-mimic-HF.yml`` at a
+    synthetic corpus; BLEU and ROUGEL stand in for ``bertscore``, which is
+    not ported."""
+    return [HF_RRG_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}",
+            f"seed={SEED}", f"dataset.image.root={data}", f"dataset.seq.root={data}",
+            "trainor.epochs=0", "trainor.early_stop_metric=BLEU",
+            "validator.metrics=[BLEU,ROUGEL]"]
+
+
+def multi_image_corpus(src: str, dst: str, n_train: int, n_validate: int):
+    """Lines of one, two and three of ``src``'s JPEGs in turn (at
+    ``multi_image`` 2 a third of the samples are padded and a third
+    truncated), with ``src``'s reports, in the files the HF config names."""
+    os.makedirs(dst, exist_ok=True)
+    for split, n in (("train", n_train), ("validate", n_validate)):
+        with open(os.path.join(src, f"{split}.image.tok")) as f:
+            paths = f.read().split("\n")
+        with open(os.path.join(src, f"{split}.impression.tok")) as f:
+            reports = f.read().split("\n")
+        lines = [",".join(paths[(i + j) % len(paths)] for j in range(i % 3 + 1))
+                 for i in range(n)]
+        with open(os.path.join(dst, f"{split}.image.tok"), "w") as f:
+            f.write("\n".join(lines))
+        with open(os.path.join(dst, f"{split}.impression.tok"), "w") as f:
+            f.write("\n".join(reports[:n]))
+
+
+def rrg_hf_run(overrides, label: str, card: str):
+    """The train CLI over ``overrides`` in bf16, timed: prints the run's
+    rates, the Validator's and a host / device-busy split; returns the
+    trainor, the launches, the Validator's decode steps and the steps'
+    recorder."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with StepRecorder() as steps, DecodeSteps() as val_steps:
+        trainor = main(overrides)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, evaluator, cfg = trainor.model, trainor.evaluator, trainor.config
+    vit, dec = model.module.enc.model, model.dec_config
+    image = trainor.dl.dataset.image
+    batch = int(cfg.batch_size)
+    n_images = batch * max(image.multi_image, 1)
+    n_steps = len(steps.iterations)
+    iter_ms = statistics.median(steps.iterations[1:]) * 1e3
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    print(f"{label}: ViT pre_ln={vit.pre_ln} {vit.config.hidden_act}, "
+          f"{vit.config.num_hidden_layers} layers of {vit.config.hidden_size} at {image.crop}² "
+          f"({vit.pos_embed.shape[1]} tokens), multi_image {image.multi_image}, "
+          f"{dec.num_hidden_layers}-layer decoder of {dec.hidden_size}, vocab {dec.vocab_size} "
+          f"(special ids {dec.bos_token_id}/{dec.eos_token_id}/{dec.pad_token_id} from the "
+          f"tokenizer), {dec.dtype}, {cfg.optimizer} lr {trainor.base_lr:g}, batch {batch}, "
+          f"{n_steps} steps, run {run_s:.1f} s; losses {[round(x, 4) for x in steps.losses]}")
+    print(f"{label} bf16 batch {batch} ({n_images} images; {card}): {iter_ms:.1f} ms per "
+          f"training step (whole iteration; median of steps 2-{n_steps}: "
+          f"{[round(t * 1e3, 1) for t in steps.iterations]}), {n_images / iter_ms * 1e3:.1f} "
+          f"images/s; the model step alone {step_ms:.1f} ms; peak {peak:.2f} GiB")
+    val_dl = evaluator.splits[0][1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.start()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    n_val = len(val_dl.dataset)
+    print(f"{label}: Validator {n_val / val_s:.2f} reports/s bf16 ({card}; batch "
+          f"{val_dl.batch_size}, beam {evaluator.config.beam_width}: {val_s:.2f} s for {n_val} "
+          f"reports); scores {evaluator.scores[0]}; launches K1 {launches[K1]}, K2 "
+          f"{launches[K2]}, K3 {launches[K3]} over {val_steps.steps} decode steps")
+    train_split(trainor, label, card)
+    return dict(trainor=trainor, launches=launches, val_steps=val_steps.steps, steps=steps)
+
+
+def rrg_hf_checks(run, tokens: int):
+    trainor, launches = run["trainor"], run["launches"]
+    model, steps = trainor.model, run["steps"]
+    vit, dec = model.module.enc.model, model.dec_config
+    scores = trainor.evaluator.scores[0]
+    return {
+        "RRG_HF built from the config": type(model).__name__ == "RRG_HF",
+        "DeiT-shaped post-LN ViT-B/16, gelu": not vit.pre_ln and vit.config.hidden_act == "gelu"
+        and vit.config.num_hidden_layers == 12 and vit.pos_embed.shape[1] == tokens,
+        "2-layer 768 decoder, no projection": dec.num_hidden_layers == 2
+        and dec.hidden_size == 768 and model.module.enc.visual_projection is None,
+        "the tokenizer's special ids": (dec.bos_token_id, dec.eos_token_id, dec.pad_token_id)
+        == (trainor.dl.dataset.tokenizer.cls_token_id, trainor.dl.dataset.tokenizer.sep_token_id,
+            trainor.dl.dataset.tokenizer.pad_token_id),
+        f"{len(steps.losses)} finite losses": len(steps.losses) >= 2
+        and all(map(math.isfinite, steps.losses)),
+        "the ViT trains": any(n.startswith("enc.model.layer_11.") for n in trainor.tx.names),
+        "finite BLEU / ROUGEL": all(scores.get(k) is not None and math.isfinite(scores[k])
+                                    for k in ("BLEU", "ROUGEL")),
+        "K1 (a) = 2 x decode steps": launches[K1] == 2 * run["val_steps"] > 0,
+        "K2 = decode steps": launches[K2] == run["val_steps"],
+        "no K3 (host float images)": launches[K3] == 0,
+    }
+
+
+def top_device_kernels(fn, n: int = 6):
+    """The ``n`` device kernels (by name, shortened) that take the most of
+    ``fn``'s device time under ``torch.profiler``: [(name, ms, calls)], and
+    the summed device ms of all of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]][0] += (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name[:60]][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(k, ms, calls) for k, (ms, calls) in top], sum(v[0] for v in by_name.values())
+
+
+def phase_rrg_hf_train(tmp: str, card: str):
+    """``config/RRG/baseline-mimic-HF.yml`` (RRG_HF) through the train CLI
+    on the ``rrg_train`` corpus, bf16: a DeiT-shaped post-LN ViT-B/16 at
+    224² (197 tokens, trained), a 2-layer 768 decoder whose vocabulary and
+    special ids come from the corpus tokenizer, RAdam 5e-5,
+    ReduceLROnPlateau, batch 128 (4 steps, host float images); the
+    Validator at batch 4, beam 8 (K1 stage a in both layers, K2) with BLEU
+    and ROUGEL."""
+    import torch
+
+    data = os.path.join(tmp, "rrg_data")
+    run = rrg_hf_run(rrg_hf_overrides(data, tmp, "rrg_hf_train", "cuda"), "rrg_hf_train", card)
+    require({**rrg_hf_checks(run, 197),
+             "4 steps": run["trainor"].training_scheduler.iteration_count == 4}, "rrg_hf_train")
+    launches = run["launches"]
+    del run
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def phase_rrg_multi_image(tmp: str, card: str):
+    """The same model with ``dataset.image.multi_image=2`` over lines of
+    one, two and three of the ``rrg_train`` corpus's JPEGs: training at
+    batch 64 (the tower sees 128 images a step; 4 steps), the Validator at
+    beam 8; then serving at beam 8, batch 16, over the 394-token masked
+    memory (the padded images' 197 tokens masked): launches and reports/s."""
+    import torch
+
+    from vilmedic_torch.models.base import get_special_token_ids
+    from vilmedic_torch.models.evaluation_nlg import make_generate_fn
+
+    data = os.path.join(tmp, "rrg_multi_data")
+    multi_image_corpus(os.path.join(tmp, "rrg_data"), data, MULTI_TRAIN, MULTI_VALIDATE)
+    run = rrg_hf_run(rrg_hf_overrides(data, tmp, "rrg_multi_image", "cuda") + [
+        "dataset.image.multi_image=2", "trainor.batch_size=64"], "rrg_multi_image", card)
+    trainor = run["trainor"]
+    model = trainor.model
+    ds = trainor.evaluator.splits[0][1].dataset
+    batch = trainor._model_batch(ds.get_collate_fn()([ds[i] for i in range(16)]))
+    inputs = model.encoder_inputs(batch)
+    with torch.inference_mode():
+        memory, memory_mask = model.module.encode(**inputs)
+    mask = batch["images_mask"]
+    padded = memory_mask.view(16, 2, 197)[~mask]
+    tokenizer = ds.tokenizer
+    bos, eos, pad = get_special_token_ids(model.dec_config, tokenizer)
+    max_len = int(ds.tokenizer_max_len)
+    generate = make_generate_fn([model], BEAM, max_len, bos, eos, pad, length_penalty=1.0)
+    generate(inputs)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    res = generate(inputs)
+    torch.cuda.synchronize()
+    served = read_launches()
+    times, steps_seen = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = generate(inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        steps_seen.append(r.steps)
+    med = statistics.median(times)
+    print(f"rrg_multi_image serving bf16 batch 16, beam {BEAM} ({card}): images "
+          f"{tuple(batch['images'].shape)}, {int((~mask).sum())} padded images, memory "
+          f"{tuple(memory.shape)}; {16 / med:.2f} reports/s (median of 3: {med * 1e3:.1f} ms, "
+          f"steps {steps_seen}); launches K1 {served[K1]}, K2 {served[K2]} over {res.steps} "
+          "steps")
+    layers = model.dec_config.num_hidden_layers
+    require({
+        **rrg_hf_checks(run, 197),
+        "4 steps at batch 64": trainor.training_scheduler.iteration_count == 4,
+        "images (B, 2, 3, 224, 224)": tuple(batch["images"].shape) == (16, 2, 3, 224, 224),
+        "some images padded": bool((~mask).any()) and bool(mask[:, 0].all()),
+        "a 394-token memory": tuple(memory.shape) == (16, 394, 768),
+        "the padded images' tokens masked": padded.numel() > 0 and not bool(padded.any()),
+        "the real images' tokens kept": bool(memory_mask.view(16, 2, 197)[mask].all()),
+        "serving: K1 (a) = layers x steps": served[K1] == layers * res.steps > 0,
+        "serving: K2 = steps": served[K2] == res.steps,
+        "finite scores": bool(torch.isfinite(res.scores).all()),
+    }, "rrg_multi_image")
+    launches = run["launches"]
+    del run, trainor, model, generate, memory
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def rrs_hf_overrides(data: str, ckpt: str, name: str, device: str, folder: str):
+    """``config/RRS/baseline-mimic-HF.yml`` with both blocks' pretrained name
+    pointed at ``folder`` and the data at the ``rrs_train`` phase's files
+    (no HF dataset, the corpus vocabularies); BLEU and ROUGEL stand in for
+    the clinical scorers and ``bertscore``."""
+    return [HF_RRS_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}",
+            f"seed={SEED}", f"model.encoder={folder}", f"model.decoder={folder}",
+            f"dataset.src.root={data}", f"dataset.tgt.root={data}",
+            "dataset.src.file=findings.tok", "dataset.tgt.file=impression.tok",
+            "dataset.src.hf_dataset=null", "dataset.tgt.hf_dataset=null",
+            "dataset.src.tokenizer=null", "dataset.tgt.tokenizer=null", "trainor.epochs=0",
+            "trainor.early_stop_metric=BLEU", "validator.metrics=[BLEU,ROUGEL]"]
+
+
+def phase_rrs_hf_train(tmp: str, card: str):
+    """``config/RRS/baseline-mimic-HF.yml`` (RRS_HF) through the train CLI,
+    bf16 by override (the config names no dtype, so it builds f32 in both
+    packages): encoder and decoder from a roberta-base ``config.json`` (12 + 12
+    layers of 768, the LM-head transform), source 128, target 80, batch 128
+    over the ``rrs_train`` phase's 256 pairs (2 RAdam steps), the Validator
+    at batch 4, beam 2 (K1 stage a at beam 2 in each of the 12 layers, K2
+    over the target vocabulary). Then holds K1 (a) and K2 at this path's
+    shapes against their plain versions."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    folder = roberta_config_dir(tmp)
+    data = os.path.join(tmp, "rrs_data")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with StepRecorder() as steps, DecodeSteps() as val_steps:
+        trainor = main(rrs_hf_overrides(data, tmp, "rrs_hf_train", "cuda", folder)
+                       + ["model.dtype=bfloat16"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, evaluator, cfg = trainor.model, trainor.evaluator, trainor.config
+    dec, enc = model.dec_config, model.enc_config
+    batch = int(cfg.batch_size)
+    src_len = int(cfg.dataset.src.tokenizer_max_len)
+    tgt_len = int(cfg.dataset.tgt.tokenizer_max_len)
+    iter_ms = statistics.median(steps.iterations[1:]) * 1e3
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    scores = evaluator.scores[0]
+    val_dl = evaluator.splits[0][1]
+    print(f"rrs_hf_train: RRS_HF from a roberta-base config.json, {enc.num_hidden_layers} + "
+          f"{dec.num_hidden_layers} layers of {dec.hidden_size} ({dec.num_attention_heads} "
+          f"heads of {dec.head_dim}), LM-head transform {dec.lm_head_transform}, vocab "
+          f"{enc.vocab_size} -> {dec.vocab_size}, {dec.dtype}, {cfg.optimizer} lr "
+          f"{trainor.base_lr:g}, batch {batch}, source {src_len}, target {tgt_len}, "
+          f"{len(steps.losses)} steps, run {run_s:.1f} s; losses "
+          f"{[round(x, 4) for x in steps.losses]}")
+    print(f"rrs_hf_train bf16 batch {batch} ({card}): {iter_ms:.1f} ms per training step "
+          f"(whole iteration; steps {[round(t * 1e3, 1) for t in steps.iterations]}), "
+          f"{batch * (src_len + tgt_len) / iter_ms * 1e3:.0f} padded tokens/s (source + "
+          f"target); the model step alone {step_ms:.1f} ms; peak {peak:.2f} GiB")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.start()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    n_val = len(val_dl.dataset)
+    print(f"rrs_hf_train: Validator {n_val / val_s:.2f} reports/s bf16 ({card}; batch "
+          f"{val_dl.batch_size}, beam {evaluator.config.beam_width}: {val_s:.2f} s for {n_val} "
+          f"reports); scores {scores}; launches K1 {launches[K1]}, K2 {launches[K2]} over "
+          f"{val_steps.steps} decode steps")
+    # where a step's device time goes: forward / backward / RAdam, and the
+    # kernels that take most of one more step
+    one = trainor._model_batch(next(iter(trainor.dl)))
+    trainor.zero_grads()
+    out, f_host, f_dev = device_ms(lambda: model.apply_train(one, trainor.generator))
+    _, b_host, b_dev = device_ms(lambda: out["loss"].backward())
+    _, o_host, o_dev = device_ms(lambda: trainor.apply_step(trainor.base_lr,
+                                                            out["loss"].detach()))
+    print(f"rrs_hf_train split (torch.profiler, one more step, {card}): forward host "
+          f"{f_host:.1f} / device busy {f_dev['all']:.1f} ms, backward {b_host:.1f} / "
+          f"{b_dev['all']:.1f} ms, RAdam {o_host:.1f} / {o_dev['all']:.1f} ms")
+    lr = trainor.training_scheduler.current_lr()
+    top, total = top_device_kernels(lambda: trainor.train_step(one, lr))
+    print(f"rrs_hf_train top device kernels of one more step ({total:.1f} device ms): "
+          + "; ".join(f"{name} {ms:.1f} ms x {calls}" for name, ms, calls in top))
+    beam = int(evaluator.config.beam_width)
+    require({
+        "RRS_HF built from the config": type(model).__name__ == "RRS_HF",
+        "12 + 12 layers of 768 with the transform, bf16": enc.num_hidden_layers
+        == dec.num_hidden_layers == 12 and dec.hidden_size == 768 and dec.lm_head_transform
+        and dec.dtype == torch.bfloat16,
+        "beam 2": beam == 2,
+        "finite losses": len(steps.losses) == 2 and all(map(math.isfinite, steps.losses)),
+        "finite ROUGEL / BLEU": all(scores.get(k) is not None and math.isfinite(scores[k])
+                                    for k in ("ROUGEL", "BLEU")),
+        "target vocab takes the blocked head": dec.vocab_size >= 4096,
+        "K1 (a) = 12 x decode steps": launches[K1] == 12 * val_steps.steps > 0,
+        "K2 = decode steps": launches[K2] == val_steps.steps,
+    }, "rrs_hf_train")
+    n = val_dl.batch_size * beam
+    gen = torch.Generator().manual_seed(SEED + 60)
+    hold_beam_cache_attention(torch.bfloat16, n, gen, t=tgt_len, heads=dec.num_attention_heads,
+                              d=dec.head_dim, rows=beam, label=" (rrs_hf_train, beam 2)")
+    w32, b = lm_head_weights(dec.vocab_size, gen, dec.hidden_size)
+    h = torch.randn(n, dec.hidden_size, generator=gen)
+    hold_blocked_lm_head(h.to("cuda", torch.bfloat16), w32.to("cuda", torch.bfloat16), b.cuda(),
+                         label=" (rrs_hf_train)")
+    print(f"rrs_hf_train: K1 (a) bf16 at N {n} (beam 2), T {tgt_len}, and K2 bf16 at N {n}, Vp "
+          f"{w32.shape[0]}, agree with their plain versions")
+    del trainor, model, evaluator
+    torch.cuda.empty_cache()
+    return {K1: launches[K1], K2: launches[K2]}
+
+
+def rrg_hf_parity(tmp: str):
+    """RRG_HF f32, TF32 off, through the train CLI on the CPU and on the
+    card: the ViT cut to 2 layers, ``multi_image`` 2, batch 2 (one sample's
+    second image padded), dropout 0, one RAdam step, no evaluation: the
+    loss within 1e-5 relative, each tensor's change as ``update_agreement``
+    holds it; then, with the CPU's trained weights on both, equal beam-8
+    sequences over the validate lines."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+    from vilmedic_torch.models.base import get_special_token_ids
+    from vilmedic_torch.models.evaluation_nlg import make_generate_fn
+
+    base = os.path.join(tmp, "hf_parity_base")
+    data = os.path.join(tmp, "hf_parity_data")
+    synthetic_corpus(base, 2, 2, SEED + 4, 256)
+    multi_image_corpus(base, data, 2, 2)
+    runs = {}
+    for device in PARITY_DEVICES:
+        with StepRecorder() as steps:
+            trainor = main(rrg_hf_overrides(data, tmp, f"hf_parity_{device}", device) + [
+                "dataset.image.multi_image=2", "model.dtype=float32",
+                "model.vision.proto_config_args.num_hidden_layers=2",
+                "model.decoder.proto_config_args.hidden_dropout_prob=0.0",
+                "model.decoder.proto_config_args.attention_probs_dropout_prob=0.0",
+                "trainor.batch_size=2", "trainor.eval_start=99", "dataset.num_workers=0"])
+        runs[device] = dict(trainor=trainor, losses=steps.losses, initial=steps.initial,
+                            final=cpu_state(trainor.model))
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    loss_rel = abs(gpu["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+    same_start = all(torch.equal(gpu["initial"][k], cpu["initial"][k]) for k in cpu["initial"])
+    ratio, worst = update_agreement((cpu["initial"], gpu["initial"]), cpu["final"],
+                                    gpu["final"], 1)
+    cpu_losses, gpu_losses = cpu["losses"], gpu["losses"]
+    seqs = {}
+    for device, run in runs.items():
+        model = run["trainor"].model
+        model.module.load_state_dict(cpu["final"])
+        vds = run["trainor"].evaluator.splits[0][1].dataset
+        batch = run["trainor"]._model_batch(vds.get_collate_fn()([vds[i] for i in range(2)]))
+        ids = get_special_token_ids(model.dec_config, vds.tokenizer)
+        res = make_generate_fn([model], BEAM, int(vds.tokenizer_max_len), *ids)(
+            model.encoder_inputs(batch))
+        seqs[device] = (res.sequences.cpu(), batch["images_mask"].cpu())
+    same = torch.equal(seqs["cpu"][0], seqs["cuda"][0])
+    print(f"hf parity RRG_HF f32 batch 2, multi_image 2 (masks {seqs['cpu'][1].tolist()}; ViT-B "
+          f"2 layers): loss {gpu['losses']} card vs {cpu['losses']} CPU (relative diff "
+          f"{loss_rel:.2e}); initial weights {'equal' if same_start else 'DIFFER'}; parameter "
+          f"changes: worst |diff| / tol {ratio:.3g} ({worst}); beam-8 sequences "
+          f"{'equal' if same else 'DIFFER'}")
+    del runs, cpu, gpu
+    return {"RRG_HF one step each": len(cpu_losses) == len(gpu_losses) == 1,
+            "RRG_HF a padded image in the batch": not bool(seqs["cpu"][1].all()),
+            "RRG_HF loss within 1e-5 relative": loss_rel <= 1e-5,
+            "RRG_HF the same initial weights": same_start,
+            "RRG_HF each tensor's change within tolerance": ratio <= 1.0,
+            "RRG_HF equal beam sequences": same}
+
+
+def rrs_hf_parity(tmp: str):
+    """RRS_HF f32 from a roberta-base ``config.json`` cut to 2 + 2 layers,
+    random weights from the seed on the CPU and on the card, vocab 50265:
+    equal beam-2 sequences over 2 sources of 128 (one padded)."""
+    import torch
+
+    from vilmedic_torch import registry
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.models import hf_compat  # noqa: F401  (registers RRS_HF)
+    from vilmedic_torch.models.base import get_special_token_ids
+    from vilmedic_torch.models.evaluation_nlg import make_generate_fn
+
+    folder = os.path.join(tmp, "roberta-base-2")
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(dict(ROBERTA_BASE, num_hidden_layers=2), f)
+    cfg, _ = load_config(HF_RRS_CONFIG, [f"model.encoder={folder}", f"model.decoder={folder}",
+                                         "model.dtype=float32"])
+    gen = torch.Generator().manual_seed(SEED + 8)
+    ids = torch.randint(5, 50265, (2, 128), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[1, 90:] = 0
+    ids[1, 90:] = 1
+    out = {}
+    for device in PARITY_DEVICES:
+        model = registry.build("model", cfg.model, device=device, seed=SEED)
+        special = get_special_token_ids(model.dec_config)
+        res = make_generate_fn([model], 2, 80, *special)(model.encoder_inputs(
+            {"input_ids": ids.to(device), "attention_mask": mask.to(device)}))
+        out[device] = (res.sequences.cpu(), res.scores.float().cpu(), res.steps)
+        layers = (model.enc_config.num_hidden_layers, model.dec_config.num_hidden_layers)
+        del model
+    same = torch.equal(out["cpu"][0], out["cuda"][0])
+    print(f"hf parity RRS_HF f32 ({layers[0]} + {layers[1]} layers of 768, vocab 50265, beam 2): "
+          f"sequences {'equal' if same else 'DIFFER'} ({out['cuda'][2]} vs {out['cpu'][2]} "
+          f"steps), max |score diff| {(out['cuda'][1] - out['cpu'][1]).abs().max().item():.3e}")
+    return {"RRS_HF 2 + 2 layers": layers == (2, 2), "RRS_HF equal beam-2 sequences": same}
+
+
+def tower_volume_parity():
+    """f32, TF32 off: ``3d_densenet121`` (avgpool) on (2, 1, 32, 32, 32)
+    volumes and ``slice_encode`` of a 2-D densenet121 over 4 slices along D,
+    the same weights on the CPU and the card: features within 1e-4 of the
+    largest, equal masks."""
+    import torch
+
+    from vilmedic_torch.blocks.vision.visual_encoder import build_visual_encoder
+    from vilmedic_torch.models.base import init_weights_
+
+    checks = {}
+    gen = torch.Generator().manual_seed(SEED + 9)
+    for name, block, shape in (
+            ("3d_densenet121", dict(backbone="3d_densenet121", output_layer="avgpool"),
+             (2, 1, 32, 32, 32)),
+            ("slice_encode", dict(backbone="densenet121", output_layer="avgpool",
+                                  slice_encode=True, slice_dim=1), (2, 1, 4, 32, 32))):
+        enc = build_visual_encoder(block, in_channels=1).eval()
+        init_weights_(enc, torch.Generator().manual_seed(SEED), 0.02, lambda n: False)
+        x = torch.randn(*shape, generator=gen)
+        with torch.no_grad():
+            want, want_mask = enc.encode(x)
+            got, got_mask = enc.to("cuda").encode(x.to("cuda"))
+        err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+        print(f"hf parity {name} f32 {tuple(x.shape)} -> {tuple(got.shape)}: max |diff| / max "
+              f"{err:.2e} (tol 1e-4), masks {'equal' if torch.equal(got_mask.cpu(), want_mask) else 'DIFFER'}")
+        checks[f"{name} within 1e-4"] = err <= 1e-4
+        checks[f"{name} equal masks"] = torch.equal(got_mask.cpu(), want_mask)
+    return checks
+
+
+def phase_hf_parity(tmp: str):
+    import torch
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    checks = {**rrg_hf_parity(tmp), **rrs_hf_parity(tmp), **tower_volume_parity()}
+    print(f"hf parity: {time.perf_counter() - t0:.1f} s")
+    require(checks, "hf_parity")
+    torch.cuda.empty_cache()
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4392,16 +4886,25 @@ def main():
         launches["convirt_train"] = phase_convirt_train(tmp, card)
         launches["gloria_train"] = phase_gloria_train(tmp, card)
         phase_selfsup_parity(tmp)
+        print(f"phases before rrg_hf_train: {time.perf_counter() - t_start:.1f} s")
+        launches["rrg_hf_train"] = phase_rrg_hf_train(tmp, card)
+        launches["rrg_multi_image"] = phase_rrg_multi_image(tmp, card)
+        launches["rrs_hf_train"] = phase_rrs_hf_train(tmp, card)
+        phase_hf_parity(tmp)
         print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     # the later paths' launches of the kernels they run (K1 stage a, K2,
     # K3): RRG training, SCST fine-tuning, RRS training, RRG with the ViT
     # tower, MVQA and CLASS (none), the RoBERTa-width RRG serving, ConVIRT
-    # and GLoRIA training (none)
+    # and GLoRIA training (none), RRG_HF (single and multi-image) and RRS_HF
+    # training
     for path, key in (("rrg_train", "rrg_train_launches"), ("scst_train", "scst_launches"),
                       ("rrs_train", "rrs_launches"), ("rrg_vit_train", "rrg_vit_launches"),
                       ("mvqa_train", "mvqa_launches"), ("class_train", "class_launches"),
                       ("rrg_roberta_serve", "rrg_roberta_launches"),
-                      ("convirt_train", "convirt_launches"), ("gloria_train", "gloria_launches")):
+                      ("convirt_train", "convirt_launches"), ("gloria_train", "gloria_launches"),
+                      ("rrg_hf_train", "rrg_hf_launches"),
+                      ("rrg_multi_image", "rrg_multi_image_launches"),
+                      ("rrs_hf_train", "rrs_hf_launches")):
         for name, counter in launches[path].items():
             if name in results:
                 results[name][key] = counter
@@ -4416,7 +4919,8 @@ def main():
     # the flash kernels' head dims; K4/K5 at D 256; launches on the training paths
     extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "rrs_launches",
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
-             "convirt_launches", "gloria_launches")
+             "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",
+             "rrs_hf_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
                                  else r[key] for key in keys},
                 **{key: r[key] for key in extra if key in r}}

@@ -10,7 +10,7 @@ top-r at ragged vocab tails, r 1 to 32 and exact ties, the fp8 probes on
 every e4m3 code at the rounding edge and at infinity), tiny VisionLanguage
 serving routes, the tiny RRG's ensembling, greedy, small-vocab and
 cache-permute routes, a tiny training step card vs CPU, the sampler, K1 (a)
-and K2 at RRS's shapes, small SCST, RRS and RRG_FORCE generation paths
+and K2 at RRS's shapes (K1 also at beam 2), small SCST, RRS and RRG_FORCE generation paths
 card vs CPU, a tiny RoBERTa-type RRG (the LM-head transform before K2, the
 ensemble's blocked head and the plain head) and the GLoRIA loss card vs
 CPU. Run them on the card
@@ -293,15 +293,18 @@ def test_beam_cache_attention_decode_shapes(cuda, stage, n, index, dense):
 
 @pytest.mark.parametrize("stage", ["a", "b", "c", "d"])
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("beams,items", [(8, 1), (4, 1), (4, 2), (8, 2), (3, 7)])
+@pytest.mark.parametrize("beams,items", [(8, 1), (4, 1), (4, 2), (8, 2), (3, 7), (2, 1), (2, 8)])
 def test_beam_cache_attention_groups(cuda, stage, d, beams, items):
     """The bf16 kernel at every head dim it is built for, beam 4 and 8, one
     or two items per row group (``ancestry_group_items`` 2: two items' rows
-    in one 16-row block, each seeing its own prefix), and 21-row groups of
+    in one 16-row block, each seeing its own prefix), 21-row groups of
     beam 3 (a block of 16 rows and one of 5, items across the block edge, a
-    mask read byte by byte)."""
+    mask read byte by byte), and beam 2 (the RRS_HF Validator's) with one
+    item per 2-row group and eight per 16-row group (16 items, so that the
+    rows fill whole groups)."""
     gen = torch.Generator().manual_seed(d + beams + items + ord(stage))
-    rows, n_items, t, index = beams * items, 14, 20, 17
+    rows, t, index = beams * items, 20, 17
+    n_items = 14 if (14 * beams) % rows == 0 else 16
     n = n_items * beams
     kc, vc, q, kn, vn, scales, prefix = _stage_tensors(cuda, stage, t, n, 3, d, beams, gen,
                                                        100, 77)
@@ -1079,6 +1082,85 @@ def test_tiny_roberta_rrg_card_equals_cpu(cuda, monkeypatch, vocab, members):
     torch.testing.assert_close(gpu.scores.cpu(), cpu.scores, rtol=1e-4, atol=1e-4)
     k2 = gpu.steps if members == 1 and vocab >= 4096 else 0
     assert launched == (2 * members * gpu.steps, k2)
+
+
+class _TinyTokenizerDL:
+    class dataset:
+        class tokenizer:
+            vocab_size, cls_token_id, sep_token_id, pad_token_id = 4500, 2, 3, 0
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi-image"])
+def test_tiny_rrg_hf_card_equals_cpu(cuda, multi):
+    """RRG_HF (a post-LN ViT of 64 projected to a 2-layer decoder of 128),
+    f32, on 4-D images and on (B, 2, 3, H, W) batches with one image
+    masked: beam sequences and scores on the card equal the CPU's; K1 twice
+    and K2 once a step; the masked image's tokens masked."""
+    from vilmedic_torch.models.hf_compat import RRG_HF
+
+    vision = {"proto_config_args": {"hidden_size": 64, "num_hidden_layers": 2,
+                                    "num_attention_heads": 2, "intermediate_size": 128,
+                                    "patch_size": 16, "image_size": 32}}
+    decoder = {"proto_config_args": {"hidden_size": 128, "num_hidden_layers": 2,
+                                     "num_attention_heads": 2, "intermediate_size": 256,
+                                     "max_position_embeddings": 32}}
+    gen = torch.Generator().manual_seed(4)
+    shape = (3, 2, 3, 32, 32) if multi else (3, 3, 32, 32)
+    images = torch.randn(*shape, generator=gen)
+    batch = {"images": images}
+    if multi:
+        images[1, 1] = 0.0
+        batch["images_mask"] = torch.tensor([[True, True], [True, False], [True, True]])
+    results = {}
+    for device in ("cpu", cuda):
+        model = RRG_HF(vision=vision, decoder=decoder, dl=_TinyTokenizerDL(), device=device,
+                       seed=11)
+        on = {k: v.to(device) for k, v in batch.items()}
+        _, enc_mask = model.module.encode(**model.encoder_inputs(on))
+        start = (fused_beam_cache_attention.launches, lm_head_blocked_stats.launches)
+        res = make_generate_fn([model], 4, 12, 2, 3, 0)(model.encoder_inputs(on))
+        results[str(device)] = (res, enc_mask.cpu(), (
+            fused_beam_cache_attention.launches - start[0],
+            lm_head_blocked_stats.launches - start[1]))
+    (cpu, cpu_mask, _), (gpu, gpu_mask, launched) = results["cpu"], results["cuda"]
+    assert torch.equal(cpu.sequences, gpu.sequences.cpu())
+    torch.testing.assert_close(gpu.scores.cpu(), cpu.scores, rtol=1e-4, atol=1e-4)
+    assert torch.equal(cpu_mask, gpu_mask)
+    assert launched == (2 * gpu.steps, gpu.steps)
+    if multi:
+        assert gpu_mask.shape == (3, 10) and not gpu_mask[1, 5:].any() and gpu_mask[1, :5].all()
+
+
+@pytest.mark.parametrize("case", ["3d_densenet121", "slice_encode", "multi_image"])
+def test_tower_paths_card_equal_cpu(cuda, case):
+    """The volume, slice and multi-image paths of ``VisualEncoder.encode``,
+    f32, TF32 off, the same weights: features within 1e-4 of the largest
+    (cuDNN's convolution algorithms against the CPU's), equal masks."""
+    from vilmedic_torch.blocks.vision.visual_encoder import build_visual_encoder
+    from vilmedic_torch.models.base import init_weights_
+
+    gen = torch.Generator().manual_seed(6)
+    mask = None
+    if case == "3d_densenet121":
+        cfg, in_channels = dict(backbone="3d_densenet121", output_layer="avgpool"), 1
+        x = torch.randn(2, 1, 32, 32, 32, generator=gen)
+    elif case == "slice_encode":
+        cfg = dict(backbone="densenet121", output_layer="avgpool", slice_encode=True,
+                   slice_dim=1)
+        in_channels, x = 1, torch.randn(2, 1, 3, 32, 32, generator=gen)
+    else:
+        cfg, in_channels = dict(backbone="resnet18", output_layer="layer4"), None
+        x = torch.randn(2, 3, 3, 64, 64, generator=gen)
+        x[1, 2] = 0.0
+        mask = torch.tensor([[True, True, True], [True, True, False]])
+    enc = build_visual_encoder(dict(cfg, visual_projection={"out_features": 16}),
+                               in_channels=in_channels).eval()
+    init_weights_(enc, torch.Generator().manual_seed(7), 0.02, lambda name: False)
+    with torch.no_grad():
+        want, want_mask = enc.encode(x, mask)
+        got, got_mask = enc.to(cuda).encode(x.to(cuda), None if mask is None else mask.to(cuda))
+    assert torch.equal(got_mask.cpu(), want_mask)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * want.abs().max().item())
 
 
 def test_gloria_loss_card_equals_cpu(cuda):

@@ -308,3 +308,55 @@ def test_roberta_decoder_variables_map_onto_the_port():
     assert "lm_transform_ln" in variables["params"]
     tdec = TDecoder(TConfig.from_dict(arch))
     _all_mapped(variables, tdec, rrg_state_dict_from_jax)
+
+
+@pytest.mark.parametrize("width", [32, 64], ids=["no-projection", "projection"])
+def test_rrg_hf_variables_map_onto_the_port(width):
+    """RRG_HF: the ViT tower under ``enc.model``, a projection only where
+    the decoder's width differs from the tower's, the decoder."""
+    from vilmedic_torch.models.hf_compat import RRG_HF as TRRG_HF
+    from vilmedic_torch.zoo.from_jax import rrg_hf_state_dict_from_jax
+    from vilmedic_tpu.models.hf_compat import RRG_HF as JRRG_HF
+
+    vision = {"proto_config_args": {"hidden_size": 32, "num_hidden_layers": 1,
+                                    "num_attention_heads": 4, "intermediate_size": 64,
+                                    "patch_size": 16, "image_size": 32}}
+    decoder = {"proto_config_args": dict(DECODER, hidden_size=width)}
+    jmodel = JRRG_HF(vision=vision, decoder=decoder, dtype="float32")
+    batch = {"images": jnp.zeros((1, 32, 32, 3)), "input_ids": jnp.zeros((1, 4), jnp.int32),
+             "attention_mask": jnp.ones((1, 4), jnp.int32)}
+    variables = jax.tree.map(np.asarray, dict(jax.jit(jmodel.init_variables)(
+        jax.random.key(0), batch)))
+    assert ("visual_projection" in variables["params"]["enc"]) == (width != 32)
+    tmodel = TRRG_HF(vision=vision, decoder=decoder, dtype="float32", device="cpu")
+    _all_mapped(variables, tmodel.module, rrg_hf_state_dict_from_jax)
+
+
+def test_rrs_hf_variables_map_onto_the_port():
+    from vilmedic_torch.models.hf_compat import RRS_HF as TRRS_HF
+    from vilmedic_torch.zoo.from_jax import rrs_hf_state_dict_from_jax
+    from vilmedic_tpu.models.hf_compat import RRS_HF as JRRS_HF
+
+    block = {"proto_config_args": dict(DECODER, model_type="roberta")}
+    jmodel = JRRS_HF(encoder=dict(block), decoder=dict(block), dtype="float32")
+    ids = jnp.ones((1, 4), jnp.int32)
+    variables = jax.tree.map(np.asarray, dict(jax.jit(
+        lambda k: jmodel.module.init(k, ids, ids, ids, ids))(jax.random.key(0))))
+    tmodel = TRRS_HF(encoder=dict(block), decoder=dict(block), dtype="float32", device="cpu")
+    assert tmodel.dec_config.lm_head_transform
+    _all_mapped(variables, tmodel.module, rrs_hf_state_dict_from_jax)
+
+
+def test_3d_densenet_variables_map_onto_the_port():
+    """DHWIO kernels -> OIDHW, the stem over the weights' channels."""
+    from vilmedic_torch.blocks.vision.densenet import make_densenet as tmake_densenet
+    from vilmedic_tpu.blocks.vision.densenet import make_densenet as jmake_densenet
+
+    jnet = jmake_densenet("3d_densenet_tiny", spatial_dims=3)
+    variables = jax.tree.map(np.asarray, jax.jit(jnet.init)(jax.random.key(0),
+                                                          jnp.zeros((1, 16, 16, 16, 2))))
+    kernel = variables["params"]["conv0"]["kernel"]
+    tnet = tmake_densenet("3d_densenet_tiny", in_channels=kernel.shape[-2])
+    _all_mapped(variables, tnet, rrg_state_dict_from_jax)
+    np.testing.assert_array_equal(tnet.conv0.weight.detach().numpy(),
+                                  kernel.transpose(4, 3, 0, 1, 2))

@@ -1,12 +1,19 @@
-"""DenseNet (2-D, NCHW), port of ``blocks/vision/densenet.py``.
+"""DenseNet, 2-D (NCHW) and 3-D (NCDHW), port of ``blocks/vision/densenet.py``.
 
-Architecture as torchvision's densenets; ``output_layer`` ``features``
-(the default) is the final BatchNorm with no ReLU, (B, C, h, w); anything
-else is ``avgpool``, ReLU then the spatial mean, (B, C). Convolutions are
-``torch.nn.functional.conv2d`` (XLA ran them outside any Pallas kernel)
-over f32 weights cast to the compute dtype at use, as Flax's
-``param_dtype=float32`` with ``dtype=``, so that an optimizer's small
-updates are not rounded away in bf16.
+Architecture as torchvision's densenets (``densenet121`` ...) and, with
+``spatial_dims=3`` (``3d_densenet121`` ...), MONAI's 3-D variants: the same
+layers with cubic kernels, ``max_pool3d`` (3, stride 2, padding 1) after the
+stem and ``avg_pool3d`` (2, stride 2) in the transitions. ``output_layer``
+``features`` (the default) is the final BatchNorm with no ReLU,
+(B, C, h, w) or (B, C, d, h, w); anything else is ``avgpool``, ReLU then
+the mean over the spatial axes, (B, C). The stem's input channels are an
+explicit argument (``in_channels``, 3 for RGB images): the Flax module
+infers them from its first batch, the port takes them from the weights it
+loads or from the data. Convolutions are ``torch.nn.functional.conv2d`` /
+``conv3d`` (XLA ran them outside any Pallas kernel) over f32 weights cast
+to the compute dtype at use, as Flax's ``param_dtype=float32`` with
+``dtype=``, so that an optimizer's small updates are not rounded away in
+bf16.
 
 BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``. In
 eval (``train=False``) it normalizes with the running statistics, in f32
@@ -18,7 +25,8 @@ the running statistics (``0.9 * old + 0.1 * batch``) with
 trainer gates its updated ``batch_stats``. Parameter names follow the Flax
 tree (``block0_layer0.BatchNorm_0.running_mean``). The JAX module's
 ``packed_growth`` option computes the same 3x3 convolution in a layout made
-for the TPU's matrix unit; it is accepted and changes nothing here.
+for the TPU's matrix unit (2-D only); it is accepted and changes nothing
+here.
 """
 
 from __future__ import annotations
@@ -38,9 +46,9 @@ CONFIGS = {
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over NCHW channels: ``(x - mean) * (rsqrt(var + eps) *
-    weight) + bias`` in f32, output in ``out_dtype``; running statistics in
-    eval, the batch's in training (module doc)."""
+    """BatchNorm over the channels of NCHW or NCDHW: ``(x - mean) *
+    (rsqrt(var + eps) * weight) + bias`` in f32, output in ``out_dtype``;
+    running statistics in eval, the batch's in training (module doc)."""
 
     momentum = 0.9  # Flax's: new running = momentum * old + (1 - momentum) * batch
 
@@ -57,7 +65,7 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool = False):
         if train:
             return self._train_forward(x)
-        shape = (1, -1, 1, 1)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(self.out_dtype)
@@ -104,13 +112,25 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
 
 
+class Conv3d(nn.Conv3d):
+    """:class:`Conv2d` with cubic kernels, over NCDHW."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int, dtype: torch.dtype):
+        super().__init__(c_in, c_out, k, stride=stride, padding=k // 2, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv3d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+
+
 class DenseLayer(nn.Module):
-    def __init__(self, c_in: int, growth_rate: int, dtype: torch.dtype):
+    def __init__(self, c_in: int, growth_rate: int, dtype: torch.dtype, conv=Conv2d):
         super().__init__()
         self.BatchNorm_0 = BatchNorm(c_in, dtype)
-        self.Conv_0 = Conv2d(c_in, 4 * growth_rate, 1, 1, dtype)
+        self.Conv_0 = conv(c_in, 4 * growth_rate, 1, 1, dtype)
         self.BatchNorm_1 = BatchNorm(4 * growth_rate, dtype)
-        self.Conv_1 = Conv2d(4 * growth_rate, growth_rate, 3, 1, dtype)
+        self.Conv_1 = conv(4 * growth_rate, growth_rate, 3, 1, dtype)
 
     def forward(self, x, train: bool = False):
         y = self.Conv_0(F.relu(self.BatchNorm_0(x, train)))
@@ -120,44 +140,54 @@ class DenseLayer(nn.Module):
 
 class DenseNet(nn.Module):
     def __init__(self, growth_rate: int, block_config: Sequence[int], num_init_features: int,
-                 dtype: torch.dtype = torch.float32, output_layer: str = "features"):
+                 dtype: torch.dtype = torch.float32, output_layer: str = "features",
+                 spatial_dims: int = 2, in_channels: int = 3):
         super().__init__()
+        conv = Conv2d if spatial_dims == 2 else Conv3d
         self.dtype = dtype
         self.output_layer = output_layer
+        self.spatial_dims = spatial_dims
         self.block_config = tuple(block_config)
-        self.conv0 = Conv2d(3, num_init_features, 7, 2, dtype)
+        self.conv0 = conv(in_channels, num_init_features, 7, 2, dtype)
         self.norm0 = BatchNorm(num_init_features, dtype)
         ch = num_init_features
         for i, num_layers in enumerate(self.block_config):
             for j in range(num_layers):
-                self.add_module(f"block{i}_layer{j}", DenseLayer(ch, growth_rate, dtype))
+                self.add_module(f"block{i}_layer{j}", DenseLayer(ch, growth_rate, dtype, conv))
                 ch += growth_rate
             if i < len(self.block_config) - 1:
                 self.add_module(f"transition{i}_norm", BatchNorm(ch, dtype))
-                self.add_module(f"transition{i}_conv", Conv2d(ch, ch // 2, 1, 1, dtype))
+                self.add_module(f"transition{i}_conv", conv(ch, ch // 2, 1, 1, dtype))
                 ch //= 2
         self.norm_final = BatchNorm(ch, dtype)
         self.out_channels = ch
 
     def forward(self, x, train: bool = False):
-        """(B, 3, H, W) -> (B, C, h, w) features, or (B, C) for
+        """(B, in_channels, H, W) -> (B, C, h, w) features (3-D: (B,
+        in_channels, D, H, W) -> (B, C, d, h, w)), or (B, C) for
         ``avgpool``; ``train`` normalizes with the batch's statistics."""
+        max_pool, avg_pool = ((F.max_pool2d, F.avg_pool2d) if self.spatial_dims == 2
+                              else (F.max_pool3d, F.avg_pool3d))
         x = F.relu(self.norm0(self.conv0(x), train))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = max_pool(x, 3, stride=2, padding=1)
         for i, num_layers in enumerate(self.block_config):
             for j in range(num_layers):
                 x = getattr(self, f"block{i}_layer{j}")(x, train)
             if i < len(self.block_config) - 1:
                 x = F.relu(getattr(self, f"transition{i}_norm")(x, train))
                 x = getattr(self, f"transition{i}_conv")(x)
-                x = F.avg_pool2d(x, 2, stride=2)
+                x = avg_pool(x, 2, stride=2)
         x = self.norm_final(x, train)
         if self.output_layer == "features":
             return x
-        return F.relu(x).mean(dim=(2, 3))
+        return F.relu(x).mean(dim=tuple(range(2, x.ndim)))
 
 
 def make_densenet(backbone: str, output_layer=None, dtype: torch.dtype = torch.float32,
-                  packed_growth=None) -> DenseNet:
-    growth, blocks, init = CONFIGS[backbone]
-    return DenseNet(growth, blocks, init, dtype, output_layer or "features")
+                  packed_growth=None, in_channels: int = 3) -> DenseNet:
+    """``densenet121`` ... (2-D) or ``3d_densenet121`` ... (3-D) with a stem
+    over ``in_channels``."""
+    spatial_dims = 3 if backbone.startswith("3d_") else 2
+    growth, blocks, init = CONFIGS[backbone.replace("3d_", "", 1)]
+    return DenseNet(growth, blocks, init, dtype, output_layer or "features", spatial_dims,
+                    in_channels)

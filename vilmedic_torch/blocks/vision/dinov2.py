@@ -97,7 +97,6 @@ DINOV2_KEYS = ("hidden_size", "num_hidden_layers", "num_attention_heads", "mlp_r
 
 def make_dinov2(backbone: str, output_layer=None, dtype=torch.float32, **kwargs) -> Dinov2:
     """The tower from a config's architecture keys (others, such as dropout,
-    which acts only in training, are ignored)."""
-    if output_layer is not None:
-        raise NotImplementedError(f"dinov2 output_layer {output_layer!r} is not ported")
+    which acts only in training, are ignored). ``output_layer`` is accepted
+    and ignored, as the JAX package's ``make_dinov2`` ignores it."""
     return Dinov2(dtype=dtype, **{k: v for k, v in kwargs.items() if k in DINOV2_KEYS})

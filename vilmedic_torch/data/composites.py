@@ -1,8 +1,9 @@
-"""Composite datasets (port of ``ImSeq``, ``Seq2Seq``, ``ImLabel`` and
-``ImSeqAny`` of ``data/composites.py``; the other composites wait for the
-models that read them). Each merges its children's items and collates and
-exposes the tokenizer or label-map attributes the models and the evaluation
-read."""
+"""Composite datasets (port of ``ImSeq``, ``Seq2Seq``, ``ImSeq2Seq``,
+``ImLabel`` and ``ImSeqAny`` of ``data/composites.py``; the other
+composites wait for the models that read them). Each merges its children's
+items and collates and exposes the tokenizer or label-map attributes the
+models and the evaluation read; ``Seq2Seq`` and ``ImSeq2Seq`` also build a
+batch from raw inputs (``inference``, the JAX package's zoo API)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,13 @@ from .text import TextDataset
 
 def _as_dict(cfg):
     return cfg.to_dict() if isinstance(cfg, Config) else dict(cfg or {})
+
+
+def _check_batch(batch):
+    sizes = {len(v) for v in batch.values() if v is not None}
+    if len(sizes) > 1:
+        raise ValueError("elements in batch do not have the same size")
+    return batch
 
 
 @register("dataset")
@@ -92,8 +100,68 @@ class Seq2Seq:
 
         return collate_fn
 
+    def inference(self, src=None, tgt=None):
+        batch = {}
+        if src is not None:
+            batch.update(self.src.inference(src))
+        if tgt is not None:
+            t = self.tgt.inference(tgt)
+            batch["decoder_input_ids"] = t["input_ids"]
+            batch["decoder_attention_mask"] = t["attention_mask"]
+        return _check_batch(batch)
+
     def __repr__(self):
         return "Seq2Seq\n" + str(self.src) + "\n" + str(self.tgt)
+
+
+@register("dataset")
+class ImSeq2Seq:
+    """A :class:`Seq2Seq` and an :class:`ImageDataset`, item by item and
+    batch by batch (the Seq2Seq keys, then the image keys); exposes the
+    target side's tokenizer."""
+
+    def __init__(self, src, tgt, image, split, ckpt_dir=None, called_by_ensemblor=False,
+                 seed: int = 0, **kwargs):
+        self.split = split
+        self.seq2seq = Seq2Seq(src, tgt, split=split, ckpt_dir=ckpt_dir)
+        self.image = ImageDataset(**_as_dict(image), split=split,
+                                  called_by_ensemblor=called_by_ensemblor, seed=seed)
+        if len(self.image) != len(self.seq2seq):
+            raise ValueError(f"{len(self.image)} images vs {len(self.seq2seq)} pairs")
+        self.src, self.tgt = self.seq2seq.src, self.seq2seq.tgt
+        self.tgt_tokenizer = self.seq2seq.tgt_tokenizer
+        self.tgt_tokenizer_max_len = self.seq2seq.tgt_tokenizer_max_len
+
+    def __len__(self):
+        return len(self.image)
+
+    def decode(self, index):
+        return self.image.decode(index), self.seq2seq[index]
+
+    def finish(self, decoded):
+        images, pair = decoded
+        return {**self.image.finish(images), **pair}
+
+    def __getitem__(self, index):
+        return self.finish(self.decode(index))
+
+    def get_collate_fn(self):
+        pair_fn, image_fn = self.seq2seq.get_collate_fn(), self.image.get_collate_fn()
+
+        def collate_fn(batch):
+            return {**pair_fn(batch), **image_fn(batch)}
+
+        return collate_fn
+
+    def inference(self, src=None, tgt=None, image=None):
+        batch = {}
+        if image is not None:
+            batch.update(self.image.inference(image))
+        batch.update(self.seq2seq.inference(src=src, tgt=tgt))
+        return _check_batch(batch)
+
+    def __repr__(self):
+        return "ImSeq2Seq\n" + str(self.seq2seq) + "\n" + str(self.image)
 
 
 @register("dataset")

@@ -1,9 +1,9 @@
 """Image dataset: decode, transforms and collation (port of ``data/image.py``).
 
-One image per sample (``multi_image`` above 1 raises), read from
-``{root}/{split}.{file}`` (one path per line, or a ``.npy`` array of
-images). :func:`open_image` decodes a JPEG or PNG to RGB and resizes it with
-PIL's bilinear filter, as the JAX package does (Pillow is imported there and
+Images are read from ``{root}/{split}.{file}``: comma-separated paths per
+line (a sample's images), or a ``.npy`` array of images, one per sample.
+:func:`open_image` decodes a JPEG or PNG to RGB and resizes it with PIL's
+bilinear filter, as the JAX package does (Pillow is imported there and
 nowhere else); ``.npy`` images are used as they are. The transforms, on
 uint8 HWC arrays, are the JAX package's four:
 
@@ -24,9 +24,17 @@ then per batch the collate's tops and lefts. Items split into
 :meth:`ImageDataset.decode`, which draws nothing, and
 :meth:`ImageDataset.finish`, which draws, so that a threaded loader can
 decode in parallel and draw in batch order: the same seed gives the same
-batches for any ``num_workers``. The float collate stacks NHWC
-and transposes once to the NCHW the port's towers take; the uint8 collate
-keeps (B, crop, crop, 3), the kernel's input layout.
+batches for any ``num_workers``; a sample's images draw in their order.
+
+The float collate (:func:`vilmedic_collate`) stacks channel-last arrays and
+moves the channels once to where the port's towers take them: (B, C, H, W),
+or (B, C, D, H, W) for ``.npy`` volumes. With ``multi_image`` N above 1 it
+keeps each sample's first N images, pads shorter samples with zero images
+and returns (B, N, C, H, W) with ``images_mask`` (B, N), True where an
+image's values do not sum to 0 (so an all-zero real image is masked too, as
+in the JAX package). The uint8 collate keeps (B, crop, crop, 3), the
+kernel's input layout; it takes one image per sample (``device_preproc``
+with ``multi_image`` above 1 raises, as JAX asserts).
 """
 
 from __future__ import annotations
@@ -169,6 +177,25 @@ def read_images(root: str, split: str, file: str) -> List[List]:
     return images
 
 
+def vilmedic_collate(batch, multi_image: Optional[int] = None):
+    """Float images of the items' ``image`` lists: ``{"images"}``, channels
+    moved next to the batch axis, for one image per sample (``multi_image``
+    None or 1); else ``{"images", "images_mask"}`` (module doc)."""
+    if not multi_image or multi_image == 1:
+        images = np.stack([np.asarray(s["image"][0]) for s in batch]).astype(np.float32)
+        return {"images": torch.from_numpy(images).movedim(-1, 1).contiguous()}
+    images, masks = [], []
+    for sample in batch:
+        ims = [np.asarray(im, dtype=np.float32) for im in sample["image"]][:multi_image]
+        while len(ims) < multi_image:
+            ims.append(np.zeros_like(ims[0]))
+        stacked = np.stack(ims)
+        masks.append(stacked.reshape(len(ims), -1).sum(axis=1) != 0)
+        images.append(stacked)
+    images = torch.from_numpy(np.stack(images).astype(np.float32)).movedim(-1, 2).contiguous()
+    return {"images": images, "images_mask": torch.from_numpy(np.stack(masks))}
+
+
 def finalize_device_preproc(batch, crop: int):
     """Turn a device-preproc batch (``images_u8`` (B, R, R, 3) uint8 plus
     ``preproc_tops``/``preproc_lefts``) into normalized ``images``
@@ -203,8 +230,8 @@ class ImageDataset:
                  hf_dataset=None, **kwargs):
         if split is None:
             raise ValueError("split cannot be None")
-        if (multi_image or 0) > 1:
-            raise NotImplementedError("multi_image batches are not ported")
+        if device_preproc and (multi_image or 0) > 1:
+            raise ValueError("device_preproc does not support multi_image yet")
         for name, value in (("custom_transform_train", custom_transform_train),
                             ("custom_transform_validate", custom_transform_validate),
                             ("hf_dataset", hf_dataset)):
@@ -217,6 +244,7 @@ class ImageDataset:
         self.resize = int(resize)
         self.crop = int(crop)
         self.ext = ext
+        self.multi_image = multi_image or 0
         self.device_preproc = bool(device_preproc)
         self.rng = np.random.default_rng(seed)
         self.images: Optional[List[List]] = None
@@ -238,6 +266,15 @@ class ImageDataset:
 
     def __getitem__(self, index):
         return self.finish(self.decode(index))
+
+    def inference(self, image):
+        """A batch from image paths: one per sample, or a list per sample
+        (the JAX package's zoo API)."""
+        samples = image if isinstance(image, list) else [image]
+        batch = [self.finish([open_image(im, self.ext, self.transform.size)
+                              for im in (ims if isinstance(ims, list) else [ims])])
+                 for ims in samples]
+        return self.get_collate_fn()(batch)
 
     def get_collate_fn(self):
         if self.device_preproc:
@@ -263,8 +300,7 @@ class ImageDataset:
             return collate_fn
 
         def collate_fn(batch):
-            images = np.stack([np.asarray(s["image"][0]) for s in batch]).astype(np.float32)
-            return {"images": torch.from_numpy(images).permute(0, 3, 1, 2).contiguous()}
+            return vilmedic_collate(batch, self.multi_image)
 
         return collate_fn
 
@@ -272,5 +308,5 @@ class ImageDataset:
         return "ImageDataset\n" + json.dumps({
             "split": self.split, "len": len(self), "root": self.root, "file": self.file,
             "transform": type(self.transform).__name__, "ext": self.ext,
-            "device_preproc": self.device_preproc,
+            "multi_image": self.multi_image, "device_preproc": self.device_preproc,
         }, indent=4, default=str)

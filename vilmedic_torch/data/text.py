@@ -79,6 +79,13 @@ class TextDataset:
     def __getitem__(self, index):
         return {f"{self.source}_seq": " ".join(self.sentences[index])}
 
+    def inference(self, seq):
+        """A batch from raw strings, cleaned and collated as the items are
+        (the JAX package's zoo API)."""
+        seq = seq if isinstance(seq, list) else [seq]
+        return self.get_collate_fn()([
+            {f"{self.source}_seq": " ".join(self.processing(s.strip()).split())} for s in seq])
+
     def get_collate_fn(self):
         key = f"{self.source}_seq"
 

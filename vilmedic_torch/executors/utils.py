@@ -69,7 +69,7 @@ def create_model(config, dl=None, logger=None, state_dict=None, seed: int = 0, d
     ``overrides`` stand in for what a tokenizer or HF config would supply
     (``vocab_size``, the special ids, ``vision_hf_config``)."""
     from ..models import (  # noqa: F401  (register the protos)
-        mvqa, rrg, rrg_force, rrs, scst_models, selfsup, vision_language,
+        hf_compat, mvqa, rrg, rrg_force, rrs, scst_models, selfsup, vision_language,
     )
 
     logger = logger or logging.getLogger(__name__)

@@ -36,8 +36,9 @@ def resolve_device(device) -> torch.device:
 
 #: ``AutoConfig.to_dict()`` fills the model class's defaults where a bare
 #: ``config.json`` omits a key: these are those defaults for the keys
-#: ``TransformerConfig`` reads (``transformers``' BertConfig and
-#: RobertaConfig), so that a config file builds the same blocks as in the JAX
+#: ``TransformerConfig`` reads (``transformers``' BertConfig, RobertaConfig
+#: and BertGenerationConfig) and the keys the ViT tower reads (ViTConfig,
+#: DeiTConfig), so that a config file builds the same blocks as in the JAX
 #: package, which resolves it through ``AutoConfig``.
 _BERT_DEFAULTS = dict(
     vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
@@ -45,10 +46,19 @@ _BERT_DEFAULTS = dict(
     attention_probs_dropout_prob=0.1, max_position_embeddings=512, initializer_range=0.02,
     layer_norm_eps=1e-12, pad_token_id=0, bos_token_id=None, eos_token_id=None,
     add_cross_attention=False)
+_VIT_DEFAULTS = dict(
+    hidden_size=768, num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+    hidden_act="gelu", hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+    initializer_range=0.02, layer_norm_eps=1e-12, image_size=224, patch_size=16)
 HF_CONFIG_DEFAULTS = {
     "bert": _BERT_DEFAULTS,
     "roberta": dict(_BERT_DEFAULTS, vocab_size=50265, pad_token_id=1, bos_token_id=0,
                     eos_token_id=2),
+    "bert-generation": dict(_BERT_DEFAULTS, vocab_size=50358, hidden_size=1024,
+                            num_hidden_layers=24, num_attention_heads=16,
+                            intermediate_size=4096, bos_token_id=2, eos_token_id=1),
+    "vit": _VIT_DEFAULTS,
+    "deit": _VIT_DEFAULTS,
 }
 #: The weight files ``from_pretrained`` would load from beside a config.
 HF_WEIGHT_FILES = ("model.safetensors", "model.safetensors.index.json", "pytorch_model.bin",
@@ -109,15 +119,22 @@ def resolve_block(block_cfg):
         logging.getLogger(__name__).warning(
             f"Pretrained config {proto!r} not in local cache; using explicit keys/defaults")
         return block_cfg, None
+    hf = read_hf_config(folder, proto)
+    resolved = {**HF_CONFIG_DEFAULTS.get(hf.get("model_type"), {}), **hf, **block_cfg}
+    return resolved, proto
+
+
+def read_hf_config(folder: str, name: str) -> dict:
+    """``folder``'s ``config.json`` as a dict. Weights beside it raise: the
+    zoo that would load them is not ported, and a block trained from random
+    weights in their place would not be the named model."""
     weights = [f for f in HF_WEIGHT_FILES if os.path.exists(os.path.join(folder, f))]
     if weights:
         raise NotImplementedError(
-            f"pretrained weights {weights} of {proto!r}: loading HF weights needs the zoo "
+            f"pretrained weights {weights} of {name!r}: loading HF weights needs the zoo "
             "(zoo/convert.py), which is not ported")
     with open(os.path.join(folder, "config.json")) as f:
-        hf = json.load(f)
-    resolved = {**HF_CONFIG_DEFAULTS.get(hf.get("model_type"), {}), **hf, **block_cfg}
-    return resolved, proto
+        return json.load(f)
 
 
 def loader_crop(dl):
@@ -126,6 +143,20 @@ def loader_crop(dl):
     image = getattr(getattr(dl, "dataset", None), "image", None)
     crop = getattr(image, "crop", None)
     return int(crop) if crop is not None else None
+
+
+def loader_channels(dl):
+    """The channels of a loader's images (None without images): 3 for
+    decoded JPEG / PNG files (RGB), else the last axis of the first
+    ``.npy`` image. A CNN's stem is built for them."""
+    image = getattr(getattr(dl, "dataset", None), "image", None)
+    if not getattr(image, "images", None):
+        return None
+    if image.ext not in (".npy", ".npz"):
+        return 3
+    from ..data.image import open_image
+
+    return int(open_image(image.images[0][0], image.ext).shape[-1])
 
 
 def init_weights_(module, generator, std: float, in_layer) -> None:
@@ -150,7 +181,7 @@ def init_weights_(module, generator, std: float, in_layer) -> None:
             p.copy_(torch.randn(p.shape, generator=generator) * s)
 
     for name, m in module.named_modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             normal_(m.weight, std if in_layer(name) else math.sqrt(1.0 / m.weight[0].numel()))
             if m.bias is not None:
                 nn.init.zeros_(m.bias)

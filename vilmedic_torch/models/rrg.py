@@ -11,7 +11,10 @@ from torch import nn
 from ..blocks.transformer import TransformerConfig, TransformerDecoder, causal_lm_loss
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
 from ..registry import register
-from .base import init_weights_, in_transformer_layer, loader_crop, resolve_block, resolve_device
+from .base import (
+    init_weights_, in_transformer_layer, loader_channels, loader_crop, resolve_block,
+    resolve_device,
+)
 from .evaluation_nlg import evaluation
 
 
@@ -60,7 +63,8 @@ def init_rrg_weights_(module: RRGModule, generator: torch.Generator) -> None:
 class RRG:
     """Host-side task model around :class:`RRGModule`, built from a config's
     ``model:`` block. The vocabulary size comes from the data loader's
-    tokenizer (``dl``), or from ``vocab_size`` without one. Weights are random
+    tokenizer (``dl``), or from ``vocab_size`` without one; a CNN tower's
+    stem from the loader's image channels. Weights are random
     from ``seed`` unless a state dict is loaded after. ``cnn.freeze`` keeps
     the backbone out of training (``frozen_prefixes``); the projection stays
     trainable. ``eval_func`` is :func:`~.evaluation_nlg.evaluation`."""
@@ -76,7 +80,8 @@ class RRG:
             dec_args, **({"vocab_size": vocab_size} if vocab_size else {}), dtype=compute_dtype,
         )
         self.module = RRGModule(build_visual_encoder(cnn, dtype=compute_dtype,
-                                                     crop=loader_crop(dl)),
+                                                     crop=loader_crop(dl),
+                                                     in_channels=loader_channels(dl)),
                                 self.dec_config)
         init_rrg_weights_(self.module, torch.Generator().manual_seed(seed))
         self.module.to(device).eval()

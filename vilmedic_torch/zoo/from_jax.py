@@ -1,5 +1,5 @@
-"""Weight bridge from the JAX package's RRG, RRS, SCST, VisionLanguage,
-MVQA, ConVIRT and GLoRIA variables to the port's state dicts (counterpart of
+"""Weight bridge from the JAX package's RRG, RRS, RRG_HF, RRS_HF, SCST,
+VisionLanguage, MVQA, ConVIRT and GLoRIA variables to the port's state dicts (counterpart of
 ``zoo/convert.py``); :func:`rrg_state_dict_from_jax` carries any tree of
 the port's modules, a ViT or ResNet tower's own variables among them.
 
@@ -7,7 +7,7 @@ The port keeps the Flax tree's module names, so the bridge is a rename plus
 transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in); conv ``kernel`` HWIO ->
-  ``weight`` OIHW; ``bias`` -> ``bias``;
+  ``weight`` OIHW, a 3-D conv's DHWIO -> OIDHW; ``bias`` -> ``bias``;
 - LayerNorm/BatchNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
 - BatchNorm statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
 - a BERT/RoBERTa decoder's LM-head transform, ``lm_transform`` (Dense) and
@@ -60,6 +60,8 @@ def _param(path: str, value) -> tuple:
             arr = arr.T
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 5:
+            arr = arr.transpose(4, 3, 0, 1, 2)
         else:
             raise ValueError(f"{path}: kernel of rank {arr.ndim}")
         leaf = "weight"
@@ -99,6 +101,19 @@ def rrs_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX RRS ``{"params"}`` (numpy leaves: ``enc`` and ``dec``) -> the
     port's ``RRSModule`` state dict of f32 tensors."""
     return rrg_state_dict_from_jax({"params": variables["params"]})
+
+
+def rrg_hf_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``RRG_HF`` ``{"params"}`` (numpy leaves: the ViT tower under
+    ``enc.model``, the projection where the widths differ, ``dec``) -> the
+    port's ``RRGModule`` state dict of f32 tensors."""
+    return rrg_state_dict_from_jax(variables)
+
+
+def rrs_hf_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``RRS_HF`` ``{"params"}``, an RRS tree, -> the port's
+    ``RRSModule`` state dict of f32 tensors."""
+    return rrs_state_dict_from_jax(variables)
 
 
 def scst_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
