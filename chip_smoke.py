@@ -143,6 +143,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     and its beam-8 sequences, RRS_HF's beam-2 sequences at 2 + 2 layers,
     and the ``3d_densenet121`` and ``slice_encode`` features
     (``hf_parity``). The kernels phase also holds K1 (a) at beam 2, N 256.
+17. trains the VisionLanguage config through the train CLI at full width
+    (``vl_cli_train``: DINOv2-B/14 at 518² named by ``vision_model_name``,
+    a ``config.json`` written into the temp dir; the 12-layer 768 LM; bf16,
+    batch 16, grad_accu 4, 8 microbatches over 128 synthetic reports whose
+    corpus vocabulary passes 4096 words; the Validator at beam 2 over 32
+    reports with ROUGEL, BLEU and ``bertscore`` on a DistilBERT-base-shaped
+    directory of random weights; then the ensemble CLI at beam 8 on the
+    best checkpoint; K4, K4 with LSE, K5 and K1 (b) counted, K1 (b) held at
+    beam 2), the same with ``model.vision.freeze=false`` without and with
+    the LM's ``gradient_checkpointing`` (peak memory, ms per microbatch; the
+    tower gets no gradient, as in JAX) and the DINOv2 tower trained as an
+    RRG ``cnn`` (K4 with LSE and K5 non-causal at T 1370;
+    ``vl_unfrozen_train``), holds K5 at the tower's shape, and runs the VL
+    CLI in f32 card vs CPU at 2 + 2 layers (losses, every update with the
+    tower's, hyps at beam 2 and 8, BERTScore, gradient checkpointing with
+    dropout on; ``vl_cli_parity``).
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -824,6 +840,48 @@ def flash_head_dims() -> str:
             f"{fa.HEAD_DIMS[-1]}; other head dims zero-padded to the next of these")
 
 
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # K4's out and K5's dq / dk / dv
+FLASH_TOL_LSE, FLASH_TOL_DBIAS = 1e-5, 1e-4
+
+
+def flash_grads_match(q, k, v, key_mask, causal, label, gen):
+    """K4 with LSE and K5 against their plain versions on the same inputs
+    and a random dO from ``gen``: out within ``FLASH_TOL`` of the plain
+    forward and lse within 1e-5 (max abs), then dq, dk, dv (``FLASH_TOL``)
+    and dbias (1e-4) relative to each one's largest entry, the plain
+    backward taking the kernel's checked out and lse. Fails on any miss;
+    returns (out, lse, dO, errors)."""
+    import torch
+
+    from vilmedic_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference, flash_attention_reference,
+        flash_attention_with_lse,
+    )
+
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    out, lse = flash_attention_with_lse(q, k, v, key_mask, causal)
+    rout, rlse = flash_attention_reference(q, k, v, key_mask, causal, return_lse=True)
+    got = flash_attention_backward(q, k, v, key_mask, out, lse, dout, causal)
+    want = flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    errs = {"out": (out.float() - rout.float()).abs().max().item(),
+            "lse": (lse - rlse).abs().max().item()}
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        errs[name] = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+    dtype = str(q.dtype)[6:]
+    tol = FLASH_TOL[dtype]
+    limits = {"out": tol, "lse": FLASH_TOL_LSE, "dq": tol, "dk": tol, "dv": tol,
+              "dbias": FLASH_TOL_DBIAS}
+    print(f"K4/K5 {label} {dtype}: max|err| out {errs['out']:.3e}, lse {errs['lse']:.3e}; "
+          f"relative dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} dbias "
+          f"{errs['dbias']:.3e} (tol {tol:.0e}, lse {FLASH_TOL_LSE:.0e}, dbias "
+          f"{FLASH_TOL_DBIAS:.0e})")
+    bad = [n for n, e in errs.items() if not e <= limits[n]]
+    if bad:
+        fail(f"flash attention {label} {dtype}: {bad}")
+    return out, lse, dout, errs
+
+
 def check_flash_wide(results):
     """K4 and K5 above head dim 128. bf16 at the VisionLanguage width split
     into 3 heads of 256 (B 16, T 1370): K4 (the wgmma kernel at D 256)
@@ -837,36 +895,11 @@ def check_flash_wide(results):
     import torch.nn.functional as F
 
     from vilmedic_torch.ops.flash_attention import (
-        flash_attention, flash_attention_backward, flash_attention_backward_reference,
-        flash_attention_reference, flash_attention_with_lse,
+        flash_attention, flash_attention_backward, flash_attention_reference,
+        flash_attention_with_lse,
     )
 
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    tol_lse = 1e-5
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
-
-    def grads_match(q, k, v, key_mask, causal, label):
-        dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-        out, lse = flash_attention_with_lse(q, k, v, key_mask, causal)
-        rout, rlse = flash_attention_reference(q, k, v, key_mask, causal, return_lse=True)
-        got = flash_attention_backward(q, k, v, key_mask, out, lse, dout, causal)
-        want = flash_attention_backward_reference(q, k, v, key_mask, out, lse, dout, causal)
-        torch.cuda.synchronize()
-        errs = {"out": (out.float() - rout.float()).abs().max().item(),
-                "lse": (lse - rlse).abs().max().item()}
-        for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
-            errs[name] = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
-        dtype = q.dtype
-        limits = {"out": tol[dtype], "lse": tol_lse, "dq": tol[dtype], "dk": tol[dtype],
-                  "dv": tol[dtype], "dbias": 1e-4}
-        print(f"K4/K5 {label} {str(dtype)[6:]}: max|err| out {errs['out']:.3e}, lse "
-              f"{errs['lse']:.3e}; relative dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv "
-              f"{errs['dv']:.3e} dbias {errs['dbias']:.3e} (tol {tol[dtype]:.0e}, lse "
-              f"{tol_lse:.0e}, dbias 1e-4)")
-        bad = [n for n, e in errs.items() if not e <= limits[n]]
-        if bad:
-            fail(f"flash attention {label} {dtype}: {bad}")
-        return out, lse, dout, errs
 
     b, t, heads, d = 16, VL_TOKENS, 3, 256
     key_mask = train_key_mask(b, t, "cuda")
@@ -877,9 +910,10 @@ def check_flash_wide(results):
         err = (flash_attention(q, k, v, None, causal).float()
                - flash_attention_reference(q, k, v, None, causal).float()).abs().max().item()
         worst = max(worst, err)
-        if not err <= tol[torch.bfloat16]:
+        if not err <= FLASH_TOL["bfloat16"]:
             fail(f"flash attention D 256 bf16 causal={causal}: {err:.3e}")
-    out, lse, dout, errs = grads_match(q, k, v, key_mask, True, f"B={b} T={t} H={heads} D={d}")
+    out, lse, dout, errs = flash_grads_match(q, k, v, key_mask, True,
+                                             f"B={b} T={t} H={heads} D={d}", gen)
     qh, kh, vh = sdpa_layout(q, k, v)
     tm = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in (
         ("fwd", lambda: flash_attention(q, k, v, None, False)),
@@ -924,7 +958,7 @@ def check_flash_wide(results):
                     for _ in range(2))
             mask = torch.ones(2, tk, dtype=torch.bool, device="cuda")
             mask[1, tk - tk // 3:] = False
-            grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal")
+            flash_grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal", gen)
     # the wide kernels' speed at 3 heads of 320 (B 16, T 1370), not on any path
     q, k, v, dout = (torch.randn(b, t, heads, 320, generator=gen, device="cuda").bfloat16()
                      for _ in range(4))
@@ -2628,7 +2662,7 @@ def synthetic_corpus(root: str, n_train: int, n_validate: int, seed: int, image:
         reports, paths = [], []
         for i in range(n):
             if sweep and split == "train":
-                length = -(-len(words) // n)
+                length = len(words) // n + (i < len(words) % n)  # no report left empty
                 picked = words[cursor:cursor + length]
                 cursor += length
                 length = len(picked)
@@ -2693,14 +2727,19 @@ def update_agreement(initial, want, got, steps: int):
 
 
 class StepRecorder:
-    """Wraps ``Trainor.train_epoch`` and ``Trainor.train_step`` for a run, on
-    the host clock, each time ended by a synchronize: ``iterations``, each
+    """Wraps ``Trainor.train_epoch`` and ``Trainor.train_step`` (or the
+    ``method`` named, ``grad_step`` for a microbatch of an accumulation)
+    for a run, on the host clock, each time ended by a synchronize:
+    ``iterations``, each
     whole training iteration (the wait for the loader's batch, its copy to
     the card, K3 and the step: from the end of the previous step, or the
     epoch's start, to the end of this one); ``times``, the step alone (from
     a synchronize after K3); ``epochs``, each epoch's training wall time;
     and each step's loss. ``initial`` is a CPU copy of the model's state at
     the first epoch's start."""
+
+    def __init__(self, method: str = "train_step"):
+        self.method = method
 
     def __enter__(self):
         import torch
@@ -2709,7 +2748,7 @@ class StepRecorder:
 
         self.iterations, self.times, self.epochs, self.losses = [], [], [], []
         self.initial = None
-        self.real = Trainor.train_step, Trainor.train_epoch
+        self.real = getattr(Trainor, self.method), Trainor.train_epoch
         real_step, real_epoch = self.real
         recorder = self
 
@@ -2726,9 +2765,9 @@ class StepRecorder:
             recorder.epochs.append(sync(trainer) - start)
             return losses
 
-        def timed_step(trainer, batch, lr):
+        def timed_step(trainer, *args):
             t0 = sync(trainer)
-            loss = real_step(trainer, batch, lr)
+            loss = real_step(trainer, *args)
             t1 = sync(trainer)
             recorder.times.append(t1 - t0)
             recorder.iterations.append(t1 - recorder.mark)
@@ -2736,13 +2775,15 @@ class StepRecorder:
             recorder.losses.append(float(loss))
             return loss
 
-        Trainor.train_step, Trainor.train_epoch = timed_step, timed_epoch
+        setattr(Trainor, self.method, timed_step)
+        Trainor.train_epoch = timed_epoch
         return self
 
     def __exit__(self, *exc):
         from vilmedic_torch.executors.trainor import Trainor
 
-        Trainor.train_step, Trainor.train_epoch = self.real
+        setattr(Trainor, self.method, self.real[0])
+        Trainor.train_epoch = self.real[1]
 
 
 def phase_rrg_train(tmp: str):
@@ -2969,26 +3010,29 @@ PARITY_DEVICES = ("cpu", "cuda")  # the reference first
 class DecodeSteps:
     """Sums the ``steps`` of every beam search that ``evaluation`` runs
     (each step one K1 call per decoder layer and one K2 call on the
-    kernel route)."""
+    kernel route), or with ``module="vision_language"`` that
+    ``make_vl_generate_fn`` runs."""
+
+    def __init__(self, module: str = "evaluation_nlg"):
+        self.module = module
 
     def __enter__(self):
-        from vilmedic_torch.models import evaluation_nlg
+        import importlib
 
+        self.target = importlib.import_module(f"vilmedic_torch.models.{self.module}")
         self.steps = 0
-        self.real = evaluation_nlg.beam_search
+        self.real = self.target.beam_search
 
         def counted(*args, **kwargs):
             result = self.real(*args, **kwargs)
             self.steps += result.steps
             return result
 
-        evaluation_nlg.beam_search = counted
+        self.target.beam_search = counted
         return self
 
     def __exit__(self, *exc):
-        from vilmedic_torch.models import evaluation_nlg
-
-        evaluation_nlg.beam_search = self.real
+        self.target.beam_search = self.real
 
 
 class ScstRecorder:
@@ -4832,6 +4876,570 @@ def phase_hf_parity(tmp: str):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- the VL config's entry points
+
+VL_TRAIN, VL_VALIDATE = 128, 32  # 8 microbatches of 16 (2 updates at grad_accu 4)
+VL_UNFROZEN_TRAIN = 64  # 4 microbatches of 16
+# BERTScore's encoder: distilbert-base-uncased's shape (random weights)
+DISTILBERT_BASE = dict(model_type="distilbert", vocab_size=30522, dim=768, n_layers=6,
+                       n_heads=12, hidden_dim=3072, max_position_embeddings=512,
+                       activation="gelu")
+K4, K4L, K5Q, K5KV = ("flash_attention", "flash_attention_with_lse", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")
+K1B = "fused_beam_cache_attention.launches_stats"
+
+
+def vl_config_dirs(tmp: str):
+    """The VL corpus (``synthetic_corpus`` at 518², the train reports
+    sweeping its 5000 words, so the built vocabulary takes the blocked
+    head), its 64-report cut, the DINOv2-B/14 ``config.json`` that
+    ``vision_model_name`` names (no weights: the tower keeps its random
+    init, with the JAX package's warning) and a DistilBERT-base-shaped
+    BERTScore directory (``config.json``, ``vocab.txt`` of the special
+    tokens, the corpus words and fillers, ``pytorch_model.bin`` of random
+    weights from SEED). Made once; returns (data, 64-report data, 4-report
+    data, tower, bert)."""
+    import torch
+
+    from vilmedic_torch.scorers.bert_encoder import BertEncoder
+
+    data, small, tiny = (os.path.join(tmp, f"vl_data{s}") for s in ("", "_small", "_tiny"))
+    tower, bert = os.path.join(tmp, "dinov2-base"), os.path.join(tmp, "bertscore-distilbert")
+    if os.path.isdir(bert):
+        return data, small, tiny, tower, bert
+    synthetic_corpus(data, VL_TRAIN, VL_VALIDATE, SEED + 21, 518, sweep=True)
+    for folder, n_train in ((small, VL_UNFROZEN_TRAIN), (tiny, 4)):
+        os.makedirs(folder)
+        for split, n in (("train", n_train), ("validate", 4)):
+            for name in ("image", "impression"):
+                with open(os.path.join(data, f"{split}.{name}.tok")) as f:
+                    lines = f.read().split("\n")[:n]
+                with open(os.path.join(folder, f"{split}.{name}.tok"), "w") as f:
+                    f.write("\n".join(lines))
+    os.makedirs(tower)
+    with open(os.path.join(tower, "config.json"), "w") as f:
+        json.dump(VL_TOWER, f)
+    os.makedirs(bert)
+    with open(os.path.join(data, "train.impression.tok")) as f:
+        words = sorted(set(f.read().split()))
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *words]
+    vocab += [f"[unused{i}]" for i in range(DISTILBERT_BASE["vocab_size"] - len(vocab))]
+    with open(os.path.join(bert, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab))
+    with open(os.path.join(bert, "config.json"), "w") as f:
+        json.dump(DISTILBERT_BASE, f)
+    torch.manual_seed(SEED)
+    torch.save(BertEncoder(DISTILBERT_BASE).state_dict(), os.path.join(bert, "pytorch_model.bin"))
+    return data, small, tiny, tower, bert
+
+
+def vl_cli_overrides(data: str, tower: str, ckpt: str, name: str, device: str, extra=()):
+    """The dotlist that points ``config/VL/vl-dinov2-modernbert.yml`` at the
+    synthetic corpus (the corpus vocabulary: the ModernBERT tokenizer's
+    files are not in the repository) and the DINOv2 directory; one epoch
+    (the loop runs ``epochs + 1``); the ensemble CLI on the validate split."""
+    return [VL_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
+            f"dataset.image.root={data}", f"dataset.seq.root={data}",
+            "dataset.seq.tokenizer=null", f"model.vision.vision_model_name={tower}",
+            "trainor.epochs=0", "ensemblor.splits=[validate]", *extra]
+
+
+@contextlib.contextmanager
+def bertscore_model(folder: str):
+    """``BERTSCORE_MODEL`` set to ``folder`` (no baseline: raw scores)."""
+    old = os.environ.get("BERTSCORE_MODEL")
+    os.environ["BERTSCORE_MODEL"] = folder
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("BERTSCORE_MODEL")
+        else:
+            os.environ["BERTSCORE_MODEL"] = old
+
+
+def read_run_text(run_dir: str, split: str):
+    """(refs, hyps) a Validator dumped."""
+    out = []
+    for kind in ("refs", "hyps"):
+        with open(os.path.join(run_dir, f"{split}_{SEED}_{kind}.txt")) as f:
+            out.append(f.read().split("\n"))
+    return out
+
+
+def timed_eval(models, config, dl):
+    """(seconds, hyps) of one ``vl_evaluation`` pass over ``dl``."""
+    import torch
+
+    from vilmedic_torch.models.vision_language import vl_evaluation
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = vl_evaluation(models, config, dl)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out["hyps"]
+
+
+def hold_k1_stats_beam2(card: str):
+    """K1 (b) at the Validator's shape: 16 items x beam 2 (N 32), T 100,
+    12 heads of 64, bf16, against its plain version."""
+    import torch
+
+    from vilmedic_torch.ops.beam_cache_attention import (
+        fused_beam_cache_attention, fused_beam_cache_attention_reference,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    t, heads, d, rows, n = T_MAX, 12, 64, 2, 32
+    kc, vc = (torch.randn(t, n, heads * d, generator=gen).to("cuda", torch.bfloat16)
+              for _ in range(2))
+    q, kn, vn = (torch.randn(n, heads, d, generator=gen).to("cuda", torch.bfloat16)
+                 for _ in range(3))
+    mask = random_ancestry_mask(n // rows, rows, t, gen, "cuda")
+    worst = 0.0
+    for index in (0, 1, 57, 99):
+        kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        out, m, _ = fused_beam_cache_attention(kc1, vc1, q, kn, vn, mask, index,
+                                               return_stats=True)
+        ref, rm, _ = fused_beam_cache_attention_reference(kc2, vc2, q, kn, vn, mask, index,
+                                                          return_stats=True)
+        torch.cuda.synchronize()
+        worst = max(worst, (out - ref).abs().max().item(), (m - rm).abs().max().item())
+        if not (torch.equal(kc1, kc2) and torch.equal(vc1, vc2)):
+            fail(f"K1 (b) beam 2 cache write, index {index}")
+    def calls():
+        for _ in range(50):
+            fused_beam_cache_attention(kc, vc, q, kn, vn, mask, 99, return_stats=True)
+
+    ms = cuda_ms(calls) / 50
+    print(f"K1 (b) bf16 beam 2 N={n} T={t} 12x64 (the VL Validator's shape; {card}): max|err| "
+          f"{worst:.3e} (tol 2e-02), {ms:.4f} ms per call (CUDA events over 50 back-to-back "
+          f"calls: the host's launch cost included)")
+    if worst > 2e-2:
+        fail("K1 (b) at beam 2")
+    return worst
+
+
+def phase_vl_cli_train(tmp: str, card: str):
+    """``config/VL/vl-dinov2-modernbert.yml`` through the train CLI at full
+    width, bf16: DINOv2-B/14 at 518² (frozen, 1370 tokens), the 12-layer 768
+    prefix LM, AdamW, grad_accu 4, batch 16 over 128 reports (8
+    microbatches, 2 updates) of host float images; the Validator at beam 2
+    over 32 reports with ROUGEL, BLEU and bertscore (the DistilBERT-base
+    directory, on the card); then the ensemble CLI at beam 8 on the saved
+    checkpoint. K4 (tower, prefill), K4 with LSE and K5 (LM training), K1
+    (b) (decode) counted."""
+    import torch
+
+    from vilmedic_torch.bin import ensemble
+    from vilmedic_torch.bin.train import main
+    from vilmedic_torch.scorers import bertscore_impl
+    from vilmedic_torch.scorers.clinical import BertScore
+
+    set_tf32(False)
+    data, _, _, tower, bert = vl_config_dirs(tmp)
+    overrides = vl_cli_overrides(data, tower, tmp, "vl_cli_train", "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with bertscore_model(bert), StepRecorder("grad_step") as steps, \
+            DecodeSteps("vision_language") as val_steps:
+        t0 = time.perf_counter()
+        trainor = main(overrides)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, evaluator = trainor.model, trainor.evaluator
+    module, dec, tok = model.module, model.dec_config, trainor.dl.dataset.tokenizer
+    tower_cfg = module.vision.model.config
+    n_micro = len(steps.times)
+    updates = trainor.training_scheduler.iteration_count
+    micro_ms = statistics.median(steps.iterations[1:]) * 1e3
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    # the second update: its 4 microbatches, the first update's AdamW apply
+    # and the loader waits among them
+    update_ms = sum(steps.iterations[trainor.grad_accu:2 * trainor.grad_accu]) * 1e3
+    tokens = 16 * (module.num_image_tokens + T_MAX)
+    print(f"vl_cli_train: DINOv2 {tower_cfg.num_hidden_layers} layers of "
+          f"{tower_cfg.hidden_size} at 518² (frozen {model.frozen_prefixes}), "
+          f"{dec.num_hidden_layers}-layer LM of {dec.hidden_size}, vocab {dec.vocab_size} "
+          f"(special ids {dec.bos_token_id}/{dec.eos_token_id}/{dec.pad_token_id} from the "
+          f"tokenizer), {dec.dtype}, {trainor.config.optimizer} lr {trainor.base_lr:g}, "
+          f"grad_accu {trainor.grad_accu}; {n_micro} microbatches, {updates} updates, run "
+          f"{run_s:.1f} s; losses {[round(x, 4) for x in steps.losses]}")
+    print(f"vl_cli_train bf16 batch 16 ({card}): {micro_ms:.1f} ms per microbatch (whole "
+          f"iteration, loader wait included; median of 2-{n_micro}: "
+          f"{[round(t * 1e3, 1) for t in steps.iterations]}), the model step alone "
+          f"{step_ms:.1f} ms, {update_ms:.1f} ms per update (the second's microbatches and "
+          f"the first's apply), "
+          f"{16 / micro_ms * 1e3:.1f} images/s, {tokens / micro_ms * 1e3:.0f} tokens/s; peak "
+          f"{peak:.2f} GiB")
+    scores = evaluator.scores[0]
+    refs, hyps = read_run_text(os.path.join(tmp, "vl_cli_train"), "validate")
+    val_dl = evaluator.splits[0][1]
+    def bert_call_ms():
+        """One BertScore call as the Validator makes it, in ms."""
+        with bertscore_model(bert):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            BertScore(device="cuda")(refs, hyps)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+    bertscore_impl._load_scorer.cache_clear()
+    bert_cold_ms = bert_call_ms()  # the encoder's load included, as the first call
+    bert_ms = bert_call_ms()  # the encoder kept, as every later call
+    val_s, _ = timed_eval([model], evaluator.config, val_dl)
+    print(f"vl_cli_train: Validator beam {evaluator.config.beam_width} batch "
+          f"{val_dl.batch_size}: scores {scores}; {len(refs) / val_s:.2f} reports/s "
+          f"(vl_evaluation alone, bf16, {card}); {val_steps.steps} decode steps; BERTScore "
+          f"of {len(refs)} pairs on the card {bert_ms:.1f} ms a call with the encoder kept "
+          f"({bert_cold_ms:.1f} ms the first, with its load)")
+    ckpts = glob.glob(os.path.join(tmp, "vl_cli_train", "*.ckpt"))
+    layers, tower_layers = dec.num_hidden_layers, tower_cfg.num_hidden_layers
+    val_batches = -(-VL_VALIDATE // val_dl.batch_size)
+    checks = {
+        "VisionLanguage from the config, CLS dropped": type(model).__name__ == "VisionLanguage"
+        and module.drop_cls_token and module.num_image_tokens == VL_TOKENS,
+        "DINOv2-B/14 from vision_model_name": tower_cfg.hidden_size == 768
+        and tower_layers == 12 and module.vision.model.pos_embed.shape[1] == VL_TOKENS,
+        "the tokenizer's vocabulary (blocked head) and ids": dec.vocab_size == tok.vocab_size
+        >= 4096 and (dec.bos_token_id, dec.eos_token_id, dec.pad_token_id)
+        == (tok.cls_token_id, tok.sep_token_id, tok.pad_token_id),
+        "8 microbatches, 2 updates": n_micro == VL_TRAIN // 16 and updates == 2,
+        "finite losses": all(map(math.isfinite, steps.losses)),
+        "finite ROUGEL / BLEU / bertscore": all(scores.get(k) is not None
+                                                and math.isfinite(scores[k])
+                                                for k in ("ROUGEL", "BLEU", "bertscore")),
+        "a best checkpoint": len(ckpts) == 1,
+        "K4 with LSE = K5 dq = K5 dk/dv = LM layers per microbatch":
+        launches[K4L] == launches[K5Q] == launches[K5KV] == layers * n_micro,
+        "K4 = tower per microbatch + (tower + prefill) per Validator batch":
+        launches[K4] == tower_layers * n_micro + (tower_layers + layers) * val_batches,
+        "K1 (b) at beam 2 = LM layers per decode step": launches[K1B] == launches[K1]
+        == layers * val_steps.steps > 0,
+    }
+    require(checks, "vl_cli_train")
+    k1_beam2 = hold_k1_stats_beam2(card)
+    del trainor, model, module, evaluator
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    with bertscore_model(bert), DecodeSteps("vision_language") as ens_steps:
+        t0 = time.perf_counter()
+        validator = ensemble.main(overrides)
+        torch.cuda.synchronize()
+        ens_run_s = time.perf_counter() - t0
+    ens_launches = read_launches()
+    ens_dl = validator.splits[0][1]
+    ens_s, _ = timed_eval(validator.models, validator.config, ens_dl)
+    ens_scores = validator.scores[0]
+    print(f"vl_cli_train ensemble CLI (mode {validator.config.mode}, "
+          f"{len(validator.models)} checkpoint, beam {validator.config.beam_width}, batch "
+          f"{ens_dl.batch_size}): scores {ens_scores}; run {ens_run_s:.1f} s (build, load, "
+          f"decode, score); {VL_VALIDATE / ens_s:.2f} reports/s (vl_evaluation alone, bf16, "
+          f"{card}); K1 (b) {ens_launches[K1B]} over {ens_steps.steps} decode steps")
+    require({
+        "beam 8, one checkpoint": validator.config.beam_width == 8
+        and len(validator.models) == 1,
+        "finite ROUGEL / BLEU / bertscore": all(ens_scores.get(k) is not None
+                                                and math.isfinite(ens_scores[k])
+                                                for k in ("ROUGEL", "BLEU", "bertscore")),
+        "K1 (b) at beam 8 = LM layers per decode step": ens_launches[K1B] == layers
+        * ens_steps.steps > 0,
+    }, "vl_cli_train ensemble")
+    del validator
+    bertscore_impl._load_scorer.cache_clear()
+    torch.cuda.empty_cache()
+    return ({name: launches[name] + ens_launches[name] for name in launches}, k1_beam2,
+            (launches[K1B], ens_launches[K1B]))
+
+
+def phase_vl_unfrozen_train(tmp: str, card: str):
+    """The VL config with ``model.vision.freeze=false`` through the train
+    CLI (4 microbatches of 16 at grad_accu 2, so that the second update runs
+    past the warmup's lr 0; no Validator), without and with the LM's
+    ``gradient_checkpointing``: peak memory and ms per microbatch. The JAX
+    module stops the gradient at the tower whatever ``freeze`` says, so the
+    tower joins the optimizer and only AdamW's decay can move it (lr 5e-5 x
+    decay 1e-4 rounds away in f32 almost everywhere), and K5 runs only in
+    the LM. Then the DINOv2-B/14 tower trained where the JAX package
+    trains it, as an RRG ``cnn`` (``config/RRG/baseline-mimic.yml`` with
+    ``model.cnn.backbone=dinov2``, unfrozen, 518², batch 16, 4 RAdam steps):
+    K4 with LSE and K5 non-causal at T 1370 in every tower layer."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    _, small, _, tower, _ = vl_config_dirs(tmp)
+    runs = {}
+    for remat in (False, True):
+        name = f"vl_unfrozen_{'remat' if remat else 'plain'}"
+        overrides = vl_cli_overrides(small, tower, tmp, name, "cuda", [
+            "model.vision.freeze=false", f"model.decoder.gradient_checkpointing={remat}",
+            "trainor.grad_accu=2", "trainor.eval_start=2",
+            "trainor.early_stop_metric=training_loss"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with StepRecorder("grad_step") as steps:
+            trainor = main(overrides)
+            torch.cuda.synchronize()
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        module = trainor.model.module
+        initial, final = steps.initial, cpu_state(trainor.model)
+        tower_names = [k for k in final if k.startswith("vision.") and "running" not in k]
+        moved = sum(not torch.equal(initial[k], final[k]) for k in tower_names)
+        finite = all(torch.isfinite(final[k]).all() for k in tower_names)
+        in_opt = sum(n.startswith("vision.") for n in trainor.tx.names)
+        # AdamW's decoupled decay, at most lr x wd x |p| an update, plus a rounding
+        wd = trainor.tx.optimizer.param_groups[0]["weight_decay"]
+        decay_only = all((final[k] - initial[k]).abs().max().item()
+                         <= (2 * trainor.base_lr * wd + 2 * 2**-24)
+                         * initial[k].abs().max().item() for k in tower_names)
+        lm_names = [k for k in trainor.tx.names if not k.startswith("vision.")]
+        lm_moved = sum(not torch.equal(initial[k], final[k]) for k in lm_names)
+        micro_ms = statistics.median(steps.iterations[1:]) * 1e3
+        step_ms = statistics.median(steps.times[1:]) * 1e3
+        runs[remat] = dict(peak=peak, losses=steps.losses, launches=launches)
+        layers = trainor.model.dec_config.num_hidden_layers
+        n_micro = len(steps.times)
+        print(f"{name} bf16 batch 16 ({card}): gradient_checkpointing {remat}; {n_micro} "
+              f"microbatches, {micro_ms:.1f} ms per microbatch (whole iteration, median of "
+              f"2-{n_micro}), model step {step_ms:.1f} ms; peak {peak:.2f} GiB; tower: "
+              f"{in_opt} tensors in the optimizer, {moved} of {len(tower_names)} moved (by "
+              f"the decay alone: {decay_only}), finite {finite}; {lm_moved} of "
+              f"{len(lm_names)} LM tensors moved; K5 dk/dv {launches[K5KV]} (LM {layers} x "
+              f"{n_micro}); losses {[round(x, 4) for x in steps.losses]}")
+        require({
+            "the tower in the optimizer": trainor.model.frozen_prefixes == () and in_opt
+            == len([n for n, _ in module.named_parameters() if n.startswith("vision.")]),
+            "the tower finite, changed by AdamW's decay at most": decay_only and finite,
+            "every LM tensor moved": lm_moved == len(lm_names),
+            "finite losses": all(map(math.isfinite, steps.losses)),
+            "K5 only in the LM (the prefix stops the tower's gradient)":
+            launches[K5KV] == launches[K5Q] == layers * n_micro,
+            "remat recomputes the LM forward": launches[K4L] == (2 if remat else 1) * layers
+            * n_micro,
+        }, name)
+        del trainor, module, initial, final
+    print(f"vl_unfrozen_train: peak {runs[False]['peak']:.2f} GiB without and "
+          f"{runs[True]['peak']:.2f} GiB with gradient_checkpointing ({card})")
+    require({"checkpointing keeps the losses (same dropout masks)": all(
+        abs(a - b) <= 1e-2 * abs(a) for a, b in zip(runs[False]["losses"], runs[True]["losses"]))},
+        "vl_unfrozen_train")
+
+    # the tower trained, as an RRG cnn
+    overrides = rrg_dinov2_overrides(small, tmp, "rrg_dinov2_unfrozen", "cuda",
+                                     ["trainor.batch_size=16"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with StepRecorder() as steps:
+        trainor = main(overrides)
+        torch.cuda.synchronize()
+    rrg_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    enc = trainor.model.module.enc
+    initial, final = steps.initial, cpu_state(trainor.model)
+    tower_names = [k for k in final if k.startswith("enc.model.")]
+    moved = sum(not torch.equal(initial[k], final[k]) for k in tower_names)
+    finite = all(torch.isfinite(final[k]).all() for k in tower_names)
+    n_steps, tower_layers = len(steps.times), enc.model.config.num_hidden_layers
+    step_ms = statistics.median(steps.times[1:]) * 1e3
+    print(f"rrg_dinov2_unfrozen bf16 batch 16 ({card}): DINOv2 {tower_layers} layers of "
+          f"{enc.model.config.hidden_size} at 518² ({enc.model.pos_embed.shape[1]} tokens) "
+          f"trained under a {trainor.model.dec_config.num_hidden_layers}-layer decoder; "
+          f"{n_steps} steps, {step_ms:.1f} ms per step (median of 2-{n_steps}), "
+          f"{16 / step_ms * 1e3:.1f} images/s, peak {peak:.2f} GiB; {moved} of "
+          f"{len(tower_names)} tower tensors moved, finite {finite}; K4 with LSE "
+          f"{rrg_launches[K4L]}, K5 dq {rrg_launches[K5Q]}, K5 dk/dv {rrg_launches[K5KV]} "
+          f"(non-causal, T 1370); losses {[round(x, 4) for x in steps.losses]}")
+    require({
+        "finite losses": all(map(math.isfinite, steps.losses)),
+        "every tower tensor moved and is finite": moved == len(tower_names) and finite,
+        "K4 with LSE = K5 dq = K5 dk/dv = tower layers per step":
+        rrg_launches[K4L] == rrg_launches[K5Q] == rrg_launches[K5KV] == tower_layers * n_steps,
+    }, "rrg_dinov2_unfrozen")
+    del trainor, enc, initial, final
+    torch.cuda.empty_cache()
+    return {name: runs[False]["launches"][name] + runs[True]["launches"][name]
+            + rrg_launches[name] for name in rrg_launches}, rrg_launches
+
+
+def rrg_dinov2_overrides(data: str, ckpt: str, name: str, device: str, extra=()):
+    """The flagship RRG config with an unfrozen DINOv2-B/14 ``cnn`` at 518²
+    (the JAX package trains the tower there), on ``data``; one epoch, no
+    Validator."""
+    return [CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
+            f"dataset.image.root={data}", f"dataset.seq.root={data}", "dataset.image.resize=518",
+            "dataset.image.crop=518", "trainor.epochs=0", "trainor.eval_start=2",
+            "trainor.early_stop_metric=training_loss", "validator.metrics=[BLEU]",
+            "model.cnn.backbone=dinov2", "model.cnn.freeze=false", *extra]
+
+
+def hold_tower_flash_backward(card: str):
+    """K4 with LSE and K5 at the unfrozen tower's shape (B 16, T 1370, 12
+    heads of 64, non-causal, no key mask, bf16) against their plain versions
+    (``flash_grads_match``: out, lse, then dq / dk / dv / dbias); times the
+    whole backward beside the plain one and SDPA's."""
+    import torch
+
+    from vilmedic_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 23)
+    q, k, v = (torch.randn(16, VL_TOKENS, 12, 64, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    out, lse, dout, errs = flash_grads_match(
+        q, k, v, None, False, f"tower shape B=16 T={VL_TOKENS} H=12 D=64 non-causal", gen)
+    ms = cuda_ms(lambda: flash_attention_backward(q, k, v, None, out, lse, dout, False))
+    plain = cuda_ms(lambda: flash_attention_backward_reference(q, k, v, None, out, lse, dout,
+                                                               False), reps=3)
+    # q, k, v, out, dO read, dq, dk, dv written; the f32 LSE read
+    bd = flash_bound(q, k, False, tensors=8, extra_bytes=lse.numel() * 4, products=5)
+    qs, ks, vs, ds = sdpa_layout(q, k, v, dout)
+    for x in (qs, ks, vs):
+        x.requires_grad_()
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    library = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), ds,
+                                                  retain_graph=True))
+    print(f"K5 bf16 tower shape B 16 T {VL_TOKENS} 12x64 non-causal ({card}): whole backward "
+          f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}), SDPA backward by autograd {library:.3f} ms (CUDA events)")
+    return max(errs["dq"], errs["dk"], errs["dv"])
+
+
+def phase_vl_cli_parity(tmp: str):
+    """f32 (TF32 off), card vs CPU, the VL config through the train CLI at
+    tower 2 + LM 2 layers (full width, 518²), dropout 0, the tower unfrozen
+    (it joins the optimizer; the prefix stops its gradient, as in the JAX
+    module), batch 2 over 4 reports (2 AdamW steps at lr 1e-2 and eps 1:
+    Adam's eps 1e-8 turns a key bias's rounding-noise gradient into a full
+    step of either sign), the vl_cli_train run's vocabulary (blocked head),
+    the Validator at beam 2 over 4 reports: equal losses (1e-5 relative),
+    every tensor's update (1e-4 of its largest change), equal hyps at beam 2
+    and at beam 8 (``vl_evaluation``), BERTScore P / R / F (1e-5). Then the
+    tower trained by its gradient: the RRG config's unfrozen DINOv2 ``cnn``
+    (2 layers of 768 at 518², T 1370: K4 with LSE and K5 non-causal in f32
+    on the card), 2 RAdam steps of batch 2, dropout 0, card vs CPU: losses
+    (1e-5 relative) and every tensor's update, the tower's included
+    (:func:`update_agreement`). Then gradient checkpointing with dropout on
+    against off on the card, equal gradients."""
+    import shutil
+
+    import torch
+
+    from vilmedic_torch.bin.train import main
+    from vilmedic_torch.config.config import Config
+    from vilmedic_torch.models.vision_language import vl_evaluation
+    from vilmedic_torch.scorers.bertscore_impl import bert_score_prf
+
+    set_tf32(False)
+    _, _, tiny, tower, bert = vl_config_dirs(tmp)
+    runs = {}
+    for device in PARITY_DEVICES:
+        name = f"vl_parity_{device}"
+        os.makedirs(os.path.join(tmp, name), exist_ok=True)
+        for vocab in glob.glob(os.path.join(tmp, "vl_cli_train", "vocab.*")):
+            shutil.copy(vocab, os.path.join(tmp, name))
+        overrides = vl_cli_overrides(tiny, tower, tmp, name, device, [
+            "model.dtype=float32", "model.vision.freeze=false",
+            "model.vision.num_hidden_layers=2", "model.decoder.num_hidden_layers=2",
+            "model.decoder.hidden_dropout_prob=0.0", "trainor.batch_size=2",
+            "trainor.grad_accu=1", "trainor.optim_params.lr=0.01", "trainor.optim_params.eps=1",
+            "validator.batch_size=2", "validator.metrics=[ROUGEL,BLEU]",
+            "dataset.num_workers=0"])
+        with StepRecorder() as steps:
+            trainor = main(overrides)
+        refs, hyps = read_run_text(os.path.join(tmp, name), "validate")
+        dl = trainor.evaluator.splits[0][1]
+        beam8 = vl_evaluation([trainor.model], Config({"beam_width": 8}), dl)["hyps"]
+        prf = bert_score_prf(bert, refs, hyps, rescale_with_baseline=False, device=device)
+        runs[device] = dict(losses=steps.losses, initial=steps.initial,
+                            final=cpu_state(trainor.model), hyps=hyps, beam8=beam8, prf=prf,
+                            vocab=trainor.model.dec_config.vocab_size)
+        del trainor
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    n_steps = len(gpu["losses"])
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(cpu["losses"], gpu["losses"]))
+    ratio, worst = update_agreement((cpu["initial"], gpu["initial"]), cpu["final"],
+                                    gpu["final"], n_steps)
+    prf_err = max(abs(a - b) for x, y in zip(cpu["prf"], gpu["prf"]) for a, b in zip(x, y))
+    print(f"vl_cli_parity f32 (vocab {gpu['vocab']}, {n_steps} steps): loss rel err "
+          f"{loss_rel:.2e} (tol 1e-5), worst update {ratio:.3f} of its tolerance ({worst}); "
+          f"beam 2 hyps equal {cpu['hyps'] == gpu['hyps']}, beam 8 equal "
+          f"{cpu['beam8'] == gpu['beam8']}; BERTScore P/R/F max err {prf_err:.2e} (tol 1e-5)")
+    checks = {
+        "the blocked head's vocabulary": gpu["vocab"] >= 4096,
+        "losses within 1e-5": n_steps == 2 and loss_rel <= 1e-5,
+        "every update within 1e-4 of its largest change": ratio <= 1.0,
+        "equal hyps at beam 2": cpu["hyps"] == gpu["hyps"] and any(cpu["hyps"]),
+        "equal hyps at beam 8": cpu["beam8"] == gpu["beam8"],
+        "BERTScore P / R / F within 1e-5": prf_err <= 1e-5,
+    }
+
+    # the unfrozen DINOv2 trained by its gradient, as an RRG cnn
+    towers = {}
+    for device in PARITY_DEVICES:
+        t0 = time.perf_counter()
+        with StepRecorder() as steps:
+            trainor = main(rrg_dinov2_overrides(tiny, tmp, f"rrg_dinov2_parity_{device}", device, [
+                "model.dtype=float32", "model.cnn.num_hidden_layers=2", "trainor.batch_size=2",
+                "model.decoder.hidden_dropout_prob=0.0", "dataset.num_workers=0"]))
+        towers[device] = dict(losses=steps.losses, initial=steps.initial,
+                              final=cpu_state(trainor.model), s=time.perf_counter() - t0,
+                              layers=trainor.model.module.enc.model.config.num_hidden_layers)
+        del trainor
+    cpu, gpu = towers["cpu"], towers["cuda"]
+    tower_rel = max(abs(a - b) / abs(a) for a, b in zip(cpu["losses"], gpu["losses"]))
+    tower_ratio, tower_worst = update_agreement((cpu["initial"], gpu["initial"]), cpu["final"],
+                                                gpu["final"], len(gpu["losses"]))
+    tower_names = [k for k in cpu["final"] if k.startswith("enc.model.")]
+    moved = sum(not torch.equal(cpu["initial"][k], cpu["final"][k]) for k in tower_names)
+    print(f"vl_cli_parity unfrozen DINOv2 as an RRG cnn f32 ({gpu['layers']} layers of 768 at "
+          f"518², {len(gpu['losses'])} steps, CPU run {cpu['s']:.1f} s): loss rel err "
+          f"{tower_rel:.2e} (tol 1e-5), worst update {tower_ratio:.3f} of its tolerance "
+          f"({tower_worst}); {moved} of {len(tower_names)} tower tensors moved")
+    checks.update({
+        "unfrozen DINOv2: losses within 1e-5": len(gpu["losses"]) == 2 and tower_rel <= 1e-5,
+        "unfrozen DINOv2: every update within 1e-4 of its largest change": tower_ratio <= 1.0,
+        "unfrozen DINOv2: every tower tensor moved": moved == len(tower_names),
+    })
+
+    # gradient checkpointing with dropout on (the LM's 0.1), on the card
+    from vilmedic_torch import registry
+    from vilmedic_torch.config import load_config
+
+    cfg, _ = load_config(VL_CONFIG, ["model.dtype=float32", "model.vision.num_hidden_layers=2",
+                                     "model.decoder.num_hidden_layers=2"])
+    batch = vl_train_batches(1, 2, 518, SEED + 24)[0]
+    grads = []
+    for remat in (False, True):
+        block = cfg.model.to_dict()
+        block["decoder"]["gradient_checkpointing"] = remat
+        model = registry.build("model", Config(block), vision_hf_config=VL_TOWER,
+                               vocab_size=VL_VOCAB, bos_token_id=VL_BOS, eos_token_id=VL_EOS,
+                               pad_token_id=VL_PAD, device="cuda")
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        model.apply_train(to_device(batch, "cuda"), gen)["loss"].backward()
+        grads.append({n: p.grad.cpu() for n, p in model.module.named_parameters()
+                      if p.grad is not None})
+        del model
+    worst = max(((grads[1][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                for n, g in grads[0].items() if not n.endswith("k.bias"))
+    print(f"vl_cli_parity gradient checkpointing (dropout "
+          f"{cfg.model.decoder.hidden_dropout_prob}, f32, card): {len(grads[0])} gradients, "
+          f"worst relative difference {worst:.2e} (tol 1e-5)")
+    checks["gradient checkpointing keeps the gradients"] = (
+        sorted(grads[0]) == sorted(grads[1]) and worst <= 1e-5)
+    require(checks, "vl_cli_parity")
+    torch.cuda.empty_cache()
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4891,7 +5499,21 @@ def main():
         launches["rrg_multi_image"] = phase_rrg_multi_image(tmp, card)
         launches["rrs_hf_train"] = phase_rrs_hf_train(tmp, card)
         phase_hf_parity(tmp)
+        print(f"phases before vl_cli_train: {time.perf_counter() - t_start:.1f} s")
+        launches["vl_cli_train"], k1_beam2, k1_vl_cli = phase_vl_cli_train(tmp, card)
+        launches["vl_unfrozen_train"], rrg_dinov2 = phase_vl_unfrozen_train(tmp, card)
+        k5_tower = hold_tower_flash_backward(card)
+        phase_vl_cli_parity(tmp)
         print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    # K1 (b) on the VL CLI path: the Validator at beam 2, the ensemble CLI at 8
+    results["fused_beam_cache_attention_stats"].update(
+        beam2_max_abs_err=k1_beam2, vl_validator_beam2_launches=k1_vl_cli[0],
+        vl_ensemble_beam8_launches=k1_vl_cli[1])
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        results[name]["tower_max_rel_err"] = k5_tower
+    # K4 with LSE and K5 on the unfrozen DINOv2 tower (non-causal, T 1370)
+    for name in (K4L, K5Q, K5KV):
+        results[name]["tower_launches"] = rrg_dinov2[name]
     # the later paths' launches of the kernels they run (K1 stage a, K2,
     # K3): RRG training, SCST fine-tuning, RRS training, RRG with the ViT
     # tower, MVQA and CLASS (none), the RoBERTa-width RRG serving, ConVIRT
@@ -4904,7 +5526,8 @@ def main():
                       ("convirt_train", "convirt_launches"), ("gloria_train", "gloria_launches"),
                       ("rrg_hf_train", "rrg_hf_launches"),
                       ("rrg_multi_image", "rrg_multi_image_launches"),
-                      ("rrs_hf_train", "rrs_hf_launches")):
+                      ("rrs_hf_train", "rrs_hf_launches"), ("vl_cli_train", "vl_cli_launches"),
+                      ("vl_unfrozen_train", "vl_unfrozen_launches")):
         for name, counter in launches[path].items():
             if name in results:
                 results[name][key] = counter
@@ -4920,7 +5543,9 @@ def main():
     extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "rrs_launches",
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
              "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",
-             "rrs_hf_launches")
+             "rrs_hf_launches", "vl_cli_launches", "vl_unfrozen_launches", "tower_launches",
+             "beam2_max_abs_err", "tower_max_rel_err", "vl_validator_beam2_launches",
+             "vl_ensemble_beam8_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
                                  else r[key] for key in keys},
                 **{key: r[key] for key in extra if key in r}}

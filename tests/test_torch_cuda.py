@@ -12,8 +12,10 @@ serving routes, the tiny RRG's ensembling, greedy, small-vocab and
 cache-permute routes, a tiny training step card vs CPU, the sampler, K1 (a)
 and K2 at RRS's shapes (K1 also at beam 2), small SCST, RRS and RRG_FORCE generation paths
 card vs CPU, a tiny RoBERTa-type RRG (the LM-head transform before K2, the
-ensemble's blocked head and the plain head) and the GLoRIA loss card vs
-CPU. Run them on the card
+ensemble's blocked head and the plain head), the GLoRIA loss, an unfrozen
+DINOv2 tower's gradient (K5 non-causal; also alone at T 1370), gradient
+checkpointing's replayed dropout and BERTScore's encoder card vs CPU. Run
+them on the card
 from the repository root, without the JAX conftest (the card's machine has no
 JAX):
 
@@ -491,6 +493,17 @@ def test_flash_backward_ragged_training_length(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_tower_length(cuda, dtype):
+    """The unfrozen DINOv2 tower's attention at 518² / 14: T 1370 = 21 x 64
+    + 26 (a ragged last tile), B 2, 12 heads of 64, non-causal, no padding:
+    K4 with LSE and K5 against their plain versions."""
+    b, t, heads, d = 2, 1370, 12, 64
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn(b, t, heads, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    _flash_grads_match(q, k, v, None, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kept", [0, 10])
 def test_flash_backward_padding_heavy_item(cuda, dtype, kept):
     """Item 0 keeps only its first ``kept`` keys. kept 0, non-causal: every
@@ -600,6 +613,98 @@ def test_tiny_vl_train_step_card_equals_cpu(cuda):
         scale = g_cpu[ref].abs().max().item()
         assert (g_gpu[name] - want).abs().max().item() <= 1e-4 * scale, name
         assert (p_gpu[name] - p_cpu[name]).abs().max().item() <= 2 * 5e-5, name
+
+
+def test_unfrozen_dinov2_step_card_equals_cpu(cuda):
+    """f32, dropout off: an unfrozen DINOv2 tower (``VisualEncoder``, 577
+    tokens at 96² / 4, so its attention takes K4 with LSE and K5,
+    non-causal) takes one gradient on the card equal to the CPU's."""
+    from vilmedic_torch.blocks.vision.visual_encoder import build_visual_encoder
+
+    block = dict(backbone="dinov2", freeze=False, permute="no_permute", hidden_size=128,
+                 num_hidden_layers=2, num_attention_heads=2, patch_size=4, image_size=96)
+    gen = torch.Generator().manual_seed(4)
+    images = torch.randn(2, 3, 96, 96, generator=gen)
+    proj = torch.randn(2, 577, 128, generator=gen)
+    torch.manual_seed(0)
+    enc = build_visual_encoder(dict(block))
+    state = {k: x.clone() for k, x in enc.state_dict().items()}
+    grads = {}
+    for device in ("cpu", cuda):
+        enc = build_visual_encoder(dict(block)).to(device)
+        enc.load_state_dict(state)
+        start = flash_attention_bwd_dkv.launches
+        out = enc(images.to(device), train=True, generator=torch.Generator(device).manual_seed(0))
+        (out * proj.to(device)).sum().backward()
+        grads[str(device)] = {n: p.grad.cpu() for n, p in enc.named_parameters()}
+        launched = flash_attention_bwd_dkv.launches - start
+    assert launched == 2  # one K5 dk/dv launch per tower layer on the card
+    for name, want in grads["cpu"].items():
+        ref = name[:-len("bias")] + "weight" if name.endswith("self_attn.k.bias") else name
+        scale = grads["cpu"][ref].abs().max().item()
+        assert (grads["cuda"][name] - want).abs().max().item() <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("mode", [True, "dots"])
+def test_grad_checkpointing_replays_card_dropout(cuda, mode):
+    """The decoder stack with dropout on, masks from a CUDA generator: with
+    ``gradient_checkpointing`` the gradients and the generator's final state
+    equal those without it."""
+    import dataclasses
+
+    from vilmedic_torch.blocks.transformer import TransformerConfig, TransformerDecoder
+
+    cfg = TransformerConfig(vocab_size=50, hidden_size=64, num_hidden_layers=2,
+                            num_attention_heads=2, intermediate_size=128,
+                            max_position_embeddings=32, hidden_dropout_prob=0.2)
+    ids = torch.randint(3, 50, (2, 9), generator=torch.Generator().manual_seed(1)).to(cuda)
+    mem = torch.randn(2, 5, 64, generator=torch.Generator().manual_seed(2)).to(cuda)
+    results = []
+    for remat in (False, mode):
+        torch.manual_seed(0)
+        dec = TransformerDecoder(dataclasses.replace(cfg, gradient_checkpointing=remat)).to(cuda)
+        gen = torch.Generator(cuda).manual_seed(7)
+        dec(ids, torch.ones_like(ids), mem, torch.ones(2, 5, dtype=torch.long, device=cuda),
+            mode="train", train=True, generator=gen).square().mean().backward()
+        results.append(({n: p.grad.cpu() for n, p in dec.named_parameters()}, gen.get_state()))
+    (want, want_state), (got, got_state) = results
+    assert torch.equal(got_state, want_state)
+    for name, w in want.items():
+        scale = max(w.abs().max().item(), 1e-30)
+        assert (got[name] - w).abs().max().item() <= 1e-6 * scale, name
+
+
+def test_bertscore_card_equals_cpu(cuda, tmp_path):
+    """BERTScore P / R / F with the port's encoder on the card equal the
+    CPU's within 1e-5, for a BERT and a DistilBERT directory written here
+    (random weights, a ``pytorch_model.bin``)."""
+    import json
+
+    from vilmedic_torch.scorers.bert_encoder import BertEncoder
+    from vilmedic_torch.scorers.bertscore_impl import bert_score_prf
+
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "the", "lungs", "are", "clear",
+             "no", "effusion", "mild", "edema", ",", "."]
+    refs = ["the lungs are clear.", "mild edema, no effusion", "no effusion"]
+    hyps = ["lungs clear", "no edema", "the lungs are clear, no effusion."]
+    configs = {
+        "bert": dict(model_type="bert", vocab_size=len(words), hidden_size=32,
+                     num_hidden_layers=2, num_attention_heads=2, intermediate_size=64,
+                     max_position_embeddings=64),
+        "distilbert": dict(model_type="distilbert", vocab_size=len(words), dim=32, n_layers=2,
+                           n_heads=2, hidden_dim=64, max_position_embeddings=64),
+    }
+    for kind, cfg in configs.items():
+        folder = tmp_path / kind
+        folder.mkdir()
+        (folder / "config.json").write_text(json.dumps(cfg))
+        (folder / "vocab.txt").write_text("\n".join(words))
+        torch.manual_seed(0)
+        torch.save(BertEncoder(cfg).state_dict(), folder / "pytorch_model.bin")
+        want = bert_score_prf(str(folder), refs, hyps, rescale_with_baseline=False, device="cpu")
+        got = bert_score_prf(str(folder), refs, hyps, rescale_with_baseline=False, device=cuda)
+        for g, w in zip(got, want):
+            assert max(abs(a - b) for a, b in zip(g, w)) <= 1e-5, kind
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -116,8 +116,44 @@ def test_vit_forward_and_gradient_match_jax(pre_ln, act):
 
 
 def test_vit_gradient_checkpointing_raises():
-    with pytest.raises(NotImplementedError, match="gradient_checkpointing"):
-        tmake_vit("vit", **VIT, gradient_checkpointing=True)
+    """``gradient_checkpointing`` raised before it was ported; now the tower
+    builds with it (full recompute), and its gradient equals the same
+    tower's without it (bitwise) and the Flax ViT's built with the same mode
+    (``jax.checkpoint`` per layer; ``tests/test_torch_grad_checkpoint.py``
+    holds both modes with dropout)."""
+    _vit_checkpointing_matches_jax(True)
+
+
+def test_vit_dots_checkpointing_matches_jax():
+    """As above with ``"dots"`` (the matmul outputs kept)."""
+    _vit_checkpointing_matches_jax("dots")
+
+
+def _vit_checkpointing_matches_jax(mode):
+    rng = np.random.default_rng(11)
+    images = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    proj = rng.normal(size=(2, 17, 32)).astype(np.float32)
+    jvit = jmake_vit("vit", **VIT, gradient_checkpointing=mode)
+    params = jax.jit(jvit.init)(jax.random.key(0), jnp.asarray(images))["params"]
+
+    def jloss(p):
+        return jnp.sum(jvit.apply({"params": p}, jnp.asarray(images), train=True,
+                                  rngs={"dropout": jax.random.key(1)}) * proj)
+
+    jgrads = jax.grad(jloss)(params)
+    want = rrg_state_dict_from_jax({"params": jax.tree.map(np.asarray, jgrads)})
+    grads = []
+    for m in (False, mode):
+        tower = tmake_vit("vit", **VIT, gradient_checkpointing=m)
+        assert tower.config.gradient_checkpointing == m
+        tower.load_state_dict(rrg_state_dict_from_jax({"params": params}), strict=True)
+        (tower(_nchw(images), train=True) * torch.from_numpy(proj)).sum().backward()
+        grads.append({n: p.grad for n, p in tower.named_parameters()})
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=0, atol=0)
+        if name.endswith("self_attn.k.bias"):  # 0 up to rounding: softmax is shift-invariant
+            continue
+        _close(grads[1][name].numpy(), want[name].numpy())
 
 
 # ---------------------------------------------------------------- ResNet

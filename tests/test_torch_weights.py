@@ -170,17 +170,19 @@ def test_port_imports_no_jax():
 
 
 def test_port_imports_no_tokenizer_scorer_or_image_packages():
-    """Every module of the port imports without transformers, rouge_score,
-    nltk, scikit-learn or Pillow: the tokenizer, ROUGE, METEOR's stemmer and
-    the classification metrics are the port's own, and Pillow is imported
-    only inside ``data.image.open_image``."""
+    """Every module of the port imports without transformers, safetensors,
+    rouge_score, nltk, scikit-learn or Pillow: the tokenizers, ROUGE,
+    METEOR's stemmer, the classification metrics, BERTScore's encoder and its
+    weight readers are the port's own, and Pillow is imported only inside
+    ``data.image.open_image``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vilmedic_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vilmedic_torch.__path__, 'vilmedic_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('transformers', 'rouge_score', 'nltk', 'sklearn', 'PIL')]\n"
+        "       if m.split('.')[0] in ('transformers', 'safetensors', 'rouge_score', 'nltk',\n"
+        "                              'sklearn', 'PIL')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -188,6 +190,33 @@ def test_port_imports_no_tokenizer_scorer_or_image_packages():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 30  # the data, scorer and executor modules included
+
+
+@pytest.mark.parametrize("weights", ["safetensors", "bin"])
+def test_bertscore_runs_without_transformers_or_safetensors(tmp_path, weights):
+    """BERTScore computed by the port (tokenizer, encoder, weight file read)
+    loads neither package, for either weight file."""
+    from transformers import BertConfig, BertModel, BertTokenizer
+
+    (tmp_path / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "the", "lungs", "are", "clear"]))
+    BertTokenizer(vocab_file=str(tmp_path / "vocab.txt")).save_pretrained(tmp_path)
+    BertModel(BertConfig(vocab_size=9, hidden_size=16, num_hidden_layers=1,
+                         num_attention_heads=2, intermediate_size=32)).save_pretrained(
+        tmp_path, safe_serialization=weights == "safetensors")
+    code = (
+        "import sys\n"
+        "from vilmedic_torch.scorers.bertscore_impl import bert_score_prf\n"
+        f"p, r, f = bert_score_prf({str(tmp_path)!r}, ['the lungs are clear'], ['lungs clear'],"
+        " rescale_with_baseline=False, device='cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('transformers', 'safetensors')]\n"
+        "assert not bad, bad\n"
+        "print(f[0])\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert -1.0 <= float(proc.stdout.strip()) <= 1.0
 
 
 def _all_mapped(variables, module, bridge):

@@ -45,7 +45,7 @@ is a rename plus transposes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +77,9 @@ class TransformerConfig:
     eos_token_id: Optional[int] = None
     hidden_act: str = "gelu"
     initializer_range: float = 0.02
+    # recompute each layer in the backward (HF config key): True recomputes
+    # everything, "dots" keeps the matmul outputs (:func:`run_layer`)
+    gradient_checkpointing: Any = False
     # BERT/RoBERTa prediction heads run dense + GELU + LayerNorm before the
     # vocab projection (HF BertLMPredictionHead / RobertaLMHead)
     lm_head_transform: bool = False
@@ -84,8 +87,7 @@ class TransformerConfig:
 
     @classmethod
     def from_dict(cls, d: Dict, **overrides) -> "TransformerConfig":
-        """Build from an HF-style config dict, ignoring unknown keys
-        (gradient checkpointing is not ported); a BERT or RoBERTa
+        """Build from an HF-style config dict, ignoring unknown keys; a BERT or RoBERTa
         ``model_type`` turns on ``lm_head_transform`` unless the dict sets
         it."""
         from ..config.config import Config
@@ -169,6 +171,50 @@ def dropout(x, p: float, generator: Optional[torch.Generator]):
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _matmul_saved(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_layer(layer, checkpointing, generator: Optional[torch.Generator], *args, **kwargs):
+    """``layer(*args, generator=generator, **kwargs)``, recomputed in the
+    backward when ``checkpointing`` is truthy and gradients are on (Flax's
+    ``nn.remat`` of the layer): ``True`` keeps only the layer's inputs,
+    ``"dots"`` also the outputs of its 2-D matmuls (``aten.mm`` / ``addmm``,
+    JAX's ``dots_with_no_batch_dims_saveable``). The recompute replays the
+    dropout masks: ``generator`` is set back to its state at the layer's
+    start for it, and restored after, so the gradients equal those without
+    checkpointing."""
+    if not checkpointing or not torch.is_grad_enabled():
+        return layer(*args, generator=generator, **kwargs)
+    import functools
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    start = generator.get_state() if generator is not None else None
+    calls = []
+
+    def fn(*inputs):
+        if start is None:
+            return layer(*inputs, generator=generator, **kwargs)
+        after = generator.get_state() if calls else None  # a recompute
+        calls.append(1)
+        generator.set_state(start)
+        try:  # a recompute may stop early, by an exception, once it has what it needs
+            return layer(*inputs, generator=generator, **kwargs)
+        finally:
+            if after is not None:
+                generator.set_state(after)
+
+    context = (functools.partial(create_selective_checkpoint_contexts, _matmul_saved)
+               if checkpointing == "dots" else None)
+    extra = {"context_fn": context} if context is not None else {}
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **extra)
 
 
 def _linear(cfg: TransformerConfig, n_in: int, n_out: int) -> Linear:
@@ -513,7 +559,7 @@ class TransformerEncoder(nn.Module):
         h = self.embeddings(input_ids, positions, generator)
         bias = make_attention_bias(key_mask=attention_mask, query_len=t, key_len=t)
         for layer in self.layers:
-            h = layer(h, bias, train, generator)
+            h = run_layer(layer, self.config.gradient_checkpointing, generator, h, bias, train)
         return h
 
 
@@ -648,7 +694,8 @@ class TransformerDecoder(nn.Module):
         enc_h = (encoder_hidden_states.to(cfg.dtype)
                  if encoder_hidden_states is not None else None)
         for layer in self.layers:
-            h = layer(h, enc_h, self_bias, cross_bias, train=train, generator=generator)
+            h = run_layer(layer, cfg.gradient_checkpointing, generator, h, enc_h, self_bias,
+                          cross_bias, train=train)
         return self._head(h)
 
 

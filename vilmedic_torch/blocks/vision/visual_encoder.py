@@ -41,10 +41,9 @@ gradient (``requires_grad`` False) and so no optimizer state, the
 counterpart of the JAX package's ``stop_gradient`` plus frozen optimizer
 prefixes, and a BatchNorm tower keeps normalizing with its running
 statistics. In training (``train=True``) an unfrozen CNN normalizes with
-batch statistics, an unfrozen ViT routes attention as a training step and
-draws its dropout, and ``dropout_out`` drops the backbone's output, masks
-from the caller's generator. Training an unfrozen DINOv2 tower is not
-ported.
+batch statistics, an unfrozen ViT or DINOv2 routes attention as a training
+step and draws its dropout, and ``dropout_out`` drops the backbone's output,
+masks from the caller's generator.
 """
 
 from __future__ import annotations
@@ -135,12 +134,7 @@ class VisualEncoder(nn.Module):
         and ``dropout_out``, with masks from ``generator``."""
         train = train and not self.freeze
         if self.is_vit:
-            if "dinov2" in self.backbone:
-                if train:
-                    raise NotImplementedError("training an unfrozen DINOv2 tower is not ported")
-                out = self.model(images)
-            else:
-                out = self.model(images, train, generator)
+            out = self.model(images, train, generator)
             return dropout(out, self.dropout_out, generator) if train else out
         out = self.model(images, train)
         if train:

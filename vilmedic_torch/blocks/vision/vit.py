@@ -18,7 +18,8 @@ FFN output in training, with masks from the caller's generator. Attention
 routes through ``ops.attention`` as the JAX tower's does, a training
 forward at ``FLASH_MIN_LEN_TRAIN``: at 224² / 16 (197 tokens) that is
 dense attention. The output is the (B, 1 + S, D) hidden state after the
-final LayerNorm. Gradient checkpointing is not ported and raises.
+final LayerNorm. ``gradient_checkpointing`` (``True`` or ``"dots"``)
+recomputes each layer in the backward (``transformer.run_layer``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from torch import nn
 
 from ..transformer import (
     EncoderLayer, FeedForward, LayerNorm, MultiHeadAttention, TransformerConfig, dropout,
+    run_layer,
 )
 
 
@@ -72,15 +74,13 @@ class ViT(nn.Module):
                  layer_norm_eps: float = 1e-12, hidden_act: str = "gelu", pre_ln: bool = False,
                  gradient_checkpointing=False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if gradient_checkpointing:
-            raise NotImplementedError("ViT gradient_checkpointing is not ported")
         if hidden_act not in ("gelu", "gelu_tanh"):
             raise ValueError(f"ViT hidden_act {hidden_act!r}: 'gelu' or 'gelu_tanh'")
         cfg = TransformerConfig(
             vocab_size=1, hidden_size=hidden_size, num_hidden_layers=num_hidden_layers,
             num_attention_heads=num_attention_heads, intermediate_size=intermediate_size,
             hidden_dropout_prob=hidden_dropout_prob, layer_norm_eps=layer_norm_eps,
-            hidden_act=hidden_act, dtype=dtype,
+            hidden_act=hidden_act, gradient_checkpointing=gradient_checkpointing, dtype=dtype,
         )
         self.config = cfg
         self.pre_ln = pre_ln
@@ -107,8 +107,10 @@ class ViT(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         gen = generator if train else None
         x = dropout(x, self.config.hidden_dropout_prob, gen)
+        remat = self.config.gradient_checkpointing
         for layer in self.layers:
-            x = layer(x, train=train, generator=gen) if self.pre_ln else layer(x, None, train, gen)
+            x = (run_layer(layer, remat, gen, x, train=train) if self.pre_ln
+                 else run_layer(layer, remat, gen, x, None, train))
         return self.ln_final(x)
 
 

@@ -1,4 +1,5 @@
-"""WordPiece tokenizer over a vocabulary file, without basic tokenization.
+"""WordPiece tokenizer over a vocabulary file, without basic tokenization,
+and :class:`BertTokenizer`, the same with BERT's basic tokenization.
 
 The JAX package builds ``transformers.BertTokenizer(vocab_file,
 do_basic_tokenize=False)`` over the corpus-built vocabulary
@@ -23,6 +24,7 @@ the evaluation loop ask of it:
 from __future__ import annotations
 
 import re
+import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -90,13 +92,16 @@ class WordPieceTokenizer:
             start = end
         return pieces
 
+    def _words(self, chunk: str) -> List[str]:
+        return chunk.split()
+
     def tokenize(self, text: str) -> List[str]:
         tokens = []
         for chunk in self._special_split.split(text):
             if chunk in SPECIAL_TOKENS:
                 tokens.append(chunk)
             else:
-                for word in chunk.split():
+                for word in self._words(chunk):
                     tokens.extend(self._wordpiece(word))
         return tokens
 
@@ -139,3 +144,89 @@ class WordPieceTokenizer:
         if skip_special_tokens:
             tokens = [t for t in tokens if t not in SPECIAL_TOKENS]
         return " ".join(tokens).replace(" ##", "").strip()
+
+
+def _is_punctuation(ch: str) -> bool:
+    cp = ord(ch)
+    if 33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96 or 123 <= cp <= 126:
+        return True
+    return unicodedata.category(ch).startswith("P")
+
+
+def _is_cjk(cp: int) -> bool:
+    return any(lo <= cp <= hi for lo, hi in (
+        (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
+        (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F)))
+
+
+class BertTokenizer(WordPieceTokenizer):
+    """HF ``BertTokenizer`` with its basic tokenization on, in front of the
+    WordPiece above: control characters dropped and whitespace made spaces,
+    spaces around CJK characters, NFC, lower case and accents stripped (NFD,
+    combining marks dropped) when ``do_lower_case`` (or ``strip_accents``
+    says so), then every punctuation character split off as a word.
+    ``from_pretrained(folder)`` reads ``vocab.txt`` and
+    ``tokenizer_config.json`` (``do_lower_case``, ``strip_accents``,
+    ``tokenize_chinese_chars``, ``model_max_length``)."""
+
+    def __init__(self, vocab_file: str, do_lower_case: bool = True, strip_accents=None,
+                 tokenize_chinese_chars: bool = True, model_max_length: Optional[int] = None):
+        super().__init__(vocab_file)
+        self.do_lower_case = do_lower_case
+        self.strip_accents = strip_accents
+        self.tokenize_chinese_chars = tokenize_chinese_chars
+        self.model_max_length = model_max_length
+
+    @classmethod
+    def from_pretrained(cls, folder: str) -> "BertTokenizer":
+        import json
+        import os
+
+        path = os.path.join(folder, "tokenizer_config.json")
+        cfg = {}
+        if os.path.isfile(path):
+            with open(path) as f:
+                cfg = json.load(f)
+        max_len = cfg.get("model_max_length")
+        return cls(os.path.join(folder, "vocab.txt"), cfg.get("do_lower_case", True),
+                   cfg.get("strip_accents"), cfg.get("tokenize_chinese_chars", True),
+                   int(max_len) if max_len is not None and max_len < 1e29 else None)
+
+    def _words(self, chunk: str) -> List[str]:
+        chars = []
+        for ch in chunk:
+            cp = ord(ch)
+            if cp == 0 or cp == 0xFFFD or (ch not in "\t\n\r"
+                                           and unicodedata.category(ch).startswith("C")):
+                continue
+            if ch in " \t\n\r" or unicodedata.category(ch) == "Zs":
+                chars.append(" ")
+            elif self.tokenize_chinese_chars and _is_cjk(cp):
+                chars.append(f" {ch} ")
+            else:
+                chars.append(ch)
+        words = []
+        for word in unicodedata.normalize("NFC", "".join(chars)).split():
+            if self.do_lower_case:
+                word = word.lower()
+            if self.strip_accents or (self.strip_accents is None and self.do_lower_case):
+                word = "".join(c for c in unicodedata.normalize("NFD", word)
+                               if unicodedata.category(c) != "Mn")
+            piece = ""
+            for ch in word:
+                if _is_punctuation(ch):
+                    words.extend([piece, ch] if piece else [ch])
+                    piece = ""
+                else:
+                    piece += ch
+            if piece:
+                words.append(piece)
+        return words
+
+    def encode_truncated(self, text: str) -> List[int]:
+        """``[CLS] ids [SEP]``, the ids cut to fit ``model_max_length``
+        (HF's ``truncation=True``)."""
+        ids = self.convert_tokens_to_ids(self.tokenize(text))
+        if self.model_max_length is not None:
+            ids = ids[:max(self.model_max_length - 2, 0)]
+        return [self.cls_token_id] + ids + [self.sep_token_id]

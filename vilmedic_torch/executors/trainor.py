@@ -39,16 +39,23 @@ Dropout masks come from one ``torch.Generator`` on the model's device,
 seeded with the trainer's seed. The loader is the config's ``dataset:``
 (``create_data_loader``, its shuffle and crops seeded by the config's
 ``seed:`` where it sets one, else by the trainer's seed), or an iterable of
-batches with a length given as ``loader``. Not ported: multi-device meshes,
-``DevicePrefetch``, and ``save_every_epoch``, ``eval_only`` and
-``profile_dir``, which raise; ``rng_impl`` (the JAX package's choice of PRNG
+batches with a length given as ``loader``.
+
+``eval_only`` runs the evaluator alone, with no update; ``save_every_epoch``
+also writes ``epoch_{epoch}_{seed}.ckpt`` (the same payload, written at once)
+after each epoch; ``profile_dir`` traces iterations 3 to 5 of the first
+epoch with ``torch.profiler`` (the card's kernels too) into
+``profile_dir/trace_{seed}.json``, a Chrome trace. Not ported: multi-device
+meshes and ``DevicePrefetch``; ``rng_impl`` (the JAX package's choice of PRNG
 for its dropout masks) has no counterpart and is logged once and ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
+import os
 import time
 
 import torch
@@ -59,7 +66,7 @@ from ..config.config import Config
 from ..data.image import prepare_batch
 from ..models.base import resolve_device
 from ..models.evaluation_nlg import to_device
-from .checkpoint import CheckpointSaver, load_checkpoint, snapshot
+from .checkpoint import CheckpointSaver, load_checkpoint, save_checkpoint, snapshot
 from .train_state import create_optimizer, gated_update
 from .utils import create_data_loader, create_model, create_training_scheduler
 
@@ -71,10 +78,10 @@ class Trainor:
         ``model:``, ``dataset:`` and ``ckpt_dir``); ``loader`` replaces the
         config's data loader; ``model_kwargs`` are :func:`create_model`
         overrides. Trains on the card unless ``device`` names another."""
-        for key in ("save_every_epoch", "eval_only", "profile_dir"):
-            if config.get(key):
-                raise NotImplementedError(f"trainor key {key!r} is not ported")
         self.config = config
+        self.eval_only = bool(config.get("eval_only", False))
+        self.save_every_epoch = bool(config.get("save_every_epoch", False))
+        self.profile_dir = config.get("profile_dir")
         self.seed = seed
         self.device = resolve_device(device)
         self.logger = logging.getLogger(str(seed))
@@ -96,7 +103,7 @@ class Trainor:
         if loader is None:
             model_kwargs["dl"] = self.dl
         self.model = create_model(config, logger=self.logger, state_dict=self.state_dict,
-                                  seed=seed, device=device, **model_kwargs)
+                                  seed=int(seed), device=device, **model_kwargs)
 
         optim_params = config.get("optim_params") or {}
         if isinstance(optim_params, Config):
@@ -112,7 +119,8 @@ class Trainor:
         self.training_scheduler = create_training_scheduler(
             config, self.base_lr, total_steps=len(self.dl) * int(config.get("epochs", 1)),
             state_dict=self.state_dict)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # a resumed run's seed is the checkpoint name's text
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
         self.evaluator = None  # set by the caller (bin/train.py)
         self.epoch_losses = []  # mean train loss per epoch
 
@@ -182,34 +190,38 @@ class Trainor:
         owned = hasattr(self.model, "train_iteration")
         t0 = time.perf_counter()
         self.zero_grads()
-        for iteration, batch in enumerate(self.dl, start=1):
-            batch = self._model_batch(batch)
-            lr = scheduler.current_lr()
-            if owned:
-                loss, custom = self.model.train_iteration(self, batch, lr)
-                pending = self._drain_loss(pending, losses, epoch)
-                pending = (iteration, loss)
-                scheduler.iteration_step(epoch + iteration / n)
-            elif self.grad_accu == 1:
-                loss = self.train_step(batch, lr)
-                pending = self._drain_loss(pending, losses, epoch)
-                pending = (iteration, loss)
-                scheduler.iteration_step(epoch + iteration / n)
-            else:
-                loss = self.grad_step(batch)
-                pending = self._drain_loss(pending, losses, epoch)
-                pending = (iteration, loss)
-                if iteration % self.grad_accu == 0:
-                    self.apply_step(lr, loss)
+        profiler = self._profiler() if self.profile_dir and epoch == 0 else None
+        with profiler or contextlib.nullcontext():
+            for iteration, batch in enumerate(self.dl, start=1):
+                batch = self._model_batch(batch)
+                lr = scheduler.current_lr()
+                if owned:
+                    loss, custom = self.model.train_iteration(self, batch, lr)
+                    pending = self._drain_loss(pending, losses, epoch)
+                    pending = (iteration, loss)
                     scheduler.iteration_step(epoch + iteration / n)
-            if iteration % 10 == 0 or iteration == n:
-                pending = self._drain_loss(pending, losses, epoch)
-                mean = sum(losses) / len(losses) if losses else float("nan")
-                eta = (time.perf_counter() - t0) / iteration * (n - iteration)
-                self.logger.info(
-                    f"Epoch {epoch + 1}, Lr {scheduler.current_lr():.3g}, Loss {mean:.4f}, "
-                    f"{scheduler.early_stop_metric} {scheduler.current_best_metric:.4g}, "
-                    f"ES {scheduler.early_stop}, {iteration}/{n} it, ETA {eta:.0f}s {custom}")
+                elif self.grad_accu == 1:
+                    loss = self.train_step(batch, lr)
+                    pending = self._drain_loss(pending, losses, epoch)
+                    pending = (iteration, loss)
+                    scheduler.iteration_step(epoch + iteration / n)
+                else:
+                    loss = self.grad_step(batch)
+                    pending = self._drain_loss(pending, losses, epoch)
+                    pending = (iteration, loss)
+                    if iteration % self.grad_accu == 0:
+                        self.apply_step(lr, loss)
+                        scheduler.iteration_step(epoch + iteration / n)
+                if iteration % 10 == 0 or iteration == n:
+                    pending = self._drain_loss(pending, losses, epoch)
+                    mean = sum(losses) / len(losses) if losses else float("nan")
+                    eta = (time.perf_counter() - t0) / iteration * (n - iteration)
+                    self.logger.info(
+                        f"Epoch {epoch + 1}, Lr {scheduler.current_lr():.3g}, Loss {mean:.4f}, "
+                        f"{scheduler.early_stop_metric} {scheduler.current_best_metric:.4g}, "
+                        f"ES {scheduler.early_stop}, {iteration}/{n} it, ETA {eta:.0f}s {custom}")
+                if profiler is not None:
+                    profiler.step()
         tail = (self.model.finish_epoch(self, scheduler.current_lr())
                 if hasattr(self.model, "finish_epoch") else None)
         if tail is not None:
@@ -223,13 +235,48 @@ class Trainor:
             scheduler.iteration_step(epoch + 1.0)
         return losses
 
+    def _profiler(self):
+        """A ``torch.profiler`` over iterations 3 to 5 (its steps 2 to 4,
+        after one skipped and one warm-up step) that writes their Chrome
+        trace into ``profile_dir``."""
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        path = os.path.join(self.profile_dir, f"trace_{self.seed}.json")
+
+        def write(prof):
+            os.makedirs(self.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(path)
+            self.logger.info(f"profile of iterations 3-5 written to {path}")
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities, on_trace_ready=write,
+                       schedule=schedule(skip_first=1, wait=0, warmup=1, active=3, repeat=1))
+
     def start(self) -> None:
-        """The epoch loop; the background checkpoint writer is joined
-        before it returns, whatever happens."""
+        """The epoch loop, or with ``eval_only`` the evaluator alone; the
+        background checkpoint writer is joined before it returns, whatever
+        happens."""
+        if self.eval_only:
+            if self.evaluator is not None:
+                self.evaluator.start()
+            return
         try:
             self._run_epochs()
         finally:
             self.saver.wait()
+
+    def _payload(self):
+        """The checkpoint's keys, over the live state."""
+        config = self.config
+        return {
+            "model": self.model.module.state_dict(),
+            "opt_state": self.tx.optimizer.state_dict(),
+            "training_scheduler": self.training_scheduler.state_dict(),
+            "config": config.to_dict() if isinstance(config, Config) else dict(config),
+            "__version__": __version__,
+        }
 
     def _run_epochs(self) -> None:
         config, scheduler = self.config, self.training_scheduler
@@ -258,14 +305,13 @@ class Trainor:
 
             ret = scheduler.eval_step(decay_metric=decay_metric,
                                       early_stop_score=early_stop_score)
+            if self.save_every_epoch:
+                path = os.path.join(self.ckpt_dir, f"epoch_{epoch + 1}_{self.seed}.ckpt")
+                save_checkpoint(path, self._payload())
+                self.logger.info(f"{path} saved.")
             if ret["save_state"]:
-                self.saver.save(payload={
-                    "model": snapshot(self.model.module.state_dict()),
-                    "opt_state": snapshot(self.tx.optimizer.state_dict()),
-                    "training_scheduler": scheduler.state_dict(),
-                    "config": config.to_dict() if isinstance(config, Config) else dict(config),
-                    "__version__": __version__,
-                }, tag=early_stop_score, current_epoch=epoch + 1)
+                self.saver.save(payload=snapshot(self._payload()), tag=early_stop_score,
+                                current_epoch=epoch + 1)
             if ret["done_training"]:
                 self.logger.info("Early stop reached")
                 return

@@ -4,7 +4,8 @@
 One loader per split of the config's ``splits`` (``["val"]`` when none is
 given); :meth:`Validator.start` runs the models' ``eval_func`` on each,
 scores its refs and hyps with :func:`~vilmedic_torch.scorers.compute_scores`
-and records ``{"validation_loss", <metrics>}`` per split in ``scores``.
+and records ``{"validation_loss", <metrics>}`` per split in ``scores``
+(``bertscore``'s encoder on the models' device).
 Unported metrics and any ``post_processing`` step
 (:mod:`~vilmedic_torch.scorers.post_processing`) raise when the Validator is
 built, before any training. The ``eval_func`` is told ``from_training``, as
@@ -45,6 +46,13 @@ class Validator:
                                                   seed=seed))
                        for split in splits]
 
+    @property
+    def device(self):
+        """The models' device, where a scorer with a network runs."""
+        module = getattr(self.models[0], "module", None)
+        param = next(module.parameters(), None) if module is not None else None
+        return param.device if param is not None else None
+
     def start(self):
         self.scores = []
         for split, dl in self.splits:
@@ -57,7 +65,8 @@ class Validator:
             scores.update(compute_scores(
                 metrics=self.metrics, refs=results.pop("refs", None),
                 hyps=results.pop("hyps", None), split=split, seed=self.seed,
-                config=self.config, epoch=self.epoch, logger=self.logger))
+                config=self.config, epoch=self.epoch, logger=self.logger,
+                device=self.device))
             self.logger.info(json.dumps(scores, indent=4, sort_keys=False, default=str))
             self.scores.append(scores)
         return self.scores

@@ -37,8 +37,8 @@ def resolve_device(device) -> torch.device:
 #: ``AutoConfig.to_dict()`` fills the model class's defaults where a bare
 #: ``config.json`` omits a key: these are those defaults for the keys
 #: ``TransformerConfig`` reads (``transformers``' BertConfig, RobertaConfig
-#: and BertGenerationConfig) and the keys the ViT tower reads (ViTConfig,
-#: DeiTConfig), so that a config file builds the same blocks as in the JAX
+#: and BertGenerationConfig) and the keys the ViT and DINOv2 towers read
+#: (ViTConfig, DeiTConfig, Dinov2Config), so that a config file builds the same blocks as in the JAX
 #: package, which resolves it through ``AutoConfig``.
 _BERT_DEFAULTS = dict(
     vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
@@ -59,6 +59,11 @@ HF_CONFIG_DEFAULTS = {
                             intermediate_size=4096, bos_token_id=2, eos_token_id=1),
     "vit": _VIT_DEFAULTS,
     "deit": _VIT_DEFAULTS,
+    "dinov2": dict(
+        hidden_size=768, num_hidden_layers=12, num_attention_heads=12, mlp_ratio=4,
+        hidden_act="gelu", hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        initializer_range=0.02, layer_norm_eps=1e-6, image_size=224, patch_size=14,
+        use_swiglu_ffn=False),
 }
 #: The weight files ``from_pretrained`` would load from beside a config.
 HF_WEIGHT_FILES = ("model.safetensors", "model.safetensors.index.json", "pytorch_model.bin",

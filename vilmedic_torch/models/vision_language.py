@@ -1,4 +1,4 @@
-"""VisionLanguage: a frozen vision tower feeding a prefix-conditioned causal LM
+"""VisionLanguage: a vision tower feeding a prefix-conditioned causal LM
 (port of ``models/vision_language.py``).
 
 The image prefix is a learned marker token followed by the tower's patch
@@ -19,26 +19,26 @@ run: a plain (N, T, H, D) generated cache that beam search reorders every
 step, attended in plain PyTorch (the int8 prefix still applies there).
 
 Training (``forward(..., train=True)``, :meth:`VisionLanguage.apply_train`)
-runs the frozen tower under ``torch.no_grad()`` (the JAX ``stop_gradient``),
-hidden dropout from an explicit generator where the Flax modules have it, and
-the LM's causal self-attention at 1470 tokens through the flash kernels'
-forward with LSE and their backward (``ops/flash_attention.py``).
+runs the tower under ``torch.no_grad()`` whether or not it is frozen (the
+JAX module's ``stop_gradient``), hidden dropout from an explicit generator
+where the Flax modules have it, and the LM's causal self-attention at 1470
+tokens through the flash kernels' forward with LSE and their backward
+(``ops/flash_attention.py``); the decoder's ``gradient_checkpointing``
+recomputes each layer of the stack in the backward.
 
-Ported: the teacher-forced forward (logits and loss, with or without
-gradient), the prefix K/V prefill (compute dtype or int8), the kernel-cache
-and plain-cache decode steps with the blocked LM head, the int8 generated
-cache (:func:`derive_gen_kv_scales`), the fused prefix
-(:func:`maybe_fuse_prefix`) and :func:`make_vl_generate_fn`, the
-single-device counterpart of ``vl_evaluation``'s ``generate`` with its
-greedy, small-vocabulary, permute and kernel routes. Not ported: sharded
-evaluation, the tokenizer half of ``vl_evaluation`` and gradient
-checkpointing.
+:func:`vl_evaluation` is the model's ``eval_func`` (the Validator's and the
+ensemble CLI's): :func:`make_vl_generate_fn`, the single-device counterpart
+of the JAX ``vl_evaluation``'s ``generate`` with its greedy,
+small-vocabulary, permute and kernel routes, over a loader, decoded with the
+dataset's tokenizer. Not ported: sharded evaluation.
 """
 
 from __future__ import annotations
 
+import logging
 import math
-from typing import Optional
+import os
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,16 +47,22 @@ from torch import nn
 from ..blocks.transformer import (
     Embeddings, FeedForward, LayerNorm, Linear, MultiHeadAttention, TransformerConfig,
     causal_lm_loss, dropout, make_blocked_head_weights, prefix_operands, quantize_kv,
-    to_kernel_cache,
+    run_layer, to_kernel_cache,
 )
-from ..blocks.vision.dinov2 import DINOV2_KEYS, SwiGLUFFN
+from ..blocks.vision.dinov2 import SwiGLUFFN
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
+from ..data.image import prepare_batch
 from ..decoding import beam_search, greedy_search, tile_for_beams
 from ..ops.attention import make_attention_bias
 from ..ops.beam_cache_attention import KernelPrefix, pack_kernel_prefix, prefix_fusable
 from ..registry import register
-from .base import resolve_block, resolve_device
-from .evaluation_nlg import BLOCKED_MIN_VOCAB, kernel_route_ok
+from .base import get_special_token_ids, resolve_block, resolve_device
+from .evaluation_nlg import BLOCKED_MIN_VOCAB, kernel_route_ok, pipelined_decode, to_device
+
+#: the keys of a DINOv2 config that the tower takes from a pretrained name,
+#: besides ``image_size`` (the JAX package's list)
+HF_DINOV2_KEYS = ("hidden_size", "num_hidden_layers", "num_attention_heads", "mlp_ratio",
+                  "patch_size", "layer_norm_eps", "use_swiglu_ffn", "hidden_act")
 
 
 class CausalLayer(nn.Module):
@@ -133,8 +139,11 @@ class VisionLanguageModule(nn.Module):
                                          device=attention_mask.device), attention_mask], dim=1)
         # a key-padding bias plus the causal flag, so long prefixes take flash
         bias = make_attention_bias(key_mask=key_mask)
+        # gradient checkpointing recomputes whole layers here, with or
+        # without "dots" (the JAX module remats this stack without a policy)
+        remat = bool(self.config.gradient_checkpointing)
         for layer in self.layers:
-            h = layer(h, bias=bias, causal=True, train=train, generator=generator)
+            h = run_layer(layer, remat, generator, h, bias=bias, causal=True, train=train)
         logits = self.lm_head(h[:, p:]).float()
         return {"loss": causal_lm_loss(logits, input_ids, attention_mask), "logits": logits}
 
@@ -303,6 +312,40 @@ def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_i
     return generate
 
 
+def vl_evaluation(models, config, dl, **kwargs) -> Dict[str, Any]:
+    """The ``eval_func`` of :class:`VisionLanguage` (the JAX package's
+    ``vl_evaluation``, unsharded): :func:`make_vl_generate_fn` of the first
+    model at the config's ``beam_width`` (default 1), ``length_penalty``
+    (default 1), ``prefix_kv_dtype`` and ``gen_kv_dtype``, up to the
+    dataset's ``tokenizer_max_len``, with the special ids of the decoder
+    config or else the dataset's tokenizer; the fused prefix under
+    ``VILMEDIC_FUSED_PREFIX=1``, as the JAX package's ``maybe_fuse_prefix``
+    takes it. Every batch of ``dl`` goes to the model's device, and the
+    generated and reference ids are decoded into ``hyps`` and ``refs``
+    (``pipelined_decode``). ``shard_eval`` is logged and ignored: sharded
+    evaluation is not ported."""
+    model = models[0]
+    dataset = dl.dataset
+    tokenizer = dataset.tokenizer
+    max_len = int(dataset.tokenizer_max_len)
+    bos_id, eos_id, pad_id = get_special_token_ids(model.dec_config, tokenizer)
+    if config.get("shard_eval"):
+        logging.getLogger(__name__).warning(
+            "shard_eval: sharded evaluation is not ported; evaluating on one device")
+    generate = make_vl_generate_fn(
+        model, int(config.get("beam_width", 1) or 1), max_len, bos_id, eos_id, pad_id,
+        length_penalty=float(config.get("length_penalty") or 1.0),
+        prefix_kv_dtype=config.get("prefix_kv_dtype"), gen_kv_dtype=config.get("gen_kv_dtype"),
+        fused_prefix=os.environ.get("VILMEDIC_FUSED_PREFIX", "0") == "1")
+    device = next(model.module.parameters()).device
+
+    def prepare(batch):
+        images = prepare_batch(to_device(batch, device), dataset)["images"]
+        return images, batch["input_ids"], batch["input_ids"].shape[0]
+
+    return pipelined_decode(dl, tokenizer, prepare, lambda images: generate(images).sequences)
+
+
 def init_vl_weights_(module: VisionLanguageModule, generator: torch.Generator) -> None:
     """Random weights from ``generator``, drawn on the CPU, at the Flax
     initializers' scales: Linear and Embedding weights N(0, initializer_range)
@@ -339,24 +382,40 @@ def init_vl_weights_(module: VisionLanguageModule, generator: torch.Generator) -
 @register("model")
 class VisionLanguage:
     """Host-side task model around :class:`VisionLanguageModule`, built from
-    a config's ``model:`` block (proto ``VisionLanguage``).
+    a config's ``model:`` block (proto ``VisionLanguage``), as the JAX
+    package builds it.
 
-    ``vision_hf_config`` takes the place of the JAX package's HF config
-    lookup for ``vision_model_name`` (a DINOv2 architecture dict); with it,
-    the prefix drops the tower's CLS token. It builds on the card unless
-    ``device`` names another. ``vocab_size`` and the special
-    ids take the place of the tokenizer. Weights are random from ``seed``
-    unless a state dict is loaded after. The tower is frozen unless the
-    config's ``vision`` block says ``freeze: false``: ``frozen_prefixes`` is
-    then ``("vision",)`` and its parameters take no gradient."""
+    ``vision_model_name`` names a pretrained DINOv2 tower: its
+    ``config.json`` is read from a local directory or the HF hub cache
+    (``hf_compat._resolve_hf_config``) and gives the tower's architecture
+    (:data:`HF_DINOV2_KEYS` and ``image_size``, under the vision block's own
+    keys); the prefix then drops the tower's CLS token. A name that does not
+    resolve raises the JAX package's offline error; weights beside the
+    config raise (the zoo is not ported); without weights the tower keeps
+    its random weights, with the JAX package's warning. ``vision_hf_config``
+    (a DINOv2 config dict) stands in for the lookup.
+
+    With a loader ``dl`` the decoder's ``vocab_size`` and BOS / EOS / PAD
+    are the tokenizer's vocabulary size and ``[CLS]`` / ``[SEP]`` /
+    ``[PAD]`` ids; the keywords ``vocab_size`` and the special ids, where
+    given, win over both. It builds on the card unless ``device`` names
+    another. Weights are random from ``seed`` unless a state dict is loaded
+    after. The tower is frozen unless the config's ``vision`` block says
+    ``freeze: false``: ``frozen_prefixes`` is then empty and the tower's
+    parameters are in the optimizer, though the prefix takes no gradient
+    through the tower (the JAX module's ``stop_gradient``), so only weight
+    decay moves them."""
 
     def __init__(self, decoder=None, vision=None, vision_model_name: Optional[str] = None,
-                 vision_hf_config=None, dtype="float32", vocab_size: Optional[int] = None,
+                 dl=None, logger=None, from_training: bool = True, vision_hf_config=None,
+                 dtype="float32", vocab_size: Optional[int] = None,
                  bos_token_id: Optional[int] = None, eos_token_id: Optional[int] = None,
                  pad_token_id: Optional[int] = None, device="cuda", seed: int = 0, **kwargs):
         from ..config.config import Config
+        from .hf_compat import _resolve_hf_config
 
         device = resolve_device(device)
+        logger = logger or logging.getLogger(__name__)
         compute_dtype = torch.bfloat16 if str(dtype) in ("bfloat16", "bf16") else torch.float32
         dec_args, _ = resolve_block(decoder)
         if isinstance(vision, str):
@@ -365,24 +424,30 @@ class VisionLanguage:
         vision_model_name = vision.pop("vision_model_name", vision_model_name)
         drop_cls_token = False
         if vision_model_name:
-            if vision_hf_config is None:
-                raise NotImplementedError(
-                    f"vision_model_name {vision_model_name!r}: resolving an HF config is not "
-                    "ported; pass its architecture as vision_hf_config=")
-            hf = dict(vision_hf_config)
+            hf = (dict(vision_hf_config) if vision_hf_config is not None
+                  else _resolve_hf_config(vision_model_name))
             if hf.get("model_type") != "dinov2":
-                raise ValueError(f"vision_model_name {vision_model_name!r} has model_type "
-                                 f"{hf.get('model_type')!r}; only DINOv2 towers are supported")
+                raise ValueError(f"vision_model_name {vision_model_name!r} resolved to "
+                                 f"model_type {hf.get('model_type')!r}; only DINOv2 "
+                                 "backbones are supported here (the reference's default)")
             vision.setdefault("backbone", "dinov2")
-            for key in DINOV2_KEYS:
+            for key in HF_DINOV2_KEYS:
                 if key in hf:
                     vision.setdefault(key, hf[key])
-            vision.setdefault("image_size", 518)
+            vision.setdefault("image_size", hf.get("image_size", 518))
+            if vision_hf_config is None:
+                logger.warning(f"Pretrained weights for {vision_model_name!r} not in the local "
+                               "HF cache; vision keeps random init")
             drop_cls_token = True
-        ids = dict(vocab_size=vocab_size, bos_token_id=bos_token_id,
-                   eos_token_id=eos_token_id, pad_token_id=pad_token_id)
-        self.dec_config = TransformerConfig.from_dict(
-            dec_args, **{k: v for k, v in ids.items() if v is not None}, dtype=compute_dtype)
+        ids = {}
+        if dl is not None:
+            tokenizer = dl.dataset.tokenizer
+            ids = dict(vocab_size=tokenizer.vocab_size, bos_token_id=tokenizer.cls_token_id,
+                       eos_token_id=tokenizer.sep_token_id, pad_token_id=tokenizer.pad_token_id)
+        explicit = dict(vocab_size=vocab_size, bos_token_id=bos_token_id,
+                        eos_token_id=eos_token_id, pad_token_id=pad_token_id)
+        ids.update({k: v for k, v in explicit.items() if v is not None})
+        self.dec_config = TransformerConfig.from_dict(dec_args, **ids, dtype=compute_dtype)
         vision.setdefault("backbone", "vit")
         vision.setdefault("permute", "no_permute")
         vision.setdefault("freeze", True)
@@ -394,6 +459,7 @@ class VisionLanguage:
         self.module = VisionLanguageModule(self.dec_config, enc, num_image_tokens, drop_cls_token)
         init_vl_weights_(self.module, torch.Generator().manual_seed(seed))
         self.module.to(device).eval()
+        self.eval_func = vl_evaluation
 
     def apply_train(self, batch, generator: Optional[torch.Generator] = None):
         """One training forward over a batch ``{"images", "input_ids",
@@ -404,4 +470,4 @@ class VisionLanguage:
                            train=True, generator=generator)
 
     def __repr__(self):
-        return "model: VisionLanguage (frozen DINOv2 + prefix-conditioned causal LM)"
+        return "model: VisionLanguage (DINOv2 tower + prefix-conditioned causal LM)"

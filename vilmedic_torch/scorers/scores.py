@@ -9,15 +9,16 @@ named in ``UNPORTED_REWARDS`` and raise ``NotImplementedError`` where SCST
 is built.
 
 The metrics: BLEU, ROUGE1/ROUGE2/ROUGEL, METEOR, CIDERD and SPICE, the host
-NLG metrics, and ``accuracy``, ``f1-score`` and ``auroc`` over a
+NLG metrics, ``bertscore`` (:class:`.clinical.BertScore`, its encoder on the
+card; without its weights the metric reads ``None``), and ``accuracy``, ``f1-score`` and ``auroc`` over a
 classifier's labels (refs) and averaged logits (hyps), in numpy
 (:mod:`.classification`). Refs and hyps are dumped as
 ``{split}_{seed}_{refs,hyps}.txt`` and the scores appended to
 ``{split}_{seed}_metrics.txt`` in the logger's directory, as the JAX package
 does. A metric that fails while it computes is logged and scored ``None``,
 so one broken scorer cannot end a training run (the JAX package's error
-isolation). Any other metric name (the clinical scorers with the weights
-they wait for) raises ``NotImplementedError`` before anything runs.
+isolation). Any other metric name (the other clinical scorers) raises
+``NotImplementedError`` before anything runs.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from .nlg.meteor import Meteor
 from .nlg.rouge import Rouge, Rouge1, Rouge2, RougeL
 from .nlg.spice import Spice
 
-PORTED = ("bleu", "rouge1", "rouge2", "rougel", "meteor", "ciderd", "spice", "accuracy",
-          "f1-score", "auroc")
+PORTED = ("bleu", "rouge1", "rouge2", "rougel", "meteor", "ciderd", "spice", "bertscore",
+          "accuracy", "f1-score", "auroc")
 
 # reward name -> (scorer class, index of its per-sample output)
 REWARD_COMPLIANT = {
@@ -73,7 +74,9 @@ def check_metrics(metrics) -> None:
 
 
 def compute_scores(metrics, refs: Optional[List[str]], hyps: Optional[List[str]], split: str,
-                   seed, config, epoch, logger, dump: bool = True) -> Dict:
+                   seed, config, epoch, logger, dump: bool = True, device=None) -> Dict:
+    """The metrics over refs and hyps (module doc); ``bertscore`` runs its
+    encoder on ``device`` (the card when None)."""
     scores: Dict = {}
     logger = logger or logging.getLogger("vilmedic_torch.scorers")
     if not metrics:
@@ -103,6 +106,10 @@ def compute_scores(metrics, refs: Optional[List[str]], hyps: Optional[List[str]]
                 scores["CIDERD"] = CiderD()(refs, hyps)[0]
             elif lower == "spice":
                 scores["SPICE"] = Spice()(refs, hyps)[0]
+            elif lower == "bertscore":
+                from .clinical import BertScore
+
+                scores["bertscore"] = BertScore(device=device or "cuda")(refs, hyps)[0]
             elif lower == "accuracy":
                 scores["accuracy"] = classification.accuracy(refs, hyps)
             elif lower == "f1-score":

@@ -17,10 +17,8 @@ transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
   as they are.
 
 The values stay f32, as the Flax parameters are: the port's Linear,
-Embedding and DenseNet convolution parameters are f32 too and cast to the
-compute dtype at use. Only the frozen DINOv2 tower's patch embedding and
-SwiGLU projections are held in the compute dtype, so ``load_state_dict``
-rounds those once, where Flax rounds at use to the same values.
+Embedding and convolution parameters (the DINOv2 patch embedding and SwiGLU
+projections included) are f32 too and cast to the compute dtype at use.
 
 A reference ``.pth`` state dict reaches the port through the JAX package's
 ``convert_reference_rrg`` and then this function.
