@@ -159,6 +159,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     CLI in f32 card vs CPU at 2 + 2 layers (losses, every update with the
     tower's, hyps at beam 2 and 8, BERTScore, gradient checkpointing with
     dropout on; ``vl_cli_parity``).
+18. runs the clinical scorers on the card through the normal entry points
+    (``clinical_validate``): writes random-weight scorer files at their
+    published shapes (CheXbert and BERTNLI ``.pth`` files of BERT-base, a
+    BERT-base RadNER directory with RadGraph's labels, a DistilBERT-base
+    BERTScore directory) in the layout of ``VILMEDIC_WEIGHTS_DIR``; trains
+    ``config/RRG/biomed-roberta-baseline-mimic.yml`` through the train CLI
+    (128 + 32 reports, one step) with its Validator at beam 8 scoring the
+    config's eight metrics, the early stop on ``chexbert-5_micro
+    avg_f1-score`` (K1 (a), K2, K3 counted; reports/s; each scorer's ms with
+    its files read and loaded); holds the scorers f32 card vs CPU on those
+    reports (CheXbert logits and labels, RadNER entities, BERTNLI labels,
+    every clinical score); and runs SCST with ``[rougel, chexbert]``
+    rewards, timing the reward against ``rougel`` alone. ``rrs_hf_train``'s
+    Validator scores its config's metrics as written (``chexbert``,
+    ``radgraph``, ``bertscore`` among them) on the same files.
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -172,6 +187,7 @@ import collections
 import contextlib
 import glob
 import json
+import logging
 import math
 import os
 import statistics
@@ -230,6 +246,30 @@ def cuda_ms(fn, reps: int = 9, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+PROFILE_PAD_S = 0.05  # idle host seconds on each side of a profiled call
+
+
+def profiled(fn, pad_s: float = PROFILE_PAD_S):
+    """(``fn``'s result, its CUDA events under ``torch.profiler``), ``fn``
+    ended by a synchronize. The profiler drops a device event whose
+    timestamp, mapped onto the host's clock, falls outside its window; where
+    that mapping is off by a millisecond, the last kernels of a call that
+    synchronizes just before the window closes were dropped (19 of 20, or
+    all 20, of a 1 ms burst). ``pad_s`` of idle host time on each side of
+    ``fn`` keeps them inside."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    return out, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def device_ms_per_call(fn, calls: int, kernels: dict | None = None) -> float:
     """Device milliseconds per call: the CUDA kernels, copies and sets that
     ``torch.profiler`` records while ``fn`` (``calls`` calls, after one
@@ -241,18 +281,12 @@ def device_ms_per_call(fn, calls: int, kernels: dict | None = None) -> float:
     multiple of ``calls`` times (the calls are alike), and each name in
     ``kernels`` (a part of a kernel's name: its launches per call) appears
     exactly ``calls`` times that often. A trace that falls short is printed
-    and discarded; five short traces in a row fail the phase."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    and discarded, and the next one is padded four times wider. After five
+    short traces the time is taken by CUDA events around ``fn`` instead
+    (host gaps between launches included), and the line says so."""
     fn()
-    torch.cuda.synchronize()
     for attempt in range(5):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        _, events = profiled(fn, PROFILE_PAD_S * 4 ** attempt)
         names = collections.Counter(e.name for e in events)
         short = [f"{part}: {sum(n for name, n in names.items() if part in name)} of "
                  f"{per_call * calls}" for part, per_call in (kernels or {}).items()
@@ -263,7 +297,10 @@ def device_ms_per_call(fn, calls: int, kernels: dict | None = None) -> float:
             return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / calls
         print(f"  device_ms_per_call: trace {attempt + 1} discarded, incomplete: "
               f"{'; '.join(short) or 'no device event'}")
-    fail("torch.profiler recorded no whole trace in five")
+    ms = cuda_ms(fn, reps=5, warmup=0) / calls
+    print(f"  device_ms_per_call: no whole trace in five; {ms:.4f} ms per call by CUDA "
+          f"events around the {calls} calls stands in for the device time")
+    return ms
 
 
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes
@@ -2048,21 +2085,14 @@ def phase_vl_parity():
 
 # the eval keys that turn on the int8 prefix and generated caches
 INT8_SERVING = ("ensemblor.prefix_kv_dtype=int8", "ensemblor.gen_kv_dtype=int8")
+PARITY_LM_LAYERS = "model.decoder.num_hidden_layers=4"  # the CPU halves of the route parities
 OPS_LEN = 12  # max_len of the short generates whose device ops are counted
 
 
 def device_ops(fn):
     """(fn's result, the number of CUDA kernel, copy and set events that
     ``torch.profiler`` records while it runs, their summed ms)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out, events = profiled(fn)
     return out, len(events), sum(e.time_range.end - e.time_range.start for e in events) / 1e3
 
 
@@ -2179,7 +2209,7 @@ def phase_vl_routes():
 def phase_vl_routes_parity():
     """f32, TF32 off, batch 2: the int8-cache and fused-prefix routes on the
     card (stages c and d) and on the CPU (plain versions) must choose the same
-    beams. The LM at full depth and width; the tower cut to 2 layers to bound
+    beams. The LM at full width, cut to 4 layers, and the tower to 2, to bound
     the CPU half's time. Each route's agreement with the merge route on the
     card is reported beside it."""
     import torch
@@ -2188,7 +2218,8 @@ def phase_vl_routes_parity():
 
     set_tf32(False)
     tower = dict(VL_TOWER, num_hidden_layers=2)
-    model, generate_int8, sv = build_vl("float32", "cpu", INT8_SERVING, tower=tower)
+    model, generate_int8, sv = build_vl("float32", "cpu", [*INT8_SERVING, PARITY_LM_LAYERS],
+                                        tower=tower)
     generates = {"int8": generate_int8, "fused": make_vl_generate_fn(
         model, sv["beam"], sv["max_len"], VL_BOS, VL_EOS, VL_PAD, fused_prefix=True)}
     images = vl_images(2, sv["image"], SEED + 7)
@@ -2220,7 +2251,7 @@ def phase_vl_routes_parity():
 
 
 def vl_permute_parity(tower, images):
-    """The permute route: the LM at full width and depth with 48 heads of 16,
+    """The permute route: the LM at full width (4 layers) with 48 heads of 16,
     a head dim the beam-cache kernel is not built for, so
     ``make_vl_generate_fn`` keeps the plain generated cache and beam search
     reorders it; the prefill's attention runs K4 at head dim 16. f32
@@ -2229,8 +2260,8 @@ def vl_permute_parity(tower, images):
 
     from vilmedic_torch.models.evaluation_nlg import kernel_route_ok
 
-    model, generate, sv = build_vl("float32", "cpu", ["model.decoder.num_attention_heads=48"],
-                                   tower=tower)
+    model, generate, sv = build_vl("float32", "cpu", ["model.decoder.num_attention_heads=48",
+                                                      PARITY_LM_LAYERS], tower=tower)
     head_dim = model.dec_config.head_dim
     t0 = time.perf_counter()
     res_cpu = generate(images)
@@ -2307,19 +2338,16 @@ def device_ms(fn):
     busy sums the CUDA kernels, copies and sets that ``torch.profiler``
     records, K5's and K4's among them by name."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def timed():
         t0 = time.perf_counter()
-        out = fn()
+        result = fn()
         torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) * 1e3
+        return result, (time.perf_counter() - t0) * 1e3
+
+    (out, host), events = profiled(timed)
     dev = {"all": 0.0, "K5": 0.0, "K4": 0.0}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in events:
         us = e.time_range.end - e.time_range.start
         dev["all"] += us / 1e3
         if "flash_bwd" in e.name:
@@ -4519,19 +4547,10 @@ def top_device_kernels(fn, n: int = 6):
     """The ``n`` device kernels (by name, shortened) that take the most of
     ``fn``'s device time under ``torch.profiler``: [(name, ms, calls)], and
     the summed device ms of all of them."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name[:60]][0] += (e.time_range.end - e.time_range.start) / 1e3
-            by_name[e.name[:60]][1] += 1
+    for e in profiled(fn)[1]:
+        by_name[e.name[:60]][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name[:60]][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
     return [(k, ms, calls) for k, (ms, calls) in top], sum(v[0] for v in by_name.values())
 
@@ -4625,15 +4644,14 @@ def phase_rrg_multi_image(tmp: str, card: str):
 def rrs_hf_overrides(data: str, ckpt: str, name: str, device: str, folder: str):
     """``config/RRS/baseline-mimic-HF.yml`` with both blocks' pretrained name
     pointed at ``folder`` and the data at the ``rrs_train`` phase's files
-    (no HF dataset, the corpus vocabularies); BLEU and ROUGEL stand in for
-    the clinical scorers and ``bertscore``."""
+    (no HF dataset, the corpus vocabularies); the Validator's metrics and the
+    early-stop metric as written."""
     return [HF_RRS_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}",
             f"seed={SEED}", f"model.encoder={folder}", f"model.decoder={folder}",
             f"dataset.src.root={data}", f"dataset.tgt.root={data}",
             "dataset.src.file=findings.tok", "dataset.tgt.file=impression.tok",
             "dataset.src.hf_dataset=null", "dataset.tgt.hf_dataset=null",
-            "dataset.src.tokenizer=null", "dataset.tgt.tokenizer=null", "trainor.epochs=0",
-            "trainor.early_stop_metric=BLEU", "validator.metrics=[BLEU,ROUGEL]"]
+            "dataset.src.tokenizer=null", "dataset.tgt.tokenizer=null", "trainor.epochs=0"]
 
 
 def phase_rrs_hf_train(tmp: str, card: str):
@@ -4655,7 +4673,7 @@ def phase_rrs_hf_train(tmp: str, card: str):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    with StepRecorder() as steps, DecodeSteps() as val_steps:
+    with StepRecorder() as steps, DecodeSteps() as val_steps, weights_dir(scorer_weights(tmp)):
         trainor = main(rrs_hf_overrides(data, tmp, "rrs_hf_train", "cuda", folder)
                        + ["model.dtype=bfloat16"])
     torch.cuda.synchronize()
@@ -4684,7 +4702,8 @@ def phase_rrs_hf_train(tmp: str, card: str):
           f"target); the model step alone {step_ms:.1f} ms; peak {peak:.2f} GiB")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    evaluator.start()
+    with weights_dir(scorer_weights(tmp)):
+        evaluator.start()
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t0
     n_val = len(val_dl.dataset)
@@ -4715,8 +4734,11 @@ def phase_rrs_hf_train(tmp: str, card: str):
         and dec.dtype == torch.bfloat16,
         "beam 2": beam == 2,
         "finite losses": len(steps.losses) == 2 and all(map(math.isfinite, steps.losses)),
-        "finite ROUGEL / BLEU": all(scores.get(k) is not None and math.isfinite(scores[k])
-                                    for k in ("ROUGEL", "BLEU")),
+        "the config's metrics, every one a number": sorted(scores) == sorted(
+            ["validation_loss", "ROUGEL", "BLEU", "bertscore", "radgraph_simple",
+             "radgraph_partial", "radgraph_complete"] + [
+                f"chexbert-{k}_{a} avg_f1-score" for k in ("5", "all") for a in ("micro", "macro")])
+        and all(v is not None and math.isfinite(v) for v in scores.values()),
         "target vocab takes the blocked head": dec.vocab_size >= 4096,
         "K1 (a) = 12 x decode steps": launches[K1] == 12 * val_steps.steps > 0,
         "K2 = decode steps": launches[K2] == val_steps.steps,
@@ -4899,10 +4921,6 @@ def vl_config_dirs(tmp: str):
     tokens, the corpus words and fillers, ``pytorch_model.bin`` of random
     weights from SEED). Made once; returns (data, 64-report data, 4-report
     data, tower, bert)."""
-    import torch
-
-    from vilmedic_torch.scorers.bert_encoder import BertEncoder
-
     data, small, tiny = (os.path.join(tmp, f"vl_data{s}") for s in ("", "_small", "_tiny"))
     tower, bert = os.path.join(tmp, "dinov2-base"), os.path.join(tmp, "bertscore-distilbert")
     if os.path.isdir(bert):
@@ -4919,17 +4937,8 @@ def vl_config_dirs(tmp: str):
     os.makedirs(tower)
     with open(os.path.join(tower, "config.json"), "w") as f:
         json.dump(VL_TOWER, f)
-    os.makedirs(bert)
     with open(os.path.join(data, "train.impression.tok")) as f:
-        words = sorted(set(f.read().split()))
-    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *words]
-    vocab += [f"[unused{i}]" for i in range(DISTILBERT_BASE["vocab_size"] - len(vocab))]
-    with open(os.path.join(bert, "vocab.txt"), "w") as f:
-        f.write("\n".join(vocab))
-    with open(os.path.join(bert, "config.json"), "w") as f:
-        json.dump(DISTILBERT_BASE, f)
-    torch.manual_seed(SEED)
-    torch.save(BertEncoder(DISTILBERT_BASE).state_dict(), os.path.join(bert, "pytorch_model.bin"))
+        write_distilbert_dir(bert, sorted(set(f.read().split())))
     return data, small, tiny, tower, bert
 
 
@@ -5440,6 +5449,418 @@ def phase_vl_cli_parity(tmp: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- clinical scorers
+
+BERT_BASE = dict(model_type="bert", vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072, max_position_embeddings=512,
+                 type_vocab_size=2, hidden_act="gelu", layer_norm_eps=1e-12)
+RADGRAPH_LABELS = ["O", "ANAT-DP", "OBS-DP", "OBS-U", "OBS-DA"]
+CLINICAL_METRICS = ["chexbert", "radgraph", "radentitymatchexact", "radentitynli",
+                    "stanford_ct_abd_accuracy"]
+CLINICAL_SCST_TRAIN = 64  # 2 SCST iterations at the config's batch 32
+
+
+def seeded_scorer_weights(module, gen, body_std: float = 0.05, head_std: float = 0.5):
+    """Random weights from ``gen``: the encoder's matrices and embeddings
+    N(0, body_std), the heads' N(0, head_std) (labels far from ties),
+    LayerNorms 1, biases 0."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif "LayerNorm" in name:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, body_std if name.startswith("bert.") else head_std, generator=gen)
+    return module
+
+
+def write_distilbert_dir(folder: str, words):
+    """A DistilBERT-base-shaped BERTScore directory: ``config.json``,
+    ``vocab.txt`` (the special tokens, ``words``, fillers) and
+    ``pytorch_model.bin`` of random weights from SEED."""
+    import torch
+
+    from vilmedic_torch.scorers.bert_encoder import BertEncoder
+
+    os.makedirs(folder)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *words]
+    vocab += [f"[unused{i}]" for i in range(DISTILBERT_BASE["vocab_size"] - len(vocab))]
+    with open(os.path.join(folder, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab))
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(DISTILBERT_BASE, f)
+    torch.manual_seed(SEED)
+    torch.save(BertEncoder(DISTILBERT_BASE).state_dict(),
+               os.path.join(folder, "pytorch_model.bin"))
+
+
+def scorer_weights(tmp: str) -> str:
+    """The clinical scorers' files at their published shapes, random weights
+    from the seed, in the layout of ``VILMEDIC_WEIGHTS_DIR`` (made once):
+    ``chexbert/chexbert.pth`` (BERT-base, 12 x 768, 512 positions, 14 heads,
+    ``module.``-prefixed inside ``model_state_dict``, as shipped) and a
+    30,522-entry WordPiece ``vocab.txt`` of bert-base-uncased's special
+    tokens, the ``rrg_train`` corpus words and fillers; ``radnli/`` (BERTNLI:
+    BERT-base, its pooler, a 3-way ``linear``); ``radner/`` (a BERT-base
+    ``BertForTokenClassification`` directory with RadGraph's labels);
+    ``bertscore/model/`` (DistilBERT-base). Reads the ``rrg_train`` corpus."""
+    import torch
+
+    from vilmedic_torch.scorers.chexbert import CheXbertModule
+    from vilmedic_torch.scorers.nli import BertPairClassifier
+    from vilmedic_torch.scorers.ner import TokenClassifier
+
+    root = os.path.join(tmp, "scorer_weights")
+    if os.path.isdir(root):
+        return root
+    t0 = time.perf_counter()
+    words = set()
+    for split in ("train", "validate"):
+        with open(os.path.join(tmp, "rrg_data", f"{split}.impression.tok")) as f:
+            words.update(f.read().split())
+    words = sorted(words)
+    special = ["[PAD]", *(f"[unused{i}]" for i in range(99)), "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab = special + words
+    vocab += [f"filler{i}" for i in range(BERT_BASE["vocab_size"] - len(vocab))]
+    for sub in ("chexbert", "radnli", "radner"):
+        os.makedirs(os.path.join(root, sub))
+        with open(os.path.join(root, sub, "vocab.txt"), "w") as f:
+            f.write("\n".join(vocab))
+    gen = torch.Generator().manual_seed(SEED + 70)
+    chexbert = seeded_scorer_weights(CheXbertModule(BERT_BASE), gen)
+    torch.save({"model_state_dict": {f"module.{k}": v for k, v in chexbert.state_dict().items()},
+                "epoch": 0}, os.path.join(root, "chexbert", "chexbert.pth"))
+    nli = seeded_scorer_weights(BertPairClassifier(BERT_BASE), gen)
+    torch.save(nli.state_dict(), os.path.join(root, "radnli", "model_medrad_19k.pth"))
+    ner = seeded_scorer_weights(TokenClassifier(BERT_BASE, len(RADGRAPH_LABELS)), gen)
+    torch.save(ner.state_dict(), os.path.join(root, "radner", "pytorch_model.bin"))
+    with open(os.path.join(root, "radner", "config.json"), "w") as f:
+        json.dump(dict(BERT_BASE, architectures=["BertForTokenClassification"],
+                       id2label={str(i): x for i, x in enumerate(RADGRAPH_LABELS)},
+                       label2id={x: i for i, x in enumerate(RADGRAPH_LABELS)}), f)
+    with open(os.path.join(root, "radner", "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True, "model_max_length": 512}, f)
+    write_distilbert_dir(os.path.join(root, "bertscore", "model"), words)
+    print(f"scorer files (CheXbert, BERTNLI, RadNER at BERT-base, DistilBERT-base) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return root
+
+
+@contextlib.contextmanager
+def weights_dir(folder: str):
+    """``VILMEDIC_WEIGHTS_DIR`` set to ``folder`` (no BERTScore baseline:
+    raw scores)."""
+    old = os.environ.get("VILMEDIC_WEIGHTS_DIR")
+    os.environ["VILMEDIC_WEIGHTS_DIR"] = folder
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("VILMEDIC_WEIGHTS_DIR")
+        else:
+            os.environ["VILMEDIC_WEIGHTS_DIR"] = old
+
+
+def clear_scorer_caches():
+    """Forget every loaded scorer network (the next call reads its files)."""
+    from vilmedic_torch.scorers import bertscore_impl, chexbert, ner, nli
+
+    for fn in (chexbert._load_labeler, chexbert.vocab_tokenizer, ner._load_radner,
+               nli._load_nli, bertscore_impl._load_scorer):
+        fn.cache_clear()
+
+
+def scorer_networks(device):
+    """The loaded scorer networks on ``device``: CheXbert, RadNER, BERTNLI,
+    the BERTScore encoder."""
+    from vilmedic_torch.scorers import bertscore_impl
+    from vilmedic_torch.scorers.chexbert import CheXbert
+    from vilmedic_torch.scorers.nli import NLIPredictor
+    from vilmedic_torch.scorers.ner import RadNER
+    from vilmedic_torch.scorers.weights import resolve
+
+    return {"CheXbert": CheXbert(device=device).module, "RadNER": RadNER(device=device).module,
+            "BERTNLI": NLIPredictor(device=device).module,
+            "BERTScore": bertscore_impl.load_scorer(resolve("BERTSCORE_MODEL"), device)[1]}
+
+
+class ValidatorClock:
+    """Wraps ``Validator.start`` for a run: the seconds of each call on the
+    host clock, ended by a synchronize."""
+
+    def __enter__(self):
+        import torch
+
+        from vilmedic_torch.executors.validator import Validator
+
+        self.seconds, self.real = [], Validator.start
+        clock = self
+
+        def timed(validator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = clock.real(validator)
+            torch.cuda.synchronize()
+            clock.seconds.append(time.perf_counter() - t0)
+            return out
+
+        Validator.start = timed
+        return self
+
+    def __exit__(self, *exc):
+        from vilmedic_torch.executors.validator import Validator
+
+        Validator.start = self.real
+
+
+def scorer_ms(metrics, refs, hyps, device, rounds: int = 1):
+    """Per metric: ms of its ``compute_scores`` with the networks loaded
+    from their files (cold) and the median of ``rounds`` calls after
+    (warm)."""
+    import torch
+
+    from vilmedic_torch.scorers.scores import compute_scores
+
+    out = {}
+    for metric in metrics:
+        times = []
+        clear_scorer_caches()
+        for _ in range(rounds + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            compute_scores([metric], refs, hyps, "validate", SEED, {}, 0,
+                           logging.getLogger("clinical"), dump=False, device=device)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[metric] = (times[0], statistics.median(times[1:]))
+    return out
+
+
+def clinical_parity(refs, hyps, pairs: int):
+    """f32 (TF32 off) card vs CPU on the reports (refs and hyps together):
+    CheXbert logits (1e-4 abs + rel) and labels (equal), RadNER entities
+    and BERTNLI labels (equal); every clinical ``compute_scores`` value over
+    the first ``pairs`` pairs (1e-6; the CPU's RadEntityNLI scores every
+    sentence pair)."""
+    import torch
+
+    from vilmedic_torch.scorers.chexbert import CheXbert
+    from vilmedic_torch.scorers.nli import NLIPredictor
+    from vilmedic_torch.scorers.ner import RadNER, split_sentences
+    from vilmedic_torch.scorers.scores import compute_scores
+
+    texts = refs + hyps
+    sides = {d: CheXbert(device=d) for d in PARITY_DEVICES}
+    rows = [sides["cpu"].tokenizer.encode_truncated(t.strip(), max_length=512) for t in texts]
+    width = max(len(r) for r in rows)
+    ids = torch.zeros((len(rows), width), dtype=torch.long)
+    mask = torch.zeros_like(ids)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)], mask[i, :len(r)] = torch.tensor(r), 1
+    with torch.no_grad():
+        logits = {d: [x.cpu() for x in m.module(ids.to(d), mask.to(d))] for d, m in sides.items()}
+    logit_err = max(((a - b).abs() / (1 + a.abs())).max().item()
+                    for a, b in zip(logits["cpu"], logits["cuda"]))
+    labels = {d: m.predict_classes(texts) for d, m in sides.items()}
+    entities = {d: RadNER(device=d).extract(texts) for d in PARITY_DEVICES}
+    sentences = [s for t in texts for s in split_sentences(t.lower())]
+    nli_pairs = list(zip(sentences, sentences[::-1]))[:64]
+    nli = {d: NLIPredictor(device=d).predict([p[0] for p in nli_pairs],
+                                             [p[1] for p in nli_pairs]) for d in PARITY_DEVICES}
+    scores, secs = {}, {}
+    for d in PARITY_DEVICES:
+        t0 = time.perf_counter()
+        scores[d] = compute_scores(CLINICAL_METRICS, refs[:pairs], hyps[:pairs], "validate", SEED,
+                                   {}, 0, logging.getLogger("clinical"), dump=False, device=d)
+        secs[d] = time.perf_counter() - t0
+    score_err = max(abs(scores["cuda"][k] - v) for k, v in scores["cpu"].items())
+    n_entities = sum(len(s["entities"]) for doc in entities["cpu"] for s in doc)
+    print(f"clinical_validate parity f32 card vs CPU on {len(refs)} + {len(hyps)} reports: "
+          f"CheXbert logits max |diff| / (1 + |logit|) {logit_err:.2e} (tol 1e-4; logits up to "
+          f"{max(x.abs().max().item() for x in logits['cpu']):.1f}), labels "
+          f"{'equal' if (labels['cpu'] == labels['cuda']).all() else 'DIFFER'} "
+          f"({len({tuple(r) for r in labels['cpu']})} distinct rows); RadNER "
+          f"{n_entities} entities {'equal' if entities['cpu'] == entities['cuda'] else 'DIFFER'}; "
+          f"BERTNLI {len(nli_pairs)} pairs {'equal' if nli['cpu'] == nli['cuda'] else 'DIFFER'} "
+          f"({collections.Counter(nli['cpu'])}); compute_scores over {pairs} pairs max |diff| "
+          f"{score_err:.2e} (tol 1e-6; CPU {secs['cpu']:.1f} s, card {secs['cuda']:.1f} s): "
+          f"{scores['cuda']}")
+    return {
+        "CheXbert logits card = CPU": logit_err <= 1e-4,
+        "CheXbert labels card = CPU": bool((labels["cpu"] == labels["cuda"]).all()),
+        "RadNER entities card = CPU": entities["cpu"] == entities["cuda"] and n_entities > 0,
+        "BERTNLI labels card = CPU": nli["cpu"] == nli["cuda"],
+        "clinical scores card = CPU": all(v is not None for v in scores["cpu"].values())
+        and sorted(scores["cpu"]) == sorted(scores["cuda"]) and score_err <= 1e-6,
+    }
+
+
+def roberta_cli_overrides(data: str, ckpt: str, name: str, folder: str):
+    """``config/RRG/biomed-roberta-baseline-mimic.yml`` as ``rrg_roberta_serve``
+    sets it up (its decoder's pretrained name pointed at a roberta-base
+    ``config.json``, the corpus vocabulary in place of the RoBERTa
+    tokenizer's files), on a corpus through ``device_preproc``, one epoch;
+    the Validator's metrics and the early-stop metric as written."""
+    return [ROBERTA_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", "device=cuda", f"seed={SEED}",
+            f"model.decoder.proto={folder}", "dataset.seq.tokenizer=null",
+            f"dataset.image.root={data}", f"dataset.seq.root={data}",
+            "dataset.image.device_preproc=true", "trainor.epochs=0"]
+
+
+def clinical_scst_reward(tmp: str, card: str):
+    """``config/RRG/rrg-scst-mimic.yml`` through the train CLI with
+    ``scores: [rougel, chexbert]`` (weights 0.5 / 0.5) from the ``rrg_train``
+    checkpoint: 2 iterations at batch 32 over 64 reports, the Validator over
+    4; then one batch of rollouts rewarded with [rougel, chexbert] and with
+    rougel alone, alternated. Returns the SCST run's checks."""
+    import shutil
+
+    import numpy as np
+
+    from vilmedic_torch.bin.train import main
+    from vilmedic_torch.scorers.clinical import F1CheXbert
+
+    data = os.path.join(tmp, "clinical_scst_data")
+    os.makedirs(data)
+    for split, n in (("train", CLINICAL_SCST_TRAIN), ("validate", 4)):
+        for kind in ("impression", "image"):
+            with open(os.path.join(tmp, "rrg_data", f"{split}.{kind}.tok")) as f:
+                lines = f.read().split("\n")[:n]
+            with open(os.path.join(data, f"{split}.{kind}.tok"), "w") as f:
+                f.write("\n".join(lines))
+    ckpt = glob.glob(os.path.join(tmp, "rrg_train", "*.ckpt"))[0]
+    os.makedirs(os.path.join(tmp, "clinical_scst"))
+    shutil.copy(os.path.join(tmp, "rrg_train", "vocab.tgt"), os.path.join(tmp, "clinical_scst"))
+    with ScstRecorder() as rec:
+        trainor = main(scst_overrides(data, tmp, "clinical_scst", "cuda", ckpt)
+                       + ["model.scores=[rougel,chexbert]", "model.scores_weights=[0.5,0.5]"])
+    model = trainor.model
+    scst = model.scst
+    one = trainor._model_batch(next(iter(trainor.dl)))
+    _, sampled = model.rollouts(model.encoder_inputs(one))
+    rollouts, refs = sampled.cpu().numpy(), one[model.ref_key].cpu().numpy()
+    both, alone, times = scst.scorers, scst.scorers[:1], {"both": [], "rougel": []}
+    scores, rewards = scst.scores, {}
+    try:
+        for r in range(6):
+            for kind in (("both", "rougel") if r % 2 == 0 else ("rougel", "both")):
+                scst.scorers = both if kind == "both" else alone
+                scst.scores = scores if kind == "both" else scores[:1]
+                t0 = time.perf_counter()
+                rewards[kind], _, _ = scst.get_reward(rollouts, refs)
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        scst.scorers, scst.scores = both, scores
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    chexbert_reward = rewards["both"][1]
+    print(f"clinical_validate SCST ({card}): {os.path.basename(SCST_CONFIG)} rewards "
+          f"{scores}, weights {scst.scores_weights}, {len(rec.losses)} iterations at batch "
+          f"{sampled.shape[0]}: losses {[round(x, 6) for x in rec.losses]}, per iteration "
+          f"rollout / reward / gradient ms "
+          f"{[{k: round(v * 1e3, 1) for k, v in s.items()} for s in rec.splits]}; one batch's "
+          f"reward (decode + score, median of 6 alternated): [rougel, chexbert] {ms['both']:.1f} "
+          f"ms, rougel alone {ms['rougel']:.1f} ms; chexbert rewards {np.round(chexbert_reward, 3)}")
+    checks = {
+        "SCST [rougel, chexbert] built": isinstance(scst.scorers[1], F1CheXbert),
+        "SCST 2 finite losses": len(rec.losses) == 2 and all(map(math.isfinite, rec.losses)),
+        "SCST chexbert reward per sample": chexbert_reward.shape == (sampled.shape[0],)
+        and bool(np.isin(chexbert_reward, (0.0, 1.0)).all()),
+        "SCST rougel reward unchanged beside chexbert":
+            np.array_equal(rewards["both"][0], rewards["rougel"][0]),
+    }
+    del trainor, model
+    return checks
+
+
+def phase_clinical_validate(tmp: str, card: str):
+    """The clinical scorers on the card through the normal entry points
+    (module doc, item 18): the scorer files (:func:`scorer_weights`), then
+    ``config/RRG/biomed-roberta-baseline-mimic.yml`` through the train CLI
+    over the ``rrg_train`` corpus cut to 128 + 32 reports (one RAdam step at
+    batch 128, bf16), its Validator at beam 8 with the config's eight
+    metrics (every one a number; early stop on ``chexbert-5_micro
+    avg_f1-score``; the scorer networks on the card; K1 (a), K2 and K3
+    counted); the Validator's reports/s, each clinical scorer's ms cold and
+    warm; f32 card vs CPU on 16 of the reports and their hypotheses
+    (:func:`clinical_parity`); an SCST run rewarded with [rougel, chexbert]
+    (:func:`clinical_scst_reward`). Returns the path's launches."""
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    set_tf32(False)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    folder = scorer_weights(tmp)
+    write_s = time.perf_counter() - t0
+    data = os.path.join(tmp, "clinical_data")
+    scst_corpus(os.path.join(tmp, "rrg_data"), data, 128)
+    roberta = roberta_config_dir(tmp)
+    clear_scorer_caches()
+    with weights_dir(folder):
+        reset_launches()
+        t0 = time.perf_counter()
+        with DecodeSteps() as val_steps, ValidatorClock() as val_clock:
+            trainor = main(roberta_cli_overrides(data, tmp, "clinical_validate", roberta))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        evaluator, cfg = trainor.evaluator, trainor.config
+        scores = evaluator.scores[0]
+        sched = trainor.training_scheduler
+        networks = scorer_networks(evaluator.device)
+        on_card = {name: {p.device.type for p in m.parameters()} == {"cuda"}
+                   for name, m in networks.items()}
+        run_dir = os.path.join(tmp, "clinical_validate")
+        refs, hyps = read_run_text(run_dir, "validate")
+        n_val = len(refs)
+        val_s = val_clock.seconds[0]
+        ms = scorer_ms(evaluator.metrics[4:], refs, hyps, evaluator.device)
+        print(f"clinical_validate ({card}): {os.path.basename(ROBERTA_CONFIG)} through the train "
+              f"CLI, {cfg.model.cnn.backbone}, {trainor.model.dec_config.num_hidden_layers}-layer "
+              f"decoder of {trainor.model.dec_config.hidden_size}, vocab "
+              f"{trainor.model.dec_config.vocab_size}, {trainor.model.dec_config.dtype}, batch "
+              f"{cfg.batch_size}, {sched.iteration_count} step(s), run {run_s:.1f} s (scorer "
+              f"files written in {write_s:.1f} s); Validator beam "
+              f"{evaluator.config.beam_width}, batch {evaluator.splits[0][1].batch_size}, metrics "
+              f"{evaluator.metrics}; early stop {sched.early_stop_metric} = "
+              f"{sched.current_best_metric}; scores {scores}")
+        print(f"clinical_validate Validator in the run ({card}): {n_val / val_s:.2f} reports/s "
+              f"({val_s:.2f} s for {n_val} reports: beam decode, then the 8 metrics, the "
+              f"scorers' files read on first use); "
+              f"scorer networks on the card: {on_card}; per metric over {n_val} refs + hyps, "
+              f"ms cold (files read) / warm: "
+              + ", ".join(f"{m} {c:.1f} / {w:.1f}" for m, (c, w) in ms.items())
+              + f"; launches K1 {launches[K1]}, K2 {launches[K2]}, K3 {launches[K3]} over "
+              f"{val_steps.steps} decode steps")
+        checks = {
+            "the config's eight metrics": [str(m).lower() for m in evaluator.metrics] == [
+                "rougel", "bleu", "meteor", "ciderd", "chexbert", "radentitymatchexact",
+                "radentitynli", "radgraph"],
+            "every metric a number": all(v is not None and math.isfinite(v)
+                                         for v in scores.values()) and len(scores) == 14,
+            "early stop reads chexbert-5_micro avg_f1-score":
+                sched.early_stop_metric == "chexbert-5_micro avg_f1-score"
+                and sched.current_best_metric == scores["chexbert-5_micro avg_f1-score"],
+            "scorer networks on the card": all(on_card.values()),
+            "K1 (a) = 12 x decode steps": launches[K1] == 12 * val_steps.steps > 0,
+            "K2 = decode steps": launches[K2] == val_steps.steps,
+            "K3 = training + Validator batches": launches[K3] == 1 + len(evaluator.splits[0][1]),
+        }
+        del trainor, evaluator
+        torch.cuda.empty_cache()
+        checks.update(clinical_parity(refs[:16], hyps[:16], pairs=8))
+        checks.update(clinical_scst_reward(tmp, card))
+        set_tf32(False)
+    require(checks, "clinical_validate")
+    torch.cuda.empty_cache()
+    print(f"clinical_validate: {time.perf_counter() - t_phase:.1f} s")
+    return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5504,6 +5925,8 @@ def main():
         launches["vl_unfrozen_train"], rrg_dinov2 = phase_vl_unfrozen_train(tmp, card)
         k5_tower = hold_tower_flash_backward(card)
         phase_vl_cli_parity(tmp)
+        print(f"phases before clinical_validate: {time.perf_counter() - t_start:.1f} s")
+        launches["clinical_validate"] = phase_clinical_validate(tmp, card)
         print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     # K1 (b) on the VL CLI path: the Validator at beam 2, the ensemble CLI at 8
     results["fused_beam_cache_attention_stats"].update(
@@ -5518,7 +5941,8 @@ def main():
     # K3): RRG training, SCST fine-tuning, RRS training, RRG with the ViT
     # tower, MVQA and CLASS (none), the RoBERTa-width RRG serving, ConVIRT
     # and GLoRIA training (none), RRG_HF (single and multi-image) and RRS_HF
-    # training
+    # training, and the RoBERTa RRG config's Validator with the clinical
+    # scorers
     for path, key in (("rrg_train", "rrg_train_launches"), ("scst_train", "scst_launches"),
                       ("rrs_train", "rrs_launches"), ("rrg_vit_train", "rrg_vit_launches"),
                       ("mvqa_train", "mvqa_launches"), ("class_train", "class_launches"),
@@ -5527,7 +5951,8 @@ def main():
                       ("rrg_hf_train", "rrg_hf_launches"),
                       ("rrg_multi_image", "rrg_multi_image_launches"),
                       ("rrs_hf_train", "rrs_hf_launches"), ("vl_cli_train", "vl_cli_launches"),
-                      ("vl_unfrozen_train", "vl_unfrozen_launches")):
+                      ("vl_unfrozen_train", "vl_unfrozen_launches"),
+                      ("clinical_validate", "clinical_launches")):
         for name, counter in launches[path].items():
             if name in results:
                 results[name][key] = counter
@@ -5543,7 +5968,8 @@ def main():
     extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "rrs_launches",
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
              "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",
-             "rrs_hf_launches", "vl_cli_launches", "vl_unfrozen_launches", "tower_launches",
+             "rrs_hf_launches", "vl_cli_launches", "vl_unfrozen_launches", "clinical_launches",
+             "tower_launches",
              "beam2_max_abs_err", "tower_max_rel_err", "vl_validator_beam2_launches",
              "vl_ensemble_beam8_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"

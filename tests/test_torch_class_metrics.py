@@ -37,9 +37,9 @@ def _case(name):
         hyps = rng.normal(size=(30, 4)).astype(np.float32)
         hyps[:5, 3] += 10
         return refs, hyps
-    if name == "ignore_label":
-        refs = rng.integers(0, 4, 24).astype(np.int32)
-        refs[[2, 9]] = -100
+    if name == "ignore_label":  # every class among the refs, beside the ignore label
+        refs = np.concatenate([np.arange(4), rng.integers(0, 4, 20)]).astype(np.int32)
+        refs[[5, 9]] = -100
         return refs, rng.normal(size=(24, 4)).astype(np.float32)
     if name == "binary":  # two score columns: scikit-learn's AUROC raises
         return rng.integers(0, 2, 20).astype(np.int32), rng.normal(size=(20, 2)).astype(np.float32)

@@ -116,8 +116,8 @@ def test_compute_scores_names_dumps_and_refusals(tmp_path):
     assert (tmp_path / "validate_scorers-test_refs.txt").read_text() == "\n".join(REFS)
     dumped = json.loads((tmp_path / "validate_scorers-test_metrics.txt").read_text())
     assert dumped["epoch"] == 3 and dumped["scores"] == scores
-    with pytest.raises(NotImplementedError, match="chexbert"):
-        compute_scores(["BLEU", "chexbert"], REFS, HYPS, "validate", 0, {}, 0,
+    with pytest.raises(NotImplementedError, match="radevalbertscore"):
+        compute_scores(["BLEU", "radevalbertscore"], REFS, HYPS, "validate", 0, {}, 0,
                        logging.getLogger("scorers-test"), dump=False)
 
 
@@ -288,9 +288,9 @@ def test_spice_matches_jax(matcher_files):
 
 def test_meteor_is_an_scst_reward():
     from vilmedic_torch.scorers.nlg.meteor import Meteor as TMeteor
-    from vilmedic_torch.scorers.scores import REWARD_COMPLIANT, UNPORTED_REWARDS
+    from vilmedic_torch.scorers.scores import REWARD_COMPLIANT
 
-    assert REWARD_COMPLIANT["meteor"] == (TMeteor, 1) and "meteor" not in UNPORTED_REWARDS
+    assert REWARD_COMPLIANT["meteor"] == (TMeteor, 1)
 
 
 # ---------------------------------------------------------------- the metrics CLI

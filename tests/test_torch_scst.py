@@ -241,8 +241,8 @@ def test_unported_reward_and_overlap_raise(workdir):
     vocab_file = str(workdir / "vocab.txt")
     kw = dict(tokenizer=WordPieceTokenizer(vocab_file), max_length=12, bos_token_id=0,
               eos_token_id=2, pad_token_id=1)
-    with pytest.raises(NotImplementedError, match="chexbert"):
-        TSCST(scores=["rougel", "chexbert"], scores_weights=[0.5, 0.5], **kw)
+    with pytest.raises(ValueError, match="radevalbertscore"):
+        TSCST(scores=["rougel", "radevalbertscore"], scores_weights=[0.5, 0.5], **kw)
     with pytest.raises(ValueError):
         TSCST(scores=["rougel", "bleu"], **kw)  # two scores need their weights
     from vilmedic_torch.models.scst_models import RRG_SCST

@@ -170,19 +170,20 @@ def test_port_imports_no_jax():
 
 
 def test_port_imports_no_tokenizer_scorer_or_image_packages():
-    """Every module of the port imports without transformers, safetensors,
-    rouge_score, nltk, scikit-learn or Pillow: the tokenizers, ROUGE,
-    METEOR's stemmer, the classification metrics, BERTScore's encoder and its
-    weight readers are the port's own, and Pillow is imported only inside
-    ``data.image.open_image``."""
+    """Every module of the port imports without transformers,
+    huggingface_hub, safetensors, rouge_score, nltk, stanza, scikit-learn or
+    Pillow: the tokenizers, ROUGE, METEOR's stemmer, the classification
+    metrics, the clinical scorers, BERTScore's encoder, the weight readers
+    and the hub-cache lookup are the port's own, and Pillow is imported only
+    inside ``data.image.open_image``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vilmedic_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vilmedic_torch.__path__, 'vilmedic_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('transformers', 'safetensors', 'rouge_score', 'nltk',\n"
-        "                              'sklearn', 'PIL')]\n"
+        "       if m.split('.')[0] in ('transformers', 'huggingface_hub', 'safetensors',\n"
+        "                              'rouge_score', 'nltk', 'stanza', 'sklearn', 'PIL')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -389,3 +390,55 @@ def test_3d_densenet_variables_map_onto_the_port():
     _all_mapped(variables, tnet, rrg_state_dict_from_jax)
     np.testing.assert_array_equal(tnet.conv0.weight.detach().numpy(),
                                   kernel.transpose(4, 3, 0, 1, 2))
+
+
+SCORER_BERT = dict(vocab_size=50, hidden_size=64, num_hidden_layers=2, num_attention_heads=1,
+                   intermediate_size=96, max_position_embeddings=32)
+
+
+def _scorer_inputs():
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 50, (3, 11))
+    mask = np.ones_like(ids)
+    mask[1, 7:] = 0
+    seg = np.zeros_like(ids)
+    seg[:, 5:] = 1
+    return ids, mask, seg
+
+
+@pytest.mark.parametrize("tree", ["chexbert", "token_classifier", "pair_classifier"])
+def test_scorer_variables_map_onto_the_port(tree):
+    """The JAX clinical scorers' BERT trees land on the port's scorer
+    modules (HF names, the checkpoints' head names), which then give the
+    JAX logits."""
+    from vilmedic_torch.scorers import chexbert as tchexbert
+    from vilmedic_torch.scorers import nli as tnli
+    from vilmedic_torch.scorers import ner as tner
+    from vilmedic_torch.zoo import from_jax
+    from vilmedic_tpu.blocks.transformer import TransformerConfig
+    from vilmedic_tpu.scorers import chexbert as jchexbert
+    from vilmedic_tpu.scorers import nli as jnli
+    from vilmedic_tpu.scorers import ner as jner
+
+    cfg = TransformerConfig(**SCORER_BERT)
+    tcfg = dict(SCORER_BERT, model_type="bert")
+    ids, mask, seg = _scorer_inputs()
+    args = [jnp.asarray(ids, jnp.int32), jnp.asarray(mask, jnp.int32)]
+    if tree == "chexbert":
+        jmod, tmod = jchexbert.CheXbertModule(cfg), tchexbert.CheXbertModule(tcfg)
+        bridge = from_jax.chexbert_state_dict_from_jax
+    elif tree == "token_classifier":
+        jmod, tmod = jner.TokenClassifierModule(cfg, num_labels=5), tner.TokenClassifier(tcfg, 5)
+        bridge = from_jax.token_classifier_state_dict_from_jax
+    else:
+        jmod, tmod = jnli.BertPairClassifier(cfg), tnli.BertPairClassifier(tcfg)
+        bridge = from_jax.pair_classifier_state_dict_from_jax
+        args.append(jnp.asarray(seg, jnp.int32))
+    variables = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(0), *args))
+    _all_mapped(variables, tmod, bridge)
+    want = jmod.apply(variables, *args)
+    with torch.no_grad():
+        got = tmod(*(torch.from_numpy(np.asarray(a, np.int64)) for a in args))
+    rows = mask.astype(bool) if tree == "token_classifier" else slice(None)
+    for g, w in zip(got if tree == "chexbert" else [got], want if tree == "chexbert" else [want]):
+        np.testing.assert_allclose(g.numpy()[rows], np.asarray(w)[rows], rtol=1e-5, atol=1e-5)

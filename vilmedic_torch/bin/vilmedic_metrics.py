@@ -6,7 +6,8 @@ same printed JSON).
         --metrics BLEU ROUGEL METEOR CIDERD
 
 Blank lines are dropped from both files, which must then have as many lines.
-Runs on the host: no card is needed.
+The NLG metrics run on the host; the clinical scorers and ``bertscore`` run
+their networks on ``--device`` (the card by default; ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--hyps", required=True)
     parser.add_argument("--refs", required=True)
     parser.add_argument("--metrics", nargs="+", required=True)
+    parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     with open(args.hyps) as f:
@@ -34,7 +36,8 @@ def main(argv=None) -> dict:
 
     logger = set_logger(None, "metrics")
     scores = compute_scores(metrics=args.metrics, refs=refs, hyps=hyps, split="cli",
-                            seed="metrics", config=None, epoch=0, logger=logger, dump=False)
+                            seed="metrics", config=None, epoch=0, logger=logger, dump=False,
+                            device=args.device)
     print(json.dumps(scores, indent=4, default=str))
     return scores
 

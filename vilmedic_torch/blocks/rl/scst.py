@@ -13,7 +13,19 @@ batch, summed per sample, negated, and weighted per scorer by its advantage
 and its weight.
 
 :class:`SCST` is the host side: it builds the reward scorers from
-``scorers.scores.REWARD_COMPLIANT``, decodes ids to text and scores them.
+``scorers.scores.REWARD_COMPLIANT`` (``scores_args`` give each its keyword
+arguments; the clinical scorers' networks run on ``device``), decodes ids
+to text and scores them, calling each scorer as ``scorer(refs, hyps)``, as
+the JAX package does (so ``chexbert``'s ``(hyps, refs)`` sees them swapped,
+which its symmetric per-sample accuracy does not notice).
+
+One case differs from the JAX package on purpose: ``radgraph`` without
+``scores_args`` takes its default ``reward_level="all"``, whose per-sample
+output is the three levels' lists, a (3, B) reward. The JAX package stacks
+that into (1, 3, B) advantages, which broadcast in its loss into the sum of
+the three levels (alone) or fail in ``np.stack`` (beside another reward).
+The port raises a ``ValueError`` naming ``scores_args`` instead, and any
+reward that is not one value per sample raises in :meth:`SCST.get_reward`.
 """
 
 from __future__ import annotations
@@ -42,8 +54,8 @@ class SCST:
 
     def __init__(self, tokenizer, max_length: int, bos_token_id: int, eos_token_id: int,
                  pad_token_id: int, scores="ROUGEL", scores_args=None, scores_weights=None,
-                 top_k: Optional[int] = None, use_nll: bool = False):
-        from ...scorers.scores import REWARD_COMPLIANT, UNPORTED_REWARDS
+                 top_k: Optional[int] = None, use_nll: bool = False, device="cuda"):
+        from ...scorers.scores import DEVICE_REWARDS, REWARD_COMPLIANT
 
         self.tokenizer = tokenizer
         self.max_length = int(max_length)
@@ -56,10 +68,6 @@ class SCST:
         if not isinstance(scores, (list, tuple)):
             scores = [scores]
         scores = [str(s).lower() for s in scores]
-        unported = [s for s in scores if s in UNPORTED_REWARDS]
-        if unported:
-            raise NotImplementedError(f"rewards {unported} are not ported; ported: "
-                                      f"{sorted(REWARD_COMPLIANT)}")
         unknown = [s for s in scores if s not in REWARD_COMPLIANT]
         if unknown:
             raise ValueError(f"{unknown} not in {sorted(REWARD_COMPLIANT)}")
@@ -82,8 +90,15 @@ class SCST:
 
         self.scorers, self.scorers_index = [], []
         for score, args in zip(scores, scores_args):
+            args = dict(args or {})
+            if score == "radgraph" and args.get("reward_level", "all") == "all":
+                raise ValueError("the radgraph reward needs one level: reward_level 'all' (its "
+                                 "default) gives three rewards per sample; pass scores_args "
+                                 "such as {reward_level: partial}")
+            if score in DEVICE_REWARDS:
+                args.setdefault("device", device)
             factory, index = REWARD_COMPLIANT[score]
-            self.scorers.append(factory(**dict(args)) if args else factory())
+            self.scorers.append(factory(**args))
             self.scorers_index.append(index)
 
     @property
@@ -107,6 +122,10 @@ class SCST:
         ref_list = self.decode(ref_ids)
         rewards = [np.asarray(scorer(ref_list, hyp_list)[idx], np.float32)
                    for scorer, idx in zip(self.scorers, self.scorers_index)]
+        for score, reward in zip(self.scores, rewards):
+            if reward.shape != (len(hyp_list),):
+                raise ValueError(f"the {score} reward has shape {reward.shape}, not one value "
+                                 f"for each of the {len(hyp_list)} samples")
         return rewards, hyp_list, ref_list
 
     def __repr__(self):

@@ -223,10 +223,11 @@ class BertTokenizer(WordPieceTokenizer):
                 words.append(piece)
         return words
 
-    def encode_truncated(self, text: str) -> List[int]:
-        """``[CLS] ids [SEP]``, the ids cut to fit ``model_max_length``
-        (HF's ``truncation=True``)."""
+    def encode_truncated(self, text: str, max_length: Optional[int] = None) -> List[int]:
+        """``[CLS] ids [SEP]``, the ids cut to fit ``max_length``, else
+        ``model_max_length`` (HF's ``truncation=True``)."""
         ids = self.convert_tokens_to_ids(self.tokenize(text))
-        if self.model_max_length is not None:
-            ids = ids[:max(self.model_max_length - 2, 0)]
+        max_length = max_length if max_length is not None else self.model_max_length
+        if max_length is not None:
+            ids = ids[:max(max_length - 2, 0)]
         return [self.cls_token_id] + ids + [self.sep_token_id]

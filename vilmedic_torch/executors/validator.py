@@ -5,7 +5,8 @@ One loader per split of the config's ``splits`` (``["val"]`` when none is
 given); :meth:`Validator.start` runs the models' ``eval_func`` on each,
 scores its refs and hyps with :func:`~vilmedic_torch.scorers.compute_scores`
 and records ``{"validation_loss", <metrics>}`` per split in ``scores``
-(``bertscore``'s encoder on the models' device).
+(the clinical scorers' and ``bertscore``'s networks on the models'
+device).
 Unported metrics and any ``post_processing`` step
 (:mod:`~vilmedic_torch.scorers.post_processing`) raise when the Validator is
 built, before any training. The ``eval_func`` is told ``from_training``, as

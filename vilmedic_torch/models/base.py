@@ -81,20 +81,28 @@ def hf_hub_cache() -> str:
     return os.path.join(home, "hub")
 
 
-def local_hf_config_dir(name: str) -> Optional[str]:
-    """The directory holding ``name``'s ``config.json``: ``name`` itself
-    when it is such a directory, else the hub cache's snapshot that
-    ``models--{org}--{name}/refs/main`` names; None without either."""
-    if os.path.isfile(os.path.join(name, "config.json")):
-        return name
+def hub_cached_file(name: str, filename: str) -> Optional[str]:
+    """``filename`` in the hub cache's snapshot of the model ``name`` (the
+    revision ``models--{org}--{name}/refs/main`` names), as
+    ``huggingface_hub.try_to_load_from_cache`` finds it; None without it."""
     repo = os.path.join(hf_hub_cache(), "models--" + name.replace("/", "--"))
     try:
         with open(os.path.join(repo, "refs", "main")) as f:
             revision = f.read().strip()
     except OSError:
         return None
-    snapshot = os.path.join(repo, "snapshots", revision)
-    return snapshot if os.path.isfile(os.path.join(snapshot, "config.json")) else None
+    path = os.path.join(repo, "snapshots", revision, filename)
+    return path if os.path.isfile(path) else None
+
+
+def local_hf_config_dir(name: str) -> Optional[str]:
+    """The directory holding ``name``'s ``config.json``: ``name`` itself
+    when it is such a directory, else the hub cache's snapshot
+    (:func:`hub_cached_file`); None without either."""
+    if os.path.isfile(os.path.join(name, "config.json")):
+        return name
+    path = hub_cached_file(name, "config.json")
+    return os.path.dirname(path) if path else None
 
 
 def resolve_block(block_cfg):

@@ -74,12 +74,12 @@ class _SCSTBase:
         self.ref_key = ref_key
         self.mask_key = ref_key.replace("input_ids", "attention_mask")
         bos, eos, pad = get_special_token_ids(self.dec_config, tokenizer)
+        device = next(self.module.parameters()).device
         self.scst = SCST(tokenizer=tokenizer, max_length=max_len, bos_token_id=bos,
                          eos_token_id=eos, pad_token_id=pad, scores=scores,
                          scores_args=scores_args, scores_weights=scores_weights, top_k=top_k,
-                         use_nll=use_nll)
+                         use_nll=use_nll, device=device)
         self.eval_func = scst_evaluation
-        device = next(self.module.parameters()).device
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.timing = {"rollout_s": 0.0, "reward_s": 0.0, "grad_s": 0.0, "iters": 0}
         self.last = None  # the last iteration's rollouts, rewards and loss

@@ -1,6 +1,7 @@
-"""BERT and DistilBERT text encoders, and the reader of their HF weight
-files, without ``transformers`` or ``safetensors`` (for BERTScore,
-:mod:`.bertscore_impl`).
+"""BERT and DistilBERT text encoders, and the readers of their weight
+files, without ``transformers`` or ``safetensors``: the one encoder of
+BERTScore (:mod:`.bertscore_impl`) and of the clinical scorers (CheXbert,
+the RadNER token classifier, the BERTNLI pair classifier).
 
 :class:`BertEncoder` is HF ``BertModel`` (word, position and token-type
 embeddings, then post-LN layers: self-attention, ``attention.output``
@@ -13,24 +14,36 @@ returns every hidden state, the embeddings' first, as HF's
 ``output_hidden_states`` does. Padded keys get the float32 minimum added to
 their scores, as HF's extended attention mask does. The activation is the
 exact GELU (both models' default); another activation or ``model_type``
-raises.
+raises. ``token_type_ids`` give the segments (NLI's second sentence);
+zeros when not given. ``pooler=True`` adds BERT's pooler (``pooler.dense``,
+tanh over the [CLS] state: :meth:`BertEncoder.pooled`).
 
 :func:`load_weights` reads ``model.safetensors`` by hand (an 8-byte
 little-endian header length, a JSON header of dtypes, shapes and byte
 offsets, then the raw little-endian tensors) or ``pytorch_model.bin``
-through ``torch.load(weights_only=True)``.
+through ``torch.load(weights_only=True)``; :func:`read_pth` a torch
+checkpoint as the scorers ship it (a ``model_state_dict`` entry unwrapped,
+DataParallel ``module.`` prefixes dropped), and
+:func:`bert_config_from_state_dict` infers the encoder's configuration
+from its tensors as the JAX package's loaders do (heads of 64). A scorer
+module keeps the encoder as ``bert`` and its heads under the checkpoint's
+names, so :func:`load_scorer_state` loads a checkpoint as it is.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
+import pickle
 from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+logger = logging.getLogger(__name__)
 
 SUPPORTED = ("bert", "distilbert")
 SAFETENSORS_DTYPES = {
@@ -68,6 +81,53 @@ def load_weights(folder: str) -> Optional[Dict[str, torch.Tensor]]:
     if os.path.isfile(path):
         return torch.load(path, map_location="cpu", weights_only=True)
     return None
+
+
+def read_pth(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a torch checkpoint on the CPU: ``torch.load`` with
+    ``weights_only=True``, or, for a file that pickles other objects, a
+    full load (logged); a ``model_state_dict`` entry is unwrapped and the
+    ``module.`` prefix of a DataParallel save dropped."""
+    try:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        logger.warning(f"{path} holds objects besides tensors: loading it in full")
+        state = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(state, dict) and "model_state_dict" in state:
+        state = state["model_state_dict"]
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state.items()}
+
+
+def bert_config_from_state_dict(state: Dict[str, torch.Tensor], prefix: str = "bert.") -> Dict:
+    """A BERT ``config.json`` dict from the encoder's tensors under
+    ``prefix``: widths from the tables, 64-wide heads (12 for BERT-base),
+    the intermediate width from the first FFN, the positions from their
+    table."""
+    vocab, hidden = state[f"{prefix}embeddings.word_embeddings.weight"].shape
+    layers = f"{prefix}encoder.layer."
+    n_layers = 1 + max(int(k[len(layers):].split(".")[0]) for k in state if k.startswith(layers))
+    return {
+        "model_type": "bert", "vocab_size": int(vocab), "hidden_size": int(hidden),
+        "num_hidden_layers": n_layers, "num_attention_heads": max(1, int(hidden) // 64),
+        "intermediate_size": int(state[f"{layers}0.intermediate.dense.weight"].shape[0]),
+        "max_position_embeddings": int(
+            state[f"{prefix}embeddings.position_embeddings.weight"].shape[0]),
+        "type_vocab_size": int(state[f"{prefix}embeddings.token_type_embeddings.weight"].shape[0]),
+    }
+
+
+def load_scorer_state(module: nn.Module, state: Dict[str, torch.Tensor]) -> None:
+    """Load a checkpoint into ``module``: ``module.bert`` by
+    :meth:`BertEncoder.load_hf_state_dict`, every other tensor by its own
+    name; a tensor the checkpoint lacks raises, the checkpoint's others
+    (an unused pooler, position ids) are left out."""
+    module.bert.load_hf_state_dict(state)
+    heads = [k for k in module.state_dict() if not k.startswith("bert.")]
+    missing = [k for k in heads if k not in state]
+    if missing:
+        raise ValueError(f"the checkpoint lacks {missing[:5]} ({len(missing)} tensors)")
+    module.load_state_dict({k: state[k].float() for k in heads}, strict=False)
 
 
 def _require_gelu(act: str) -> None:
@@ -140,7 +200,7 @@ class BertEncoder(nn.Module):
     """HF ``BertModel`` / ``DistilBertModel`` from a ``config.json`` dict
     (module doc); f32."""
 
-    def __init__(self, cfg: Dict):
+    def __init__(self, cfg: Dict, pooler: bool = False):
         super().__init__()
         self.model_type = cfg.get("model_type")
         if self.model_type not in SUPPORTED:
@@ -161,6 +221,9 @@ class BertEncoder(nn.Module):
             (_DistilLayer if distil else _BertLayer)(cfg) for _ in range(n))
         self.stack_name = "transformer" if distil else "encoder"
         self.add_module(self.stack_name, stack)
+        if pooler:
+            self.pooler = nn.Module()
+            self.pooler.dense = nn.Linear(h, h)
 
     def load_hf_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
         """Load a checkpoint's tensors: a ``bert.`` / ``distilbert.`` prefix
@@ -182,13 +245,14 @@ class BertEncoder(nn.Module):
             raise ValueError(f"the checkpoint lacks {missing[:5]} ({len(missing)} tensors)")
         self.load_state_dict(got, strict=True)
 
-    def forward(self, input_ids, attention_mask) -> List[torch.Tensor]:
+    def forward(self, input_ids, attention_mask, token_type_ids=None) -> List[torch.Tensor]:
         """Every hidden state (the embeddings', then each layer's), (B, T, H)."""
         emb = self.embeddings
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = emb.word_embeddings(input_ids) + emb.position_embeddings(positions)
         if hasattr(emb, "token_type_embeddings"):
-            x = x + emb.token_type_embeddings(torch.zeros_like(input_ids))
+            x = x + emb.token_type_embeddings(torch.zeros_like(input_ids) if token_type_ids is None
+                                              else token_type_ids)
         x = emb.LayerNorm(x)
         bias = (1.0 - attention_mask[:, None, None, :].float()) * torch.finfo(torch.float32).min
         hidden = [x]
@@ -196,3 +260,7 @@ class BertEncoder(nn.Module):
             x = layer(x, bias)
             hidden.append(x)
         return hidden
+
+    def pooled(self, hidden: torch.Tensor) -> torch.Tensor:
+        """BERT's pooler over the last hidden state's [CLS] row: (B, H)."""
+        return torch.tanh(self.pooler.dense(hidden[:, 0]))

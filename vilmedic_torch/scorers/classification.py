@@ -15,7 +15,12 @@ which the port does not import).
   scikit-learn raises (binary refs with two score columns, a class count
   that differs from the score columns, scores that are not probabilities,
   an unsupported target type) and, as scikit-learn does, scores a column
-  whose refs hold one class NaN.
+  whose refs hold one class NaN;
+- :func:`multilabel_report`: ``classification_report(refs, preds,
+  target_names=names, output_dict=True, zero_division=0)`` over multi-hot
+  (N, L) labels (CheXbert's metric): per label precision, recall, F1 and
+  support, then the micro, macro, weighted (by support; unweighted when
+  every support is 0) and samples averages, every value a float.
 """
 
 from __future__ import annotations
@@ -176,3 +181,37 @@ def roc_auc_ovr(refs, scores) -> float:
         raise ValueError(f"{kind} format is not supported")
     per_class = [binary_roc_auc(refs[:, c], scores[:, c]) for c in range(scores.shape[1])]
     return float(np.mean(np.asarray(per_class, np.float64)))
+
+
+def multilabel_report(refs, preds, target_names) -> dict:
+    """scikit-learn's multilabel ``classification_report(output_dict=True,
+    zero_division=0)`` (module doc)."""
+    refs, preds = np.asarray(refs), np.asarray(preds)
+    if refs.ndim != 2 or refs.shape != preds.shape or not np.isin(refs, (0, 1)).all() \
+            or not np.isin(preds, (0, 1)).all():
+        raise ValueError("multilabel_report takes two (N, L) 0/1 arrays of one shape")
+    if len(target_names) != refs.shape[1]:
+        raise ValueError(f"Number of classes, {refs.shape[1]}, does not match size of "
+                         f"target_names, {len(target_names)}. Try specifying the labels "
+                         "parameter")
+    refs, preds = refs.astype(bool), preds.astype(bool)
+
+    def prf(tp, pred_sum, true_sum):
+        return (_divide(tp, pred_sum), _divide(tp, true_sum),
+                _divide(2.0 * tp, true_sum.astype(np.float64) + pred_sum))
+
+    tp, pred_sum, true_sum = ((refs & preds).sum(0), preds.sum(0), refs.sum(0))
+    p, r, f1 = prf(tp, pred_sum, true_sum)
+    headers = ("precision", "recall", "f1-score", "support")
+    report = {name: dict(zip(headers, map(float, row)))
+              for name, *row in zip(target_names, p, r, f1, true_sum)}
+    support = float(np.sum(true_sum))
+    micro = prf(tp.sum(keepdims=True), pred_sum.sum(keepdims=True), true_sum.sum(keepdims=True))
+    report["micro avg"] = dict(zip(headers, [float(x[0]) for x in micro] + [support]))
+    report["macro avg"] = dict(zip(headers, [float(np.mean(x)) for x in (p, r, f1)] + [support]))
+    weights = true_sum if true_sum.sum() else None
+    report["weighted avg"] = dict(zip(headers, [float(np.average(x, weights=weights))
+                                                for x in (p, r, f1)] + [support]))
+    samples = prf((refs & preds).sum(1), preds.sum(1), refs.sum(1))
+    report["samples avg"] = dict(zip(headers, [float(np.mean(x)) for x in samples] + [support]))
+    return report

@@ -1,23 +1,32 @@
 """Metric dispatch and the SCST rewards (port of ``compute_scores`` and
 ``REWARD_COMPLIANT`` of ``scorers/scores.py``).
 
-``REWARD_COMPLIANT`` maps each ported reward name (``rougel``, ``rouge1``,
-``rouge2``, ``bleu``, ``meteor``, ``ciderdrl``) to its scorer class and the
-index of the scorer's per-sample output; the JAX package's other rewards
-(the clinical scorers, which wait for weights outside the repository) are
-named in ``UNPORTED_REWARDS`` and raise ``NotImplementedError`` where SCST
-is built.
+``REWARD_COMPLIANT`` maps each reward name to its scorer class and the
+index of the scorer's per-sample output: the host NLG rewards (``rougel``,
+``rouge1``, ``rouge2``, ``bleu``, ``meteor``, ``ciderdrl``) and the
+clinical ones (``radentitymatchexact``, ``radentitynli``, ``chexbert``,
+``radgraph``, ``bertscore``), whose networks run on the device SCST names
+(:data:`DEVICE_REWARDS`).
 
 The metrics: BLEU, ROUGE1/ROUGE2/ROUGEL, METEOR, CIDERD and SPICE, the host
-NLG metrics, ``bertscore`` (:class:`.clinical.BertScore`, its encoder on the
-card; without its weights the metric reads ``None``), and ``accuracy``, ``f1-score`` and ``auroc`` over a
-classifier's labels (refs) and averaged logits (hyps), in numpy
-(:mod:`.classification`). Refs and hyps are dumped as
-``{split}_{seed}_{refs,hyps}.txt`` and the scores appended to
+NLG metrics; the clinical scorers of :mod:`.clinical`, their networks on
+``device`` (the card by default), under the JAX package's keys:
+
+- ``chexbert``: ``chexbert-{5,all}_{micro,macro} avg_f1-score``;
+- ``radgraph``: ``radgraph_simple``, ``radgraph_partial``,
+  ``radgraph_complete``;
+- ``radentitymatchexact``, ``radentitynli``, ``bertscore``, and
+  ``stanford_ct_abd_accuracy`` as ``stanford_ct_abd``;
+
+and ``accuracy``, ``f1-score`` and ``auroc`` over a classifier's labels
+(refs) and averaged logits (hyps), in numpy (:mod:`.classification`). Refs
+and hyps are dumped as ``{split}_{seed}_{refs,hyps}.txt`` (CheXbert's
+labels as ``{refs,hyps}.chexbert.txt``) and the scores appended to
 ``{split}_{seed}_metrics.txt`` in the logger's directory, as the JAX package
-does. A metric that fails while it computes is logged and scored ``None``,
-so one broken scorer cannot end a training run (the JAX package's error
-isolation). Any other metric name (the other clinical scorers) raises
+does. A metric that fails while it computes, a scorer whose weights are
+missing among them, is logged and scored ``None`` under its own name, so one
+broken scorer cannot end a training run (the JAX package's error
+isolation). Any other metric name (``radevalbertscore``, GREEN) raises
 ``NotImplementedError`` before anything runs.
 """
 
@@ -31,7 +40,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..utils.logger import get_logger_directory
-from . import classification
+from . import classification, clinical
 from .nlg.bleu import Bleu
 from .nlg.ciderd import CiderD, CiderDRL
 from .nlg.meteor import Meteor
@@ -39,7 +48,8 @@ from .nlg.rouge import Rouge, Rouge1, Rouge2, RougeL
 from .nlg.spice import Spice
 
 PORTED = ("bleu", "rouge1", "rouge2", "rougel", "meteor", "ciderd", "spice", "bertscore",
-          "accuracy", "f1-score", "auroc")
+          "chexbert", "radgraph", "radentitymatchexact", "radentitynli",
+          "stanford_ct_abd_accuracy", "accuracy", "f1-score", "auroc")
 
 # reward name -> (scorer class, index of its per-sample output)
 REWARD_COMPLIANT = {
@@ -49,9 +59,14 @@ REWARD_COMPLIANT = {
     "bleu": (Bleu, 1),
     "meteor": (Meteor, 1),
     "ciderdrl": (CiderDRL, 1),
+    "radentitymatchexact": (clinical.RadEntityMatchExact, 1),
+    "radentitynli": (clinical.RadEntityNLI, 1),
+    "chexbert": (clinical.F1CheXbert, 1),
+    "radgraph": (clinical.F1RadGraph, 1),
+    "bertscore": (clinical.BertScore, 1),
 }
-UNPORTED_REWARDS = ("radentitymatchexact", "radentitynli", "chexbert", "radgraph",
-                    "bertscore")
+# the rewards whose scorers take the ``device`` their networks run on
+DEVICE_REWARDS = ("radentitymatchexact", "radentitynli", "chexbert", "radgraph", "bertscore")
 
 
 def _metric_name(metric) -> str:
@@ -75,9 +90,11 @@ def check_metrics(metrics) -> None:
 
 def compute_scores(metrics, refs: Optional[List[str]], hyps: Optional[List[str]], split: str,
                    seed, config, epoch, logger, dump: bool = True, device=None) -> Dict:
-    """The metrics over refs and hyps (module doc); ``bertscore`` runs its
-    encoder on ``device`` (the card when None)."""
+    """The metrics over refs and hyps (module doc); the clinical scorers
+    and ``bertscore`` run their networks on ``device`` (the card when
+    None)."""
     scores: Dict = {}
+    device = device or "cuda"
     logger = logger or logging.getLogger("vilmedic_torch.scorers")
     if not metrics:
         return scores
@@ -107,9 +124,27 @@ def compute_scores(metrics, refs: Optional[List[str]], hyps: Optional[List[str]]
             elif lower == "spice":
                 scores["SPICE"] = Spice()(refs, hyps)[0]
             elif lower == "bertscore":
-                from .clinical import BertScore
-
-                scores["bertscore"] = BertScore(device=device or "cuda")(refs, hyps)[0]
+                scores["bertscore"] = clinical.BertScore(device=device)(refs, hyps)[0]
+            elif lower == "chexbert":
+                _, _, chexbert_all, chexbert_5 = clinical.F1CheXbert(
+                    refs_filename=base.format("refs.chexbert.txt") if dump else None,
+                    hyps_filename=base.format("hyps.chexbert.txt") if dump else None,
+                    device=device)(hyps, refs)
+                for avg in ("micro", "macro"):  # the JAX package's key order
+                    for kind, report in (("5", chexbert_5), ("all", chexbert_all)):
+                        scores[f"chexbert-{kind}_{avg} avg_f1-score"] = \
+                            report[f"{avg} avg"]["f1-score"]
+            elif lower == "radgraph":
+                (scores["radgraph_simple"], scores["radgraph_partial"],
+                 scores["radgraph_complete"]) = clinical.F1RadGraph(
+                    reward_level="all", device=device)(refs=refs, hyps=hyps)[0]
+            elif lower == "radentitymatchexact":
+                scores["radentitymatchexact"] = clinical.RadEntityMatchExact(
+                    device=device)(refs, hyps)[0]
+            elif lower == "radentitynli":
+                scores["radentitynli"] = clinical.RadEntityNLI(device=device)(refs, hyps)[0]
+            elif lower == "stanford_ct_abd_accuracy":
+                scores["stanford_ct_abd"] = clinical.StanfordCTAbdAcc()(refs=refs, hyps=hyps)[0]
             elif lower == "accuracy":
                 scores["accuracy"] = classification.accuracy(refs, hyps)
             elif lower == "f1-score":

@@ -1,5 +1,7 @@
 """Weight bridge from the JAX package's RRG, RRS, RRG_HF, RRS_HF, SCST,
-VisionLanguage, MVQA, ConVIRT and GLoRIA variables to the port's state dicts (counterpart of
+VisionLanguage, MVQA, ConVIRT and GLoRIA variables, and its clinical
+scorers' BERT trees (CheXbert, the RadNER token classifier, the BERTNLI pair
+classifier), to the port's state dicts (counterpart of
 ``zoo/convert.py``); :func:`rrg_state_dict_from_jax` carries any tree of
 the port's modules, a ViT or ResNet tower's own variables among them.
 
@@ -19,6 +21,13 @@ transposes over ``{"params": ..., "batch_stats": ...}`` given as numpy arrays:
 The values stay f32, as the Flax parameters are: the port's Linear,
 Embedding and convolution parameters (the DINOv2 patch embedding and SwiGLU
 projections included) are f32 too and cast to the compute dtype at use.
+
+The scorers' trees (``embeddings``, ``layer_{i}`` with ``self_attn``
+``q``/``k``/``v``/``o``, ``self_ln``, ``ffn`` ``fc1``/``fc2``, ``ffn_ln``,
+and the heads) map onto HF BERT names under ``bert.`` (``embeddings.ln`` ->
+``LayerNorm``, ``layer_{i}`` -> ``encoder.layer.{i}``), the port's scorer
+modules keeping their checkpoints' names: CheXbert's ``head_{i}`` ->
+``linear_heads.{i}``, NLI's ``pooler`` -> ``bert.pooler.dense``.
 
 A reference ``.pth`` state dict reaches the port through the JAX package's
 ``convert_reference_rrg`` and then this function.
@@ -140,3 +149,49 @@ def gloria_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     ``text_encoder`` and the four embedders) -> the port's ``GLoRIAModule``
     state dict of f32 tensors."""
     return rrg_state_dict_from_jax(variables)
+
+
+_BERT_LAYER = {"self_attn.q": "attention.self.query", "self_attn.k": "attention.self.key",
+               "self_attn.v": "attention.self.value", "self_attn.o": "attention.output.dense",
+               "self_ln": "attention.output.LayerNorm", "ffn.fc1": "intermediate.dense",
+               "ffn.fc2": "output.dense", "ffn_ln": "output.LayerNorm"}
+
+
+def _bert_scorer_state_dict(params: Dict, heads: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """A scorer's Flax BERT tree -> HF names under ``bert.``; ``heads``
+    maps the tree's other modules to the port's names."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        key, arr = _param(path, value)
+        module, _, leaf = key.rpartition(".")
+        top, _, rest = module.partition(".")
+        if top == "embeddings":
+            name = "bert.embeddings." + ("LayerNorm" if rest == "ln" else rest)
+        elif top.startswith("layer_"):
+            name = f"bert.encoder.layer.{top[len('layer_'):]}.{_BERT_LAYER[rest]}"
+        else:
+            name = heads[module]
+        out[f"{name}.{leaf}"] = torch.tensor(arr, dtype=torch.float32)
+    return out
+
+
+def chexbert_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``CheXbertModule`` ``{"params"}`` -> the port's
+    ``CheXbertModule`` state dict (``head_{i}`` -> ``linear_heads.{i}``)."""
+    params = variables["params"]
+    heads = {k: f"linear_heads.{k[len('head_'):]}" for k in params if k.startswith("head_")}
+    return _bert_scorer_state_dict(params, heads)
+
+
+def token_classifier_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``TokenClassifierModule`` ``{"params"}`` -> the port's
+    ``TokenClassifier`` state dict."""
+    return _bert_scorer_state_dict(variables["params"], {"classifier": "classifier"})
+
+
+def pair_classifier_state_dict_from_jax(variables: Dict, head: str = "linear"
+                                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``BertPairClassifier`` ``{"params"}`` -> the port's
+    ``BertPairClassifier`` state dict, its head named ``head``."""
+    return _bert_scorer_state_dict(variables["params"],
+                                   {"pooler": "bert.pooler.dense", "classifier": head})
