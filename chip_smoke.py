@@ -124,7 +124,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     no kernel on these paths; GLoRIA's ensemble CLI gives the run's
     validation loss; ``convirt_train``, ``gloria_train``), and holds one f32
     training step of each card vs CPU at full width, batch 4, on the same
-    ReLU branches, and GLoRIA's zero-shot classes (``selfsup_parity``);
+    ReLU branches, on random ids and on the corpus's reports, GLoRIA's
+    beside an f64 witness on the CPU, and GLoRIA's zero-shot classes
+    (``selfsup_parity``);
 16. trains RRG_HF (``config/RRG/baseline-mimic-HF.yml``: a DeiT-shaped
     post-LN ViT-B/16 at 224², a 2-layer 768 decoder whose vocabulary and
     special ids come from the corpus tokenizer) through the train CLI on
@@ -174,6 +176,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     rewards, timing the reward against ``rougel`` alone. ``rrs_hf_train``'s
     Validator scores its config's metrics as written (``chexbert``,
     ``radgraph``, ``bertscore`` among them) on the same files.
+19. reads the configs' pretrained tokenizers by name: before the training
+    phases it writes ``allenai/biomed_roberta_base`` (a 50,265-entry
+    ``vocab.json`` and its merges), ``emilyalsentzer/Bio_ClinicalBERT`` (a
+    28,996-entry WordPiece ``vocab.txt``) and
+    ``answerdotai/ModernBERT-base`` (a ``tokenizer.json`` of 50,280 BPE
+    entries and 88 added tokens) into a temp hub cache, in plain Python,
+    and points ``HF_HUB_CACHE`` at it, so the RoBERTa RRG, RRS_HF, ConVIRT,
+    GLoRIA and VL phases run with their configs' tokenizers (K2 at V 50,265
+    timed in ``clinical_validate``); then ``radeval_green``: a ModernBERT
+    of RadEvalModernBERT's shape (22 x 768, local window 128, random
+    weights) scores 32 pairs through ``compute_scores``' ``radevalbertscore``,
+    f32 card vs CPU; the GREEN judge at Llama-2-7B widths behind a
+    32,000-entry Llama-2-style ``tokenizer.json``: a 4-layer bf16
+    checkpoint written and read through ``load_hf_llama`` judges 4 pairs,
+    the full 32 layers built on the card prefill one batch of 4 whole
+    prompts at the judge's max_length 2048 and decode 64 tokens (ms a step,
+    peak GiB, a host / device split and the device ms by kernel under
+    ``torch.profiler``), and a 2-layer f32 judge's greedy tokens card vs
+    CPU.
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -247,6 +268,9 @@ def cuda_ms(fn, reps: int = 9, warmup: int = 2) -> float:
 
 
 PROFILE_PAD_S = 0.05  # idle host seconds on each side of a profiled call
+# the pad level (a power of 4 of PROFILE_PAD_S) that last gave a whole trace:
+# where a host needs a wide pad, the next measurement starts from it
+PAD_LEVEL = [0]
 
 
 def profiled(fn, pad_s: float = PROFILE_PAD_S):
@@ -281,11 +305,13 @@ def device_ms_per_call(fn, calls: int, kernels: dict | None = None) -> float:
     multiple of ``calls`` times (the calls are alike), and each name in
     ``kernels`` (a part of a kernel's name: its launches per call) appears
     exactly ``calls`` times that often. A trace that falls short is printed
-    and discarded, and the next one is padded four times wider. After five
-    short traces the time is taken by CUDA events around ``fn`` instead
-    (host gaps between launches included), and the line says so."""
+    and discarded, and the next one is padded four times wider, up to five
+    pad levels; a measurement starts at the level that gave the last whole
+    trace (:data:`PAD_LEVEL`). Without a whole trace the time is taken by
+    CUDA events around ``fn`` instead (host gaps between launches
+    included), and the line says so."""
     fn()
-    for attempt in range(5):
+    for attempt in range(PAD_LEVEL[0], 5):
         _, events = profiled(fn, PROFILE_PAD_S * 4 ** attempt)
         names = collections.Counter(e.name for e in events)
         short = [f"{part}: {sum(n for name, n in names.items() if part in name)} of "
@@ -294,11 +320,12 @@ def device_ms_per_call(fn, calls: int, kernels: dict | None = None) -> float:
         short += [f"{name[:60]}: {n}, not a multiple of {calls}"
                   for name, n in names.items() if n % calls]
         if events and not short:
+            PAD_LEVEL[0] = attempt
             return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / calls
         print(f"  device_ms_per_call: trace {attempt + 1} discarded, incomplete: "
               f"{'; '.join(short) or 'no device event'}")
     ms = cuda_ms(fn, reps=5, warmup=0) / calls
-    print(f"  device_ms_per_call: no whole trace in five; {ms:.4f} ms per call by CUDA "
+    print(f"  device_ms_per_call: no whole trace; {ms:.4f} ms per call by CUDA "
           f"events around the {calls} calls stands in for the device time")
     return ms
 
@@ -1215,10 +1242,6 @@ def hold_blocked_lm_head(h, w, b, label: str = "") -> float:
 def check_blocked_lm_head(results):
     import torch
 
-    from vilmedic_torch.ops.blocked_lm_head import (
-        lm_head_blocked_stats, lm_head_blocked_stats_reference,
-    )
-
     hidden = 768
     worst = 0.0
     timing = {}
@@ -1232,24 +1255,9 @@ def check_blocked_lm_head(results):
             h = torch.randn(n, hidden, generator=gen).to("cuda", dtype)
             worst = max(worst, hold_blocked_lm_head(h, w, b))
             if dtype == torch.bfloat16:
-                # read h, w, b; write the logits and two (N, Vp / 128) stats
-                nbytes = (h.numel() + w.numel()) * 2 + vp * 4 + n * vp * 4 + 2 * n * (vp // 128) * 4
-                timing[n] = dict(
-                    ms=device_ms_per_call(lambda: [lm_head_blocked_stats(h, w, b)
-                                                   for _ in range(9)], 9,
-                                          {"lm_head_wgmma_kernel": 1}),
-                    events_ms=cuda_ms(lambda: lm_head_blocked_stats(h, w, b)),
-                    plain_ms=cuda_ms(lambda: lm_head_blocked_stats_reference(h, w, b)),
-                    product_ms=device_ms_per_call(lambda: [torch.matmul(h, w.t())
-                                                           for _ in range(9)], 9),
-                    **bound(nbytes, 2 * n * hidden * vp, dtype))
+                timing[n] = time_blocked_lm_head(h, w, b)
     for n, tm in timing.items():
-        flops = 2 * n * hidden * vp
-        print(f"K2 bf16 N={n}: kernel {tm['ms']:.4f} device ms ({flops / tm['ms'] / 1e9:.1f} "
-              f"TFLOP/s, {tm['bound_ms'] / tm['ms'] * 100:.1f}% of the bound; events around one "
-              f"call {tm['events_ms']:.4f} ms), plain {tm['plain_ms']:.4f} ms, torch.matmul of the "
-              f"product only {tm['product_ms']:.4f} device ms, bound {tm['bound_ms']:.4f} ms "
-              f"({tm['bound_by']})")
+        report_blocked_lm_head(tm, n, VOCAB, vp, "")
     tm = timing[1024]
     # no single library call computes the logits with their block stats
     results["lm_head_blocked_stats"] = dict(
@@ -1861,7 +1869,7 @@ def phase_rrg_routes():
     times = {name: [] for name in routes}
     for name in ("kernel", "ensemble", "greedy", "permute", "permute", "greedy", "ensemble",
                  "kernel"):
-        for _ in range(3):
+        for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             serve(models[0], routes[name], batch, crop, "cuda")
@@ -1870,8 +1878,8 @@ def phase_rrg_routes():
     for name, ts in times.items():
         med = statistics.median(ts)
         print(f"RRG {name:8s} route batch 16: {16 / med:.2f} reports/s (median of {len(ts)} in "
-              f"two alternated blocks: {16 / statistics.median(ts[:3]):.2f} / "
-              f"{16 / statistics.median(ts[3:]):.2f}; spread {(max(ts) - min(ts)) / med * 100:.1f}%), "
+              f"two alternated blocks: {16 / statistics.median(ts[:len(ts) // 2]):.2f} / "
+              f"{16 / statistics.median(ts[len(ts) // 2:]):.2f}; spread {(max(ts) - min(ts)) / med * 100:.1f}%), "
               f"{runs[name][0].steps} steps, peak {runs[name][2]:.2f} GiB")
     big = host_batch(128, crop, SEED + 21)
     serve(models[0], routes["greedy"], big, crop, "cuda")  # warm-up
@@ -2187,7 +2195,7 @@ def phase_vl_routes():
 
     times = {name: [] for name in routes}
     for name in ("merge", "int8", "fused", "fused", "int8", "merge"):
-        for _ in range(3):
+        for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             routes[name][0](images.to("cuda", non_blocking=True))
@@ -2196,8 +2204,8 @@ def phase_vl_routes():
     for name, ts in times.items():
         med = statistics.median(ts)
         print(f"VL {name:5s} route batch {b}: {b / med:.2f} reports/s (median of {len(ts)} in two "
-              f"alternated blocks: {b / statistics.median(ts[:3]):.2f} / "
-              f"{b / statistics.median(ts[3:]):.2f}; spread {(max(ts) - min(ts)) / med * 100:.1f}%), "
+              f"alternated blocks: {b / statistics.median(ts[:len(ts) // 2]):.2f} / "
+              f"{b / statistics.median(ts[len(ts) // 2:]):.2f}; spread {(max(ts) - min(ts)) / med * 100:.1f}%), "
               f"{ops[name][0]:.1f} device ops and {ops[name][1]:.3f} device-busy ms per decode "
               f"step, peak {runs[name][2]:.2f} GiB")
     launches = {"vl_int8": runs["int8"][1], "vl_fused": runs["fused"][1]}
@@ -2726,32 +2734,45 @@ def cpu_state(model):
     return {k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()}
 
 
-def update_agreement(initial, want, got, steps: int):
+def update_ratios(initial, want, got, steps: int) -> dict:
     """Each parameter tensor's change over a run, ``got`` against ``want``:
-    the worst ratio of max|Δ_got − Δ_want| to its tolerance, 1e-4 of the
+    the ratio of max|Δ_got − Δ_want| to its tolerance, 1e-4 of the
     largest |Δ_want| plus one f32 rounding of the largest |parameter| per
     step (a last-bit difference of an update can move ``p + u`` by an ulp).
     The key biases (softmax is shift-invariant: their gradient is 0 up to
     rounding) are held against their weights' change, the stem BatchNorm's
     scale (its gradient nearly cancels through the batch-normalized layers
-    after it) against its bias's, as the CPU tests hold their gradients.
-    Returns (ratio, tensor name)."""
+    after it) against its bias's, as the CPU tests hold their gradients;
+    likewise GLoRIA's ResNet stem BatchNorm's bias against its scale's
+    change: its gradient, a sum of 50,176 terms a channel at 224², cancels
+    to ~1/800 of their magnitudes, so their own f32 rounding moves it by
+    ~1e-4 of its largest entry on the card and on the CPU alike (the f64
+    witness of :func:`phase_selfsup_parity` reads both).
+    Returns {tensor name: ratio}."""
     import torch
 
     eps = torch.finfo(torch.float32).eps
     delta = {k: (want[k] - initial[0][k], got[k] - initial[1][k])
              for k in want if "running" not in k and want[k].is_floating_point()}
-    worst = (0.0, None)
+    ratios = {}
     for k, (dw, dg) in delta.items():
         sibling = k
         if k.endswith("self_attn.k.bias") or k.endswith("cross_attn.k.bias"):
             sibling = k[:-len("bias")] + "weight"
         elif k == "enc.model.norm0.weight":
             sibling = "enc.model.norm0.bias"
+        elif k == "cnn.bn_init.bias":
+            sibling = "cnn.bn_init.weight"
         tol = 1e-4 * delta[sibling][0].abs().max().item() + steps * eps * want[k].abs().max().item()
-        ratio = (dg - dw).abs().max().item() / tol if tol > 0 else float((dg != dw).any())
-        worst = max(worst, (ratio, k), key=lambda x: x[0])
-    return worst
+        ratios[k] = (dg - dw).abs().max().item() / tol if tol > 0 else float((dg != dw).any())
+    return ratios
+
+
+def update_agreement(initial, want, got, steps: int):
+    """The worst of :func:`update_ratios`: (ratio, tensor name)."""
+    ratios = update_ratios(initial, want, got, steps)
+    worst = max(ratios, key=ratios.get)
+    return ratios[worst], worst
 
 
 class StepRecorder:
@@ -4076,7 +4097,7 @@ def phase_rrg_roberta_serve(tmp: str, card: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times, steps_seen = [], []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             r = serve(model, generate, batch, crop, "cuda")
             torch.cuda.synchronize()
@@ -4084,7 +4105,8 @@ def phase_rrg_roberta_serve(tmp: str, card: str):
             steps_seen.append(r.steps)
         med = statistics.median(times)
         rates[b] = b / med
-        print(f"rrg_roberta_serve batch {b} ({card}): {b / med:.2f} reports/s (median of 3: "
+        print(f"rrg_roberta_serve batch {b} ({card}): {b / med:.2f} reports/s (median of "
+              f"{len(times)}: "
               f"{med * 1e3:.1f} ms per batch, spread {(max(times) - min(times)) / med * 100:.1f}%, "
               f"steps {steps_seen}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
     print(f"rrg_roberta_serve batch 16 ({card}): {per_step[0]:.1f} device ops and "
@@ -4156,12 +4178,12 @@ def selfsup_corpus(tmp: str) -> str:
 
 
 def selfsup_overrides(config: str, data: str, ckpt: str, name: str, device: str):
-    """A SELFSUP config on the synthetic corpus: the tokens from the corpus
-    vocabulary (the pretrained tokenizers' files are not in the
-    repository), one epoch, the ensemblor on the validate split."""
+    """A SELFSUP config on the synthetic corpus: the config's pretrained
+    tokenizer (from the temp hub cache, :func:`write_hub_tokenizers`), one
+    epoch, the ensemblor on the validate split."""
     return [config, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
             f"dataset.image.root={data}", f"dataset.seq.root={data}",
-            "dataset.seq.tokenizer=null", "trainor.epochs=0", "ensemblor.splits=[validate]"]
+            "trainor.epochs=0", "ensemblor.splits=[validate]"]
 
 
 def selfsup_train(config: str, tmp: str, name: str, card: str):
@@ -4194,8 +4216,9 @@ def selfsup_train(config: str, tmp: str, name: str, card: str):
     print(f"{name}: {cfg.model.proto} from {os.path.relpath(config, ROOT)}: "
           f"{cfg.model.cnn.backbone} at {trainor.dl.dataset.image.crop}², a "
           f"{enc.num_hidden_layers}-layer encoder of {enc.hidden_size} ({enc.num_attention_heads} "
-          f"heads) at T {trainor.dl.dataset.tokenizer_max_len}, vocab {enc.vocab_size} (built "
-          f"from the train split), {n_params / 1e6:.1f} M parameters, {enc.dtype}, "
+          f"heads) at T {trainor.dl.dataset.tokenizer_max_len}, vocab {enc.vocab_size} (the "
+          f"tokenizer {cfg.dataset.seq.tokenizer}'s), {n_params / 1e6:.1f} M parameters, "
+          f"{enc.dtype}, "
           f"{type(model.loss_fn).__name__}, {cfg.optimizer} {dict(cfg.optim_params.to_dict())}, "
           f"batch {batch}, {trainor.dl.num_workers} loader threads, {n_steps} steps, run "
           f"{run_s:.1f} s; losses {[round(x, 4) for x in steps.losses]}")
@@ -4338,12 +4361,49 @@ class _CorpusLoader:
         self.dataset = type("Dataset", (), {"tokenizer": tokenizer})()
 
 
-def selfsup_step(config: str, device: str, tokenizer, batch, eps=None, relu=None):
+class Float64Witness:
+    """Runs a model of the port in f64 on the CPU, as a witness of what its
+    f32 runs round: its parameters and buffers in f64, every module
+    attribute that names f32 as a compute or output dtype (and each config's
+    ``dtype``) set to f64, and ``Tensor.float()`` of an f64 tensor left in
+    f64, so that the norms and losses that compute "in f32" keep f64."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        import dataclasses
+
+        import torch
+
+        self.module.double()
+        for m in self.module.modules():
+            for k, v in list(vars(m).items()):
+                if v is torch.float32:
+                    setattr(m, k, torch.float64)
+                elif dataclasses.is_dataclass(v) and getattr(v, "dtype", None) is torch.float32:
+                    object.__setattr__(v, "dtype", torch.float64)
+        real = self.real = torch.Tensor.float
+        torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else real(t, *a, **k)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.Tensor.float = self.real
+
+
+def selfsup_step(config: str, device: str, tokenizer, batch, eps=None, relu=None,
+                 witness: bool = False, capture: dict | None = None):
     """One f32 training step of a SELFSUP config at full width on
     ``device`` (dropout 0): the model from the seed, the loss, its backward
     and one update with the config's optimizer (``eps`` replaces Adam's);
-    the forward under ``relu`` (a :class:`ReluReplay`) where given.
-    Returns (model, loss, initial state, final state)."""
+    the forward under ``relu`` (a :class:`ReluReplay`) where given; with
+    ``witness``, the same from the same f32 weights in f64
+    (:class:`Float64Witness`, on the CPU). A ``capture`` dict (GLoRIA)
+    receives the ResNet stem BatchNorm's output gradient (``terms``) and
+    its bias's gradient (``sum``), in f64 on the CPU. Returns (model, loss,
+    initial state, final state)."""
     import torch
 
     from vilmedic_torch import registry
@@ -4358,14 +4418,30 @@ def selfsup_step(config: str, device: str, tokenizer, batch, eps=None, relu=None
     params = cfg.trainor.optim_params.to_dict()
     if eps is not None:
         params["eps"] = eps
-    tx = create_optimizer(cfg.trainor.optimizer, params,
-                          frozen_prefixes=getattr(model, "frozen_prefixes", ()),
-                          named_parameters=model.module.named_parameters())
-    with relu or contextlib.nullcontext():
-        out = model.apply_train({k: v.to(device) for k, v in batch.items()})
-    out["loss"].backward()
-    gated_update(tx, float(params["lr"]), out["loss"].detach())
+    if capture is not None:
+        def keep_terms(module, args, y):
+            y.register_hook(lambda g: capture.__setitem__("terms", g.detach().double().cpu()))
+
+        stem = model.module.cnn.bn_init
+        hook = stem.register_forward_hook(keep_terms)
+    with Float64Witness(model.module) if witness else contextlib.nullcontext():
+        tx = create_optimizer(cfg.trainor.optimizer, params,
+                              frozen_prefixes=getattr(model, "frozen_prefixes", ()),
+                              named_parameters=model.module.named_parameters())
+        with relu or contextlib.nullcontext():
+            out = model.apply_train({k: v.to(device) for k, v in batch.items()})
+        out["loss"].backward()
+        if capture is not None:
+            capture["sum"] = stem.bias.grad.detach().double().cpu()
+            hook.remove()
+        gated_update(tx, float(params["lr"]), out["loss"].detach())
     return model, float(out["loss"].detach()), initial, cpu_state(model)
+
+
+def reports_for_parity(tmp: str):
+    """The 4 longest validate reports of the SELFSUP corpus."""
+    with open(os.path.join(tmp, "selfsup_data", "validate.report.tok")) as f:
+        return sorted(f.read().split("\n"), key=len)[-4:]
 
 
 def phase_selfsup_parity(tmp: str):
@@ -4377,59 +4453,124 @@ def phase_selfsup_parity(tmp: str):
     tensor's change as ``update_agreement`` holds it, the CPU run on the
     card run's ReLU branches (:class:`ReluReplay`: the elements whose branch
     differs must lie within 1e-5 of their call's largest pre-activation) —
-    and GLoRIA's ``zero_shot_classification`` (3 classes of 4 prompts): the
+    on two batches of text: random ids over the config's tokenizer's
+    vocabulary, and the corpus's reports through that tokenizer. GLoRIA's
+    step runs a third time, in f64 on the CPU (:class:`Float64Witness`, on
+    the same branches): each f32 run's change against the witness's, per
+    tensor, shows which device's rounding the card-vs-CPU difference is.
+    Then GLoRIA's ``zero_shot_classification`` (3 classes of 4 prompts): the
     same classes."""
     import torch
 
-    from vilmedic_torch.data.tokenizer import WordPieceTokenizer
+    from vilmedic_torch.data.auto_tokenizer import AutoTokenizer
 
     set_tf32(False)
     t0 = time.perf_counter()
     checks = {}
     gen = torch.Generator().manual_seed(SEED + 60)
     images = torch.randn(4, 3, 224, 224, generator=gen)
-    for name, config, run, t, eps in (("convirt", CONVIRT_CONFIG, "convirt_train", 128, None),
-                                      ("gloria", GLORIA_CONFIG, "gloria_train", 97, 1.0)):
-        tokenizer = WordPieceTokenizer(os.path.join(tmp, run, "vocab.src"))
-        ids = torch.randint(5, tokenizer.vocab_size, (4, t), generator=gen)
-        mask = torch.ones(4, t, dtype=torch.int64)
-        for row, length in enumerate((t, t // 2, 7, t - 3)):
-            mask[row, length:] = 0
-        ids = ids * mask + tokenizer.pad_token_id * (1 - mask)
-        batch = {"input_ids": ids, "attention_mask": mask, "images": images}
-        record = ReluReplay()
-        m_gpu, l_gpu, i_gpu, f_gpu = selfsup_step(config, "cuda", tokenizer, batch, eps, record)
-        replay = ReluReplay(record.masks)
-        m_cpu, l_cpu, i_cpu, f_cpu = selfsup_step(config, "cpu", tokenizer, batch, eps, replay)
-        del record
-        loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-        same_start = all(torch.equal(i_gpu[k], i_cpu[k]) for k in i_cpu)
-        ratio, worst = update_agreement((i_cpu, i_gpu), f_cpu, f_gpu, 1)
-        print(f"selfsup parity {name} f32 batch 4 (full width): loss {l_gpu:.8f} card vs "
-              f"{l_cpu:.8f} CPU (relative diff {loss_rel:.2e}); initial weights "
-              f"{'equal' if same_start else 'DIFFER'}; parameter changes: worst |diff| / tol "
-              f"{ratio:.3g} ({worst}); ReLU calls {replay.calls}, elements on the other branch "
-              f"on the CPU {replay.flips}, their largest |z| / the call's {replay.worst:.2e}")
-        checks.update({f"{name} loss within 1e-5 relative": loss_rel <= 1e-5,
-                       f"{name} ReLU branches differ only within rounding of 0":
-                       replay.calls == len(replay.masks) and replay.worst <= 1e-5,
-                       f"{name} the same initial weights": same_start,
-                       f"{name} each tensor's change within tolerance": ratio <= 1.0})
-        if name == "gloria":
-            prompts = {}
-            for cls in ("effusion", "pneumonia", "normal"):
-                p_ids = torch.randint(5, tokenizer.vocab_size, (4, 12), generator=gen)
-                prompts[cls] = {"input_ids": p_ids, "attention_mask": torch.ones_like(p_ids)}
-            picks = {}
-            for device, model in (("cpu", m_cpu), ("cuda", m_gpu)):
-                on = {c: {k: v.to(device) for k, v in p.items()} for c, p in prompts.items()}
-                picks[device] = model.zero_shot_classification(images.to(device), on)
-            print(f"selfsup parity gloria zero-shot: card {picks['cuda']} vs CPU {picks['cpu']}")
-            checks["gloria zero-shot classes equal"] = picks["cuda"] == picks["cpu"]
-        del replay, m_cpu, m_gpu
+    for name, config, tok_name, t, eps in (
+            ("convirt", CONVIRT_CONFIG, ROBERTA_TOKENIZER, 128, None),
+            ("gloria", GLORIA_CONFIG, CLINICALBERT_TOKENIZER, 97, 1.0)):
+        tokenizer = AutoTokenizer.from_pretrained(tok_name)
+        random_ids = torch.randint(5, tokenizer.vocab_size, (4, t), generator=gen)
+        # 4 of the corpus's reports through the config's tokenizer, as the
+        # path sees them (GLoRIA sums each word's pieces)
+        reports = [torch.from_numpy(a) for a in tokenizer.encode_batch(
+            reports_for_parity(tmp), max_length=t, add_special_tokens=False)]
+        for text, (ids, mask) in (("random ids", (random_ids, torch.ones_like(random_ids))),
+                                  ("reports", reports)):
+            # rows cut to t, t // 2, 7 and t - 3 tokens
+            mask = mask.clone()
+            for row, length in enumerate((t, t // 2, 7, t - 3)):
+                mask[row, length:] = 0
+            ids = ids * mask + tokenizer.pad_token_id * (1 - mask)
+            batch = {"input_ids": ids, "attention_mask": mask, "images": images}
+            record = ReluReplay()
+            caps = {"card": {}, "CPU f32": {}} if name == "gloria" else {}
+            m_gpu, l_gpu, i_gpu, f_gpu = selfsup_step(config, "cuda", tokenizer, batch, eps,
+                                                      record, capture=caps.get("card"))
+            replay = ReluReplay(record.masks)
+            m_cpu, l_cpu, i_cpu, f_cpu = selfsup_step(config, "cpu", tokenizer, batch, eps,
+                                                      replay, capture=caps.get("CPU f32"))
+            loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+            same_start = all(torch.equal(i_gpu[k], i_cpu[k]) for k in i_cpu)
+            ratio, worst = update_agreement((i_cpu, i_gpu), f_cpu, f_gpu, 1)
+            label = f"{name} ({text})"
+            print(f"selfsup parity {label} f32 batch 4 (full width): loss {l_gpu:.8f} card vs "
+                  f"{l_cpu:.8f} CPU (relative diff {loss_rel:.2e}); initial weights "
+                  f"{'equal' if same_start else 'DIFFER'}; parameter changes: worst |diff| / tol "
+                  f"{ratio:.3g} ({worst}); ReLU calls {replay.calls}, elements on the other "
+                  f"branch on the CPU {replay.flips}, their largest |z| / the call's "
+                  f"{replay.worst:.2e}")
+            checks.update({f"{label} loss within 1e-5 relative": loss_rel <= 1e-5,
+                           f"{label} ReLU branches differ only within rounding of 0":
+                           replay.calls == len(replay.masks) and replay.worst <= 1e-5,
+                           f"{label} the same initial weights": same_start,
+                           f"{label} each tensor's change within tolerance": ratio <= 1.0})
+            if name == "gloria":
+                checks.update(selfsup_witness(label, config, tokenizer, batch, eps, record,
+                                              (l_gpu, i_gpu, f_gpu), (l_cpu, i_cpu, f_cpu), caps))
+            del record, replay
+            if name == "gloria" and text == "reports":
+                prompts = {}
+                for cls in ("effusion", "pneumonia", "normal"):
+                    p_ids = torch.randint(5, tokenizer.vocab_size, (4, 12), generator=gen)
+                    prompts[cls] = {"input_ids": p_ids, "attention_mask": torch.ones_like(p_ids)}
+                picks = {}
+                for device, model in (("cpu", m_cpu), ("cuda", m_gpu)):
+                    on = {c: {k: v.to(device) for k, v in p.items()} for c, p in prompts.items()}
+                    picks[device] = model.zero_shot_classification(images.to(device), on)
+                print(f"selfsup parity gloria zero-shot: card {picks['cuda']} vs CPU "
+                      f"{picks['cpu']}")
+                checks["gloria zero-shot classes equal"] = picks["cuda"] == picks["cpu"]
+            del m_cpu, m_gpu
     print(f"selfsup parity: {time.perf_counter() - t0:.1f} s")
     require(checks, "selfsup_parity")
     torch.cuda.empty_cache()
+
+
+def selfsup_witness(label: str, config: str, tokenizer, batch, eps, record, card, cpu,
+                    caps: dict) -> dict:
+    """The f64 witness of one GLoRIA step (see :func:`phase_selfsup_parity`):
+    each f32 run's change (card, CPU) held against the f64 run's by
+    :func:`update_ratios`; prints the worst tensor of each comparison and,
+    for the tensors where the card and the CPU lie furthest apart, each
+    one's distance from the witness. Then the ResNet stem BatchNorm's bias
+    gradient, a sum over (B, H, W) of its output gradient (``caps``): how
+    far its terms cancel (sum |terms| / |sum| a channel), and for each f32
+    run its terms' largest relative error and the sum's error, in 1e-4 of
+    the sum's largest entry (the check's unit)."""
+    (l_gpu, i_gpu, f_gpu), (l_cpu, i_cpu, f_cpu) = card, cpu
+    t0 = time.perf_counter()
+    replay, exact = ReluReplay(record.masks), {}
+    _, l_64, _, f_64 = selfsup_step(config, "cpu", tokenizer, batch, eps, replay, witness=True,
+                                    capture=exact)
+    pair = update_ratios((i_cpu, i_gpu), f_cpu, f_gpu, 1)
+    to_card = update_ratios((i_cpu, i_gpu), f_64, f_gpu, 1)
+    to_cpu = update_ratios((i_cpu, i_cpu), f_64, f_cpu, 1)
+    worst = sorted(pair, key=pair.get, reverse=True)[:3]
+    card_worst, cpu_worst = max(to_card, key=to_card.get), max(to_cpu, key=to_cpu.get)
+    print(f"selfsup parity {label} f64 witness on the CPU ({time.perf_counter() - t0:.1f} s): "
+          f"loss {l_64:.10f} (card {abs(l_gpu - l_64) / abs(l_64):.2e}, CPU f32 "
+          f"{abs(l_cpu - l_64) / abs(l_64):.2e} relative off it); |diff| / tol against the "
+          f"witness, worst tensor: card {to_card[card_worst]:.3g} ({card_worst}), CPU f32 "
+          f"{to_cpu[cpu_worst]:.3g} ({cpu_worst}); where card and CPU differ most: "
+          + "; ".join(f"{k} card-CPU {pair[k]:.3g}, card-f64 {to_card[k]:.3g}, CPU-f64 "
+                      f"{to_cpu[k]:.3g}" for k in worst))
+    terms, total = exact["terms"], exact["sum"]
+    kappa = terms.abs().sum((0, 2, 3)) / total.abs()
+    unit = 1e-4 * total.abs().max()
+    runs = "; ".join(
+        f"{name}: terms {((c['terms'] - terms).abs().max() / terms.abs().max()).item():.2e} "
+        f"relative, sum {((c['sum'] - total).abs().max() / unit).item():.3g}"
+        for name, c in caps.items())
+    print(f"selfsup parity {label} stem BatchNorm bias gradient: sums of "
+          f"{terms.numel() // terms.shape[1]} terms a channel, sum |terms| / |sum| median "
+          f"{kappa.median().item():.3g}, 90th percentile {kappa.quantile(0.9).item():.3g}; "
+          f"against the witness, {runs}")
+    return {f"{label} ReLU branches of the f64 witness within rounding of 0":
+            replay.calls == len(replay.masks) and replay.worst <= 1e-5}
 
 
 HF_RRG_CONFIG = os.path.join(ROOT, "config", "RRG", "baseline-mimic-HF.yml")
@@ -4644,14 +4785,13 @@ def phase_rrg_multi_image(tmp: str, card: str):
 def rrs_hf_overrides(data: str, ckpt: str, name: str, device: str, folder: str):
     """``config/RRS/baseline-mimic-HF.yml`` with both blocks' pretrained name
     pointed at ``folder`` and the data at the ``rrs_train`` phase's files
-    (no HF dataset, the corpus vocabularies); the Validator's metrics and the
-    early-stop metric as written."""
+    (no HF dataset; the config's RoBERTa tokenizer on both sides); the
+    Validator's metrics and the early-stop metric as written."""
     return [HF_RRS_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}",
             f"seed={SEED}", f"model.encoder={folder}", f"model.decoder={folder}",
             f"dataset.src.root={data}", f"dataset.tgt.root={data}",
             "dataset.src.file=findings.tok", "dataset.tgt.file=impression.tok",
-            "dataset.src.hf_dataset=null", "dataset.tgt.hf_dataset=null",
-            "dataset.src.tokenizer=null", "dataset.tgt.tokenizer=null", "trainor.epochs=0"]
+            "dataset.src.hf_dataset=null", "dataset.tgt.hf_dataset=null", "trainor.epochs=0"]
 
 
 def phase_rrs_hf_train(tmp: str, card: str):
@@ -4944,12 +5084,16 @@ def vl_config_dirs(tmp: str):
 
 def vl_cli_overrides(data: str, tower: str, ckpt: str, name: str, device: str, extra=()):
     """The dotlist that points ``config/VL/vl-dinov2-modernbert.yml`` at the
-    synthetic corpus (the corpus vocabulary: the ModernBERT tokenizer's
-    files are not in the repository) and the DINOv2 directory; one epoch
-    (the loop runs ``epochs + 1``); the ensemble CLI on the validate split."""
+    synthetic corpus (the config's ModernBERT tokenizer, from the temp hub
+    cache) and the DINOv2 directory; one epoch (the loop runs ``epochs +
+    1``); the ensemble CLI on the validate split. ModernBERT's special
+    tokens are added tokens past its 50,280-entry model vocabulary, so the
+    decoder takes ``vocab_size`` = the tokenizer's length, 50,368 (the JAX
+    VisionLanguage sizes it by ``vocab_size`` and reads NaN there; the port
+    raises without the override)."""
     return [VL_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", f"device={device}", f"seed={SEED}",
             f"dataset.image.root={data}", f"dataset.seq.root={data}",
-            "dataset.seq.tokenizer=null", f"model.vision.vision_model_name={tower}",
+            f"model.vocab_size={VL_VOCAB}", f"model.vision.vision_model_name={tower}",
             "trainor.epochs=0", "ensemblor.splits=[validate]", *extra]
 
 
@@ -5112,9 +5256,10 @@ def phase_vl_cli_train(tmp: str, card: str):
         and module.drop_cls_token and module.num_image_tokens == VL_TOKENS,
         "DINOv2-B/14 from vision_model_name": tower_cfg.hidden_size == 768
         and tower_layers == 12 and module.vision.model.pos_embed.shape[1] == VL_TOKENS,
-        "the tokenizer's vocabulary (blocked head) and ids": dec.vocab_size == tok.vocab_size
-        >= 4096 and (dec.bos_token_id, dec.eos_token_id, dec.pad_token_id)
-        == (tok.cls_token_id, tok.sep_token_id, tok.pad_token_id),
+        "the ModernBERT tokenizer's length (blocked head) and ids": dec.vocab_size == len(tok)
+        == VL_VOCAB and tok.vocab_size == MODERNBERT_MODEL_VOCAB
+        and (dec.bos_token_id, dec.eos_token_id, dec.pad_token_id)
+        == (tok.cls_token_id, tok.sep_token_id, tok.pad_token_id) == (VL_BOS, VL_EOS, VL_PAD),
         "8 microbatches, 2 updates": n_micro == VL_TRAIN // 16 and updates == 2,
         "finite losses": all(map(math.isfinite, steps.losses)),
         "finite ROUGEL / BLEU / bertscore": all(scores.get(k) is not None
@@ -5701,11 +5846,11 @@ def clinical_parity(refs, hyps, pairs: int):
 def roberta_cli_overrides(data: str, ckpt: str, name: str, folder: str):
     """``config/RRG/biomed-roberta-baseline-mimic.yml`` as ``rrg_roberta_serve``
     sets it up (its decoder's pretrained name pointed at a roberta-base
-    ``config.json``, the corpus vocabulary in place of the RoBERTa
-    tokenizer's files), on a corpus through ``device_preproc``, one epoch;
-    the Validator's metrics and the early-stop metric as written."""
+    ``config.json``; the config's RoBERTa tokenizer from the temp hub cache),
+    on a corpus through ``device_preproc``, one epoch; the Validator's
+    metrics and the early-stop metric as written."""
     return [ROBERTA_CONFIG, f"ckpt_dir={ckpt}", f"name={name}", "device=cuda", f"seed={SEED}",
-            f"model.decoder.proto={folder}", "dataset.seq.tokenizer=null",
+            f"model.decoder.proto={folder}",
             f"dataset.image.root={data}", f"dataset.seq.root={data}",
             "dataset.image.device_preproc=true", "trainor.epochs=0"]
 
@@ -5850,8 +5995,14 @@ def phase_clinical_validate(tmp: str, card: str):
             "K2 = decode steps": launches[K2] == val_steps.steps,
             "K3 = training + Validator batches": launches[K3] == 1 + len(evaluator.splits[0][1]),
         }
+        dec = trainor.model.dec_config
+        checks["the RoBERTa tokenizer's vocabulary"] = (
+            trainor.dl.dataset.tokenizer.vocab_size == dec.vocab_size == ROBERTA_VOCAB)
+        n_rows = evaluator.splits[0][1].batch_size * evaluator.config.beam_width
         del trainor, evaluator
         torch.cuda.empty_cache()
+        time_blocked_lm_head_at(n_rows, dec.vocab_size, dec.hidden_size,
+                                " (clinical_validate, the Validator's rows)", card)
         checks.update(clinical_parity(refs[:16], hyps[:16], pairs=8))
         checks.update(clinical_scst_reward(tmp, card))
         set_tf32(False)
@@ -5859,6 +6010,549 @@ def phase_clinical_validate(tmp: str, card: str):
     torch.cuda.empty_cache()
     print(f"clinical_validate: {time.perf_counter() - t_phase:.1f} s")
     return {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+# ------------------------------------ pretrained tokenizers, RadEval and GREEN
+
+ROBERTA_TOKENIZER = "allenai/biomed_roberta_base"
+CLINICALBERT_TOKENIZER = "emilyalsentzer/Bio_ClinicalBERT"
+MODERNBERT_TOKENIZER = "answerdotai/ModernBERT-base"
+RADEVAL_MODEL = "IAMJB/RadEvalModernBERT"
+# published sizes: RoBERTa's vocab.json, Bio_ClinicalBERT's vocab.txt,
+# ModernBERT's BPE model vocabulary (its 88 special and unused tokens are
+# added after it, up to the config's 50,368), Llama-2's SentencePiece BPE
+ROBERTA_VOCAB, CLINICALBERT_VOCAB, MODERNBERT_MODEL_VOCAB, LLAMA_VOCAB = (
+    50265, 28996, 50280, 32000)
+LETTERS = "abcdefghijklmnopqrstuvwxyz"
+# IAMJB/RadEvalModernBERT's config.json (ModernBERT-base's shape)
+RADEVAL_MODERNBERT = dict(
+    model_type="modernbert", vocab_size=50368, hidden_size=768, intermediate_size=1152,
+    num_hidden_layers=22, num_attention_heads=12, hidden_activation="gelu", norm_eps=1e-5,
+    norm_bias=False, attention_bias=False, mlp_bias=False, global_rope_theta=160000.0,
+    local_rope_theta=10000.0, local_attention=128, global_attn_every_n_layers=3,
+    max_position_embeddings=8192, pad_token_id=VL_PAD, cls_token_id=VL_BOS,
+    sep_token_id=VL_EOS, bos_token_id=VL_BOS, eos_token_id=VL_EOS)
+# Llama-2-7B's config.json (the GREEN judge StanfordAIMI/GREEN-radllama2-7b)
+JUDGE_LEN = 2048  # the GREEN judge's default max_length
+JUDGE_STEPS = 64  # decode steps timed on the 32-layer judge
+LLAMA2_7B = dict(model_type="llama", vocab_size=LLAMA_VOCAB, hidden_size=4096,
+                 intermediate_size=11008, num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=32, max_position_embeddings=4096, rms_norm_eps=1e-5,
+                 rope_theta=10000.0, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2,
+                 torch_dtype="bfloat16")
+
+
+def gpt2_byte_chars():
+    """GPT-2's byte -> printable character table, in byte order."""
+    keep = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+            + list(range(ord("®"), ord("ÿ") + 1)))
+    table, n = {}, 0
+    for b in range(256):
+        if b in keep:
+            table[b] = chr(b)
+        else:
+            table[b] = chr(256 + n)
+            n += 1
+    return [table[b] for b in range(256)]
+
+
+def ngram_merges(count: int, marker: str):
+    """``count`` BPE merges over lowercase letters, shortest first: the word
+    marker before ``.`` and each letter, then every n-gram with a letter
+    appended, bare and after the marker, for n = 1, 2, ... (each merge's
+    parts made by an earlier one or in the base alphabet)."""
+    merges, made = [], set()
+
+    def add(a, b):
+        if len(merges) < count and a + b not in made:
+            made.add(a + b)
+            merges.append((a, b))
+
+    add(marker, ".")
+    for c in LETTERS:
+        add(marker, c)
+    grams = list(LETTERS)
+    while len(merges) < count:
+        longer = []
+        for g in grams:
+            for c in LETTERS:
+                add(g, c)
+                add(marker + g, c)
+                longer.append(g + c)
+        grams = longer
+    return merges
+
+
+def hub_snapshot(hub: str, name: str) -> str:
+    """The snapshot directory of ``name`` in a hub cache, made with its
+    ``refs/main``."""
+    repo = os.path.join(hub, "models--" + name.replace("/", "--"))
+    os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write("smoke")
+    folder = os.path.join(repo, "snapshots", "smoke")
+    os.makedirs(folder, exist_ok=True)
+    return folder
+
+
+def write_json(path: str, obj):
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(obj, f, ensure_ascii=False)
+
+
+def modernbert_tokenizer_files(folder: str):
+    """ModernBERT's layout: byte-level BPE of 50,280 entries, then [UNK]
+    [CLS] [SEP] [PAD] [MASK] (``lstrip``) and 83 unused tokens added at
+    50,280-50,367; ``[CLS] $A [SEP]``."""
+    chars = gpt2_byte_chars()
+    merges = ngram_merges(MODERNBERT_MODEL_VOCAB - 256, "Ġ")
+    vocab = {c: i for i, c in enumerate(chars)}
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    specials = ["[UNK]", "[CLS]", "[SEP]", "[PAD]", "[MASK]"] + [f"[unused{i}]" for i in range(83)]
+    added = [{"id": len(vocab) + i, "content": t, "single_word": False, "lstrip": t == "[MASK]",
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate(specials)]
+    ids = {a["content"]: a["id"] for a in added}
+    template = [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                {"Sequence": {"id": "A", "type_id": 0}},
+                {"SpecialToken": {"id": "[SEP]", "type_id": 0}}]
+    write_json(os.path.join(folder, "tokenizer.json"), {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                          "use_regex": True},
+        "post_processor": {"type": "TemplateProcessing", "single": template,
+                           "pair": template + [{"Sequence": {"id": "B", "type_id": 1}},
+                                               {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+                           "special_tokens": {t: {"id": t, "ids": [ids[t]], "tokens": [t]}
+                                              for t in ("[CLS]", "[SEP]")}},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}})
+    cfg = {"tokenizer_class": "PreTrainedTokenizerFast", "model_max_length": 8192,
+           "clean_up_tokenization_spaces": True,
+           "model_input_names": ["input_ids", "attention_mask"],
+           "added_tokens_decoder": {str(a["id"]): {k: v for k, v in a.items() if k != "id"}
+                                    for a in added}}
+    for key, tok in zip(("unk", "cls", "sep", "pad", "mask"), specials):
+        cfg[f"{key}_token"] = tok
+    write_json(os.path.join(folder, "tokenizer_config.json"), cfg)
+
+
+def llama_tokenizer_files(folder: str):
+    """Llama-2's layout: ``<unk>`` ``<s>`` ``</s>``, the 256 ``<0xXX>``
+    byte tokens, then BPE over ``▁``-marked words to 32,000 entries;
+    ``byte_fallback``, ``fuse_unk``, the ``Prepend("▁")`` + ``Replace``
+    normalizer, ``<s> $A``, left padding (no pad token)."""
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for b in range(256):
+        vocab["<0x%02X>" % b] = len(vocab)
+    for c in "▁." + LETTERS:
+        vocab[c] = len(vocab)
+    merges = ngram_merges(LLAMA_VOCAB - len(vocab), "▁")
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    write_json(os.path.join(folder, "tokenizer.json"), {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": c, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, c in enumerate(["<unk>", "<s>", "</s>"])],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "pre_tokenizer": None,
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}}],
+                           "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                    {"Sequence": {"id": "A", "type_id": 0}},
+                                    {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                                    {"Sequence": {"id": "B", "type_id": 1}}],
+                           "special_tokens": {"<s>": {"id": "<s>", "ids": [1],
+                                                      "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}})
+    write_json(os.path.join(folder, "tokenizer_config.json"), {
+        "tokenizer_class": "LlamaTokenizer", "add_bos_token": True, "add_eos_token": False,
+        "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "pad_token": None,
+        "model_max_length": 4096, "clean_up_tokenization_spaces": False})
+
+
+def write_hub_tokenizers(tmp: str) -> str:
+    """A hub cache under ``tmp`` with the configs' tokenizers at their
+    published sizes, written here in plain Python (synthetic vocabularies
+    and merges; the real files are not in the repository):
+    ``allenai/biomed_roberta_base`` (``vocab.json`` of 50,265 + ``merges.txt``),
+    ``emilyalsentzer/Bio_ClinicalBERT`` (a 28,996-entry WordPiece
+    ``vocab.txt``), ``answerdotai/ModernBERT-base`` (``tokenizer.json``).
+    Returns the cache's path."""
+    t0 = time.perf_counter()
+    hub = os.path.join(tmp, "hub")
+    folder = hub_snapshot(hub, ROBERTA_TOKENIZER)
+    specials = ["<s>", "<pad>", "</s>", "<unk>"]
+    merges = ngram_merges(ROBERTA_VOCAB - len(specials) - 256 - 1, "Ġ")
+    vocab = specials + gpt2_byte_chars() + [a + b for a, b in merges] + ["<mask>"]
+    write_json(os.path.join(folder, "vocab.json"), {t: i for i, t in enumerate(vocab)})
+    with open(os.path.join(folder, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+    write_json(os.path.join(folder, "tokenizer_config.json"),
+               {"tokenizer_class": "RobertaTokenizer", "model_max_length": 512})
+
+    folder = hub_snapshot(hub, CLINICALBERT_TOKENIZER)
+    vocab = ["[PAD]", *(f"[unused{i}]" for i in range(1, 100)), "[UNK]", "[CLS]", "[SEP]",
+             "[MASK]", *".,;:!?()-'0123456789", *LETTERS, *(f"##{c}" for c in LETTERS)]
+    grams = list(LETTERS)
+    while len(vocab) < CLINICALBERT_VOCAB:
+        grams = [g + c for g in grams for c in LETTERS]
+        for g in grams:
+            vocab += [g, f"##{g}"]
+    with open(os.path.join(folder, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab[:CLINICALBERT_VOCAB]) + "\n")
+    write_json(os.path.join(folder, "tokenizer_config.json"), {"tokenizer_class": "BertTokenizer"})
+
+    modernbert_tokenizer_files(hub_snapshot(hub, MODERNBERT_TOKENIZER))
+    print(f"hub tokenizers ({ROBERTA_TOKENIZER}, {CLINICALBERT_TOKENIZER}, "
+          f"{MODERNBERT_TOKENIZER}) written in {time.perf_counter() - t0:.1f} s")
+    return hub
+
+
+SAFETENSORS_NAMES = {"torch.float32": "F32", "torch.bfloat16": "BF16", "torch.float16": "F16",
+                     "torch.int64": "I64"}
+
+
+def write_safetensors(path: str, tensors: dict):
+    """A ``.safetensors`` file in plain Python: the 8-byte little-endian
+    header length, the JSON header (dtype, shape, byte offsets), then each
+    tensor's raw little-endian bytes."""
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_NAMES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+
+
+def green_pairs(tmp: str, n: int):
+    """``n`` (reference, candidate) report pairs from the ``rrg_train``
+    corpus."""
+    with open(os.path.join(tmp, "rrg_data", "validate.impression.tok")) as f:
+        reports = f.read().split("\n")
+    return [(reports[i % len(reports)], reports[(i + 1) % len(reports)]) for i in range(n)]
+
+
+def radeval_phase(tmp: str, hub: str, card: str):
+    """``radevalbertscore``: a ModernBERT of RadEvalModernBERT's published
+    shape (22 layers of 768, 12 heads, GeGLU 1152, a window of 128 in the
+    local layers) with random weights, written with the ModernBERT-style
+    tokenizer into the hub cache as ``IAMJB/RadEvalModernBERT``, scores 32
+    pairs (the reports' first 64 words) in f32 on the card and on the CPU:
+    the per-pair P / R / F within 1e-5; then through the port's
+    ``compute_scores``."""
+    import torch
+
+    from vilmedic_torch.scorers import bertscore_impl
+    from vilmedic_torch.scorers.bertscore_impl import bert_score_prf
+    from vilmedic_torch.scorers.modernbert import ModernBertEncoder
+    from vilmedic_torch.scorers.scores import compute_scores
+
+    t0 = time.perf_counter()
+    folder = hub_snapshot(hub, RADEVAL_MODEL)
+    modernbert_tokenizer_files(folder)
+    write_json(os.path.join(folder, "config.json"), RADEVAL_MODERNBERT)
+    torch.manual_seed(SEED + 80)
+    encoder = ModernBertEncoder(RADEVAL_MODERNBERT)
+    write_safetensors(os.path.join(folder, "model.safetensors"), encoder.state_dict())
+    n_params = sum(p.numel() for p in encoder.parameters())
+    del encoder
+    write_s = time.perf_counter() - t0
+    # each report's first 64 words: the CPU half's time
+    pairs = [(" ".join(r.split()[:64]), " ".join(h.split()[:64])) for r, h in green_pairs(tmp, 32)]
+    refs, hyps = [r for r, _ in pairs], [h for _, h in pairs]
+    prf, secs = {}, {}
+    for device in PARITY_DEVICES:
+        bertscore_impl._load_scorer.cache_clear()
+        if device == "cuda":  # the first call reads the files; time a later one
+            bert_score_prf(RADEVAL_MODEL, refs, hyps, layer=22, rescale_with_baseline=False,
+                           device=device)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prf[device] = bert_score_prf(RADEVAL_MODEL, refs, hyps, layer=22,
+                                     rescale_with_baseline=False, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t1
+    err = max(abs(a - b) for x, y in zip(prf["cpu"], prf["cuda"]) for a, b in zip(x, y))
+    scores = compute_scores(["radevalbertscore", "BLEU"], refs, hyps, "validate", SEED, None, 0,
+                            logging.getLogger("radeval_green"), dump=False, device="cuda")
+    tok, _ = bertscore_impl.load_scorer(RADEVAL_MODEL, "cuda")
+    lengths = [len(tok.encode_truncated(s)) for s in refs + hyps]
+    print(f"radeval_green radevalbertscore ({card}): ModernBERT {n_params / 1e6:.1f} M "
+          f"parameters ({RADEVAL_MODERNBERT['num_hidden_layers']} x "
+          f"{RADEVAL_MODERNBERT['hidden_size']}, local window "
+          f"{RADEVAL_MODERNBERT['local_attention']}), tokenizer vocab {tok.vocab_size} (len "
+          f"{len(tok)}), files written in {write_s:.1f} s; 32 pairs of {min(lengths)}-"
+          f"{max(lengths)} tokens at layer 22, f32: card {secs['cuda'] * 1e3:.1f} ms a call with "
+          f"the encoder kept, CPU {secs['cpu']:.2f} s (its files read); P/R/F card vs CPU max |diff| {err:.2e} "
+          f"(tol 1e-5); compute_scores {scores}")
+    bertscore_impl._load_scorer.cache_clear()
+    return {"radevalbertscore P / R / F card = CPU within 1e-5": err <= 1e-5,
+            "radevalbertscore through compute_scores": scores.get("radevalbertscore") is not None
+            and math.isfinite(scores["radevalbertscore"]) and max(lengths) > 40}
+
+
+def llama_hf_state(model) -> dict:
+    """The port LLaMA's state dict under HF's names."""
+    out = {}
+    for k, v in model.state_dict().items():
+        if k.startswith("layers_"):
+            i, rest = k[len("layers_"):].split(".", 1)
+            k = f"model.layers.{i}.{rest}"
+        elif k != "lm_head.weight":
+            k = f"model.{k}"
+        out[k] = v
+    return out
+
+
+def green_phase(tmp: str, card: str):
+    """The GREEN judge at Llama-2-7B widths (4096, 32 heads, MLP 11008,
+    vocab 32,000) behind a Llama-2-style ``tokenizer.json``: a 4-layer bf16
+    checkpoint written here and read through ``load_hf_llama`` judges 4
+    pairs through ``GREENImpl`` (max_length 256); the full 32 layers built
+    in memory with random bf16 weights prefill one judge batch of 4 whole
+    prompts (encoded as the judge encodes them, at its default max_length
+    2048) and decode :data:`JUDGE_STEPS` tokens (ms a step, peak GiB, and a
+    host / device split under ``torch.profiler``); a 2-layer f32 judge's
+    greedy tokens, card against CPU, over 4 left-padded prompts (the
+    reports alone)."""
+    import torch
+
+    from vilmedic_torch.blocks.llm.llama import (LlamaForCausalLM, greedy_generate,
+                                                 init_random_, llama_config_from_hf)
+    from vilmedic_torch.data.auto_tokenizer import AutoTokenizer
+    from vilmedic_torch.scorers import green
+    from vilmedic_torch.zoo.convert_llm import load_hf_llama
+
+    checks = {}
+    pairs = green_pairs(tmp, 4)
+    refs, hyps = [r for r, _ in pairs], [h for _, h in pairs]
+    folder = os.path.join(tmp, "green_judge")
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    llama_tokenizer_files(folder)
+    cfg4 = dict(LLAMA2_7B, num_hidden_layers=4)
+    write_json(os.path.join(folder, "config.json"), cfg4)
+    small = init_random_(LlamaForCausalLM(llama_config_from_hf(cfg4), device="cuda"), SEED + 90)
+    write_safetensors(os.path.join(folder, "model.safetensors"), llama_hf_state(small))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, state = load_hf_llama(folder)
+    read_s = time.perf_counter() - t0
+    same = all(torch.equal(state[k], v.cpu()) for k, v in small.state_dict().items())
+    del small, state
+    torch.cuda.empty_cache()
+    green.pair_to_reward_dict.clear()
+    t0 = time.perf_counter()
+    impl = green.GREENImpl(model_name=folder, max_length=256, batch_size=4, device="cuda")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean, per_pair = impl(refs, hyps)
+    torch.cuda.synchronize()
+    judge_s = time.perf_counter() - t0
+    again = impl(refs, hyps)
+    tok = AutoTokenizer.from_pretrained(folder, padding_side="left")
+    tok.pad_token = tok.eos_token  # as the judge sets it: Llama-2 has no pad token
+    prompt_tokens = [len(tok.encode(green._chat_wrap(green.make_prompt(r, h))))
+                     for r, h in pairs]
+    print(f"radeval_green GREEN 4-layer judge ({card}): {cfg.num_hidden_layers} layers of "
+          f"{cfg.hidden_size} ({cfg.num_attention_heads} heads, MLP {cfg.intermediate_size}), "
+          f"{cfg.dtype}, tokenizer vocab {tok.vocab_size}; checkpoint written in {write_s:.1f} s, "
+          f"read by load_hf_llama in {read_s:.1f} s (tensors {'equal' if same else 'DIFFER'}), "
+          f"judge built in {build_s:.1f} s; 4 pairs (prompts of {prompt_tokens} tokens, cut at "
+          f"256) judged in {judge_s:.2f} s: GREEN {mean} {per_pair}")
+    checks.update({
+        "load_hf_llama reads the written checkpoint": same and cfg.dtype == torch.bfloat16
+        and cfg.num_hidden_layers == 4,
+        "GREEN scores finite, memo reused": len(per_pair) == 4
+        and all(math.isfinite(x) for x in per_pair) and again == (mean, per_pair),
+    })
+    del impl
+    torch.cuda.empty_cache()
+
+    # the full 32 layers, random bf16 weights built on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = init_random_(LlamaForCausalLM(llama_config_from_hf(LLAMA2_7B), device="cuda"),
+                        SEED + 91)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in full.parameters())
+    prompts = [green.make_prompt(r, h) for r, h in pairs]
+    # the whole wrapped prompts, as the judge encodes them at its default max_length
+    ids, mask = tok.encode_batch([green._chat_wrap(p) for p in prompts], max_length=JUDGE_LEN,
+                                 padding="longest", padding_side="left")
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    eos = tok.eos_token_id
+
+    def generate(n: int):
+        """(the new tokens, wall seconds) of one judge batch, ``n`` new tokens."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = greedy_generate(full, ids, mask, n, eos, eos)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0
+
+    generate(2)  # warm-up
+    (_, one_s), (toks, gen_s) = generate(1), generate(JUDGE_STEPS)
+    step_ms = (gen_s - one_s) / (JUDGE_STEPS - 1) * 1e3
+    new = int((toks != eos).sum())
+    responses = tok.batch_decode(toks.cpu().numpy(), skip_special_tokens=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # host / device split of a decode step, and its device ms by kernel: two
+    # profiled calls, 1 and 17 new tokens, the difference over 16 steps
+    split, by_name = {}, {}
+    for n in (1, 17):
+        (_, wall), events = profiled(lambda: generate(n))
+        by_name[n] = collections.defaultdict(float)
+        for e in events:
+            by_name[n][e.name[:48]] += (e.time_range.end - e.time_range.start) / 1e3
+        split[n] = (wall, sum(by_name[n].values()))
+    wall_ms = (split[17][0] - split[1][0]) / 16 * 1e3
+    busy_ms = (split[17][1] - split[1][1]) / 16
+    per_step = {k: (v - by_name[1].get(k, 0.0)) / 16 for k, v in by_name[17].items()}
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:6]
+    print(f"radeval_green GREEN 32-layer judge ({card}): {n_params / 1e9:.2f} B parameters "
+          f"bf16 built in {build_s:.1f} s; one batch of 4 prompts of "
+          f"{mask.sum(1).tolist()} tokens (max_length {JUDGE_LEN}, left padded to "
+          f"{ids.shape[1]}): prefill and first token {one_s * 1e3:.1f} ms; {JUDGE_STEPS} greedy "
+          f"steps {gen_s:.2f} s, {step_ms:.2f} ms a decode step at a cache of "
+          f"{ids.shape[1] + JUDGE_STEPS} slots ({4 / step_ms * 1e3:.1f} new tokens/s, {new} "
+          f"tokens not EOS); peak {peak:.2f} GiB; under torch.profiler a decode step "
+          f"{wall_ms:.2f} ms of host time, {busy_ms:.2f} ms device-busy "
+          f"({busy_ms / wall_ms * 100:.1f}%), prefill {split[1][1]:.1f} device ms; a decode "
+          f"step's device ms by kernel: " + "; ".join(f"{k} {ms:.2f}" for k, ms in top))
+    checks[f"32-layer judge: 4 responses, {JUDGE_STEPS} steps, prompts whole"] = (
+        len(responses) == 4 and toks.shape[1] == JUDGE_STEPS and ids.shape[1] < JUDGE_LEN)
+    del full
+    torch.cuda.empty_cache()
+
+    # greedy tokens, card against CPU, on a 2-layer f32 judge
+    t0 = time.perf_counter()
+    cfg2 = llama_config_from_hf(dict(LLAMA2_7B, num_hidden_layers=2), dtype=torch.float32)
+    cpu_model = init_random_(LlamaForCausalLM(cfg2, device="cpu"), SEED + 92)
+    gpu_model = LlamaForCausalLM(cfg2, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    # the reports' first 8 to 64 words as prompts: rows of different
+    # lengths, left padded
+    ids, mask = tok.encode_batch(
+        [green._chat_wrap(" ".join(r.split()[:n])) for r, n in zip(refs, (8, 16, 32, 64))],
+        max_length=128, padding="longest", padding_side="left")
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    out = {"cpu": greedy_generate(cpu_model, ids, mask, 16, tok.eos_token_id,
+                                  tok.eos_token_id),
+           "cuda": greedy_generate(gpu_model, ids.cuda(), mask.cuda(), 16, tok.eos_token_id,
+                                   tok.eos_token_id).cpu()}
+    same = torch.equal(out["cpu"], out["cuda"])
+    print(f"radeval_green GREEN 2-layer f32 judge at 7B widths, card vs CPU "
+          f"({time.perf_counter() - t0:.1f} s): 4 prompts of {mask.sum(1).tolist()} tokens, "
+          f"left padded, 16 greedy tokens {'equal' if same else 'DIFFER'}")
+    checks["2-layer f32 judge: greedy tokens card = CPU"] = same and not bool(mask.all())
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+    return checks
+
+
+def phase_radeval_green(tmp: str, hub: str, card: str):
+    """``radevalbertscore`` and the GREEN judge (:func:`radeval_phase`,
+    :func:`green_phase`); no custom kernel runs on these paths (ModernBERT's
+    and LLaMA's attention are plain products, as in the JAX package)."""
+    import torch
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    reset_launches()
+    checks = {**radeval_phase(tmp, hub, card), **green_phase(tmp, card)}
+    launches = read_launches()
+    checks["no custom kernel on these paths"] = not any(launches.values())
+    print(f"radeval_green: {time.perf_counter() - t0:.1f} s")
+    require(checks, "radeval_green")
+    torch.cuda.empty_cache()
+
+
+def time_blocked_lm_head(h, w, b) -> dict:
+    """K2 on (h, w, b): its device time (events around one call beside it),
+    its plain version's, ``torch.matmul``'s of the product alone, and its
+    bound (read h, w, b; write the logits and two (N, Vp / 128) stats)."""
+    import torch
+
+    from vilmedic_torch.ops.blocked_lm_head import (
+        lm_head_blocked_stats, lm_head_blocked_stats_reference,
+    )
+
+    n, hidden = h.shape
+    vp = w.shape[0]
+    nbytes = (h.numel() + w.numel()) * 2 + vp * 4 + n * vp * 4 + 2 * n * (vp // 128) * 4
+    return dict(
+        ms=device_ms_per_call(lambda: [lm_head_blocked_stats(h, w, b) for _ in range(9)], 9,
+                              {"lm_head_wgmma_kernel": 1}),
+        events_ms=cuda_ms(lambda: lm_head_blocked_stats(h, w, b)),
+        plain_ms=cuda_ms(lambda: lm_head_blocked_stats_reference(h, w, b)),
+        product_ms=device_ms_per_call(lambda: [torch.matmul(h, w.t()) for _ in range(9)], 9),
+        flops=2 * n * hidden * vp, **bound(nbytes, 2 * n * hidden * vp, h.dtype))
+
+
+def report_blocked_lm_head(tm: dict, n: int, vocab: int, vp: int, label: str):
+    print(f"K2 bf16{label} N={n} V={vocab} (Vp {vp}): kernel {tm['ms']:.4f} device ms "
+          f"({tm['flops'] / tm['ms'] / 1e9:.1f} TFLOP/s, {tm['bound_ms'] / tm['ms'] * 100:.1f}% "
+          f"of the bound; events around one call "
+          f"{tm['events_ms']:.4f} ms), plain {tm['plain_ms']:.4f} ms, torch.matmul of the "
+          f"product only {tm['product_ms']:.4f} device ms, bound {tm['bound_ms']:.4f} ms "
+          f"({tm['bound_by']})")
+
+
+def time_blocked_lm_head_at(n: int, vocab: int, hidden: int, label: str, card: str):
+    """K2 bf16 at (N, hidden) x (hidden, Vp) on random weights, held against
+    its plain version, then timed and reported (:func:`time_blocked_lm_head`)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 95)
+    w32, b = lm_head_weights(vocab, gen, hidden)
+    w, b = w32.to("cuda", torch.bfloat16), b.cuda()
+    h = torch.randn(n, hidden, generator=gen).to("cuda", torch.bfloat16)
+    hold_blocked_lm_head(h, w, b, label=label)
+    report_blocked_lm_head(time_blocked_lm_head(h, w, b), n, vocab, w.shape[0],
+                           f"{label} ({card})")
+
+
+PHASE_SECONDS = {}
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall seconds printed and kept in
+    :data:`PHASE_SECONDS`."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[phase.__name__] = time.perf_counter() - t0
+    print(f"{phase.__name__}: {PHASE_SECONDS[phase.__name__]:.1f} s")
+    return out
 
 
 def card_name() -> str:
@@ -5882,52 +6576,58 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t_start = time.perf_counter()
-    results = phase_kernels()
-    launches = {"rrg": phase_slice()}
-    phase_parity()
-    launches["topk_head"] = phase_topk_head()
-    launches["fp8_probe"] = phase_fp8_probe()
-    phase_rrg_routes()
-    phase_rrg_routes_parity()
-    launches["vl"] = phase_vl_slice()
-    phase_vl_parity()
-    launches.update(phase_vl_routes())
-    phase_vl_routes_parity()
-    launches.update(phase_vl_greedy_small_vocab())
-    phase_vl_greedy_small_vocab_parity()
-    launches["vl_train"] = phase_vl_train()
-    phase_vl_train_sanity()
-    phase_vl_train_parity()
+    results = timed(phase_kernels)
+    launches = {"rrg": timed(phase_slice)}
+    timed(phase_parity)
+    launches["topk_head"] = timed(phase_topk_head)
+    launches["fp8_probe"] = timed(phase_fp8_probe)
+    timed(phase_rrg_routes)
+    timed(phase_rrg_routes_parity)
+    launches["vl"] = timed(phase_vl_slice)
+    timed(phase_vl_parity)
+    launches.update(timed(phase_vl_routes))
+    timed(phase_vl_routes_parity)
+    launches.update(timed(phase_vl_greedy_small_vocab))
+    timed(phase_vl_greedy_small_vocab_parity)
+    launches["vl_train"] = timed(phase_vl_train)
+    timed(phase_vl_train_sanity)
+    timed(phase_vl_train_parity)
     with tempfile.TemporaryDirectory() as tmp:
-        launches["rrg_train"], batch = phase_rrg_train(tmp)
-        phase_rrg_train_sanity(batch, launches["rrg_train"]["vocab"])
-        phase_rrg_train_parity(tmp)
-        launches["scst_train"] = phase_scst_train(tmp)
-        launches["rrs_train"] = phase_rrs_train(tmp)
-        phase_generation_parity(tmp)
-        launches["rrg_vit_train"] = phase_rrg_vit_train(tmp, card)
-        launches["mvqa_train"] = phase_mvqa_train(tmp, card)
-        launches["class_train"] = phase_class_train(tmp, card)
-        phase_tower_parity(tmp)
+        # the configs' pretrained tokenizers, read by name from this cache
+        hub = write_hub_tokenizers(tmp)
+        os.environ["HF_HUB_CACHE"] = hub
+        launches["rrg_train"], batch = timed(phase_rrg_train, tmp)
+        timed(phase_rrg_train_sanity, batch, launches["rrg_train"]["vocab"])
+        timed(phase_rrg_train_parity, tmp)
+        launches["scst_train"] = timed(phase_scst_train, tmp)
+        launches["rrs_train"] = timed(phase_rrs_train, tmp)
+        timed(phase_generation_parity, tmp)
+        launches["rrg_vit_train"] = timed(phase_rrg_vit_train, tmp, card)
+        launches["mvqa_train"] = timed(phase_mvqa_train, tmp, card)
+        launches["class_train"] = timed(phase_class_train, tmp, card)
+        timed(phase_tower_parity, tmp)
         print(f"phases before rrg_roberta_serve: {time.perf_counter() - t_start:.1f} s")
-        launches["rrg_roberta_serve"] = phase_rrg_roberta_serve(tmp, card)
-        phase_roberta_parity(tmp)
-        launches["convirt_train"] = phase_convirt_train(tmp, card)
-        launches["gloria_train"] = phase_gloria_train(tmp, card)
-        phase_selfsup_parity(tmp)
+        launches["rrg_roberta_serve"] = timed(phase_rrg_roberta_serve, tmp, card)
+        timed(phase_roberta_parity, tmp)
+        launches["convirt_train"] = timed(phase_convirt_train, tmp, card)
+        launches["gloria_train"] = timed(phase_gloria_train, tmp, card)
+        timed(phase_selfsup_parity, tmp)
         print(f"phases before rrg_hf_train: {time.perf_counter() - t_start:.1f} s")
-        launches["rrg_hf_train"] = phase_rrg_hf_train(tmp, card)
-        launches["rrg_multi_image"] = phase_rrg_multi_image(tmp, card)
-        launches["rrs_hf_train"] = phase_rrs_hf_train(tmp, card)
-        phase_hf_parity(tmp)
+        launches["rrg_hf_train"] = timed(phase_rrg_hf_train, tmp, card)
+        launches["rrg_multi_image"] = timed(phase_rrg_multi_image, tmp, card)
+        launches["rrs_hf_train"] = timed(phase_rrs_hf_train, tmp, card)
+        timed(phase_hf_parity, tmp)
         print(f"phases before vl_cli_train: {time.perf_counter() - t_start:.1f} s")
-        launches["vl_cli_train"], k1_beam2, k1_vl_cli = phase_vl_cli_train(tmp, card)
-        launches["vl_unfrozen_train"], rrg_dinov2 = phase_vl_unfrozen_train(tmp, card)
-        k5_tower = hold_tower_flash_backward(card)
-        phase_vl_cli_parity(tmp)
+        launches["vl_cli_train"], k1_beam2, k1_vl_cli = timed(phase_vl_cli_train, tmp, card)
+        launches["vl_unfrozen_train"], rrg_dinov2 = timed(phase_vl_unfrozen_train, tmp, card)
+        k5_tower = timed(hold_tower_flash_backward, card)
+        timed(phase_vl_cli_parity, tmp)
         print(f"phases before clinical_validate: {time.perf_counter() - t_start:.1f} s")
-        launches["clinical_validate"] = phase_clinical_validate(tmp, card)
-        print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+        launches["clinical_validate"] = timed(phase_clinical_validate, tmp, card)
+        print(f"phases before radeval_green: {time.perf_counter() - t_start:.1f} s")
+        timed(phase_radeval_green, tmp, hub, card)
+        print(f"all phases: {time.perf_counter() - t_start:.1f} s; by phase "
+              + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     # K1 (b) on the VL CLI path: the Validator at beam 2, the ensemble CLI at 8
     results["fused_beam_cache_attention_stats"].update(
         beam2_max_abs_err=k1_beam2, vl_validator_beam2_launches=k1_vl_cli[0],

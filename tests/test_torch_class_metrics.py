@@ -98,6 +98,25 @@ def test_raises_where_sklearn_raises(case):
         tcls.roc_auc_ovr(refs, probs)
 
 
+@pytest.mark.parametrize("seeded", [False, True])
+def test_report_when_every_prediction_is_wrong(seeded):
+    """No prediction equals its reference: scikit-learn prints the supports as
+    floats (``2.0``). Fixed data, and the draw of the ``ignore_label`` case
+    whose hash seed once gave it."""
+    if seeded:
+        rng = np.random.default_rng(3365628371)
+        refs = np.concatenate([np.arange(4), rng.integers(0, 4, 20)]).astype(np.int32)
+        refs[[5, 9]] = -100
+        preds = np.argmax(rng.normal(size=(24, 4)), -1)
+    else:
+        refs = np.array([0, 1, 2, 2, 1, 0, -100, 3], np.int32)
+        preds = np.array([1, 2, 0, 1, 0, 2, 3, 0])
+    assert not np.any(refs == preds)
+    want = classification_report(refs, preds)
+    assert "     2.0\n" in want
+    assert tcls.classification_report(refs, preds) == want
+
+
 def test_tied_scores_follow_sklearn():
     """A binary ROC curve over heavily tied scores (each tie one step of the
     curve) and a column whose refs hold one class (NaN, as scikit-learn

@@ -435,8 +435,8 @@ def test_missing_weights_read_none_like_jax(scorer_env, monkeypatch, tmp_path):
 
 
 def test_unported_clinical_names_still_raise():
-    with pytest.raises(NotImplementedError, match="radevalbertscore"):
-        _compute(tcompute, ["chexbert", "radevalbertscore"], device="cpu")
+    with pytest.raises(NotImplementedError, match="radcliq"):
+        _compute(tcompute, ["chexbert", "radcliq"], device="cpu")
 
 
 def test_scoring_loads_no_transformers_sklearn_or_hub(scorer_env):

@@ -14,7 +14,8 @@ and K2 at RRS's shapes (K1 also at beam 2), small SCST, RRS and RRG_FORCE genera
 card vs CPU, a tiny RoBERTa-type RRG (the LM-head transform before K2, the
 ensemble's blocked head and the plain head), the GLoRIA loss, an unfrozen
 DINOv2 tower's gradient (K5 non-causal; also alone at T 1370), gradient
-checkpointing's replayed dropout and BERTScore's encoder card vs CPU. Run
+checkpointing's replayed dropout, BERTScore's encoder, the ModernBERT
+encoder and the GREEN judge's LLaMA (logits, greedy tokens) card vs CPU. Run
 them on the card
 from the repository root, without the JAX conftest (the card's machine has no
 JAX):
@@ -1543,3 +1544,53 @@ def test_tiny_rrg_force_card_equals_cpu(cuda, monkeypatch):
     assert torch.equal(seqs["cpu"], seqs["cuda"])
     for row, f in zip(seqs["cuda"], force):
         assert set(f[f >= 0].tolist()) <= set(row.tolist())
+
+
+def test_modernbert_card_equals_cpu(cuda):
+    """The ModernBERT encoder (``radevalbertscore``'s) on the card equals the
+    CPU's within 1e-5 on every hidden state: a local layer whose window is
+    shorter than the rows, padded rows."""
+    from vilmedic_torch.scorers.modernbert import ModernBertEncoder
+
+    cfg = dict(vocab_size=300, hidden_size=64, intermediate_size=96, num_hidden_layers=3,
+               num_attention_heads=4, global_attn_every_n_layers=2, local_attention=8)
+    torch.manual_seed(0)
+    enc = ModernBertEncoder(cfg).eval()
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 300, (3, 40), generator=gen)
+    mask = torch.ones(3, 40, dtype=torch.long)
+    mask[1, 25:] = 0
+    with torch.no_grad():
+        want = enc(ids, mask)
+        got = enc.to(cuda)(ids.to(cuda), mask.to(cuda))
+    keep = mask.bool()
+    for a, b in zip(got, want):
+        assert (a.cpu()[keep] - b[keep]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("num_kv", [4, 2])
+def test_llama_greedy_card_equals_cpu(cuda, num_kv):
+    """The GREEN judge's LLaMA: f32 logits card vs CPU within 1e-5 and the
+    same greedy tokens over left-padded prompts; bf16 on the card gives
+    finite logits."""
+    from vilmedic_torch.blocks.llm import LlamaConfig, LlamaForCausalLM, greedy_generate
+    from vilmedic_torch.blocks.llm import init_random_
+
+    kw = dict(vocab_size=97, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=num_kv)
+    cpu = init_random_(LlamaForCausalLM(LlamaConfig(**kw, dtype=torch.float32), device="cpu"),
+                       0, std=0.05)
+    card = LlamaForCausalLM(LlamaConfig(**kw, dtype=torch.float32), device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(3, 97, (3, 9), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[1, :3] = 0
+    mask[2, :5] = 0
+    want, got = cpu(ids, mask), card(ids.to(cuda), mask.to(cuda)).cpu()
+    assert (got - want)[mask.bool()].abs().max().item() <= 1e-5
+    assert torch.equal(greedy_generate(cpu, ids, mask, 10, -1, 1),
+                       greedy_generate(card, ids.to(cuda), mask.to(cuda), 10, -1, 1).cpu())
+    bf16 = LlamaForCausalLM(LlamaConfig(**kw, dtype=torch.bfloat16), device=cuda)
+    bf16.load_state_dict(cpu.state_dict())
+    assert torch.isfinite(bf16(ids.to(cuda), mask.to(cuda))).all()

@@ -276,10 +276,13 @@ def test_dataloader_reraises_a_failed_load():
         list(TDataLoader(Broken(), batch_size=4, num_workers=2))
 
 
-def test_pretrained_tokenizer_name_raises(tmp_path):
+def test_pretrained_tokenizer_name_raises(tmp_path, monkeypatch):
+    """A pretrained tokenizer that is not on disk raises, naming it and the
+    paths tried (the port never reaches the network), and writes nothing."""
     from vilmedic_torch.data.text import TextDataset
 
-    with pytest.raises(NotImplementedError, match="allenai/biomed_roberta_base"):
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+    with pytest.raises(FileNotFoundError, match="allenai/biomed_roberta_base.*tried"):
         TextDataset(root=str(tmp_path), split="train", ckpt_dir=str(tmp_path), source="tgt",
                     tokenizer_max_len=8, tokenizer="allenai/biomed_roberta_base")
     assert not os.listdir(tmp_path)

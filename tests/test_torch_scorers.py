@@ -116,8 +116,8 @@ def test_compute_scores_names_dumps_and_refusals(tmp_path):
     assert (tmp_path / "validate_scorers-test_refs.txt").read_text() == "\n".join(REFS)
     dumped = json.loads((tmp_path / "validate_scorers-test_metrics.txt").read_text())
     assert dumped["epoch"] == 3 and dumped["scores"] == scores
-    with pytest.raises(NotImplementedError, match="radevalbertscore"):
-        compute_scores(["BLEU", "radevalbertscore"], REFS, HYPS, "validate", 0, {}, 0,
+    with pytest.raises(NotImplementedError, match="radcliq"):
+        compute_scores(["BLEU", "radcliq"], REFS, HYPS, "validate", 0, {}, 0,
                        logging.getLogger("scorers-test"), dump=False)
 
 

@@ -2,6 +2,7 @@
 ``.pth`` route through ``convert_reference_rrg``, and the port's freedom from
 JAX."""
 
+import json
 import re
 import subprocess
 import sys
@@ -169,21 +170,30 @@ def test_port_imports_no_jax():
     assert int(proc.stdout.strip()) >= 15  # every port module was imported
 
 
+FORBIDDEN = ('transformers', 'tokenizers', 'huggingface_hub', 'safetensors', 'regex',
+             'sentencepiece', 'rouge_score', 'nltk', 'stanza', 'sklearn', 'PIL')
+
+
 def test_port_imports_no_tokenizer_scorer_or_image_packages():
-    """Every module of the port imports without transformers,
-    huggingface_hub, safetensors, rouge_score, nltk, stanza, scikit-learn or
-    Pillow: the tokenizers, ROUGE, METEOR's stemmer, the classification
-    metrics, the clinical scorers, BERTScore's encoder, the weight readers
-    and the hub-cache lookup are the port's own, and Pillow is imported only
-    inside ``data.image.open_image``."""
+    """Every module of the port imports without transformers, tokenizers,
+    huggingface_hub, safetensors, regex, sentencepiece, rouge_score, nltk,
+    stanza, scikit-learn or Pillow: the tokenizers (WordPiece, byte-level
+    BPE, ``tokenizer.json``), ROUGE, METEOR's stemmer, the classification
+    metrics, the clinical scorers, BERTScore's encoders (ModernBERT
+    included), the LLaMA judge, the weight readers and the hub-cache lookup
+    are the port's own, and Pillow is imported only inside
+    ``data.image.open_image``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vilmedic_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vilmedic_torch.__path__, 'vilmedic_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('transformers', 'huggingface_hub', 'safetensors',\n"
-        "                              'rouge_score', 'nltk', 'stanza', 'sklearn', 'PIL')]\n"
+        "new = {'vilmedic_torch.data.bpe',\n"
+        "       'vilmedic_torch.data.tokenizer_json', 'vilmedic_torch.data.auto_tokenizer',\n"
+        "       'vilmedic_torch.scorers.modernbert', 'vilmedic_torch.scorers.green',\n"
+        "       'vilmedic_torch.blocks.llm.llama', 'vilmedic_torch.zoo.convert_llm'}\n"
+        "assert new <= set(names), new - set(names)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -191,6 +201,65 @@ def test_port_imports_no_tokenizer_scorer_or_image_packages():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 30  # the data, scorer and executor modules included
+
+
+def test_pretrained_tokenizers_and_judge_run_without_hf_packages(tmp_path):
+    """The four tokenizer kinds, read and run, and a tiny LLaMA judge loaded
+    from safetensors and decoded greedily, load none of the forbidden
+    packages (the files are written here with them, in this process)."""
+    from test_torch_tokenizers import KINDS
+
+    dirs = {k: make(str(tmp_path / k)) for k, make in KINDS.items()}
+    import transformers as tr
+    from safetensors.torch import save_file
+
+    cfg = tr.LlamaConfig(vocab_size=400, hidden_size=32, intermediate_size=64,
+                         num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1)
+    judge = tr.LlamaForCausalLM(cfg)
+    (tmp_path / "llama_prepend" / "config.json").write_text(json.dumps(cfg.to_dict()))
+    save_file({k: v.contiguous() for k, v in judge.state_dict().items()},
+              str(tmp_path / "llama_prepend" / "model.safetensors"))
+    code = (
+        "import sys, torch\n"
+        "from vilmedic_torch.data.auto_tokenizer import AutoTokenizer\n"
+        "from vilmedic_torch.zoo.convert_llm import build_hf_llama\n"
+        "from vilmedic_torch.blocks.llm import greedy_generate\n"
+        f"dirs = {dirs!r}\n"
+        "for d in dirs.values():\n"
+        "    t = AutoTokenizer.from_pretrained(d)\n"
+        "    t.decode(t.encode('the heart’s size is normal ² ok'), skip_special_tokens=True)\n"
+        "m = build_hf_llama(dirs['llama_prepend'], device='cpu')\n"
+        "ids = torch.tensor([[5, 6, 7]])\n"
+        "greedy_generate(m, ids, torch.ones_like(ids), 3, 2, 2)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_llama_variables_map_onto_the_port():
+    """The JAX judge's LLaMA tree (untied and tied heads, GQA) loads into the
+    port's ``LlamaForCausalLM`` with no key missing or left over."""
+    from vilmedic_torch.blocks.llm import LlamaConfig as TConfig
+    from vilmedic_torch.blocks.llm import LlamaForCausalLM as TLlama
+    from vilmedic_torch.zoo.from_jax import llama_state_dict_from_jax
+    from vilmedic_tpu.blocks.llm import LlamaConfig as JConfig
+    from vilmedic_tpu.blocks.llm import LlamaForCausalLM as JLlama
+
+    for tied in (False, True):
+        kw = dict(vocab_size=50, hidden_size=32, intermediate_size=48, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=2, tie_word_embeddings=tied)
+        ids = jnp.ones((1, 4), jnp.int32)
+        params = jax.jit(JLlama(JConfig(**kw, dtype=jnp.float32)).init)(
+            jax.random.key(0), ids, ids)
+        state = llama_state_dict_from_jax(jax.tree.map(np.asarray, params))
+        model = TLlama(TConfig(**kw, dtype=torch.float32), device="cpu")
+        model.load_state_dict(state, strict=True)
+        np.testing.assert_array_equal(
+            model.layers_1.self_attn.k_proj.weight.numpy(),
+            np.asarray(params["params"]["layers_1"]["self_attn"]["k_proj"]["kernel"]).T)
 
 
 @pytest.mark.parametrize("weights", ["safetensors", "bin"])

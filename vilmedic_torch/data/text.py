@@ -2,15 +2,17 @@
 
 Sentences come from ``{root}/{split}.{file}``, are cleaned by a registered
 ``processing`` function and split on whitespace. The tokenizer is the
-WordPiece tokenizer of :mod:`.tokenizer` over a vocabulary file: the one
-named by ``vocab_file``, or the vocabulary built from the train split and
-dumped to ``ckpt_dir/vocab.{source}`` (later splits read the train split's
-file), as the JAX package's ``BertTokenizer`` over the same file.
+pretrained one that ``tokenizer:`` names (a directory or a hub-cache name,
+read by :class:`.auto_tokenizer.AutoTokenizer` from local files only), else
+the WordPiece tokenizer of :mod:`.tokenizer` over a vocabulary file: the
+one named by ``vocab_file``, or the vocabulary built from the train split
+and dumped to ``ckpt_dir/vocab.{source}`` (later splits read the train
+split's file), as the JAX package's ``BertTokenizer`` over the same file.
 
-Batches are padded to ``tokenizer_max_len`` (with truncation) when it is
-set, else to the longest row rounded up to a multiple of 8. A pretrained
-``tokenizer:`` name needs the HF hub or its cache, which the port does not
-use, so it raises; HF datasets (``hf_dataset``) are not ported.
+Special tokens are added on the target side only. Batches are padded to
+``tokenizer_max_len`` (with truncation) when it is set, else to the longest
+row rounded up to a multiple of 8 with ``pad_token_id or 0``. HF datasets
+(``hf_dataset``) are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..registry import register
 from .processing import get_processing
+from .auto_tokenizer import AutoTokenizer
 from .tokenizer import WordPieceTokenizer
 from .utils import Vocab, load_file, pad_to_multiple
 
@@ -45,10 +48,6 @@ class TextDataset:
             raise ValueError("give a data file or a vocab file, not both")
         if source == "tgt" and tokenizer_max_len is None:
             raise ValueError("tokenizer_max_len is required for source 'tgt'")
-        if tokenizer is not None:
-            raise NotImplementedError(
-                f"pretrained tokenizer {tokenizer!r}: the port builds its tokenizer from a "
-                "vocabulary file only (tokenizer: null, or vocab_file:)")
         if hf_dataset is not None:
             raise NotImplementedError("hf_dataset is not ported")
 
@@ -64,12 +63,16 @@ class TextDataset:
         if file is not None:
             self.sentences = make_sentences(root, split, file, self.processing)
 
-        if vocab_file is None:
-            vocab_file = os.path.join(ckpt_dir, f"vocab.{source}")
-            if split == "train" and not os.path.exists(vocab_file):
-                Vocab(self.sentences).dump(vocab_file)
-        self.vocab_file = vocab_file
-        self.tokenizer = WordPieceTokenizer(vocab_file)
+        self.vocab_file = None
+        if tokenizer is not None:
+            self.tokenizer = AutoTokenizer.from_pretrained(tokenizer)
+        else:
+            if vocab_file is None:
+                vocab_file = os.path.join(ckpt_dir, f"vocab.{source}")
+                if split == "train" and not os.path.exists(vocab_file):
+                    Vocab(self.sentences).dump(vocab_file)
+            self.vocab_file = vocab_file
+            self.tokenizer = WordPieceTokenizer(vocab_file)
         # the JAX collate's tokenizer call: special tokens on the target only
         self.add_special_tokens = source == "tgt"
 
@@ -97,7 +100,7 @@ class TextDataset:
                 width = pad_to_multiple(input_ids.shape[1])
                 pad = width - input_ids.shape[1]
                 input_ids = torch.nn.functional.pad(torch.from_numpy(input_ids), (0, pad),
-                                                    value=self.tokenizer.pad_token_id)
+                                                    value=self.tokenizer.pad_token_id or 0)
                 mask = torch.nn.functional.pad(torch.from_numpy(mask), (0, pad))
                 return {"input_ids": input_ids, "attention_mask": mask}
             return {"input_ids": torch.from_numpy(input_ids),
@@ -110,6 +113,7 @@ class TextDataset:
             "source": self.source, "root": self.root, "file": self.file, "len": len(self),
             "processing": str(self.processing_name),
             "Tokenizer": {"vocab_file": self.vocab_file,
+                          "name": getattr(self.tokenizer, "name_or_path", None),
                           "vocab_size": self.tokenizer.vocab_size,
                           "max_length": self.tokenizer_max_len},
         }, indent=4, default=str)

@@ -398,7 +398,9 @@ class VisionLanguage:
     With a loader ``dl`` the decoder's ``vocab_size`` and BOS / EOS / PAD
     are the tokenizer's vocabulary size and ``[CLS]`` / ``[SEP]`` /
     ``[PAD]`` ids; the keywords ``vocab_size`` and the special ids, where
-    given, win over both. It builds on the card unless ``device`` names
+    given, win over both. A special id at or past ``vocab_size`` raises
+    ``ValueError`` (a tokenizer whose specials are added tokens beyond its
+    vocabulary; the JAX package's loss is NaN there). It builds on the card unless ``device`` names
     another. Weights are random from ``seed`` unless a state dict is loaded
     after. The tower is frozen unless the config's ``vision`` block says
     ``freeze: false``: ``frozen_prefixes`` is then empty and the tower's
@@ -448,6 +450,16 @@ class VisionLanguage:
                         eos_token_id=eos_token_id, pad_token_id=pad_token_id)
         ids.update({k: v for k, v in explicit.items() if v is not None})
         self.dec_config = TransformerConfig.from_dict(dec_args, **ids, dtype=compute_dtype)
+        special = {k: getattr(self.dec_config, k) for k in ("bos_token_id", "eos_token_id",
+                                                             "pad_token_id")}
+        if any(i is not None and i >= self.dec_config.vocab_size for i in special.values()):
+            # the JAX VL sizes its embedding the same way and reads NaN rows
+            # there (jnp.take's fill): a tokenizer whose special tokens are
+            # added after its vocabulary, as ModernBERT's are
+            raise ValueError(
+                f"special token ids {special} lie outside the decoder's vocab_size "
+                f"{self.dec_config.vocab_size}: the tokenizer's special tokens are added "
+                "tokens beyond its vocabulary; give vocab_size=len(tokenizer)")
         vision.setdefault("backbone", "vit")
         vision.setdefault("permute", "no_permute")
         vision.setdefault("freeze", True)

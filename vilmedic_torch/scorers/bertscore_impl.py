@@ -21,11 +21,11 @@ reimplements them (the reference: distilbert-base-uncased, ``num_layers=5``,
   code's order; without any the raw scores are returned with a warning.
 
 Where the JAX package runs ``transformers`` on the CPU, the port runs its own
-encoder (:mod:`.bert_encoder`: BERT or DistilBERT, weights read from
-``model.safetensors`` or ``pytorch_model.bin``) in f32 on the card unless the
-caller names another device, behind its own BERT tokenizer
-(``data.tokenizer.BertTokenizer``, from ``vocab.txt`` and
-``tokenizer_config.json``). Missing weights raise ``ScorerUnavailable``.
+encoder in f32 on the card unless the caller names another device, with
+weights read from ``model.safetensors`` or ``pytorch_model.bin``:
+:mod:`.bert_encoder` (BERT or DistilBERT) or, for ``model_type:
+modernbert``, :mod:`.modernbert`, behind the directory's tokenizer as
+``AutoTokenizer`` reads it (``data.auto_tokenizer``). Missing weights raise ``ScorerUnavailable``.
 The loaded encoder is kept per (model directory, device), so a Validator
 that scores every epoch reads its weights once.
 """
@@ -115,16 +115,18 @@ def load_scorer(model_type: str, device):
 
 @functools.lru_cache(maxsize=4)
 def _load_scorer(folder: str, device: str):
-    from ..data.tokenizer import BertTokenizer
+    from ..data.auto_tokenizer import AutoTokenizer
     from .bert_encoder import BertEncoder, load_weights
     from .clinical import _require
+    from .modernbert import ModernBertEncoder
 
     weights = load_weights(folder)
     _require(weights is not None, "BertScore")
     with open(os.path.join(folder, "config.json")) as f:
-        encoder = BertEncoder(json.load(f))
+        cfg = json.load(f)
+    encoder = (ModernBertEncoder if cfg.get("model_type") == "modernbert" else BertEncoder)(cfg)
     encoder.load_hf_state_dict(weights)
-    return BertTokenizer.from_pretrained(folder), encoder.to(device).eval()
+    return AutoTokenizer.from_pretrained(folder), encoder.to(device).eval()
 
 
 def bert_score_prf(model_type: str, refs: List[str], hyps: List[str],

@@ -105,9 +105,9 @@ def bert_base_vocab(*env_keys: str) -> Optional[str]:
 def vocab_tokenizer(vocab: str):
     """HF ``BertTokenizer(vocab_file=vocab)``: basic tokenization, lower
     case (the JAX package's CheXbert and NLI tokenizers)."""
-    from ..data.tokenizer import BertTokenizer
+    from ..data.auto_tokenizer import bert_vocab_tokenizer
 
-    return BertTokenizer(vocab)
+    return bert_vocab_tokenizer(vocab)
 
 
 @functools.lru_cache(maxsize=4)

@@ -7,7 +7,8 @@ which the port does not import).
   ``classification_report(refs, preds)`` (default arguments), character for
   character: per-label precision, recall, F1 and support over the sorted
   union of the labels, then the accuracy, macro and weighted averages, a
-  division by zero scored 0;
+  division by zero scored 0; the supports print as floats (``2.0``) when no
+  prediction equals its reference, as scikit-learn's do;
 - :func:`roc_auc_ovr`: ``roc_auc_score(refs, scores, multi_class="ovr")``,
   the macro one-vs-rest average of binary ROC AUCs, each over the curve's
   distinct thresholds (tied scores form one step) by the trapezoidal rule;
@@ -95,6 +96,10 @@ def _prf(refs, preds, labels, average=None):
     if average == "micro":
         tp, pred_sum, true_sum = tp.sum(keepdims=True), pred_sum.sum(keepdims=True), \
             true_sum.sum(keepdims=True)
+    if not tp.any():
+        # scikit-learn's multilabel_confusion_matrix starts from float zeros
+        # when no prediction equals its reference, so the supports are floats
+        true_sum = true_sum.astype(np.float64)
     precision = _divide(tp, pred_sum)
     recall = _divide(tp, true_sum)
     f1 = _divide(2.0 * tp, true_sum.astype(np.float64) + pred_sum)

@@ -1,6 +1,7 @@
 """The clinical and neural scorers (port of ``scorers/clinical.py``):
 :class:`F1CheXbert`, :class:`F1RadGraph`, :class:`BertScore`,
-:class:`RadEntityMatchExact`, :class:`RadEntityNLI` and the rule-based
+:class:`RadEvalBERTScorer`, :class:`RadEntityMatchExact`,
+:class:`RadEntityNLI`, the :class:`GREEN` judge and the rule-based
 :class:`StanfordCTAbdAcc`, with the JAX package's call contracts and
 argument orders (``F1CheXbert`` takes ``(hyps, refs)``, the others
 ``(refs, hyps)``).
@@ -9,8 +10,8 @@ Weights are never fetched: a scorer whose weights are not on disk raises
 ``ScorerUnavailable``, which ``compute_scores`` turns into a ``None`` metric
 with the error logged, as the JAX package does. The networks (CheXbert, the
 RadNER token classifier, the BERTNLI pair classifier, the BERTScore
-encoder) run in f32 on the card unless the caller names another device.
-GREEN and ``radevalbertscore`` are not ported.
+encoders) run in f32 on the card unless the caller names another device;
+the GREEN judge runs in its checkpoint's dtype there.
 """
 
 from __future__ import annotations
@@ -91,6 +92,31 @@ class BertScore:
         return float(np.mean(scores)), scores
 
 
+class RadEvalBERTScorer:
+    """BERTScore F1 at layer 22 of ``IAMJB/RadEvalModernBERT`` (a ModernBERT
+    encoder, :mod:`.modernbert`), without baseline rescaling (the
+    reference's ``radevalbertscore``). The name is looked up in the HF hub
+    cache (``HF_HUB_CACHE`` / ``HF_HOME``), or ``model_type`` names a local
+    directory; without its files ``ScorerUnavailable``."""
+
+    def __init__(self, model_type: str = "IAMJB/RadEvalModernBERT", num_layers: int = 22,
+                 device="cuda", **kwargs):
+        from ..models.base import local_hf_config_dir
+
+        self.model_type = model_type
+        self.num_layers = num_layers
+        self.device = device
+        if not os.path.isdir(model_type):
+            _require(local_hf_config_dir(model_type) is not None, "RadEvalBERTScorer")
+
+    def score(self, refs: List[str], hyps: List[str]) -> float:
+        from .bertscore_impl import bert_score_f1
+
+        scores = bert_score_f1(self.model_type, refs, hyps, layer=self.num_layers,
+                               rescale_with_baseline=False, device=self.device)
+        return float(np.mean(scores))
+
+
 class RadEntityMatchExact:
     """Exact radiology-entity F1 (:class:`.nli.RadEntityMatchExactImpl`):
     ``__call__(refs, hyps)`` -> ``(mean, per-report scores, hyp docs, ref
@@ -103,6 +129,22 @@ class RadEntityMatchExact:
 
     def __call__(self, refs, hyps):
         return self._impl(refs=refs, hyps=hyps)
+
+
+class GREEN:
+    """The LLM judge's clinical error count (:class:`.green.GREENImpl`):
+    ``__call__(refs, hyps)`` -> ``(mean GREEN, per-pair scores)``, with the
+    global pair -> reward memo."""
+
+    def __init__(self, model_name: str = "StanfordAIMI/GREEN-radllama2-7b", judge_fn=None,
+                 device="cuda", **kwargs):
+        from .green import GREENImpl
+
+        self._impl = GREENImpl(model_name=model_name, judge_fn=judge_fn, device=device,
+                               **kwargs)
+
+    def __call__(self, refs: List[str], hyps: List[str]):
+        return self._impl(refs, hyps)
 
 
 class RadEntityNLI:

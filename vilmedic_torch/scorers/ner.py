@@ -6,7 +6,7 @@
 checkpoint's state dict loads as it is. :class:`RadNER` reads an HF
 directory (``RADNER_MODEL`` or ``$VILMEDIC_WEIGHTS_DIR/radner``):
 ``config.json`` (the widths and ``id2label``), ``vocab.txt`` and
-``tokenizer_config.json`` (``data.tokenizer.BertTokenizer``) and the weights
+``tokenizer_config.json`` (``data.auto_tokenizer.AutoTokenizer``) and the weights
 (``model.safetensors`` or ``pytorch_model.bin``); without it,
 ``ScorerUnavailable``. The loaded model is kept per (directory, device).
 
@@ -56,7 +56,7 @@ class TokenClassifier(nn.Module):
 
 @functools.lru_cache(maxsize=4)
 def _load_radner(folder: str, device: str):
-    from ..data.tokenizer import BertTokenizer
+    from ..data.auto_tokenizer import AutoTokenizer
     from .bert_encoder import load_scorer_state, load_weights
     from .clinical import _require
 
@@ -67,7 +67,7 @@ def _load_radner(folder: str, device: str):
     _require(weights is not None, "RadNER")
     module = TokenClassifier(cfg, len(id2label))
     load_scorer_state(module, weights)
-    return module.to(device).eval(), BertTokenizer.from_pretrained(folder), id2label
+    return module.to(device).eval(), AutoTokenizer.from_pretrained(folder), id2label
 
 
 class RadNER:

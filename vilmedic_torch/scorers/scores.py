@@ -15,7 +15,8 @@ NLG metrics; the clinical scorers of :mod:`.clinical`, their networks on
 - ``chexbert``: ``chexbert-{5,all}_{micro,macro} avg_f1-score``;
 - ``radgraph``: ``radgraph_simple``, ``radgraph_partial``,
   ``radgraph_complete``;
-- ``radentitymatchexact``, ``radentitynli``, ``bertscore``, and
+- ``radentitymatchexact``, ``radentitynli``, ``bertscore``,
+  ``radevalbertscore`` (a ModernBERT encoder; no reward, as in JAX), and
   ``stanford_ct_abd_accuracy`` as ``stanford_ct_abd``;
 
 and ``accuracy``, ``f1-score`` and ``auroc`` over a classifier's labels
@@ -26,8 +27,9 @@ labels as ``{refs,hyps}.chexbert.txt``) and the scores appended to
 does. A metric that fails while it computes, a scorer whose weights are
 missing among them, is logged and scored ``None`` under its own name, so one
 broken scorer cannot end a training run (the JAX package's error
-isolation). Any other metric name (``radevalbertscore``, GREEN) raises
-``NotImplementedError`` before anything runs.
+isolation). Any other metric name raises ``NotImplementedError`` before
+anything runs (GREEN is a scorer class, :class:`.clinical.GREEN`, not a
+metric name, in both packages).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from .nlg.rouge import Rouge, Rouge1, Rouge2, RougeL
 from .nlg.spice import Spice
 
 PORTED = ("bleu", "rouge1", "rouge2", "rougel", "meteor", "ciderd", "spice", "bertscore",
-          "chexbert", "radgraph", "radentitymatchexact", "radentitynli",
+          "radevalbertscore", "chexbert", "radgraph", "radentitymatchexact", "radentitynli",
           "stanford_ct_abd_accuracy", "accuracy", "f1-score", "auroc")
 
 # reward name -> (scorer class, index of its per-sample output)
@@ -125,6 +127,9 @@ def compute_scores(metrics, refs: Optional[List[str]], hyps: Optional[List[str]]
                 scores["SPICE"] = Spice()(refs, hyps)[0]
             elif lower == "bertscore":
                 scores["bertscore"] = clinical.BertScore(device=device)(refs, hyps)[0]
+            elif lower == "radevalbertscore":
+                scores["radevalbertscore"] = clinical.RadEvalBERTScorer(device=device).score(
+                    refs, hyps)
             elif lower == "chexbert":
                 _, _, chexbert_all, chexbert_5 = clinical.F1CheXbert(
                     refs_filename=base.format("refs.chexbert.txt") if dump else None,

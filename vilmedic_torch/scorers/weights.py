@@ -14,9 +14,8 @@ default). The port reads these entries::
       radner/                         HF BertForTokenClassification dir (radiology NER)
       bertscore/model/                HF dir for the BERTScore encoder
       bertscore/rescale_baseline.tsv  bert_score baseline tsv (LAYER,P,R,F)
-
-The JAX package's ``green/`` entry belongs to a scorer the port does not
-have yet.
+      green/                          HF LLaMA dir for the GREEN judge
+                                      (config.json, safetensors, tokenizer.json)
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ LAYOUT = {
     "RADNER_MODEL": "radner",
     "BERTSCORE_MODEL": "bertscore/model",
     "BERTSCORE_BASELINE_TSV": "bertscore/rescale_baseline.tsv",
+    "GREEN_MODEL": "green",
 }
 
 

@@ -1,7 +1,7 @@
 """Weight bridge from the JAX package's RRG, RRS, RRG_HF, RRS_HF, SCST,
-VisionLanguage, MVQA, ConVIRT and GLoRIA variables, and its clinical
-scorers' BERT trees (CheXbert, the RadNER token classifier, the BERTNLI pair
-classifier), to the port's state dicts (counterpart of
+VisionLanguage, MVQA, ConVIRT and GLoRIA variables, its clinical scorers'
+BERT trees (CheXbert, the RadNER token classifier, the BERTNLI pair
+classifier) and the GREEN judge's LLaMA tree, to the port's state dicts (counterpart of
 ``zoo/convert.py``); :func:`rrg_state_dict_from_jax` carries any tree of
 the port's modules, a ViT or ResNet tower's own variables among them.
 
@@ -195,3 +195,19 @@ def pair_classifier_state_dict_from_jax(variables: Dict, head: str = "linear"
     ``BertPairClassifier`` state dict, its head named ``head``."""
     return _bert_scorer_state_dict(variables["params"],
                                    {"pooler": "bert.pooler.dense", "classifier": head})
+
+
+def llama_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``LlamaForCausalLM`` params (``{"params": ...}`` or the tree
+    itself) -> the port's ``blocks.llm.LlamaForCausalLM`` state dict (f32;
+    the model casts to its dtype on load): Dense ``kernel`` transposed, Embed
+    ``embedding`` -> ``weight``, the RMSNorm ``weight`` as it is."""
+    tree = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree):
+        if path.endswith(".weight"):  # RMSNorm
+            key, arr = path, np.asarray(value)
+        else:
+            key, arr = _param(path, value)
+        out[key] = torch.tensor(np.asarray(arr, np.float32))
+    return out
