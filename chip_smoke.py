@@ -195,6 +195,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     peak GiB, a host / device split and the device ms by kernel under
     ``torch.profiler``), and a 2-layer f32 judge's greedy tokens card vs
     CPU.
+20. loads the zoo (``zoo``): a reference-layout ``.pth`` of the flagship
+    RRG (random weights from the seed, its saved config with
+    ``device_preproc: true``) through ``vilmedic_torch.bin.convert_checkpoint``
+    and ``AutoModel.from_pretrained`` on the card (every loaded tensor
+    bitwise the file's), ``dataset.inference`` over 16 JPEGs served at beam
+    8 through K3, K1 (a) and K2 (launch counts, reports/s) and f32 beams of
+    2 card vs CPU; a dinov2-base ``model.safetensors`` under the VL config's
+    ``vision_model_name`` in the hub cache, its 16² position grid re-gridded
+    to 37² at load, one tower batch of 16 through K4, f32 tower output card
+    vs CPU; the CheXbert labelling CLI over 32 reports, card vs CPU byte for
+    byte; BERTScore by the name ``roberta-large`` (its 17 read layers
+    written), 32 pairs warm on the card, 4 pairs card vs CPU.
 
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
@@ -6497,6 +6509,363 @@ def phase_radeval_green(tmp: str, hub: str, card: str):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------- the zoo
+
+ZOO_JPEGS = 16  # the serving batch of dataset.inference
+# roberta-large's published config.json (bert_score's "roberta-large")
+ROBERTA_LARGE = dict(model_type="roberta", vocab_size=50265, hidden_size=1024,
+                     num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096,
+                     max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5,
+                     pad_token_id=1, bos_token_id=0, eos_token_id=2, hidden_act="gelu")
+ROBERTA_LARGE_LAYER = 17  # bert_score's layer: the file holds layers 0-16 only
+
+
+def zoo_jpegs(folder: str, n: int, size: int, seed: int):
+    """``n`` random RGB JPEGs of ``size``² under ``folder``; their paths."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i in range(n):
+        paths.append(os.path.join(folder, f"xray{i}.jpg"))
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(paths[-1])
+    return paths
+
+
+def zoo_rrg(tmp: str, card: str):
+    """(a) The flagship RRG from a reference checkpoint: a reference-layout
+    ``.pth`` of ``config/RRG/baseline-mimic.yml`` (DenseNet-169 as
+    ``enc.model.0.*``, ``enc.visual_projection``, the 1-layer 768
+    BertGeneration decoder as ``dec.decoder.*``, vocab 50,265; random
+    weights from SEED; its saved config with the image block's
+    ``device_preproc: true``) through ``vilmedic_torch.bin.convert_checkpoint``
+    and ``AutoModel.from_pretrained`` on the card; ``dataset.inference``
+    over 16 JPEGs served at beam 8 (K3, K1 (a), K2), reports/s; f32 beams of
+    2 card vs CPU from the same converted weights."""
+    import glob as globlib
+    import shutil
+
+    import torch
+
+    from vilmedic_torch.bin.convert_checkpoint import main as convert
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.data.image import prepare_batch
+    from vilmedic_torch.executors.checkpoint import load_checkpoint, save_checkpoint
+    from vilmedic_torch.models.base import get_special_token_ids
+    from vilmedic_torch.models.evaluation_nlg import make_generate_fn, to_device
+    from vilmedic_torch.zoo import AutoModel
+    from vilmedic_torch.zoo.convert import convert_reference_rrg, reference_rrg_state_dict
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "zoo")
+    os.makedirs(root)
+    cfg, _ = load_config(CONFIG, ["dataset.image.device_preproc=true"])
+    model, *_ = build_flagship("float32", "cpu")
+    reference = reference_rrg_state_dict(model.module.state_dict())
+    del model
+    pth = os.path.join(root, "baseline-mimic.pth")
+    torch.save({"model": {f"module.{k}": v for k, v in reference.items()},
+                "config": cfg.to_dict(), "__version__": "reference"}, pth)
+    ckpt_dir, f32_dir = os.path.join(root, "rrg_mimic"), os.path.join(root, "rrg_mimic_f32")
+    convert([pth, ckpt_dir, "--num-layers", "1", "--backbone", "densenet169"])
+    vocab = ["[CLS]", "[PAD]", "[SEP]", "[UNK]", "[MASK]"] + [f"w{i}" for i in range(VOCAB - 5)]
+    with open(os.path.join(ckpt_dir, "vocab.tgt"), "w") as f:
+        f.write("\n".join(vocab))
+    # the f32 copy for the parity: the converted weights, the config's dtype float32
+    os.makedirs(f32_dir)
+    shutil.copy(os.path.join(ckpt_dir, "vocab.tgt"), f32_dir)
+    ckpt = globlib.glob(os.path.join(ckpt_dir, "*.ckpt"))[0]
+    state = load_checkpoint(ckpt)
+    state["config"]["model"]["dtype"] = "float32"
+    save_checkpoint(os.path.join(f32_dir, os.path.basename(ckpt)), state)
+    del state
+    images = zoo_jpegs(os.path.join(root, "images"), ZOO_JPEGS, 256, SEED + 95)
+    seqs = [" ".join(f"w{(7 * i + j) % 997}" for j in range(6)) for i in range(ZOO_JPEGS)]
+    want = convert_reference_rrg(reference, 1, "densenet169")
+    write_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    model, dataset = AutoModel.from_pretrained(ckpt_dir, device="cuda")
+    load_s = time.perf_counter() - t1
+    loaded = model.module.state_dict()
+    bitwise = sorted(loaded) == sorted(want) and all(
+        torch.equal(v.cpu(), want[k]) for k, v in loaded.items())
+    bos, eos, pad = get_special_token_ids(model.dec_config, dataset.tokenizer)
+    max_len = int(dataset.tokenizer_max_len)
+    layers = model.dec_config.num_hidden_layers
+
+    def serve_zoo(m, ds, n, device):
+        batch = ds.inference(seq=seqs[:n], image=images[:n])
+        on = prepare_batch(to_device(batch, device), ds)
+        return make_generate_fn([m], BEAM, max_len, bos, eos, pad, length_penalty=1.0)(
+            m.encoder_inputs(on))
+
+    reset_launches()
+    res = serve_zoo(model, dataset, ZOO_JPEGS, "cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        timed_res = serve_zoo(model, dataset, ZOO_JPEGS, "cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    med = statistics.median(times)
+    del model
+    torch.cuda.empty_cache()
+
+    set_tf32(False)
+    beams, secs = {}, {}
+    for device in PARITY_DEVICES:
+        t1 = time.perf_counter()
+        m, ds = AutoModel.from_pretrained(f32_dir, device=device)
+        beams[device] = serve_zoo(m, ds, 2, device).sequences.cpu()
+        secs[device] = time.perf_counter() - t1
+        del m
+    torch.cuda.empty_cache()
+    seq = res.sequences
+    print(f"zoo (a) flagship RRG from a reference .pth ({card}): files written and converted in "
+          f"{write_s:.1f} s, AutoModel on the card in {load_s:.1f} s, {len(want)} tensors "
+          f"bitwise the .pth's: {bitwise}; dataset.inference over {ZOO_JPEGS} JPEGs at beam "
+          f"{BEAM}, bf16: {res.steps} steps, launches K3 {launches['crop_normalize']}, K1 (a) "
+          f"{launches['fused_beam_cache_attention']}, K2 {launches['lm_head_blocked_stats']}; "
+          f"{ZOO_JPEGS / med:.2f} reports/s (median of 3: {med * 1e3:.1f} ms a batch, JPEG "
+          f"decode included, {[round(t * 1e3, 1) for t in times]}); f32 beams of 2 card vs CPU "
+          f"{'equal' if torch.equal(beams['cpu'], beams['cuda']) else 'DIFFER'} (CPU half "
+          f"{secs['cpu']:.1f} s)")
+    checks = {
+        "every loaded tensor bitwise the reference file's": bitwise,
+        "sequences (16, max_len) from BOS": tuple(seq.shape) == (ZOO_JPEGS, max_len)
+        and bool((seq[:, 0] == bos).all()) and timed_res.steps == res.steps,
+        "finite scores": bool(torch.isfinite(res.scores).all()),
+        "K3 once on the uint8 batch": launches["crop_normalize"] == 1,
+        "K1 (a) = layers x steps": launches["fused_beam_cache_attention"] == layers * res.steps
+        and launches["fused_beam_cache_attention.launches_stats"] == 0,
+        "K2 = steps": launches["lm_head_blocked_stats"] == res.steps > 0,
+        "f32 beams card = CPU": torch.equal(beams["cpu"], beams["cuda"]),
+    }
+    return checks, launches
+
+
+def hf_dinov2_tensors(cfg: dict, grid: int, gen) -> dict:
+    """A DINOv2 state dict under HF ``Dinov2Model``'s names at ``cfg``'s
+    widths with a ``grid``² position table, random from ``gen`` (LayerScale
+    and norm scales near 1)."""
+    import torch
+
+    d, p = cfg["hidden_size"], cfg["patch_size"]
+    f = int(d * cfg["mlp_ratio"])
+
+    def rand(*shape, scale=0.02, base=0.0):
+        return base + scale * torch.randn(*shape, generator=gen)
+
+    sd = {"embeddings.cls_token": rand(1, 1, d), "embeddings.mask_token": rand(1, d),
+          "embeddings.position_embeddings": rand(1, 1 + grid * grid, d),
+          "embeddings.patch_embeddings.projection.weight": rand(d, 3, p, p),
+          "embeddings.patch_embeddings.projection.bias": rand(d),
+          "layernorm.weight": rand(d, base=1.0), "layernorm.bias": rand(d)}
+    for i in range(cfg["num_hidden_layers"]):
+        pre = f"encoder.layer.{i}."
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}{norm}.weight"], sd[f"{pre}{norm}.bias"] = rand(d, base=1.0), rand(d)
+        for name in ("attention.attention.query", "attention.attention.key",
+                     "attention.attention.value", "attention.output.dense"):
+            sd[f"{pre}{name}.weight"], sd[f"{pre}{name}.bias"] = rand(d, d), rand(d)
+        sd[f"{pre}mlp.fc1.weight"], sd[f"{pre}mlp.fc1.bias"] = rand(f, d), rand(f)
+        sd[f"{pre}mlp.fc2.weight"], sd[f"{pre}mlp.fc2.bias"] = rand(d, f), rand(d)
+        for scale in ("layer_scale1", "layer_scale2"):
+            sd[f"{pre}{scale}.lambda1"] = rand(d, scale=0.1, base=1.0)
+    return sd
+
+
+def zoo_dinov2(hub: str, card: str):
+    """(b) The VL tower from a DINOv2 weight folder: a ``model.safetensors``
+    at dinov2-base widths (12 x 768, patch 14, a 16 x 16 grid: the
+    ``config.json`` has no ``image_size``, so Dinov2Config's 224) under the
+    VL config's ``vision_model_name`` in the hub cache; the VL config built
+    on the card through ``create_model`` holds the file's tensors, the grid
+    re-gridded to 1370 tokens; one tower batch of 16 through K4; the f32
+    tower output of 2 images card vs CPU within 1e-4 of the largest."""
+    import torch
+
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.executors.utils import create_model
+    from vilmedic_torch.models.base import hf_weights
+    from vilmedic_torch.zoo.convert_vision import convert_hf_dinov2
+
+    t0 = time.perf_counter()
+    cfg, _ = load_config(VL_CONFIG, ["model.dtype=bfloat16"])
+    name = cfg.model.vision.vision_model_name
+    folder = hub_snapshot(hub, name)
+    tower_cfg = {k: v for k, v in VL_TOWER.items() if k != "image_size"}
+    write_json(os.path.join(folder, "config.json"), tower_cfg)
+    write_safetensors(os.path.join(folder, "model.safetensors"),
+                      hf_dinov2_tensors(tower_cfg, 16, torch.Generator().manual_seed(SEED + 96)))
+    want = convert_hf_dinov2(hf_weights(name), target_tokens=VL_TOKENS)
+    ids = dict(vocab_size=VL_VOCAB, bos_token_id=VL_BOS, eos_token_id=VL_EOS,
+               pad_token_id=VL_PAD)
+    model = create_model(cfg, device="cuda", **ids)
+    build_s = time.perf_counter() - t0
+    tower = model.module.vision
+    state = tower.model.state_dict()
+    loaded = sorted(state) == sorted(want) and all(
+        torch.equal(state[k].cpu(), v) for k, v in want.items())
+    images = vl_images(16, 518, SEED + 97).to("cuda")
+    with torch.no_grad():
+        tower(images)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        out = tower(images)
+        torch.cuda.synchronize()
+        tower_ms = (time.perf_counter() - t1) * 1e3
+    launches = read_launches()
+    shape, finite = tuple(out.shape), bool(torch.isfinite(out).all())
+    del model, tower, out
+    torch.cuda.empty_cache()
+
+    set_tf32(False)
+    cfg32, _ = load_config(VL_CONFIG, ["model.dtype=float32"])
+    two = vl_images(2, 518, SEED + 98)
+    outs, secs = {}, {}
+    for device in PARITY_DEVICES:
+        t1 = time.perf_counter()
+        m = create_model(cfg32, device=device, **ids)
+        with torch.no_grad():
+            outs[device] = m.module.vision(two.to(device)).float().cpu()
+        secs[device] = time.perf_counter() - t1
+        del m
+    torch.cuda.empty_cache()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    scale = outs["cpu"].abs().max().item()
+    layers = tower_cfg["num_hidden_layers"]
+    print(f"zoo (b) DINOv2 weight folder {name!r} ({card}): written and built on the card in "
+          f"{build_s:.1f} s; tower tensors the file's (grid 16² -> 37²): {loaded}; tower batch "
+          f"16 bf16 {shape}: {tower_ms:.1f} ms, K4 launches {launches['flash_attention']}; f32 "
+          f"2 images card vs CPU max |diff| {err:.3e} of max {scale:.3e} (tol 1e-4 of it; CPU "
+          f"half {secs['cpu']:.1f} s)")
+    checks = {
+        "tower tensors the file's, re-gridded": loaded,
+        "tower output (16, 1370, 768), finite": shape == (16, VL_TOKENS, 768) and finite,
+        "K4 = tower layers": launches["flash_attention"] == layers,
+        "f32 tower card = CPU within 1e-4 of the largest": err <= 1e-4 * scale,
+    }
+    return checks, launches
+
+
+def zoo_chexbert_labels(tmp: str, card: str):
+    """(c) The CheXbert labelling CLI over 32 reports with
+    ``clinical_validate``'s random CheXbert files: the label file from the
+    card equals the CPU's byte for byte."""
+    import torch
+
+    from vilmedic_torch.data_tools.get_chexbert_label import compute_labels
+
+    reports = [r for r, _ in green_pairs(tmp, 32)]
+    files, secs = {}, {}
+    with weights_dir(scorer_weights(tmp)):
+        for device in PARITY_DEVICES:
+            folder = os.path.join(tmp, "zoo", f"labels_{device}")
+            os.makedirs(folder)
+            with open(os.path.join(folder, "train.report.tok"), "w") as f:
+                f.write("\n".join(reports))
+            clear_scorer_caches()
+            t1 = time.perf_counter()
+            out = compute_labels(os.path.join(folder, "train.report.tok"), device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs[device] = time.perf_counter() - t1
+            with open(out, "rb") as f:
+                files[device] = f.read()
+    clear_scorer_caches()
+    lines = files["cuda"].decode().split("\n")
+    print(f"zoo (c) CheXbert labelling CLI ({card}): 32 reports, card {secs['cuda']:.2f} s, CPU "
+          f"{secs['cpu']:.2f} s (files read and loaded in each); {len(set(lines))} distinct "
+          f"label lines; files equal {files['cuda'] == files['cpu']}")
+    return {"label file card = CPU, byte for byte": files["cuda"] == files["cpu"],
+            "32 label lines": len(lines) == 32}
+
+
+def zoo_roberta_bertscore(tmp: str, hub: str, card: str):
+    """(d) BERTScore with a RoBERTa-large encoder by name: ``roberta-large``
+    in the hub cache (its published config.json, the RoBERTa byte-level BPE
+    of ``write_hub_tokenizers``, a ``model.safetensors`` of only the 17
+    layers that layer 17 reads, random from SEED); 32 pairs warm on the
+    card, a 4-pair CPU witness within 1e-5 of the card's on P, R and F, and
+    ``compute_scores``' ``bertscore`` with ``BERTSCORE_MODEL=roberta-large``."""
+    import shutil
+
+    import torch
+
+    from vilmedic_torch.scorers import bertscore_impl
+    from vilmedic_torch.scorers.bert_encoder import BertEncoder
+    from vilmedic_torch.scorers.bertscore_impl import bert_score_prf
+    from vilmedic_torch.scorers.scores import compute_scores
+
+    t0 = time.perf_counter()
+    folder = hub_snapshot(hub, "roberta-large")
+    source = hub_snapshot(hub, ROBERTA_TOKENIZER)
+    for name in ("vocab.json", "merges.txt", "tokenizer_config.json"):
+        shutil.copy(os.path.join(source, name), folder)
+    write_json(os.path.join(folder, "config.json"), ROBERTA_LARGE)
+    torch.manual_seed(SEED + 98)
+    encoder = BertEncoder(ROBERTA_LARGE, num_layers=ROBERTA_LARGE_LAYER)
+    write_safetensors(os.path.join(folder, "model.safetensors"),
+                      {f"roberta.{k}": v for k, v in encoder.state_dict().items()})
+    n_params = sum(p.numel() for p in encoder.parameters())
+    del encoder
+    write_s = time.perf_counter() - t0
+    pairs = [(" ".join(r.split()[:64]), " ".join(h.split()[:64])) for r, h in green_pairs(tmp, 32)]
+    refs, hyps = [r for r, _ in pairs], [h for _, h in pairs]
+    bertscore_impl._load_scorer.cache_clear()
+    bert_score_prf("roberta-large", refs, hyps, rescale_with_baseline=False, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bert_score_prf("roberta-large", refs, hyps, rescale_with_baseline=False, device="cuda")
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t1) * 1e3
+    four = {d: bert_score_prf("roberta-large", refs[:4], hyps[:4], rescale_with_baseline=False,
+                              device=d) for d in PARITY_DEVICES}
+    err = max(abs(a - b) for x, y in zip(four["cpu"], four["cuda"]) for a, b in zip(x, y))
+    with bertscore_model("roberta-large"):
+        scores = compute_scores(["bertscore"], refs, hyps, "validate", SEED, None, 0,
+                                logging.getLogger("zoo"), dump=False, device="cuda")
+    _, enc = bertscore_impl.load_scorer("roberta-large", "cuda", ROBERTA_LARGE_LAYER)
+    built = len(enc.encoder.layer)
+    bertscore_impl._load_scorer.cache_clear()
+    print(f"zoo (d) BERTScore roberta-large ({card}): {n_params / 1e6:.1f} M parameters written "
+          f"({built} of {ROBERTA_LARGE['num_hidden_layers']} layers, 1024 wide) in "
+          f"{write_s:.1f} s; 32 pairs at layer {bertscore_impl.DEFAULT_LAYERS['roberta-large']}, "
+          f"f32: {warm_ms:.1f} ms warm on the card; 4 pairs P/R/F card vs CPU max |diff| "
+          f"{err:.2e} (tol 1e-5); compute_scores {scores}")
+    return {"BERTScore roberta-large at layer 17": built == ROBERTA_LARGE_LAYER
+            and bertscore_impl.DEFAULT_LAYERS["roberta-large"] == ROBERTA_LARGE_LAYER,
+            "RoBERTa P / R / F card = CPU within 1e-5": err <= 1e-5,
+            "bertscore through compute_scores": scores.get("bertscore") is not None
+            and math.isfinite(scores["bertscore"])}
+
+
+def phase_zoo(tmp: str, hub: str, card: str):
+    """The zoo (:func:`zoo_rrg`, :func:`zoo_dinov2`,
+    :func:`zoo_chexbert_labels`, :func:`zoo_roberta_bertscore`). Returns
+    the launches of (a)'s beam-8 serving with (b)'s tower batch's K4."""
+    import torch
+
+    t0 = time.perf_counter()
+    checks, launches = zoo_rrg(tmp, card)
+    more, tower = zoo_dinov2(hub, card)
+    checks.update(more)
+    checks.update(zoo_chexbert_labels(tmp, card))
+    checks.update(zoo_roberta_bertscore(tmp, hub, card))
+    launches["flash_attention"] += tower["flash_attention"]
+    print(f"zoo: {time.perf_counter() - t0:.1f} s")
+    require(checks, "zoo")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def time_blocked_lm_head(h, w, b) -> dict:
     """K2 on (h, w, b): its device time (events around one call beside it),
     its plain version's, ``torch.matmul``'s of the product alone, and its
@@ -6626,6 +6995,8 @@ def main():
         launches["clinical_validate"] = timed(phase_clinical_validate, tmp, card)
         print(f"phases before radeval_green: {time.perf_counter() - t_start:.1f} s")
         timed(phase_radeval_green, tmp, hub, card)
+        print(f"phases before zoo: {time.perf_counter() - t_start:.1f} s")
+        launches["zoo"] = timed(phase_zoo, tmp, hub, card)
         print(f"all phases: {time.perf_counter() - t_start:.1f} s; by phase "
               + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     # K1 (b) on the VL CLI path: the Validator at beam 2, the ensemble CLI at 8
@@ -6641,8 +7012,8 @@ def main():
     # K3): RRG training, SCST fine-tuning, RRS training, RRG with the ViT
     # tower, MVQA and CLASS (none), the RoBERTa-width RRG serving, ConVIRT
     # and GLoRIA training (none), RRG_HF (single and multi-image) and RRS_HF
-    # training, and the RoBERTa RRG config's Validator with the clinical
-    # scorers
+    # training, the RoBERTa RRG config's Validator with the clinical
+    # scorers, and the zoo-loaded RRG and DINOv2 tower
     for path, key in (("rrg_train", "rrg_train_launches"), ("scst_train", "scst_launches"),
                       ("rrs_train", "rrs_launches"), ("rrg_vit_train", "rrg_vit_launches"),
                       ("mvqa_train", "mvqa_launches"), ("class_train", "class_launches"),
@@ -6652,7 +7023,7 @@ def main():
                       ("rrg_multi_image", "rrg_multi_image_launches"),
                       ("rrs_hf_train", "rrs_hf_launches"), ("vl_cli_train", "vl_cli_launches"),
                       ("vl_unfrozen_train", "vl_unfrozen_launches"),
-                      ("clinical_validate", "clinical_launches")):
+                      ("clinical_validate", "clinical_launches"), ("zoo", "zoo_launches")):
         for name, counter in launches[path].items():
             if name in results:
                 results[name][key] = counter
@@ -6669,7 +7040,7 @@ def main():
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
              "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",
              "rrs_hf_launches", "vl_cli_launches", "vl_unfrozen_launches", "clinical_launches",
-             "tower_launches",
+             "zoo_launches", "tower_launches",
              "beam2_max_abs_err", "tower_max_rel_err", "vl_validator_beam2_launches",
              "vl_ensemble_beam8_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"

@@ -8,8 +8,13 @@ and a DistilBERT (``pytorch_model.bin``), each with its ``vocab.txt`` and
 ``tokenizer_config.json``. P / R / F agree within 1e-5 (f32 sums in
 another order), with idf off and on, at the default and an explicit layer,
 and rescaled by a tsv baseline and by the ``BERTSCORE_BASELINE`` variable.
+A tiny RoBERTa (``RobertaModel`` weights behind the byte-level BPE files of
+``tests/test_torch_tokenizers.py``) agrees within 1e-5 on right-padded
+batches of unequal lengths; a file holding only the layers up to the one
+read scores as the whole model; ``roberta-large`` by name reads layer 17.
 """
 
+import json
 import logging
 import os
 
@@ -179,3 +184,83 @@ def test_encoder_is_loaded_once_per_directory_and_device(model_dir):
     assert tbs.bert_score_prf(model_dir, REFS, HYPS, rescale_with_baseline=False,
                               device="cpu") == tbs.bert_score_prf(
         model_dir, REFS, HYPS, rescale_with_baseline=False, device="cpu")
+
+
+def _write_roberta(d, layers=3):
+    """A tiny RoBERTa (``RobertaModel`` weights by ``transformers``) behind
+    the byte-level BPE files of ``tests/test_torch_tokenizers.py``."""
+    from test_torch_tokenizers import write_roberta_files
+    from transformers import RobertaConfig, RobertaModel
+
+    write_roberta_files(str(d))
+    vocab = len(json.load(open(d / "vocab.json")))
+    torch.manual_seed(0)
+    cfg = RobertaConfig(vocab_size=vocab, hidden_size=16, num_hidden_layers=layers,
+                        num_attention_heads=2, intermediate_size=32,
+                        max_position_embeddings=130, type_vocab_size=1, pad_token_id=1,
+                        bos_token_id=0, eos_token_id=2)
+    RobertaModel(cfg).save_pretrained(d)
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def roberta_dir(tmp_path_factory):
+    return _write_roberta(tmp_path_factory.mktemp("roberta"))
+
+
+# right-padded batches of unequal lengths (one long sentence pads the rest)
+LONG = "the lungs are clear, no acute disease with mild cardiomegaly and no effusion."
+
+
+@pytest.mark.parametrize("idf", [False, True], ids=["idf_off", "idf_on"])
+@pytest.mark.parametrize("layer", [None, 1], ids=["last_layer", "layer_1"])
+def test_roberta_prf_matches_jax(roberta_dir, idf, layer):
+    """RoBERTa's encoder (positions from the padding id, a one-row
+    token-type table, ``roberta.``-less names) and byte-level BPE against
+    ``transformers``' ``RobertaModel`` through JAX's ``bert_score_prf``."""
+    refs, hyps = REFS + [LONG], HYPS + ["clear"]
+    want = jbs.bert_score_prf(roberta_dir, refs, hyps, layer=layer, idf=idf,
+                              rescale_with_baseline=False, batch_size=3)
+    got = tbs.bert_score_prf(roberta_dir, refs, hyps, layer=layer, idf=idf,
+                             rescale_with_baseline=False, batch_size=3, device="cpu")
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_roberta_reads_only_the_layers_below_the_one_scored(roberta_dir, tmp_path):
+    """A file that holds only the layers up to the one read scores as the
+    whole model does; the whole model needs every layer."""
+    from vilmedic_torch.scorers.bert_encoder import load_weights
+
+    cut = tmp_path / "cut"
+    cut.mkdir()
+    for name in os.listdir(roberta_dir):
+        if name != "model.safetensors":
+            (cut / name).write_bytes(open(os.path.join(roberta_dir, name), "rb").read())
+    state = {k: v for k, v in load_weights(roberta_dir).items() if "layer.2." not in k}
+    torch.save(state, cut / "pytorch_model.bin")
+    want = tbs.bert_score_prf(roberta_dir, REFS, HYPS, layer=2, rescale_with_baseline=False,
+                              device="cpu")
+    got = tbs.bert_score_prf(str(cut), REFS, HYPS, layer=2, rescale_with_baseline=False,
+                             device="cpu")
+    assert got == want
+    with pytest.raises(ValueError, match="lacks"):
+        tbs.bert_score_prf(str(cut), REFS, HYPS, rescale_with_baseline=False, device="cpu")
+
+
+def test_roberta_large_by_name_reads_layer_17(tmp_path, monkeypatch):
+    """``BERTSCORE_MODEL=roberta-large`` resolves in the hub cache and reads
+    bert_score's layer 17 (``DEFAULT_LAYERS``)."""
+    snap = tmp_path / "hub" / "models--roberta-large" / "snapshots" / "r0"
+    snap.mkdir(parents=True)
+    (tmp_path / "hub" / "models--roberta-large" / "refs").mkdir()
+    (tmp_path / "hub" / "models--roberta-large" / "refs" / "main").write_text("r0")
+    _write_roberta(snap, layers=18)
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+    assert tbs.DEFAULT_LAYERS["roberta-large"] == 17
+    got = tbs.bert_score_prf("roberta-large", REFS, HYPS, rescale_with_baseline=False,
+                             device="cpu")
+    assert got == tbs.bert_score_prf(str(snap), REFS, HYPS, layer=17,
+                                     rescale_with_baseline=False, device="cpu")
+    assert got != tbs.bert_score_prf(str(snap), REFS, HYPS, layer=18,
+                                     rescale_with_baseline=False, device="cpu")

@@ -1594,3 +1594,153 @@ def test_llama_greedy_card_equals_cpu(cuda, num_kv):
     bf16 = LlamaForCausalLM(LlamaConfig(**kw, dtype=torch.bfloat16), device=cuda)
     bf16.load_state_dict(cpu.state_dict())
     assert torch.isfinite(bf16(ids.to(cuda), mask.to(cuda))).all()
+
+
+# ---------------------------------------------------------------- the zoo
+
+def _perturbed(state, seed):
+    """The seeded init moved by small random steps (biases and norms off
+    their init; BatchNorm variances kept positive)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in state.items():
+        step = 0.02 * torch.randn(v.shape, generator=gen)
+        out[k] = (v + step).abs() + 0.5 if k.endswith("running_var") else v + step
+    return out
+
+
+def _write_zoo_rrg(root):
+    """A reference-layout RRG ``.pth`` (DenseNet-121, a 1-layer decoder of 64
+    with 2 heads of 32, a 4105-entry vocabulary, ``device_preproc``), its
+    ``vocab.tgt`` and two JPEGs; -> (pth, the reference state, JPEG paths)."""
+    import numpy as np
+    from PIL import Image
+
+    from vilmedic_torch.zoo.convert import reference_rrg_state_dict
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"w{i}" for i in range(4100)]
+    (root / "vocab.tgt").write_text("\n".join(vocab))
+    rng = np.random.default_rng(0)
+    images = []
+    for i in range(2):
+        images.append(str(root / f"im{i}.jpg"))
+        Image.fromarray(rng.integers(0, 255, (72, 72, 3), dtype=np.uint8)).save(images[-1])
+    decoder = dict(proto=None, hidden_size=64, num_hidden_layers=1, num_attention_heads=2,
+                   intermediate_size=128, max_position_embeddings=32)
+    cnn = dict(proto="VisualEncoder", backbone="densenet121", output_layer="features",
+               permute="batch_first", visual_projection=dict(in_features=1024, out_features=64))
+    config = {"dataset": {"proto": "ImSeq", "num_workers": 2,
+                          "image": {"root": str(root), "file": "image.tok", "resize": 64,
+                                    "crop": 64, "ext": ".jpg", "device_preproc": True},
+                          "seq": {"root": str(root), "file": "report.tok", "source": "tgt",
+                                  "tokenizer_max_len": 12}},
+              "model": {"proto": "RRG", "decoder": decoder, "cnn": cnn}}
+    state = _perturbed(RRG(decoder=decoder, cnn=cnn, vocab_size=len(vocab), device="cpu")
+                       .module.state_dict(), 3)
+    reference = reference_rrg_state_dict(state)
+    torch.save({"model": {f"module.{k}": v for k, v in reference.items()}, "config": config},
+               root / "model.pth")
+    return str(root / "model.pth"), reference, images
+
+
+def test_zoo_rrg_card_equals_cpu(cuda, tmp_path):
+    """A reference ``.pth`` through ``bin.convert_checkpoint`` and
+    ``AutoModel.from_pretrained`` on the card and on the CPU, f32:
+    ``dataset.inference`` over two JPEGs (uint8 crops through K3 on the
+    card), beam 4: equal sequences; K3 once, K1 and K2 once a decode step;
+    every loaded tensor the ``.pth``'s."""
+    from vilmedic_torch.bin.convert_checkpoint import main as convert
+    from vilmedic_torch.data.image import prepare_batch
+    from vilmedic_torch.models.evaluation_nlg import to_device
+    from vilmedic_torch.zoo import AutoModel
+    from vilmedic_torch.zoo.convert import convert_reference_rrg
+
+    pth, reference, images = _write_zoo_rrg(tmp_path)
+    convert([pth, str(tmp_path), "--num-layers", "1", "--backbone", "densenet121"])
+    want_state = convert_reference_rrg(reference, 1, "densenet121")
+    results = {}
+    for device in ("cpu", cuda):
+        model, dataset = AutoModel.from_pretrained(str(tmp_path), device=device)
+        for k, v in model.module.state_dict().items():
+            assert torch.equal(v.cpu(), want_state[k]), k
+        batch = dataset.inference(seq=["w1 w2", "w3"], image=images)
+        assert batch["images_u8"].dtype == torch.uint8
+        start = (crop_normalize.launches, fused_beam_cache_attention.launches,
+                 lm_head_blocked_stats.launches)
+        on = prepare_batch(to_device(batch, device), dataset)
+        tok = dataset.tokenizer
+        res = make_generate_fn([model], 4, 12, tok.cls_token_id, tok.sep_token_id,
+                               tok.pad_token_id)(model.encoder_inputs(on))
+        results[str(device)] = (res, (crop_normalize.launches - start[0],
+                                      fused_beam_cache_attention.launches - start[1],
+                                      lm_head_blocked_stats.launches - start[2]))
+    (cpu, _), (gpu, launched) = results["cpu"], results["cuda"]
+    assert torch.equal(cpu.sequences, gpu.sequences.cpu())
+    assert launched == (1, gpu.steps, gpu.steps)
+
+
+def _hf_dinov2_tensors(cfg, grid, gen):
+    """A DINOv2 state dict under HF ``Dinov2Model``'s names, random from
+    ``gen`` (LayerScale near 1, norms near identity)."""
+    d, p, f = cfg["hidden_size"], cfg["patch_size"], cfg["hidden_size"] * cfg["mlp_ratio"]
+
+    def rand(*shape, scale=0.05, base=0.0):
+        return base + scale * torch.randn(*shape, generator=gen)
+
+    sd = {"embeddings.cls_token": rand(1, 1, d), "embeddings.mask_token": rand(1, d),
+          "embeddings.position_embeddings": rand(1, 1 + grid * grid, d),
+          "embeddings.patch_embeddings.projection.weight": rand(d, 3, p, p),
+          "embeddings.patch_embeddings.projection.bias": rand(d),
+          "layernorm.weight": rand(d, base=1.0), "layernorm.bias": rand(d)}
+    for i in range(cfg["num_hidden_layers"]):
+        pre = f"encoder.layer.{i}."
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}{norm}.weight"], sd[f"{pre}{norm}.bias"] = rand(d, base=1.0), rand(d)
+        for name in ("attention.attention.query", "attention.attention.key",
+                     "attention.attention.value", "attention.output.dense"):
+            sd[f"{pre}{name}.weight"], sd[f"{pre}{name}.bias"] = rand(d, d), rand(d)
+        sd[f"{pre}mlp.fc1.weight"], sd[f"{pre}mlp.fc1.bias"] = rand(f, d), rand(f)
+        sd[f"{pre}mlp.fc2.weight"], sd[f"{pre}mlp.fc2.bias"] = rand(d, f), rand(d)
+        for scale in ("layer_scale1", "layer_scale2"):
+            sd[f"{pre}{scale}.lambda1"] = rand(d, base=1.0)
+    return sd
+
+
+def test_zoo_dinov2_tower_card_equals_cpu(cuda, tmp_path):
+    """A DINOv2 weight folder whose ``config.json`` has no ``image_size``
+    (a 16 x 16 grid) under a VisionLanguage config at 518²: the tower holds
+    the file's tensors, its positions re-gridded to 1370 tokens, on both
+    devices; its output on two images on the card (K4, once a layer) within
+    1e-4 of the largest of the CPU's, f32."""
+    import json
+
+    from vilmedic_torch.config.config import Config
+    from vilmedic_torch.executors.utils import create_model
+    from vilmedic_torch.zoo.convert_vision import convert_hf_dinov2
+
+    cfg = {"model_type": "dinov2", "hidden_size": 64, "num_hidden_layers": 2,
+           "num_attention_heads": 2, "patch_size": 14, "mlp_ratio": 4}
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    sd = _hf_dinov2_tensors(cfg, 16, torch.Generator().manual_seed(5))
+    torch.save(sd, tmp_path / "pytorch_model.bin")
+    want = convert_hf_dinov2(sd, target_tokens=1370)
+    decoder = dict(proto=None, hidden_size=64, num_hidden_layers=1, num_attention_heads=2,
+                   intermediate_size=128, max_position_embeddings=64)
+    config = Config({"model": {"proto": "VisionLanguage", "decoder": decoder,
+                               "vision": {"vision_model_name": str(tmp_path),
+                                          "image_size": 518}}})
+    images = torch.randn(2, 3, 518, 518, generator=torch.Generator().manual_seed(6))
+    outs = {}
+    for device in ("cpu", cuda):
+        model = create_model(config, device=device, vocab_size=30, bos_token_id=0,
+                             eos_token_id=1, pad_token_id=2)
+        tower = model.module.vision
+        for k, v in want.items():
+            assert torch.equal(tower.model.state_dict()[k].cpu(), v), k
+        start = flash_attention.launches
+        with torch.no_grad():
+            outs[str(device)] = tower(images.to(device)).cpu()
+        launched = flash_attention.launches - start
+    assert launched == cfg["num_hidden_layers"]
+    scale = outs["cpu"].abs().max().item()
+    assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-4 * scale

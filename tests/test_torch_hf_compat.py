@@ -6,7 +6,8 @@ against the JAX package on the CPU, float32.
   ``encoder-decoder`` files resolve to JAX's ViT and decoder fields (JAX
   goes through ``transformers.AutoConfig``), exactly; a dict section gives
   its ``proto_config_args``; a missing name raises JAX's offline text;
-  weights beside the config and a model type without class defaults raise;
+  weights beside the config resolve as without them, and a model type
+  without class defaults raises;
   both protos build on the card unless asked for the CPU.
 - ``RRG_HF`` (a 2-layer post-LN ViT of 32 projected to a 2-layer
   ``bert-generation`` decoder of 64, the tokenizer's ids injected), weights
@@ -149,9 +150,11 @@ def test_missing_name_raises_jax_offline_text(tmp_path, monkeypatch):
 
 
 def test_weights_and_unknown_model_types_raise(tmp_path):
-    folder = _write(tmp_path / "w", DEIT, weights="model.safetensors")
-    with pytest.raises(NotImplementedError, match="zoo"):
-        thf._resolve_hf_config(str(folder))
+    """Weights beside a config resolve as in JAX (the zoo loads them); a
+    model type without class defaults raises."""
+    folder = str(_write(tmp_path / "w", DEIT, weights="model.safetensors"))
+    assert _vision_fields(thf._resolve_hf_config(folder)) == _vision_fields(
+        jhf._resolve_hf_config(folder))
     folder = _write(tmp_path / "gpt2", {"model_type": "gpt2"})
     with pytest.raises(NotImplementedError, match="class defaults"):
         thf._resolve_hf_config(str(folder))

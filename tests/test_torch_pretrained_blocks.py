@@ -5,8 +5,9 @@ against the JAX package on the CPU, float32.
   fake HF hub cache under ``tmp_path`` (``HF_HUB_CACHE``) and a missing
   name build the same ``TransformerConfig`` fields as JAX's resolution
   through ``transformers.AutoConfig`` (exactly); the missing name logs
-  JAX's warning; weights beside a config raise; the port's table of model
-  class defaults equals ``transformers``' own.
+  JAX's warning; weights beside a config resolve as without them (the
+  zoo loads them); the port's table of model class defaults equals
+  ``transformers``' own.
 - The LM-head transform (dense, exact GELU, LayerNorm before the head) on a
   tiny RoBERTa-type decoder: teacher-forced logits, the blocked head and the
   blocked-stats head (the plain version of K2 here, JAX's Pallas kernel in
@@ -128,9 +129,12 @@ def test_resolve_block_missing_name_warns_like_jax(tmp_path, monkeypatch, caplog
 
 @pytest.mark.parametrize("weights", ["model.safetensors", "pytorch_model.bin"])
 def test_weights_beside_the_config_raise(tmp_path, weights):
+    """Weights beside a config no longer raise: the config resolves as in
+    JAX and the name comes back, so that the model records the block and
+    ``load_pretrained`` reads the weights (``tests/test_torch_zoo.py``)."""
     folder = _write(tmp_path / "model", ROBERTA, weights)
-    with pytest.raises(NotImplementedError, match="zoo"):
-        tbase.resolve_block({"proto": str(folder)})
+    got, want = _both({"proto": str(folder)})
+    assert got == want and got[1] == str(folder)
 
 
 @pytest.mark.parametrize("model_type", sorted(tbase.HF_CONFIG_DEFAULTS))

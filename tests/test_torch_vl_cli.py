@@ -219,7 +219,8 @@ def test_resolve_dinov2_directory_matches_autoconfig(tmp_path):
             "patch_size", "layer_norm_eps", "use_swiglu_ffn", "hidden_act", "image_size",
             "hidden_dropout_prob", "model_type")
     assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
-    # the tower takes those keys; weights beside the config raise (no zoo)
+    # the tower takes those keys; weights beside the config are recorded for
+    # base.load_pretrained (tests/test_torch_zoo.py loads them)
     from vilmedic_torch.models.vision_language import VisionLanguage
 
     decoder = dict(proto=None, hidden_size=48, num_hidden_layers=1, num_attention_heads=3,
@@ -230,9 +231,9 @@ def test_resolve_dinov2_directory_matches_autoconfig(tmp_path):
     assert tower.config.hidden_size == 48 and model.module.num_image_tokens == 37 * 37 + 1
     assert type(tower.layer_0.ffn).__name__ == "SwiGLUFFN"
     (tmp_path / "model.safetensors").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="zoo"):
-        VisionLanguage(decoder=decoder, vision={"vision_model_name": str(tmp_path)},
-                       vocab_size=30, device="cpu")
+    model = VisionLanguage(decoder=decoder, vision={"vision_model_name": str(tmp_path)},
+                           vocab_size=30, device="cpu")
+    assert model.pretrained_blocks == {"vision": (str(tmp_path), "dinov2")}
 
 
 def test_cli_training_and_validator_match_jax(runs):

@@ -171,18 +171,20 @@ def test_port_imports_no_jax():
 
 
 FORBIDDEN = ('transformers', 'tokenizers', 'huggingface_hub', 'safetensors', 'regex',
-             'sentencepiece', 'rouge_score', 'nltk', 'stanza', 'sklearn', 'PIL')
+             'sentencepiece', 'rouge_score', 'nltk', 'stanza', 'sklearn', 'PIL', 'msgpack',
+             'platformdirs')
 
 
 def test_port_imports_no_tokenizer_scorer_or_image_packages():
     """Every module of the port imports without transformers, tokenizers,
     huggingface_hub, safetensors, regex, sentencepiece, rouge_score, nltk,
-    stanza, scikit-learn or Pillow: the tokenizers (WordPiece, byte-level
-    BPE, ``tokenizer.json``), ROUGE, METEOR's stemmer, the classification
-    metrics, the clinical scorers, BERTScore's encoders (ModernBERT
-    included), the LLaMA judge, the weight readers and the hub-cache lookup
-    are the port's own, and Pillow is imported only inside
-    ``data.image.open_image``."""
+    stanza, scikit-learn, Pillow, msgpack or platformdirs: the tokenizers
+    (WordPiece, byte-level BPE, ``tokenizer.json``), ROUGE, METEOR's
+    stemmer, the classification metrics, the clinical scorers, BERTScore's
+    encoders (ModernBERT and RoBERTa included), the LLaMA judge, the weight
+    readers, the JAX checkpoints' msgpack decoder, the zoo's converters and
+    the hub-cache lookup are the port's own, and Pillow is imported only
+    inside ``data.image.open_image``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vilmedic_torch\n"
@@ -191,7 +193,11 @@ def test_port_imports_no_tokenizer_scorer_or_image_packages():
         "new = {'vilmedic_torch.data.bpe',\n"
         "       'vilmedic_torch.data.tokenizer_json', 'vilmedic_torch.data.auto_tokenizer',\n"
         "       'vilmedic_torch.scorers.modernbert', 'vilmedic_torch.scorers.green',\n"
-        "       'vilmedic_torch.blocks.llm.llama', 'vilmedic_torch.zoo.convert_llm'}\n"
+        "       'vilmedic_torch.blocks.llm.llama', 'vilmedic_torch.zoo.convert_llm',\n"
+        "       'vilmedic_torch.constants', 'vilmedic_torch.zoo.convert',\n"
+        "       'vilmedic_torch.zoo.convert_vision', 'vilmedic_torch.zoo.modeling_auto',\n"
+        "       'vilmedic_torch.bin.convert_checkpoint',\n"
+        "       'vilmedic_torch.data_tools.get_chexbert_label'}\n"
         "assert new <= set(names), new - set(names)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

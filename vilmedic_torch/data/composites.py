@@ -2,8 +2,9 @@
 ``ImLabel`` and ``ImSeqAny`` of ``data/composites.py``; the other
 composites wait for the models that read them). Each merges its children's
 items and collates and exposes the tokenizer or label-map attributes the
-models and the evaluation read; ``Seq2Seq`` and ``ImSeq2Seq`` also build a
-batch from raw inputs (``inference``, the JAX package's zoo API)."""
+models and the evaluation read; ``ImSeq``, ``Seq2Seq``, ``ImSeq2Seq`` and
+``ImLabel`` also build a batch from raw inputs (``inference``, the JAX
+package's zoo API: the children's batches merged, their sizes checked)."""
 
 from __future__ import annotations
 
@@ -62,6 +63,14 @@ class ImSeq:
             return {**seq_fn(batch), **image_fn(batch)}
 
         return collate_fn
+
+    def inference(self, seq=None, image=None):
+        batch = {}
+        if image is not None:
+            batch.update(self.image.inference(image))
+        if seq is not None:
+            batch.update(self.seq.inference(seq))
+        return _check_batch(batch)
 
     def __repr__(self):
         return "ImSeq\n" + str(self.seq) + "\n" + str(self.image)
@@ -199,6 +208,14 @@ class ImLabel:
             return {**image_fn(batch), **label_fn(batch)}
 
         return collate_fn
+
+    def inference(self, image=None, label=None):
+        batch = {}
+        if image is not None:
+            batch.update(self.image.inference(image))
+        if label is not None:
+            batch.update(self.label.inference(label))
+        return _check_batch(batch)
 
     def __repr__(self):
         return "ImLabel\n" + str(self.image) + "\n" + str(self.label)

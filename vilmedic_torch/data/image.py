@@ -35,6 +35,9 @@ image's values do not sum to 0 (so an all-zero real image is masked too, as
 in the JAX package). The uint8 collate keeps (B, crop, crop, 3), the
 kernel's input layout; it takes one image per sample (``device_preproc``
 with ``multi_image`` above 1 raises, as JAX asserts).
+
+``inference_only`` (the zoo's mode) reads no image list: the dataset keeps
+its transforms for :meth:`ImageDataset.inference`.
 """
 
 from __future__ import annotations
@@ -227,7 +230,9 @@ class ImageDataset:
     def __init__(self, root=None, file=None, split=None, image_path=None, resize=256, crop=224,
                  ext=".jpg", multi_image=None, called_by_ensemblor=None, device_preproc=False,
                  seed: int = 0, custom_transform_train=None, custom_transform_validate=None,
-                 hf_dataset=None, **kwargs):
+                 hf_dataset=None, inference_only: bool = False, **kwargs):
+        if inference_only:  # the zoo's mode: the transforms only, no data file
+            file, hf_dataset = None, None
         if split is None:
             raise ValueError("split cannot be None")
         if device_preproc and (multi_image or 0) > 1:

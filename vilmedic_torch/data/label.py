@@ -2,12 +2,14 @@
 
 The label vocabulary is built from the train split's ``{root}/train.{file}``
 and saved to ``ckpt_dir/labels.tok`` (kept if it exists); every split reads
-it back from there. A row's labels are comma
+it back from there, or from ``label_file`` when no data ``file`` is given.
+A row's labels are comma
 separated: a single-label vocabulary gives each row its index, a
 multi-label one a multi-hot f32 vector; a label absent from the vocabulary
 gives the ignore index -100. Batches are ``{"labels": (B,) int64 or (B, C)
-f32}`` CPU tensors. The JAX package's zoo options (``label_file``,
-``inference_only``) are not ported.
+f32}`` CPU tensors. ``inference_only`` (the zoo's mode) reads no data file
+and takes the vocabulary from ``label_file``, else ``ckpt_dir/labels.tok``,
+for :meth:`LabelDataset.inference`.
 """
 
 from __future__ import annotations
@@ -25,20 +27,27 @@ IGNORE_INDEX = -100
 
 @register("dataset")
 class LabelDataset:
-    def __init__(self, root=None, split=None, file=None, ckpt_dir=None, **kwargs):
-        if split is None or file is None:
-            raise ValueError("LabelDataset needs a split and a file")
+    def __init__(self, root=None, split=None, file=None, ckpt_dir=None, label_file=None,
+                 inference_only: bool = False, **kwargs):
+        if inference_only:  # the zoo's mode: the label map only
+            file = None
+            label_file = label_file or os.path.join(ckpt_dir, "labels.tok")
+        if split is None or (file is None and label_file is None):
+            raise ValueError("LabelDataset needs a split and a file or a label_file")
         self.root = root
         self.split = split
-        raw_labels = load_file(os.path.join(root, split + "." + file))
-        self.label_file = os.path.join(ckpt_dir, "labels.tok")
-        if split == "train" and not os.path.exists(self.label_file):
-            Labels(raw_labels).dump(self.label_file)
+        self.label_file = label_file
+        raw_labels = None
+        if file is not None:
+            raw_labels = load_file(os.path.join(root, split + "." + file))
+            self.label_file = os.path.join(ckpt_dir, "labels.tok")
+            if split == "train" and not os.path.exists(self.label_file):
+                Labels(raw_labels).dump(self.label_file)
         if not os.path.exists(self.label_file):
             raise FileNotFoundError(f"label file {self.label_file} does not exist: verify the "
                                     "path or start a training")
         self.labels_map = Labels().load(self.label_file)
-        self.labels = [self.get_processed_label(l) for l in raw_labels]
+        self.labels = [self.get_processed_label(l) for l in raw_labels or []]
 
     def get_processed_label(self, label: str):
         classes = label.split(",")
@@ -62,6 +71,11 @@ class LabelDataset:
             return {"labels": torch.from_numpy(np.stack([s["label"] for s in batch]))}
 
         return collate_fn
+
+    def inference(self, label):
+        """A batch from raw label strings (the JAX package's zoo API)."""
+        labels = label if isinstance(label, list) else [label]
+        return self.get_collate_fn()([{"label": self.get_processed_label(l)} for l in labels])
 
     def __repr__(self):
         return "LabelDataset\n" + json.dumps({"num_labels": len(self.labels_map),

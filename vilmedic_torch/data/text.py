@@ -12,7 +12,10 @@ split's file), as the JAX package's ``BertTokenizer`` over the same file.
 Special tokens are added on the target side only. Batches are padded to
 ``tokenizer_max_len`` (with truncation) when it is set, else to the longest
 row rounded up to a multiple of 8 with ``pad_token_id or 0``. HF datasets
-(``hf_dataset``) are not ported.
+(``hf_dataset``) are not ported. ``inference_only`` (the zoo's mode) reads
+no data file: the tokenizer, or the vocabulary ``ckpt_dir/vocab.{source}``
+a training wrote, and the cleaning are all it keeps, for
+:meth:`TextDataset.inference`.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ def make_sentences(root: str, split: str, file: str, processing) -> List[List[st
 class TextDataset:
     def __init__(self, root=None, file=None, split=None, ckpt_dir=None, processing=None,
                  tokenizer=None, tokenizer_max_len=None, vocab_file=None, source="src",
-                 hf_dataset=None, **kwargs):
+                 hf_dataset=None, inference_only: bool = False, **kwargs):
+        if inference_only:  # the zoo's mode: no data file
+            file, hf_dataset = None, None
         if source not in ("src", "tgt"):
             raise ValueError(f"source {source!r}: 'src' or 'tgt'")
         if split is None:

@@ -65,12 +65,15 @@ def create_model(config, dl=None, logger=None, state_dict=None, seed: int = 0, d
     """Instantiate ``config.model`` (its ``proto``) with random weights from
     ``seed`` on ``device`` (the card unless the caller names another), with
     the loader ``dl`` where the model reads its vocabulary from one; then
-    load a checkpoint's ``model`` state dict if ``state_dict`` holds one.
+    load a checkpoint's ``model`` state dict if ``state_dict`` holds one,
+    else lay the pretrained weights of the blocks a pretrained ``proto``
+    names over the init (``models.base.load_pretrained``).
     ``overrides`` stand in for what a tokenizer or HF config would supply
     (``vocab_size``, the special ids, ``vision_hf_config``)."""
     from ..models import (  # noqa: F401  (register the protos)
         hf_compat, mvqa, rrg, rrg_force, rrs, scst_models, selfsup, vision_language,
     )
+    from ..models.base import load_pretrained
 
     logger = logger or logging.getLogger(__name__)
     if dl is not None:
@@ -82,6 +85,7 @@ def create_model(config, dl=None, logger=None, state_dict=None, seed: int = 0, d
         model.module.load_state_dict(state_dict["model"], strict=True)
         logger.info("Model state loaded")
     else:
+        load_pretrained(model, logger)
         n_params = sum(p.numel() for p in model.module.parameters())
         logger.info(f"{model} [{n_params:,} params]")
     return model

@@ -65,6 +65,8 @@ HF_CONFIG_DEFAULTS = {
         initializer_range=0.02, layer_norm_eps=1e-6, image_size=224, patch_size=14,
         use_swiglu_ffn=False),
 }
+#: the model types whose positions start at ``padding_idx + 1``
+ROBERTA_TYPES = ("roberta", "camembert", "xlm-roberta")
 #: The weight files ``from_pretrained`` would load from beside a config.
 HF_WEIGHT_FILES = ("model.safetensors", "model.safetensors.index.json", "pytorch_model.bin",
                    "pytorch_model.bin.index.json")
@@ -116,9 +118,9 @@ def resolve_block(block_cfg):
     with the model class's defaults (:data:`HF_CONFIG_DEFAULTS`) under the
     file's keys and the explicit keys over both; the name comes back beside
     it. Without a local config the explicit keys are kept with JAX's
-    warning, and the name comes back as None. Pretrained weights beside the
-    config are not loaded: the zoo that converts them is not ported, so that
-    raises rather than train the block from random weights."""
+    warning, and the name comes back as None. Weights beside the config
+    are not read here: the model records the name, and
+    :func:`load_pretrained` lays them over its seeded init."""
     from ..config.config import Config
 
     if isinstance(block_cfg, Config):
@@ -132,22 +134,79 @@ def resolve_block(block_cfg):
         logging.getLogger(__name__).warning(
             f"Pretrained config {proto!r} not in local cache; using explicit keys/defaults")
         return block_cfg, None
-    hf = read_hf_config(folder, proto)
+    hf = read_hf_config(folder)
     resolved = {**HF_CONFIG_DEFAULTS.get(hf.get("model_type"), {}), **hf, **block_cfg}
     return resolved, proto
 
 
-def read_hf_config(folder: str, name: str) -> dict:
-    """``folder``'s ``config.json`` as a dict. Weights beside it raise: the
-    zoo that would load them is not ported, and a block trained from random
-    weights in their place would not be the named model."""
-    weights = [f for f in HF_WEIGHT_FILES if os.path.exists(os.path.join(folder, f))]
-    if weights:
-        raise NotImplementedError(
-            f"pretrained weights {weights} of {name!r}: loading HF weights needs the zoo "
-            "(zoo/convert.py), which is not ported")
+def read_hf_config(folder: str) -> dict:
+    """``folder``'s ``config.json`` as a dict."""
     with open(os.path.join(folder, "config.json")) as f:
         return json.load(f)
+
+
+def hf_weights(name: str):
+    """The state dict beside ``name``'s config (a directory or the hub
+    cache's snapshot; :data:`HF_WEIGHT_FILES`, read without
+    ``transformers``), or None without a config or weights."""
+    from ..zoo.convert_llm import read_weight_files
+
+    folder = local_hf_config_dir(name)
+    if folder is None or not any(os.path.exists(os.path.join(folder, f))
+                                 for f in HF_WEIGHT_FILES):
+        return None
+    return read_weight_files(folder)
+
+
+def load_pretrained(model, logger=None):
+    """Lay the pretrained weights of ``model.pretrained_blocks`` (block
+    prefix -> ``(name, kind)``, recorded by the constructor where the JAX
+    package records them) over the model's seeded init, as the JAX
+    package's ``TaskModel.load_pretrained``: ``causal`` through
+    ``zoo.convert.convert_hf_causal_lm``, ``encoder`` through
+    ``convert_hf_text_encoder``, ``vit`` / ``dinov2`` through
+    ``zoo.convert_vision`` into the block's tower (DINOv2's position grid
+    re-gridded to the tower's token count). A RoBERTa-family text block
+    (``model_type`` roberta, camembert, xlm-roberta) takes its positions
+    shifted by ``padding_idx + 1``, the encoder too: the JAX package loads an
+    encoder through ``AutoModel``, whose state dict has no ``roberta.``
+    prefix, and so leaves its positions unshifted (a defect the port does
+    not copy; ``tests/test_torch_zoo.py`` holds the port's encoder against
+    ``transformers``' ``RobertaModel``). Tensors the file lacks, such as
+    a causal LM's cross-attention, keep the seeded init; a shape that
+    differs keeps it with a warning (``overlay_params``). A name without
+    weights keeps the init with JAX's warning. Returns ``model``."""
+    from ..zoo.convert import convert_hf_causal_lm, convert_hf_text_encoder, overlay_params
+    from ..zoo.convert_vision import convert_hf_dinov2, convert_hf_vit
+
+    logger = logger or logging.getLogger(__name__)
+    blocks = getattr(model, "pretrained_blocks", None) or {}
+    if not blocks:
+        return model
+    state = model.module.state_dict()
+    for key, (name, kind) in blocks.items():
+        sd = hf_weights(name)
+        if sd is None:
+            logger.warning(f"Pretrained weights for {name!r} not in the local HF cache; "
+                           f"{key} keeps random init")
+            continue
+        if kind == "vit":
+            converted = {f"model.{k}": v for k, v in convert_hf_vit(sd).items()}
+        elif kind == "dinov2":
+            tokens = state[f"{key}.model.pos_embed"].shape[1]
+            converted = {f"model.{k}": v
+                         for k, v in convert_hf_dinov2(sd, target_tokens=tokens).items()}
+        else:
+            model_type = read_hf_config(local_hf_config_dir(name)).get("model_type")
+            offset = 2 if model_type in ROBERTA_TYPES else 0
+            convert = convert_hf_causal_lm if kind == "causal" else convert_hf_text_encoder
+            converted = convert(sd, position_offset=offset)
+        block = {k[len(key) + 1:]: v for k, v in state.items() if k.startswith(key + ".")}
+        block = overlay_params(block, converted, logger, key)
+        state.update({f"{key}.{k}": v for k, v in block.items()})
+        logger.info(f"Loaded pretrained {name} weights into {key!r}")
+    model.module.load_state_dict(state)
+    return model
 
 
 def loader_crop(dl):

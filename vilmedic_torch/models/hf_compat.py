@@ -27,7 +27,10 @@ their own ``model_type``'s defaults, as ``AutoConfig.to_dict()`` fills
 them. A dict section gives its ``proto_config_args`` alone (``proto_model``
 and ``proto_config`` are ignored, as in JAX). A name without a local config
 raises: the JAX package would go to the network there, and the port does
-not. Weights beside a config raise, as in ``resolve_block``.
+not. Weights beside a pretrained ``decoder`` name (causal LM) and a
+pretrained ``vit`` ``vision`` name are recorded in ``pretrained_blocks``
+and laid over the init by ``base.load_pretrained``, as the JAX package
+loads them; RRS_HF's names go through RRS's blocks.
 
 Mirrored on purpose: only a string ``vision`` name whose ``model_type`` is
 ``vit`` turns on the pre-LN tower (a dict section, a ``deit`` name and an
@@ -88,7 +91,7 @@ def _resolve_hf_config(name: str) -> Dict:
         raise RuntimeError(
             f"HF config {name!r} not in the local cache and VILMEDIC_OFFLINE "
             f"is set — pre-populate the cache or unset the env var.")
-    return _with_class_defaults(read_hf_config(folder, name), name)
+    return _with_class_defaults(read_hf_config(folder), name)
 
 
 def _config_args(section) -> Dict:
@@ -103,7 +106,8 @@ def _config_args(section) -> Dict:
 class RRG_HF(RRG):
     """RRG over the HF ``VisionEncoderDecoder`` surface (module doc): either
     ``encoderdecoder`` (a pretrained name) or both ``vision`` and
-    ``decoder``. Weights are random from ``seed``; the entry point builds on
+    ``decoder``. Weights are random from ``seed`` (pretrained names:
+    module doc); the entry point builds on
     ``device`` (the card unless the caller names another)."""
 
     def __init__(self, encoderdecoder=None, decoder=None, vision=None, dl=None,
@@ -113,13 +117,17 @@ class RRG_HF(RRG):
                              "should be provided.")
         device = resolve_device(device)
         compute_dtype = torch.bfloat16 if str(dtype) in ("bfloat16", "bf16") else torch.float32
+        pretrained = {}
         if encoderdecoder is not None:
             full = _resolve_hf_config(encoderdecoder)
             vision_args, decoder_args = dict(full["encoder"]), dict(full["decoder"])
         else:
             vision_args, decoder_args = _config_args(vision), _config_args(decoder)
+            if isinstance(decoder, str):
+                pretrained["dec"] = (decoder, "causal")
             if isinstance(vision, str) and vision_args.get("model_type") == "vit":
                 vision_args["pre_ln"] = True  # a pretrained HF ViT's residual structure
+                pretrained["enc"] = (vision, "vit")
         tok = {}
         if dl is not None:
             tokenizer = dl.dataset.tokenizer
@@ -134,6 +142,7 @@ class RRG_HF(RRG):
         self.module = RRGModule(enc, self.dec_config)
         init_rrg_weights_(self.module, torch.Generator().manual_seed(seed))
         self.module.to(device).eval()
+        self.pretrained_blocks = pretrained
         self.frozen_prefixes = ()
         self.eval_func = evaluation
 

@@ -65,7 +65,9 @@ class RRG:
     ``model:`` block. The vocabulary size comes from the data loader's
     tokenizer (``dl``), or from ``vocab_size`` without one; a CNN tower's
     stem from the loader's image channels. Weights are random
-    from ``seed`` unless a state dict is loaded after. ``cnn.freeze`` keeps
+    from ``seed`` unless a state dict is loaded after; a decoder named by a
+    pretrained ``proto`` is recorded in ``pretrained_blocks`` for
+    ``base.load_pretrained``. ``cnn.freeze`` keeps
     the backbone out of training (``frozen_prefixes``); the projection stays
     trainable. ``eval_func`` is :func:`~.evaluation_nlg.evaluation`."""
 
@@ -75,7 +77,9 @@ class RRG:
         compute_dtype = torch.bfloat16 if str(dtype) in ("bfloat16", "bf16") else torch.float32
         if dl is not None:
             vocab_size = dl.dataset.tokenizer.vocab_size
-        dec_args, _ = resolve_block(decoder)
+        dec_args, dec_pretrained = resolve_block(decoder)
+        # the decoder's pretrained weights, laid over the init by base.load_pretrained
+        self.pretrained_blocks = {"dec": (dec_pretrained, "causal")} if dec_pretrained else {}
         self.dec_config = TransformerConfig.from_dict(
             dec_args, **({"vocab_size": vocab_size} if vocab_size else {}), dtype=compute_dtype,
         )

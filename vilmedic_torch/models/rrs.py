@@ -75,7 +75,9 @@ class RRS:
     """Host-side task model around :class:`RRSModule`, from a config's
     ``model:`` block. The vocabulary sizes come from the loader's source
     and target tokenizers (``dl``), or from the blocks' ``vocab_size``
-    without one. Weights are random from ``seed``."""
+    without one. Weights are random from ``seed``; blocks named by a
+    pretrained ``proto`` are recorded in ``pretrained_blocks`` for
+    ``base.load_pretrained``."""
 
     def __init__(self, encoder, decoder, dl=None, dtype="float32", device="cuda", seed: int = 0,
                  **kwargs):
@@ -85,8 +87,14 @@ class RRS:
         if dl is not None:
             vocab = ({"vocab_size": dl.dataset.src.tokenizer.vocab_size},
                      {"vocab_size": dl.dataset.tgt.tokenizer.vocab_size})
-        enc_args, _ = resolve_block(encoder)
-        dec_args, _ = resolve_block(decoder)
+        enc_args, enc_pretrained = resolve_block(encoder)
+        dec_args, dec_pretrained = resolve_block(decoder)
+        # pretrained weights, laid over the init by base.load_pretrained
+        self.pretrained_blocks = {}
+        if enc_pretrained:
+            self.pretrained_blocks["enc"] = (enc_pretrained, "encoder")
+        if dec_pretrained:
+            self.pretrained_blocks["dec"] = (dec_pretrained, "causal")
         self.enc_config = TransformerConfig.from_dict(enc_args, **vocab[0], dtype=compute_dtype)
         self.dec_config = TransformerConfig.from_dict(dec_args, **vocab[1], dtype=compute_dtype)
         self.module = RRSModule(self.enc_config, self.dec_config)

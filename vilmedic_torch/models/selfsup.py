@@ -22,7 +22,9 @@ the mean loss over a split (the Validator's ``validation_loss``), with the
 embeddings when the Validator is not called from training (the ensemble
 CLI), as the JAX package's do. A pretrained ``encoder.proto`` resolves
 through :func:`~.base.resolve_block` (a local HF config, or JAX's warning
-and the explicit keys).
+and the explicit keys); weights beside that config are not loaded, as the
+JAX package builds these two from the config alone (no
+``pretrained_blocks``).
 """
 
 from __future__ import annotations

@@ -390,10 +390,12 @@ class VisionLanguage:
     (``hf_compat._resolve_hf_config``) and gives the tower's architecture
     (:data:`HF_DINOV2_KEYS` and ``image_size``, under the vision block's own
     keys); the prefix then drops the tower's CLS token. A name that does not
-    resolve raises the JAX package's offline error; weights beside the
-    config raise (the zoo is not ported); without weights the tower keeps
-    its random weights, with the JAX package's warning. ``vision_hf_config``
-    (a DINOv2 config dict) stands in for the lookup.
+    resolve raises the JAX package's offline error; the tower is recorded in
+    ``pretrained_blocks``, so that ``base.load_pretrained`` lays the weights
+    beside the config over its init, the position grid re-gridded to the
+    tower's token count (without weights the tower keeps its random
+    weights, with the JAX package's warning). ``vision_hf_config`` (a DINOv2
+    config dict) stands in for the lookup, and no weights are read then.
 
     With a loader ``dl`` the decoder's ``vocab_size`` and BOS / EOS / PAD
     are the tokenizer's vocabulary size and ``[CLS]`` / ``[SEP]`` /
@@ -409,7 +411,7 @@ class VisionLanguage:
     decay moves them."""
 
     def __init__(self, decoder=None, vision=None, vision_model_name: Optional[str] = None,
-                 dl=None, logger=None, from_training: bool = True, vision_hf_config=None,
+                 dl=None, from_training: bool = True, vision_hf_config=None,
                  dtype="float32", vocab_size: Optional[int] = None,
                  bos_token_id: Optional[int] = None, eos_token_id: Optional[int] = None,
                  pad_token_id: Optional[int] = None, device="cuda", seed: int = 0, **kwargs):
@@ -417,7 +419,7 @@ class VisionLanguage:
         from .hf_compat import _resolve_hf_config
 
         device = resolve_device(device)
-        logger = logger or logging.getLogger(__name__)
+        self.pretrained_blocks = {}
         compute_dtype = torch.bfloat16 if str(dtype) in ("bfloat16", "bf16") else torch.float32
         dec_args, _ = resolve_block(decoder)
         if isinstance(vision, str):
@@ -438,8 +440,7 @@ class VisionLanguage:
                     vision.setdefault(key, hf[key])
             vision.setdefault("image_size", hf.get("image_size", 518))
             if vision_hf_config is None:
-                logger.warning(f"Pretrained weights for {vision_model_name!r} not in the local "
-                               "HF cache; vision keeps random init")
+                self.pretrained_blocks = {"vision": (vision_model_name, "dinov2")}
             drop_cls_token = True
         ids = {}
         if dl is not None:

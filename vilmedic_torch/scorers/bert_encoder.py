@@ -9,9 +9,14 @@ dense + LayerNorm, ``intermediate`` dense + GELU, ``output`` dense +
 LayerNorm) or ``DistilBertModel`` (word and position embeddings; layers of
 ``q_lin`` / ``k_lin`` / ``v_lin`` / ``out_lin``, ``sa_layer_norm``,
 ``ffn.lin1`` / ``lin2``, ``output_layer_norm``, LayerNorm eps 1e-12), with
-HF's module names, so a checkpoint's state dict loads as it is. Its forward
-returns every hidden state, the embeddings' first, as HF's
-``output_hidden_states`` does. Padded keys get the float32 minimum added to
+HF's module names, so a checkpoint's state dict loads as it is. A RoBERTa
+(``RobertaModel``: BERT's modules under ``roberta.`` or no prefix, a
+one-row token-type table) takes HF's position ids, ``cumsum(mask) * mask +
+padding_idx`` with the mask ``input_ids != padding_idx``, in place of BERT's
+``arange``. Its forward returns every hidden state, the embeddings' first,
+as HF's ``output_hidden_states`` does; ``num_layers`` builds only the first
+layers, whose hidden states are the full model's (BERTScore reads one
+layer and needs none above it). Padded keys get the float32 minimum added to
 their scores, as HF's extended attention mask does. The activation is the
 exact GELU (both models' default); another activation or ``model_type``
 raises. ``token_type_ids`` give the segments (NLI's second sentence);
@@ -45,7 +50,7 @@ from torch import nn
 
 logger = logging.getLogger(__name__)
 
-SUPPORTED = ("bert", "distilbert")
+SUPPORTED = ("bert", "distilbert", "roberta")
 SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
     "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
@@ -200,22 +205,28 @@ class BertEncoder(nn.Module):
     """HF ``BertModel`` / ``DistilBertModel`` from a ``config.json`` dict
     (module doc); f32."""
 
-    def __init__(self, cfg: Dict, pooler: bool = False):
+    def __init__(self, cfg: Dict, pooler: bool = False, num_layers: Optional[int] = None):
         super().__init__()
         self.model_type = cfg.get("model_type")
         if self.model_type not in SUPPORTED:
             raise NotImplementedError(f"BERTScore encoder model_type {self.model_type!r}: "
                                       f"the port has {SUPPORTED}")
         distil = self.model_type == "distilbert"
+        roberta = self.model_type == "roberta"
+        # RoBERTa's position ids count from its padding id (HF's padding_idx)
+        self.padding_idx = int(cfg.get("pad_token_id", 1)) if roberta else None
         h = cfg["dim"] if distil else cfg["hidden_size"]
         self.embeddings = nn.Module()
         self.embeddings.word_embeddings = nn.Embedding(cfg["vocab_size"], h)
         self.embeddings.position_embeddings = nn.Embedding(cfg["max_position_embeddings"], h)
         if not distil:
-            self.embeddings.token_type_embeddings = nn.Embedding(cfg.get("type_vocab_size", 2), h)
-        eps = 1e-12 if distil else cfg.get("layer_norm_eps", 1e-12)
+            self.embeddings.token_type_embeddings = nn.Embedding(
+                cfg.get("type_vocab_size", 1 if roberta else 2), h)
+        eps = 1e-12 if distil else cfg.get("layer_norm_eps", 1e-5 if roberta else 1e-12)
         self.embeddings.LayerNorm = nn.LayerNorm(h, eps=eps)
         n = cfg["n_layers"] if distil else cfg["num_hidden_layers"]
+        if num_layers is not None and num_layers >= 0:
+            n = min(n, int(num_layers))
         stack = nn.Module()
         stack.layer = nn.ModuleList(
             (_DistilLayer if distil else _BertLayer)(cfg) for _ in range(n))
@@ -226,14 +237,15 @@ class BertEncoder(nn.Module):
             self.pooler.dense = nn.Linear(h, h)
 
     def load_hf_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
-        """Load a checkpoint's tensors: a ``bert.`` / ``distilbert.`` prefix
-        is dropped, ``gamma`` / ``beta`` read as LayerNorm ``weight`` /
-        ``bias``, heads and poolers are left out; every tensor of the
-        encoder must be there."""
+        """Load a checkpoint's tensors: a ``bert.`` / ``distilbert.`` /
+        ``roberta.`` prefix is dropped, ``gamma`` / ``beta`` read as
+        LayerNorm ``weight`` / ``bias``, heads, poolers and layers past the
+        built ones are left out; every tensor of the encoder must be
+        there."""
         own = self.state_dict()
         got = {}
         for key, value in state.items():
-            for prefix in ("bert.", "distilbert."):
+            for prefix in ("bert.", "distilbert.", "roberta."):
                 if key.startswith(prefix):
                     key = key[len(prefix):]
             key = key.replace("LayerNorm.gamma", "LayerNorm.weight").replace(
@@ -248,7 +260,11 @@ class BertEncoder(nn.Module):
     def forward(self, input_ids, attention_mask, token_type_ids=None) -> List[torch.Tensor]:
         """Every hidden state (the embeddings', then each layer's), (B, T, H)."""
         emb = self.embeddings
-        positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        if self.padding_idx is not None:
+            real = input_ids.ne(self.padding_idx).long()
+            positions = torch.cumsum(real, dim=1) * real + self.padding_idx
+        else:
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = emb.word_embeddings(input_ids) + emb.position_embeddings(positions)
         if hasattr(emb, "token_type_embeddings"):
             x = x + emb.token_type_embeddings(torch.zeros_like(input_ids) if token_type_ids is None

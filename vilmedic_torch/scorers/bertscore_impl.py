@@ -23,10 +23,11 @@ reimplements them (the reference: distilbert-base-uncased, ``num_layers=5``,
 Where the JAX package runs ``transformers`` on the CPU, the port runs its own
 encoder in f32 on the card unless the caller names another device, with
 weights read from ``model.safetensors`` or ``pytorch_model.bin``:
-:mod:`.bert_encoder` (BERT or DistilBERT) or, for ``model_type:
+:mod:`.bert_encoder` (BERT, DistilBERT or RoBERTa, built up to the layer
+read) or, for ``model_type:
 modernbert``, :mod:`.modernbert`, behind the directory's tokenizer as
 ``AutoTokenizer`` reads it (``data.auto_tokenizer``). Missing weights raise ``ScorerUnavailable``.
-The loaded encoder is kept per (model directory, device), so a Validator
+The loaded encoder is kept per (model directory, device, layer), so a Validator
 that scores every epoch reads its weights once.
 """
 
@@ -100,21 +101,23 @@ def compute_idf_dict(refs: List[str], tokenizer) -> Dict[int, float]:
     return idf
 
 
-def load_scorer(model_type: str, device):
+def load_scorer(model_type: str, device, layer: Optional[int] = None):
     """``(tokenizer, encoder on device)`` of a local model directory or a
-    name in the HF hub cache, loaded once per (directory, device);
-    ``ScorerUnavailable`` without its files."""
+    name in the HF hub cache, loaded once per (directory, device, layer);
+    ``ScorerUnavailable`` without its files. With ``layer`` a BERT-family
+    encoder is built and read up to that layer only (the hidden states up
+    to it are the full model's)."""
     from ..models.base import local_hf_config_dir, resolve_device
     from .clinical import _require
 
     folder = model_type if os.path.isdir(model_type) else local_hf_config_dir(model_type)
     _require(folder is not None and os.path.isfile(os.path.join(folder, "config.json")),
              "BertScore")
-    return _load_scorer(os.path.abspath(folder), str(resolve_device(device)))
+    return _load_scorer(os.path.abspath(folder), str(resolve_device(device)), layer)
 
 
 @functools.lru_cache(maxsize=4)
-def _load_scorer(folder: str, device: str):
+def _load_scorer(folder: str, device: str, layer: Optional[int] = None):
     from ..data.auto_tokenizer import AutoTokenizer
     from .bert_encoder import BertEncoder, load_weights
     from .clinical import _require
@@ -124,7 +127,10 @@ def _load_scorer(folder: str, device: str):
     _require(weights is not None, "BertScore")
     with open(os.path.join(folder, "config.json")) as f:
         cfg = json.load(f)
-    encoder = (ModernBertEncoder if cfg.get("model_type") == "modernbert" else BertEncoder)(cfg)
+    if cfg.get("model_type") == "modernbert":
+        encoder = ModernBertEncoder(cfg)
+    else:
+        encoder = BertEncoder(cfg, num_layers=layer)
     encoder.load_hf_state_dict(weights)
     return AutoTokenizer.from_pretrained(folder), encoder.to(device).eval()
 
@@ -135,10 +141,10 @@ def bert_score_prf(model_type: str, refs: List[str], hyps: List[str],
                    baselines: Optional[Tuple[float, float, float]] = None, device="cuda",
                    ) -> Tuple[List[float], List[float], List[float]]:
     """Per-pair (P, R, F1) lists (module doc)."""
-    tokenizer, encoder = load_scorer(model_type, device)
-    dev = next(encoder.parameters()).device
     if layer is None:
         layer = DEFAULT_LAYERS.get(model_type)
+    tokenizer, encoder = load_scorer(model_type, device, layer)
+    dev = next(encoder.parameters()).device
     idf_dict = compute_idf_dict(refs, tokenizer) if idf else None
     # an unseen token's idf: bert_score's defaultdict, log((N + 1) / 1)
     idf_default = math.log(len(refs) + 1) if idf else 1.0

@@ -35,7 +35,8 @@ def hf_to_port_name(key: str) -> str:
     return key
 
 
-def _load_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:
+def read_weight_files(model_dir: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a local HF checkpoint directory (module doc)."""
     from ..scorers.bert_encoder import read_safetensors
 
     index = os.path.join(model_dir, "model.safetensors.index.json")
@@ -65,7 +66,7 @@ def load_hf_llama(model_dir: str, dtype: Optional[torch.dtype] = None
     ``torch_dtype``, else the weights' own."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf_cfg = json.load(f)
-    state = {hf_to_port_name(k): v for k, v in _load_state_dict(model_dir).items()
+    state = {hf_to_port_name(k): v for k, v in read_weight_files(model_dir).items()
              if not k.endswith("rotary_emb.inv_freq")}
     if dtype is None:
         dtype = HF_DTYPES.get(hf_cfg.get("torch_dtype") or hf_cfg.get("dtype"))

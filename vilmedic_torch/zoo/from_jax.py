@@ -29,8 +29,10 @@ and the heads) map onto HF BERT names under ``bert.`` (``embeddings.ln`` ->
 modules keeping their checkpoints' names: CheXbert's ``head_{i}`` ->
 ``linear_heads.{i}``, NLI's ``pooler`` -> ``bert.pooler.dense``.
 
-A reference ``.pth`` state dict reaches the port through the JAX package's
-``convert_reference_rrg`` and then this function.
+A reference ``.pth`` state dict reaches the port through its own
+``zoo/convert.py::convert_reference_rrg``; a checkpoint the JAX package
+wrote through ``executors/checkpoint.load_checkpoint``, which reads its
+msgpack and calls the function here of the config's proto.
 
 The VisionLanguage serving routes with the int8 prefix and generated caches
 and with the fused prefix add no parameters: their scales are derived from
