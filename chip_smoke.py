@@ -208,6 +208,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     byte; BERTScore by the name ``roberta-large`` (its 17 read layers
     written), 32 pairs warm on the card, 4 pairs card vs CPU.
 
+21. runs the last modules of the port: ``dicom_serve`` writes 16 DICOM
+    files at a chest radiograph's size (3,056 x 2,544, 12 bits stored in 16;
+    explicit and implicit VR little endian, JPEG lossless SV1 and RLE;
+    MONOCHROME2, and MONOCHROME1 with a window) and serves them through the
+    zoo's ``AutoModel``-loaded flagship RRG (its config's image ``ext``
+    ``.dcm``, ``dataset.inference``, ``device_preproc``, beam 8, bf16): ms
+    per file decode for each syntax, reports/s with decode included, K3 /
+    K1 (a) / K2 launches, f32 beams of 2 card = CPU; ``dist_train`` runs the
+    train CLI in two subprocesses at once, one under torchrun's environment
+    for a world of 1 (NCCL) and one without, f32, 2 steps and the Validator
+    at beam 8, and requires equal losses, every checkpoint tensor equal and
+    rank 0's one checkpoint, then forces the multi-process BatchNorm moments
+    and gathered contrastive loss in the NCCL group and holds them against
+    the one-process paths; ``optimizers`` holds one f32 step of sgd,
+    rmsprop, adagrad, adadelta, adafactor, lamb and lion card vs CPU;
+    ``hf_dataset`` reads a ``save_to_disk`` dataset (``hf_local``, a dict
+    ``hf_filter``) through the flagship config's Validator. An early line
+    prints whether ``datasets``, ``pyarrow``, scikit-learn and matplotlib
+    are installed and the ``torch.distributed`` backends; the
+    ``plot_representation`` phase is left out, since the card's machine
+    has neither scikit-learn nor matplotlib.
+
+The f32 CPU halves of the VisionLanguage parities (7's three, 10's and
+11's) run in a helper process of this script (``--cpu-halves``, no card
+visible), started before the VisionLanguage slice (6), while the card
+runs the phases before them.
+
 Any failed check raises and the exit code is non-zero. The second-to-last
 line of output is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
@@ -216,6 +243,7 @@ repository's files, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import glob
@@ -1540,17 +1568,16 @@ def phase_kernels():
     print(f"build: {time.perf_counter() - t0:.1f} s ({cuda_lib.library_path().name})")
     set_tf32(False)
     results = {}
-    check_beam_cache_attention(results)
-    check_beam_cache_attention_stats(results)
-    check_beam_cache_attention_int8(results)
-    check_beam_cache_attention_prefix(results)
-    check_blocked_lm_head(results)
-    check_fused_lm_head(results)
-    check_fp8_probe(results)
-    check_crop_normalize(results)
-    check_flash_attention(results)
-    check_flash_attention_backward(results)
-    check_flash_wide(results)
+    seconds = {}
+    for check in (check_beam_cache_attention, check_beam_cache_attention_stats,
+                  check_beam_cache_attention_int8, check_beam_cache_attention_prefix,
+                  check_blocked_lm_head, check_fused_lm_head, check_fp8_probe,
+                  check_crop_normalize, check_flash_attention, check_flash_attention_backward,
+                  check_flash_wide):
+        t1 = time.perf_counter()
+        check(results)
+        seconds[check.__name__] = round(time.perf_counter() - t1, 1)
+    print(f"kernels phase seconds by check: {json.dumps(seconds)}")
     head_dims = flash_head_dims()
     for name in ("flash_attention", "flash_attention_with_lse", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
@@ -1996,11 +2023,18 @@ def build_vl(dtype: str, device: str, overrides=(), tower=None, vocab: int = VL_
 
 def vl_images(b: int, size: int, seed: int):
     """A batch of normalized float images (B, 3, size, size) in pinned host
-    memory, as an eval loader leaves it."""
+    memory, as an eval loader leaves it (unpinned where no card is
+    visible: the CPU-half helper)."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
-    return torch.randn(b, 3, size, size, generator=gen).pin_memory()
+    return pinned(torch.randn(b, 3, size, size, generator=gen))
+
+
+def pinned(x):
+    import torch
+
+    return x.pin_memory() if torch.cuda.is_available() else x
 
 
 def phase_vl_slice():
@@ -2077,24 +2111,114 @@ def phase_vl_slice():
     return launches
 
 
+# ------------------------------------------------ the f32 CPU halves, aside
+
+# The CPU halves of the four VisionLanguage parity phases below (f32, the
+# plain versions, at 12 + 12 layers, the route parities' LM at 4, the greedy /
+# small-vocab and train parities' LM at 12) take about 80 s of this host's
+# cores. A helper process (``python3 chip_smoke.py --cpu-halves FOLDER``,
+# no card visible, CPU_HELPER_THREADS threads) computes them in this order
+# while the card runs the phases before them; each phase builds the same
+# models from SEED for its card half and reads the helper's results.
+CPU_HALVES = ("vl_parity", "vl_routes_parity", "vl_greedy_small_vocab_parity",
+              "vl_train_parity")
+CPU_HELPER_THREADS = 4  # of the host's 8 cores: the rest stay with the card's phases
+CPU_HELPER = {}
+
+
+def timed_call(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def start_cpu_helper():
+    folder = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+    threads = str(CPU_HELPER_THREADS)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=threads,
+               MKL_NUM_THREADS=threads)
+    log = open(os.path.join(folder, "helper.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cpu-halves", folder],
+                            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    CPU_HELPER.update(proc=proc, folder=folder, log=log)
+    atexit.register(stop_cpu_helper)  # a failed phase ends the script before the last half
+
+
+def cpu_half(name: str):
+    """The helper's result ``name``, once it is written; fails if the helper
+    ended without it."""
+    import torch
+
+    folder, proc = CPU_HELPER["folder"], CPU_HELPER["proc"]
+    path = os.path.join(folder, f"{name}.pt")
+    while not os.path.exists(path):
+        if proc.poll() is not None and not os.path.exists(path):
+            with open(os.path.join(folder, "helper.log")) as f:
+                log = f.read()[-4000:]
+            fail(f"the CPU-half helper exited {proc.returncode} before {name}:\n{log}")
+        time.sleep(0.1)
+    out = torch.load(path, weights_only=False)
+    os.remove(path)
+    return out
+
+
+def stop_cpu_helper():
+    """End the helper (killed if a phase failed before its last half) and
+    remove its folder."""
+    import shutil
+
+    proc = CPU_HELPER.pop("proc", None)
+    if proc is None:
+        return
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    CPU_HELPER.pop("log").close()
+    shutil.rmtree(CPU_HELPER.pop("folder"), ignore_errors=True)
+
+
+def run_cpu_halves(folder: str):
+    """The helper's work: each CPU half in CPU_HALVES's order, saved to
+    ``folder/<name>.pt`` (written whole, then renamed)."""
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    import torch
+
+    torch.set_num_threads(CPU_HELPER_THREADS)
+    for name in CPU_HALVES:
+        out = globals()[f"cpu_{name}"]()
+        torch.save(out, os.path.join(folder, f"{name}.pt.part"))
+        os.replace(os.path.join(folder, f"{name}.pt.part"), os.path.join(folder, f"{name}.pt"))
+        print(f"{name} written", flush=True)
+
+
+def vl_parity_setup():
+    model, generate, sv = build_vl("float32", "cpu")
+    return model, generate, vl_images(2, sv["image"], SEED + 7)
+
+
+def cpu_vl_parity():
+    _, generate, images = vl_parity_setup()
+    return timed_call(generate, images)
+
+
 def phase_vl_parity():
     """f32, TF32 off, full width: the card (kernels) and the CPU (plain
-    versions) must choose the same beams."""
+    versions, the helper's ``cpu_vl_parity``) must choose the same
+    beams."""
     import torch
 
     set_tf32(False)
-    model, generate, sv = build_vl("float32", "cpu")
-    images = vl_images(2, sv["image"], SEED + 7)
-    t0 = time.perf_counter()
-    res_cpu = generate(images)
-    cpu_s = time.perf_counter() - t0
+    model, generate, images = vl_parity_setup()
+    res_cpu, cpu_s = cpu_half("vl_parity")
     model.module.to("cuda")
     res_gpu = generate(images.to("cuda"))
     torch.cuda.synchronize()
     diff = (res_gpu.scores.cpu() - res_cpu.scores).abs().max().item()
     same = torch.equal(res_gpu.sequences.cpu(), res_cpu.sequences)
     print(f"VL parity f32 batch 2 ({model.module.vision.model.config.num_hidden_layers} tower "
-          f"+ {model.dec_config.num_hidden_layers} LM layers, CPU half {cpu_s:.1f} s): sequences "
+          f"+ {model.dec_config.num_hidden_layers} LM layers, CPU half {cpu_s:.1f} s in the helper): "
+          f"sequences "
           f"{'equal' if same else 'DIFFER'} ({res_gpu.steps} vs {res_cpu.steps} steps), "
           f"max |score diff| {diff:.3e}")
     if not same:
@@ -2226,26 +2350,43 @@ def phase_vl_routes():
     return launches
 
 
-def phase_vl_routes_parity():
-    """f32, TF32 off, batch 2: the int8-cache and fused-prefix routes on the
-    card (stages c and d) and on the CPU (plain versions) must choose the same
-    beams. The LM at full width, cut to 4 layers, and the tower to 2, to bound
-    the CPU half's time. Each route's agreement with the merge route on the
-    card is reported beside it."""
-    import torch
-
+def vl_routes_setup():
     from vilmedic_torch.models.vision_language import make_vl_generate_fn
 
-    set_tf32(False)
     tower = dict(VL_TOWER, num_hidden_layers=2)
     model, generate_int8, sv = build_vl("float32", "cpu", [*INT8_SERVING, PARITY_LM_LAYERS],
                                         tower=tower)
     generates = {"int8": generate_int8, "fused": make_vl_generate_fn(
         model, sv["beam"], sv["max_len"], VL_BOS, VL_EOS, VL_PAD, fused_prefix=True)}
-    images = vl_images(2, sv["image"], SEED + 7)
-    t0 = time.perf_counter()
-    res_cpu = {name: generate(images) for name, generate in generates.items()}
-    cpu_s = time.perf_counter() - t0
+    return model, generates, sv, vl_images(2, sv["image"], SEED + 7), tower
+
+
+def vl_permute_setup(tower):
+    return build_vl("float32", "cpu", ["model.decoder.num_attention_heads=48",
+                                       PARITY_LM_LAYERS], tower=tower)
+
+
+def cpu_vl_routes_parity():
+    _, generates, _, images, tower = vl_routes_setup()
+    routes = timed_call(lambda: {name: generate(images) for name, generate in generates.items()})
+    _, generate, _ = vl_permute_setup(tower)
+    return routes, timed_call(generate, images)
+
+
+def phase_vl_routes_parity():
+    """f32, TF32 off, batch 2: the int8-cache and fused-prefix routes on the
+    card (stages c and d) and on the CPU (plain versions) must choose the same
+    beams. The LM at full width, cut to 4 layers, and the tower to 2, to bound
+    the CPU half's time (the helper's ``cpu_vl_routes_parity``). Each
+    route's agreement with the merge route on the card is reported beside
+    it."""
+    import torch
+
+    from vilmedic_torch.models.vision_language import make_vl_generate_fn
+
+    set_tf32(False)
+    model, generates, sv, images, tower = vl_routes_setup()
+    (res_cpu, cpu_s), permute_cpu = cpu_half("vl_routes_parity")
     model.module.to("cuda")
     merge = make_vl_generate_fn(model, sv["beam"], sv["max_len"], VL_BOS, VL_EOS,
                                 VL_PAD)(images.to("cuda")).sequences.cpu()
@@ -2258,7 +2399,7 @@ def phase_vl_routes_parity():
         agree = (res.sequences.cpu() == merge).all(dim=1).float().mean().item()
         print(f"VL {name} route parity f32 batch 2 ({tower['num_hidden_layers']} tower + "
               f"{model.dec_config.num_hidden_layers} LM layers, CPU half of both routes "
-              f"{cpu_s:.1f} s): sequences {'equal' if same else 'DIFFER'} ({res.steps} vs "
+              f"{cpu_s:.1f} s in the helper): sequences {'equal' if same else 'DIFFER'} ({res.steps} vs "
               f"{res_cpu[name].steps} steps), max |score diff| {diff:.3e}; {agree:.2f} of the "
               f"sequences equal to the f32 merge route's on the card (reported)")
         if not same:
@@ -2267,10 +2408,10 @@ def phase_vl_routes_parity():
         fail(f"VL f32 beam sequences differ between the card and the CPU on routes {bad}")
     del model, generates
     torch.cuda.empty_cache()
-    vl_permute_parity(tower, images)
+    vl_permute_parity(tower, images, *permute_cpu)
 
 
-def vl_permute_parity(tower, images):
+def vl_permute_parity(tower, images, res_cpu, cpu_s: float):
     """The permute route: the LM at full width (4 layers) with 48 heads of 16,
     a head dim the beam-cache kernel is not built for, so
     ``make_vl_generate_fn`` keeps the plain generated cache and beam search
@@ -2280,12 +2421,8 @@ def vl_permute_parity(tower, images):
 
     from vilmedic_torch.models.evaluation_nlg import kernel_route_ok
 
-    model, generate, sv = build_vl("float32", "cpu", ["model.decoder.num_attention_heads=48",
-                                                      PARITY_LM_LAYERS], tower=tower)
+    model, generate, sv = vl_permute_setup(tower)
     head_dim = model.dec_config.head_dim
-    t0 = time.perf_counter()
-    res_cpu = generate(images)
-    cpu_s = time.perf_counter() - t0
     model.module.to("cuda")
     reset_launches()
     res = generate(images.to("cuda"))
@@ -2295,8 +2432,9 @@ def vl_permute_parity(tower, images):
     diff = (res.scores.cpu() - res_cpu.scores).abs().max().item()
     print(f"VL permute route parity f32 batch 2 (head dim {head_dim}, "
           f"{tower['num_hidden_layers']} tower + {model.dec_config.num_hidden_layers} LM layers, "
-          f"CPU half {cpu_s:.1f} s): sequences {'equal' if same else 'DIFFER'} ({res.steps} vs "
-          f"{res_cpu.steps} steps), max |score diff| {diff:.3e}; launches {launches}")
+          f"CPU half {cpu_s:.1f} s in the helper): sequences {'equal' if same else 'DIFFER'} "
+          f"({res.steps} vs {res_cpu.steps} steps), max |score diff| {diff:.3e}; launches "
+          f"{launches}")
     require({
         "head dim 16 takes the permute route": not kernel_route_ok([model], sv["beam"]),
         "sequences equal card vs CPU": same,
@@ -2348,7 +2486,7 @@ def vl_train_batches(n: int, b: int, size: int, seed: int):
         mask = (pos < lengths[:, None]).long()
         ids = torch.where(mask.bool(), ids, VL_PAD)
         images = torch.randn(b, 3, size, size, generator=gen)
-        batches.append({"images": images.pin_memory(), "input_ids": ids,
+        batches.append({"images": pinned(images), "input_ids": ids,
                         "attention_mask": mask})
     return batches
 
@@ -2510,42 +2648,57 @@ def phase_vl_train_sanity():
     torch.cuda.empty_cache()
 
 
+VL_TRAIN_PARITY_LR = 5e-5  # the config's
+
+
+def vl_train_parity_step(device: str, state=None):
+    """The train parity's step on ``device``: one microbatch's gradients and
+    one AdamW update of the f32 model, dropout off (the two devices draw
+    other masks), the tower cut to 2 layers, from ``state`` (None: the
+    model's own initial weights). Returns the loss, the gradients and the
+    parameters after the update (on the host), the step's seconds, the
+    initial state and the LM's layers."""
+    overrides = ["model.dtype=float32", "model.decoder.hidden_dropout_prob=0.0",
+                 "model.decoder.attention_probs_dropout_prob=0.0"]
+    batch = vl_train_batches(1, 2, 518, SEED + 13)[0]
+    trainer = vl_trainor(overrides, device, tower=dict(VL_TOWER, num_hidden_layers=2),
+                         batches=[batch])
+    if state is None:
+        state = {k: v.clone() for k, v in trainer.model.module.state_dict().items()}
+    else:
+        trainer.model.module.load_state_dict(state)
+    t0 = time.perf_counter()
+    loss = trainer.grad_step(to_device(batch, device))
+    grads = {n: p.grad.detach().cpu().clone() for n, p in zip(trainer.tx.names,
+                                                               trainer.tx.params)}
+    trainer.apply_step(VL_TRAIN_PARITY_LR, loss)
+    params = {n: p.detach().cpu().clone() for n, p in zip(trainer.tx.names, trainer.tx.params)}
+    return (float(loss), grads, params, time.perf_counter() - t0, state,
+            trainer.model.dec_config.num_hidden_layers)
+
+
+def cpu_vl_train_parity():
+    return vl_train_parity_step("cpu")
+
+
 def phase_vl_train_parity():
     """f32, TF32 off, batch 2: one microbatch's gradients and one AdamW
-    update on the card (kernels) and on the CPU (plain versions), from the
-    same weights; the LM at full depth and width, the tower cut to 2 layers
-    to bound the CPU half's time, dropout off (the two devices draw other
-    masks)."""
+    update on the card (kernels) and on the CPU (plain versions, the
+    helper's ``cpu_vl_train_parity``), from the same weights; the LM at full
+    depth and width, the tower cut to 2 layers to bound the CPU half's time
+    (``vl_train_parity_step``)."""
     import torch
 
     set_tf32(False)
-    overrides = ["model.dtype=float32", "model.decoder.hidden_dropout_prob=0.0",
-                 "model.decoder.attention_probs_dropout_prob=0.0"]
     tower = dict(VL_TOWER, num_hidden_layers=2)
-    batch = vl_train_batches(1, 2, 518, SEED + 13)[0]
-    lr = 5e-5  # the config's
+    lr = VL_TRAIN_PARITY_LR
     # f32 sums in another order through 12 layers at T 1470; relative to each
     # tensor's largest gradient entry. A key-projection bias has an exactly 0
     # gradient (softmax is shift-invariant per row): held against its weight's
     tol = 1e-3
-    got = {}
-    state = None
-    for device in ("cpu", "cuda"):
-        trainer = vl_trainor(overrides, device, tower=tower, batches=[batch])
-        if state is None:
-            state = {k: v.clone() for k, v in trainer.model.module.state_dict().items()}
-        else:
-            trainer.model.module.load_state_dict(state)
-        t0 = time.perf_counter()
-        loss = trainer.grad_step(to_device(batch, device))
-        grads = {n: p.grad.detach().cpu().clone() for n, p in zip(trainer.tx.names,
-                                                                   trainer.tx.params)}
-        trainer.apply_step(lr, loss)
-        params = {n: p.detach().cpu().clone() for n, p in zip(trainer.tx.names, trainer.tx.params)}
-        got[device] = (float(loss), grads, params, time.perf_counter() - t0)
-        lm_layers = trainer.model.dec_config.num_hidden_layers
-        del trainer
-    (l_cpu, g_cpu, p_cpu, s_cpu), (l_gpu, g_gpu, p_gpu, _) = got["cpu"], got["cuda"]
+    l_cpu, g_cpu, p_cpu, s_cpu, state, _ = cpu_half("vl_train_parity")
+    l_gpu, g_gpu, p_gpu, _, _, lm_layers = vl_train_parity_step("cuda", state)
+    del state
     worst_rel, worst_name, bad = 0.0, "", []
     for name, want in g_cpu.items():
         ref = name[:-len("bias")] + "weight" if name.endswith("self_attn.k.bias") else name
@@ -2556,7 +2709,7 @@ def phase_vl_train_parity():
             bad.append(name)
     step_err = max((p_gpu[n] - p_cpu[n]).abs().max().item() for n in p_cpu)
     print(f"VL train parity f32 batch 2 ({tower['num_hidden_layers']} "
-          f"tower + {lm_layers} LM layers, CPU half {s_cpu:.1f} s): loss {l_gpu:.6f} card vs {l_cpu:.6f} "
+          f"tower + {lm_layers} LM layers, CPU half {s_cpu:.1f} s in the helper): loss {l_gpu:.6f} card vs {l_cpu:.6f} "
           f"CPU; {len(g_cpu)} gradients, worst relative error {worst_rel:.3e} ({worst_name}, tol "
           f"{tol:.0e}); params after one AdamW step at lr {lr:g}: max |diff| {step_err:.3e} (tol "
           f"{2 * lr:.0e})")
@@ -2643,25 +2796,40 @@ def phase_vl_greedy_small_vocab():
     return launches
 
 
+GREEDY_SMALL_ROUTES = (("greedy", VL_VOCAB, (VL_BOS, VL_EOS, VL_PAD), 1),
+                       ("small_vocab", SMALL_VOCAB, SMALL_IDS, BEAM))
+
+
+def vl_greedy_small_setup(route: str, tower):
+    from vilmedic_torch.models.vision_language import make_vl_generate_fn
+
+    _, vocab, ids, beam = next(r for r in GREEDY_SMALL_ROUTES if r[0] == route)
+    model, _, sv = build_vl("float32", "cpu", tower=tower, vocab=vocab, ids=ids)
+    return model, make_vl_generate_fn(model, beam, sv["max_len"], *ids)
+
+
+def cpu_vl_greedy_small_vocab_parity():
+    tower = dict(VL_TOWER, num_hidden_layers=2)
+    images = vl_images(2, 518, SEED + 7)
+    return {name: timed_call(vl_greedy_small_setup(name, tower)[1], images)
+            for name, *_ in GREEDY_SMALL_ROUTES}
+
+
 def phase_vl_greedy_small_vocab_parity():
     """f32, TF32 off, batch 2, the tower cut to 2 layers as in the other VL
     route parities: greedy and small-vocab sequences on the card (K1 on the
-    small-vocab route) equal the CPU's (plain versions)."""
+    small-vocab route) equal the CPU's (plain versions, the helper's
+    ``cpu_vl_greedy_small_vocab_parity``)."""
     import torch
-
-    from vilmedic_torch.models.vision_language import make_vl_generate_fn
 
     set_tf32(False)
     tower = dict(VL_TOWER, num_hidden_layers=2)
     images = vl_images(2, 518, SEED + 7)
+    cpu = cpu_half("vl_greedy_small_vocab_parity")
     bad = []
-    for name, vocab, ids, beam in (("greedy", VL_VOCAB, (VL_BOS, VL_EOS, VL_PAD), 1),
-                                   ("small_vocab", SMALL_VOCAB, SMALL_IDS, BEAM)):
-        model, _, sv = build_vl("float32", "cpu", tower=tower, vocab=vocab, ids=ids)
-        generate = make_vl_generate_fn(model, beam, sv["max_len"], *ids)
-        t0 = time.perf_counter()
-        res_cpu = generate(images)
-        cpu_s = time.perf_counter() - t0
+    for name, _, _, beam in GREEDY_SMALL_ROUTES:
+        model, generate = vl_greedy_small_setup(name, tower)
+        res_cpu, cpu_s = cpu[name]
         model.module.to("cuda")
         reset_launches()
         res = generate(images.to("cuda"))
@@ -2669,7 +2837,8 @@ def phase_vl_greedy_small_vocab_parity():
         k1 = read_launches()["fused_beam_cache_attention"]
         same = torch.equal(res.sequences.cpu(), res_cpu.sequences)
         print(f"VL {name} route parity f32 batch 2 ({tower['num_hidden_layers']} tower + "
-              f"{model.dec_config.num_hidden_layers} LM layers, CPU half {cpu_s:.1f} s): "
+              f"{model.dec_config.num_hidden_layers} LM layers, CPU half {cpu_s:.1f} s in the "
+              f"helper): "
               f"sequences {'equal' if same else 'DIFFER'} ({res.steps} vs {res_cpu.steps} "
               f"steps), beam attention launches {k1}")
         if not same or (k1 == 0) != (beam == 1):
@@ -6866,6 +7035,448 @@ def phase_zoo(tmp: str, hub: str, card: str):
     return launches
 
 
+DICOM_FILES = 16  # the serving batch of dicom_serve
+DICOM_ROWS, DICOM_COLS = 3056, 2544  # a chest radiograph's pixels, 12 bits stored in 16
+# the syntaxes' names in vilmedic_torch.data.dicom
+DICOM_SYNTAXES = (("explicit LE", "EXPLICIT_LE"), ("implicit LE", "IMPLICIT_LE"),
+                  ("JPEG lossless SV1", "JPEG_LOSSLESS_70"), ("RLE", "RLE_LOSSLESS"))
+
+
+def dicom_pixels(i: int):
+    """Image ``i`` of dicom_serve: a smooth 12-bit field and noise from the
+    seed, (DICOM_ROWS, DICOM_COLS) uint16."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 200 + i)
+    yy = np.arange(DICOM_ROWS, dtype=np.float32)[:, None]
+    xx = np.arange(DICOM_COLS, dtype=np.float32)[None, :]
+    fy, fx, phase = rng.uniform(80, 400), rng.uniform(80, 400), rng.uniform(0, 6.28)
+    field = 2048 + 1500 * np.sin(yy / fy + phase) * np.cos(xx / fx)
+    noise = rng.integers(0, 48, (DICOM_ROWS, DICOM_COLS))
+    return np.clip(field + noise, 0, 4095).astype(np.uint16)
+
+
+def write_dicom_files(folder: str):
+    """DICOM_FILES Part-10 files, file i in syntax i % 4, MONOCHROME2
+    plain for i // 4 even and MONOCHROME1 windowed for odd; written in
+    threads. Returns their paths and the seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vilmedic_torch.data import dicom
+    from vilmedic_torch.data.dicom_writer import write_dicom
+
+    os.makedirs(folder, exist_ok=True)
+    paths = [os.path.join(folder, f"cxr{i}.dcm") for i in range(DICOM_FILES)]
+
+    def write(i):
+        mono1 = (i // 4) % 2 == 1
+        write_dicom(paths[i], dicom_pixels(i), getattr(dicom, DICOM_SYNTAXES[i % 4][1]),
+                    photometric="MONOCHROME1" if mono1 else "MONOCHROME2",
+                    window=(2100, 2600) if mono1 else None)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(DICOM_FILES)))
+    return paths, time.perf_counter() - t0
+
+
+def checkpoint_with_ext(src: str, dst: str, ext: str) -> str:
+    """A copy of the run directory ``src`` (its one checkpoint and
+    ``vocab.tgt``) at ``dst``, the checkpoint's saved config reading images
+    of extension ``ext``."""
+    import shutil
+
+    from vilmedic_torch.executors.checkpoint import load_checkpoint, save_checkpoint
+
+    os.makedirs(dst)
+    shutil.copy(os.path.join(src, "vocab.tgt"), dst)
+    ckpt = glob.glob(os.path.join(src, "*.ckpt"))[0]
+    state = load_checkpoint(ckpt)
+    state["config"]["dataset"]["image"]["ext"] = ext
+    save_checkpoint(os.path.join(dst, os.path.basename(ckpt)), state)
+    return dst
+
+
+def phase_dicom_serve(tmp: str, card: str):
+    """DICOM input on the serving path (``dicom_serve``): DICOM_FILES files
+    at a chest radiograph's size (``write_dicom_files``: explicit LE,
+    implicit LE, JPEG lossless SV1 and RLE, MONOCHROME2 and windowed
+    MONOCHROME1) through the zoo's flagship RRG (``zoo_rrg``'s checkpoint,
+    its saved config's image ``ext`` set to ``.dcm``; ``AutoModel`` on the
+    card, bf16), ``dataset.inference`` and ``device_preproc``: ms per file
+    decode for each syntax (``dicom_to_uint8``, a MONOCHROME2 and a
+    MONOCHROME1 file each), reports/s of one batch with
+    decode included, the launches of K3, K1 (a) and K2, and f32 beams of 2
+    card vs CPU."""
+    import numpy as np
+    import torch
+
+    from vilmedic_torch.data.dicom import dicom_to_uint8
+    from vilmedic_torch.data.image import prepare_batch
+    from vilmedic_torch.models.base import get_special_token_ids
+    from vilmedic_torch.models.evaluation_nlg import make_generate_fn, to_device
+    from vilmedic_torch.zoo import AutoModel
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "dicom")
+    paths, write_s = write_dicom_files(os.path.join(root, "files"))
+    zoo = os.path.join(tmp, "zoo")
+    bf16_dir = checkpoint_with_ext(os.path.join(zoo, "rrg_mimic"), os.path.join(root, "rrg"),
+                                   ".dcm")
+    f32_dir = checkpoint_with_ext(os.path.join(zoo, "rrg_mimic_f32"),
+                                  os.path.join(root, "rrg_f32"), ".dcm")
+    decode_ms, decoded = {}, []
+    for s, (label, _) in enumerate(DICOM_SYNTAXES):
+        t1 = time.perf_counter()
+        decoded += [dicom_to_uint8(paths[i]) for i in (s, s + 4)]  # MONOCHROME2, MONOCHROME1
+        decode_ms[label] = (time.perf_counter() - t1) / 2 * 1e3
+    finite = all(im.dtype == np.uint8 and im.shape == (DICOM_ROWS, DICOM_COLS)
+                 and im.max() == 255 for im in decoded)
+    seqs = [" ".join(f"w{(5 * i + j) % 997}" for j in range(6)) for i in range(DICOM_FILES)]
+
+    model, dataset = AutoModel.from_pretrained(bf16_dir, device="cuda")
+    bos, eos, pad = get_special_token_ids(model.dec_config, dataset.tokenizer)
+    max_len = int(dataset.tokenizer_max_len)
+    layers = model.dec_config.num_hidden_layers
+
+    def serve(m, ds, n, device):
+        batch = ds.inference(seq=seqs[:n], image=paths[:n])
+        on = prepare_batch(to_device(batch, device), ds)
+        return make_generate_fn([m], BEAM, max_len, bos, eos, pad, length_penalty=1.0)(
+            m.encoder_inputs(on))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    res = serve(model, dataset, DICOM_FILES, "cuda")
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t1
+    launches = read_launches()
+    del model
+    torch.cuda.empty_cache()
+
+    set_tf32(False)
+    beams = {}
+    for device in PARITY_DEVICES:
+        m, ds = AutoModel.from_pretrained(f32_dir, device=device)
+        beams[device] = serve(m, ds, 2, device).sequences.cpu()
+        del m
+    torch.cuda.empty_cache()
+    seq = res.sequences
+    print(f"dicom_serve ({card}): {DICOM_FILES} files of {DICOM_COLS} x {DICOM_ROWS} (12 bits "
+          f"in 16) written in {write_s:.1f} s; dicom_to_uint8 ms per file "
+          + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+          + f"; dataset.inference + beam {BEAM}, bf16: {res.steps} steps, "
+          f"{DICOM_FILES / batch_s:.2f} reports/s ({batch_s * 1e3:.1f} ms a batch, DICOM decode "
+          f"and resize included); launches K3 {launches['crop_normalize']}, K1 (a) "
+          f"{launches['fused_beam_cache_attention']}, K2 {launches['lm_head_blocked_stats']}; "
+          f"f32 beams of 2 card vs CPU "
+          f"{'equal' if torch.equal(beams['cpu'], beams['cuda']) else 'DIFFER'}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    checks = {
+        "decoded uint8 at full size, windowed to 255": finite,
+        "sequences (16, max_len) from BOS": tuple(seq.shape) == (DICOM_FILES, max_len)
+        and bool((seq[:, 0] == bos).all()),
+        "finite scores": bool(torch.isfinite(res.scores).all()),
+        "K3 once on the uint8 batch": launches["crop_normalize"] == 1,
+        "K1 (a) = layers x steps": launches["fused_beam_cache_attention"] == layers * res.steps
+        and launches["fused_beam_cache_attention.launches_stats"] == 0,
+        "K2 = steps": launches["lm_head_blocked_stats"] == res.steps > 0,
+        "f32 beams card = CPU": torch.equal(beams["cpu"], beams["cuda"]),
+    }
+    require(checks, "dicom_serve")
+    return launches
+
+
+# relative tolerances of global_path_errors: BatchNorm's E[x²] - E[x]² moments
+# against F.batch_norm's two-pass ones in f32 over 100,352 values a channel;
+# the gathered GLoRIA loss runs the same arithmetic on copied rows
+GLOBAL_PATH_TOL = {"batchnorm": 1e-4, "gloria": 1e-6}
+
+
+def global_path_errors(device: str = "cuda") -> dict:
+    """Under a process group of any size (``dist_train`` runs it in its NCCL
+    group of 1, whose training forward takes the one-process paths), the
+    multi-process paths forced and held against the one-process ones on
+    the same f32 inputs: BatchNorm's moments through the differentiable
+    all-reduce (``BatchNorm._global_forward``) against ``F.batch_norm`` at
+    DenseNet-169's first norm for a batch of 8 at crop 224, (8, 64, 112,
+    112); GLoRIA's loss over the gathered rows (``mesh.gathered_loss``: the
+    differentiable all-gather and the padded token axes) against the loss
+    itself. Returns each output's and gradient's max abs error over the
+    reference's max abs."""
+    import torch
+
+    from vilmedic_torch.blocks.losses import GLoRIALoss
+    from vilmedic_torch.blocks.vision.densenet import BatchNorm
+    from vilmedic_torch.parallel import mesh
+
+    gen = torch.Generator().manual_seed(SEED + 400)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    bn = BatchNorm(64, torch.float32).to(device)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(64, generator=gen) + 0.5)
+        bn.bias.copy_(torch.randn(64, generator=gen))
+    x0 = (torch.randn(8, 64, 112, 112, generator=gen) * 1.7 + 0.4).to(device)
+    dy = torch.randn(x0.shape, generator=gen).to(device)
+    bn_out = {}
+    for route in ("plain", "global"):
+        x = x0.clone().requires_grad_(True)
+        bn.zero_grad(set_to_none=True)
+        with mesh.global_batch():
+            y = bn._global_forward(x) if route == "global" else bn._train_forward(x)
+        y.backward(dy)
+        bn_out[route] = (y.detach(), x.grad, bn.weight.grad, bn.bias.grad, *bn.pending_stats)
+        bn.pending_stats = None
+    errs = {f"batchnorm {k}": rel(a, b) for k, a, b in zip(
+        ("y", "dx", "dweight", "dbias", "mean", "var"), bn_out["global"], bn_out["plain"])}
+
+    loss_fn = GLoRIALoss()
+    b, d, s, t = 8, 16, 49, 12
+    inputs = [torch.randn(shape, generator=gen).to(device)
+              for shape in ((b, d), (b, s, d), (b, t, d), (b, d))]
+    mask = (torch.arange(t)[None] < torch.randint(3, t + 1, (b, 1), generator=gen)).float()
+    mask = mask.to(device)
+    gl_out = {}
+    for route in ("plain", "global"):
+        g, local, words, sent = (x.clone().requires_grad_(True) for x in inputs)
+        with mesh.global_batch():
+            if route == "global":
+                loss = mesh.gathered_loss(loss_fn, g, local, (words, 1.0), sent, (mask, 0.0))
+            else:
+                loss = loss_fn(g, local, words, sent, mask)
+        loss.backward()
+        gl_out[route] = (loss.detach(), g.grad, local.grad, words.grad, sent.grad)
+    errs.update({f"gloria {k}": rel(a, b) for k, a, b in zip(
+        ("loss", "dglobal", "dlocal", "dwords", "dsent"), gl_out["global"], gl_out["plain"])})
+    return errs
+
+
+DIST_WORKER = r'''
+import json, sys
+import torch
+import chip_smoke as c
+from vilmedic_torch.bin.train import main
+from vilmedic_torch.ops import cuda_lib
+from vilmedic_torch.parallel import mesh
+
+c.set_tf32(False)
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+cuda_lib.lib()
+c.reset_launches()
+trainor = main(sys.argv[1:])
+torch.cuda.synchronize()
+launches = c.read_launches()
+print("RESULT " + json.dumps({
+    "group": mesh.initialized(), "world": mesh.process_count(), "rank": mesh.process_index(),
+    "backend": torch.distributed.get_backend() if mesh.initialized() else None,
+    "losses": trainor.epoch_losses, "launches": launches,
+    "scores": trainor.evaluator.scores[-1],
+    "global_path": c.global_path_errors() if mesh.initialized() else None},
+    default=float), flush=True)
+mesh.destroy()
+'''
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist_train(tmp: str, card: str):
+    """The train CLI under a process group (``dist_train``): the flagship
+    config in f32 on 16 + 8 reports of the ``rrg_train`` corpus (its
+    5,000-word vocabulary, so the Validator takes K2), batch 8, one epoch
+    (2 steps) and the Validator at beam 8, run in a subprocess under
+    torchrun's environment for a world of 1 (NCCL) and, at the same time, in
+    another without it; cuDNN deterministic. Requires equal losses, every
+    checkpoint tensor equal, one checkpoint each (rank 0's), and K3, K1 (a)
+    and K2 launched in the NCCL run. The NCCL run then forces the
+    multi-process BatchNorm and contrastive-loss paths, which a group of 1
+    skips, and holds them against the one-process ones
+    (``global_path_errors``)."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    src, data = os.path.join(tmp, "rrg_data"), os.path.join(tmp, "dist_data")
+    os.makedirs(data)
+    for split, n in (("train", 16), ("validate", 8)):
+        for kind in ("image", "impression"):
+            with open(os.path.join(src, f"{split}.{kind}.tok")) as f:
+                lines = f.read().split("\n")[:n]
+            with open(os.path.join(data, f"{split}.{kind}.tok"), "w") as f:
+                f.write("\n".join(lines))
+    procs, runs = {}, {}
+    for name, group in (("dist_nccl", True), ("dist_plain", False)):
+        os.makedirs(os.path.join(tmp, name))
+        shutil.copy(os.path.join(tmp, "rrg_train", "vocab.tgt"), os.path.join(tmp, name))
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(key, None)
+        if group:
+            env.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(free_port()))
+        argv = rrg_train_overrides(data, tmp, name, "cuda") + [
+            "model.dtype=float32", "trainor.batch_size=8", "validator.batch_size=8"]
+        procs[name] = subprocess.Popen([sys.executable, "-c", DIST_WORKER, *argv], cwd=ROOT,
+                                       env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            fail(f"dist_train {name} exited {proc.returncode}:\n{out[-4000:]}")
+        runs[name] = json.loads([x for x in out.splitlines() if x.startswith("RESULT ")][-1][7:])
+    ckpts = {name: glob.glob(os.path.join(tmp, name, "*.ckpt")) for name in runs}
+    states = {name: torch.load(paths[0], map_location="cpu", weights_only=False)["model"]
+              for name, paths in ckpts.items() if len(paths) == 1}
+    same = len(states) == 2 and sorted(states["dist_nccl"]) == sorted(states["dist_plain"]) \
+        and all(torch.equal(v, states["dist_plain"][k]) for k, v in states["dist_nccl"].items())
+    nccl, plain = runs["dist_nccl"], runs["dist_plain"]
+    launches = nccl["launches"]
+    print(f"dist_train ({card}): f32, batch 8, 2 steps + the Validator at beam {BEAM} on 8; "
+          f"under torchrun's environment: group {nccl['group']}, backend {nccl['backend']}, "
+          f"world {nccl['world']}, rank {nccl['rank']}; losses {nccl['losses']} vs without "
+          f"{plain['losses']}; {len(states.get('dist_nccl', {}))} checkpoint tensors "
+          f"{'all equal' if same else 'DIFFER'}; checkpoints {[len(v) for v in ckpts.values()]}; "
+          f"launches K3 {launches['crop_normalize']}, K1 (a) "
+          f"{launches['fused_beam_cache_attention']}, K2 {launches['lm_head_blocked_stats']} "
+          f"(without the group {plain['launches']['crop_normalize']} / "
+          f"{plain['launches']['fused_beam_cache_attention']} / "
+          f"{plain['launches']['lm_head_blocked_stats']}); {time.perf_counter() - t0:.1f} s "
+          "(both runs at once)")
+    forced = nccl["global_path"]
+    print("dist_train: the multi-process paths forced in the NCCL group, max error / max abs: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in forced.items()))
+    checks = {
+        "an NCCL group of 1, and none without the environment":
+            nccl["group"] and nccl["backend"] == "nccl" and nccl["world"] == 1
+            and not plain["group"],
+        "finite f32 losses, equal": all(math.isfinite(x) for x in nccl["losses"])
+        and nccl["losses"] == plain["losses"],
+        "every checkpoint tensor equal": same,
+        "rank 0 wrote the one checkpoint of each run": [len(v) for v in ckpts.values()] == [1, 1],
+        "equal scores": nccl["scores"] == plain["scores"],
+        "the forced multi-process paths: BatchNorm within 1e-4, GLoRIA within 1e-6": all(
+            v <= GLOBAL_PATH_TOL[k.split()[0]] for k, v in forced.items()),
+        "K3, K1 (a) and K2 launched": launches["crop_normalize"] == 3
+        and launches["fused_beam_cache_attention"] > 0 and launches["lm_head_blocked_stats"] > 0
+        and launches == plain["launches"],
+    }
+    require(checks, "dist_train")
+    return {k: v for k, v in launches.items()}
+
+
+def phase_optimizers(card: str):
+    """One f32 step of each optax alias the port added (sgd, rmsprop,
+    adagrad, adadelta, adafactor, lamb, lion, with the options a config can
+    reach) on the card and on the CPU from the same parameters and
+    gradients: every parameter within 1e-6 of its largest magnitude."""
+    import torch
+
+    from vilmedic_torch.executors.train_state import create_optimizer, gated_update
+
+    set_tf32(False)
+    options = {
+        "sgd": dict(lr=0.05, momentum=0.9, nesterov=True, weight_decay=0.01),
+        "rmsprop": dict(lr=0.01, eps=1e-6, momentum=0.5, weight_decay=0.01),
+        "adagrad": dict(lr=0.1, eps=1e-8),
+        "adadelta": dict(lr=1.0, eps=1e-6, weight_decay=0.001),
+        "adafactor": dict(lr=0.01, momentum=0.9, weight_decay=0.001),
+        "lamb": dict(lr=0.01, betas=(0.8, 0.99), eps=1e-6, weight_decay=0.01),
+        "lion": dict(lr=1e-3, betas=(0.9, 0.99)),
+    }
+    shapes = {"w": (768, 1024), "t": (4, 160, 136), "b": (768,), "z": (3, 4)}
+    gen = torch.Generator().manual_seed(SEED + 300)
+    init = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    init["z"].zero_()
+    grads = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    errs, moved = {}, {}
+    for name, opts in options.items():
+        after = {}
+        for device in PARITY_DEVICES:
+            params = torch.nn.ParameterDict({k: torch.nn.Parameter(v.clone().to(device))
+                                             for k, v in init.items()})
+            tx = create_optimizer(name, dict(opts), clip_grad_norm=50.0,
+                                  named_parameters=params.named_parameters())
+            for k, p in params.items():
+                p.grad = grads[k].to(device)
+            gated_update(tx, opts["lr"], torch.tensor(1.0, device=device))
+            after[device] = {k: p.detach().cpu() for k, p in params.items()}
+        errs[name] = max(float((after["cuda"][k] - after["cpu"][k]).abs().max())
+                         / max(float(after["cpu"][k].abs().max()), 1e-30) for k in shapes)
+        moved[name] = all(not torch.equal(after["cuda"][k], init[k]) for k in ("w", "t", "b"))
+    print(f"optimizers ({card}): one f32 step card vs CPU, max diff / max abs: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    require({f"{k} card = CPU within 1e-6, every tensor moved": errs[k] <= 1e-6 and moved[k]
+             for k in options}, "optimizers")
+
+
+def phase_hf_dataset(tmp: str, card: str):
+    """A ``save_to_disk`` dataset through the Validator (``hf_dataset``):
+    the zoo's 16 JPEGs (an ``images_path`` field) and 16 impressions, with
+    rows of another view filtered out by the config's ``hf_filter``, read
+    with ``hf_local`` by the image and text datasets of the flagship
+    config's Validator (uint8 batches through K3, beam 8) over the zoo's
+    ``AutoModel``-loaded RRG on the card."""
+    import datasets
+    import torch
+
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.config.config import executor_config
+    from vilmedic_torch.executors import Validator
+    from vilmedic_torch.zoo import AutoModel
+
+    t0 = time.perf_counter()
+    zoo = os.path.join(tmp, "zoo")
+    images = sorted(glob.glob(os.path.join(zoo, "images", "*.jpg")))
+    rows = {"images_path": [os.path.basename(p) for p in images] * 2,
+            "impression": [" ".join(f"w{(3 * i + j) % 997}" for j in range(8))
+                           for i in range(2 * len(images))],
+            "view": ["PA"] * len(images) + ["LATERAL"] * len(images)}
+    folder = os.path.join(tmp, "hf_cxr")
+    datasets.DatasetDict({"validate": datasets.Dataset.from_dict(rows)}).save_to_disk(folder)
+    model, _ = AutoModel.from_pretrained(os.path.join(zoo, "rrg_mimic"), device="cuda")
+    keep = "{view: PA}"
+    cfg, _ = load_config(CONFIG, [
+        f"ckpt_dir={zoo}", "name=rrg_mimic", "dataset.image.file=null",
+        "dataset.seq.file=null", f"dataset.image.hf_dataset={folder}",
+        "dataset.image.hf_local=true", "dataset.image.hf_field=images_path",
+        f"dataset.image.hf_filter={keep}", f"dataset.image.image_path={os.path.dirname(images[0])}",
+        "dataset.image.device_preproc=true", f"dataset.seq.hf_dataset={folder}",
+        "dataset.seq.hf_local=true", "dataset.seq.hf_field=impression",
+        f"dataset.seq.hf_filter={keep}", "validator.batch_size=16", "validator.splits=[validate]",
+        "validator.metrics=[BLEU,ROUGEL]", "validator.beam_width=8"])
+    val = executor_config(cfg, "validator")
+    val.ckpt_dir = os.path.join(zoo, "rrg_mimic")
+    reset_launches()
+    evaluator = Validator(config=val, models=[model], seed=SEED)
+    n = len(evaluator.splits[0][1].dataset)
+    scores = evaluator.start()[0]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    del model
+    torch.cuda.empty_cache()
+    print(f"hf_dataset ({card}): a save_to_disk dataset of {2 * len(images)} rows, {n} kept by "
+          f"hf_filter {keep}, through the Validator at beam 8: scores {scores}; launches K3 "
+          f"{launches['crop_normalize']}, K1 (a) {launches['fused_beam_cache_attention']}, K2 "
+          f"{launches['lm_head_blocked_stats']}; {time.perf_counter() - t0:.1f} s")
+    require({"the filter kept the PA rows": n == len(images),
+             "scored": all(math.isfinite(scores[k]) for k in ("BLEU", "ROUGEL")),
+             "K3 per batch, K1 (a) and K2 launched": launches["crop_normalize"] == 1
+             and launches["fused_beam_cache_attention"] > 0
+             and launches["lm_head_blocked_stats"] > 0}, "hf_dataset")
+    return launches
+
 def time_blocked_lm_head(h, w, b) -> dict:
     """K2 on (h, w, b): its device time (events around one call beside it),
     its plain version's, ``torch.matmul``'s of the product alone, and its
@@ -6924,6 +7535,22 @@ def timed(phase, *args):
     return out
 
 
+def probe_packages() -> dict:
+    """Whether the packages some paths need are installed on this machine
+    (``datasets`` and ``pyarrow`` for ``hf_dataset``; scikit-learn and
+    matplotlib for the ``post_processing`` plots, whose phase this script
+    leaves out: the card's machine was found without them), and which
+    ``torch.distributed`` backends it has."""
+    import importlib.util
+
+    import torch.distributed as dist
+
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ("datasets", "pyarrow", "sklearn", "matplotlib")}
+    return {**found, "torch.distributed": dist.is_available(),
+            "nccl": dist.is_nccl_available(), "gloo": dist.is_gloo_available()}
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6943,6 +7570,7 @@ def main():
     card = card_name()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print("packages: " + json.dumps(probe_packages()))
 
     t_start = time.perf_counter()
     results = timed(phase_kernels)
@@ -6952,6 +7580,8 @@ def main():
     launches["fp8_probe"] = timed(phase_fp8_probe)
     timed(phase_rrg_routes)
     timed(phase_rrg_routes_parity)
+    # not beside the RRG phases, whose launch-bound loops its CPU work slows
+    start_cpu_helper()
     launches["vl"] = timed(phase_vl_slice)
     timed(phase_vl_parity)
     launches.update(timed(phase_vl_routes))
@@ -6961,6 +7591,7 @@ def main():
     launches["vl_train"] = timed(phase_vl_train)
     timed(phase_vl_train_sanity)
     timed(phase_vl_train_parity)
+    stop_cpu_helper()  # its last half is read
     with tempfile.TemporaryDirectory() as tmp:
         # the configs' pretrained tokenizers, read by name from this cache
         hub = write_hub_tokenizers(tmp)
@@ -6997,6 +7628,11 @@ def main():
         timed(phase_radeval_green, tmp, hub, card)
         print(f"phases before zoo: {time.perf_counter() - t_start:.1f} s")
         launches["zoo"] = timed(phase_zoo, tmp, hub, card)
+        print(f"phases before dicom_serve: {time.perf_counter() - t_start:.1f} s")
+        launches["dicom_serve"] = timed(phase_dicom_serve, tmp, card)
+        launches["dist_train"] = timed(phase_dist_train, tmp, card)
+        timed(phase_optimizers, card)
+        launches["hf_dataset"] = timed(phase_hf_dataset, tmp, card)
         print(f"all phases: {time.perf_counter() - t_start:.1f} s; by phase "
               + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     # K1 (b) on the VL CLI path: the Validator at beam 2, the ensemble CLI at 8
@@ -7013,7 +7649,8 @@ def main():
     # tower, MVQA and CLASS (none), the RoBERTa-width RRG serving, ConVIRT
     # and GLoRIA training (none), RRG_HF (single and multi-image) and RRS_HF
     # training, the RoBERTa RRG config's Validator with the clinical
-    # scorers, and the zoo-loaded RRG and DINOv2 tower
+    # scorers, the zoo-loaded RRG and DINOv2 tower, the DICOM-serving RRG,
+    # the train CLI under a process group, and the hf_dataset Validator
     for path, key in (("rrg_train", "rrg_train_launches"), ("scst_train", "scst_launches"),
                       ("rrs_train", "rrs_launches"), ("rrg_vit_train", "rrg_vit_launches"),
                       ("mvqa_train", "mvqa_launches"), ("class_train", "class_launches"),
@@ -7023,7 +7660,10 @@ def main():
                       ("rrg_multi_image", "rrg_multi_image_launches"),
                       ("rrs_hf_train", "rrs_hf_launches"), ("vl_cli_train", "vl_cli_launches"),
                       ("vl_unfrozen_train", "vl_unfrozen_launches"),
-                      ("clinical_validate", "clinical_launches"), ("zoo", "zoo_launches")):
+                      ("clinical_validate", "clinical_launches"), ("zoo", "zoo_launches"),
+                      ("dicom_serve", "dicom_serve_launches"),
+                      ("dist_train", "dist_train_launches"),
+                      ("hf_dataset", "hf_dataset_launches")):
         for name, counter in launches[path].items():
             if name in results:
                 results[name][key] = counter
@@ -7040,7 +7680,8 @@ def main():
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
              "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",
              "rrs_hf_launches", "vl_cli_launches", "vl_unfrozen_launches", "clinical_launches",
-             "zoo_launches", "tower_launches",
+             "zoo_launches", "dicom_serve_launches", "dist_train_launches",
+             "hf_dataset_launches", "tower_launches",
              "beam2_max_abs_err", "tower_max_rel_err", "vl_validator_beam2_launches",
              "vl_ensemble_beam8_launches")
     kernels = [{"name": name, **{key: launches[r["path"]][r["counter"]] if key == "launches"
@@ -7058,4 +7699,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cpu-halves"]:
+        run_cpu_halves(sys.argv[2])
+    else:
+        main()

@@ -395,15 +395,23 @@ def test_convirt_freeze_keeps_the_tower_out_of_the_optimizer():
     assert any(n.startswith("vis_proj.") for n in tx.names)
 
 
-@pytest.mark.parametrize("steps,match", [
-    ([{"plot_representation": {"keys": ["visual"]}}], "scikit-learn"),
-    (["plot_attention"], "matplotlib"), ([{"save_representation": None}], "not ported")])
-def test_post_processing_raises_before_any_run(steps, match):
+@pytest.mark.parametrize("steps,error,match", [
+    ([{"plot_representation": {"keys": ["visual"]}}], ImportError, "scikit-learn"),
+    (["plot_attention"], ImportError, "matplotlib"),
+    ([{"save_representation_of_nothing": None}], ValueError, "Unknown post-processing step")])
+def test_post_processing_raises_before_any_run(steps, error, match, monkeypatch):
     """ConVIRT's ensemblor names ``plot_representation`` (scikit-learn,
-    matplotlib): the Validator refuses it when it is built."""
+    matplotlib): where they are not installed, the Validator refuses it
+    when it is built, before any run, as it refuses an unknown step."""
+    import importlib.util
+
     from vilmedic_torch.executors.validator import Validator
 
-    with pytest.raises(NotImplementedError, match=match):
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name in ("sklearn", "matplotlib")
+                        else real(name, *a))
+    with pytest.raises(error, match=match):
         Validator({"post_processing": steps, "splits": []}, models=[])
 
 

@@ -562,8 +562,8 @@ def test_trainor_lr_sequence_matches_jax_scheduler():
 def test_optimizer_factory_follows_optax():
     """adamw's defaults are optax's (weight decay 1e-4), adam's weight decay
     is additive L2, the clip is over the trainable gradients, frozen
-    prefixes and gradient-free parameters get no state, and the unported
-    aliases raise."""
+    prefixes and gradient-free parameters get no state, and an optimizer
+    the JAX package does not name (adamax) raises, as there."""
     lin = torch.nn.Linear(4, 3)
     frozen = torch.nn.Linear(4, 3)
     named = [("head.weight", lin.weight), ("head.bias", lin.bias),
@@ -578,7 +578,7 @@ def test_optimizer_factory_follows_optax():
     assert isinstance(tx2.optimizer, torch.optim.Adam) and len(tx2.params) == 4
     assert tx2.optimizer.param_groups[0]["weight_decay"] == 0.01
     with pytest.raises(NotImplementedError):
-        create_optimizer("lamb", {"lr": 1e-3}, named_parameters=named)
+        create_optimizer("adamax", {"lr": 1e-3}, named_parameters=named)
 
     # against optax: clip 1.0 (the gradient norm here is above it), L2 adam
     rng = np.random.default_rng(4)

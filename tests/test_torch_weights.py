@@ -172,19 +172,26 @@ def test_port_imports_no_jax():
 
 FORBIDDEN = ('transformers', 'tokenizers', 'huggingface_hub', 'safetensors', 'regex',
              'sentencepiece', 'rouge_score', 'nltk', 'stanza', 'sklearn', 'PIL', 'msgpack',
-             'platformdirs')
+             'platformdirs', 'datasets', 'pyarrow', 'matplotlib')
 
 
 def test_port_imports_no_tokenizer_scorer_or_image_packages():
     """Every module of the port imports without transformers, tokenizers,
     huggingface_hub, safetensors, regex, sentencepiece, rouge_score, nltk,
-    stanza, scikit-learn, Pillow, msgpack or platformdirs: the tokenizers
-    (WordPiece, byte-level BPE, ``tokenizer.json``), ROUGE, METEOR's
-    stemmer, the classification metrics, the clinical scorers, BERTScore's
-    encoders (ModernBERT and RoBERTa included), the LLaMA judge, the weight
-    readers, the JAX checkpoints' msgpack decoder, the zoo's converters and
-    the hub-cache lookup are the port's own, and Pillow is imported only
-    inside ``data.image.open_image``."""
+    stanza, scikit-learn, Pillow, msgpack, platformdirs, datasets, pyarrow
+    or matplotlib: the tokenizers (WordPiece, byte-level BPE,
+    ``tokenizer.json``), ROUGE, METEOR's stemmer, the classification
+    metrics, the clinical scorers, BERTScore's encoders (ModernBERT and
+    RoBERTa included), the LLaMA judge, the weight readers, the JAX
+    checkpoints' msgpack decoder, the zoo's converters, the hub-cache lookup
+    and the DICOM parser are the port's own. The packages some paths need
+    are imported inside the functions that use them, never at import time:
+    Pillow in ``data.image`` (``open_pil``, ``open_image``),
+    ``data.dicom``'s baseline-JPEG decode and the post-processing plots;
+    ``datasets`` in ``data.hf_plumbing``; scikit-learn and matplotlib in the
+    plots; ``huggingface_hub`` in the download CLI's by-name branch. The
+    modules this slice added (DICOM, ``hf_plumbing``, ``parallel``, the
+    download CLI) are among those imported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vilmedic_torch\n"
@@ -197,7 +204,12 @@ def test_port_imports_no_tokenizer_scorer_or_image_packages():
         "       'vilmedic_torch.constants', 'vilmedic_torch.zoo.convert',\n"
         "       'vilmedic_torch.zoo.convert_vision', 'vilmedic_torch.zoo.modeling_auto',\n"
         "       'vilmedic_torch.bin.convert_checkpoint',\n"
-        "       'vilmedic_torch.data_tools.get_chexbert_label'}\n"
+        "       'vilmedic_torch.data_tools.get_chexbert_label',\n"
+        "       'vilmedic_torch.data.dicom', 'vilmedic_torch.data.dicom_codecs',\n"
+        "       'vilmedic_torch.data.dicom_writer',\n"
+        "       'vilmedic_torch.data.hf_plumbing', 'vilmedic_torch.parallel',\n"
+        "       'vilmedic_torch.parallel.mesh', 'vilmedic_torch.parallel.sharding',\n"
+        "       'vilmedic_torch.bin.vilmedic_download', 'vilmedic_torch.utils.native_build'}\n"
         "assert new <= set(names), new - set(names)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

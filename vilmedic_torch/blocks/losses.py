@@ -4,8 +4,11 @@
 Classification:
 
 - :func:`cross_entropy`: ``torch.nn.CrossEntropyLoss`` semantics with
-  ``ignore_index`` (-100): the mean over the rows that count (at least 1);
+  ``ignore_index`` (-100): the mean over the rows that count (at least 1;
+  the global batch's in a multi-process training forward);
 - ``BCEWithLogitsLoss``: ``max(x, 0) - x * t + log1p(exp(-|x|))``;
+- in a multi-process training forward the classification losses' means
+  are the global batch's (:func:`mean_over_rows`);
 - ``LabelSmoothingCrossEntropy`` (the reference's MVQA loss):
   ``smoothing / C * (-sum of log-softmax)`` plus ``(1 - smoothing)`` times
   the cross entropy, each reduced by ``reduction``;
@@ -32,6 +35,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import global_mean
 from ..registry import register
 
 EPS = 1e-8
@@ -48,7 +52,13 @@ def cross_entropy(logits, labels, reduction: str = "mean", ignore_index: int = -
         return nll
     if reduction == "sum":
         return nll.sum()
-    return nll.sum() / valid.sum().clamp_min(1)
+    return global_mean(nll.sum(), valid.sum())
+
+
+def mean_over_rows(x):
+    """``x.mean()``; in a multi-process training forward the mean over the
+    global batch's entries (``parallel.mesh.global_mean``)."""
+    return global_mean(x.sum(), torch.tensor(x.numel(), device=x.device))
 
 
 def binary_cross_entropy_with_logits(logits, targets, reduction: str = "mean"):
@@ -56,7 +66,7 @@ def binary_cross_entropy_with_logits(logits, targets, reduction: str = "mean"):
     loss = torch.clamp_min(x, 0) - x * targets + torch.log1p(torch.exp(-x.abs()))
     if reduction == "none":
         return loss
-    return loss.sum() if reduction == "sum" else loss.mean()
+    return loss.sum() if reduction == "sum" else mean_over_rows(loss)
 
 
 @register("loss", "CrossEntropyLoss")
@@ -92,7 +102,7 @@ class LabelSmoothingCrossEntropy:
         else:
             loss = -log_preds.sum(dim=-1)
             if self.reduction == "mean":
-                loss = loss.mean()
+                loss = mean_over_rows(loss)
         nll = cross_entropy(output, target, self.reduction)
         return loss * self.smoothing / c + (1 - self.smoothing) * nll
 
@@ -120,7 +130,7 @@ class SuperLoss:
         y = 0.5 * torch.clamp_min((l_i.detach() - self.tau) / self.lam, -2.0 / math.e)
         sigma = torch.exp(-self._lambertw(y))
         loss = (l_i - self.tau) * sigma + self.lam * torch.log(sigma) ** 2
-        return loss.mean()
+        return mean_over_rows(loss)
 
 
 @register("loss", "MixUpLoss")

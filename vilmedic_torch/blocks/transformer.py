@@ -56,6 +56,7 @@ from ..ops.beam_cache_attention import (
     KernelPrefix, fused_beam_cache_attention, quantize_cache_rows,
 )
 from ..ops.blocked_lm_head import NEG, lm_head_blocked_stats
+from ..parallel.mesh import global_mean
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
@@ -701,7 +702,9 @@ class TransformerDecoder(nn.Module):
 
 def causal_lm_loss(logits, labels, label_mask=None) -> torch.Tensor:
     """HF ``labels=input_ids`` semantics: predict token t+1 from the prefix up
-    to t, with padding masked out of the mean by ``label_mask``."""
+    to t, with padding masked out of the mean by ``label_mask``; in a
+    multi-process training forward the mean is the global batch's
+    (``parallel.mesh.global_mean``)."""
     shift_logits = logits[:, :-1, :].float()
     shift_labels = labels[:, 1:].long()
     lse = torch.logsumexp(shift_logits, dim=-1)
@@ -711,4 +714,4 @@ def causal_lm_loss(logits, labels, label_mask=None) -> torch.Tensor:
         mask = label_mask[:, 1:].float()
     else:
         mask = torch.ones_like(nll)
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return global_mean((nll * mask).sum(), mask.sum())

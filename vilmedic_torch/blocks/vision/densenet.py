@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import all_reduce_sum, in_global_batch, process_count
+
 CONFIGS = {
     "densenet121": (32, (6, 12, 24, 16), 64),
     "densenet169": (32, (6, 12, 32, 32), 64),
@@ -74,13 +76,37 @@ class BatchNorm(nn.Module):
         """Normalize by the batch's statistics, gradients flowing through
         them, in f32 arithmetic. ``F.batch_norm`` writes the batch mean and
         the unbiased variance into scratch buffers at momentum 1; the biased
-        variance Flax keeps is that times (n - 1) / n."""
+        variance Flax keeps is that times (n - 1) / n. In a training forward
+        of several processes the statistics are the global batch's
+        (:meth:`_global_forward`)."""
+        if in_global_batch() and process_count() > 1:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, training=True, momentum=1.0,
                          eps=self.eps)
         self.pending_stats = (mean, var * ((n - 1) / n))
+        return y.to(self.out_dtype)
+
+    def _global_forward(self, x):
+        """The moments of every process's rows, as Flax takes them over the
+        JAX package's global batch: the per-channel sums of x and x² and the
+        row counts summed over the processes (differentiably, so each
+        process's rows get the gradient through the others' losses), then
+        ``var = max(0, E[x²] - E[x]²)`` (Flax's fast variance), in f32."""
+        dims = [0] + list(range(2, x.ndim))
+        xf = x.float()
+        c = x.shape[1]
+        sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims)]))
+        n = torch.tensor(float(x.numel() // c), device=x.device)
+        torch.distributed.all_reduce(n)
+        mean, mean2 = sums[:c] / n, sums[c:] / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        self.pending_stats = (mean.detach(), var.detach())
         return y.to(self.out_dtype)
 
 

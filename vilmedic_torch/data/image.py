@@ -1,11 +1,16 @@
 """Image dataset: decode, transforms and collation (port of ``data/image.py``).
 
 Images are read from ``{root}/{split}.{file}``: comma-separated paths per
-line (a sample's images), or a ``.npy`` array of images, one per sample.
-:func:`open_image` decodes a JPEG or PNG to RGB and resizes it with PIL's
-bilinear filter, as the JAX package does (Pillow is imported there and
-nowhere else); ``.npy`` images are used as they are. The transforms, on
-uint8 HWC arrays, are the JAX package's four:
+line (a sample's images), or a ``.npy`` array of images, one per sample; or
+from the ``hf_field`` of an ``hf_dataset`` (:mod:`.hf_plumbing`: paths under
+``image_path``, or Pillow images). :func:`open_image` decodes a JPEG, PNG or
+DICOM (``.dcm``, through :func:`.dicom.dicom_to_uint8`) to RGB and resizes
+it with PIL's bilinear filter, as the JAX package does (Pillow is imported
+inside the decode functions only); ``.npy`` images are used as they are. A
+``custom_transform_train`` / ``custom_transform_validate`` names a
+``transform`` of the port's registry (:class:`CustomTransform`), picked by
+split before the built-in ones. The built-in transforms, on uint8 HWC
+arrays, are the JAX package's four:
 
 - host float (``device_preproc: false``): train resizes the smaller edge to
   ``resize``, takes a random ``crop`` square and a random horizontal flip,
@@ -56,21 +61,39 @@ IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], dtype=np.float32)
 
 
-def open_image(image, ext: str, size=None) -> np.ndarray:
-    """Decode one image. JPEG/PNG: RGB uint8 (H, W, 3), resized with PIL's
-    bilinear filter when ``size`` is given (torchvision ``Resize``: an int
-    sets the smaller edge, a pair the exact (h, w)). ``.npy``: the array as
-    it is (a path is loaded)."""
-    if ext in (".npy", ".npz"):
-        return np.asarray(np.load(image) if isinstance(image, str) else image)
-    if ext not in (".jpg", ".jpeg", ".png"):
-        raise NotImplementedError(f"image extension {ext} is not ported")
+def open_pil(image, ext: str):
+    """Decode one JPEG, PNG or DICOM file (or take a Pillow image, as an
+    ``hf_dataset`` holds them) to an RGB Pillow image. A ``.dcm`` goes
+    through :func:`.dicom.dicom_to_uint8` first, as in the JAX package."""
     from PIL import Image, ImageFile
 
     ImageFile.LOAD_TRUNCATED_IMAGES = True  # tolerate truncated files, as the JAX package
     Image.MAX_IMAGE_PIXELS = None
+    if isinstance(image, Image.Image):
+        return image if image.mode == "RGB" else image.convert("RGB")
+    if ext == ".dcm":
+        from .dicom import dicom_to_uint8
+
+        return Image.fromarray(dicom_to_uint8(image)).convert("RGB")
+    if ext not in (".jpg", ".jpeg", ".png"):
+        raise NotImplementedError(f"image extension {ext} is not implemented")
     with Image.open(image) as im:
-        img = im.convert("RGB")
+        return im.convert("RGB")
+
+
+def open_image(image, ext: str, size=None, pil: bool = False):
+    """Decode one image. JPEG/PNG/DICOM: RGB uint8 (H, W, 3), resized with
+    PIL's bilinear filter when ``size`` is given (torchvision ``Resize``: an
+    int sets the smaller edge, a pair the exact (h, w)), or with ``pil`` the
+    RGB Pillow image as decoded (what a custom transform takes). ``.npy``:
+    the array as it is (a path is loaded)."""
+    if ext in (".npy", ".npz"):
+        return np.asarray(np.load(image) if isinstance(image, str) else image)
+    from PIL import Image
+
+    img = open_pil(image, ext)
+    if pil:
+        return img
     if isinstance(size, (tuple, list)):
         img = img.resize((int(size[1]), int(size[0])), Image.BILINEAR)
     elif size is not None:
@@ -152,11 +175,37 @@ class ArrayTransform:
         return np.asarray(arr, dtype=np.float32)
 
 
+class CustomTransform:
+    """A ``transform`` registered in the port's registry (``@register(
+    "transform")``), built with no argument: it takes the decoded RGB Pillow
+    image, as in the JAX package, and returns a channel-last array that the
+    float collate takes as it takes the built-in transforms' output."""
+
+    size = None
+    pil = True
+
+    def __init__(self, name: str):
+        from .. import registry
+
+        self.fn = registry.get("transform", name)()
+
+    def __call__(self, img):
+        return self.fn(img)
+
+
 def get_transforms(split: str, resize: int, crop: int, rng: np.random.Generator,
                    ext: str = ".jpg", called_by_ensemblor: bool = False,
-                   device_preproc: bool = False):
+                   device_preproc: bool = False, custom_transform_train=None,
+                   custom_transform_validate=None):
+    """The split's transform; a custom one, by its registry name, first
+    (``custom_transform_train`` for the train split, ``_validate`` for the
+    others), as the JAX package picks them."""
     if called_by_ensemblor:
         split = "validate"
+    if custom_transform_train is not None and split == "train":
+        return CustomTransform(custom_transform_train)
+    if custom_transform_validate is not None and split != "train":
+        return CustomTransform(custom_transform_validate)
     if ext in (".npy", ".npz"):
         return ArrayTransform()
     if device_preproc:
@@ -230,18 +279,16 @@ class ImageDataset:
     def __init__(self, root=None, file=None, split=None, image_path=None, resize=256, crop=224,
                  ext=".jpg", multi_image=None, called_by_ensemblor=None, device_preproc=False,
                  seed: int = 0, custom_transform_train=None, custom_transform_validate=None,
-                 hf_dataset=None, inference_only: bool = False, **kwargs):
+                 hf_dataset=None, hf_field=None, hf_local=None, hf_filter=None,
+                 inference_only: bool = False, **kwargs):
         if inference_only:  # the zoo's mode: the transforms only, no data file
             file, hf_dataset = None, None
         if split is None:
             raise ValueError("split cannot be None")
+        if file is not None and hf_dataset is not None:
+            raise ValueError("give a data file or an hf_dataset, not both")
         if device_preproc and (multi_image or 0) > 1:
             raise ValueError("device_preproc does not support multi_image yet")
-        for name, value in (("custom_transform_train", custom_transform_train),
-                            ("custom_transform_validate", custom_transform_validate),
-                            ("hf_dataset", hf_dataset)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is not ported")
         self.root = root
         self.file = file
         self.split = split
@@ -255,15 +302,25 @@ class ImageDataset:
         self.images: Optional[List[List]] = None
         if file is not None:
             self.images = read_images(root, split, file)
+        if hf_dataset is not None:
+            from .hf_plumbing import load_hf_images
+
+            self.images = load_hf_images(hf_dataset, hf_local, hf_filter, hf_field, split,
+                                         image_path)
         self.transform = get_transforms(split, self.resize, self.crop, self.rng, self.ext,
-                                        bool(called_by_ensemblor), self.device_preproc)
+                                        bool(called_by_ensemblor), self.device_preproc,
+                                        custom_transform_train, custom_transform_validate)
 
     def __len__(self):
         return len(self.images or [])
 
+    def _open(self, image):
+        return open_image(image, self.ext, self.transform.size,
+                          pil=getattr(self.transform, "pil", False))
+
     def decode(self, index):
         """The item's images, decoded and resized; no random draw."""
-        return [open_image(im, self.ext, self.transform.size) for im in self.images[index]]
+        return [self._open(im) for im in self.images[index]]
 
     def finish(self, decoded):
         """The transform of decoded images, with its random draws."""
@@ -276,10 +333,18 @@ class ImageDataset:
         """A batch from image paths: one per sample, or a list per sample
         (the JAX package's zoo API)."""
         samples = image if isinstance(image, list) else [image]
-        batch = [self.finish([open_image(im, self.ext, self.transform.size)
-                              for im in (ims if isinstance(ims, list) else [ims])])
+        batch = [self.finish([self._open(im) for im in (ims if isinstance(ims, list) else [ims])])
                  for ims in samples]
         return self.get_collate_fn()(batch)
+
+    def open_raw_image(self, index: int) -> np.ndarray:
+        """A sample's first image, unnormalized: the smaller edge resized to
+        the crop, then the centre (crop, crop) square, uint8 (what the
+        attention overlays of ``post_processing`` draw on)."""
+        arr = open_image(self.images[index][0], self.ext, self.crop)
+        h, w = arr.shape[:2]
+        top, left = max((h - self.crop) // 2, 0), max((w - self.crop) // 2, 0)
+        return arr[top: top + self.crop, left: left + self.crop]
 
     def get_collate_fn(self):
         if self.device_preproc:

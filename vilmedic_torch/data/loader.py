@@ -51,7 +51,11 @@ class _InOrder:
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = False,
-                 num_workers: int = 4, seed: int = 0, prefetch: int = 4):
+                 num_workers: int = 4, seed: int = 0, prefetch: int = 4, shard_index: int = 0,
+                 num_shards: int = 1):
+        if shuffle and batch_size % num_shards:
+            raise ValueError(f"the global train batch size {batch_size} must divide evenly "
+                             f"across {num_shards} processes")
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -60,6 +64,7 @@ class DataLoader:
         self.num_workers = max(0, int(num_workers))
         self.seed = seed
         self.prefetch = max(1, prefetch)
+        self.shard_index, self.num_shards = int(shard_index), int(num_shards)
         self.epoch = 0
 
     def __len__(self):
@@ -78,6 +83,9 @@ class DataLoader:
         batches = [order[s: s + self.batch_size] for s in range(0, n, self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.num_shards > 1:
+            batches = [b[self.shard_index::self.num_shards] for b in batches]
+            batches = [b for b in batches if len(b)]
         return batches
 
     def _load(self, indices, order: _InOrder | None = None, k: int = 0):

@@ -11,8 +11,10 @@ split's file), as the JAX package's ``BertTokenizer`` over the same file.
 
 Special tokens are added on the target side only. Batches are padded to
 ``tokenizer_max_len`` (with truncation) when it is set, else to the longest
-row rounded up to a multiple of 8 with ``pad_token_id or 0``. HF datasets
-(``hf_dataset``) are not ported. ``inference_only`` (the zoo's mode) reads
+row rounded up to a multiple of 8 with ``pad_token_id or 0``. An
+``hf_dataset`` gives the sentences of its ``hf_field`` instead of a file
+(:mod:`.hf_plumbing`: ``hf_local`` reads a ``save_to_disk`` folder,
+``hf_filter`` keeps rows). ``inference_only`` (the zoo's mode) reads
 no data file: the tokenizer, or the vocabulary ``ckpt_dir/vocab.{source}``
 a training wrote, and the cleaning are all it keeps, for
 :meth:`TextDataset.inference`.
@@ -33,16 +35,20 @@ from .tokenizer import WordPieceTokenizer
 from .utils import Vocab, load_file, pad_to_multiple
 
 
+def split_sentences(sentences: List[str], processing) -> List[List[str]]:
+    return [processing(s.strip()).split() for s in sentences]
+
+
 def make_sentences(root: str, split: str, file: str, processing) -> List[List[str]]:
-    return [processing(s.strip()).split()
-            for s in load_file(os.path.join(root, split + "." + file))]
+    return split_sentences(load_file(os.path.join(root, split + "." + file)), processing)
 
 
 @register("dataset")
 class TextDataset:
     def __init__(self, root=None, file=None, split=None, ckpt_dir=None, processing=None,
                  tokenizer=None, tokenizer_max_len=None, vocab_file=None, source="src",
-                 hf_dataset=None, inference_only: bool = False, **kwargs):
+                 hf_dataset=None, hf_field=None, hf_local=None, hf_filter=None,
+                 inference_only: bool = False, **kwargs):
         if inference_only:  # the zoo's mode: no data file
             file, hf_dataset = None, None
         if source not in ("src", "tgt"):
@@ -53,8 +59,6 @@ class TextDataset:
             raise ValueError("give a data file or a vocab file, not both")
         if source == "tgt" and tokenizer_max_len is None:
             raise ValueError("tokenizer_max_len is required for source 'tgt'")
-        if hf_dataset is not None:
-            raise NotImplementedError("hf_dataset is not ported")
 
         self.root = root
         self.file = file
@@ -67,6 +71,11 @@ class TextDataset:
         self.sentences: Optional[List[List[str]]] = None
         if file is not None:
             self.sentences = make_sentences(root, split, file, self.processing)
+        if hf_dataset is not None:
+            from .hf_plumbing import process_hf_dataset
+
+            dataset = process_hf_dataset(hf_dataset, hf_local, hf_filter, hf_field, split)
+            self.sentences = split_sentences([d[hf_field] for d in dataset], self.processing)
 
         self.vocab_file = None
         if tokenizer is not None:

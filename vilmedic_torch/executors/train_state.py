@@ -20,10 +20,18 @@
   JAX package hands ``weight_decay`` to ``optax.radam``, which takes no such
   argument, so there the flagship config's ``weight_decay: 0.`` raises;
 - a trainable parameter that got no gradient is updated with a zero one, as
-  optax sees the zeros of a gradient tree.
+  optax sees the zeros of a gradient tree;
+- ``sgd``, ``rmsprop``, ``adagrad``, ``adadelta``, ``adafactor``, ``lamb``
+  and ``lion``: :class:`OptaxAlias`, optax's update of each alias (not
+  ``torch.optim``'s, whose eps, accumulators, factored moments, trust ratio
+  and betas differ) with the options ``_translate_params`` passes (``betas``
+  as b1 / b2, ``eps``, ``momentum``, ``nesterov``); ``weight_decay`` is the
+  alias's own for lamb and lion (lion's default 1e-3, optax's) and L2 on
+  the gradient ahead of the alias for the other five
+  (``optax.add_decayed_weights``), as the JAX package chains it. An option
+  the alias does not take raises ``TypeError``, as optax's alias does.
 
-The other optax aliases of the JAX package raise ``NotImplementedError``
-until they are ported. The learning rate is written into the parameter
+The learning rate is written into the parameter
 groups before every update (:func:`set_learning_rate`), the counterpart of
 ``optax.inject_hyperparams``.
 """
@@ -36,8 +44,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-# of the JAX package's optax aliases, only these are ported
-_PORTED = ("adam", "adamw", "radam")
+# the JAX package's optax aliases (executors/train_state.py)
+_OPTIMIZERS = ("adam", "adamw", "radam", "sgd", "rmsprop", "adagrad", "adadelta", "adafactor",
+               "lamb", "lion")
 OPTAX_ADAMW_WEIGHT_DECAY = 1e-4
 RADAM_THRESHOLD = 5.0  # optax's: the rectified update once rho_t reaches it
 
@@ -106,6 +115,226 @@ def _radam_scalars(b1: float, b2: float, t: int):
     return float(f(1) - b1t), float(f(1) - b2t), float(rho), float(r)
 
 
+# the options of each alias that the config can reach through
+# ``_translate_params`` (betas -> b1 / b2, eps, momentum, nesterov, and
+# weight_decay where the alias takes it), at optax's defaults
+ALIAS_OPTIONS = {
+    "sgd": dict(momentum=None, nesterov=False),
+    "rmsprop": dict(eps=1e-8, momentum=None, nesterov=False),
+    "adagrad": dict(eps=1e-7),
+    "adadelta": dict(eps=1e-6),
+    "adafactor": dict(eps=1e-30, momentum=None),
+    "lamb": dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0),
+    "lion": dict(b1=0.9, b2=0.99, weight_decay=1e-3),
+}
+RMSPROP_DECAY = 0.9
+ADAGRAD_INITIAL_ACCUMULATOR = 0.1
+ADADELTA_RHO = 0.9
+ADAFACTOR = dict(min_dim_size_to_factor=128, decay_rate=0.8, clipping_threshold=1.0,
+                 min_param_scale=1e-3)
+
+
+class OptaxAlias(torch.optim.Optimizer):
+    """One of optax's ``sgd``, ``rmsprop``, ``adagrad``, ``adadelta``,
+    ``adafactor``, ``lamb`` or ``lion`` (``name``), as the JAX package
+    chains it: ``additive_weight_decay`` adds ``wd * p`` to the gradient
+    first (the five aliases without a weight decay of their own), then the
+    alias's transform and ``-lr``. Per tensor, with ``g`` the gradient:
+
+    - sgd: with ``momentum``, ``t = g + momentum * t`` and the update ``t``
+      (``g + momentum * t`` with ``nesterov``), else ``g``;
+    - rmsprop: ``nu = 0.1 g^2 + 0.9 nu`` from 0, ``g * rsqrt(nu + eps)``,
+      then ``-lr`` and, with ``momentum``, the trace of the scaled updates;
+    - adagrad: ``s = g^2 + s`` from 0.1, ``rsqrt(s + eps) * g`` where
+      ``s > 0``;
+    - adadelta (rho 0.9): ``e_g`` then ``sqrt(e_x + eps) / sqrt(e_g + eps) *
+      g``, then ``e_x`` from that update;
+    - adafactor: the factored second moment (row and column means of ``g^2 +
+      eps`` over the two largest axes when the second largest is at least
+      128, else the full one) at decay ``1 - (t + 1)^-0.8``, the update
+      clipped to block RMS 1, times ``lr``, times the parameter's RMS (at
+      least 1e-3), an undebiased EMA with ``momentum``, negated;
+    - lamb: Adam's bias-corrected ``m_hat / (sqrt(v_hat) + eps)``, plus
+      ``weight_decay * p``, times the trust ratio ``|p| / |u|`` (1 where
+      either norm is 0);
+    - lion: ``sign((1 - b1) g + b1 m)`` plus ``weight_decay * p``, then
+      ``m = (1 - b2) g + b2 m``.
+
+    Bias corrections and decays depend on the step only and are computed
+    on the host in f32, as optax rounds them; tensors update in place."""
+
+    def __init__(self, params, name: str, lr: float, additive_weight_decay: float = 0.0,
+                 **options):
+        unknown = sorted(set(options) - set(ALIAS_OPTIONS[name]))
+        if unknown:
+            raise TypeError(f"optax.{name}() got unexpected keyword arguments {unknown}")
+        super().__init__(params, dict(lr=lr, name=name, wd=additive_weight_decay,
+                                      **{**ALIAS_OPTIONS[name], **options}))
+
+    def _state(self, params, *names, fill=0.0):
+        for p in params:
+            st = self.state[p]
+            for key in names:
+                if key not in st:
+                    st[key] = torch.full_like(p, fill)
+        return [[self.state[p][key] for p in params] for key in names]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["wd"]:
+                grads = torch._foreach_add(grads, params, alpha=group["wd"])
+            t = group["step"] = group.get("step", 0) + 1
+            updates = getattr(self, "_" + group["name"])(group, params, grads, t)
+            torch._foreach_add_(params, updates)
+
+    def _trace(self, group, params, updates, key="trace"):
+        if group["momentum"] is None:
+            return updates
+        (trace,) = self._state(params, key)
+        torch._foreach_mul_(trace, group["momentum"])
+        torch._foreach_add_(trace, updates)
+        if group["nesterov"]:
+            return torch._foreach_add(updates, trace, alpha=group["momentum"])
+        return trace
+
+    def _sgd(self, group, params, grads, t):
+        return torch._foreach_mul(self._trace(group, params, grads), -group["lr"])
+
+    def _rmsprop(self, group, params, grads, t):
+        (nu,) = self._state(params, "nu")
+        torch._foreach_mul_(nu, RMSPROP_DECAY)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - RMSPROP_DECAY)
+        scale = torch._foreach_add(nu, group["eps"])
+        torch._foreach_rsqrt_(scale)
+        updates = torch._foreach_mul(scale, grads)
+        torch._foreach_mul_(updates, -group["lr"])
+        return self._trace(group, params, updates)
+
+    def _adagrad(self, group, params, grads, t):
+        (acc,) = self._state(params, "sum_of_squares", fill=ADAGRAD_INITIAL_ACCUMULATOR)
+        torch._foreach_addcmul_(acc, grads, grads)
+        out = []
+        for s, g in zip(acc, grads):
+            inv = torch.where(s > 0, torch.rsqrt(s + group["eps"]), torch.zeros_like(s))
+            out.append(inv * g * -group["lr"])
+        return out
+
+    def _adadelta(self, group, params, grads, t):
+        e_g, e_x = self._state(params, "e_g", "e_x")
+        torch._foreach_mul_(e_g, ADADELTA_RHO)
+        torch._foreach_addcmul_(e_g, grads, grads, value=1 - ADADELTA_RHO)
+        eps = group["eps"]
+        updates = [torch.sqrt(x + eps) / torch.sqrt(s + eps) * g
+                   for x, s, g in zip(e_x, e_g, grads)]
+        torch._foreach_mul_(e_x, ADADELTA_RHO)
+        torch._foreach_addcmul_(e_x, updates, updates, value=1 - ADADELTA_RHO)
+        return torch._foreach_mul(updates, -group["lr"])
+
+    def _adafactor(self, group, params, grads, t):
+        f = np.float32
+        decay = float(f(1) - f(t) ** f(-ADAFACTOR["decay_rate"]))  # step t - 1, 0-based
+        eps, out = group["eps"], []
+        for p, g in zip(params, grads):
+            st = self.state[p]
+            dims = _factored_dims(p.shape)
+            sq = g * g + eps
+            if dims is not None:
+                d1, d0 = dims
+                if not st:
+                    st["v_row"] = torch.zeros_like(sq.mean(dim=d0))
+                    st["v_col"] = torch.zeros_like(sq.mean(dim=d1))
+                st["v_row"] = decay * st["v_row"] + (1 - decay) * sq.mean(dim=d0)
+                st["v_col"] = decay * st["v_col"] + (1 - decay) * sq.mean(dim=d1)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
+                row_factor = (st["v_row"] / row_col_mean) ** -0.5
+                col_factor = st["v_col"] ** -0.5
+                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            else:
+                if not st:
+                    st["v"] = torch.zeros_like(p)
+                st["v"] = decay * st["v"] + (1 - decay) * sq
+                u = g * st["v"] ** -0.5
+            u = u / torch.clamp(torch.sqrt((u * u).mean()) / ADAFACTOR["clipping_threshold"],
+                                min=1.0)
+            u = u * group["lr"]
+            rms = torch.sqrt((p * p).mean())
+            u = u * torch.where(rms <= ADAFACTOR["min_param_scale"],
+                                torch.full_like(rms, ADAFACTOR["min_param_scale"]), rms)
+            if group["momentum"] is not None:
+                ema = st.setdefault("ema", torch.zeros_like(p))
+                u = ema.mul_(group["momentum"]).add_(u, alpha=1 - group["momentum"])
+            out.append(-u)
+        return out
+
+    def _lamb(self, group, params, grads, t):
+        b1, b2 = group["b1"], group["b2"]
+        mu, nu = self._state(params, "mu", "nu")
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        f = np.float32
+        bc1, bc2 = float(f(1) - f(b1) ** f(t)), float(f(1) - f(b2) ** f(t))
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, group["eps"])
+        updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        if group["weight_decay"]:
+            torch._foreach_add_(updates, params, alpha=group["weight_decay"])
+        out = []
+        for u, p in zip(updates, params):
+            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+            ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+            out.append(u * ratio * -group["lr"])
+        return out
+
+    def _lion(self, group, params, grads, t):
+        b1, b2 = group["b1"], group["b2"]
+        (mu,) = self._state(params, "mu")
+        updates = [torch.sign((1.0 - b1) * g + b1 * m) for g, m in zip(grads, mu)]
+        torch._foreach_mul_(mu, b2)
+        torch._foreach_add_(mu, grads, alpha=1 - b2)
+        if group["weight_decay"]:
+            torch._foreach_add_(updates, params, alpha=group["weight_decay"])
+        return torch._foreach_mul(updates, -group["lr"])
+
+
+def _factored_dims(shape):
+    """optax's ``_factored_dims``: the two largest axes (second largest,
+    largest) when the second largest is at least 128, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR["min_dim_size_to_factor"]:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def translate_params(name: str, params: Dict) -> Dict:
+    """The JAX package's ``_translate_params``: torch's option names onto
+    the alias's keywords (``betas`` -> b1 / b2; ``weight_decay`` the
+    alias's own for adam(w) / radam / lamb / lion, else
+    ``additive_weight_decay``; ``eps``, ``momentum``, ``nesterov`` as they
+    are); other torch options are dropped."""
+    out = {}
+    for k, v in params.items():
+        if k == "betas":
+            out["b1"], out["b2"] = float(v[0]), float(v[1])
+        elif k == "weight_decay":
+            key = ("weight_decay" if name in ("adamw", "adam", "radam", "lamb", "lion")
+                   else "additive_weight_decay")
+            out[key] = float(v)
+        elif k in ("eps", "momentum", "nesterov"):
+            out[k] = v
+    return out
+
+
 @dataclasses.dataclass
 class TrainOptimizer:
     """A ``torch.optim`` optimizer over the trainable parameters, with the
@@ -133,15 +362,17 @@ def create_optimizer(optimizer: str, optim_params: Dict, clip_grad_norm: Optiona
     ``betas``, ``eps``, ``weight_decay``) over ``named_parameters`` minus
     the frozen and the gradient-free ones."""
     name = optimizer.lower()
-    if name not in _PORTED:
-        raise NotImplementedError(f"optimizer {optimizer!r} is not ported; ported: {_PORTED}")
+    if name not in _OPTIMIZERS:
+        raise NotImplementedError(f"optimizer {optimizer!r}; available: {sorted(_OPTIMIZERS)}")
     lr = float(optim_params.get("lr", optim_params.get("learning_rate")))
     betas = tuple(float(b) for b in optim_params.get("betas", (0.9, 0.999)))
     eps = float(optim_params.get("eps", 1e-8))
     named = [(n, p) for n, p in named_parameters
              if p.requires_grad and not _is_frozen(n, frozen_prefixes)]
     params = [p for _, p in named]
-    if name == "adamw":
+    if name in ALIAS_OPTIONS:
+        opt = OptaxAlias(params, name, lr, **translate_params(name, dict(optim_params)))
+    elif name == "adamw":
         wd = float(optim_params.get("weight_decay", OPTAX_ADAMW_WEIGHT_DECAY))
         opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
     elif name == "radam":

@@ -45,9 +45,22 @@ batches with a length given as ``loader``.
 also writes ``epoch_{epoch}_{seed}.ckpt`` (the same payload, written at once)
 after each epoch; ``profile_dir`` traces iterations 3 to 5 of the first
 epoch with ``torch.profiler`` (the card's kernels too) into
-``profile_dir/trace_{seed}.json``, a Chrome trace. Not ported: multi-device
-meshes and ``DevicePrefetch``; ``rng_impl`` (the JAX package's choice of PRNG
-for its dropout masks) has no counterpart and is logged once and ignored.
+``profile_dir/trace_{seed}.json``, a Chrome trace.
+
+Under a process group (``parallel.mesh.init_distributed``, from ``torchrun``)
+the trainer is data parallel as the JAX package's global mesh is: the
+global ``batch_size`` must divide across the processes, each loads its
+strided shard, its training forward runs under ``mesh.global_batch`` (losses
+and BatchNorm moments of the global batch), the gradients are summed over
+the processes before each update (``mesh.all_reduce_sum_``), the update and
+the accumulation reset are gated on the global loss, and process 0 alone
+writes checkpoints. Across several processes a model that owns its step
+(SCST) raises: the JAX package's reads its rollouts to the host with
+``np.asarray``, which JAX refuses for an array spread over processes; the
+RRG, RRS, VisionLanguage, MVQA / CLASS and SELFSUP families run.
+Not ported: ``DevicePrefetch``; ``rng_impl`` (the JAX package's choice of
+PRNG for its dropout masks) has no counterpart and is logged once and
+ignored.
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ from ..config.config import Config
 from ..data.image import prepare_batch
 from ..models.base import resolve_device
 from ..models.evaluation_nlg import to_device
+from ..parallel import mesh
 from .checkpoint import CheckpointSaver, load_checkpoint, save_checkpoint, snapshot
 from .train_state import create_optimizer, gated_update
 from .utils import create_data_loader, create_model, create_training_scheduler
@@ -95,6 +109,11 @@ class Trainor:
         self.early_stop_start = config.get("early_stop_start", 0)
         self.grad_accu = int(config.get("grad_accu", 1) or 1)
         self.state_dict = load_checkpoint(self.ckpt) if self.ckpt else None
+        world = mesh.process_count()
+        batch_size = int(config.get("batch_size", 1) or 1)
+        if world > 1 and batch_size % world:
+            raise ValueError(f"global batch_size {batch_size} must divide across {world} "
+                             "processes for multi-process training")
         self.saver = CheckpointSaver(self.ckpt_dir, self.logger, seed, ckpt=self.ckpt)
 
         self.dl = loader if loader is not None else create_data_loader(config, "train",
@@ -104,6 +123,10 @@ class Trainor:
             model_kwargs["dl"] = self.dl
         self.model = create_model(config, logger=self.logger, state_dict=self.state_dict,
                                   seed=int(seed), device=device, **model_kwargs)
+        if world > 1 and hasattr(self.model, "train_iteration"):
+            raise NotImplementedError(
+                f"{type(self.model).__name__} does not train across {world} processes: its "
+                "step is its own")
 
         optim_params = config.get("optim_params") or {}
         if isinstance(optim_params, Config):
@@ -126,7 +149,27 @@ class Trainor:
 
     # ------------------------------------------------------------------
     def _loss(self, batch) -> torch.Tensor:
-        return self.model.apply_train(batch, self.generator)["loss"]
+        """This process's share of the global batch's loss (the whole loss
+        in one process)."""
+        with mesh.global_batch():
+            return self.model.apply_train(batch, self.generator)["loss"]
+
+    def _global(self, loss: torch.Tensor) -> torch.Tensor:
+        """The global batch's loss: the processes' shares summed."""
+        loss = loss.detach()
+        if mesh.initialized():
+            loss = loss.clone()
+            torch.distributed.all_reduce(loss)
+        return loss
+
+    def _sync_grads(self) -> None:
+        """Sum the gradients over the processes (a parameter without one
+        takes zeros, as optax sees them)."""
+        if mesh.initialized():
+            for p in self.tx.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mesh.all_reduce_sum_([p.grad for p in self.tx.params])
 
     def zero_grads(self) -> None:
         for p in self.tx.params:
@@ -138,9 +181,11 @@ class Trainor:
         self.zero_grads()
         loss = self._loss(batch)
         loss.backward()
+        self._sync_grads()
+        loss = self._global(loss)
         stepped = gated_update(self.tx, lr, loss)
         commit_batch_stats(self.model.module, stepped)
-        return loss.detach()
+        return loss
 
     def grad_step(self, batch) -> torch.Tensor:
         """Add this microbatch's gradients to the accumulation in ``.grad``;
@@ -148,17 +193,19 @@ class Trainor:
         running statistics. Returns the loss."""
         loss = self._loss(batch)
         loss.backward()
-        good = torch.isfinite(loss.detach())
+        loss = self._global(loss)
+        good = torch.isfinite(loss)
         for p in self.tx.params:
             if p.grad is not None:
                 p.grad = torch.where(good, p.grad, torch.zeros((), dtype=p.grad.dtype,
                                                                device=p.grad.device))
         commit_batch_stats(self.model.module, good)
-        return loss.detach()
+        return loss
 
     def apply_step(self, lr: float, gate_loss: torch.Tensor) -> bool:
         """Apply the accumulated gradients, gated on ``gate_loss``, and
         start a new accumulation. Returns whether it stepped."""
+        self._sync_grads()
         stepped = gated_update(self.tx, lr, gate_loss)
         self.zero_grads()
         return stepped
@@ -305,11 +352,11 @@ class Trainor:
 
             ret = scheduler.eval_step(decay_metric=decay_metric,
                                       early_stop_score=early_stop_score)
-            if self.save_every_epoch:
+            if self.save_every_epoch and mesh.process_index() == 0:
                 path = os.path.join(self.ckpt_dir, f"epoch_{epoch + 1}_{self.seed}.ckpt")
                 save_checkpoint(path, self._payload())
                 self.logger.info(f"{path} saved.")
-            if ret["save_state"]:
+            if ret["save_state"] and mesh.process_index() == 0:
                 self.saver.save(payload=snapshot(self._payload()), tag=early_stop_score,
                                 current_epoch=epoch + 1)
             if ret["done_training"]:

@@ -18,6 +18,7 @@ import logging
 
 from .. import registry
 from ..config.config import Config
+from ..parallel import mesh
 from ..utils.logger import SETTINGS_LEVEL
 from .scheduler import TrainingScheduler
 
@@ -38,7 +39,10 @@ def create_data_loader(config, split: str, logger=None, called_by_validator: boo
     ``batch_size``, ``num_workers`` (default 4) from the dataset block, and
     a seed for the shuffle and the image transforms' draws: the config's
     ``seed`` where it sets one, else ``seed`` (the run's seed, which the
-    caller passes), else 0."""
+    caller passes), else 0. In a multi-process run each process loads its
+    strided shard of every global batch (``shard_index`` = its rank), and
+    process 0 builds the dataset first (a vocabulary it writes is whole
+    when the others read it)."""
     from ..data import composites  # noqa: F401  (registers the composite datasets)
     from ..data.loader import DataLoader
 
@@ -49,15 +53,17 @@ def create_data_loader(config, split: str, logger=None, called_by_validator: boo
     if config.get("seed") is not None:
         seed = config.get("seed")
     seed = int(seed or 0)
-    dataset = registry.get("dataset", proto)(
-        split=split, ckpt_dir=config.get("ckpt_dir"), called_by_ensemblor=called_by_ensemblor,
-        seed=seed, **dataset_config)
+    with mesh.rank_zero_first():  # process 0 writes a built vocabulary first
+        dataset = registry.get("dataset", proto)(
+            split=split, ckpt_dir=config.get("ckpt_dir"),
+            called_by_ensemblor=called_by_ensemblor, seed=seed, **dataset_config)
     is_train = split == "train" and not called_by_validator
     if not called_by_validator or called_by_ensemblor:
         logger.log(SETTINGS_LEVEL, "DataLoader")
         logger.info(dataset)
     return DataLoader(dataset, batch_size=int(config.get("batch_size", 1) or 1),
-                      shuffle=is_train, drop_last=is_train, num_workers=num_workers, seed=seed)
+                      shuffle=is_train, drop_last=is_train, num_workers=num_workers, seed=seed,
+                      shard_index=mesh.process_index(), num_shards=mesh.process_count())
 
 
 def create_model(config, dl=None, logger=None, state_dict=None, seed: int = 0, device="cuda",

@@ -35,8 +35,11 @@ to the device, through the dataset's device preprocessing, into one
 ``generate``; the generated and the reference ids are decoded with the
 dataset's tokenizer (``skip_special_tokens``) into ``hyps`` and ``refs``.
 A ``Seq2Seq`` dataset has no ``tokenizer``: its target side gives the
-references (``decoder_input_ids``), the tokenizer and the length. Sharded
-evaluation is not ported.
+references (``decoder_input_ids``), the tokenizer and the length. With
+``shard_eval`` (on by default when the process has several local cards:
+``parallel.mesh.eval_devices``) each card holds a replica of the models,
+and every batch is padded to a multiple of the card count, split, and
+generated on the cards at once (:func:`sharded_generate`).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..blocks.transformer import make_blocked_head_weights, to_kernel_cache
 from ..data.image import prepare_batch
 from ..decoding import beam_search, greedy_search, tile_for_beams
 from ..ops.beam_cache_attention import HEAD_DIMS
+from ..parallel import mesh
 from .base import get_special_token_ids
 
 # the blocked head pays off only over a large vocabulary (a model property)
@@ -175,12 +179,32 @@ def evaluation(models, config, dl, **kwargs) -> Dict[str, Any]:
     bos_id, eos_id, pad_id = get_special_token_ids(models[0].dec_config, tokenizer)
     length_penalty = config.get("length_penalty", None)
     length_penalty = 1.0 if length_penalty is None else float(length_penalty)
-    generate = make_generate_fn(models, config.get("beam_width", 1), max_len, bos_id, eos_id,
-                                pad_id, length_penalty)
     device = next(models[0].module.parameters()).device
+    launch = sharded_generate(
+        models, mesh.eval_devices(config, device),
+        lambda ms: make_generate_fn(ms, config.get("beam_width", 1), max_len, bos_id, eos_id,
+                                    pad_id, length_penalty))
 
     def prepare(batch):
         on_device = prepare_batch(to_device(batch, device), dataset)
         return models[0].encoder_inputs(on_device), batch[ref_key], batch[ref_key].shape[0]
 
-    return pipelined_decode(dl, tokenizer, prepare, lambda inputs: generate(inputs).sequences)
+    return pipelined_decode(dl, tokenizer, prepare, launch)
+
+
+def sharded_generate(models, devices, make_generate):
+    """``launch(inputs) -> sequences`` of ``make_generate(models)``; over
+    several ``devices``, one replica of the models per device, each batch
+    padded to a multiple of the device count and split among them (the
+    sequences come back on the first device, the padding rows included)."""
+    if len(devices) == 1:
+        generate = make_generate(models)
+        return lambda inputs: generate(inputs).sequences
+    generates = [make_generate(r) for r in mesh.replicate(models, devices)]
+
+    def launch(inputs):
+        parts = mesh.sharded_call(lambda i, shard: generates[i](shard).sequences, devices,
+                                  inputs)
+        return torch.cat([p.to(devices[0]) for p in parts])
+
+    return launch

@@ -44,12 +44,18 @@ from ..blocks.vision.resnet import make_resnet
 from ..blocks.vision.visual_encoder import VisualEncoder, build_visual_encoder
 from ..config.config import Config
 from ..data.image import prepare_batch
+from ..parallel import mesh
 from .base import in_transformer_layer, init_weights_, loader_crop, resolve_block, resolve_device
 from .evaluation_nlg import to_device
 
 
 def _d(cfg) -> Dict:
     return cfg.to_dict() if isinstance(cfg, Config) else dict(cfg or {})
+
+
+def _first(loss):
+    """A loss's value where it returns ``(loss, per-row terms...)``."""
+    return loss[0] if isinstance(loss, tuple) else loss
 
 
 def _compute_dtype(dtype) -> torch.dtype:
@@ -104,7 +110,10 @@ class ConVIRTModule(nn.Module):
 
 class _SelfSupModel:
     """What ConVIRT and GLoRIA share: random weights from ``seed`` on the
-    device, and the training / eval entry points over :meth:`_apply`."""
+    device, and the training / eval entry points over :meth:`_apply`. Across
+    several processes their losses run over every process's rows
+    (``parallel.mesh.loss_over_global_rows``), as the JAX package's over its
+    global batch."""
 
     module: nn.Module
 
@@ -176,8 +185,8 @@ class ConVIRT(_SelfSupModel):
     def _apply(self, batch, train: bool, generator=None) -> Dict:
         linguistic, visual = self.module(batch["input_ids"], batch["attention_mask"],
                                          batch["images"], train, generator)
-        loss = self.loss_fn(linguistic, visual)
-        loss = loss[0] if isinstance(loss, tuple) else loss
+        loss = mesh.loss_over_global_rows(lambda *rows: _first(self.loss_fn(*rows)),
+                                          linguistic, visual)
         return {"loss": loss, "linguistic": linguistic, "visual": visual}
 
     def __repr__(self):
@@ -278,8 +287,10 @@ class GLoRIA(_SelfSupModel):
         if self._cont_table is not None:
             words, mask = self._aggregate_words(words, batch["input_ids"],
                                                 batch["attention_mask"])
-        loss = self.loss_fn(out["global_features"], out["local_features"], words,
-                            out["sent_embeddings"], mask)
+        # empty word slots hold 1.0 and mask 0, as the longest batch pads them
+        loss = mesh.loss_over_global_rows(self.loss_fn, out["global_features"],
+                                          out["local_features"], (words, 1.0),
+                                          out["sent_embeddings"], (mask, 0.0))
         return {"loss": loss, "global": out["global_features"], "sent": out["sent_embeddings"]}
 
     # -- inference: the reference's zero-shot API --------------------------

@@ -35,7 +35,6 @@ dataset's tokenizer. Not ported: sharded evaluation.
 
 from __future__ import annotations
 
-import logging
 import math
 import os
 from typing import Any, Dict, Optional
@@ -57,7 +56,10 @@ from ..ops.attention import make_attention_bias
 from ..ops.beam_cache_attention import KernelPrefix, pack_kernel_prefix, prefix_fusable
 from ..registry import register
 from .base import get_special_token_ids, resolve_block, resolve_device
-from .evaluation_nlg import BLOCKED_MIN_VOCAB, kernel_route_ok, pipelined_decode, to_device
+from ..parallel.mesh import eval_devices
+from .evaluation_nlg import (
+    BLOCKED_MIN_VOCAB, kernel_route_ok, pipelined_decode, sharded_generate, to_device,
+)
 
 #: the keys of a DINOv2 config that the tower takes from a pretrained name,
 #: besides ``image_size`` (the JAX package's list)
@@ -314,7 +316,7 @@ def make_vl_generate_fn(model, beam_width: int, max_len: int, bos_id: int, eos_i
 
 def vl_evaluation(models, config, dl, **kwargs) -> Dict[str, Any]:
     """The ``eval_func`` of :class:`VisionLanguage` (the JAX package's
-    ``vl_evaluation``, unsharded): :func:`make_vl_generate_fn` of the first
+    ``vl_evaluation``): :func:`make_vl_generate_fn` of the first
     model at the config's ``beam_width`` (default 1), ``length_penalty``
     (default 1), ``prefix_kv_dtype`` and ``gen_kv_dtype``, up to the
     dataset's ``tokenizer_max_len``, with the special ids of the decoder
@@ -322,28 +324,31 @@ def vl_evaluation(models, config, dl, **kwargs) -> Dict[str, Any]:
     ``VILMEDIC_FUSED_PREFIX=1``, as the JAX package's ``maybe_fuse_prefix``
     takes it. Every batch of ``dl`` goes to the model's device, and the
     generated and reference ids are decoded into ``hyps`` and ``refs``
-    (``pipelined_decode``). ``shard_eval`` is logged and ignored: sharded
-    evaluation is not ported."""
+    (``pipelined_decode``), sharded over the local cards as
+    ``evaluation_nlg.sharded_generate`` does under ``shard_eval``."""
     model = models[0]
     dataset = dl.dataset
     tokenizer = dataset.tokenizer
     max_len = int(dataset.tokenizer_max_len)
     bos_id, eos_id, pad_id = get_special_token_ids(model.dec_config, tokenizer)
-    if config.get("shard_eval"):
-        logging.getLogger(__name__).warning(
-            "shard_eval: sharded evaluation is not ported; evaluating on one device")
-    generate = make_vl_generate_fn(
-        model, int(config.get("beam_width", 1) or 1), max_len, bos_id, eos_id, pad_id,
-        length_penalty=float(config.get("length_penalty") or 1.0),
-        prefix_kv_dtype=config.get("prefix_kv_dtype"), gen_kv_dtype=config.get("gen_kv_dtype"),
-        fused_prefix=os.environ.get("VILMEDIC_FUSED_PREFIX", "0") == "1")
     device = next(model.module.parameters()).device
+
+    def make_generate(replica):
+        generate = make_vl_generate_fn(
+            replica[0], int(config.get("beam_width", 1) or 1), max_len, bos_id, eos_id, pad_id,
+            length_penalty=float(config.get("length_penalty") or 1.0),
+            prefix_kv_dtype=config.get("prefix_kv_dtype"),
+            gen_kv_dtype=config.get("gen_kv_dtype"),
+            fused_prefix=os.environ.get("VILMEDIC_FUSED_PREFIX", "0") == "1")
+        return lambda inputs: generate(inputs["images"])
+
+    launch = sharded_generate([model], eval_devices(config, device), make_generate)
 
     def prepare(batch):
         images = prepare_batch(to_device(batch, device), dataset)["images"]
-        return images, batch["input_ids"], batch["input_ids"].shape[0]
+        return {"images": images}, batch["input_ids"], batch["input_ids"].shape[0]
 
-    return pipelined_decode(dl, tokenizer, prepare, lambda images: generate(images).sequences)
+    return pipelined_decode(dl, tokenizer, prepare, launch)
 
 
 def init_vl_weights_(module: VisionLanguageModule, generator: torch.Generator) -> None:

@@ -17,50 +17,28 @@ of RL fine-tuning.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import List, Tuple
 
+from ...utils.native_build import FLAGS, build_library
+from ...utils.native_build import library_path as _library_path
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 SOURCE = PKG_DIR / "csrc" / "ngram_scores.cpp"
 BUILD_DIR = PKG_DIR / "_build"
-FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _lib = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join(FLAGS).encode())
-    return BUILD_DIR / f"libngram_scores_{digest.hexdigest()[:16]}.so"
+    return _library_path(SOURCE, BUILD_DIR, "libngram_scores", FLAGS)
 
 
 def build() -> Path:
-    """Compile the core unless this exact build exists; returns the .so. The
-    library is written under a temporary name and renamed, so processes that
-    build at once never load a half-written file."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ["g++", *FLAGS, "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        os.unlink(tmp)
-        raise RuntimeError(f"cannot build {SOURCE.name}: g++ not found") from e
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    """Compile the core unless this exact build exists; returns the .so."""
+    return build_library(SOURCE, BUILD_DIR, "libngram_scores", FLAGS)
 
 
 def get_lib() -> ctypes.CDLL:
