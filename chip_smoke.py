@@ -229,6 +229,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     are installed and the ``torch.distributed`` backends; the
     ``plot_representation`` phase is left out, since the card's machine
     has neither scikit-learn nor matplotlib.
+22. runs the two pipelined training paths (``pipelined_train``, after
+    ``generation_parity``): the Trainor's ``device_prefetch`` (the flagship
+    config in f32, batch 8, ``device_preproc``, 3 steps with 0 and then 2,
+    deterministic: losses and every checkpoint tensor bitwise equal, K3 once
+    a step on the copy stream, ms an iteration of each beside ``rrg_train``'s,
+    which runs at the default 2); ``overlap_rollout`` with the SCST config at
+    full width through the train CLI (batch 32 over ``scst_train``'s 128
+    reports: 4 steps, the last at the epoch's end, the Validator's K1 (a), K2
+    and K3; then a serial and a pipelined epoch on the same trainer,
+    samples/s and the rollout / reward / gradient ms of each); and the
+    pipelined iteration f32 card vs CPU at ``densenet_tiny`` (3 batches and
+    the flush).
 
 The f32 CPU halves of the VisionLanguage parities (7's three, 10's and
 11's) run in a helper process of this script (``--cpu-halves``, no card
@@ -3051,6 +3063,7 @@ def phase_rrg_train(tmp: str):
     iter_ms = statistics.median(steps.iterations[1:]) * 1e3
     step_ms = statistics.median(steps.times[1:]) * 1e3
     n_steps = len(steps.iterations)
+    PIPELINE_REF["rrg_train_iter_ms"] = iter_ms
     print(f"RRG train: {cfg.model.cnn.backbone} at {trainor.dl.dataset.image.crop}², "
           f"{model.dec_config.num_hidden_layers}-layer decoder of {model.dec_config.hidden_size}, "
           f"vocab {model.dec_config.vocab_size} (built from the train split), "
@@ -3330,8 +3343,9 @@ class ScstRecorder:
 
 
 def scst_corpus(src: str, dst: str, n_train: int):
-    """The ``rrg_train`` corpus in ``dst``, its train split cut to the
-    first ``n_train`` reports (the JPEG paths are absolute)."""
+    """An RRG corpus (``rrg_train``'s, ``rrg_train_parity``'s) in ``dst``,
+    its train split cut to the first ``n_train`` reports (the JPEG paths
+    are absolute)."""
     os.makedirs(dst, exist_ok=True)
     for split, n in (("train", n_train), ("validate", None)):
         for kind in ("impression", "image"):
@@ -3402,6 +3416,7 @@ def phase_scst_train(tmp: str):
     iter_ms = statistics.median(rec.iterations[1:]) * 1e3
     split = {k: statistics.median(x[k] for x in rec.splits[1:]) * 1e3
              for k in ("rollout", "reward", "grad")}
+    PIPELINE_REF["scst_train"] = dict(split, samples_s=batch / iter_ms * 1e3)
     scores = evaluator.scores[0]
     print(f"SCST train: {os.path.basename(SCST_CONFIG)} from {os.path.basename(ckpt)}, "
           f"{cfg.model.cnn.backbone}, {model.dec_config.num_hidden_layers}-layer decoder of "
@@ -3815,6 +3830,305 @@ def phase_generation_parity(tmp: str):
     print(f"generation parity: {time.perf_counter() - t0:.1f} s")
     require(checks, "generation_parity")
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- the pipelined training paths
+
+PIPELINE_REF = {}  # rrg_train's and scst_train's figures, printed beside pipelined_train's
+PREFETCH_TRAIN = 24  # 3 steps at batch 8
+OVERLAP_PARITY_TRAIN = 6  # 3 batches of 2: 2 steps in the loop and the flush
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN deterministic without autotuning, TF32 off and PyTorch's
+    deterministic algorithms (warnings only), as ``dist_train``'s workers
+    run; restored after."""
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def config_trainor(config: str, overrides, ckpt_dir: str, vocab: str, device: str):
+    """A ``Trainor`` over ``config`` + dotlist ``overrides`` (the train
+    CLI's view of it) writing into ``ckpt_dir``, with ``vocab`` as its
+    ``vocab.tgt``; no Validator."""
+    import shutil
+
+    from vilmedic_torch.config import load_config
+    from vilmedic_torch.config.config import executor_config
+    from vilmedic_torch.executors import Trainor
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    shutil.copy(vocab, os.path.join(ckpt_dir, "vocab.tgt"))
+    cfg, _ = load_config(config, overrides)
+    train_cfg = executor_config(cfg, "trainor")
+    train_cfg.ckpt_dir = ckpt_dir
+    return Trainor(train_cfg, seed=SEED, device=device)
+
+
+def checkpoint_tensors(payload, prefix: str = ""):
+    """Every tensor of a checkpoint payload, by its path."""
+    import torch
+
+    if isinstance(payload, torch.Tensor):
+        return {prefix: payload}
+    out = {}
+    if isinstance(payload, dict):
+        for k, v in payload.items():
+            out.update(checkpoint_tensors(v, f"{prefix}/{k}"))
+    elif isinstance(payload, (list, tuple)):
+        for i, v in enumerate(payload):
+            out.update(checkpoint_tensors(v, f"{prefix}/{i}"))
+    return out
+
+
+def prefetch_runs(tmp: str, card: str):
+    """(a) The flagship config in f32 with ``device_preproc``, batch 8, on
+    24 train reports of the ``rrg_train`` corpus (its vocabulary), 3 steps
+    from the same initial weights with ``device_prefetch`` 0 and then 2,
+    deterministic: every loss, and every tensor of the two checkpoint
+    payloads (model and optimizer state, as the trainer saves them),
+    bitwise equal; K3 launched once a step in both; ms an iteration of each
+    beside ``rrg_train``'s (bf16, batch 128, the default depth 2)."""
+    import torch
+
+    data = os.path.join(tmp, "prefetch_data")
+    scst_corpus(os.path.join(tmp, "rrg_data"), data, PREFETCH_TRAIN)
+    vocab = os.path.join(tmp, "rrg_train", "vocab.tgt")
+    runs, initial = {}, None
+    with deterministic():
+        for depth in (0, 2):
+            name = f"prefetch_{depth}"
+            overrides = rrg_train_overrides(data, tmp, name, "cuda")[1:] + [
+                "model.dtype=float32", "trainor.batch_size=8", f"trainor.device_prefetch={depth}"]
+            trainor = config_trainor(CONFIG, overrides, os.path.join(tmp, name), vocab, "cuda")
+            if initial is None:
+                initial = {k: v.clone() for k, v in trainor.model.module.state_dict().items()}
+            else:
+                trainor.model.module.load_state_dict(initial)
+            reset_launches()
+            with StepRecorder() as steps:
+                trainor.dl.set_epoch(0)
+                trainor.train_epoch(0)
+            torch.cuda.synchronize()
+            runs[depth] = dict(prefetch=trainor.device_prefetch, losses=steps.losses,
+                               iterations=steps.iterations, epoch=steps.epochs[0],
+                               k3=read_launches()[K3],
+                               tensors=checkpoint_tensors(trainor._payload()))
+            del trainor
+    off, on = runs[0], runs[2]
+    same = off["tensors"].keys() == on["tensors"].keys() and all(
+        torch.equal(v, on["tensors"][k]) for k, v in off["tensors"].items())
+    ms = {d: statistics.median(r["iterations"][1:]) * 1e3 for d, r in runs.items()}
+    print(f"pipelined_train (a) prefetch ({card}): flagship f32 batch 8, device_preproc, "
+          f"3 steps from the same weights; losses {off['losses']} with device_prefetch 0, "
+          f"{on['losses']} with 2 ({'bitwise equal' if off['losses'] == on['losses'] else 'DIFFER'}"
+          f"); {len(off['tensors'])} checkpoint tensors {'all equal' if same else 'DIFFER'}; "
+          f"K3 {off['k3']} / {on['k3']}; ms an iteration (whole: loader wait, copy, K3, step; "
+          f"median of steps 2-3) {ms[0]:.1f} at 0, {ms[2]:.1f} at 2 (each iteration "
+          f"{[round(t * 1e3, 1) for t in off['iterations']]} / "
+          f"{[round(t * 1e3, 1) for t in on['iterations']]}; epoch {off['epoch']:.3f} / "
+          f"{on['epoch']:.3f} s); rrg_train (bf16, batch 128, device_prefetch 2): "
+          f"{PIPELINE_REF.get('rrg_train_iter_ms', float('nan')):.1f} ms an iteration")
+    return {
+        "(a) device_prefetch read: 0 and 2": (off["prefetch"], on["prefetch"]) == (0, 2),
+        "(a) 3 finite losses, bitwise equal": len(off["losses"]) == 3
+        and all(map(math.isfinite, off["losses"])) and off["losses"] == on["losses"],
+        "(a) every checkpoint tensor bitwise equal": same and len(off["tensors"]) > 0,
+        "(a) K3 once a step, equal": off["k3"] == on["k3"] == 3,
+    }, on["k3"]
+
+
+class StepLosses:
+    """Wraps the SCST model's gradient step (``_SCSTBase._step``) for a
+    run: each step's rollouts, rewards and loss."""
+
+    def __enter__(self):
+        from vilmedic_torch.models.scst_models import _SCSTBase
+
+        self.steps, self.real = [], _SCSTBase._step
+        rec = self
+
+        def step(model, trainor, ro, rewards, lr):
+            loss, custom = rec.real(model, trainor, ro, rewards, lr)
+            rec.steps.append((ro.greedy, ro.sampled, rewards[0], rewards[1], float(loss)))
+            return loss, custom
+
+        _SCSTBase._step = step
+        return self
+
+    def __exit__(self, *exc):
+        from vilmedic_torch.models.scst_models import _SCSTBase
+
+        _SCSTBase._step = self.real
+
+
+def scst_epoch(trainor, epoch: int, overlap: bool):
+    """One more SCST epoch on the trainer, serial or pipelined: (wall s,
+    per-iteration rollout / reward / gradient ms, steps)."""
+    import torch
+
+    model = trainor.model
+    model.overlap_rollout = overlap
+    before = dict(model.timing)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainor.dl.set_epoch(epoch)
+    trainor.train_epoch(epoch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = model.timing["iters"] - before["iters"]
+    split = {k: (model.timing[f"{k}_s"] - before[f"{k}_s"]) / steps * 1e3
+             for k in ("rollout", "reward", "grad")}
+    return wall, split, steps
+
+
+def overlap_run(tmp: str, card: str):
+    """(b) ``config/RRG/rrg-scst-mimic.yml`` with ``model.overlap_rollout=true``
+    through the train CLI at full width, bf16, batch 32 over ``scst_train``'s
+    128 reports from ``rrg_train``'s checkpoint, the Validator at beam 8:
+    4 iterations give 4 steps (3 in the loop, 1 at the epoch's end),
+    ``iteration_count`` 4, finite losses, nothing pending, K1 (a), K2 and K3
+    in the Validator. Then 2 more epochs on the same trainer, serial and
+    pipelined: samples/s and the rollout / reward / gradient ms of each
+    beside ``scst_train``'s. Returns (checks, launches)."""
+    import shutil
+
+    import torch
+
+    from vilmedic_torch.bin.train import main
+
+    data = os.path.join(tmp, "scst_data")
+    ckpt = glob.glob(os.path.join(tmp, "rrg_train", "*.ckpt"))[0]
+    os.makedirs(os.path.join(tmp, "overlap_scst"), exist_ok=True)
+    shutil.copy(os.path.join(tmp, "rrg_train", "vocab.tgt"), os.path.join(tmp, "overlap_scst"))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StepLosses() as rec, DecodeSteps() as val_steps:
+        trainor = main(scst_overrides(data, tmp, "overlap_scst", "cuda", ckpt)
+                       + ["model.overlap_rollout=true"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    model = trainor.model
+    first = dict(model.timing)
+    batch, n_iter = int(trainor.config.batch_size), len(trainor.dl)
+    n_val_batches = len(trainor.evaluator.splits[0][1])
+    losses = [x[4] for x in rec.steps]
+    checks = {
+        "(b) overlap_rollout on": model.overlap_rollout,
+        "(b) 4 iterations, 4 steps (3 in the loop, 1 flushed)":
+            n_iter == 4 and first["iters"] == 4 and len(rec.steps) == 4,
+        "(b) iteration_count 4": trainor.training_scheduler.iteration_count == 4,
+        "(b) finite losses, one epoch loss": all(map(math.isfinite, losses))
+        and len(trainor.epoch_losses) == 1 and math.isfinite(trainor.epoch_losses[0]),
+        "(b) nothing pending": model._pending is None,
+        "(b) K1 (a) = K2 = Validator decode steps":
+            launches[K1] == launches[K2] == val_steps.steps > 0,
+        "(b) K3 = training + Validator batches": launches[K3] == n_iter + n_val_batches,
+    }
+    rows = ["pipelined (the CLI run): " + ", ".join(
+        f"{k} {first[f'{k}_s'] / first['iters'] * 1e3:.1f}" for k in ("rollout", "reward", "grad"))
+        + " ms a step"]
+    for e, overlap in enumerate((False, True), start=1):
+        wall, split, steps = scst_epoch(trainor, e, overlap)
+        checks[f"(b) epoch {e}: 4 steps"] = steps == 4 and model._pending is None
+        rows.append(f"{'pipelined' if overlap else 'serial'}: {n_iter * batch / wall:.1f} "
+                    f"samples/s ({wall:.3f} s an epoch), "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + " ms a step")
+    ref = PIPELINE_REF.get("scst_train", {})  # absent when the phase runs alone
+    print(f"pipelined_train (b) overlap_rollout ({card}): {os.path.basename(SCST_CONFIG)} bf16 "
+          f"batch {batch}, {n_iter} iterations, run {run_s:.1f} s (Validator included); step "
+          f"losses {[round(x, 6) for x in losses]}; launches K1 {launches[K1]}, K2 "
+          f"{launches[K2]}, K3 {launches[K3]} (Validator {val_steps.steps} decode steps); then "
+          f"alternated on the same trainer: " + "; ".join(rows)
+          + "; scst_train (serial, its own run): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in ref.items()) + " (samples/s; ms, medians of iterations 2-4)")
+    del trainor, model
+    torch.cuda.empty_cache()
+    return checks, {K1: launches[K1], K2: launches[K2], K3: launches[K3]}
+
+
+def overlap_parity(tmp: str):
+    """(c) The pipelined iteration in f32 on the card and on the CPU from
+    the same weights and Gumbel draws: ``scst_parity``'s setup
+    (``densenet_tiny``, the full-width decoder over the parity corpus's
+    5000-word vocabulary), 3 batches of 2 and the flush. Equal greedy and
+    sampled ids and rewards at every step, each loss within 1e-5 relative,
+    each tensor's change over the 3 steps as :func:`update_agreement`
+    holds it."""
+    import numpy as np
+
+    import vilmedic_torch.blocks.vision.densenet as densenet
+
+    densenet.CONFIGS["densenet_tiny"] = (8, (2, 2), 16)
+    data = os.path.join(tmp, "overlap_parity_data")
+    scst_corpus(os.path.join(tmp, "rrg_parity_data"), data, OVERLAP_PARITY_TRAIN)
+    vocab = os.path.join(tmp, "scst_parity_0", "vocab.tgt")
+    runs = []
+    for i, device in enumerate(PARITY_DEVICES):
+        _, *overrides = scst_overrides(data, tmp, "unused", device)
+        trainor = config_trainor(SCST_CONFIG, overrides + [
+            "trainor.batch_size=2", "model.dtype=float32", "model.cnn.backbone=densenet_tiny",
+            "model.cnn.visual_projection.in_features=32", "model.decoder.hidden_dropout_prob=0.0",
+            "dataset.image.resize=64", "dataset.image.crop=56", "dataset.num_workers=0",
+            "model.overlap_rollout=true"], os.path.join(tmp, f"overlap_parity_{i}"), vocab, device)
+        initial = cpu_state(trainor.model)
+        t0 = time.perf_counter()
+        with InjectedNoise(SEED + 80), StepLosses() as rec:
+            trainor.dl.set_epoch(0)
+            trainor.train_epoch(0)
+        runs.append((rec.steps, initial, cpu_state(trainor.model), time.perf_counter() - t0,
+                     trainor.model._pending is None))
+        vocab_size = trainor.model.dec_config.vocab_size
+        del trainor
+    (s_c, i_c, f_c, t_c, p_c), (s_g, i_g, f_g, t_g, p_g) = runs
+    same_ids = len(s_c) == len(s_g) == 3 and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(s_c, s_g))
+    same_rewards = all(np.array_equal(x, y) for a, b in zip(s_c, s_g)
+                       for x, y in zip(a[2] + a[3], b[2] + b[3]))
+    rel = max(abs(a[4] - b[4]) / abs(a[4]) for a, b in zip(s_c, s_g))
+    ratio, worst = update_agreement((i_c, i_g), f_c, f_g, 3)
+    print(f"pipelined_train (c) overlap_rollout f32 card vs CPU (densenet_tiny, vocab "
+          f"{vocab_size}, 3 batches of 2 and the flush; CPU {t_c:.1f} s, card {t_g:.1f} s): "
+          f"greedy and sampled ids {'equal' if same_ids else 'DIFFER'} at every step, rewards "
+          f"{'equal' if same_rewards else 'DIFFER'}; losses {[x[4] for x in s_g]} card vs "
+          f"{[x[4] for x in s_c]} CPU (max relative {rel:.2e}); parameter changes: worst "
+          f"|diff| / tol {ratio:.3g} ({worst})")
+    return {
+        "(c) 3 steps each, nothing pending": len(s_c) == len(s_g) == 3 and p_c and p_g,
+        "(c) greedy and sampled ids equal at every step": same_ids,
+        "(c) sampled differ from greedy": not np.array_equal(s_g[0][0], s_g[0][1]),
+        "(c) rewards equal": same_rewards,
+        "(c) losses within 1e-5 relative": rel <= 1e-5,
+        "(c) updates within update_agreement": ratio <= 1.0,
+    }
+
+
+def phase_pipelined_train(tmp: str, card: str):
+    """The two pipelined training paths (``pipelined_train``): (a) the
+    Trainor's ``device_prefetch`` against synchronous placement, (b)
+    ``overlap_rollout`` at full width beside the serial iteration, (c) the
+    pipelined iteration f32 card vs CPU. Returns the path's launches of
+    K1, K2 and K3 (K3 of (a)'s prefetched run and (b)'s CLI run)."""
+    set_tf32(False)
+    checks, k3_prefetch = prefetch_runs(tmp, card)
+    more, launches = overlap_run(tmp, card)
+    checks.update(more)
+    checks.update(overlap_parity(tmp))
+    require(checks, "pipelined_train")
+    launches[K3] += k3_prefetch
+    return launches
 
 
 # ------------------------------------------- MVQA / CLASS, the ViT RRG tower
@@ -7602,6 +7916,7 @@ def main():
         launches["scst_train"] = timed(phase_scst_train, tmp)
         launches["rrs_train"] = timed(phase_rrs_train, tmp)
         timed(phase_generation_parity, tmp)
+        launches["pipelined_train"] = timed(phase_pipelined_train, tmp, card)
         launches["rrg_vit_train"] = timed(phase_rrg_vit_train, tmp, card)
         launches["mvqa_train"] = timed(phase_mvqa_train, tmp, card)
         launches["class_train"] = timed(phase_class_train, tmp, card)
@@ -7645,13 +7960,16 @@ def main():
     for name in (K4L, K5Q, K5KV):
         results[name]["tower_launches"] = rrg_dinov2[name]
     # the later paths' launches of the kernels they run (K1 stage a, K2,
-    # K3): RRG training, SCST fine-tuning, RRS training, RRG with the ViT
+    # K3): RRG training, SCST fine-tuning, the pipelined training paths
+    # (K3 on the prefetch copy stream, the pipelined SCST run's Validator),
+    # RRS training, RRG with the ViT
     # tower, MVQA and CLASS (none), the RoBERTa-width RRG serving, ConVIRT
     # and GLoRIA training (none), RRG_HF (single and multi-image) and RRS_HF
     # training, the RoBERTa RRG config's Validator with the clinical
     # scorers, the zoo-loaded RRG and DINOv2 tower, the DICOM-serving RRG,
     # the train CLI under a process group, and the hf_dataset Validator
     for path, key in (("rrg_train", "rrg_train_launches"), ("scst_train", "scst_launches"),
+                      ("pipelined_train", "pipelined_launches"),
                       ("rrs_train", "rrs_launches"), ("rrg_vit_train", "rrg_vit_launches"),
                       ("mvqa_train", "mvqa_launches"), ("class_train", "class_launches"),
                       ("rrg_roberta_serve", "rrg_roberta_launches"),
@@ -7676,7 +7994,8 @@ def main():
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # the flash kernels' head dims; K4/K5 at D 256; launches on the training paths
-    extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "rrs_launches",
+    extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "pipelined_launches",
+             "rrs_launches",
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
              "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",
              "rrs_hf_launches", "vl_cli_launches", "vl_unfrozen_launches", "clinical_launches",

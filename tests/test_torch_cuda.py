@@ -15,8 +15,12 @@ card vs CPU, a tiny RoBERTa-type RRG (the LM-head transform before K2, the
 ensemble's blocked head and the plain head), the GLoRIA loss, an unfrozen
 DINOv2 tower's gradient (K5 non-causal; also alone at T 1370), gradient
 checkpointing's replayed dropout, BERTScore's encoder, the ModernBERT
-encoder and the GREEN judge's LLaMA (logits, greedy tokens) card vs CPU. Run
-them on the card
+encoder and the GREEN judge's LLaMA (logits, greedy tokens) card vs CPU, the
+Trainor's device prefetch (the copy stream's placement and crop+normalize
+bitwise the synchronous one; prefetched batches intact while the caching
+allocator reuses freed memory) and the pipelined SCST iteration with a
+reward on the card (CheXbert on the reward worker's stream, the serial
+path's rewards). Run them on the card
 from the repository root, without the JAX conftest (the card's machine has no
 JAX):
 
@@ -1744,3 +1748,164 @@ def test_zoo_dinov2_tower_card_equals_cpu(cuda, tmp_path):
     assert launched == cfg["num_hidden_layers"]
     scale = outs["cpu"].abs().max().item()
     assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-4 * scale
+
+
+def _u8_batches(n: int, b: int, r: int, crop: int, seed: int):
+    """``device_preproc`` host batches: uint8 (b, r, r, 3) images, crop
+    offsets, token ids."""
+    gen = torch.Generator().manual_seed(seed)
+    return [{"images_u8": torch.randint(0, 256, (b, r, r, 3), generator=gen, dtype=torch.uint8),
+             "preproc_tops": torch.randint(0, r - crop + 1, (b,), generator=gen,
+                                           dtype=torch.int32),
+             "preproc_lefts": torch.randint(0, r - crop + 1, (b,), generator=gen,
+                                            dtype=torch.int32),
+             "input_ids": torch.randint(0, 100, (b, 12), generator=gen)} for _ in range(n)]
+
+
+def _placement(device, crop: int, streams=None):
+    """The Trainor's placement of a ``device_preproc`` batch: the copy,
+    then the crop+normalize kernel (K3); records the stream it ran on."""
+    from vilmedic_torch.models.evaluation_nlg import to_device
+
+    def place(batch):
+        if streams is not None:
+            streams.append(torch.cuda.current_stream(device))
+        return finalize_device_preproc(to_device(batch, device), crop)
+
+    return place
+
+
+def test_device_prefetch_copy_stream_equals_synchronous_placement(cuda):
+    """Six batches of 16 at 256² cropped to 224: placed on a copy stream of
+    the prefetcher's own (pinned copies, K3 there) they equal the batches
+    placed on the training thread's stream, to the bit, with as many K3
+    launches."""
+    from vilmedic_torch.data.loader import DevicePrefetch
+
+    batches = _u8_batches(6, 16, 256, 224, 0)
+    start = crop_normalize.launches
+    want = [_placement(cuda, 224)(b) for b in batches]
+    launched = crop_normalize.launches - start
+    streams = []
+    start = crop_normalize.launches
+    got = list(DevicePrefetch(batches, _placement(cuda, 224, streams), depth=2, device=cuda))
+    assert crop_normalize.launches - start == launched == 6
+    assert streams and all(s != torch.cuda.default_stream(cuda) for s in streams)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() and all(torch.equal(g[k], w[k]) for k in w)
+
+
+def test_prefetched_batches_survive_allocator_reuse(cuda):
+    """Each consumed batch is read by the training stream only after a
+    ~10 ms sleep kernel, and dropped right away: its memory goes back to the
+    caching allocator while the read is still queued, and the producer's
+    next batches (same sizes, on the copy stream) would take it but for
+    ``record_stream``. Every batch's sum equals that of the synchronous
+    placement."""
+    from vilmedic_torch.data.loader import DevicePrefetch
+
+    batches = _u8_batches(12, 16, 256, 224, 1)
+    place = _placement(cuda, 224)
+    want = [place(b)["images"].double().sum().item() for b in batches]
+    sums = []
+    for batch in DevicePrefetch(batches, place, depth=2, device=cuda):
+        torch.cuda._sleep(20_000_000)
+        sums.append(batch["images"].double().sum())
+        del batch
+    assert [s.item() for s in sums] == want
+
+
+def _chexbert_files(root, words):
+    """A small CheXbert (BERT of 1 layer x 64, the 14 heads) and its
+    ``vocab.txt``, random from a seed."""
+    from vilmedic_torch.scorers.chexbert import CheXbertModule
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *words]
+    (root / "vocab.txt").write_text("\n".join(vocab))
+    cfg = dict(model_type="bert", vocab_size=len(vocab), hidden_size=64, num_hidden_layers=1,
+               num_attention_heads=1, intermediate_size=128, max_position_embeddings=64,
+               type_vocab_size=2)
+    torch.manual_seed(0)
+    module = CheXbertModule(cfg)
+    with torch.no_grad():
+        for head in module.linear_heads:
+            head.weight.mul_(20)  # labels away from ties
+    torch.save({"model_state_dict": {f"module.{k}": v for k, v in module.state_dict().items()}},
+               root / "chexbert.pth")
+    return root / "chexbert.pth", root / "vocab.txt"
+
+
+def test_overlapped_scst_card_reward_gives_the_serial_rewards(cuda, tmp_path, monkeypatch):
+    """The pipelined SCST iteration of a small RRG_SCST (``densenet_tiny``,
+    f32) with rewards [rougel, chexbert] over 3 batches of 3 and the flush:
+    the rewards of batches 1 and 2 run on the reward worker, CheXbert on the
+    card on the worker's own stream; each equals what the serial path's
+    reward computation gives on the same rollouts on the training thread;
+    3 steps, finite losses, nothing left pending."""
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from vilmedic_torch.config.config import Config
+    from vilmedic_torch.executors import Trainor
+    from vilmedic_torch.scorers import chexbert
+
+    monkeypatch.setitem(tdensenet.CONFIGS, "densenet_tiny", (8, (2, 2), 16))
+    reports = ["no acute disease .", "heart size is normal .", "small pleural effusion .",
+               "lungs are clear .", "mild cardiomegaly .", "no evidence of pneumonia .",
+               "stable cardiomegaly .", "small left effusion .", "clear lungs ."]
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(len(reports)):
+        paths.append(str(tmp_path / f"im{i}.jpg"))
+        Image.fromarray(rng.integers(0, 255, (48, 48, 3), dtype=np.uint8)).save(paths[-1])
+    (tmp_path / "train.report.tok").write_text("\n".join(reports))
+    (tmp_path / "train.image.tok").write_text("\n".join(paths))
+    pth, vocab = _chexbert_files(tmp_path, sorted({w for r in reports for w in r.split()}))
+    monkeypatch.setenv("CHEXBERT_PTH", str(pth))
+    monkeypatch.setenv("CHEXBERT_VOCAB", str(vocab))
+    chexbert._load_labeler.cache_clear()
+    decoder = dict(proto=None, hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
+                   intermediate_size=64, max_position_embeddings=64, hidden_dropout_prob=0.0)
+    cnn = dict(proto="VisualEncoder", backbone="densenet_tiny", output_layer="features",
+               dropout_out=0.0, permute="batch_first",
+               visual_projection={"in_features": 32, "out_features": 32}, freeze=False)
+    config = Config({
+        "ckpt_dir": str(tmp_path), "seed": 0,
+        "dataset": {"proto": "ImSeq",
+                    "image": {"root": str(tmp_path), "file": "image.tok", "resize": 40,
+                              "crop": 32, "ext": ".jpg", "device_preproc": True},
+                    "seq": {"root": str(tmp_path), "file": "report.tok", "source": "tgt",
+                            "tokenizer_max_len": 12},
+                    "num_workers": 0},
+        "model": {"proto": "RRG_SCST", "decoder": decoder, "cnn": cnn, "dtype": "float32",
+                  "scores": ["rougel", "chexbert"], "scores_weights": [0.5, 0.5], "top_k": 5,
+                  "overlap_rollout": True},
+        "batch_size": 3, "optimizer": "RAdam", "optim_params": {"lr": 1e-3}, "epochs": 0})
+    trainer = Trainor(config, seed=0, device=cuda)
+    model = trainer.model
+    real, calls, labelled = model.scst.get_reward, [], []
+    real_predict = chexbert.CheXbertModule.predict_classes
+
+    def predict(module, ids, mask):
+        labelled.append((ids.device.type, torch.cuda.current_stream(cuda)))
+        return real_predict(module, ids, mask)
+
+    def get_reward(ids, refs):
+        out = real(ids, refs)
+        calls.append((ids.copy(), refs.copy(), [r.copy() for r in out[0]],
+                      threading.current_thread().name))
+        return out
+
+    monkeypatch.setattr(chexbert.CheXbertModule, "predict_classes", predict)
+    model.scst.get_reward = get_reward
+    losses = trainer.train_epoch(0)
+    assert len(calls) == 6 and model.timing["iters"] == 3 and model._pending is None
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert [c[3].startswith("scst-rewards") for c in calls] == [True] * 4 + [False] * 2
+    assert {d for d, _ in labelled} == {"cuda"}
+    assert all(s != torch.cuda.default_stream(cuda) for _, s in labelled[:4])
+    for ids, refs, rewards, _ in calls:
+        again = real(ids, refs)[0]
+        assert len(rewards) == 2 and all(np.array_equal(a, b) for a, b in zip(rewards, again))

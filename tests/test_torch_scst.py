@@ -23,7 +23,15 @@
 - ``RRS_SCST``: the JAX package takes the rewards' references and the
   ``use_nll`` labels from ``input_ids``, the source findings; the port
   takes the target;
-- ``overlap_rollout`` and an unported (clinical) reward raise.
+- the pipelined iteration (``overlap_rollout``) against JAX's: 3 batches
+  of 3 and the epoch-end flush from the same weights and noise; the
+  warm-up returns no loss in both, the rollouts and rewards are equal, the
+  losses and each tensor's change within the serial run's tolerances (one
+  f32 rounding of the largest entry per step); through the ``Trainor``
+  (RRG_SCST and RRS_SCST), one step per batch, nothing left pending, one
+  finite epoch loss;
+- an unported reward raises, and so does an SCST model (serial or
+  pipelined) across several processes.
 """
 
 import os
@@ -237,7 +245,7 @@ def test_get_reward_matches_jax(workdir, score):
         assert t.scorers[0].document_frequency  # frozen from the df file
 
 
-def test_unported_reward_and_overlap_raise(workdir):
+def test_unported_reward_and_overlap_raise(workdir, tmp_path, monkeypatch):
     vocab_file = str(workdir / "vocab.txt")
     kw = dict(tokenizer=WordPieceTokenizer(vocab_file), max_length=12, bos_token_id=0,
               eos_token_id=2, pad_token_id=1)
@@ -245,11 +253,16 @@ def test_unported_reward_and_overlap_raise(workdir):
         TSCST(scores=["rougel", "radevalbertscore"], scores_weights=[0.5, 0.5], **kw)
     with pytest.raises(ValueError):
         TSCST(scores=["rougel", "bleu"], **kw)  # two scores need their weights
-    from vilmedic_torch.models.scst_models import RRG_SCST
+    # the pipelined iteration builds; across processes it raises as the serial one does
+    import vilmedic_torch.parallel.mesh as tmesh
 
-    with pytest.raises(NotImplementedError, match="overlap_rollout"):
-        RRG_SCST(decoder=dict(TINY_TRANSFORMER), cnn=dict(CNN), overlap_rollout=True,
-                 device="cpu")
+    model = {"proto": "RRG_SCST", "decoder": dict(TINY_TRANSFORMER), "cnn": dict(CNN),
+             "scores": "rougel", "overlap_rollout": True}
+    assert TTrainor(TConfig(_scst_config(workdir, tmp_path, model)), seed=SEED,
+                    device="cpu").model.overlap_rollout
+    monkeypatch.setattr(tmesh, "process_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="processes"):
+        TTrainor(TConfig(_scst_config(workdir, tmp_path, model)), seed=SEED, device="cpu")
 
 
 # ------------------------------------------------- RRG_SCST through Trainor
@@ -379,20 +392,17 @@ def test_scst_rollouts_and_rewards_match_jax(scst_runs):
     assert not np.array_equal(greedy, sampled)
 
 
-def test_scst_losses_and_update_match_jax(scst_runs):
-    np.testing.assert_allclose(scst_runs["tlosses"], scst_runs["jlosses"], rtol=TOL_LOSS,
-                               atol=TOL_LOSS)
-    t = scst_runs["t"]
-    assert t.training_scheduler.iteration_count == 2 == scst_runs["j"].training_scheduler.iteration_count
-    assert t.model.timing["iters"] == 2 and t.model.timing["reward_s"] > 0
-    got, want, initial = t.model.module.state_dict(), scst_runs["jfinal"], scst_runs["initial"]
+def _assert_update_agrees(got, want, initial, steps):
+    """Each tensor's change within 1e-4 of JAX's largest change plus one f32
+    rounding of its largest entry per step; the running statistics unmoved."""
     delta = {k: (want[k] - initial[k], got[k] - initial[k]) for k in want if "running" not in k}
     eps = torch.finfo(torch.float32).eps
     for name, (dw, dg) in delta.items():
         sibling = name
         if name.endswith("self_attn.k.bias") or name.endswith("cross_attn.k.bias"):
             sibling = name[:-len("bias")] + "weight"
-        tol = TOL_GRAD * delta[sibling][0].abs().max().item() + 2 * eps * want[name].abs().max().item()
+        tol = (TOL_GRAD * delta[sibling][0].abs().max().item()
+               + steps * eps * want[name].abs().max().item())
         assert (dg - dw).abs().max().item() <= tol, name
     moved = [name for name, (dw, _) in delta.items() if dw.abs().max().item() > 0]
     assert len(moved) >= len(delta) - 2, sorted(set(delta) - set(moved))  # the key biases
@@ -401,11 +411,143 @@ def test_scst_losses_and_update_match_jax(scst_runs):
             assert torch.equal(got[name], initial[name]) and torch.equal(want[name], initial[name])
 
 
+def test_scst_losses_and_update_match_jax(scst_runs):
+    np.testing.assert_allclose(scst_runs["tlosses"], scst_runs["jlosses"], rtol=TOL_LOSS,
+                               atol=TOL_LOSS)
+    t = scst_runs["t"]
+    assert t.training_scheduler.iteration_count == 2 == scst_runs["j"].training_scheduler.iteration_count
+    assert t.model.timing["iters"] == 2 and t.model.timing["reward_s"] > 0
+    _assert_update_agrees(t.model.module.state_dict(), scst_runs["jfinal"], scst_runs["initial"],
+                          steps=2)
+
+
 def test_scst_validation_matches_jax(scst_runs):
     assert scst_runs["thyps"] == scst_runs["jhyps"]
     want, got = scst_runs["j"].evaluator.scores[0], scst_runs["t"].evaluator.scores[0]
     for key in ("ROUGEL", "BLEU"):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------------- the pipelined iteration
+
+
+OVERLAP_BATCH = 3  # 9 train lines: 3 batches, 2 steps in the loop and the flush
+
+
+def _nine_lines(workdir):
+    """``train.{report,image}9.tok``: the 8 lines and the first again."""
+    for kind in ("report", "image"):
+        lines = (workdir / f"train.{kind}.tok").read_text().split("\n")
+        (workdir / f"train.{kind}9.tok").write_text("\n".join(lines + lines[:1]))
+    return {"proto": "ImSeq",
+            "image": {"root": str(workdir), "file": "image9.tok", "resize": 40, "crop": 32,
+                      "ext": ".jpg"},
+            "seq": {"root": str(workdir), "file": "report9.tok", "source": "tgt",
+                    "tokenizer_max_len": 12},
+            "num_workers": 0}
+
+
+@pytest.fixture(scope="module")
+def overlap_runs(workdir, tmp_path_factory):
+    """JAX's and the port's pipelined iterations over one epoch, driven batch
+    by batch (the epoch loop's calls, no Validator), from the same weights
+    and JAX's noise (rollout n: ``fold_in(key(seed), n)``)."""
+    model = {"proto": "RRG_SCST", "decoder": dict(TINY_TRANSFORMER), "cnn": dict(CNN),
+             "scores": "rougel", "top_k": 5, "overlap_rollout": True}
+    dataset = _nine_lines(workdir)
+    lr = ADAM["lr"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jdensenet.CONFIGS, "densenet_tiny", TINY)
+        mp.setitem(tdensenet.CONFIGS, "densenet_tiny", TINY)
+        jdir = tmp_path_factory.mktemp("jax_overlap")
+        jconfig = JConfig(dict(_scst_config(workdir, jdir, model, dataset, ADAM),
+                               batch_size=OVERLAP_BATCH))
+        jset_logger(str(jdir), SEED)
+        jtrainor = JTrainor(config=jconfig, seed=SEED)
+        jtrainor.dl.dataset.image.transform.rng = np.random.default_rng(SEED)
+        initial = {k: v.clone() for k, v in scst_state_dict_from_jax(
+            jax.tree.map(np.asarray, jtrainor.model.variables)).items()}
+        jcalls, jlosses = [], []
+        _record(jtrainor.model, jcalls)
+        jtrainor.dl.set_epoch(0)
+        state, jlr = jtrainor.state, jnp.asarray(lr, jnp.float32)
+        for batch in jtrainor._device_batches():
+            state, loss, _ = jtrainor.model.train_iteration(jtrainor, state, batch, jlr)
+            jlosses.append(None if loss is None else float(loss))
+        state, loss, _ = jtrainor.model.finish_epoch(jtrainor, state, jlr)
+        jlosses.append(float(loss))
+        jtrainor.state = state
+        jtrainor._sync_model_variables()
+        jfinal = scst_state_dict_from_jax(jax.tree.map(np.asarray, jtrainor.model.variables))
+
+        tdir = tmp_path_factory.mktemp("torch_overlap")
+        tconfig = TConfig(dict(_scst_config(workdir, tdir, model, dataset, ADAM),
+                               batch_size=OVERLAP_BATCH))
+        tset_logger(str(tdir), SEED)
+        ttrainor = TTrainor(config=tconfig, seed=SEED, device="cpu")
+        ttrainor.model.module.load_state_dict(initial, strict=True)
+        noise = IterationNoise(jtrainor.rng)
+        mp.setattr(tdecode, "gumbel_noise", noise)
+        tcalls, tlosses, started = [], [], []
+        _record(ttrainor.model, tcalls)
+        rollouts = ttrainor.model.rollouts
+
+        def trollouts(enc_inputs):
+            noise.start(len(started))
+            started.append(1)
+            return rollouts(enc_inputs)
+
+        ttrainor.model.rollouts = trollouts
+        ttrainor.dl.set_epoch(0)
+        for batch in ttrainor._device_batches():
+            loss, _ = ttrainor.model.train_iteration(ttrainor, batch, lr)
+            tlosses.append(None if loss is None else float(loss))
+        loss, _ = ttrainor.model.finish_epoch(ttrainor, lr)
+        tlosses.append(float(loss))
+        yield dict(t=ttrainor, jcalls=jcalls, tcalls=tcalls, jlosses=jlosses, tlosses=tlosses,
+                   jfinal=jfinal, initial=initial)
+
+
+def test_overlapped_scst_rollouts_and_rewards_match_jax(overlap_runs):
+    j, t = overlap_runs["jcalls"], overlap_runs["tcalls"]
+    assert len(t) == len(j) == 6  # greedy and sampled for each of 3 batches
+    for (t_ids, t_refs, t_rew), (j_ids, j_refs, j_rew) in zip(t, j):
+        np.testing.assert_array_equal(t_ids, j_ids)
+        np.testing.assert_array_equal(t_refs, j_refs)
+        np.testing.assert_allclose(t_rew[0], j_rew[0], rtol=1e-6, atol=1e-7)
+    assert not np.array_equal(t[0][0], t[1][0])
+
+
+def test_overlapped_scst_losses_and_update_match_jax(overlap_runs):
+    jl, tl = overlap_runs["jlosses"], overlap_runs["tlosses"]
+    assert len(jl) == len(tl) == 4 and jl[0] is None and tl[0] is None  # the warm-up
+    np.testing.assert_allclose(tl[1:], jl[1:], rtol=TOL_LOSS, atol=TOL_LOSS)
+    model = overlap_runs["t"].model
+    assert model.timing["iters"] == 3 and model._pending is None
+    _assert_update_agrees(model.module.state_dict(), overlap_runs["jfinal"],
+                          overlap_runs["initial"], steps=3)
+
+
+@pytest.mark.parametrize("proto", ["RRG_SCST", "RRS_SCST"])
+def test_overlapped_pipeline_through_the_trainor(workdir, tmp_path, proto):
+    """The port's counterpart of ``test_rrg_scst_overlapped_pipeline``: one
+    step per batch (the last in ``finish_epoch``), nothing left pending, the
+    warm-up's missing loss skipped: one finite epoch loss."""
+    if proto == "RRG_SCST":
+        model, dataset = {"proto": "RRG_SCST", "decoder": dict(TINY_TRANSFORMER),
+                          "cnn": dict(CNN), "scores": "rougel", "top_k": 5}, None
+    else:
+        model, dataset = _rrs_scst_model(), _seq2seq(workdir)
+    config = TConfig(_scst_config(workdir, tmp_path, dict(model, overlap_rollout=True), dataset))
+    tset_logger(str(tmp_path), SEED)
+    trainer = TTrainor(config=config, seed=SEED, device="cpu")
+    trainer.evaluator = TValidator(config=config, models=[trainer.model], seed=SEED)
+    trainer.start()
+    n = len(trainer.dl)
+    assert n == 2 and trainer.training_scheduler.iteration_count == n
+    assert trainer.model.timing["iters"] == n and trainer.model._pending is None
+    assert len(trainer.epoch_losses) == 1 and np.isfinite(trainer.epoch_losses[0])
+    assert np.isfinite(trainer.evaluator.scores[0]["ROUGEL"])
 
 
 # ---------------------------------------------------------------- RRS_SCST

@@ -1,4 +1,5 @@
-"""Host-side data loader (port of ``DataLoader`` of ``data/loader.py``).
+"""Host-side data loader and device prefetch (port of ``DataLoader`` and
+``DevicePrefetch`` of ``data/loader.py``).
 
 Sampling as the JAX package's loader: for a shuffled loader the order of an
 epoch is ``np.random.default_rng(seed + epoch)``'s permutation
@@ -10,9 +11,21 @@ resizing release the interpreter lock), keeping the batches in order. A
 dataset whose items draw random numbers splits them into ``decode(index)``,
 which draws nothing and runs in parallel, and ``finish(decoded)``, which
 draws; the finishes and the collate, which may draw too, run batch after
-batch in order, so the draws are those of ``num_workers=0``.
-Single process, single device: no per-host sharding, and no device-side
-prefetch (the JAX package's ``DevicePrefetch`` is not ported).
+batch in order, so the draws are those of ``num_workers=0``. Under a
+process group each process takes the strided shard ``batch[rank::world]``.
+
+:class:`DevicePrefetch` places batches on the device ahead of the step
+that reads them: a producer thread runs ``depth`` batches ahead of the
+consumer, in order. For a CUDA device each host tensor is pinned, copied
+without blocking and run through the placement (the Trainor's: the copy
+and the dataset's pending device preprocessing, the crop+normalize kernel)
+on a CUDA stream of the prefetcher's own; the consumer's stream waits on an
+event recorded after that work, and every device tensor of the batch is
+marked as used by the consumer's stream (``record_stream``), so that the
+caching allocator does not hand its memory to a later batch while the step
+still reads it. For the CPU it is the same thread without a stream. A
+failure in the producer (loading, pinning, the copy or a kernel launch) is
+raised on the consumer; nothing is retried.
 """
 
 from __future__ import annotations
@@ -22,9 +35,10 @@ import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
+import torch
 
 _SENTINEL = object()
 
@@ -143,6 +157,80 @@ class DataLoader:
                 if isinstance(item, BaseException):
                     raise item
                 yield item
+        finally:
+            stop.set()
+            while thread.is_alive():  # unblock a producer waiting on a full queue
+                try:
+                    out_q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            thread.join()
+
+
+def pin_batch(batch: dict) -> dict:
+    """The batch with every CPU tensor in pinned host memory."""
+    return {k: v.pin_memory() if isinstance(v, torch.Tensor) and v.device.type == "cpu" else v
+            for k, v in batch.items()}
+
+
+class DevicePrefetch:
+    """Iterates ``place_fn(batch)`` for every batch of ``iterable``, the
+    placement run by a producer thread up to ``depth`` batches ahead
+    (module doc). Batches are dicts, as the loaders collate them;
+    ``device`` is where ``place_fn`` puts their tensors, and a CUDA device
+    gets the copy stream."""
+
+    def __init__(self, iterable, place_fn: Callable, depth: int = 2, device="cpu"):
+        self.iterable = iterable
+        self.place_fn = place_fn
+        self.depth = max(1, int(depth))
+        self.device = torch.device(device)
+
+    def _producer(self, out_q: "queue.Queue", stop: threading.Event, stream) -> None:
+        it = iter(self.iterable)
+        try:
+            # the stream's context makes its device current too; None: no-op
+            with torch.cuda.stream(stream):
+                for host_batch in it:
+                    if stop.is_set():
+                        return
+                    if stream is None:
+                        batch, event = self.place_fn(host_batch), None
+                    else:
+                        batch = self.place_fn(pin_batch(host_batch))
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                    out_q.put((batch, event))
+            out_q.put(_SENTINEL)
+        except BaseException as e:  # handed to the consumer, which re-raises it
+            out_q.put(e)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:  # a loader's own producer thread ends too
+                close()
+
+    def __iter__(self) -> Iterator:
+        out_q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        thread = threading.Thread(target=self._producer, args=(out_q, stop, stream),
+                                  daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is _SENTINEL:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                batch, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(event)
+                    for v in batch.values():
+                        if isinstance(v, torch.Tensor) and v.device.type == "cuda":
+                            v.record_stream(current)
+                yield batch
         finally:
             stop.set()
             while thread.is_alive():  # unblock a producer waiting on a full queue

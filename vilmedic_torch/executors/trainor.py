@@ -22,9 +22,20 @@ The step semantics of the JAX package (and of the reference torch trainer):
 - a model with a ``train_iteration(trainor, batch, lr)`` owns its step
   (SCST: rollouts, host rewards, the policy-gradient update through this
   trainer's optimizer); it returns ``(loss on the device, log text)``, and
-  the loss is read one iteration late like the others. Its
+  the loss is read one iteration late like the others. A loss of None (the
+  warm-up iteration of SCST's ``overlap_rollout``, which steps on the
+  previous batch) is not read; the scheduler still steps. Its
   ``finish_epoch(trainor, lr)``, where it has one, runs after the epoch's
   last batch and returns None or one more ``(loss, log text)``.
+
+Batches reach the step through :meth:`Trainor._device_batches`: with
+``device_prefetch`` > 0 (default 2, the JAX package's) a
+:class:`~..data.loader.DevicePrefetch` thread places that many batches
+ahead of the step (on the card: pinned copies and the crop+normalize kernel
+on a copy stream of its own); with 0 each batch is placed on the training
+thread just before its step. The loader's draws, the batch order and the
+dropout generator are the same either way, so are the losses and the
+parameters, to the bit.
 
 :meth:`Trainor.start` runs the JAX package's epoch loop
 (``range(scheduler.epoch, epochs + 1)``): per epoch the loader's shuffle,
@@ -57,10 +68,17 @@ the accumulation reset are gated on the global loss, and process 0 alone
 writes checkpoints. Across several processes a model that owns its step
 (SCST) raises: the JAX package's reads its rollouts to the host with
 ``np.asarray``, which JAX refuses for an array spread over processes; the
-RRG, RRS, VisionLanguage, MVQA / CLASS and SELFSUP families run.
-Not ported: ``DevicePrefetch``; ``rng_impl`` (the JAX package's choice of
-PRNG for its dropout masks) has no counterpart and is logged once and
-ignored.
+RRG, RRS, VisionLanguage, MVQA / CLASS and SELFSUP families run. Each
+process prefetches its own shard onto its own card.
+
+Three trainor keys of the JAX package have no counterpart and are logged
+once as having no effect: ``rng_impl`` (its choice of PRNG for the dropout
+masks: they come from a ``torch.Generator`` here); ``donate_state`` (the
+donation of the carried state's buffers to its jitted steps: torch
+optimizers update the parameters in place, so there is no second copy to
+give up); ``allow_device_subset`` (a smaller data mesh when the batch does
+not divide across the host's devices: one process drives one card here, so
+there is no sub-mesh to pick).
 """
 
 from __future__ import annotations
@@ -77,6 +95,7 @@ from .. import __version__
 from ..blocks.vision.densenet import commit_batch_stats
 from ..config.config import Config
 from ..data.image import prepare_batch
+from ..data.loader import DevicePrefetch
 from ..models.base import resolve_device
 from ..models.evaluation_nlg import to_device
 from ..parallel import mesh
@@ -99,9 +118,12 @@ class Trainor:
         self.seed = seed
         self.device = resolve_device(device)
         self.logger = logging.getLogger(str(seed))
-        if config.get("rng_impl"):
-            self.logger.info(f"trainor key rng_impl={config.get('rng_impl')!r} has no effect: "
-                             "dropout masks come from a torch.Generator")
+        for key, why in (("rng_impl", "dropout masks come from a torch.Generator"),
+                         ("donate_state", "torch optimizers update the parameters in place"),
+                         ("allow_device_subset", "one process drives one card")):
+            if config.get(key) is not None:
+                self.logger.info(f"trainor key {key}={config.get(key)!r} has no effect: {why}")
+        self.device_prefetch = int(config.get("device_prefetch", 2) or 0)
         self.ckpt_dir = config.get("ckpt_dir")
         self.ckpt = config.get("ckpt")
         self.eval_start = config.get("eval_start", 0)
@@ -228,6 +250,15 @@ class Trainor:
         device preprocessing done (uint8 -> normalized float images)."""
         return prepare_batch(to_device(batch, self.device), getattr(self.dl, "dataset", None))
 
+    def _device_batches(self):
+        """The epoch's batches on the model's device: placed ahead by a
+        :class:`DevicePrefetch` thread when ``device_prefetch`` > 0, else
+        one by one on this thread."""
+        if self.device_prefetch > 0:
+            return iter(DevicePrefetch(self.dl, self._model_batch, self.device_prefetch,
+                                       self.device))
+        return (self._model_batch(b) for b in self.dl)
+
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int):
         """One pass over the loader; returns the finite microbatch losses."""
@@ -238,14 +269,15 @@ class Trainor:
         t0 = time.perf_counter()
         self.zero_grads()
         profiler = self._profiler() if self.profile_dir and epoch == 0 else None
-        with profiler or contextlib.nullcontext():
-            for iteration, batch in enumerate(self.dl, start=1):
-                batch = self._model_batch(batch)
+        batches = self._device_batches()
+        with profiler or contextlib.nullcontext(), contextlib.closing(batches):
+            for iteration, batch in enumerate(batches, start=1):
                 lr = scheduler.current_lr()
                 if owned:
                     loss, custom = self.model.train_iteration(self, batch, lr)
-                    pending = self._drain_loss(pending, losses, epoch)
-                    pending = (iteration, loss)
+                    if loss is not None:  # None: a pipelined warm-up iteration
+                        pending = self._drain_loss(pending, losses, epoch)
+                        pending = (iteration, loss)
                     scheduler.iteration_step(epoch + iteration / n)
                 elif self.grad_accu == 1:
                     loss = self.train_step(batch, lr)
