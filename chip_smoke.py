@@ -263,6 +263,7 @@ import json
 import logging
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -939,21 +940,47 @@ def flash_dense_crossover(b: int, heads: int, d: int, gen):
 
 
 def flash_head_dims() -> str:
-    """The head dims K4/K5 are built for and the kernels that run each, from
-    ``flash_attention``'s own ``HEAD_DIMS``, ``WIDE_STEP`` and ``wide_route``."""
+    """The head dims K4/K5 run at on the card and the C entries that take
+    each, from ``flash_attention``'s own ``HEAD_DIMS``, ``WIDE_STEP`` and
+    ``kernel_route``."""
     import torch
 
     from vilmedic_torch.ops import flash_attention as fa
 
-    def wgmma(dtype, backward: bool) -> str:
-        return "/".join(str(d) for d in fa.HEAD_DIMS if not fa.wide_route(dtype, d, backward))
+    widths = fa.HEAD_DIMS + (fa.HEAD_DIMS[-1] + fa.WIDE_STEP, fa.HEAD_DIMS[-1] + 2 * fa.WIDE_STEP)
 
-    wide = [d for d in fa.HEAD_DIMS if fa.wide_route(torch.float32, d, False)]
-    return (f"built {'/'.join(map(str, fa.HEAD_DIMS))}; wgmma: bf16 forward "
-            f"{wgmma(torch.bfloat16, False)}, bf16 backward {wgmma(torch.bfloat16, True)}, f32 "
-            f"{wgmma(torch.float32, False)}; flash_attention_wide.cu: the rest of "
-            f"{'/'.join(map(str, wide))} and multiples of {fa.WIDE_STEP} above "
-            f"{fa.HEAD_DIMS[-1]}; other head dims zero-padded to the next of these")
+    def routes(dtype) -> str:
+        by_route = {}
+        for w in widths:
+            by_route.setdefault(fa.kernel_route(dtype, w), []).append(str(w))
+        return ", ".join(f"{route} {'/'.join(ws)}" for route, ws in by_route.items())
+
+    return (f"built {'/'.join(map(str, fa.HEAD_DIMS))} and multiples of {fa.WIDE_STEP} above "
+            f"{fa.HEAD_DIMS[-1]}, other head dims zero-padded to the next of these; C entries "
+            f"bf16: {routes(torch.bfloat16)} and above; f32: {routes(torch.float32)} and above")
+
+
+def ptxas_usage(source: str) -> dict:
+    """``{kernel<template args>: {"registers", "spill_stores", "spill_loads"}}``
+    for the kernels of one source (``csrc/<source>.cu``), from ptxas's report
+    in the build log (``cuda_lib.ptxas_log_path``)."""
+    from vilmedic_torch.ops import cuda_lib
+
+    usage, name = {}, None
+    for line in cuda_lib.ptxas_log_path().read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:  # _ZN..._<source>_cu_<hash><length><name>I<template args>EE...
+            found = re.search(r"([a-z_]+_kernel)I(.*?)EE", entry.group(1))
+            name = None
+            if f"_{source}_cu_" in entry.group(1) and found:
+                name = f"{found.group(1)}<{','.join(re.findall(r'Li(\d+)E', found.group(2) + 'E'))}>"
+                usage[name] = {}
+        elif name and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            usage[name].update(spill_stores=int(stores), spill_loads=int(loads))
+        elif name and re.search(r"Used \d+ registers", line):
+            usage[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return usage
 
 
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # K4's out and K5's dq / dk / dv
@@ -1000,112 +1027,116 @@ def flash_grads_match(q, k, v, key_mask, causal, label, gen):
 
 def check_flash_wide(results):
     """K4 and K5 above head dim 128. bf16 at the VisionLanguage width split
-    into 3 heads of 256 (B 16, T 1370): K4 (the wgmma kernel at D 256)
-    unmasked and causal, K4 with LSE and K5 (the wide kernels) causal with
-    padded keys, against the plain versions and timed beside their bounds and
-    ``scaled_dot_product_attention`` (forward; forward and backward by
-    autograd, less the forward). Then D 320 (the wide kernels) and D 160
-    (zero-padded to 256) in f32 and bf16 against the plain versions at B 2,
-    T 300 / 200, 3 heads, causal with a key mask."""
+    into 3 heads of 256 and of 320 (B 16, T 1370), on
+    ``csrc/flash_attention_wide_tc.cu``: K4 unmasked and causal, K4 with LSE
+    and K5 causal with padded keys, against the plain versions, and timed
+    beside their bounds, ``scaled_dot_product_attention`` (forward; forward
+    and backward by autograd, less the forward) and the plain versions. Then
+    the CUDA-core ``csrc/flash_attention_wide.cu`` in f32 at D 320 and 160
+    (zero-padded to 256) and in bf16 at D 384, the bf16 width it still
+    takes, and the wgmma kernels again in bf16 at D 320 and 160, against the
+    plain versions at B 2, T 300 / 200, 3 heads, causal with a key mask."""
     import torch
     import torch.nn.functional as F
 
     from vilmedic_torch.ops.flash_attention import (
-        flash_attention, flash_attention_backward, flash_attention_reference,
-        flash_attention_with_lse,
+        flash_attention, flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_reference, flash_attention_with_lse,
     )
 
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
-
-    b, t, heads, d = 16, VL_TOKENS, 3, 256
+    b, t, heads = 16, VL_TOKENS, 3
     key_mask = train_key_mask(b, t, "cuda")
-    q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
-               for _ in range(3))
-    worst = 0.0
-    for causal in (False, True):
-        err = (flash_attention(q, k, v, None, causal).float()
-               - flash_attention_reference(q, k, v, None, causal).float()).abs().max().item()
-        worst = max(worst, err)
-        if not err <= FLASH_TOL["bfloat16"]:
-            fail(f"flash attention D 256 bf16 causal={causal}: {err:.3e}")
-    out, lse, dout, errs = flash_grads_match(q, k, v, key_mask, True,
-                                             f"B={b} T={t} H={heads} D={d}", gen)
-    qh, kh, vh = sdpa_layout(q, k, v)
-    tm = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in (
-        ("fwd", lambda: flash_attention(q, k, v, None, False)),
-        ("fwd_causal", lambda: flash_attention(q, k, v, None, True)),
-        ("lse", lambda: flash_attention_with_lse(q, k, v, key_mask, True)),
-        ("bwd", lambda: flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)),
-        ("sdpa", lambda: F.scaled_dot_product_attention(qh, kh, vh)),
-        ("sdpa_causal", lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)))}
-    tm["plain"] = cuda_ms(lambda: flash_attention_reference(q, k, v, None, False), reps=3)
-    leaves = [x.requires_grad_() for x in (qh, kh, vh)]
-    (dout_h,) = sdpa_layout(dout)
     allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
                & key_mask[:, None, None, :])
+    stats = 2 * b * heads * t * 4 + b * t * 4  # lse, delta; the key bias
+    rows = {}
+    for d in (256, 320):
+        q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        worst = 0.0
+        for causal in (False, True):
+            err = (flash_attention(q, k, v, None, causal).float()
+                   - flash_attention_reference(q, k, v, None, causal).float()).abs().max().item()
+            worst = max(worst, err)
+            if not err <= FLASH_TOL["bfloat16"]:
+                fail(f"flash attention D {d} bf16 causal={causal}: {err:.3e}")
+        out, lse, dout, errs = flash_grads_match(q, k, v, key_mask, True,
+                                                 f"B={b} T={t} H={heads} D={d}", gen)
+        qh, kh, vh = sdpa_layout(q, k, v)
+        tm = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in (
+            ("fwd", lambda: flash_attention(q, k, v, None, False)),
+            ("fwd_causal", lambda: flash_attention(q, k, v, None, True)),
+            ("lse", lambda: flash_attention_with_lse(q, k, v, key_mask, True)),
+            ("bwd", lambda: flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)),
+            ("sdpa", lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+            ("sdpa_causal", lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)))}
+        tm["plain"] = cuda_ms(lambda: flash_attention_reference(q, k, v, None, False), reps=3)
+        tm["plain_bwd"] = cuda_ms(lambda: flash_attention_backward_reference(
+            q, k, v, key_mask, out, lse, dout, True), reps=3)
+        leaves = [x.requires_grad_() for x in (qh, kh, vh)]
+        (dout_h,) = sdpa_layout(dout)
 
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-        torch.autograd.grad(o, leaves, dout_h)
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+            torch.autograd.grad(o, leaves, dout_h)
 
-    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed), reps=5)
-    tm["sdpa_bwd"] = cuda_ms(sdpa_fwd_bwd, reps=5) - lib_fwd
-    stats = 2 * b * heads * t * 4 + b * t * 4
-    bounds = {"fwd": flash_bound(q, k, False), "fwd_causal": flash_bound(q, k, True),
-              "lse": flash_bound(q, k, True, key_mask, extra_bytes=key_mask.numel()
-                                 + b * heads * t * 4),
-              "bwd": flash_bound(q, k, True, key_mask, tensors=8, extra_bytes=stats,
-                                 products=5)}
-    for name in ("fwd", "fwd_causal", "lse", "bwd"):
-        bd = bounds[name]
-        lib = {"fwd": tm["sdpa"], "fwd_causal": tm["sdpa_causal"], "lse": lib_fwd,
-               "bwd": tm["sdpa_bwd"]}[name]
-        print(f"K4/K5 bf16 D 256 {name} (B {b}, T {t}, 3 heads of 256): kernel {tm[name]:.4f} ms "
-              f"({bd['bound_ms'] / tm[name] * 100:.1f}% of the bound), bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), scaled_dot_product_attention "
-              f"{lib:.4f} ms")
-    print(f"K4 bf16 D 256 plain version {tm['plain']:.4f} ms")
-    del q, k, v, qh, kh, vh, leaves, dout_h, allowed, out, lse, dout
-    torch.cuda.empty_cache()
-    for d, tq, tk in ((320, 300, 300), (160, 200, 300)):
-        for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn(2, tq, 3, d, generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn(2, tk, 3, d, generator=gen, device="cuda").to(dtype)
-                    for _ in range(2))
-            mask = torch.ones(2, tk, dtype=torch.bool, device="cuda")
-            mask[1, tk - tk // 3:] = False
-            flash_grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal", gen)
-    # the wide kernels' speed at 3 heads of 320 (B 16, T 1370), not on any path
-    q, k, v, dout = (torch.randn(b, t, heads, 320, generator=gen, device="cuda").bfloat16()
-                     for _ in range(4))
-    out, lse = flash_attention_with_lse(q, k, v, key_mask, True)
-    qh, kh, vh = sdpa_layout(q, k, v)
-    wide = {"fwd": cuda_ms(lambda: flash_attention(q, k, v, None, False), reps=3, warmup=1),
-            "bwd": cuda_ms(lambda: flash_attention_backward(q, k, v, key_mask, out, lse, dout,
-                                                            True), reps=3, warmup=1),
-            "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), reps=3)}
-    leaves = [x.requires_grad_() for x in (qh, kh, vh)]
-    (dout_h,) = sdpa_layout(dout)
-    allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
-               & key_mask[:, None, None, :])
-    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed), reps=3)
-    wide["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(*leaves, attn_mask=allowed), leaves, dout_h),
-        reps=3) - lib_fwd
-    bd_f = flash_bound(q, k, False)
-    bd_b = flash_bound(q, k, True, key_mask, tensors=8, extra_bytes=stats, products=5)
-    print(f"K4/K5 bf16 D 320 (B {b}, T {t}, 3 heads of 320, the wide kernels): forward "
-          f"{wide['fwd']:.4f} ms (bound {bd_f['bound_ms']:.4f}, {bd_f['bound_by']}; "
-          f"scaled_dot_product_attention {wide['sdpa']:.4f} ms), causal backward with padded "
-          f"keys {wide['bwd']:.4f} ms (bound {bd_b['bound_ms']:.4f}, {bd_b['bound_by']}; autograd "
-          f"backward of scaled_dot_product_attention {wide['sdpa_bwd']:.4f} ms)")
-    del q, k, v, dout, out, lse, qh, kh, vh, leaves, dout_h, allowed
-    torch.cuda.empty_cache()
-    results["flash_attention"]["d256"] = dict(
-        ms=tm["fwd"], causal_ms=tm["fwd_causal"], lse_ms=tm["lse"], backward_ms=tm["bwd"],
-        bound_ms=bounds["fwd"]["bound_ms"], backward_bound_ms=bounds["bwd"]["bound_ms"],
-        library_ms=tm["sdpa"], library_backward_ms=tm["sdpa_bwd"], max_abs_err=worst,
-        backward_rel_err=max(errs[n] for n in ("dq", "dk", "dv")))
+        tm["sdpa_lse"] = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed),
+                                 reps=5)
+        tm["sdpa_bwd"] = cuda_ms(sdpa_fwd_bwd, reps=5) - tm["sdpa_lse"]
+        bounds = {"fwd": flash_bound(q, k, False), "fwd_causal": flash_bound(q, k, True),
+                  "lse": flash_bound(q, k, True, key_mask, extra_bytes=key_mask.numel()
+                                     + b * heads * t * 4),
+                  "bwd": flash_bound(q, k, True, key_mask, tensors=8, extra_bytes=stats,
+                                     products=5)}
+        for name, lib in (("fwd", "sdpa"), ("fwd_causal", "sdpa_causal"), ("lse", "sdpa_lse"),
+                          ("bwd", "sdpa_bwd")):
+            bd = bounds[name]
+            print(f"K4/K5 bf16 D {d} {name} (B {b}, T {t}, 3 heads of {d}, "
+                  f"flash_attention_wide_tc.cu): kernel {tm[name]:.4f} ms "
+                  f"({bd['bound_ms'] / tm[name] * 100:.1f}% of the bound), bound "
+                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), scaled_dot_product_attention "
+                  f"{tm[lib]:.4f} ms")
+        print(f"K4/K5 bf16 D {d} plain versions: forward {tm['plain']:.4f} ms, causal backward "
+              f"with padded keys {tm['plain_bwd']:.4f} ms")
+        rel = max(errs[n] for n in ("dq", "dk", "dv"))
+        # the kernels line's keys at this head dim: the forward (K4), and the
+        # whole backward (delta and K5's pair) with its largest relative error
+        rows[d] = {
+            "forward": dict(max_abs_err=worst, ms=tm["fwd"], plain_ms=tm["plain"],
+                            **bounds["fwd"], library_ms=tm["sdpa"], causal_ms=tm["fwd_causal"],
+                            lse_ms=tm["lse"], lse_bound_ms=bounds["lse"]["bound_ms"],
+                            lse_library_ms=tm["sdpa_lse"]),
+            "backward": dict(max_abs_err=rel, ms=tm["bwd"], plain_ms=tm["plain_bwd"],
+                             **bounds["bwd"], library_ms=tm["sdpa_bwd"]),
+        }
+        del q, k, v, qh, kh, vh, leaves, dout_h, out, lse, dout
+        torch.cuda.empty_cache()
+    del allowed
+    for d, tq, tk, dtype in ((320, 300, 300, torch.float32), (320, 300, 300, torch.bfloat16),
+                             (160, 200, 300, torch.float32), (160, 200, 300, torch.bfloat16),
+                             (384, 300, 300, torch.bfloat16)):
+        q = torch.randn(2, tq, 3, d, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(2, tk, 3, d, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        mask = torch.ones(2, tk, dtype=torch.bool, device="cuda")
+        mask[1, tk - tk // 3:] = False
+        flash_grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal", gen)
+    usage = ptxas_usage("flash_attention_wide_tc")
+    print("flash_attention_wide_tc.cu (ptxas -v): " + "; ".join(
+        f"{k} {u['registers']} registers, spill stores / loads {u['spill_stores']} / "
+        f"{u['spill_loads']} bytes" for k, u in usage.items()))
+    source = "vilmedic_torch/csrc/flash_attention_wide_tc.cu"
+    for name, row, replaces, counter in (
+            ("flash_attention_wide_tc", "forward", "vilmedic_tpu/ops/flash_attention.py:161",
+             "vt_flash_attention_wide_tc"),
+            ("flash_attention_bwd_wide_tc", "backward", "vilmedic_tpu/ops/flash_attention.py:569",
+             "vt_flash_attention_bwd_dq_wide_tc")):
+        kernels = ("flash_fwd_wide",) if row == "forward" else ("flash_bwd_dq_wide",
+                                                                 "flash_bwd_dkv_wide")
+        results[name] = dict(route="cuda", source=source, replaces=replaces, **rows[320][row],
+                             d256=rows[256][row], path="flash_wide", counter=counter,
+                             ptxas={k: u for k, u in usage.items() if k.startswith(kernels)})
 
 
 def train_key_mask(b: int, t: int, device):
@@ -1630,13 +1661,27 @@ def launch_counters():
     return counters
 
 
+# the wide head dims' C entries (ops/flash_attention.ENTRY_LAUNCHES): the
+# wgmma kernels of csrc/flash_attention_wide_tc.cu and the CUDA-core ones of
+# csrc/flash_attention_wide.cu
+WIDE_ENTRIES = tuple(f"vt_flash_attention{part}_{route}" for route in ("wide_tc", "wide")
+                     for part in ("", "_bwd_dq", "_bwd_dkv"))
+
+
 def reset_launches():
+    from vilmedic_torch.ops import flash_attention as fa
+
     for fn, attr in launch_counters().values():
         setattr(fn, attr, 0)
+    fa.ENTRY_LAUNCHES.clear()
 
 
 def read_launches():
-    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
+    from vilmedic_torch.ops import flash_attention as fa
+
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
+    launches.update({entry: fa.ENTRY_LAUNCHES.get(entry, 0) for entry in WIDE_ENTRIES})
+    return launches
 
 
 def build_flagship(dtype: str, device: str, seed: int = SEED):
@@ -1811,6 +1856,44 @@ def phase_fp8_probe():
              "(c) the rows exact": errs["slab"] == 0.0,
              "one launch each": all(launches[n] == 1 for n in ("fp8_scale2", "fp8_matmul",
                                                                "fp8_slab_copy"))}, "fp8 probe")
+    return launches
+
+
+def phase_flash_wide():
+    """The wide head dims' own path: attention with its gradient through
+    ``flash_attention`` under autograd (K4 with LSE, then K5's pair), as a
+    model with heads of 256 or 320 trains, at 3 such heads (bf16, B 16,
+    T 1370, causal, padded text keys). Each width launches the wgmma kernels
+    of ``csrc/flash_attention_wide_tc.cu`` once and the CUDA-core wide
+    kernels never."""
+    import torch
+
+    from vilmedic_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    b, t, heads = 16, VL_TOKENS, 3
+    key_mask = train_key_mask(b, t, "cuda")
+    finite = True
+    reset_launches()
+    for d in (256, 320):
+        q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
+                   .requires_grad_() for _ in range(3))
+        out = flash_attention(q, k, v, key_mask, True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        finite &= bool(torch.isfinite(out).all()) and all(
+            g.shape == x.shape and bool(torch.isfinite(g).all()) for g, x in zip(grads, (q, k, v)))
+        del q, k, v, out, dout, grads
+    torch.cuda.synchronize()
+    launches = read_launches()
+    wide = {e: launches[e] for e in WIDE_ENTRIES}
+    print(f"flash_wide (heads of 256 and 320, forward and backward by autograd): {wide}")
+    require({"finite output and gradients of the inputs' shapes": finite,
+             "flash_attention_wide_tc.cu: forward, dq, dk/dv once per width":
+                 all(wide[e] == 2 for e in WIDE_ENTRIES[:3]),
+             "no CUDA-core wide kernel": not any(wide[e] for e in WIDE_ENTRIES[3:])},
+            "flash_wide")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -7892,6 +7975,7 @@ def main():
     timed(phase_parity)
     launches["topk_head"] = timed(phase_topk_head)
     launches["fp8_probe"] = timed(phase_fp8_probe)
+    launches["flash_wide"] = timed(phase_flash_wide)
     timed(phase_rrg_routes)
     timed(phase_rrg_routes_parity)
     # not beside the RRG phases, whose launch-bound loops its CPU work slows
@@ -7986,16 +8070,23 @@ def main():
             if name in results:
                 results[name][key] = counter
 
+    # no config's path reaches the wide head dims: only their own phase
+    stray = {path: {e: n[e] for e in WIDE_ENTRIES if n.get(e)}
+             for path, n in launches.items() if path != "flash_wide" and isinstance(n, dict)}
+    stray = {path: n for path, n in stray.items() if n}
+    if stray:
+        fail(f"wide-head flash kernels launched on other paths: {stray}")
     # each kernel's launches are those of the path that runs it: the RRG
     # slice (K1 stage a, K2, K3), the VisionLanguage slice (K1 stage b, K4),
     # its int8-cache route (K1 stage c), its fused-prefix route (K1 stage d),
-    # the VisionLanguage training phase (K4 with LSE, K5), K6's top-k head
-    # and K7's fp8 probe
+    # the VisionLanguage training phase (K4 with LSE, K5), K6's top-k head,
+    # K7's fp8 probe and the wide head dims' own phase (K4 and K5 at 256, 320)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # the flash kernels' head dims; K4/K5 at D 256; launches on the training paths
-    extra = ("head_dims", "d256", "rrg_train_launches", "scst_launches", "pipelined_launches",
-             "rrs_launches",
+    # the flash kernels' head dims; the wide-head kernels at D 256 and their ptxas
+    # report; launches on the training paths
+    extra = ("head_dims", "d256", "ptxas", "rrg_train_launches", "scst_launches",
+             "pipelined_launches", "rrs_launches",
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
              "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",
              "rrs_hf_launches", "vl_cli_launches", "vl_unfrozen_launches", "clinical_launches",

@@ -39,6 +39,7 @@ from vilmedic_torch.ops.beam_cache_attention import (
     pack_kernel_prefix, quantize_cache_rows,
 )
 from vilmedic_torch.models.vision_language import VisionLanguage, make_vl_generate_fn
+from vilmedic_torch.ops import flash_attention as fa
 from vilmedic_torch.ops.blocked_lm_head import (
     NEG, lm_head_blocked_stats, lm_head_blocked_stats_reference,
 )
@@ -445,13 +446,15 @@ def test_flash_padded_head_dims(cuda, dtype, d, tq, tk, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [160, 192, 256, 320])
+@pytest.mark.parametrize("d", [160, 192, 256, 320, 384])
 @pytest.mark.parametrize("tq,tk,causal", [(70, 200, True), (130, 130, False), (300, 100, True)])
 def test_flash_wide_head_dims(cuda, dtype, d, tq, tk, causal):
     """Head dims above 128, which JAX's v1 kernel takes: D 160 and 192 run
-    padded to 256, 256 itself (bf16 forward on the wgmma kernel), 320 on the
-    wide kernels. K4, K4 with LSE and K5 launch and match the plain versions
-    at the head dim itself, ragged on both axes, with rows that see no key."""
+    padded to 256; bf16 at 256 and 320 on the wgmma kernels of
+    ``flash_attention_wide_tc.cu``, bf16 at 384 and f32 at all of them on
+    the CUDA-core ``flash_attention_wide.cu``. K4, K4 with LSE and K5 launch
+    and match the plain versions at the head dim itself, ragged on both
+    axes, with rows that see no key."""
     b, heads = 2, 3
     gen = torch.Generator().manual_seed(d + tq + causal)
     q = torch.randn(b, tq, heads, d, generator=gen).to(cuda, dtype)
@@ -484,6 +487,27 @@ def test_flash_backward_is_deterministic(cuda):
     second = flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("d", [256, 320])
+def test_flash_wide_backward_is_deterministic(cuda, d):
+    """The wide-head backward (``flash_attention_wide_tc.cu``: the dk/dv
+    kernel's two warpgroups hand P^T over in shared memory) writes every
+    output element from one block in a fixed order: two runs of the causal
+    backward with a key mask agree bit for bit, and both ran its kernels."""
+    gen = torch.Generator().manual_seed(12 + d)
+    q, k, v, dout = (torch.randn(2, 300, 3, d, generator=gen).to(cuda, torch.bfloat16)
+                     for _ in range(4))
+    key_mask = torch.ones(2, 300, dtype=torch.bool, device=cuda)
+    key_mask[1, 250:] = False
+    out, lse = flash_attention_with_lse(q, k, v, key_mask, True)
+    start = dict(fa.ENTRY_LAUNCHES)
+    first = flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)
+    second = flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), first, second):
+        assert torch.equal(a, b), name
+    for entry in ("vt_flash_attention_bwd_dq_wide_tc", "vt_flash_attention_bwd_dkv_wide_tc"):
+        assert fa.ENTRY_LAUNCHES.get(entry, 0) - start.get(entry, 0) == 2, entry
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

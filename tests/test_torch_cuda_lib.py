@@ -32,3 +32,25 @@ def test_headers_are_not_compiled_alone(csrc):
     assert [p.name for p in cuda_lib.sources()] == ["kernel.cu"]
     assert [p.name for p in cuda_lib.headers()] == ["common.cuh"]
 
+
+
+def test_build_keeps_the_ptxas_report(csrc, tmp_path, monkeypatch):
+    """``build`` compiles each source with ``-Xptxas -v`` and keeps what the
+    compile steps print (each kernel's registers and spills) beside the
+    library, under ``ptxas_log_path``. A stand-in ``nvcc`` script writes its
+    output file and, when compiling, one report line."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        ': > "$out"\n'
+        'case " $* " in *" -c "*) echo "ptxas info    : Used 42 registers ($out)" >&2;; esac\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_lib, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    path = cuda_lib.build()
+    assert path.exists() and path == cuda_lib.library_path()
+    report = cuda_lib.ptxas_log_path().read_text()
+    assert "Used 42 registers" in report and "kernel.o" in report
+    assert cuda_lib.ptxas_log_path().parent == path.parent

@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from vilmedic_torch.ops import attention as tattn
+from vilmedic_torch.ops import cuda_lib
+from vilmedic_torch.ops import flash_attention as fa
 from vilmedic_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward_reference, flash_attention_reference,
-    pad_head_dim, padded_head_dim, wide_route,
+    kernel_route, pad_head_dim, padded_head_dim,
 )
 from vilmedic_tpu.ops import attention as jattn
 from vilmedic_tpu.ops.flash_attention import flash_attention as jax_flash
@@ -152,16 +154,64 @@ def test_padded_head_dim_matches_jax_v1(causal):
     assert padded_head_dim(129) == 256 and padded_head_dim(200) == 256
 
 
+# padded width -> C entry suffix for bf16; f32 is "wide" above 128
+BF16_WIDE_ROUTES = {256: "wide_tc", 320: "wide_tc", 384: "wide", 1024: "wide"}
+
+
 @pytest.mark.parametrize("d,width", [(129, 256), (200, 256), (256, 256), (257, 320),
                                      (320, 320), (321, 384), (1000, 1024)])
 def test_padded_head_dim_above_128(d, width):
     """Above 128 the card runs 256 (the wgmma kernels' largest), above 256
-    the next multiple of 64 (the wide kernels' chunk), and says which
-    kernels take it."""
+    the next multiple of 64 (the wide kernels' chunk), and names the C entry
+    that takes it: f32 the CUDA-core wide kernels, bf16 the wgmma ones of
+    ``flash_attention_wide_tc.cu`` at 256 and 320, the CUDA-core ones
+    above."""
     assert padded_head_dim(d) == width
-    for backward in (False, True):
-        assert wide_route(torch.float32, width, backward)
-        assert wide_route(torch.bfloat16, width, backward) is (backward or width > 256)
+    assert kernel_route(torch.float32, width) == "wide"
+    assert kernel_route(torch.bfloat16, width) == BF16_WIDE_ROUTES[width]
+
+
+class _StandInLibrary:
+    """Records which C entry is called with which arguments; every call
+    returns ``status``."""
+
+    def __init__(self, status=0):
+        self.calls, self.status = [], status
+
+    def __getattr__(self, name):
+        if not name.startswith("vt_"):
+            raise AttributeError(name)
+        if name == "vt_error_string":
+            return lambda status: b"stand-in error"
+        return lambda *args: self.calls.append((name, args)) or self.status
+
+
+@pytest.mark.parametrize("name", ["vt_flash_attention", "vt_flash_attention_bwd_dq",
+                                  "vt_flash_attention_bwd_dkv"])
+@pytest.mark.parametrize("dtype,width,suffix", [
+    (torch.bfloat16, 64, "bf16"), (torch.bfloat16, 128, "bf16"),
+    (torch.bfloat16, 256, "wide_tc"), (torch.bfloat16, 320, "wide_tc"),
+    (torch.bfloat16, 384, "wide"), (torch.float32, 128, "f32"),
+    (torch.float32, 256, "wide"), (torch.float32, 320, "wide"),
+])
+def test_entry_calls_the_routed_c_entry(monkeypatch, name, dtype, width, suffix):
+    """``_entry`` (through ``_launch``) calls the entry ``kernel_route``
+    names: bf16 256 and 320 the wgmma kernels of ``flash_attention_wide_tc.cu``
+    (its entries take no dtype flag), f32 above 128 and bf16 above 320 the
+    CUDA-core wide kernels with the dtype flag first. It counts the launch
+    under that entry; a non-zero status raises and counts nothing."""
+    stand_in = _StandInLibrary()
+    monkeypatch.setattr(cuda_lib, "lib", lambda: stand_in)
+    monkeypatch.setattr(fa, "ENTRY_LAUNCHES", {})
+    entry = f"{name}_{suffix}"
+    fa._launch(name, "flash", dtype, width, 11, 22)
+    flag = (int(dtype == torch.bfloat16),) if suffix == "wide" else ()
+    assert stand_in.calls == [(entry, flag + (11, 22))]
+    assert fa.ENTRY_LAUNCHES == {entry: 1}
+    stand_in.status = 1
+    with pytest.raises(RuntimeError, match="stand-in error"):
+        fa._launch(name, "flash", dtype, width, 11, 22)
+    assert fa.ENTRY_LAUNCHES == {entry: 1}
 
 
 @pytest.mark.parametrize("d", [160, 256, 320])

@@ -1,7 +1,10 @@
 """Time the PyTorch port of the checkout at ROOT on one NVIDIA card and print
 one JSON line:
 
-    python3 time_port.py ROOT
+    python3 time_port.py ROOT [--flash-only]
+
+(``--flash-only``: the first item and the flash kernels above head dim 128,
+nothing else)
 
 - the flash kernels at the VisionLanguage shapes, through the public entry
   points of ``vilmedic_torch.ops.flash_attention`` (CUDA events, median of 9
@@ -32,9 +35,10 @@ one JSON line:
   logsumexp; the fp8 probes (K7 a-c) at the spike's shapes beside
   ``torch._scaled_mm`` and ``x[:8].float()``: all device ms per call
   (``torch.profiler``);
-- the flash kernels above head dim 128: bf16, B 16, T 1370, 3 heads of 256
-  (forward, causal forward, with LSE and the whole backward, causal, padded
-  text keys), CUDA events; ``null`` where the checkout raises;
+- the flash kernels above head dim 128 (after the first item): bf16, B 16,
+  T 1370, 3 heads of 256 and of 320 (forward, causal forward, with LSE and
+  the whole backward, causal, padded text keys), CUDA events; ``null``
+  where the checkout raises;
 - serving through the slices' generate functions (the helpers of
   ``chip_smoke.py``, random weights from seed 0, bf16): RRG reports/s at
   batch 16 and 128; VisionLanguage reports/s at batch 16 on the merge, int8
@@ -211,26 +215,32 @@ def time_small_kernels() -> dict:
 
 
 def time_flash_wide() -> dict:
-    """K4 and K5 at 3 heads of 256 (bf16, B 16, T 1370), CUDA events; None
-    for a call the checkout refuses."""
+    """K4 and K5 at 3 heads of 256 and of 320 (bf16, B 16, T 1370), CUDA
+    events, by head dim; None for a call the checkout refuses."""
     import torch
 
     from vilmedic_torch.ops import flash_attention as fa
 
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
-    q, k, v, dout = (torch.randn(B, TOKENS, 3, 256, generator=gen, device="cuda").bfloat16()
-                     for _ in range(4))
     mask = key_mask(B, TOKENS)
-    try:
-        out, lse = fa.flash_attention_with_lse(q, k, v, mask, causal=True)
-    except ValueError:
-        return {"forward": None, "causal": None, "lse": None, "backward": None}
-    return {"forward": cuda_ms(lambda: fa.flash_attention(q, k, v, None, False), reps=5),
-            "causal": cuda_ms(lambda: fa.flash_attention(q, k, v, None, True), reps=5),
-            "lse": cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, mask, causal=True),
-                           reps=5),
-            "backward": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, dout,
-                                                                    causal=True), reps=3)}
+    ms = {}
+    for d in (256, 320):
+        q, k, v, dout = (torch.randn(B, TOKENS, 3, d, generator=gen, device="cuda").bfloat16()
+                         for _ in range(4))
+        try:
+            out, lse = fa.flash_attention_with_lse(q, k, v, mask, causal=True)
+        except ValueError:
+            ms[d] = {"forward": None, "causal": None, "lse": None, "backward": None}
+            continue
+        ms[d] = {"forward": cuda_ms(lambda: fa.flash_attention(q, k, v, None, False), reps=5),
+                 "causal": cuda_ms(lambda: fa.flash_attention(q, k, v, None, True), reps=5),
+                 "lse": cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, mask, causal=True),
+                                reps=5),
+                 "backward": cuda_ms(lambda: fa.flash_attention_backward(
+                     q, k, v, mask, out, lse, dout, causal=True), reps=3)}
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return ms
 
 
 def helpers():
@@ -398,8 +408,9 @@ def time_training(root: str) -> dict:
 
 
 def main():
-    if len(sys.argv) != 2:
-        raise SystemExit("usage: python3 time_port.py ROOT")
+    if len(sys.argv) < 2 or sys.argv[2:] not in ([], ["--flash-only"]):
+        raise SystemExit("usage: python3 time_port.py ROOT [--flash-only]")
+    flash_only = sys.argv[2:] == ["--flash-only"]
     root = os.path.abspath(sys.argv[1])
     if not os.path.isdir(os.path.join(root, "vilmedic_torch", "csrc")):
         raise SystemExit(f"time_port: no vilmedic_torch/csrc under {root}")
@@ -416,11 +427,12 @@ def main():
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     result = {"root": root, "card": card, "library": cuda_lib.library_path().name}
     result.update(time_flash())
-    result["decode_kernels"] = time_decode_kernels()
-    result["small_kernels_ms"] = time_small_kernels()
-    result["flash_d256_ms"] = time_flash_wide()
-    result["serving"] = time_serving()
-    result["train"] = time_training(root)
+    result["flash_wide_ms"] = time_flash_wide()
+    if not flash_only:
+        result["decode_kernels"] = time_decode_kernels()
+        result["small_kernels_ms"] = time_small_kernels()
+        result["serving"] = time_serving()
+        result["train"] = time_training(root)
     print(json.dumps(result))
 
 

@@ -27,8 +27,7 @@
 //     producer (its registers cut to 40 by setmaxnreg), warpgroups 1 and 2
 //     consume 64 query rows each (raised to 232 registers).
 //   - One producer thread loads Q once and then K and V tiles of BK keys
-//     (128, or 64 at D 128 and 256) into a 2-stage ring in dynamic shared
-//     memory (at D 256: Q 64 KB, the ring 128 KB) by
+//     (128, or 64 at D 128) into a 2-stage ring in dynamic shared memory by
 //     TMA (cp.async.bulk.tensor over a (B, T, H, D) tensor map, 128-byte
 //     swizzle; 64-byte at D 32, 32-byte at D 16), completing on a full
 //     mbarrier per stage;
@@ -41,11 +40,9 @@
 //   - S = Q K^T is one wgmma.mma_async m64nBKk16 per 16 columns of D, both
 //     operands read from shared memory through swizzled descriptors (K is
 //     K-major, D contiguous); O += P V is the register-A wgmma m64nDk16 per 16
-//     keys (two m64n128k16 halves at D 256), P packed from the S accumulator
-//     as bf16 (the TPU rounds p to V's dtype) and V read MN-major through the
-//     descriptor. Both accumulate in f32 registers; S never leaves them. At D
-//     256 the O accumulator is 128 registers a consumer thread, under the
-//     232 that setmaxnreg gives it.
+//     keys, P packed from the S accumulator as bf16 (the TPU rounds p to V's
+//     dtype) and V read MN-major through the descriptor. Both accumulate in
+//     f32 registers; S never leaves them.
 //   - Online softmax in the log2 domain: scale * log2(e) is folded into one
 //     FMA per score (the bias was scaled when staged), exponentials are
 //     ex2.approx, the mask value and running-max floor are -1e9 * log2(e),
@@ -67,8 +64,10 @@
 //     = 0 and zero V), and query rows >= Tq are computed on zero Q and not
 //     stored; the wrapper pads nothing.
 //
-// Head dims: bf16 16, 32, 64, 128 and 256 here, f32 16 to 128; the f32
-// path at 256 and both paths above it are flash_attention_wide.cu.
+// Head dims: 16, 32, 64 and 128 here; bf16 at 256 and 320 is
+// flash_attention_wide_tc.cu (whose one consumer warpgroup may keep the
+// wide accumulator in registers; an instantiation here at 256 spilled and
+// took 1.7-1.9x its time: PERF.md, K4 row), the rest flash_attention_wide.cu.
 //
 // What bounds the bf16 kernel now (PERF.md, K4 row): not memory. Each
 // consumer warpgroup runs S, the softmax and P V of a tile in series, and
@@ -86,30 +85,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -1e9f;  // the TPU kernel's finite mask value
-constexpr int BQ = 64;               // query rows per f32 block
+using namespace flash;
 
-// Number of key tiles a block of query rows [q0, q0 + rows) visits: all of
-// them, or under the causal mask those up to the one holding the last key its
-// last real row may see. A block holding a row that sees no key at all
-// (Tq > Tk) visits every tile: under the finite mask such a row averages V.
-__device__ __forceinline__ int key_tiles(int q0, int rows, int Tq, int Tk, int bk, int causal) {
-  int n = (Tk + bk - 1) / bk;
-  const int off = Tk - Tq;
-  if (causal && q0 + off >= 0) n = min(n, (min(q0 + rows, Tq) - 1 + off) / bk + 1);
-  return n;
-}
+constexpr int BQ = 64;  // query rows per f32 block
 
 // ------------------------------------------------------------------ bf16 path
 
 constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int kRows = 128;     // query rows per CTA, 64 per consumer warpgroup
 constexpr int kStages = 2;     // K/V ring depth
-constexpr float kMaskL2 = kMaskValue * hopper::kLog2e;  // the finite mask, log2 domain
 
 template <int D>
 struct FwdTiles {
@@ -121,57 +110,6 @@ struct FwdTiles {
   static constexpr int BAR = BIAS + kStages * BK * 4;  // q_full, full[kStages], empty[kStages]
   static constexpr int SMEM = BAR + (1 + 2 * kStages) * 8 + 1024;  // + alignment slack
 };
-
-// one key tile's scores -> probabilities, in place (log2 domain), with the
-// running max and this lane's part of the row sums updated and the factors
-// (alpha) that rescale the output accumulator returned
-template <bool MASK, int BK>
-__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], const float* bs, int k0, int r0,
-                                             int r1, int off, int Tk, int t4, float sl2,
-                                             float& m0, float& m1, float& l0, float& l1,
-                                             float& alpha0, float& alpha1) {
-  float mx0 = m0, mx1 = m1;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    const float2 bv = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t4);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float b = e ? bv.y : bv.x;
-      float x0 = fmaf(sc[4 * j + e], sl2, b);
-      float x1 = fmaf(sc[4 * j + 2 + e], sl2, b);
-      if (MASK) {
-        const int c = k0 + 8 * j + 2 * t4 + e;
-        if (c < Tk) {
-          if (c > r0 + off) x0 = kMaskL2;
-          if (c > r1 + off) x1 = kMaskL2;
-        }
-      }
-      sc[4 * j + e] = x0;
-      sc[4 * j + 2 + e] = x1;
-      mx0 = fmaxf(mx0, x0);
-      mx1 = fmaxf(mx1, x1);
-    }
-  }
-  mx0 = hopper::quad_max(mx0);
-  mx1 = hopper::quad_max(mx1);
-  alpha0 = hopper::fast_exp2(m0 - mx0);
-  alpha1 = hopper::fast_exp2(m1 - mx1);
-  m0 = mx0;
-  m1 = mx1;
-  float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      sc[4 * j + e] = hopper::fast_exp2(sc[4 * j + e] - mx0);
-      sc[4 * j + 2 + e] = hopper::fast_exp2(sc[4 * j + 2 + e] - mx1);
-      ps0 += sc[4 * j + e];
-      ps1 += sc[4 * j + 2 + e];
-    }
-  }
-  l0 = l0 * alpha0 + ps0;
-  l1 = l1 * alpha1 + ps1;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -264,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BK / 16; ++kc)
-        hopper::wgmma_rs<D>(acc, pa[kc], hopper::desc_mn<D>(vs, BK, kc), 1, 2 * BK * 128);
+        hopper::wgmma_rs<D>(acc, pa[kc], hopper::desc_mn<D>(vs, BK, kc), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_operand(acc);
@@ -455,8 +393,6 @@ extern "C" int vt_flash_attention_bf16(const void* q, const void* k, const void*
       return launch_bf16<64>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
     case 128:
       return launch_bf16<128>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
-    case 256:
-      return launch_bf16<256>(q, k, v, bias, o, lse, B, Tq, Tk, H, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -74,31 +74,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -1e9f;  // the TPU kernels' finite mask value
-constexpr int BQ = 64;               // query rows per f32 dq block
-constexpr int BKB = 64;              // key rows per f32 dk/dv block
+using namespace flash;
 
-// Key tiles a dq block of query rows [q0, q0 + rows) visits: all, or under
-// the causal mask those up to the one holding the last key its last real row
-// may see; every tile where the block holds a row that sees no key (Tq > Tk).
-__device__ __forceinline__ int key_tiles(int q0, int rows, int Tq, int Tk, int bk, int causal) {
-  int n = (Tk + bk - 1) / bk;
-  const int off = Tk - Tq;
-  if (causal && q0 + off >= 0) n = min(n, (min(q0 + rows, Tq) - 1 + off) / bk + 1);
-  return n;
-}
-
-// First query tile a dk/dv block visits: under the causal mask, the one
-// holding the first row that may see the block's first key; the first tile
-// where some rows see no key at all (Tq > Tk), since those weigh every key.
-__device__ __forceinline__ int first_query_tile(int k0, int Tq, int Tk, int bq, int causal) {
-  const int first_row = k0 - (Tk - Tq);
-  return (causal && Tk >= Tq && first_row > 0) ? first_row / bq : 0;
-}
+constexpr int BQ = 64;   // query rows per f32 dq block
+constexpr int BKB = 64;  // key rows per f32 dk/dv block
 
 // Stage rows [r0, r0 + R) of a (T, H*D) head slice into shared memory, zero
 // past T.
@@ -120,7 +104,6 @@ constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int kRows = 128;     // rows a CTA owns (queries for dq, keys for dk/dv)
 constexpr int kTile = 64;      // rows per ring tile (keys for dq, queries for dk/dv)
 constexpr int kStages = 2;     // ring depth
-constexpr float kMaskL2 = kMaskValue * hopper::kLog2e;  // the finite mask, log2 domain
 
 template <int D>
 struct DqTiles {  // shared-memory offsets (bytes)
@@ -144,33 +127,6 @@ struct DkvTiles {
   static constexpr int BAR = DELTA + kStages * kTile * 4;
   static constexpr int SMEM = BAR + (1 + 2 * kStages) * 8 + 1024;
 };
-
-// dS of one key tile, in place of S (dq kernel)
-template <bool MASK>
-__device__ __forceinline__ void dq_scores(float (&sc)[32], const float (&dp)[32], const float* bs,
-                                          int k0, int r0, int r1, int off, int Tk, int t4,
-                                          float sl2, float lse0, float lse1, float dl0,
-                                          float dl1) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float2 bv = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t4);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float bias = e ? bv.y : bv.x;
-      float x0 = fmaf(sc[4 * j + e], sl2, bias);
-      float x1 = fmaf(sc[4 * j + 2 + e], sl2, bias);
-      if (MASK) {
-        const int c = k0 + 8 * j + 2 * t4 + e;
-        if (c < Tk) {
-          if (c > r0 + off) x0 = kMaskL2;
-          if (c > r1 + off) x1 = kMaskL2;
-        }
-      }
-      sc[4 * j + e] = hopper::fast_exp2(x0 - lse0) * (dp[4 * j + e] - dl0);
-      sc[4 * j + 2 + e] = hopper::fast_exp2(x1 - lse1) * (dp[4 * j + 2 + e] - dl1);
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -252,9 +208,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       hopper::fence_operand(dp);
       const float* bs = bias_s + s * kTile;
       if (causal && (nokey || k0 + kTile - 1 > wq0 + off))
-        dq_scores<true>(sc, dp, bs, k0, r0, r1, off, Tk, t4, scale_log2, lse0, lse1, dl0, dl1);
+        dq_scores<true, kTile>(sc, dp, bs, k0, r0, r1, off, Tk, t4, scale_log2, lse0, lse1, dl0,
+                               dl1);
       else
-        dq_scores<false>(sc, dp, bs, k0, r0, r1, off, Tk, t4, scale_log2, lse0, lse1, dl0, dl1);
+        dq_scores<false, kTile>(sc, dp, bs, k0, r0, r1, off, Tk, t4, scale_log2, lse0, lse1, dl0,
+                                dl1);
       uint32_t da[kTile / 16][4];
 #pragma unroll
       for (int kc = 0; kc < kTile / 16; ++kc) hopper::pack_a(da[kc], sc, kc);

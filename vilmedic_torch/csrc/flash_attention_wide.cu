@@ -1,6 +1,6 @@
 // Flash attention, forward and backward, at head dims the wgmma kernels are
-// not built for: f32 from 256, bf16 above 256 (forward) and from 256
-// (backward). Any head dim that is a multiple of 64.
+// not built for: f32 from 256, bf16 from 384 (bf16 at 256 and 320 is
+// flash_attention_wide_tc.cu). Any head dim that is a multiple of 64.
 //
 // Replaces, at those head dims: vilmedic_tpu/ops/flash_attention.py::_kernel
 // (forward, with `with_lse`, reached through `_flash_bhtd`) and
@@ -40,11 +40,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -1e9f;  // the TPU kernels' finite mask value
+using namespace flash;
+
 constexpr int kThreads = 256;
 constexpr int BR = 32;     // rows a block owns (queries; keys for dk/dv)
 constexpr int BT = 32;     // rows per streamed tile (keys; queries for dk/dv)
@@ -120,22 +122,6 @@ __device__ __forceinline__ void accumulate_chunk(float* acc, int col0, const flo
     float* at = acc + r * OS + col0 + c;
     *at = (alpha != nullptr ? *at * alpha[r] : *at) + s;
   }
-}
-
-// Key tiles a block of query rows [q0, q0 + rows) visits: all, or under the
-// causal mask those up to the one holding the last key its last real row
-// may see; every tile where the block holds a row that sees no key (Tq > Tk).
-__device__ __forceinline__ int key_tiles(int q0, int rows, int Tq, int Tk, int bk, int causal) {
-  int n = (Tk + bk - 1) / bk;
-  const int off = Tk - Tq;
-  if (causal && q0 + off >= 0) n = min(n, (min(q0 + rows, Tq) - 1 + off) / bk + 1);
-  return n;
-}
-
-// First query tile a dk/dv block visits (as flash_attention_bwd.cu).
-__device__ __forceinline__ int first_query_tile(int k0, int Tq, int Tk, int bq, int causal) {
-  const int first_row = k0 - (Tk - Tq);
-  return (causal && Tk >= Tq && first_row > 0) ? first_row / bq : 0;
 }
 
 // shared-memory words of each kernel

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention.cu, K4, and flash_attention_bwd.cu, K5), the LM heads
+// (flash_attention.cu, K4, flash_attention_bwd.cu, K5, and their wide-head
+// counterparts in flash_attention_wide_tc.cu), the LM heads
 // (blocked_lm_head.cu, K2, and fused_lm_head.cu, K6) and the beam-cache
 // attention (beam_cache_attention.cu, K1): mbarriers, TMA
 // tile loads through tensor maps, wgmma shared-memory descriptors and the
@@ -143,6 +144,16 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// a named barrier over `n` threads (ids 1.. ; 0 is __syncthreads): some
+// threads arrive without waiting, the others wait for all `n`
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // ------------------------------------------------------------------ math
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -186,8 +197,8 @@ struct Tile {
   static constexpr int NCH = D / CW;          // chunks per row
   // descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
   static constexpr uint64_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
-                "head dim 16, 32, 64, 128 or 256");
+  static_assert(D == 16 || D == 32 || (D % 64 == 0 && D <= 512),
+                "head dim 16, 32 or a multiple of 64 up to 512");
 };
 
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -235,6 +246,20 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 
 // D (m64nN, f32) (+)= A (m64k16 bf16, shared, K-major) * B (k16nN bf16,
 // shared, K-major); scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
   asm volatile(
@@ -372,24 +397,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 // in registers, B in shared memory MN-major)
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
   else wgmma_ss_n128(d, a, b, scale_d);
 }
 
-// N 256 runs as two n128 products: the B tile's columns 128.. start
-// `half_bytes` past its first (two Tile<256> chunks of a desc_mn tile, so
-// the descriptor's address field moves by half_bytes / 16)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
-                                         int scale_d, uint32_t half_bytes = 0) {
+                                         int scale_d) {
   if constexpr (N == 16) wgmma_rs_n16(d, a, b, scale_d);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, b, scale_d);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, b, scale_d);
   else {
-    static_assert(N == 256, "wgmma_rs: N 16 to 256");
-    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, b, scale_d);
-    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, b + (half_bytes >> 4), scale_d);
+    static_assert(N == 128, "wgmma_rs: N 16 to 128 (wider: flash_attention_wide_tc.cu)");
+    wgmma_rs_n128(d, a, b, scale_d);
   }
 }
 

@@ -12,7 +12,9 @@ them with ``cuTensorMapEncodeTiled``, found through the runtime's
 ``cudaGetDriverEntryPoint``. Nothing here runs at import time.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
-turns a non-zero status into an exception naming the kernel.
+turns a non-zero status into an exception naming the kernel. ptxas reports
+each kernel's registers, shared memory and spills (``-Xptxas -v``, no effect
+on the code) into :func:`ptxas_log_path` beside the library.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+PTXAS_VERBOSE = ("-Xptxas", "-v")  # the compile step's report, kept in the build log
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +56,9 @@ SIGNATURES = {
     "vt_flash_attention_wide": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dq_wide": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dkv_wide": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_wide_tc": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dq_wide_tc": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dkv_wide_tc": [_P] * 10 + [_I] * 6 + [_F, _P],
     "vt_lm_head_blocked_stats_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_blocked_stats_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_topk_lse_f32": [_P] * 10 + [_I] * 5 + [_P],
@@ -91,15 +97,22 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvilmedic_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _wait(jobs) -> None:
-    """Wait for every (cmd, process); raise with the first failure's output."""
-    failed = []
+def ptxas_log_path() -> Path:
+    return library_path().with_suffix(".ptxas.txt")
+
+
+def _wait(jobs) -> str:
+    """Wait for every (cmd, process); raise with the first failure's output,
+    else return their standard error, joined."""
+    failed, errs = [], []
     for cmd, proc in jobs:
         out, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+        errs.append(err)
     if failed:
         raise RuntimeError(failed[0])
+    return "".join(errs)
 
 
 def _start(cmd):
@@ -120,10 +133,13 @@ def build() -> Path:
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
-        _wait([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
-               for src, obj in zip(sources(), objs)])
+        log = _wait([_start([nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", "-o", str(obj), str(src)])
+                     for src, obj in zip(sources(), objs)])
         lib_tmp = Path(tmp) / path.name
         _wait([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib_tmp), *map(str, objs)])])
+        log_tmp = Path(tmp) / ptxas_log_path().name
+        log_tmp.write_text(log)
+        os.replace(log_tmp, ptxas_log_path())
         os.replace(lib_tmp, path)
     return path
 

@@ -21,9 +21,11 @@ differentiable; dbias (summed over heads, as JAX does) comes out of
 :func:`flash_attention_backward` for checking.
 
 Every entry launches ``csrc/flash_attention.cu`` (K4) or
-``csrc/flash_attention_bwd.cu`` (K5) for CUDA tensors, or raises, and runs the
-same function in plain PyTorch (``*_reference``) for CPU tensors, so autograd
-on the CPU goes through the port's own backward too.
+``csrc/flash_attention_bwd.cu`` (K5), or at the wide head dims
+``csrc/flash_attention_wide_tc.cu`` or ``csrc/flash_attention_wide.cu``, for
+CUDA tensors, or raises, and runs the same function in plain PyTorch
+(``*_reference``) for CPU tensors, so autograd on the CPU goes through the
+port's own backward too.
 
 Head dims: every d runs on the card, at :func:`padded_head_dim` (d): the
 least of ``HEAD_DIMS`` (16, 32, 64, 128, 256) at or above it, and above 256
@@ -32,8 +34,8 @@ columns along D, the kernels take the true scale ``d ** -0.5``, and the
 outputs are sliced back to d. Zero columns change no score, no output
 column, no LSE and no ``delta``, so this is the same function (the JAX
 package's v1 kernel, which takes any head dim, pads its VMEM tile alike).
-The wgmma kernels run bf16 up to 256 (the backward up to 128) and f32 up to
-128; above that ``csrc/flash_attention_wide.cu`` runs (:func:`wide_route`).
+:func:`kernel_route` names the C entries for each dtype and padded head
+dim; ``ENTRY_LAUNCHES`` counts the launches of each entry.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ from . import cuda_lib
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are built for
 WIDE_STEP = 64  # above 256: the wide kernels' head-dim chunk
+WIDE_TC_DIMS = (256, 320)  # bf16 widths of csrc/flash_attention_wide_tc.cu
+ENTRY_LAUNCHES: dict = {}  # C entry name -> launches
 
 
 def _key_bias(key_mask: Optional[torch.Tensor], b: int, tk: int, device) -> Optional[torch.Tensor]:
@@ -77,11 +81,17 @@ def padded_head_dim(d: int) -> int:
     return -(-d // WIDE_STEP) * WIDE_STEP
 
 
-def wide_route(dtype, width: int, backward: bool) -> bool:
-    """Whether the padded head dim ``width`` runs on the wide kernels
-    (``csrc/flash_attention_wide.cu``) rather than the wgmma ones: f32 above
-    128, bf16 above 256 forward and above 128 backward."""
-    return width > (256 if dtype == torch.bfloat16 and not backward else 128)
+def kernel_route(dtype, width: int) -> str:
+    """The suffix of the C entries (forward, dq, dk/dv) that run the padded
+    head dim ``width``: ``bf16`` / ``f32`` up to 128, the wgmma kernels of
+    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``;
+    ``wide_tc`` for bf16 at ``WIDE_TC_DIMS`` (256, 320), the wgmma kernels of
+    ``csrc/flash_attention_wide_tc.cu``; ``wide`` for the rest (f32 above
+    128, bf16 above 320), ``csrc/flash_attention_wide.cu`` on the CUDA
+    cores."""
+    if width <= 128:
+        return "bf16" if dtype == torch.bfloat16 else "f32"
+    return "wide_tc" if dtype == torch.bfloat16 and width in WIDE_TC_DIMS else "wide"
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -167,15 +177,22 @@ def _kernel_operands(name: str, *tensors):
     return dev, d, [pad_head_dim(t, width) for t in tensors]
 
 
-def _entry(name: str, dtype, width: int, backward: bool):
-    """The C entry ``name`` for ``dtype`` at the padded head dim ``width``:
-    ``name_bf16`` / ``name_f32``, or ``name_wide`` with the dtype bound as
-    its first argument."""
-    lib = cuda_lib.lib()
-    if wide_route(dtype, width, backward):
-        wide = getattr(lib, f"{name}_wide")
-        return lambda *args: wide(int(dtype == torch.bfloat16), *args)
-    return getattr(lib, f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+def _entry(name: str, dtype, width: int):
+    """The C entry ``name_<kernel_route>`` for ``dtype`` at the padded head
+    dim ``width``, as ``(entry name, callable)``; ``name_wide`` gets the
+    dtype bound as its first argument."""
+    entry = f"{name}_{kernel_route(dtype, width)}"
+    fn = getattr(cuda_lib.lib(), entry)
+    if entry.endswith("_wide"):
+        return entry, lambda *args: fn(int(dtype == torch.bfloat16), *args)
+    return entry, fn
+
+
+def _launch(name: str, kernel: str, dtype, width: int, *args) -> None:
+    """Call the C entry :func:`_entry` names, raise on its status, count it."""
+    entry, fn = _entry(name, dtype, width)
+    cuda_lib.check(fn(*args), kernel)
+    ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
 
 
 def _unpad(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -193,15 +210,12 @@ def _kernel_forward(q, k, v, key_mask, causal: bool, with_lse: bool):
         bias = bias.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev) if with_lse else None
-    fn = _entry("vt_flash_attention", q.dtype, q.shape[-1], backward=False)
     with torch.cuda.device(dev):
-        status = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            0 if bias is None else bias.data_ptr(), out.data_ptr(),
-            0 if lse is None else lse.data_ptr(),
-            b, tq, tk, h, q.shape[-1], int(bool(causal)), d ** -0.5, cuda_lib.stream_of(out),
-        )
-    cuda_lib.check(status, "flash_attention")
+        _launch("vt_flash_attention", "flash_attention", q.dtype, q.shape[-1],
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                0 if bias is None else bias.data_ptr(), out.data_ptr(),
+                0 if lse is None else lse.data_ptr(),
+                b, tq, tk, h, q.shape[-1], int(bool(causal)), d ** -0.5, cuda_lib.stream_of(out))
     return _unpad(out, d), lse
 
 
@@ -257,13 +271,12 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal: bool = False
     dev, d, (q, k, v, dout) = _kernel_operands("flash_attention_bwd_dq", q, k, v, dout)
     _check_stats("flash_attention_bwd_dq", lse, delta, b, h, tq, dev)
     dq = torch.empty_like(q)
-    fn = _entry("vt_flash_attention_bwd_dq", q.dtype, q.shape[-1], backward=True)
     with torch.cuda.device(dev):
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dq.data_ptr(), b, tq, k.shape[1], h, q.shape[-1],
-                    int(bool(causal)), d ** -0.5, cuda_lib.stream_of(dq))
-    cuda_lib.check(status, "flash_attention_bwd_dq")
+        _launch("vt_flash_attention_bwd_dq", "flash_attention_bwd_dq", q.dtype, q.shape[-1],
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), b, tq, k.shape[1], h, q.shape[-1],
+                int(bool(causal)), d ** -0.5, cuda_lib.stream_of(dq))
     flash_attention_bwd_dq.launches += 1
     return _unpad(dq, d)
 
@@ -284,14 +297,12 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, causal: bool = Fals
     _check_stats("flash_attention_bwd_dkv", lse, delta, b, h, tq, dev)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((b, h, tk), dtype=torch.float32, device=dev)
-    fn = _entry("vt_flash_attention_bwd_dkv", q.dtype, q.shape[-1], backward=True)
     with torch.cuda.device(dev):
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-                    b, tq, tk, h, q.shape[-1], int(bool(causal)), d ** -0.5,
-                    cuda_lib.stream_of(dk))
-    cuda_lib.check(status, "flash_attention_bwd_dkv")
+        _launch("vt_flash_attention_bwd_dkv", "flash_attention_bwd_dkv", q.dtype, q.shape[-1],
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+                b, tq, tk, h, q.shape[-1], int(bool(causal)), d ** -0.5, cuda_lib.stream_of(dk))
     flash_attention_bwd_dkv.launches += 1
     return _unpad(dk, d), _unpad(dv, d), dbias
 
