@@ -16,8 +16,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    heads K2 and K6 at N 128 and 1024, the crop + normalize K3 at B 16 and
    128 (bitwise) and the fp8 probes K7, by ``torch.profiler`` device time,
    K1 beside ``scaled_dot_product_attention`` over the same keys; K4 and
-   K5 above head dim 128: at 3 heads of 256 (B 16, T 1370) beside their
-   bounds and SDPA, and at D 320 and 160 against the plain versions);
+   K5 above head dim 128: at 3 heads of 256, 320, 384 and 512 (B 16, T
+   1370) beside their bounds and SDPA, and at D 320, 160, 384, 1000 and
+   2600 against the plain versions);
 4. serves the flagship RRG beam-8 slice (``config/RRG/baseline-mimic.yml``,
    vocab 50265, random weights from a seed, bf16) on 16 uint8 images, checks
    the output and that every kernel ran, and times reports/s at batch 16 and
@@ -947,7 +948,7 @@ def flash_head_dims() -> str:
 
     from vilmedic_torch.ops import flash_attention as fa
 
-    widths = fa.HEAD_DIMS + (fa.HEAD_DIMS[-1] + fa.WIDE_STEP, fa.HEAD_DIMS[-1] + 2 * fa.WIDE_STEP)
+    widths = fa.HEAD_DIMS + (320, 384, 512, 1024)
 
     def routes(dtype) -> str:
         by_route = {}
@@ -955,9 +956,12 @@ def flash_head_dims() -> str:
             by_route.setdefault(fa.kernel_route(dtype, w), []).append(str(w))
         return ", ".join(f"{route} {'/'.join(ws)}" for route, ws in by_route.items())
 
+    split = "/".join(f"{n * w} as {n} x {w}" for n, w in map(fa.split_of, (384, 512, 640, 1024)))
     return (f"built {'/'.join(map(str, fa.HEAD_DIMS))} and multiples of {fa.WIDE_STEP} above "
-            f"{fa.HEAD_DIMS[-1]}, other head dims zero-padded to the next of these; C entries "
-            f"bf16: {routes(torch.bfloat16)} and above; f32: {routes(torch.float32)} and above")
+            f"{fa.HEAD_DIMS[-1]}, other head dims zero-padded to the next of these; bf16 above "
+            f"320 padded to widths a cluster of CTAs splits ({split}, up to "
+            f"{fa.SPLIT_MAX * fa.SPLIT_WIDTHS[-1]}); C entries bf16: {routes(torch.bfloat16)} and "
+            f"above; f32: {routes(torch.float32)} and above")
 
 
 def ptxas_usage(source: str) -> dict:
@@ -973,7 +977,8 @@ def ptxas_usage(source: str) -> dict:
             found = re.search(r"([a-z_]+_kernel)I(.*?)EE", entry.group(1))
             name = None
             if f"_{source}_cu_" in entry.group(1) and found:
-                name = f"{found.group(1)}<{','.join(re.findall(r'Li(\d+)E', found.group(2) + 'E'))}>"
+                args = re.findall(r"L[ib](\d+)E", found.group(2) + "E")  # int and bool arguments
+                name = f"{found.group(1)}<{','.join(args)}>"
                 usage[name] = {}
         elif name and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -1026,16 +1031,19 @@ def flash_grads_match(q, k, v, key_mask, causal, label, gen):
 
 
 def check_flash_wide(results):
-    """K4 and K5 above head dim 128. bf16 at the VisionLanguage width split
-    into 3 heads of 256 and of 320 (B 16, T 1370), on
-    ``csrc/flash_attention_wide_tc.cu``: K4 unmasked and causal, K4 with LSE
-    and K5 causal with padded keys, against the plain versions, and timed
-    beside their bounds, ``scaled_dot_product_attention`` (forward; forward
-    and backward by autograd, less the forward) and the plain versions. Then
-    the CUDA-core ``csrc/flash_attention_wide.cu`` in f32 at D 320 and 160
-    (zero-padded to 256) and in bf16 at D 384, the bf16 width it still
-    takes, and the wgmma kernels again in bf16 at D 320 and 160, against the
-    plain versions at B 2, T 300 / 200, 3 heads, causal with a key mask."""
+    """K4 and K5 above head dim 128. bf16 at B 16, T 1370, 3 heads of 256
+    and 320 (one CTA a row block) and of 384 and 512 (a cluster of two CTAs
+    that split the head dim), all on ``csrc/flash_attention_wide_tc.cu``: K4
+    unmasked and causal, K4 with LSE and K5 causal with padded keys, against
+    the plain versions, and timed beside their bounds,
+    ``scaled_dot_product_attention`` (forward; forward and backward by
+    autograd, less the forward) and the plain versions. Then the CUDA-core
+    ``csrc/flash_attention_wide.cu`` in f32 at D 320 and 160 (zero-padded to
+    256), and the wgmma kernels in bf16 at D 320, 160, 384 (a pair), 1000
+    (padded to 1024: four CTAs, Tq > Tk) and 2600 (padded to 2880: nine, a
+    non-portable cluster), against the plain versions at B 2, T 300 / 200
+    (130 / 70 at 2600), 3 heads, causal with a key mask. ptxas's registers
+    and spills of every instantiation."""
     import torch
     import torch.nn.functional as F
 
@@ -1051,7 +1059,7 @@ def check_flash_wide(results):
                & key_mask[:, None, None, :])
     stats = 2 * b * heads * t * 4 + b * t * 4  # lse, delta; the key bias
     rows = {}
-    for d in (256, 320):
+    for d in (256, 320, 384, 512):
         q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
                    for _ in range(3))
         worst = 0.0
@@ -1093,7 +1101,8 @@ def check_flash_wide(results):
                           ("bwd", "sdpa_bwd")):
             bd = bounds[name]
             print(f"K4/K5 bf16 D {d} {name} (B {b}, T {t}, 3 heads of {d}, "
-                  f"flash_attention_wide_tc.cu): kernel {tm[name]:.4f} ms "
+                  f"flash_attention_wide_tc.cu{'' if d <= 320 else ', split'}): kernel "
+                  f"{tm[name]:.4f} ms "
                   f"({bd['bound_ms'] / tm[name] * 100:.1f}% of the bound), bound "
                   f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), scaled_dot_product_attention "
                   f"{tm[lib]:.4f} ms")
@@ -1115,7 +1124,8 @@ def check_flash_wide(results):
     del allowed
     for d, tq, tk, dtype in ((320, 300, 300, torch.float32), (320, 300, 300, torch.bfloat16),
                              (160, 200, 300, torch.float32), (160, 200, 300, torch.bfloat16),
-                             (384, 300, 300, torch.bfloat16)):
+                             (384, 300, 300, torch.bfloat16), (1000, 300, 200, torch.bfloat16),
+                             (2600, 130, 70, torch.bfloat16)):
         q = torch.randn(2, tq, 3, d, generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn(2, tk, 3, d, generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
@@ -1123,9 +1133,13 @@ def check_flash_wide(results):
         mask[1, tk - tk // 3:] = False
         flash_grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal", gen)
     usage = ptxas_usage("flash_attention_wide_tc")
-    print("flash_attention_wide_tc.cu (ptxas -v): " + "; ".join(
+    print("flash_attention_wide_tc.cu (ptxas -v; <CTA's columns, split>): " + "; ".join(
         f"{k} {u['registers']} registers, spill stores / loads {u['spill_stores']} / "
         f"{u['spill_loads']} bytes" for k, u in usage.items()))
+    built = {f"flash_{part}_wide_kernel<{w},{split}>" for part in ("fwd", "bwd_dq", "bwd_dkv")
+             for w, split in ((256, 0), (320, 0), (192, 1), (256, 1), (320, 1))}
+    if set(usage) != built or any(u["spill_stores"] or u["spill_loads"] for u in usage.values()):
+        fail(f"flash_attention_wide_tc.cu: instantiations {sorted(usage)}, or spills")
     source = "vilmedic_torch/csrc/flash_attention_wide_tc.cu"
     for name, row, replaces, counter in (
             ("flash_attention_wide_tc", "forward", "vilmedic_tpu/ops/flash_attention.py:161",
@@ -1135,7 +1149,8 @@ def check_flash_wide(results):
         kernels = ("flash_fwd_wide",) if row == "forward" else ("flash_bwd_dq_wide",
                                                                  "flash_bwd_dkv_wide")
         results[name] = dict(route="cuda", source=source, replaces=replaces, **rows[320][row],
-                             d256=rows[256][row], path="flash_wide", counter=counter,
+                             d256=rows[256][row], d384=rows[384][row], d512=rows[512][row],
+                             path="flash_wide", counter=counter,
                              ptxas={k: u for k, u in usage.items() if k.startswith(kernels)})
 
 
@@ -1862,10 +1877,10 @@ def phase_fp8_probe():
 def phase_flash_wide():
     """The wide head dims' own path: attention with its gradient through
     ``flash_attention`` under autograd (K4 with LSE, then K5's pair), as a
-    model with heads of 256 or 320 trains, at 3 such heads (bf16, B 16,
-    T 1370, causal, padded text keys). Each width launches the wgmma kernels
-    of ``csrc/flash_attention_wide_tc.cu`` once and the CUDA-core wide
-    kernels never."""
+    model with heads of 256, 320, 384 or 512 trains, at 3 such heads (bf16,
+    B 16, T 1370, causal, padded text keys). Each width launches the wgmma
+    kernels of ``csrc/flash_attention_wide_tc.cu`` once (at 384 and 512 a
+    cluster of two CTAs a row block) and the CUDA-core wide kernels never."""
     import torch
 
     from vilmedic_torch.ops.flash_attention import flash_attention
@@ -1874,8 +1889,9 @@ def phase_flash_wide():
     b, t, heads = 16, VL_TOKENS, 3
     key_mask = train_key_mask(b, t, "cuda")
     finite = True
+    widths = (256, 320, 384, 512)
     reset_launches()
-    for d in (256, 320):
+    for d in widths:
         q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
                    .requires_grad_() for _ in range(3))
         out = flash_attention(q, k, v, key_mask, True)
@@ -1887,10 +1903,11 @@ def phase_flash_wide():
     torch.cuda.synchronize()
     launches = read_launches()
     wide = {e: launches[e] for e in WIDE_ENTRIES}
-    print(f"flash_wide (heads of 256 and 320, forward and backward by autograd): {wide}")
+    print(f"flash_wide (heads of {', '.join(map(str, widths))}, forward and backward by "
+          f"autograd): {wide}")
     require({"finite output and gradients of the inputs' shapes": finite,
              "flash_attention_wide_tc.cu: forward, dq, dk/dv once per width":
-                 all(wide[e] == 2 for e in WIDE_ENTRIES[:3]),
+                 all(wide[e] == len(widths) for e in WIDE_ENTRIES[:3]),
              "no CUDA-core wide kernel": not any(wide[e] for e in WIDE_ENTRIES[3:])},
             "flash_wide")
     torch.cuda.empty_cache()
@@ -8080,12 +8097,13 @@ def main():
     # slice (K1 stage a, K2, K3), the VisionLanguage slice (K1 stage b, K4),
     # its int8-cache route (K1 stage c), its fused-prefix route (K1 stage d),
     # the VisionLanguage training phase (K4 with LSE, K5), K6's top-k head,
-    # K7's fp8 probe and the wide head dims' own phase (K4 and K5 at 256, 320)
+    # K7's fp8 probe and the wide head dims' own phase (K4 and K5 at 256,
+    # 320, 384 and 512)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # the flash kernels' head dims; the wide-head kernels at D 256 and their ptxas
-    # report; launches on the training paths
-    extra = ("head_dims", "d256", "ptxas", "rrg_train_launches", "scst_launches",
+    # the flash kernels' head dims; the wide-head kernels at D 256, 384 and
+    # 512 and their ptxas report; launches on the training paths
+    extra = ("head_dims", "d256", "d384", "d512", "ptxas", "rrg_train_launches", "scst_launches",
              "pipelined_launches", "rrs_launches",
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
              "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",

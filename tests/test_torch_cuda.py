@@ -446,16 +446,19 @@ def test_flash_padded_head_dims(cuda, dtype, d, tq, tk, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [160, 192, 256, 320, 384])
+@pytest.mark.parametrize("d", [160, 192, 256, 320, 384, 448, 512, 1000])
 @pytest.mark.parametrize("tq,tk,causal", [(70, 200, True), (130, 130, False), (300, 100, True)])
 def test_flash_wide_head_dims(cuda, dtype, d, tq, tk, causal):
     """Head dims above 128, which JAX's v1 kernel takes: D 160 and 192 run
-    padded to 256; bf16 at 256 and 320 on the wgmma kernels of
-    ``flash_attention_wide_tc.cu``, bf16 at 384 and f32 at all of them on
-    the CUDA-core ``flash_attention_wide.cu``. K4, K4 with LSE and K5 launch
-    and match the plain versions at the head dim itself, ragged on both
-    axes, with rows that see no key."""
+    padded to 256; bf16 on the wgmma kernels of ``flash_attention_wide_tc.cu``
+    at every width (256 and 320 one CTA a row block; 384, 448 padded to 512,
+    and 512 a pair of CTAs that split the head dim; 1000 padded to 1024,
+    four), f32 at all of them on the CUDA-core ``flash_attention_wide.cu``.
+    K4, K4 with LSE and K5 launch, only on those entries, and match the
+    plain versions at the head dim itself, ragged on both axes, with rows
+    that see no key."""
     b, heads = 2, 3
+    entries = dict(fa.ENTRY_LAUNCHES)
     gen = torch.Generator().manual_seed(d + tq + causal)
     q = torch.randn(b, tq, heads, d, generator=gen).to(cuda, dtype)
     k, v = (torch.randn(b, tk, heads, d, generator=gen).to(cuda, dtype) for _ in range(2))
@@ -472,6 +475,42 @@ def test_flash_wide_head_dims(cuda, dtype, d, tq, tk, causal):
                                    .float(), rtol=TOL[dtype], atol=TOL[dtype])
         _flash_grads_match(q, k, v, km, causal)
     assert [fn.launches - s for fn, s in zip(counters, start)] == [2, 2, 2, 2]
+    route = "wide_tc" if dtype == torch.bfloat16 else "wide"
+    launched = {e: n - entries.get(e, 0) for e, n in fa.ENTRY_LAUNCHES.items()
+                if n != entries.get(e, 0)}
+    assert launched == {f"vt_flash_attention_{route}": 4, f"vt_flash_attention_bwd_dq_{route}": 2,
+                        f"vt_flash_attention_bwd_dkv_{route}": 2}
+
+
+@pytest.mark.parametrize("d,tq,tk", [(704, 300, 100), (1600, 130, 130), (2560, 70, 200),
+                                     (2600, 130, 70), (5120, 70, 130)])
+def test_flash_wide_clusters_of_three_to_sixteen(cuda, d, tq, tk):
+    """bf16 heads that 3 (704 padded to 768), 5 (1600), 8 (2560), 9 (2600
+    padded to 2880) and 16 (5120) CTAs split, above 8 as non-portable
+    clusters, whose partial scores are read through distributed shared
+    memory and summed in rank order: K4, K4 with LSE and K5 match the plain
+    versions, causal with a key mask, on the wgmma entries only."""
+    gen = torch.Generator().manual_seed(d + tq)
+    q = torch.randn(2, tq, 3, d, generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(2, tk, 3, d, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
+    key_mask = torch.ones(2, tk, dtype=torch.bool)
+    key_mask[1, tk - tk // 3:] = False
+    entries = dict(fa.ENTRY_LAUNCHES)
+    _flash_grads_match(q, k, v, key_mask.to(cuda), True)
+    launched = {e for e, n in fa.ENTRY_LAUNCHES.items() if n != entries.get(e, 0)}
+    assert launched == {"vt_flash_attention_wide_tc", "vt_flash_attention_bwd_dq_wide_tc",
+                        "vt_flash_attention_bwd_dkv_wide_tc"}
+
+
+def test_flash_refuses_bf16_heads_above_5120(cuda):
+    """More than 16 CTAs (Hopper's largest cluster) would split a bf16 head
+    above 5120: refused before any launch; f32 takes it on the CUDA cores."""
+    q = torch.randn(1, 64, 1, 5200, device=cuda)
+    with pytest.raises(ValueError, match="above 5120"):
+        flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    out = flash_attention(q, q, q)
+    torch.testing.assert_close(out, flash_attention_reference(q, q, q), rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
 
 
 def test_flash_backward_is_deterministic(cuda):
@@ -489,12 +528,14 @@ def test_flash_backward_is_deterministic(cuda):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("d", [256, 320])
+@pytest.mark.parametrize("d", [256, 320, 384, 512, 2600])
 def test_flash_wide_backward_is_deterministic(cuda, d):
     """The wide-head backward (``flash_attention_wide_tc.cu``: the dk/dv
-    kernel's two warpgroups hand P^T over in shared memory) writes every
-    output element from one block in a fixed order: two runs of the causal
-    backward with a key mask agree bit for bit, and both ran its kernels."""
+    kernel's two warpgroups hand P^T over in shared memory; at 384 and 512
+    a pair of CTAs, at 2600 nine, sums its partial scores in rank order)
+    writes every output element from one block in a fixed order: two runs of
+    the causal backward with a key mask agree bit for bit, and both ran its
+    kernels."""
     gen = torch.Generator().manual_seed(12 + d)
     q, k, v, dout = (torch.randn(2, 300, 3, d, generator=gen).to(cuda, torch.bfloat16)
                      for _ in range(4))

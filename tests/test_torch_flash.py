@@ -9,6 +9,8 @@ axes that the JAX wrapper pads to its 64-wide blocks, random key masks, and
 suffix key masks under the causal mask.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,21 +156,72 @@ def test_padded_head_dim_matches_jax_v1(causal):
     assert padded_head_dim(129) == 256 and padded_head_dim(200) == 256
 
 
-# padded width -> C entry suffix for bf16; f32 is "wide" above 128
-BF16_WIDE_ROUTES = {256: "wide_tc", 320: "wide_tc", 384: "wide", 1024: "wide"}
+# padded width in f32 -> in bf16, where they differ: bf16 above 320 pads to a
+# width a cluster splits (split_of)
+BF16_WIDTHS = {448: 512, 576: 640, 704: 768, 2624: 2880}
 
 
 @pytest.mark.parametrize("d,width", [(129, 256), (200, 256), (256, 256), (257, 320),
-                                     (320, 320), (321, 384), (1000, 1024)])
+                                     (320, 320), (321, 384), (1000, 1024), (448, 448),
+                                     (512, 512), (576, 576), (700, 704), (2560, 2560),
+                                     (2600, 2624), (5120, 5120)])
 def test_padded_head_dim_above_128(d, width):
     """Above 128 the card runs 256 (the wgmma kernels' largest), above 256
-    the next multiple of 64 (the wide kernels' chunk), and names the C entry
-    that takes it: f32 the CUDA-core wide kernels, bf16 the wgmma ones of
-    ``flash_attention_wide_tc.cu`` at 256 and 320, the CUDA-core ones
-    above."""
-    assert padded_head_dim(d) == width
+    the next multiple of 64 (the wide kernels' chunk), and in bf16 above 320
+    the next width a cluster of CTAs splits into equal shares of 192, 256 or
+    320 columns; and names the C entry that takes it: f32 the CUDA-core wide
+    kernels, bf16 the wgmma ones of ``flash_attention_wide_tc.cu`` at every
+    width."""
+    bf16_width = BF16_WIDTHS.get(width, width)
+    assert padded_head_dim(d) == width == padded_head_dim(d, torch.float32)
+    assert padded_head_dim(d, torch.bfloat16) == bf16_width
     assert kernel_route(torch.float32, width) == "wide"
-    assert kernel_route(torch.bfloat16, width) == BF16_WIDE_ROUTES[width]
+    assert kernel_route(torch.bfloat16, bf16_width) == "wide_tc"
+
+
+@pytest.mark.parametrize("width", range(320 + 64, 5120 + 1, 64))
+def test_split_of_takes_every_bf16_width(width):
+    """Every multiple of 64 above 320 up to 5120 pads to ``n * w``: n =
+    ceil(width / 320) CTAs (at most 16, Hopper's largest cluster) of w
+    columns, w one of the widths the split kernels are built for, the least
+    such multiple at or above the width; a padded width pads to itself, and
+    the C entries are given that n."""
+    n, w = fa.split_of(width)
+    assert n == -(-width // 320) <= fa.SPLIT_MAX and w in fa.SPLIT_WIDTHS
+    assert width <= n * w < width + 64 * n
+    assert fa.split_of(n * w) == (n, w)
+    assert fa._head_args(torch.bfloat16, n * w) == (n * w, n)
+
+
+@pytest.mark.parametrize("dtype,width,args", [
+    (torch.bfloat16, 128, (128,)), (torch.bfloat16, 256, (256, 1)),
+    (torch.bfloat16, 320, (320, 1)), (torch.bfloat16, 384, (384, 2)),
+    (torch.bfloat16, 1024, (1024, 4)), (torch.bfloat16, 2880, (2880, 9)),
+    (torch.bfloat16, 5120, (5120, 16)), (torch.float32, 384, (384,)),
+])
+def test_head_args_give_the_wide_tc_entries_their_cluster(dtype, width, args):
+    """The ``wide_tc`` entries take the CTAs a head (1 at 256 and 320, a
+    cluster above) after the head dim, one int more than the other entries;
+    the caller, which pads to :func:`split_of`, is the one place that
+    chooses it."""
+    assert fa._head_args(dtype, width) == args
+    entry = f"vt_flash_attention_{fa.kernel_route(dtype, width)}"
+    assert len(cuda_lib.SIGNATURES[entry]) == len(cuda_lib.SIGNATURES["vt_flash_attention_f32"]) \
+        + len(args) - 1
+
+
+def test_cuda_core_route_is_f32_only():
+    """``csrc/flash_attention_wide.cu`` (CUDA cores) keeps float32 alone:
+    no bf16 path in the source, no dtype flag in its entries, and every f32
+    width above 128 routes to it while bf16 never does."""
+    source = (cuda_lib.CSRC_DIR / "flash_attention_wide.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in source.splitlines())
+    assert "bfloat16" not in code and "bf16" not in code
+    for part in ("", "_bwd_dq", "_bwd_dkv"):
+        assert cuda_lib.SIGNATURES[f"vt_flash_attention{part}_wide"][0] is ctypes.c_void_p
+    for width in (192, 256, 320, 384, 1024, 4096):
+        assert kernel_route(torch.float32, width) == "wide"
+        assert kernel_route(torch.bfloat16, width) == "wide_tc"
 
 
 class _StandInLibrary:
@@ -191,36 +244,39 @@ class _StandInLibrary:
 @pytest.mark.parametrize("dtype,width,suffix", [
     (torch.bfloat16, 64, "bf16"), (torch.bfloat16, 128, "bf16"),
     (torch.bfloat16, 256, "wide_tc"), (torch.bfloat16, 320, "wide_tc"),
-    (torch.bfloat16, 384, "wide"), (torch.float32, 128, "f32"),
+    (torch.bfloat16, 384, "wide_tc"), (torch.bfloat16, 512, "wide_tc"),
+    (torch.bfloat16, 1024, "wide_tc"), (torch.float32, 128, "f32"),
     (torch.float32, 256, "wide"), (torch.float32, 320, "wide"),
 ])
 def test_entry_calls_the_routed_c_entry(monkeypatch, name, dtype, width, suffix):
     """``_entry`` (through ``_launch``) calls the entry ``kernel_route``
-    names: bf16 256 and 320 the wgmma kernels of ``flash_attention_wide_tc.cu``
-    (its entries take no dtype flag), f32 above 128 and bf16 above 320 the
-    CUDA-core wide kernels with the dtype flag first. It counts the launch
-    under that entry; a non-zero status raises and counts nothing."""
+    names: bf16 above 128 the wgmma kernels of ``flash_attention_wide_tc.cu``
+    (one CTA a row block at 256 and 320, a cluster above), f32 above 128 the
+    CUDA-core wide kernels; no entry takes a dtype flag. It counts the
+    launch under that entry; a non-zero status raises and counts nothing.
+    The function is looked up once per library."""
     stand_in = _StandInLibrary()
     monkeypatch.setattr(cuda_lib, "lib", lambda: stand_in)
     monkeypatch.setattr(fa, "ENTRY_LAUNCHES", {})
     entry = f"{name}_{suffix}"
     fa._launch(name, "flash", dtype, width, 11, 22)
-    flag = (int(dtype == torch.bfloat16),) if suffix == "wide" else ()
-    assert stand_in.calls == [(entry, flag + (11, 22))]
+    assert stand_in.calls == [(entry, (11, 22))]
     assert fa.ENTRY_LAUNCHES == {entry: 1}
+    assert fa._ENTRIES[(entry, stand_in)] is fa._entry(name, dtype, width)[1]
     stand_in.status = 1
     with pytest.raises(RuntimeError, match="stand-in error"):
         fa._launch(name, "flash", dtype, width, 11, 22)
     assert fa.ENTRY_LAUNCHES == {entry: 1}
 
 
-@pytest.mark.parametrize("d", [160, 256, 320])
+@pytest.mark.parametrize("d", [160, 256, 320, 384, 448, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_head_dims_match_jax_v1(d, causal):
     """Head dims above 128 (JAX's v1 kernel, which takes any D): the plain
     forward equals JAX's in interpret mode, with a key mask; run as the card
-    runs it (zero-padded to ``padded_head_dim``, true scale) it equals the
-    unpadded plain version."""
+    runs it in bf16 (zero-padded to ``padded_head_dim(d, bfloat16)``: 448 to
+    512, the split kernels' widths; true scale) it equals the unpadded plain
+    version."""
     (q, k, v), rng = _inputs(6 + d, 2, 100, 130 if not causal else 100, 2, d)
     key_mask = (rng.random((2, k.shape[1])) > 0.2).astype(np.int32)
     key_mask[:, 0] = 1
@@ -229,7 +285,7 @@ def test_wide_head_dims_match_jax_v1(d, causal):
     out, lse = flash_attention_reference(tq, tk, tv, tm, causal, return_lse=True)
     np.testing.assert_allclose(out.numpy(), _run_jax(q, k, v, key_mask, causal),
                                rtol=TOL, atol=TOL)
-    width = padded_head_dim(d)
+    width = padded_head_dim(d, torch.bfloat16)
     padded = [pad_head_dim(x, width) for x in (tq, tk, tv)]
     out_p, lse_p = flash_attention_reference(*padded, tm, causal, return_lse=True,
                                              scale=d ** -0.5)

@@ -36,9 +36,12 @@ nothing else)
   ``torch._scaled_mm`` and ``x[:8].float()``: all device ms per call
   (``torch.profiler``);
 - the flash kernels above head dim 128 (after the first item): bf16, B 16,
-  T 1370, 3 heads of 256 and of 320 (forward, causal forward, with LSE and
-  the whole backward, causal, padded text keys), CUDA events; ``null``
-  where the checkout raises;
+  T 1370, 3 heads of 256, 320, 384, 448 and 512 (forward, causal forward,
+  with LSE and the whole backward, causal, padded text keys), CUDA events;
+  ``null`` where the checkout raises; where the checkout pads the head dim
+  (448 to 512), the padding copies alone of a forward (q, k, v in, out
+  back) and of a backward (q, k, v, dO into each of the two kernels; dq,
+  dk, dv back);
 - serving through the slices' generate functions (the helpers of
   ``chip_smoke.py``, random weights from seed 0, bf16): RRG reports/s at
   batch 16 and 128; VisionLanguage reports/s at batch 16 on the merge, int8
@@ -215,8 +218,9 @@ def time_small_kernels() -> dict:
 
 
 def time_flash_wide() -> dict:
-    """K4 and K5 at 3 heads of 256 and of 320 (bf16, B 16, T 1370), CUDA
-    events, by head dim; None for a call the checkout refuses."""
+    """K4 and K5 at 3 heads of 256, 320, 384, 448 and 512 (bf16, B 16,
+    T 1370), CUDA events, by head dim; None for a call the checkout
+    refuses."""
     import torch
 
     from vilmedic_torch.ops import flash_attention as fa
@@ -224,7 +228,7 @@ def time_flash_wide() -> dict:
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
     mask = key_mask(B, TOKENS)
     ms = {}
-    for d in (256, 320):
+    for d in (256, 320, 384, 448, 512):
         q, k, v, dout = (torch.randn(B, TOKENS, 3, d, generator=gen, device="cuda").bfloat16()
                          for _ in range(4))
         try:
@@ -238,6 +242,17 @@ def time_flash_wide() -> dict:
                                 reps=5),
                  "backward": cuda_ms(lambda: fa.flash_attention_backward(
                      q, k, v, mask, out, lse, dout, causal=True), reps=3)}
+        try:
+            width = fa.padded_head_dim(d, torch.bfloat16)
+        except TypeError:  # a checkout whose padding does not depend on the dtype
+            width = fa.padded_head_dim(d)
+        if width != d:  # the wrappers' zero-padding copies alone
+            wide = fa.pad_head_dim(out, width)
+            ms[d]["pad_forward"] = cuda_ms(lambda: ([fa.pad_head_dim(x, width) for x in (q, k, v)],
+                                                    wide[..., :d].contiguous()), reps=5)
+            ms[d]["pad_backward"] = cuda_ms(
+                lambda: ([fa.pad_head_dim(x, width) for x in (q, k, v, dout) for _ in range(2)],
+                         [wide[..., :d].contiguous() for _ in range(3)]), reps=3)
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     return ms

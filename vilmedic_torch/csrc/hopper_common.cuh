@@ -3,9 +3,10 @@
 // counterparts in flash_attention_wide_tc.cu), the LM heads
 // (blocked_lm_head.cu, K2, and fused_lm_head.cu, K6) and the beam-cache
 // attention (beam_cache_attention.cu, K1): mbarriers, TMA
-// tile loads through tensor maps, wgmma shared-memory descriptors and the
-// wgmma instructions themselves, warp-specialisation helpers, and the host
-// side that encodes a tensor map.
+// tile loads through tensor maps, cluster ranks and distributed shared
+// memory, wgmma shared-memory descriptors and the wgmma instructions
+// themselves, warp-specialisation helpers, and the host side that encodes a
+// tensor map.
 //
 // Layout conventions (the tiles both kernels stage):
 //   - A tile is R rows of one head, D bf16 columns, loaded by TMA from the
@@ -87,13 +88,31 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
   return done != 0;
 }
 
-// wait until the phase of parity `parity` has completed. A wait still open
-// after ~2^34 cycles (seconds) traps: a launch error, not a hung card.
+// the same, acquiring at cluster scope: for arrivals from other CTAs of the
+// cluster (mbar_arrive_remote) whose writes the waiter then reads
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait until the phase of parity `parity` has completed (CLUSTER: acquire
+// at cluster scope). A wait still open after ~2^34 cycles (seconds) traps:
+// a launch error, not a hung card.
+template <bool CLUSTER = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
+  auto ready = [&] {
+    return CLUSTER ? mbar_try_wait_cluster(addr, parity) : mbar_try_wait(addr, parity);
+  };
+  if (ready()) return;
   const long long start = clock64();
-  while (!mbar_try_wait(addr, parity))
+  while (!ready())
     if (clock64() - start > (1ll << 34)) __trap();
 }
 
@@ -125,6 +144,58 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
 // memory before its later generic ones
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// every thread of every CTA of the cluster (release, then acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p` (in this CTA's shared memory) in CTA
+// `rank` of the cluster: the same offset in that CTA's shared memory
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// arrive on an mbarrier of another CTA of the cluster (map_rank address),
+// releasing this thread's earlier memory accesses at cluster scope
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// 16 bytes into another CTA's shared memory (map_rank address), completing
+// 16 bytes of transaction count on that CTA's mbarrier `bar` (map_rank)
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ------------------------------------------------------ warp specialisation
@@ -246,6 +317,17 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 
 // D (m64nN, f32) (+)= A (m64k16 bf16, shared, K-major) * B (k16nN bf16,
 // shared, K-major); scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
   asm volatile(
@@ -397,7 +479,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 // in registers, B in shared memory MN-major)
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 32) wgmma_ss_n32(d, a, b, scale_d);
+  if constexpr (N == 16) wgmma_ss_n16(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_ss_n32(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
   else wgmma_ss_n128(d, a, b, scale_d);
 }
@@ -439,22 +522,25 @@ __device__ __forceinline__ void init_ring(uint64_t* bars, int consumers) {
 // (tc, td) of ROWS rows from row (t0 + it) * ROWS into stage it % STAGES,
 // with `stats(stage, first row, lane)` writing that tile's per-row values
 // beside it. Shared-memory offsets are bytes; stage s of a ring tensor sits
-// s * ROWS * D * 2 bytes past its offset.
+// s * ROWS * D * 2 bytes past its offset. Each tile holds the D columns of
+// a head row from column `col0` (a CTA that holds part of a wider head).
 template <int D, int STAGES, int RES, int ROWS, typename Stats>
 __device__ __forceinline__ void ring_producer(uint8_t* smem, uint64_t* bars, const CUtensorMap* ta,
                                               int off_a, const CUtensorMap* tb, int off_b,
                                               const CUtensorMap* tc, int off_c,
                                               const CUtensorMap* td, int off_d, int res_row,
-                                              int t0, int n_tiles, int h, int b, Stats stats) {
+                                              int t0, int n_tiles, int h, int b, Stats stats,
+                                              int col0 = 0) {
   using G = Tile<D>;
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
     mbar_arrive_expect_tx(&bars[0], (tb != nullptr ? 2 : 1) * RES * D * 2);
 #pragma unroll
     for (int c = 0; c < G::NCH; ++c) {
-      tma_load_4d(smem + off_a + c * RES * G::SW, ta, c * G::CW, h, res_row, b, &bars[0]);
+      tma_load_4d(smem + off_a + c * RES * G::SW, ta, col0 + c * G::CW, h, res_row, b, &bars[0]);
       if (tb != nullptr)
-        tma_load_4d(smem + off_b + c * RES * G::SW, tb, c * G::CW, h, res_row, b, &bars[0]);
+        tma_load_4d(smem + off_b + c * RES * G::SW, tb, col0 + c * G::CW, h, res_row, b,
+                    &bars[0]);
     }
   }
   for (int it = 0; it < n_tiles; ++it) {
@@ -467,8 +553,8 @@ __device__ __forceinline__ void ring_producer(uint8_t* smem, uint64_t* bars, con
 #pragma unroll
       for (int c = 0; c < G::NCH; ++c) {
         const int dst = s * ROWS * D * 2 + c * ROWS * G::SW;
-        tma_load_4d(smem + off_c + dst, tc, c * G::CW, h, r0, b, full);
-        tma_load_4d(smem + off_d + dst, td, c * G::CW, h, r0, b, full);
+        tma_load_4d(smem + off_c + dst, tc, col0 + c * G::CW, h, r0, b, full);
+        tma_load_4d(smem + off_d + dst, td, col0 + c * G::CW, h, r0, b, full);
       }
     }
     stats(s, r0, lane);
@@ -571,17 +657,19 @@ inline int allow_dynamic_smem(const void* kernel, int bytes, bool (&done)[kMaxDe
   return (int)st;
 }
 
-// a tensor map over a (B, T, H, D) bf16 tensor whose box is one chunk of
+// a tensor map over a (B, T, H, width) bf16 tensor (width D unless given:
+// a CTA that holds D of a wider head's columns) whose box is one chunk of
 // `rows` rows of one head (Tile<D>), swizzled as the wgmma descriptors read
 // it; rows past T read as zeros. Returns a cudaError_t.
 template <int D>
-inline int make_tensor_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int rows) {
+inline int make_tensor_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int rows,
+                           int width = D) {
   using G = Tile<D>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)T * H * D * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * 2, (cuuint64_t)H * width * 2,
+                                 (cuuint64_t)T * H * width * 2};
   const cuuint32_t box[4] = {(cuuint32_t)G::CW, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),

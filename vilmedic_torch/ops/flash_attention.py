@@ -22,20 +22,23 @@ differentiable; dbias (summed over heads, as JAX does) comes out of
 
 Every entry launches ``csrc/flash_attention.cu`` (K4) or
 ``csrc/flash_attention_bwd.cu`` (K5), or at the wide head dims
-``csrc/flash_attention_wide_tc.cu`` or ``csrc/flash_attention_wide.cu``, for
-CUDA tensors, or raises, and runs the same function in plain PyTorch
-(``*_reference``) for CPU tensors, so autograd on the CPU goes through the
-port's own backward too.
+``csrc/flash_attention_wide_tc.cu`` (bf16) or ``csrc/flash_attention_wide.cu``
+(f32), for CUDA tensors, or raises, and runs the same function in plain
+PyTorch (``*_reference``) for CPU tensors, so autograd on the CPU goes
+through the port's own backward too.
 
-Head dims: every d runs on the card, at :func:`padded_head_dim` (d): the
-least of ``HEAD_DIMS`` (16, 32, 64, 128, 256) at or above it, and above 256
-the next multiple of ``WIDE_STEP`` (64). q, k, v (and dO, O) get zero
-columns along D, the kernels take the true scale ``d ** -0.5``, and the
-outputs are sliced back to d. Zero columns change no score, no output
-column, no LSE and no ``delta``, so this is the same function (the JAX
-package's v1 kernel, which takes any head dim, pads its VMEM tile alike).
-:func:`kernel_route` names the C entries for each dtype and padded head
-dim; ``ENTRY_LAUNCHES`` counts the launches of each entry.
+Head dims: every d runs on the card, at :func:`padded_head_dim` (d, dtype):
+the least of ``HEAD_DIMS`` (16, 32, 64, 128, 256) at or above it; above 256
+the next multiple of ``WIDE_STEP`` (64), and in bf16 above 320 the next
+width that a cluster of n CTAs splits into n equal shares of 192, 256 or
+320 columns (:func:`split_of`: 384, 512, 640 as pairs, 768 to 1280 as 3 or
+4, up to 5120 as 16). q, k, v (and dO, O) get zero columns along D, the
+kernels take the true scale ``d ** -0.5``, and the outputs are sliced back
+to d. Zero columns change no score, no output column, no LSE and no
+``delta``, so this is the same function (the JAX package's v1 kernel, which
+takes any head dim, pads its VMEM tile alike). :func:`kernel_route` names
+the C entries for each dtype and padded head dim; ``ENTRY_LAUNCHES`` counts
+the launches of each entry.
 """
 
 from __future__ import annotations
@@ -49,8 +52,10 @@ from . import cuda_lib
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are built for
 WIDE_STEP = 64  # above 256: the wide kernels' head-dim chunk
-WIDE_TC_DIMS = (256, 320)  # bf16 widths of csrc/flash_attention_wide_tc.cu
+SPLIT_WIDTHS = (192, 256, 320)  # bf16 above 320: the columns a CTA of a cluster holds
+SPLIT_MAX = 16  # CTAs of a cluster (Hopper's largest, non-portable above 8)
 ENTRY_LAUNCHES: dict = {}  # C entry name -> launches
+_ENTRIES: dict = {}  # (C entry name, library) -> its function
 
 
 def _key_bias(key_mask: Optional[torch.Tensor], b: int, tk: int, device) -> Optional[torch.Tensor]:
@@ -69,29 +74,45 @@ def _check(q, k, v):
         raise ValueError(f"flash attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
 
 
-def padded_head_dim(d: int) -> int:
+def split_of(width: int) -> tuple:
+    """``(n, w)``: the CTAs of the cluster that a bf16 head of (a multiple of
+    ``WIDE_STEP``) ``width`` above 320 takes, ``n = ceil(width / 320)``, and
+    the columns each holds, ``width / n`` rounded up to a multiple of 64 (192,
+    256 or 320). The head runs at ``n * w``."""
+    n = -(-width // SPLIT_WIDTHS[-1])
+    return n, -(-width // (n * WIDE_STEP)) * WIDE_STEP
+
+
+def padded_head_dim(d: int, dtype=None) -> int:
     """The head dim that head dim ``d`` runs at on the card: the least one in
     ``HEAD_DIMS`` at or above ``d``; above the largest, ``d`` rounded up to a
-    multiple of ``WIDE_STEP``."""
+    multiple of ``WIDE_STEP``, and for bf16 above 320 to the width
+    :func:`split_of` gives."""
     if d < 1:
         raise ValueError(f"flash attention: head dim {d}")
     for built in HEAD_DIMS:
         if d <= built:
             return built
-    return -(-d // WIDE_STEP) * WIDE_STEP
+    width = -(-d // WIDE_STEP) * WIDE_STEP
+    if dtype == torch.bfloat16 and width > SPLIT_WIDTHS[-1]:
+        n, w = split_of(width)
+        return n * w
+    return width
 
 
 def kernel_route(dtype, width: int) -> str:
     """The suffix of the C entries (forward, dq, dk/dv) that run the padded
     head dim ``width``: ``bf16`` / ``f32`` up to 128, the wgmma kernels of
     ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``;
-    ``wide_tc`` for bf16 at ``WIDE_TC_DIMS`` (256, 320), the wgmma kernels of
-    ``csrc/flash_attention_wide_tc.cu``; ``wide`` for the rest (f32 above
-    128, bf16 above 320), ``csrc/flash_attention_wide.cu`` on the CUDA
-    cores."""
+    ``wide_tc`` for bf16 above 128, the wgmma kernels of
+    ``csrc/flash_attention_wide_tc.cu`` (one CTA a row block at 256 and 320,
+    a cluster of :func:`split_of` CTAs above; up to ``SPLIT_MAX`` * 320 =
+    5120, wider bf16 heads are refused); ``wide`` for f32 above 128,
+    ``csrc/flash_attention_wide.cu`` on the CUDA cores (TF32 would break the
+    f32 route's parity with the plain version)."""
     if width <= 128:
         return "bf16" if dtype == torch.bfloat16 else "f32"
-    return "wide_tc" if dtype == torch.bfloat16 and width in WIDE_TC_DIMS else "wide"
+    return "wide_tc" if dtype == torch.bfloat16 else "wide"
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -173,19 +194,33 @@ def _kernel_operands(name: str, *tensors):
         raise ValueError(f"{name}: empty query or key axis")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: operands must start on 16-byte boundaries")
-    width = padded_head_dim(d)
+    width = padded_head_dim(d, dtype)
+    if dtype == torch.bfloat16 and split_of(width)[0] > SPLIT_MAX:
+        raise ValueError(f"{name}: bf16 head dim {d} above {SPLIT_MAX * SPLIT_WIDTHS[-1]}, "
+                         "the widest a cluster splits; float32 takes any head dim")
     return dev, d, [pad_head_dim(t, width) for t in tensors]
 
 
 def _entry(name: str, dtype, width: int):
     """The C entry ``name_<kernel_route>`` for ``dtype`` at the padded head
-    dim ``width``, as ``(entry name, callable)``; ``name_wide`` gets the
-    dtype bound as its first argument."""
+    dim ``width``, as ``(entry name, function)``, looked up once per loaded
+    library."""
     entry = f"{name}_{kernel_route(dtype, width)}"
-    fn = getattr(cuda_lib.lib(), entry)
-    if entry.endswith("_wide"):
-        return entry, lambda *args: fn(int(dtype == torch.bfloat16), *args)
+    library = cuda_lib.lib()
+    fn = _ENTRIES.get((entry, library))
+    if fn is None:
+        fn = _ENTRIES[(entry, library)] = getattr(library, entry)
     return entry, fn
+
+
+def _head_args(dtype, width: int) -> tuple:
+    """The C entries' head-dim arguments at the padded ``width``: ``(width,)``,
+    and for the ``wide_tc`` entries ``(width, n)``, n the CTAs a head takes
+    (:func:`split_of`; 1 at 256 and 320), which the entry checks against the
+    widths it is built for."""
+    if kernel_route(dtype, width) == "wide_tc":
+        return width, split_of(width)[0]
+    return (width,)
 
 
 def _launch(name: str, kernel: str, dtype, width: int, *args) -> None:
@@ -215,7 +250,8 @@ def _kernel_forward(q, k, v, key_mask, causal: bool, with_lse: bool):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 0 if bias is None else bias.data_ptr(), out.data_ptr(),
                 0 if lse is None else lse.data_ptr(),
-                b, tq, tk, h, q.shape[-1], int(bool(causal)), d ** -0.5, cuda_lib.stream_of(out))
+                b, tq, tk, h, *_head_args(q.dtype, q.shape[-1]), int(bool(causal)), d ** -0.5,
+                cuda_lib.stream_of(out))
     return _unpad(out, d), lse
 
 
@@ -275,7 +311,8 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal: bool = False
         _launch("vt_flash_attention_bwd_dq", "flash_attention_bwd_dq", q.dtype, q.shape[-1],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), b, tq, k.shape[1], h, q.shape[-1],
+                delta.data_ptr(), dq.data_ptr(), b, tq, k.shape[1], h,
+                *_head_args(q.dtype, q.shape[-1]),
                 int(bool(causal)), d ** -0.5, cuda_lib.stream_of(dq))
     flash_attention_bwd_dq.launches += 1
     return _unpad(dq, d)
@@ -302,7 +339,8 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, causal: bool = Fals
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-                b, tq, tk, h, q.shape[-1], int(bool(causal)), d ** -0.5, cuda_lib.stream_of(dk))
+                b, tq, tk, h, *_head_args(q.dtype, q.shape[-1]), int(bool(causal)), d ** -0.5,
+                cuda_lib.stream_of(dk))
     flash_attention_bwd_dkv.launches += 1
     return _unpad(dk, d), _unpad(dv, d), dbias
 
