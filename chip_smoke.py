@@ -323,7 +323,7 @@ def cuda_ms(fn, reps: int = 9, warmup: int = 2) -> float:
 
 PROFILE_PAD_S = 0.05  # idle host seconds on each side of a profiled call
 # the pad level (a power of 4 of PROFILE_PAD_S) that last gave a whole trace:
-# where a host needs a wide pad, the next measurement starts from it
+# the next measurement starts one level below it
 PAD_LEVEL = [0]
 
 
@@ -360,12 +360,13 @@ def device_ms_per_call(fn, calls: int, kernels: dict | None = None) -> float:
     ``kernels`` (a part of a kernel's name: its launches per call) appears
     exactly ``calls`` times that often. A trace that falls short is printed
     and discarded, and the next one is padded four times wider, up to five
-    pad levels; a measurement starts at the level that gave the last whole
-    trace (:data:`PAD_LEVEL`). Without a whole trace the time is taken by
+    pad levels; a measurement starts one level below the one that gave the
+    last whole trace (:data:`PAD_LEVEL`), so that a level raised by a few
+    stray traces falls back instead of widening every later trace. Without a whole trace the time is taken by
     CUDA events around ``fn`` instead (host gaps between launches
     included), and the line says so."""
     fn()
-    for attempt in range(PAD_LEVEL[0], 5):
+    for attempt in range(max(PAD_LEVEL[0] - 1, 0), 5):
         _, events = profiled(fn, PROFILE_PAD_S * 4 ** attempt)
         names = collections.Counter(e.name for e in events)
         short = [f"{part}: {sum(n for name, n in names.items() if part in name)} of "
@@ -388,7 +389,10 @@ def device_ms_per_call(fn, calls: int, kernels: dict | None = None) -> float:
 # per second, and dense operations per second by operand type (bf16 and fp8
 # on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12,
+                  # f32 products as three TF32 passes on the tensor cores (495 TFLOP/s)
+                  "tf32x3": 495e12 / 3}
+F32_PEAK = "tf32x3"  # the rate of the f32 flash kernels up to head dim 128
 
 
 def bound(nbytes: float, ops: float, dtype) -> dict:
@@ -821,14 +825,15 @@ def sdpa_layout(*xs):
 
 
 def flash_bound(q, k, causal: bool, key_mask=None, tensors: int = 4, extra_bytes: int = 0,
-                products: int = 2) -> dict:
+                products: int = 2, peak=None) -> dict:
     """A flash kernel's bound: ``tensors`` tensors of q's shape and dtype
     read or written plus ``extra_bytes``; ``products`` matrix products of
     2 * D operations per head for every (query, key) pair that the causal
     limit and the key mask leave: 2 forward (S = QKᵀ, PV); 5 for the whole
     backward (S recomputed, dP = dO Vᵀ, dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q),
     of which the dq kernel alone needs 3 (S, dP, dQ) and the dk/dv kernel
-    4 (S, dP, dV, dK)."""
+    4 (S, dP, dV, dK). ``peak`` names another rate than q's dtype's
+    (``tf32x3``: f32 products as three TF32 passes)."""
     import torch
 
     b, tq, heads, d = q.shape
@@ -840,14 +845,15 @@ def flash_bound(q, k, causal: bool, key_mask=None, tensors: int = 4, extra_bytes
     seers = (tq - (j - (tk - tq))).clamp(0, tq) if causal else torch.full_like(j, tq)
     pairs = float((keep * seers).sum())
     nbytes = tensors * q.numel() * q.element_size() + extra_bytes
-    return bound(nbytes, products * 2 * d * heads * pairs, q.dtype)
+    return bound(nbytes, products * 2 * d * heads * pairs, peak or q.dtype)
 
 
 def check_flash_attention(results):
     """K4 at the VisionLanguage tower and prefill shapes, plus a padded key
-    mask and a Tq < Tk causal case. The library call beside it is
-    ``scaled_dot_product_attention`` on the same inputs in its (B, H, T, D)
-    layout."""
+    mask and a Tq < Tk causal case, in f32 (``csrc/flash_attention_f32.cu``,
+    three TF32 passes) and bf16; both timed at the tower and the prefill.
+    The library call beside it is ``scaled_dot_product_attention`` on the
+    same inputs in its (B, H, T, D) layout (TF32 off in f32)."""
     import torch
     import torch.nn.functional as F
 
@@ -866,7 +872,7 @@ def check_flash_attention(results):
              ("Tq<Tk causal", 1000, t, True, False, heads, d),
              ("prefill D 16", t, t, True, False, 48, 16),
              ("prefill D 48", t, t, True, False, 16, 48)]
-    worst, timing = 0.0, {}
+    worst, worst_f32, timing = 0.0, 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, tq, tk, causal, padded, hc, dc in cases:
             q = torch.randn(b, tq, hc, dc, generator=gen, device="cuda").to(dtype)
@@ -881,33 +887,51 @@ def check_flash_attention(results):
             ref = flash_attention_reference(q, k, v, key_mask, causal)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
-            worst = max(worst, err)
+            if dtype == torch.float32:
+                worst_f32 = max(worst_f32, err)
+            else:
+                worst = max(worst, err)
             print(f"K4 flash_attention {str(dtype)[6:]:8s} {name:13s} B={b} Tq={tq} Tk={tk} "
                   f"H={hc} D={dc}: max|err|={err:.3e} (tol {tol[dtype]:.0e})")
             if not err <= tol[dtype]:
                 fail(f"flash attention {dtype} {name}")
-            if dtype == torch.bfloat16 and name in ("tower", "prefill", "prefill D 16",
-                                                    "prefill D 48"):
+            if name in ("tower", "prefill") or (dtype == torch.bfloat16
+                                                and name in ("prefill D 16", "prefill D 48")):
                 qh, kh, vh = sdpa_layout(q, k, v)
-                timing[name] = dict(
+                timing[(str(dtype)[6:], name)] = dict(
                     ms=cuda_ms(lambda: flash_attention(q, k, v, None, causal)),
                     plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, None, causal)),
                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                         qh, kh, vh, is_causal=causal)),
-                    **flash_bound(q, k, causal))
+                    **flash_bound(q, k, causal, peak=F32_PEAK if dtype == torch.float32
+                                  else None))
+                if dtype == torch.float32:  # the same products at the f32 FMA rate
+                    timing[("float32", name)]["fma_bound_ms"] = flash_bound(
+                        q, k, causal)["bound_ms"]
                 del qh, kh, vh
             del q, k, v, out, ref
-    for name, tm in timing.items():
+    for (dt, name), tm in timing.items():
         flops = 4 * b * heads * t * t * d / (1 if name == "tower" else 2)  # H * D 768 in each
-        print(f"K4 bf16 {name} T={t}: kernel {tm['ms']:.4f} ms ({flops / tm['ms'] / 1e9:.1f} "
+        fma = (f" (three-pass TF32), f32 FMA bound {tm['fma_bound_ms']:.4f} ms "
+               f"({tm['fma_bound_ms'] / tm['ms'] * 100:.1f}%)" if dt == "float32" else "")
+        print(f"K4 {dt} {name} T={t}: kernel {tm['ms']:.4f} ms ({flops / tm['ms'] / 1e9:.1f} "
               f"TFLOP/s, {tm['bound_ms'] / tm['ms'] * 100:.1f}% of the bound), plain "
               f"{tm['plain_ms']:.4f} ms, scaled_dot_product_attention {tm['library_ms']:.4f} ms, "
-              f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+              f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}){fma}")
     flash_dense_crossover(b, heads, d, gen)
     results["flash_attention"] = dict(
         route="cuda", source="vilmedic_torch/csrc/flash_attention.cu",
         replaces="vilmedic_tpu/ops/flash_attention.py:287",
-        max_abs_err=worst, **timing["tower"], path="vl", counter="flash_attention",
+        max_abs_err=worst, **timing[("bfloat16", "tower")], path="vl", counter="flash_attention",
+    )
+    # the f32 route (the f32 card-vs-CPU parities): the tower, its first
+    # f32 parity's launches
+    results["flash_attention_f32"] = dict(
+        route="cuda", source="vilmedic_torch/csrc/flash_attention_f32.cu",
+        replaces="vilmedic_tpu/ops/flash_attention.py:393", max_abs_err=worst_f32,
+        **timing[("float32", "tower")],
+        prefill=timing[("float32", "prefill")], path="vl_parity",
+        counter="vt_flash_attention_f32",
     )
 
 
@@ -1041,9 +1065,10 @@ def check_flash_wide(results):
     ``csrc/flash_attention_wide.cu`` in f32 at D 320 and 160 (zero-padded to
     256), and the wgmma kernels in bf16 at D 320, 160, 384 (a pair), 1000
     (padded to 1024: four CTAs, Tq > Tk) and 2600 (padded to 2880: nine, a
-    non-portable cluster), against the plain versions at B 2, T 300 / 200
-    (130 / 70 at 2600), 3 heads, causal with a key mask. ptxas's registers
-    and spills of every instantiation."""
+    non-portable cluster), and bf16 at 5184, wider than a cluster splits, on
+    the CUDA-core kernels' bf16 entries, against the plain versions at B 2,
+    T 300 / 200 (130 / 70 at 2600, 96 at 5184), 3 heads, causal with a key
+    mask. ptxas's registers and spills of every wgmma instantiation."""
     import torch
     import torch.nn.functional as F
 
@@ -1125,7 +1150,7 @@ def check_flash_wide(results):
     for d, tq, tk, dtype in ((320, 300, 300, torch.float32), (320, 300, 300, torch.bfloat16),
                              (160, 200, 300, torch.float32), (160, 200, 300, torch.bfloat16),
                              (384, 300, 300, torch.bfloat16), (1000, 300, 200, torch.bfloat16),
-                             (2600, 130, 70, torch.bfloat16)):
+                             (2600, 130, 70, torch.bfloat16), (5184, 96, 96, torch.bfloat16)):
         q = torch.randn(2, tq, 3, d, generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn(2, tk, 3, d, generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
@@ -1166,10 +1191,13 @@ def train_key_mask(b: int, t: int, device):
 
 def check_flash_attention_backward(results):
     """K4 with LSE and K5 (dq kernel, dk/dv/dbias kernel) at the VisionLanguage
-    training shape: B 16, T 1370 + 100, H 12, D 64, causal, padded text keys.
-    The library calls beside them: ``scaled_dot_product_attention`` forward
-    with the causal and key masks as one boolean mask, and its backward by
-    autograd (forward and backward timed together, less the forward)."""
+    training shape: B 16, T 1370 + 100, H 12, D 64, causal, padded text keys,
+    in f32 (``csrc/flash_attention_f32.cu``: beside the f32 FMA bound and the
+    three-pass TF32 bound) and bf16. The library calls beside them:
+    ``scaled_dot_product_attention`` forward with the causal and key masks as
+    one boolean mask, and its backward by autograd (forward and backward
+    timed together, less the forward); TF32 off in f32. ptxas's registers
+    and spills of every f32 instantiation (none may spill)."""
     import torch
     import torch.nn.functional as F
 
@@ -1191,6 +1219,7 @@ def check_flash_attention_backward(results):
     gen = torch.Generator("cuda").manual_seed(SEED + 5)
     key_mask = train_key_mask(b, t, "cuda")
     worst = {"lse": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst_f32 = dict(worst)
     timing = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, dout = (torch.randn(b, t, heads, d, generator=gen, device="cuda").to(dtype)
@@ -1206,9 +1235,10 @@ def check_flash_attention_backward(results):
                 for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, ref)}
         rel = {name: errs[name] / r.float().abs().max().item()
                for name, r in zip(("dq", "dk", "dv", "dbias"), ref)}
-        worst["lse"] = max(worst["lse"], err_out, err_lse)
-        worst["dq"] = max(worst["dq"], errs["dq"])
-        worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"], errs["dbias"])
+        w = worst_f32 if dtype == torch.float32 else worst
+        w["lse"] = max(w["lse"], err_out, err_lse)
+        w["dq"] = max(w["dq"], errs["dq"])
+        w["dkv"] = max(w["dkv"], errs["dk"], errs["dv"], errs["dbias"])
         print(f"K4+LSE / K5 {str(dtype)[6:]:8s} B={b} T={t} H={heads} D={d} causal, padded "
               f"keys: max|err| out {err_out:.3e} (tol {tol_out[dtype]:.0e}), lse {err_lse:.3e} "
               f"(tol {tol_lse:.0e}); relative dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv "
@@ -1236,27 +1266,31 @@ def check_flash_attention_backward(results):
             bwd_plain=cuda_ms(lambda: flash_attention_backward_reference(
                 q, k, v, key_mask, out, lse, dout, causal=True)),
         )
-        if dtype == torch.bfloat16:
-            stats = 2 * b * heads * t * 4 + bias.numel() * 4  # lse, delta; the key bias
-            timing[dtype].update(
-                bound_lse=flash_bound(q, k, True, key_mask, extra_bytes=key_mask.numel()
-                                      + b * heads * t * 4),
-                bound_dq=flash_bound(q, k, True, key_mask, tensors=5, extra_bytes=stats,
-                                     products=3),
-                bound_dkv=flash_bound(q, k, True, key_mask, tensors=6,
-                                      extra_bytes=stats + b * heads * t * 4, products=4))
-            leaves = [x.requires_grad_() for x in sdpa_layout(q, k, v)]
-            (dout_h,) = sdpa_layout(dout)
-            allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
-                       & key_mask[:, None, None, :])
+        stats = 2 * b * heads * t * 4 + bias.numel() * 4  # lse, delta; the key bias
+        # f32 at its three-pass TF32 bound (the rate the kernels run at) and
+        # beside it the f32 FMA bound (suffix _fma)
+        peaks = {"": F32_PEAK, "_fma": None} if dtype == torch.float32 else {"": None}
+        for suffix, peak in peaks.items():
+            timing[dtype].update({f"{key}{suffix}": value for key, value in (
+                ("bound_lse", flash_bound(q, k, True, key_mask, extra_bytes=key_mask.numel()
+                                          + b * heads * t * 4, peak=peak)),
+                ("bound_dq", flash_bound(q, k, True, key_mask, tensors=5, extra_bytes=stats,
+                                         products=3, peak=peak)),
+                ("bound_dkv", flash_bound(q, k, True, key_mask, tensors=6,
+                                          extra_bytes=stats + b * heads * t * 4, products=4,
+                                          peak=peak)))})
+        leaves = [x.requires_grad_() for x in sdpa_layout(q, k, v)]
+        (dout_h,) = sdpa_layout(dout)
+        allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
+                   & key_mask[:, None, None, :])
 
-            def sdpa_fwd_bwd():
-                o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-                torch.autograd.grad(o, leaves, dout_h)
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+            torch.autograd.grad(o, leaves, dout_h)
 
-            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed))
-            timing[dtype].update(lib_fwd=lib_fwd, lib_bwd=cuda_ms(sdpa_fwd_bwd) - lib_fwd)
-            del leaves, dout_h, allowed
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed))
+        timing[dtype].update(lib_fwd=lib_fwd, lib_bwd=cuda_ms(sdpa_fwd_bwd) - lib_fwd)
+        del leaves, dout_h, allowed
         del q, k, v, dout, out, lse, grads
         torch.cuda.empty_cache()
     # two T x T x D products forward; seven backward (S and dP recomputed in
@@ -1269,14 +1303,47 @@ def check_flash_attention_backward(results):
               f"K5 dq {tm['dq']:.4f} ms + dk/dv/dbias {tm['dkv']:.4f} ms = {bwd_k:.4f} ms "
               f"({3.5 * fwd_flops / bwd_k / 1e9:.1f} TFLOP/s), whole backward with delta "
               f"{tm['bwd']:.4f} ms, plain backward {tm['bwd_plain']:.4f} ms")
+    for dtype, tm in timing.items():
+        for suffix in ("", "_fma") if dtype == torch.float32 else ("",):
+            bl, bq, bkv = (tm[f"bound_{part}{suffix}"]["bound_ms"] for part in ("lse", "dq", "dkv"))
+            label = " (f32 FMA)" if suffix else (" (three-pass TF32)"
+                                                 if dtype == torch.float32 else "")
+            print(f"K4+LSE {str(dtype)[6:]} bound{label} "
+                  f"{bl:.4f} ms ({bl / tm['lse'] * 100:.1f}% reached), "
+                  f"scaled_dot_product_attention forward {tm['lib_fwd']:.4f} ms; K5 bound dq "
+                  f"{bq:.4f} + dk/dv/dbias {bkv:.4f} ms "
+                  f"({(bq + bkv) / (tm['dq'] + tm['dkv']) * 100:.1f}% reached), autograd "
+                  f"backward of scaled_dot_product_attention {tm['lib_bwd']:.4f} ms")
+    usage = ptxas_usage("flash_attention_f32")
+    print("flash_attention_f32.cu (ptxas -v; <D, consumer warpgroups, tile rows, stages, "
+          "sums in shared memory>): " + "; ".join(
+              f"{k} {u['registers']} registers, spill stores / loads {u['spill_stores']} / "
+              f"{u['spill_loads']} bytes" for k, u in usage.items()))
+    if len(usage) != 12 or any(u["spill_stores"] or u["spill_loads"] for u in usage.values()):
+        fail(f"flash_attention_f32.cu: instantiations {sorted(usage)}, or spills")
+    # the f32 route's kernels (csrc/flash_attention_f32.cu) on the f32
+    # training parity's path; K4 with LSE in f32 beside the forward's row
+    tm = timing[torch.float32]
+    results["flash_attention_f32"].update(
+        lse_ms=tm["lse"], lse_plain_ms=tm["lse_plain"], lse_bound_ms=tm["bound_lse"]["bound_ms"],
+        lse_fma_bound_ms=tm["bound_lse_fma"]["bound_ms"], lse_library_ms=tm["lib_fwd"],
+        lse_max_abs_err=worst_f32["lse"],
+        ptxas={k: u for k, u in usage.items() if k.startswith("flash_fwd")})
+    f32 = dict(route="cuda", source="vilmedic_torch/csrc/flash_attention_f32.cu",
+               path="vl_train_parity")
+    results["flash_attention_bwd_dq_f32"] = dict(
+        f32, replaces="vilmedic_tpu/ops/flash_attention.py:777", max_abs_err=worst_f32["dq"],
+        ms=tm["dq"], plain_ms=tm["bwd_plain"], **tm["bound_dq"],
+        fma_bound_ms=tm["bound_dq_fma"]["bound_ms"], library_ms=tm["lib_bwd"],
+        counter="vt_flash_attention_bwd_dq_f32",
+        ptxas={k: u for k, u in usage.items() if k.startswith("flash_bwd_dq")})
+    results["flash_attention_bwd_dkv_f32"] = dict(
+        f32, replaces="vilmedic_tpu/ops/flash_attention.py:788", max_abs_err=worst_f32["dkv"],
+        ms=tm["dkv"], plain_ms=tm["bwd_plain"], **tm["bound_dkv"],
+        fma_bound_ms=tm["bound_dkv_fma"]["bound_ms"], library_ms=tm["lib_bwd"],
+        counter="vt_flash_attention_bwd_dkv_f32",
+        ptxas={k: u for k, u in usage.items() if k.startswith("flash_bwd_dkv")})
     tm = timing[torch.bfloat16]
-    bwd_bound = tm["bound_dq"]["bound_ms"] + tm["bound_dkv"]["bound_ms"]
-    print(f"K4+LSE bf16 bound {tm['bound_lse']['bound_ms']:.4f} ms "
-          f"({tm['bound_lse']['bound_ms'] / tm['lse'] * 100:.1f}% reached), "
-          f"scaled_dot_product_attention forward {tm['lib_fwd']:.4f} ms; K5 bound dq "
-          f"{tm['bound_dq']['bound_ms']:.4f} + dk/dv/dbias {tm['bound_dkv']['bound_ms']:.4f} ms "
-          f"({bwd_bound / (tm['dq'] + tm['dkv']) * 100:.1f}% reached), autograd backward of "
-          f"scaled_dot_product_attention {tm['lib_bwd']:.4f} ms")
     common = dict(route="cuda", path="vl_train")
     results["flash_attention_with_lse"] = dict(
         common, source="vilmedic_torch/csrc/flash_attention.cu",
@@ -1638,7 +1705,8 @@ def phase_kernels():
     print(f"kernels phase seconds by check: {json.dumps(seconds)}")
     head_dims = flash_head_dims()
     for name in ("flash_attention", "flash_attention_with_lse", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv"):
+                 "flash_attention_bwd_dkv", "flash_attention_f32", "flash_attention_bwd_dq_f32",
+                 "flash_attention_bwd_dkv_f32"):
         results[name]["head_dims"] = head_dims
     return results
 
@@ -1678,9 +1746,12 @@ def launch_counters():
 
 # the wide head dims' C entries (ops/flash_attention.ENTRY_LAUNCHES): the
 # wgmma kernels of csrc/flash_attention_wide_tc.cu and the CUDA-core ones of
-# csrc/flash_attention_wide.cu
-WIDE_ENTRIES = tuple(f"vt_flash_attention{part}_{route}" for route in ("wide_tc", "wide")
+# csrc/flash_attention_wide.cu (f32, and bf16 above 5120)
+WIDE_ENTRIES = tuple(f"vt_flash_attention{part}_{route}"
+                     for route in ("wide_tc", "wide", "wide_bf16")
                      for part in ("", "_bwd_dq", "_bwd_dkv"))
+# f32 up to head dim 128: csrc/flash_attention_f32.cu (three TF32 passes)
+F32_ENTRIES = tuple(f"vt_flash_attention{part}_f32" for part in ("", "_bwd_dq", "_bwd_dkv"))
 
 
 def reset_launches():
@@ -1695,8 +1766,24 @@ def read_launches():
     from vilmedic_torch.ops import flash_attention as fa
 
     launches = {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
-    launches.update({entry: fa.ENTRY_LAUNCHES.get(entry, 0) for entry in WIDE_ENTRIES})
+    launches.update({entry: fa.ENTRY_LAUNCHES.get(entry, 0)
+                     for entry in WIDE_ENTRIES + F32_ENTRIES})
     return launches
+
+
+def require_f32_route(launches: dict, phase: str, backward: bool = False):
+    """Every K4 launch of an f32 phase (and with ``backward`` every K5
+    launch) went to the three-pass TF32 entries, none to the CUDA cores."""
+    f32 = {e: launches[e] for e in F32_ENTRIES}
+    print(f"{phase}: f32 flash entries {f32}")
+    k4 = launches["flash_attention"] + launches["flash_attention_with_lse"]
+    checks = {"K4 on vt_flash_attention_f32": 0 < k4 == f32[F32_ENTRIES[0]],
+              "no CUDA-core flash entry": not any(launches[e] for e in WIDE_ENTRIES)}
+    if backward:
+        checks["K5 on the f32 dq and dk/dv entries"] = (
+            0 < launches["flash_attention_bwd_dq"] == f32[F32_ENTRIES[1]]
+            == launches["flash_attention_bwd_dkv"] == f32[F32_ENTRIES[2]])
+    require(checks, phase)
 
 
 def build_flagship(dtype: str, device: str, seed: int = SEED):
@@ -1716,15 +1803,16 @@ def build_flagship(dtype: str, device: str, seed: int = SEED):
     return model, generate, int(cfg.dataset.image.crop), max_len, bos
 
 
-def host_batch(b: int, crop: int, seed: int):
+def host_batch(b: int, crop: int, seed: int, pin: bool = True):
     """An eval batch as the host collate leaves it: uint8 images already
-    cropped on the host, zero device crop offsets."""
+    cropped on the host (pinned unless ``pin`` is false, as it must be
+    where no card is visible), zero device crop offsets."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (b, crop, crop, 3), generator=gen, dtype=torch.uint8)
     return {
-        "images_u8": torch.randint(0, 256, (b, crop, crop, 3), generator=gen,
-                                   dtype=torch.uint8).pin_memory(),
+        "images_u8": images.pin_memory() if pin else images,
         "preproc_tops": torch.zeros(b, dtype=torch.int32),
         "preproc_lefts": torch.zeros(b, dtype=torch.int32),
     }
@@ -2065,26 +2153,37 @@ def phase_rrg_routes():
     torch.cuda.empty_cache()
 
 
+def rrg_routes_parity_half(device: str) -> dict:
+    """One device's half of :func:`phase_rrg_routes_parity`: the f32
+    flagship's routes (and two members for ensembling) from SEED, served at
+    batch 2; results by route and the seconds they took (the CPU half has no
+    kernel route)."""
+    first, _, crop, max_len, _ = build_flagship("float32", device)
+    models = [first, build_flagship("float32", device, SEED + 1)[0]]
+    routes = rrg_routes(models, max_len)
+    if device == "cpu":
+        del routes["kernel"]
+    batch = host_batch(2, crop, SEED + 7, pin=device != "cpu")
+    t0 = time.perf_counter()
+    got = {name: serve(models[0], generate, batch, crop, device)
+           for name, generate in routes.items()}
+    got["seconds"] = time.perf_counter() - t0
+    return got
+
+
+def cpu_rrg_routes_parity():
+    return rrg_routes_parity_half("cpu")
+
+
 def phase_rrg_routes_parity():
     """f32, TF32 off, batch 2: each new route's sequences on the card
-    (kernels) equal the CPU plain versions'; the permute route's equal the
-    kernel route's on the card."""
+    (kernels) equal the CPU plain versions' (the helper's
+    ``cpu_rrg_routes_parity``); the permute route's equal the kernel
+    route's on the card."""
     import torch
 
     set_tf32(False)
-    got = {}
-    for device in ("cuda", "cpu"):
-        first, _, crop, max_len, _ = build_flagship("float32", device)
-        models = [first, build_flagship("float32", device, SEED + 1)[0]]
-        routes = rrg_routes(models, max_len)
-        if device == "cpu":
-            del routes["kernel"]
-        batch = host_batch(2, crop, SEED + 7)
-        t0 = time.perf_counter()
-        got[device] = {name: serve(models[0], generate, batch, crop, device)
-                       for name, generate in routes.items()}
-        got[device]["seconds"] = time.perf_counter() - t0
-        del first, models, routes
+    got = {"cuda": rrg_routes_parity_half("cuda"), "cpu": cpu_half("rrg_routes_parity")}
     bad = []
     for name in ("ensemble", "greedy", "permute"):
         card, cpu = got["cuda"][name], got["cpu"][name]
@@ -2097,7 +2196,8 @@ def phase_rrg_routes_parity():
             bad.append(name)
     same_kernel = torch.equal(got["cuda"]["permute"].sequences, got["cuda"]["kernel"].sequences)
     print(f"RRG permute vs kernel route on the card, f32: sequences "
-          f"{'equal' if same_kernel else 'DIFFER'} (CPU half {got['cpu']['seconds']:.1f} s)")
+          f"{'equal' if same_kernel else 'DIFFER'} (CPU half {got['cpu']['seconds']:.1f} s in the "
+          f"helper)")
     if bad or not same_kernel:
         fail(f"RRG f32 route parity: card vs CPU differ on {bad}, permute vs kernel "
              f"{'equal' if same_kernel else 'differ'}")
@@ -2228,12 +2328,14 @@ def phase_vl_slice():
 # The CPU halves of the four VisionLanguage parity phases below (f32, the
 # plain versions, at 12 + 12 layers, the route parities' LM at 4, the greedy /
 # small-vocab and train parities' LM at 12) take about 80 s of this host's
-# cores. A helper process (``python3 chip_smoke.py --cpu-halves FOLDER``,
-# no card visible, CPU_HELPER_THREADS threads) computes them in this order
-# while the card runs the phases before them; each phase builds the same
-# models from SEED for its card half and reads the helper's results.
+# cores, and the RRG routes parity's (the flagship's ensemble, greedy and
+# permute routes, run after the VisionLanguage phases) about 10 s more. A
+# helper process (``python3 chip_smoke.py --cpu-halves FOLDER``, no card
+# visible, CPU_HELPER_THREADS threads) computes them in this order while
+# the card runs the phases before them; each phase builds the same models
+# from SEED for its card half and reads the helper's results.
 CPU_HALVES = ("vl_parity", "vl_routes_parity", "vl_greedy_small_vocab_parity",
-              "vl_train_parity")
+              "vl_train_parity", "rrg_routes_parity")
 CPU_HELPER_THREADS = 4  # of the host's 8 cores: the rest stay with the card's phases
 CPU_HELPER = {}
 
@@ -2316,16 +2418,19 @@ def cpu_vl_parity():
 
 def phase_vl_parity():
     """f32, TF32 off, full width: the card (kernels) and the CPU (plain
-    versions, the helper's ``cpu_vl_parity``) must choose the same
-    beams."""
+    versions, the helper's ``cpu_vl_parity``) must choose the same beams.
+    K4 runs the f32 entry (tower and prefill); returns the card half's
+    launches."""
     import torch
 
     set_tf32(False)
     model, generate, images = vl_parity_setup()
     res_cpu, cpu_s = cpu_half("vl_parity")
     model.module.to("cuda")
+    reset_launches()
     res_gpu = generate(images.to("cuda"))
     torch.cuda.synchronize()
+    launches = read_launches()
     diff = (res_gpu.scores.cpu() - res_cpu.scores).abs().max().item()
     same = torch.equal(res_gpu.sequences.cpu(), res_cpu.sequences)
     print(f"VL parity f32 batch 2 ({model.module.vision.model.config.num_hidden_layers} tower "
@@ -2335,6 +2440,8 @@ def phase_vl_parity():
           f"max |score diff| {diff:.3e}")
     if not same:
         fail("VL f32 beam sequences differ between the card and the CPU")
+    require_f32_route(launches, "vl_parity")
+    return launches
 
 
 # ------------------------------- VisionLanguage int8 and fused-prefix routes
@@ -2554,6 +2661,7 @@ def vl_permute_parity(tower, images, res_cpu, cpu_s: float):
         "flash = tower + LM layers": launches["flash_attention"]
         == tower["num_hidden_layers"] + model.dec_config.num_hidden_layers,
     }, "VL permute route")
+    require_f32_route(launches, "VL permute route (prefill at head dim 16)")
     del model, generate
     torch.cuda.empty_cache()
 
@@ -2798,7 +2906,8 @@ def phase_vl_train_parity():
     update on the card (kernels) and on the CPU (plain versions, the
     helper's ``cpu_vl_train_parity``), from the same weights; the LM at full
     depth and width, the tower cut to 2 layers to bound the CPU half's time
-    (``vl_train_parity_step``)."""
+    (``vl_train_parity_step``). K4 and K5 run the f32 entries; returns the
+    card half's launches."""
     import torch
 
     set_tf32(False)
@@ -2809,7 +2918,10 @@ def phase_vl_train_parity():
     # gradient (softmax is shift-invariant per row): held against its weight's
     tol = 1e-3
     l_cpu, g_cpu, p_cpu, s_cpu, state, _ = cpu_half("vl_train_parity")
+    reset_launches()
     l_gpu, g_gpu, p_gpu, _, _, lm_layers = vl_train_parity_step("cuda", state)
+    torch.cuda.synchronize()
+    launches = read_launches()
     del state
     worst_rel, worst_name, bad = 0.0, "", []
     for name, want in g_cpu.items():
@@ -2827,7 +2939,9 @@ def phase_vl_train_parity():
           f"{2 * lr:.0e})")
     if bad or not step_err <= 2 * lr or not abs(l_gpu - l_cpu) <= tol * abs(l_cpu):
         fail(f"VL train f32 card vs CPU: gradients {bad[:5]}, step {step_err:.3e}")
+    require_f32_route(launches, "vl_train_parity", backward=True)
     torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------- VisionLanguage greedy and small-vocab routes
@@ -2946,7 +3060,9 @@ def phase_vl_greedy_small_vocab_parity():
         reset_launches()
         res = generate(images.to("cuda"))
         torch.cuda.synchronize()
-        k1 = read_launches()["fused_beam_cache_attention"]
+        launches = read_launches()
+        k1 = launches["fused_beam_cache_attention"]
+        require_f32_route(launches, f"VL {name} route parity")
         same = torch.equal(res.sequences.cpu(), res_cpu.sequences)
         print(f"VL {name} route parity f32 batch 2 ({tower['num_hidden_layers']} tower + "
               f"{model.dec_config.num_hidden_layers} LM layers, CPU half {cpu_s:.1f} s in the "
@@ -7994,18 +8110,18 @@ def main():
     launches["fp8_probe"] = timed(phase_fp8_probe)
     launches["flash_wide"] = timed(phase_flash_wide)
     timed(phase_rrg_routes)
-    timed(phase_rrg_routes_parity)
     # not beside the RRG phases, whose launch-bound loops its CPU work slows
     start_cpu_helper()
     launches["vl"] = timed(phase_vl_slice)
-    timed(phase_vl_parity)
+    launches["vl_parity"] = timed(phase_vl_parity)
     launches.update(timed(phase_vl_routes))
     timed(phase_vl_routes_parity)
     launches.update(timed(phase_vl_greedy_small_vocab))
     timed(phase_vl_greedy_small_vocab_parity)
     launches["vl_train"] = timed(phase_vl_train)
     timed(phase_vl_train_sanity)
-    timed(phase_vl_train_parity)
+    launches["vl_train_parity"] = timed(phase_vl_train_parity)
+    timed(phase_rrg_routes_parity)  # its CPU half computed in the helper's idle end
     stop_cpu_helper()  # its last half is read
     with tempfile.TemporaryDirectory() as tmp:
         # the configs' pretrained tokenizers, read by name from this cache
@@ -8102,8 +8218,12 @@ def main():
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # the flash kernels' head dims; the wide-head kernels at D 256, 384 and
-    # 512 and their ptxas report; launches on the training paths
-    extra = ("head_dims", "d256", "d384", "d512", "ptxas", "rrg_train_launches", "scst_launches",
+    # 512 and their ptxas report; the f32 kernels' f32 FMA bound (their
+    # bound_ms is the three-pass TF32 one),
+    # the prefill and K4 with LSE; launches on the training paths
+    extra = ("head_dims", "d256", "d384", "d512", "ptxas", "fma_bound_ms", "prefill",
+             "lse_ms", "lse_plain_ms", "lse_bound_ms", "lse_fma_bound_ms", "lse_library_ms",
+             "lse_max_abs_err", "rrg_train_launches", "scst_launches",
              "pipelined_launches", "rrs_launches",
              "rrg_vit_launches", "mvqa_launches", "class_launches", "rrg_roberta_launches",
              "convirt_launches", "gloria_launches", "rrg_hf_launches", "rrg_multi_image_launches",

@@ -503,14 +503,56 @@ def test_flash_wide_clusters_of_three_to_sixteen(cuda, d, tq, tk):
 
 
 def test_flash_refuses_bf16_heads_above_5120(cuda):
-    """More than 16 CTAs (Hopper's largest cluster) would split a bf16 head
-    above 5120: refused before any launch; f32 takes it on the CUDA cores."""
+    """No head dim is refused. A bf16 head above 5120, wider than the 16
+    CTAs of Hopper's largest cluster split, runs on the CUDA cores
+    (``flash_attention_wide.cu``'s bf16 entries, bf16's rounding points):
+    D 5184 at B 1, T 96, one head, causal with padded keys, K4, K4 with LSE
+    and K5 against the plain versions; f32 takes such a head as before."""
+    gen = torch.Generator().manual_seed(5184)
+    q, k, v = (torch.randn(1, 96, 1, 5184, generator=gen).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    key_mask = torch.ones(1, 96, dtype=torch.bool, device=cuda)
+    key_mask[0, 80:] = False
+    entries = dict(fa.ENTRY_LAUNCHES)
+    out = flash_attention(q, k, v, key_mask, True)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), flash_attention_reference(q, k, v, key_mask, True)
+                               .float(), rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    _flash_grads_match(q, k, v, key_mask, True)
+    launched = {e: n - entries.get(e, 0) for e, n in fa.ENTRY_LAUNCHES.items()
+                if n != entries.get(e, 0)}
+    assert launched == {"vt_flash_attention_wide_bf16": 2,
+                        "vt_flash_attention_bwd_dq_wide_bf16": 1,
+                        "vt_flash_attention_bwd_dkv_wide_bf16": 1}
     q = torch.randn(1, 64, 1, 5200, device=cuda)
-    with pytest.raises(ValueError, match="above 5120"):
-        flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
     out = flash_attention(q, q, q)
     torch.testing.assert_close(out, flash_attention_reference(q, q, q), rtol=TOL[torch.float32],
                                atol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_f32_runs_three_tf32_passes_deterministically(cuda, d):
+    """f32 up to head dim 128 runs ``flash_attention_f32.cu`` (wgmma, three
+    TF32 passes) and nothing else: K4 with LSE and K5, causal with a key
+    mask and ragged tiles, match the plain versions, and two runs of each
+    agree bit for bit (no atomics, fixed sum order)."""
+    gen = torch.Generator().manual_seed(40 + d)
+    q, k, v, dout = (torch.randn(2, 300, 3, d, generator=gen).to(cuda) for _ in range(4))
+    key_mask = torch.ones(2, 300, dtype=torch.bool, device=cuda)
+    key_mask[1, 250:] = False
+    entries = dict(fa.ENTRY_LAUNCHES)
+    _flash_grads_match(q, k, v, key_mask, True)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention_with_lse(q, k, v, key_mask, True)
+        runs.append((out, lse) + tuple(flash_attention_backward(q, k, v, key_mask, out, lse,
+                                                                dout, True)))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv", "dbias"), *runs):
+        assert torch.equal(a, b), name
+    launched = {e: n - entries.get(e, 0) for e, n in fa.ENTRY_LAUNCHES.items()
+                if n != entries.get(e, 0)}
+    assert launched == {"vt_flash_attention_f32": 3, "vt_flash_attention_bwd_dq_f32": 3,
+                        "vt_flash_attention_bwd_dkv_f32": 3}
 
 
 def test_flash_backward_is_deterministic(cuda):

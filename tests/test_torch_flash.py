@@ -211,17 +211,30 @@ def test_head_args_give_the_wide_tc_entries_their_cluster(dtype, width, args):
 
 
 def test_cuda_core_route_is_f32_only():
-    """``csrc/flash_attention_wide.cu`` (CUDA cores) keeps float32 alone:
-    no bf16 path in the source, no dtype flag in its entries, and every f32
-    width above 128 routes to it while bf16 never does."""
-    source = (cuda_lib.CSRC_DIR / "flash_attention_wide.cu").read_text()
-    code = "\n".join(line.split("//")[0] for line in source.splitlines())
-    assert "bfloat16" not in code and "bf16" not in code
+    """Up to the widest head a cluster of CTAs splits (5120), the CUDA-core
+    ``csrc/flash_attention_wide.cu`` is an f32 route alone: every f32 width
+    above 128 routes to its f32 entries, and no bf16 width from 129 to 5120
+    routes to it (those run on the wgmma kernels of ``wide_tc``)."""
     for part in ("", "_bwd_dq", "_bwd_dkv"):
         assert cuda_lib.SIGNATURES[f"vt_flash_attention{part}_wide"][0] is ctypes.c_void_p
-    for width in (192, 256, 320, 384, 1024, 4096):
+    for width in (192, 256, 320, 384, 1024, 4096, 5120):
         assert kernel_route(torch.float32, width) == "wide"
         assert kernel_route(torch.bfloat16, width) == "wide_tc"
+
+
+def test_cuda_core_routes_take_f32_above_128_and_bf16_above_5120():
+    """Above 5120 the CUDA-core file also takes bf16, through entries of
+    their own (``_wide_bf16``, the f32 entries' arguments, no dtype flag):
+    bf16 heads wider than the 16 CTAs of a cluster split route there, f32
+    at the same widths to the f32 entries."""
+    source = (cuda_lib.CSRC_DIR / "flash_attention_wide.cu").read_text()
+    assert 'extern "C" int vt_flash_attention_wide_bf16(' in source
+    for part in ("", "_bwd_dq", "_bwd_dkv"):
+        assert cuda_lib.SIGNATURES[f"vt_flash_attention{part}_wide_bf16"] \
+            == cuda_lib.SIGNATURES[f"vt_flash_attention{part}_wide"]
+    for width in (5184, 5248, 8192):
+        assert kernel_route(torch.float32, width) == "wide"
+        assert kernel_route(torch.bfloat16, width) == "wide_bf16"
 
 
 class _StandInLibrary:
@@ -247,12 +260,17 @@ class _StandInLibrary:
     (torch.bfloat16, 384, "wide_tc"), (torch.bfloat16, 512, "wide_tc"),
     (torch.bfloat16, 1024, "wide_tc"), (torch.float32, 128, "f32"),
     (torch.float32, 256, "wide"), (torch.float32, 320, "wide"),
+    (torch.float32, 16, "f32"), (torch.float32, 32, "f32"), (torch.float32, 64, "f32"),
+    (torch.bfloat16, 5184, "wide_bf16"), (torch.bfloat16, 5248, "wide_bf16"),
 ])
 def test_entry_calls_the_routed_c_entry(monkeypatch, name, dtype, width, suffix):
     """``_entry`` (through ``_launch``) calls the entry ``kernel_route``
-    names: bf16 above 128 the wgmma kernels of ``flash_attention_wide_tc.cu``
-    (one CTA a row block at 256 and 320, a cluster above), f32 above 128 the
-    CUDA-core wide kernels; no entry takes a dtype flag. It counts the
+    names: f32 up to 128 the three-pass TF32 kernels of
+    ``flash_attention_f32.cu``; bf16 above 128 the wgmma kernels of
+    ``flash_attention_wide_tc.cu`` (one CTA a row block at 256 and 320, a
+    cluster above) up to 5120, the CUDA-core wide kernels' bf16 entries
+    above; f32 above 128 the CUDA-core wide kernels; no entry takes a dtype
+    flag. It counts the
     launch under that entry; a non-zero status raises and counts nothing.
     The function is looked up once per library."""
     stand_in = _StandInLibrary()
@@ -292,3 +310,86 @@ def test_wide_head_dims_match_jax_v1(d, causal):
     assert torch.equal(out_p[..., d:], torch.zeros_like(out_p[..., d:]))
     torch.testing.assert_close(out_p[..., :d], out, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d,width", [(5121, 5184), (5184, 5184), (5200, 5248), (5248, 5248)])
+def test_bf16_heads_above_5120_run_on_the_cuda_cores(d, width):
+    """A bf16 head wider than 16 CTAs split (5120) is no longer refused: it
+    pads to the next multiple of 64, as f32 does, and routes to the bf16
+    entries of the CUDA-core ``flash_attention_wide.cu``, which take the
+    head dim alone (no cluster size)."""
+    assert padded_head_dim(d, torch.bfloat16) == width == padded_head_dim(d, torch.float32)
+    assert kernel_route(torch.bfloat16, width) == "wide_bf16"
+    assert kernel_route(torch.float32, width) == "wide"
+    assert fa._head_args(torch.bfloat16, width) == (width,)
+    assert len(cuda_lib.SIGNATURES["vt_flash_attention_wide_bf16"]) \
+        == len(cuda_lib.SIGNATURES["vt_flash_attention_f32"])
+
+
+# ------------------------------------------------ three-pass TF32 arithmetic
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) as a tensor core reads it in a TF32 product: the low
+    13 mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """``a @ b`` as the f32 kernels take it: one TF32 pass (each operand read
+    as TF32) or three (``lo_a hi_b + hi_a lo_b + hi_a hi_b`` of
+    :func:`split_tf32`'s halves, each read as TF32); the products and sums
+    in float64, rounded to float32 once (the tensor core's own rounding of
+    its sums is left out)."""
+    if passes == 1:
+        return (_tf32_read(a).double() @ _tf32_read(b).double()).float()
+    (ah, al), (bh, bl) = fa.split_tf32(a), fa.split_tf32(b)
+    ah, al, bh, bl = (_tf32_read(x).double() for x in (ah, al, bh, bl))
+    return (al @ bh + ah @ bl + ah @ bh).float()
+
+
+def _flash_tf32(q, k, v, passes: int) -> torch.Tensor:
+    """One head's attention (T, D) with S = Q K^T and P V in ``passes``
+    TF32 passes, the softmax in f32 as the kernels run it."""
+    s = _tf32_product(q, k.t().contiguous(), passes) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return _tf32_product(p, v, passes) / p.sum(dim=-1, keepdim=True)
+
+
+def test_split_tf32_halves_each_f32_word():
+    """``split_tf32`` on the f32 bit patterns, as the kernels split each
+    operand: hi is x rounded to TF32 (10 mantissa bits, nearest, ties away
+    from zero: low 13 bits zero), lo = x - hi exactly, |lo| at most half a
+    TF32 step of |x|; ties and signs by hand."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(np.concatenate([
+        rng.normal(size=4096) * 10.0 ** rng.integers(-30, 30, size=4096),
+        [0.0, -0.0, 1.0, -1.5, 3e38]]).astype(np.float32))
+    hi, lo = fa.split_tf32(x)
+    assert torch.equal(hi + lo, x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert (lo.abs() <= hi.abs() * 2.0 ** -11).all()
+    one = np.float32(1.0)
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12, 1 + 3 * 2.0 ** -11],
+                       dtype=torch.float32)
+    assert fa.split_tf32(tie)[0].tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), one,
+                                              1 + 2.0 ** -9]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_three_tf32_passes_hold_the_f32_tolerance(d):
+    """At the tower's reduction lengths (1370 keys; head dim 64, and 128),
+    attention with both products in three TF32 passes stays within the f32
+    tolerance the card's checks hold the kernels to (1e-5, max abs, of the
+    f32 plain version) and keeps f32's order of error against float64; one
+    pass misses it by orders of magnitude."""
+    rng = np.random.default_rng(1370 + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32))
+               for t in (64, 1370, 1370))
+    want = flash_attention_reference(q[None, :, None], k[None, :, None], v[None, :, None])[0, :, 0]
+    exact = torch.softmax(q.double() @ k.double().t() * d ** -0.5, dim=-1) @ v.double()
+    three, one = _flash_tf32(q, k, v, 3), _flash_tf32(q, k, v, 1)
+    tol = 1e-5  # chip_smoke.FLASH_TOL["float32"], tests/test_torch_cuda.TOL
+    assert (three - want).abs().max().item() <= tol
+    assert (three.double() - exact).abs().max().item() <= 2 * (want.double() - exact).abs().max()
+    assert (one - want).abs().max().item() > 10 * tol

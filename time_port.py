@@ -3,8 +3,8 @@ one JSON line:
 
     python3 time_port.py ROOT [--flash-only]
 
-(``--flash-only``: the first item and the flash kernels above head dim 128,
-nothing else)
+(``--flash-only``: the first two items and the flash kernels above head dim
+128, nothing else)
 
 - the flash kernels at the VisionLanguage shapes, through the public entry
   points of ``vilmedic_torch.ops.flash_attention`` (CUDA events, median of 9
@@ -13,6 +13,13 @@ nothing else)
   into heads of each head dim the kernels take, ``flash_attention_with_lse``
   and ``flash_attention_backward`` at the training shape (T 1470, causal,
   padded text keys);
+- the same flash shapes in float32 (the f32 card-vs-CPU parities' route):
+  the tower, the prefill, the tower's H * D as heads of 16, 32, 64 and 128,
+  with LSE and the backward at the training shape; beside each, the library
+  call that computes the same function, ``scaled_dot_product_attention`` in
+  float32 (TF32 off: ``torch.backends.cuda.matmul.allow_tf32 = False``),
+  forward and, by autograd, backward (forward and backward timed together,
+  less the forward);
 - the host's microseconds per call of ``flash_attention`` and of
   ``flash_attention_backward`` at a shape whose kernels take a few
   microseconds (B 1, T 128, H 1, D 64), the launches not waited for, and
@@ -164,6 +171,60 @@ def time_flash() -> dict:
             1, 128, 128, 1, D, 1, D ** -0.5, stream)
     host["forward_c_entry"] = host_us(lambda: lib.vt_flash_attention_bf16(*args), calls=2000)
     return {"ms": ms, "host_us": host}
+
+
+def time_flash_f32() -> dict:
+    """K4 and K5 in float32 at the shapes of :func:`time_flash`, each beside
+    ``scaled_dot_product_attention`` in float32 on the same inputs (its
+    (B, H, T, D) layout; the causal and key masks as one boolean mask at
+    the training shape), CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    from vilmedic_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def heads_first(*xs):
+        return [x.transpose(1, 2).contiguous() for x in xs]
+
+    q, k, v = (randn(B, TOKENS, HEADS, D) for _ in range(3))
+    qh, kh, vh = heads_first(q, k, v)
+    ms = {"tower": cuda_ms(lambda: fa.flash_attention(q, k, v, None, False)),
+          "prefill": cuda_ms(lambda: fa.flash_attention(q, k, v, None, True)),
+          "sdpa_tower": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+          "sdpa_prefill": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                         is_causal=True)),
+          "tower_by_head_dim": {}}
+    del qh, kh, vh
+    for d in (16, 32, 64, 128):
+        q, k, v = (randn(B, TOKENS, HEADS * D // d, d) for _ in range(3))
+        ms["tower_by_head_dim"][d] = cuda_ms(lambda: fa.flash_attention(q, k, v, None, False))
+    del q, k, v
+    t = TOKENS + T_MAX
+    q, k, v, dout = (randn(B, t, HEADS, D) for _ in range(4))
+    mask = key_mask(B, t)
+    out, lse = fa.flash_attention_with_lse(q, k, v, mask, causal=True)
+    ms["lse"] = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, mask, causal=True))
+    ms["backward"] = cuda_ms(
+        lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, dout, causal=True))
+    leaves = [x.requires_grad_() for x in heads_first(q, k, v)]
+    (dout_h,) = heads_first(dout)
+    allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
+               & mask[:, None, None, :])
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+        torch.autograd.grad(o, leaves, dout_h)
+
+    ms["sdpa_lse"] = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed))
+    ms["sdpa_backward"] = cuda_ms(sdpa_fwd_bwd) - ms["sdpa_lse"]
+    return ms
 
 
 def time_small_kernels() -> dict:
@@ -441,6 +502,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     result = {"root": root, "card": card, "library": cuda_lib.library_path().name}
+    result["flash_f32_ms"] = time_flash_f32()
     result.update(time_flash())
     result["flash_wide_ms"] = time_flash_wide()
     if not flash_only:

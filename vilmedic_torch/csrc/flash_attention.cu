@@ -19,8 +19,8 @@
 //
 // What bounds it on the H100: at the VisionLanguage shapes (B 16, T 1370,
 // H 12, D 64) one call is 4 * B * H * Tq * Tk * D = 92 GFLOP against 54 MB
-// of q, k, v and out, so the tensor cores (bf16) or the FMA units (f32) bound
-// it, not memory: K and V tiles are re-read from L2 by every query tile.
+// of q, k, v and out, so the tensor cores bound it, not memory: K and V
+// tiles are re-read from L2 by every query tile.
 //
 // Design (bf16), warp-specialised for Hopper (helpers in hopper_common.cuh):
 //   - A CTA of 384 threads owns a (b, h, 128-query) tile: warpgroup 0 is the
@@ -55,14 +55,10 @@
 //   - Epilogue: O / max(l, 1e-30) in bf16, staged through the warpgroup's
 //     own Q rows in shared memory and written with 16-byte stores (rows past
 //     Tq are not written); the f32 LSE, when asked, from one lane per row.
-//   - f32 (parity checks only): CUDA-core FMA, no TF32 (its 10-bit mantissa
-//     would break f32 parity). One block of 256 threads owns 64 query rows,
-//     4 threads per row, each holding a quarter of the head dimension
-//     (strided, so the four read neighbouring shared-memory words); the
-//     score is a quad shuffle sum, and the key tiles are 32 wide. The
-//     ragged last key tile is masked in the kernel (keys >= Tk get exp(-inf)
-//     = 0 and zero V), and query rows >= Tq are computed on zero Q and not
-//     stored; the wrapper pads nothing.
+//   - f32 is flash_attention_f32.cu (three-pass TF32 on the same tensor
+//     cores; one pass, with TF32's 10-bit mantissa, would break the f32
+//     route's parity with the plain version, three keep it), entry
+//     vt_flash_attention_f32.
 //
 // Head dims: 16, 32, 64 and 128 here; bf16 at 256 and 320 is
 // flash_attention_wide_tc.cu (whose one consumer warpgroup may keep the
@@ -91,8 +87,6 @@
 namespace {
 
 using namespace flash;
-
-constexpr int BQ = 64;  // query rows per f32 block
 
 // ------------------------------------------------------------------ bf16 path
 
@@ -245,123 +239,6 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* bias, v
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------------- f32 path
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ bias,
-                         float* __restrict__ o, float* __restrict__ lse, int Tq, int Tk,
-                         int H, int causal, float scale) {
-  constexpr int BK = 32;
-  constexpr int E = D / 4;  // head-dim values per thread: columns e * 4 + quad
-  __shared__ __align__(16) float ks[BK * D];
-  __shared__ __align__(16) float vs[BK * D];
-  __shared__ float bs[BK];
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int quad = tid % 4;
-  const int row = q0 + tid / 4;
-  const long long HD = (long long)H * D;
-  const int off = Tk - Tq;
-  const float* kb = k + (long long)b * Tk * HD + (long long)h * D;
-  const float* vb = v + (long long)b * Tk * HD + (long long)h * D;
-
-  float qv[E], acc[E];
-  const float* qr = q + ((long long)b * Tq + row) * HD + (long long)h * D;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    qv[e] = row < Tq ? qr[e * 4 + quad] : 0.f;
-    acc[e] = 0.f;
-  }
-  float m = kMaskValue, l = 0.f;
-
-  const int n_tiles = key_tiles(q0, BQ, Tq, Tk, BK, causal);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    for (int i = tid; i < BK * D / 4; i += 256) {
-      const int r = i / (D / 4);
-      const int c = (i % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < Tk) {
-        kv = *reinterpret_cast<const float4*>(kb + (k0 + r) * HD + c);
-        vv = *reinterpret_cast<const float4*>(vb + (k0 + r) * HD + c);
-      }
-      *reinterpret_cast<float4*>(ks + r * D + c) = kv;
-      *reinterpret_cast<float4*>(vs + r * D + c) = vv;
-    }
-    if (tid < BK)
-      bs[tid] = (bias != nullptr && k0 + tid < Tk) ? bias[(long long)b * Tk + k0 + tid] : 0.f;
-    __syncthreads();
-
-    float s[BK];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) part += qv[e] * ks[j * D + e * 4 + quad];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int c = k0 + j;
-      float x = part * scale + bs[j];
-      if (causal && c > row + off) x = kMaskValue;
-      if (c >= Tk) x = -INFINITY;
-      s[j] = x;
-      mx = fmaxf(mx, x);
-    }
-    const float alpha = expf(m - mx);
-    m = mx;
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = expf(s[j] - m);
-      ps += s[j];
-    }
-    l = l * alpha + ps;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      float a = acc[e] * alpha;
-#pragma unroll
-      for (int j = 0; j < BK; ++j) a += s[j] * vs[j * D + e * 4 + quad];
-      acc[e] = a;
-    }
-    __syncthreads();
-  }
-
-  if (row < Tq) {
-    const float den = fmaxf(l, 1e-30f);
-    float* orow = o + ((long long)b * Tq + row) * HD + (long long)h * D;
-#pragma unroll
-    for (int e = 0; e < E; ++e) orow[e * 4 + quad] = acc[e] / den;
-    if (lse != nullptr && quad == 0) lse[((long long)b * H + h) * Tq + row] = m + logf(den);
-  }
-}
-
-int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
-               int B, int Tq, int Tk, int H, int D, int causal, float scale,
-               cudaStream_t stream) {
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-#define VT_FLASH_CASE(DD)                                                                  \
-  case DD:                                                                                 \
-    flash_fwd_f32_kernel<DD><<<grid, 256, 0, stream>>>(                                    \
-        (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)o, \
-        (float*)lse, Tq, Tk, H, causal, scale);                                            \
-    break;
-  switch (D) {
-    VT_FLASH_CASE(16)
-    VT_FLASH_CASE(32)
-    VT_FLASH_CASE(64)
-    VT_FLASH_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef VT_FLASH_CASE
-  return (int)cudaGetLastError();
-}
-
 bool bad_shape(int B, int Tq, int Tk, int H) {
   return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535;
 }
@@ -370,14 +247,6 @@ bool bad_shape(int B, int Tq, int Tk, int H) {
 
 // q (B, Tq, H*D), k/v (B, Tk, H*D), bias (B, Tk) f32 additive or null, o like q,
 // lse (B, H, Tq) f32 or null
-extern "C" int vt_flash_attention_f32(const void* q, const void* k, const void* v,
-                                      const void* bias, void* o, void* lse, int B, int Tq,
-                                      int Tk, int H, int D, int causal, float scale,
-                                      void* stream) {
-  if (bad_shape(B, Tq, Tk, H)) return (int)cudaErrorInvalidValue;
-  return launch_f32(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale, (cudaStream_t)stream);
-}
-
 extern "C" int vt_flash_attention_bf16(const void* q, const void* k, const void* v,
                                        const void* bias, void* o, void* lse, int B, int Tq,
                                        int Tk, int H, int D, int causal, float scale,

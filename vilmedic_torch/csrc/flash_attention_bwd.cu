@@ -28,7 +28,7 @@
 // T 1470, H 12, D 64, causal) the two kernels do seven T x T x D products
 // per (b, h) (the dq kernel recomputes S and dP, the dk/dv kernel S and dP
 // again): ~186 GFLOP against ~100 MB of operands, so the tensor cores (bf16)
-// or the FMA units (f32) bound it, not memory.
+// bound it, not memory.
 //
 // Design (bf16), warp-specialised as the forward (hopper_common.cuh): a CTA
 // of 384 threads, warpgroup 0 the producer (setmaxnreg 40), warpgroups 1 and 2
@@ -61,13 +61,9 @@
 //     runs at about a quarter of the bf16 bound, under half the time of the
 //     library's backward; dk/dv at D 128 spills (its four accumulators need
 //     224 registers before any other value).
-//   - f32 (parity checks only): CUDA-core FMA, no TF32 (it would break f32
-//     parity). 256 threads, 4 per query row (dq) or key row (dk/dv), each
-//     holding a quarter of the head dimension; the two dot products per
-//     (row, key) are quad shuffle sums. Ragged tails are masked in the
-//     kernels: keys >= Tk get p = 0 and zero K/V rows; query rows >= Tq get
-//     zero Q/dO and lse = +inf (p = 0) in the dk/dv kernel, and are not
-//     stored by the dq kernel. The wrapper pads nothing.
+//   - f32 is flash_attention_f32.cu (three-pass TF32 on the same tensor
+//     cores: the f32 route's parity holds), with the entries
+//     vt_flash_attention_bwd_dq_f32 and vt_flash_attention_bwd_dkv_f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,23 +76,6 @@
 namespace {
 
 using namespace flash;
-
-constexpr int BQ = 64;   // query rows per f32 dq block
-constexpr int BKB = 64;  // key rows per f32 dk/dv block
-
-// Stage rows [r0, r0 + R) of a (T, H*D) head slice into shared memory, zero
-// past T.
-template <int R, int D, int NTHREADS>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src, long long HD, int r0,
-                                          int T, int tid) {
-  for (int i = tid; i < R * D / 4; i += NTHREADS) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T) x = *reinterpret_cast<const float4*>(src + (r0 + r) * HD + c);
-    *reinterpret_cast<float4*>(dst + r * D + c) = x;
-  }
-}
 
 // ------------------------------------------------------------ bf16 kernels
 
@@ -232,42 +211,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                         1 + cw);
 }
 
-// P^T and dS^T of one query tile, in place of S^T and dP^T, with dbias's
-// per-key sums (dk/dv kernel)
-template <bool MASK>
-__device__ __forceinline__ void dkv_scores(float (&st)[32], float (&dpt)[32], const float* ls,
-                                           const float* dls, int rq0, int c0, int c1, int off,
-                                           int Tk, int t4, float sl2, float bias0, float bias1,
-                                           float& db0, float& db1) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
-    const float2 dv = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * t4);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float l = e ? lv.y : lv.x;
-      const float dl = e ? dv.y : dv.x;
-      float x0 = fmaf(st[4 * j + e], sl2, bias0);
-      float x1 = fmaf(st[4 * j + 2 + e], sl2, bias1);
-      if (MASK) {
-        const int r = rq0 + 8 * j + 2 * t4 + e;
-        if (c0 < Tk && c0 > r + off) x0 = kMaskL2;
-        if (c1 < Tk && c1 > r + off) x1 = kMaskL2;
-      }
-      const float p0 = hopper::fast_exp2(x0 - l);
-      const float p1 = hopper::fast_exp2(x1 - l);
-      const float ds0 = p0 * (dpt[4 * j + e] - dl);
-      const float ds1 = p1 * (dpt[4 * j + 2 + e] - dl);
-      db0 += ds0;
-      db1 += ds1;
-      st[4 * j + e] = p0;
-      st[4 * j + 2 + e] = p1;
-      dpt[4 * j + e] = ds0;
-      dpt[4 * j + 2 + e] = ds1;
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -359,11 +302,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* ls = lse_s + s * kTile;
       const float* dls = delta_s + s * kTile;
       if (causal && (rq0 + off < 0 || kw0 + 63 > rq0 + off))
-        dkv_scores<true>(st, dpt, ls, dls, rq0, c0, c1, off, Tk, t4, scale_log2, bias0, bias1,
-                         db0, db1);
+        dkv_scores<true, kTile>(st, dpt, ls, dls, rq0, c0, c1, off, Tk, t4, scale_log2, bias0,
+                                bias1, db0, db1);
       else
-        dkv_scores<false>(st, dpt, ls, dls, rq0, c0, c1, off, Tk, t4, scale_log2, bias0, bias1,
-                          db0, db1);
+        dkv_scores<false, kTile>(st, dpt, ls, dls, rq0, c0, c1, off, Tk, t4, scale_log2, bias0,
+                                 bias1, db0, db1);
       uint32_t pa[kTile / 16][4], sa[kTile / 16][4];
 #pragma unroll
       for (int kc = 0; kc < kTile / 16; ++kc) {
@@ -444,236 +387,14 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* bia
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------- f32 dq kernel
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ bias,
-                            const float* __restrict__ dout, const float* __restrict__ lse,
-                            const float* __restrict__ delta, float* __restrict__ dq, int Tq,
-                            int Tk, int H, int causal, float scale) {
-  constexpr int BK = 32;
-  constexpr int E = D / 4;  // head-dim values per thread: columns e * 4 + quad
-  __shared__ __align__(16) float ks[BK * D];
-  __shared__ __align__(16) float vs[BK * D];
-  __shared__ float bs[BK];
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int quad = tid % 4;
-  const int row = q0 + tid / 4;
-  const long long HD = (long long)H * D;
-  const int off = Tk - Tq;
-  const float* kb = k + (long long)b * Tk * HD + (long long)h * D;
-  const float* vb = v + (long long)b * Tk * HD + (long long)h * D;
-  const long long roff = ((long long)b * Tq + row) * HD + (long long)h * D;
-  const bool real = row < Tq;
-
-  float qv[E], dov[E], acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    qv[e] = real ? q[roff + e * 4 + quad] : 0.f;
-    dov[e] = real ? dout[roff + e * 4 + quad] : 0.f;
-    acc[e] = 0.f;
-  }
-  const long long soff = ((long long)b * H + h) * Tq + row;
-  const float lse_r = real ? lse[soff] : 0.f;
-  const float delta_r = real ? delta[soff] : 0.f;
-
-  const int n_tiles = key_tiles(q0, BQ, Tq, Tk, BK, causal);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    stage_f32<BK, D, 256>(ks, kb, HD, k0, Tk, tid);
-    stage_f32<BK, D, 256>(vs, vb, HD, k0, Tk, tid);
-    if (tid < BK)
-      bs[tid] = (bias != nullptr && k0 + tid < Tk) ? bias[(long long)b * Tk + k0 + tid] : 0.f;
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float sp = 0.f, dpp = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        sp += qv[e] * ks[j * D + e * 4 + quad];
-        dpp += dov[e] * vs[j * D + e * 4 + quad];
-      }
-      sp += __shfl_xor_sync(0xffffffffu, sp, 1);
-      sp += __shfl_xor_sync(0xffffffffu, sp, 2);
-      dpp += __shfl_xor_sync(0xffffffffu, dpp, 1);
-      dpp += __shfl_xor_sync(0xffffffffu, dpp, 2);
-      const int c = k0 + j;
-      float x = sp * scale + bs[j];
-      if (causal && c > row + off) x = kMaskValue;
-      const float p = c < Tk ? expf(x - lse_r) : 0.f;
-      const float ds = p * (dpp - delta_r);
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] += ds * ks[j * D + e * 4 + quad];
-    }
-    __syncthreads();
-  }
-
-  if (real) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) dq[roff + e * 4 + quad] = acc[e] * scale;
-  }
-}
-
-// --------------------------------------------------------- f32 dk/dv kernel
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ bias,
-                             const float* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ delta, float* __restrict__ dk,
-                             float* __restrict__ dv, float* __restrict__ dbias, int Tq, int Tk,
-                             int H, int causal, float scale) {
-  constexpr int BQT = 32;
-  constexpr int E = D / 4;
-  __shared__ __align__(16) float qs[BQT * D];
-  __shared__ __align__(16) float dos[BQT * D];
-  __shared__ float ls[BQT];
-  __shared__ float dls[BQT];
-
-  const int k0 = blockIdx.x * BKB;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int quad = tid % 4;
-  const int key = k0 + tid / 4;
-  const long long HD = (long long)H * D;
-  const int off = Tk - Tq;
-  const float* qb = q + (long long)b * Tq * HD + (long long)h * D;
-  const float* ob = dout + (long long)b * Tq * HD + (long long)h * D;
-  const float* lb = lse + ((long long)b * H + h) * Tq;
-  const float* db = delta + ((long long)b * H + h) * Tq;
-  const long long koff = ((long long)b * Tk + key) * HD + (long long)h * D;
-  const bool real = key < Tk;
-
-  float kv[E], vv[E], dka[E], dva[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    kv[e] = real ? k[koff + e * 4 + quad] : 0.f;
-    vv[e] = real ? v[koff + e * 4 + quad] : 0.f;
-    dka[e] = dva[e] = 0.f;
-  }
-  const float bias_k = (bias != nullptr && real) ? bias[(long long)b * Tk + key] : 0.f;
-  float dbs = 0.f;
-
-  const int n_q = (Tq + BQT - 1) / BQT;
-  for (int jt = first_query_tile(k0, Tq, Tk, BQT, causal); jt < n_q; ++jt) {
-    const int qr0 = jt * BQT;
-    stage_f32<BQT, D, 256>(qs, qb, HD, qr0, Tq, tid);
-    stage_f32<BQT, D, 256>(dos, ob, HD, qr0, Tq, tid);
-    if (tid < BQT) {
-      const bool row_real = qr0 + tid < Tq;
-      ls[tid] = row_real ? lb[qr0 + tid] : INFINITY;  // p = 0 on the ragged rows
-      dls[tid] = row_real ? db[qr0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int i = 0; i < BQT; ++i) {
-      float sp = 0.f, dpp = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        sp += kv[e] * qs[i * D + e * 4 + quad];
-        dpp += vv[e] * dos[i * D + e * 4 + quad];
-      }
-      sp += __shfl_xor_sync(0xffffffffu, sp, 1);
-      sp += __shfl_xor_sync(0xffffffffu, sp, 2);
-      dpp += __shfl_xor_sync(0xffffffffu, dpp, 1);
-      dpp += __shfl_xor_sync(0xffffffffu, dpp, 2);
-      float x = sp * scale + bias_k;
-      if (causal && key > qr0 + i + off) x = kMaskValue;
-      const float p = real ? expf(x - ls[i]) : 0.f;
-      const float ds = p * (dpp - dls[i]);
-      dbs += ds;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        dva[e] += p * dos[i * D + e * 4 + quad];
-        dka[e] += ds * qs[i * D + e * 4 + quad];
-      }
-    }
-    __syncthreads();
-  }
-
-  if (real) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      dk[koff + e * 4 + quad] = dka[e] * scale;
-      dv[koff + e * 4 + quad] = dva[e];
-    }
-    if (quad == 0) dbias[((long long)b * H + h) * Tk + key] = dbs;
-  }
-}
-
 bool bad_shape(int B, int Tq, int Tk, int H) {
   return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535;
-}
-
-int launch_dq_f32(const void* q, const void* k, const void* v, const void* bias,
-                  const void* dout, const void* lse, const void* delta, void* dq, int B, int Tq,
-                  int Tk, int H, int D, int causal, float scale, cudaStream_t s) {
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-#define VT_DQ_CASE(DD)                                                                    \
-  case DD:                                                                                \
-    flash_bwd_dq_f32_kernel<DD><<<grid, 256, 0, s>>>(                                     \
-        (const float*)q, (const float*)k, (const float*)v, (const float*)bias,            \
-        (const float*)dout, (const float*)lse, (const float*)delta, (float*)dq, Tq, Tk,   \
-        H, causal, scale);                                                                \
-    break;
-  switch (D) {
-    VT_DQ_CASE(16)
-    VT_DQ_CASE(32)
-    VT_DQ_CASE(64)
-    VT_DQ_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef VT_DQ_CASE
-  return (int)cudaGetLastError();
-}
-
-int launch_dkv_f32(const void* q, const void* k, const void* v, const void* bias,
-                   const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                   void* dbias, int B, int Tq, int Tk, int H, int D, int causal, float scale,
-                   cudaStream_t s) {
-  const dim3 grid((Tk + BKB - 1) / BKB, H, B);
-#define VT_DKV_CASE(DD)                                                                   \
-  case DD:                                                                                \
-    flash_bwd_dkv_f32_kernel<DD><<<grid, 256, 0, s>>>(                                    \
-        (const float*)q, (const float*)k, (const float*)v, (const float*)bias,            \
-        (const float*)dout, (const float*)lse, (const float*)delta, (float*)dk,           \
-        (float*)dv, (float*)dbias, Tq, Tk, H, causal, scale);                             \
-    break;
-  switch (D) {
-    VT_DKV_CASE(16)
-    VT_DKV_CASE(32)
-    VT_DKV_CASE(64)
-    VT_DKV_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef VT_DKV_CASE
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q/dout/dq (B, Tq, H*D), k/v (B, Tk, H*D), bias (B, Tk) f32 additive or null,
 // lse/delta (B, H, Tq) f32
-extern "C" int vt_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
-                                             const void* bias, const void* dout,
-                                             const void* lse, const void* delta, void* dq,
-                                             int B, int Tq, int Tk, int H, int D, int causal,
-                                             float scale, void* stream) {
-  if (bad_shape(B, Tq, Tk, H)) return (int)cudaErrorInvalidValue;
-  return launch_dq_f32(q, k, v, bias, dout, lse, delta, dq, B, Tq, Tk, H, D, causal, scale,
-                       (cudaStream_t)stream);
-}
-
 extern "C" int vt_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                               const void* bias, const void* dout,
                                               const void* lse, const void* delta, void* dq,
@@ -700,17 +421,6 @@ extern "C" int vt_flash_attention_bwd_dq_bf16(const void* q, const void* k, cons
 }
 
 // as above; dk/dv (B, Tk, H*D), dbias (B, H, Tk) f32 per head
-extern "C" int vt_flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
-                                              const void* bias, const void* dout,
-                                              const void* lse, const void* delta, void* dk,
-                                              void* dv, void* dbias, int B, int Tq, int Tk,
-                                              int H, int D, int causal, float scale,
-                                              void* stream) {
-  if (bad_shape(B, Tq, Tk, H)) return (int)cudaErrorInvalidValue;
-  return launch_dkv_f32(q, k, v, bias, dout, lse, delta, dk, dv, dbias, B, Tq, Tk, H, D,
-                        causal, scale, (cudaStream_t)stream);
-}
-
 extern "C" int vt_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                                const void* bias, const void* dout,
                                                const void* lse, const void* delta, void* dk,

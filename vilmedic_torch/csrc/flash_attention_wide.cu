@@ -1,38 +1,45 @@
-// Flash attention, forward and backward, in float32 at head dims above 128
-// (bf16 at every head dim above 128 is flash_attention_wide_tc.cu, on the
-// tensor cores). Any head dim that is a multiple of 64.
+// Flash attention, forward and backward, on the CUDA cores at the head dims
+// no tensor-core kernel takes: float32 above 128 (f32 up to 128 is
+// flash_attention_f32.cu) and bfloat16 above 5120, wider than the 16 CTAs
+// of Hopper's largest cluster split (bf16 from 129 to 5120 is
+// flash_attention_wide_tc.cu). Any head dim that is a multiple of 64.
 //
 // Replaces, at those head dims: vilmedic_tpu/ops/flash_attention.py::_kernel
 // (forward, with `with_lse`, reached through `_flash_bhtd`) and
 // ::_bwd_dq_kernel / ::_bwd_dkv_kernel (through `_flash_bwd_bhtd`): JAX's v1
-// path, which takes any head dim (Mosaic pads the VMEM tile). The function
-// and the masking are those of flash_attention.cu and
+// path, which takes any head dim (Mosaic pads the VMEM tile). The function,
+// the rounding points and the masking are those of flash_attention.cu and
 // flash_attention_bwd.cu (their header comments give the formulas):
 //   out = softmax(q k^T * scale + bias, causal limit) v, lse per row;
-//   dq = scale dS k, dk = scale dS^T q, dv = p^T dO, dbias = sum_r dS.
+//   dq = scale dS k, dk = scale dS^T q, dv = p^T dO, dbias = sum_r dS,
+//   with p rounded to V's (dO's) dtype before P V (p^T dO), dS to K's
+//   (Q's) dtype before dS K (dS^T Q), in bf16.
 //
-// What bounds it on the H100: the same products as the wgmma kernels (at
-// B 16, T 1370, 3 heads of 256: 92 GFLOP forward), here on the CUDA cores in
-// f32 (67 TFLOP/s), not the tensor cores: TF32 would not hold the f32
-// route's parity with the plain version. It is the simple kernel that makes
-// every f32 head dim run; its times are in PERF.md.
+// What bounds it on the H100: the same products as the tensor-core kernels
+// (at B 16, T 1370, 3 heads of 256: 92 GFLOP forward), here on the CUDA
+// cores in f32 (67 TFLOP/s). It is the simple kernel that makes every head
+// dim run; its times are in PERF.md. The f32 route above 128 is the last
+// flash route on the CUDA cores (ROADMAP.md queues it for the three-pass
+// TF32 design of flash_attention_f32.cu).
 //
 // Design: 256 threads own 32 rows of one (b, h) (queries: forward, dq; keys:
 // dk/dv) and one slab of at most 256 output columns (a head dim above 256
 // takes several slabs, blockIdx.y = h * slabs + slab, each recomputing the
 // scores). Per streamed tile of 32 rows (keys; queries for dk/dv):
 //   - the scores (and dP) are summed over D in chunks of 64 columns staged
-//     in shared memory (rows past T are zeros); thread t holds the 4
+//     in shared memory as f32 (rows past T are zeros); thread t holds the 4
 //     scores of its own row t / 8 against streamed rows t % 8 + 8 e, and a
 //     row's 8 threads are neighbouring lanes, so its max and sums are
 //     3-step shuffles;
-//   - the probabilities (dS, P^T and dS^T) go to shared memory;
-//   - the output accumulators (O; dq; dk and dv) live in shared memory,
-//     32 x 256 each: per chunk of 64 output columns a thread adds the
+//   - the probabilities (dS, P^T and dS^T), rounded where the plain
+//     versions round, go to shared memory;
+//   - the output accumulators (O; dq; dk and dv) live in shared memory as
+//     f32, 32 x 256 each: per chunk of 64 output columns a thread adds the
 //     products of 8 (row, column) pairs, O rescaled by the tile's alpha.
 // Online softmax in the natural-log domain with expf, the running max from
-// -1e9, the denominator floored at 1e-30, as the f32 wgmma-free kernels.
+// -1e9, the denominator floored at 1e-30.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,6 +59,22 @@ constexpr int LD = DC + 1; // chunk row stride (f32 words), bank-spreading
 constexpr int PLD = BT + 1;
 constexpr int OS = 256;    // output columns per slab
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T and widened back: the plain versions' rounding points
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+
 // max / sum over the 8 neighbouring lanes that share a row
 __device__ __forceinline__ float group8_max(float x) {
 #pragma unroll
@@ -67,12 +90,12 @@ __device__ __forceinline__ float group8_sum(float x) {
 
 // Rows [r0, r0 + 32) x columns [c0, c0 + 64) of one head, as f32, zero past
 // T. `src` points at the item's and head's first element; rows are HD apart.
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int T_,
-                                      long long HD,
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int T_, long long HD,
                                       int r0, int c0, int tid) {
   for (int i = tid; i < BT * DC; i += kThreads) {
     const int r = i / DC, c = i % DC;
-    dst[r * LD + c] = r0 + r < T_ ? src[(r0 + r) * HD + c0 + c] : 0.f;
+    dst[r * LD + c] = r0 + r < T_ ? to_f32(src[(r0 + r) * HD + c0 + c]) : 0.f;
   }
 }
 
@@ -112,10 +135,10 @@ constexpr int kDqWords = 4 * kChunk + BR * PLD + BT + BR * OS;
 constexpr int kDkvWords = 4 * kChunk + 2 * BR * PLD + 2 * BT + 2 * BR * OS;
 
 // ------------------------------------------------------------------ forward
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const float* __restrict__ bias, float* __restrict__ o, float* __restrict__ lse,
+    flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse,
                    int Tq, int Tk, int H, int D, int slabs, int causal, float scale) {
   extern __shared__ float sm[];
   float* qc = sm;               // Q chunk
@@ -131,9 +154,9 @@ __global__ void __launch_bounds__(kThreads)
   const int row = q0 + own;
   const int off = Tk - Tq;
   const long long HD = (long long)H * D;
-  const float* qb = q + (long long)b * Tq * HD + (long long)h * D;
-  const float* kb = k + (long long)b * Tk * HD + (long long)h * D;
-  const float* vb = v + (long long)b * Tk * HD + (long long)h * D;
+  const T* qb = q + (long long)b * Tq * HD + (long long)h * D;
+  const T* kb = k + (long long)b * Tk * HD + (long long)h * D;
+  const T* vb = v + (long long)b * Tk * HD + (long long)h * D;
   for (int i = tid; i < BR * OS; i += kThreads) os[i] = 0.f;
   float m = kMaskValue, l = 0.f;
 
@@ -168,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) {
       const float p = expf(s[e] - m);
       psum += p;
-      ps[own * PLD + o8 + 8 * e] = p;
+      ps[own * PLD + o8 + 8 * e] = round_to<T>(p);  // p in V's dtype before P V
     }
     l = l * alpha + psum;
     if (o8 == 0) alpha_s[own] = alpha;
@@ -189,20 +212,20 @@ __global__ void __launch_bounds__(kThreads)
       lse[((long long)b * H + h) * Tq + row] = m + logf(den);
   }
   __syncthreads();
-  float* ob = o + (long long)b * Tq * HD + (long long)h * D + s0;
+  T* ob = o + (long long)b * Tq * HD + (long long)h * D + s0;
   for (int i = tid; i < BR * sw; i += kThreads) {
     const int r = i / sw, c = i % sw;
-    if (q0 + r < Tq) ob[(q0 + r) * HD + c] = os[r * OS + c] / alpha_s[r];
+    if (q0 + r < Tq) ob[(q0 + r) * HD + c] = from_f32<T>(os[r * OS + c] / alpha_s[r]);
   }
 }
 
 // ------------------------------------------------------------------------ dq
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_wide(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ bias, const float* __restrict__ dout,
+    flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ bias, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dq, int Tq, int Tk, int H, int D, int slabs, int causal,
+                      T* __restrict__ dq, int Tq, int Tk, int H, int D, int slabs, int causal,
                       float scale) {
   extern __shared__ float sm[];
   float* qc = sm;
@@ -248,7 +271,7 @@ __global__ void __launch_bounds__(kThreads)
       float x = s[e] * scale + bs[o8 + 8 * e];
       if (causal && c > row + off) x = kMaskValue;
       const float p = c < Tk ? expf(x - lse_r) : 0.f;
-      dss[own * PLD + o8 + 8 * e] = p * (dp[e] - delta_r);
+      dss[own * PLD + o8 + 8 * e] = round_to<T>(p * (dp[e] - delta_r));  // dS in K's dtype
     }
     __syncthreads();
     for (int c0 = s0; c0 < s0 + sw; c0 += DC) {
@@ -259,22 +282,21 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float* out = dq + qoff + s0;
+  T* out = dq + qoff + s0;
   for (int i = tid; i < BR * sw; i += kThreads) {
     const int r = i / sw, c = i % sw;
-    if (q0 + r < Tq) out[(q0 + r) * HD + c] = acc[r * OS + c] * scale;
+    if (q0 + r < Tq) out[(q0 + r) * HD + c] = from_f32<T>(acc[r * OS + c] * scale);
   }
 }
 
 // -------------------------------------------------------------------- dk / dv
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_wide(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ bias, const float* __restrict__ dout,
+    flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const float* __restrict__ bias, const T* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dk, float* __restrict__ dv,
-                       float* __restrict__ dbias, int Tq, int Tk, int H, int D, int slabs,
-                       int causal, float scale) {
+                       T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dbias, int Tq,
+                       int Tk, int H, int D, int slabs, int causal, float scale) {
   extern __shared__ float sm[];
   float* kc = sm;
   float* qc = kc + kChunk;   // Q chunk (scores, then dS^T Q)
@@ -329,8 +351,8 @@ __global__ void __launch_bounds__(kThreads)
       const float p = real ? expf(x - ls[i]) : 0.f;
       const float ds = p * (dpt[e] - dls[i]);
       dbs += ds;
-      pts[own * PLD + i] = p;
-      dst[own * PLD + i] = ds;
+      pts[own * PLD + i] = round_to<T>(p);   // p in dO's dtype before P^T dO
+      dst[own * PLD + i] = round_to<T>(ds);  // dS in Q's dtype before dS^T Q
     }
     __syncthreads();
     for (int c0 = s0; c0 < s0 + sw; c0 += DC) {
@@ -345,13 +367,13 @@ __global__ void __launch_bounds__(kThreads)
 
   dbs = group8_sum(dbs);
   if (slab == 0 && o8 == 0 && real) dbias[((long long)b * H + h) * Tk + key] = dbs;
-  float* dko = dk + koff + s0;
-  float* dvo = dv + koff + s0;
+  T* dko = dk + koff + s0;
+  T* dvo = dv + koff + s0;
   for (int i = tid; i < BR * sw; i += kThreads) {
     const int r = i / sw, c = i % sw;
     if (k0 + r < Tk) {
-      dko[(k0 + r) * HD + c] = acc_k[r * OS + c] * scale;
-      dvo[(k0 + r) * HD + c] = acc_v[r * OS + c];
+      dko[(k0 + r) * HD + c] = from_f32<T>(acc_k[r * OS + c] * scale);
+      dvo[(k0 + r) * HD + c] = from_f32<T>(acc_v[r * OS + c]);
     }
   }
 }
@@ -371,20 +393,22 @@ int allow_smem(Kernel kernel, int words, bool (&done)[hopper::kMaxDevices]) {
   return hopper::allow_dynamic_smem((const void*)kernel, words * 4, done);
 }
 
+template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
                int B, int Tq, int Tk, int H, int D, int causal, float scale, cudaStream_t s) {
   dim3 grid;
   int slabs = 0;
   if (Tk <= 0 || !wide_grid(grid, Tq, B, H, D, slabs)) return (int)cudaErrorInvalidValue;
   static bool done[hopper::kMaxDevices] = {};
-  int st = allow_smem(flash_fwd_wide, kFwdWords, done);
+  int st = allow_smem(flash_fwd_wide<T>, kFwdWords, done);
   if (st != 0) return st;
-  flash_fwd_wide<<<grid, kThreads, kFwdWords * 4, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)o,
-      (float*)lse, Tq, Tk, H, D, slabs, causal, scale);
+  flash_fwd_wide<T><<<grid, kThreads, kFwdWords * 4, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)o, (float*)lse, Tq, Tk, H,
+      D, slabs, causal, scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int Tq, int Tk, int H, int D,
               int causal, float scale, cudaStream_t s) {
@@ -392,14 +416,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* bias, con
   int slabs = 0;
   if (Tk <= 0 || !wide_grid(grid, Tq, B, H, D, slabs)) return (int)cudaErrorInvalidValue;
   static bool done[hopper::kMaxDevices] = {};
-  int st = allow_smem(flash_bwd_dq_wide, kDqWords, done);
+  int st = allow_smem(flash_bwd_dq_wide<T>, kDqWords, done);
   if (st != 0) return st;
-  flash_bwd_dq_wide<<<grid, kThreads, kDqWords * 4, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (const float*)dout,
-      (const float*)lse, (const float*)delta, (float*)dq, Tq, Tk, H, D, slabs, causal, scale);
+  flash_bwd_dq_wide<T><<<grid, kThreads, kDqWords * 4, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dq, Tq, Tk, H, D, slabs, causal, scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, void* dbias, int B,
                int Tq, int Tk, int H, int D, int causal, float scale, cudaStream_t s) {
@@ -407,42 +432,72 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bias, co
   int slabs = 0;
   if (Tq <= 0 || !wide_grid(grid, Tk, B, H, D, slabs)) return (int)cudaErrorInvalidValue;
   static bool done[hopper::kMaxDevices] = {};
-  int st = allow_smem(flash_bwd_dkv_wide, kDkvWords, done);
+  int st = allow_smem(flash_bwd_dkv_wide<T>, kDkvWords, done);
   if (st != 0) return st;
-  flash_bwd_dkv_wide<<<grid, kThreads, kDkvWords * 4, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (const float*)dout,
-      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, (float*)dbias, Tq, Tk, H, D,
-      slabs, causal, scale);
+  flash_bwd_dkv_wide<T><<<grid, kThreads, kDkvWords * 4, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, (float*)dbias, Tq, Tk, H, D, slabs,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// As vt_flash_attention_f32 (flash_attention.cu); D any multiple of 64.
+// As vt_flash_attention_f32 (flash_attention_f32.cu); D any multiple of 64.
 extern "C" int vt_flash_attention_wide(const void* q, const void* k, const void* v,
                                        const void* bias, void* o, void* lse, int B, int Tq,
                                        int Tk, int H, int D, int causal, float scale,
                                        void* stream) {
-  return launch_fwd(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale, (cudaStream_t)stream);
+  return launch_fwd<float>(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale,
+                           (cudaStream_t)stream);
 }
 
-// As vt_flash_attention_bwd_dq_f32 (flash_attention_bwd.cu).
+// As vt_flash_attention_bwd_dq_f32 (flash_attention_f32.cu).
 extern "C" int vt_flash_attention_bwd_dq_wide(const void* q, const void* k, const void* v,
                                               const void* bias, const void* dout,
                                               const void* lse, const void* delta, void* dq,
                                               int B, int Tq, int Tk, int H, int D, int causal,
                                               float scale, void* stream) {
-  return launch_dq(q, k, v, bias, dout, lse, delta, dq, B, Tq, Tk, H, D, causal, scale,
-                   (cudaStream_t)stream);
+  return launch_dq<float>(q, k, v, bias, dout, lse, delta, dq, B, Tq, Tk, H, D, causal, scale,
+                          (cudaStream_t)stream);
 }
 
-// As vt_flash_attention_bwd_dkv_f32 (flash_attention_bwd.cu).
+// As vt_flash_attention_bwd_dkv_f32 (flash_attention_f32.cu).
 extern "C" int vt_flash_attention_bwd_dkv_wide(const void* q, const void* k, const void* v,
                                                const void* bias, const void* dout,
                                                const void* lse, const void* delta, void* dk,
                                                void* dv, void* dbias, int B, int Tq, int Tk,
                                                int H, int D, int causal, float scale,
                                                void* stream) {
-  return launch_dkv(q, k, v, bias, dout, lse, delta, dk, dv, dbias, B, Tq, Tk, H, D, causal,
-                    scale, (cudaStream_t)stream);
+  return launch_dkv<float>(q, k, v, bias, dout, lse, delta, dk, dv, dbias, B, Tq, Tk, H, D,
+                           causal, scale, (cudaStream_t)stream);
+}
+
+// The same three in bfloat16 (operands, out, dq, dk, dv), for heads wider
+// than a cluster of flash_attention_wide_tc.cu splits.
+extern "C" int vt_flash_attention_wide_bf16(const void* q, const void* k, const void* v,
+                                            const void* bias, void* o, void* lse, int B, int Tq,
+                                            int Tk, int H, int D, int causal, float scale,
+                                            void* stream) {
+  return launch_fwd<__nv_bfloat16>(q, k, v, bias, o, lse, B, Tq, Tk, H, D, causal, scale,
+                                   (cudaStream_t)stream);
+}
+
+extern "C" int vt_flash_attention_bwd_dq_wide_bf16(const void* q, const void* k, const void* v,
+                                                   const void* bias, const void* dout,
+                                                   const void* lse, const void* delta, void* dq,
+                                                   int B, int Tq, int Tk, int H, int D,
+                                                   int causal, float scale, void* stream) {
+  return launch_dq<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dq, B, Tq, Tk, H, D, causal,
+                                  scale, (cudaStream_t)stream);
+}
+
+extern "C" int vt_flash_attention_bwd_dkv_wide_bf16(const void* q, const void* k, const void* v,
+                                                    const void* bias, const void* dout,
+                                                    const void* lse, const void* delta, void* dk,
+                                                    void* dv, void* dbias, int B, int Tq, int Tk,
+                                                    int H, int D, int causal, float scale,
+                                                    void* stream) {
+  return launch_dkv<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dk, dv, dbias, B, Tq, Tk, H,
+                                   D, causal, scale, (cudaStream_t)stream);
 }

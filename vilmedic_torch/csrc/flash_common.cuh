@@ -3,7 +3,8 @@
 // flash_attention_wide_tc.cu and flash_attention_wide.cu (both). The TPU
 // kernels' finite mask, the tiles a block visits, and the per-tile score
 // arithmetic on the wgmma accumulator layout (hopper_common.cuh): the
-// forward's online softmax and the dq kernel's dS.
+// forward's online softmax, the dq kernels' dS and the dk/dv kernels' P^T
+// and dS^T.
 
 #pragma once
 
@@ -108,6 +109,44 @@ __device__ __forceinline__ void dq_scores(float (&sc)[BK / 2], const float (&dp)
       }
       sc[4 * j + e] = hopper::fast_exp2(x0 - lse0) * (dp[4 * j + e] - dl0);
       sc[4 * j + 2 + e] = hopper::fast_exp2(x1 - lse1) * (dp[4 * j + 2 + e] - dl1);
+    }
+  }
+}
+
+// P^T and dS^T of one tile of BQ query rows, in place of S^T and dP^T (the
+// accumulator's rows are keys c0 and c1, its columns the tile's queries,
+// whose lse (log2 domain) and delta are at ls and dls), with dbias's per-key
+// sums (the dk/dv kernels).
+template <bool MASK, int BQ>
+__device__ __forceinline__ void dkv_scores(float (&st)[BQ / 2], float (&dpt)[BQ / 2], const float* ls,
+                                           const float* dls, int rq0, int c0, int c1, int off,
+                                           int Tk, int t4, float sl2, float bias0, float bias1,
+                                           float& db0, float& db1) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
+    const float2 dv = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float l = e ? lv.y : lv.x;
+      const float dl = e ? dv.y : dv.x;
+      float x0 = fmaf(st[4 * j + e], sl2, bias0);
+      float x1 = fmaf(st[4 * j + 2 + e], sl2, bias1);
+      if (MASK) {
+        const int r = rq0 + 8 * j + 2 * t4 + e;
+        if (c0 < Tk && c0 > r + off) x0 = kMaskL2;
+        if (c1 < Tk && c1 > r + off) x1 = kMaskL2;
+      }
+      const float p0 = hopper::fast_exp2(x0 - l);
+      const float p1 = hopper::fast_exp2(x1 - l);
+      const float ds0 = p0 * (dpt[4 * j + e] - dl);
+      const float ds1 = p1 * (dpt[4 * j + 2 + e] - dl);
+      db0 += ds0;
+      db1 += ds1;
+      st[4 * j + e] = p0;
+      st[4 * j + 2 + e] = p1;
+      dpt[4 * j + e] = ds0;
+      dpt[4 * j + 2 + e] = ds1;
     }
   }
 }

@@ -56,6 +56,9 @@ SIGNATURES = {
     "vt_flash_attention_wide": [_P] * 6 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dq_wide": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dkv_wide": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_wide_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dq_wide_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_bwd_dkv_wide_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_wide_tc": [_P] * 6 + [_I] * 7 + [_F, _P],
     "vt_flash_attention_bwd_dq_wide_tc": [_P] * 8 + [_I] * 7 + [_F, _P],
     "vt_flash_attention_bwd_dkv_wide_tc": [_P] * 10 + [_I] * 7 + [_F, _P],

@@ -20,19 +20,24 @@ over key tiles that recompute ``p = exp(s - lse)``. The key mask is not
 differentiable; dbias (summed over heads, as JAX does) comes out of
 :func:`flash_attention_backward` for checking.
 
-Every entry launches ``csrc/flash_attention.cu`` (K4) or
-``csrc/flash_attention_bwd.cu`` (K5), or at the wide head dims
+Every entry launches, for CUDA tensors, ``csrc/flash_attention.cu`` (K4)
+and ``csrc/flash_attention_bwd.cu`` (K5) in bf16 or
+``csrc/flash_attention_f32.cu`` in float32 up to head dim 128, and above it
 ``csrc/flash_attention_wide_tc.cu`` (bf16) or ``csrc/flash_attention_wide.cu``
-(f32), for CUDA tensors, or raises, and runs the same function in plain
-PyTorch (``*_reference``) for CPU tensors, so autograd on the CPU goes
-through the port's own backward too.
+(float32, and bf16 wider than a cluster splits), or raises; it runs the
+same function in plain PyTorch (``*_reference``) for CPU tensors, so
+autograd on the CPU goes through the port's own backward too. The float32
+kernels run on the tensor cores as three TF32 passes (:func:`split_tf32`
+gives the halves): one pass would not hold the f32 route's parity with the
+plain version, three keep f32's own order of error.
 
 Head dims: every d runs on the card, at :func:`padded_head_dim` (d, dtype):
 the least of ``HEAD_DIMS`` (16, 32, 64, 128, 256) at or above it; above 256
 the next multiple of ``WIDE_STEP`` (64), and in bf16 above 320 the next
 width that a cluster of n CTAs splits into n equal shares of 192, 256 or
 320 columns (:func:`split_of`: 384, 512, 640 as pairs, 768 to 1280 as 3 or
-4, up to 5120 as 16). q, k, v (and dO, O) get zero columns along D, the
+4, up to 5120 as 16; wider bf16 heads stay at the multiple of 64, on the
+CUDA cores). q, k, v (and dO, O) get zero columns along D, the
 kernels take the true scale ``d ** -0.5``, and the outputs are sliced back
 to d. Zero columns change no score, no output column, no LSE and no
 ``delta``, so this is the same function (the JAX package's v1 kernel, which
@@ -78,7 +83,7 @@ def split_of(width: int) -> tuple:
     """``(n, w)``: the CTAs of the cluster that a bf16 head of (a multiple of
     ``WIDE_STEP``) ``width`` above 320 takes, ``n = ceil(width / 320)``, and
     the columns each holds, ``width / n`` rounded up to a multiple of 64 (192,
-    256 or 320). The head runs at ``n * w``."""
+    256 or 320). The head runs at ``n * w`` when n is at most ``SPLIT_MAX``."""
     n = -(-width // SPLIT_WIDTHS[-1])
     return n, -(-width // (n * WIDE_STEP)) * WIDE_STEP
 
@@ -87,7 +92,7 @@ def padded_head_dim(d: int, dtype=None) -> int:
     """The head dim that head dim ``d`` runs at on the card: the least one in
     ``HEAD_DIMS`` at or above ``d``; above the largest, ``d`` rounded up to a
     multiple of ``WIDE_STEP``, and for bf16 above 320 to the width
-    :func:`split_of` gives."""
+    :func:`split_of` gives, where a cluster splits it (up to 5120)."""
     if d < 1:
         raise ValueError(f"flash attention: head dim {d}")
     for built in HEAD_DIMS:
@@ -96,23 +101,37 @@ def padded_head_dim(d: int, dtype=None) -> int:
     width = -(-d // WIDE_STEP) * WIDE_STEP
     if dtype == torch.bfloat16 and width > SPLIT_WIDTHS[-1]:
         n, w = split_of(width)
-        return n * w
+        if n <= SPLIT_MAX:
+            return n * w
     return width
 
 
 def kernel_route(dtype, width: int) -> str:
     """The suffix of the C entries (forward, dq, dk/dv) that run the padded
-    head dim ``width``: ``bf16`` / ``f32`` up to 128, the wgmma kernels of
-    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``;
-    ``wide_tc`` for bf16 above 128, the wgmma kernels of
-    ``csrc/flash_attention_wide_tc.cu`` (one CTA a row block at 256 and 320,
-    a cluster of :func:`split_of` CTAs above; up to ``SPLIT_MAX`` * 320 =
-    5120, wider bf16 heads are refused); ``wide`` for f32 above 128,
-    ``csrc/flash_attention_wide.cu`` on the CUDA cores (TF32 would break the
-    f32 route's parity with the plain version)."""
+    head dim ``width``: ``bf16`` up to 128, the wgmma kernels of
+    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``; ``f32``
+    up to 128, ``csrc/flash_attention_f32.cu`` (wgmma, three TF32 passes);
+    ``wide_tc`` for bf16 above 128 up to ``SPLIT_MAX`` * 320 = 5120, the
+    wgmma kernels of ``csrc/flash_attention_wide_tc.cu`` (one CTA a row
+    block at 256 and 320, a cluster of :func:`split_of` CTAs above); on the
+    CUDA cores of ``csrc/flash_attention_wide.cu``, ``wide`` for f32 above
+    128 and ``wide_bf16`` for bf16 heads wider than a cluster splits."""
     if width <= 128:
         return "bf16" if dtype == torch.bfloat16 else "f32"
-    return "wide_tc" if dtype == torch.bfloat16 else "wide"
+    if dtype != torch.bfloat16:
+        return "wide"
+    return "wide_tc" if width <= SPLIT_MAX * SPLIT_WIDTHS[-1] else "wide_bf16"
+
+
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)`` with ``x = hi + lo`` exactly (float32): ``hi`` is ``x``
+    rounded to TF32 (10 mantissa bits; nearest, ties away from zero, as the
+    kernels round each operand), ``lo`` the rest. A tensor core reads an f32
+    word as TF32 by dropping its low 13 bits, which ``lo`` loses too; the
+    f32 kernels sum ``lo_a hi_b + hi_a lo_b + hi_a hi_b``."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -195,9 +214,6 @@ def _kernel_operands(name: str, *tensors):
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: operands must start on 16-byte boundaries")
     width = padded_head_dim(d, dtype)
-    if dtype == torch.bfloat16 and split_of(width)[0] > SPLIT_MAX:
-        raise ValueError(f"{name}: bf16 head dim {d} above {SPLIT_MAX * SPLIT_WIDTHS[-1]}, "
-                         "the widest a cluster splits; float32 takes any head dim")
     return dev, d, [pad_head_dim(t, width) for t in tensors]
 
 
