@@ -972,7 +972,7 @@ def flash_head_dims() -> str:
 
     from vilmedic_torch.ops import flash_attention as fa
 
-    widths = fa.HEAD_DIMS + (320, 384, 512, 1024)
+    widths = sorted(set(fa.HEAD_DIMS + (192, 320, 384, 512, 1024, 1088)))
 
     def routes(dtype) -> str:
         by_route = {}
@@ -982,10 +982,11 @@ def flash_head_dims() -> str:
 
     split = "/".join(f"{n * w} as {n} x {w}" for n, w in map(fa.split_of, (384, 512, 640, 1024)))
     return (f"built {'/'.join(map(str, fa.HEAD_DIMS))} and multiples of {fa.WIDE_STEP} above "
-            f"{fa.HEAD_DIMS[-1]}, other head dims zero-padded to the next of these; bf16 above "
-            f"320 padded to widths a cluster of CTAs splits ({split}, up to "
-            f"{fa.SPLIT_MAX * fa.SPLIT_WIDTHS[-1]}); C entries bf16: {routes(torch.bfloat16)} and "
-            f"above; f32: {routes(torch.float32)} and above")
+            f"{fa.HEAD_DIMS[-1]} (in f32 above {fa.HEAD_DIMS[-2]}: n shares of {fa.F32_SHARE} "
+            f"columns, up to {fa.SPLIT_MAX * fa.F32_SHARE}), other head dims zero-padded to the "
+            f"next of these; bf16 above 320 padded to widths a cluster of CTAs splits ({split}, "
+            f"up to {fa.SPLIT_MAX * fa.SPLIT_WIDTHS[-1]}); C entries bf16: "
+            f"{routes(torch.bfloat16)} and above; f32: {routes(torch.float32)} and above")
 
 
 def ptxas_usage(source: str) -> dict:
@@ -997,12 +998,13 @@ def ptxas_usage(source: str) -> dict:
     usage, name = {}, None
     for line in cuda_lib.ptxas_log_path().read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
-        if entry:  # _ZN..._<source>_cu_<hash><length><name>I<template args>EE...
-            found = re.search(r"([a-z_]+_kernel)I(.*?)EE", entry.group(1))
+        if entry:  # _ZN..._<source>_cu_<hash><length><name>[I<template args>EE]...
+            found = re.search(r"([a-z_]+_kernel)(?:I(.*?)EE)?", entry.group(1))
             name = None
             if f"_{source}_cu_" in entry.group(1) and found:
-                args = re.findall(r"L[ib](\d+)E", found.group(2) + "E")  # int and bool arguments
-                name = f"{found.group(1)}<{','.join(args)}>"
+                name = found.group(1)
+                if found.group(2) is not None:  # int and bool template arguments
+                    name += f"<{','.join(re.findall(r'L[ib](\d+)E', found.group(2) + 'E'))}>"
                 usage[name] = {}
         elif name and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -1054,21 +1056,14 @@ def flash_grads_match(q, k, v, key_mask, causal, label, gen):
     return out, lse, dout, errs
 
 
-def check_flash_wide(results):
-    """K4 and K5 above head dim 128. bf16 at B 16, T 1370, 3 heads of 256
-    and 320 (one CTA a row block) and of 384 and 512 (a cluster of two CTAs
-    that split the head dim), all on ``csrc/flash_attention_wide_tc.cu``: K4
-    unmasked and causal, K4 with LSE and K5 causal with padded keys, against
-    the plain versions, and timed beside their bounds,
-    ``scaled_dot_product_attention`` (forward; forward and backward by
-    autograd, less the forward) and the plain versions. Then the CUDA-core
-    ``csrc/flash_attention_wide.cu`` in f32 at D 320 and 160 (zero-padded to
-    256), and the wgmma kernels in bf16 at D 320, 160, 384 (a pair), 1000
-    (padded to 1024: four CTAs, Tq > Tk) and 2600 (padded to 2880: nine, a
-    non-portable cluster), and bf16 at 5184, wider than a cluster splits, on
-    the CUDA-core kernels' bf16 entries, against the plain versions at B 2,
-    T 300 / 200 (130 / 70 at 2600, 96 at 5184), 3 heads, causal with a key
-    mask. ptxas's registers and spills of every wgmma instantiation."""
+def flash_wide_row(d: int, dtype, gen, key_mask, allowed, source: str) -> dict:
+    """One head dim of :func:`check_flash_wide` at B 16, T 1370, 3 heads:
+    K4 unmasked and causal, K4 with LSE and K5 causal with padded keys
+    against the plain versions, then timed beside their bounds (f32 at the
+    three-pass TF32 rate, with the f32 FMA bound beside it),
+    ``scaled_dot_product_attention`` on the same inputs (forward; forward
+    and backward by autograd, less the forward; TF32 off in f32) and the
+    plain versions. Returns the kernels line's forward and backward rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1077,106 +1072,181 @@ def check_flash_wide(results):
         flash_attention_reference, flash_attention_with_lse,
     )
 
-    gen = torch.Generator("cuda").manual_seed(SEED + 6)
     b, t, heads = 16, VL_TOKENS, 3
+    name = str(dtype)[6:]
+    f32 = dtype == torch.float32
+    stats = 2 * b * heads * t * 4 + b * t * 4  # lse, delta; the key bias
+    q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    worst = 0.0
+    for causal in (False, True):
+        err = (flash_attention(q, k, v, None, causal).float()
+               - flash_attention_reference(q, k, v, None, causal).float()).abs().max().item()
+        worst = max(worst, err)
+        if not err <= FLASH_TOL[name]:
+            fail(f"flash attention D {d} {name} causal={causal}: {err:.3e}")
+    out, lse, dout, errs = flash_grads_match(q, k, v, key_mask, True,
+                                             f"B={b} T={t} H={heads} D={d}", gen)
+    qh, kh, vh = sdpa_layout(q, k, v)
+    tm = {key: cuda_ms(fn, reps=5, warmup=1) for key, fn in (
+        ("fwd", lambda: flash_attention(q, k, v, None, False)),
+        ("fwd_causal", lambda: flash_attention(q, k, v, None, True)),
+        ("lse", lambda: flash_attention_with_lse(q, k, v, key_mask, True)),
+        ("bwd", lambda: flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)),
+        ("sdpa", lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+        ("sdpa_causal", lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)))}
+    tm["plain"] = cuda_ms(lambda: flash_attention_reference(q, k, v, None, False), reps=3)
+    tm["plain_bwd"] = cuda_ms(lambda: flash_attention_backward_reference(
+        q, k, v, key_mask, out, lse, dout, True), reps=3)
+    leaves = [x.requires_grad_() for x in (qh, kh, vh)]
+    (dout_h,) = sdpa_layout(dout)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+        torch.autograd.grad(o, leaves, dout_h)
+
+    tm["sdpa_lse"] = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed),
+                             reps=5)
+    tm["sdpa_bwd"] = cuda_ms(sdpa_fwd_bwd, reps=5) - tm["sdpa_lse"]
+    bound_args = {"fwd": ((False,), {}), "fwd_causal": ((True,), {}),
+                  "lse": ((True, key_mask), dict(extra_bytes=key_mask.numel()
+                                                 + b * heads * t * 4)),
+                  "bwd": ((True, key_mask), dict(tensors=8, extra_bytes=stats, products=5))}
+    bounds = {key: flash_bound(q, k, *a, **kw, peak=F32_PEAK if f32 else None)
+              for key, (a, kw) in bound_args.items()}
+    fma = {key: flash_bound(q, k, *a, **kw)["bound_ms"] for key, (a, kw) in bound_args.items()}
+    for key, lib in (("fwd", "sdpa"), ("fwd_causal", "sdpa_causal"), ("lse", "sdpa_lse"),
+                     ("bwd", "sdpa_bwd")):
+        bd = bounds[key]
+        extra = (f" (three-pass TF32), f32 FMA bound {fma[key]:.4f} ms "
+                 f"({fma[key] / tm[key] * 100:.1f}%)" if f32 else "")
+        print(f"K4/K5 {name} D {d} {key} (B {b}, T {t}, 3 heads of {d}, {source}): kernel "
+              f"{tm[key]:.4f} ms ({bd['bound_ms'] / tm[key] * 100:.1f}% of the bound), bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}){extra}, scaled_dot_product_attention"
+              f"{' (TF32 off)' if f32 else ''} {tm[lib]:.4f} ms")
+    print(f"K4/K5 {name} D {d} plain versions: forward {tm['plain']:.4f} ms, causal backward "
+          f"with padded keys {tm['plain_bwd']:.4f} ms")
+    rel = max(errs[n] for n in ("dq", "dk", "dv"))
+    # the kernels line's keys at this head dim: the forward (K4), and the
+    # whole backward (delta and K5's pair) with its largest relative error
+    row = {
+        "forward": dict(max_abs_err=worst, ms=tm["fwd"], plain_ms=tm["plain"], **bounds["fwd"],
+                        library_ms=tm["sdpa"], causal_ms=tm["fwd_causal"], lse_ms=tm["lse"],
+                        lse_bound_ms=bounds["lse"]["bound_ms"], lse_library_ms=tm["sdpa_lse"]),
+        "backward": dict(max_abs_err=rel, ms=tm["bwd"], plain_ms=tm["plain_bwd"], **bounds["bwd"],
+                         library_ms=tm["sdpa_bwd"]),
+    }
+    if f32:
+        row["forward"].update(fma_bound_ms=fma["fwd"], lse_fma_bound_ms=fma["lse"])
+        row["backward"].update(fma_bound_ms=fma["bwd"])
+    del q, k, v, qh, kh, vh, leaves, dout_h, out, lse, dout
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_flash_wide(results):
+    """K4 and K5 above head dim 128 (:func:`flash_wide_row` at B 16, T 1370,
+    3 heads): bf16 at 256 and 320 (one CTA a row block) and at 384 and 512
+    (a cluster of two CTAs that split the head dim), on
+    ``csrc/flash_attention_wide_tc.cu``; f32 at 320 and 512 (clusters of 5
+    and 8 CTAs of 64 columns, three TF32 passes) on
+    ``csrc/flash_attention_f32_split.cu``. Then against the plain versions
+    at B 2, T 300 / 200 (130 / 70 at 2600, 96 at 5184 and 1088), 3 heads,
+    causal with a key mask: f32 at D 320, 160 (padded to 192: three CTAs)
+    and 1024 (sixteen, a non-portable cluster) on the split kernels and at
+    1088, wider than sixteen shares, on the CUDA-core
+    ``csrc/flash_attention_wide.cu``; the bf16 wgmma kernels at D 320, 160,
+    384 (a pair), 1000 (padded to 1024: four CTAs, Tq > Tk) and 2600 (padded
+    to 2880: nine, a non-portable cluster), and bf16 at 5184, wider than a
+    cluster splits, on the CUDA-core kernels' bf16 entries (timed once at B
+    2, T 1370, 3 heads, beside ``scaled_dot_product_attention``). ptxas's
+    registers and spills of every tensor-core instantiation."""
+    import torch
+    import torch.nn.functional as F
+
+    from vilmedic_torch.ops import flash_attention as fa
+    from vilmedic_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_with_lse,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 6)
+    b, t = 16, VL_TOKENS
     key_mask = train_key_mask(b, t, "cuda")
     allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
                & key_mask[:, None, None, :])
-    stats = 2 * b * heads * t * 4 + b * t * 4  # lse, delta; the key bias
-    rows = {}
-    for d in (256, 320, 384, 512):
-        q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
-                   for _ in range(3))
-        worst = 0.0
-        for causal in (False, True):
-            err = (flash_attention(q, k, v, None, causal).float()
-                   - flash_attention_reference(q, k, v, None, causal).float()).abs().max().item()
-            worst = max(worst, err)
-            if not err <= FLASH_TOL["bfloat16"]:
-                fail(f"flash attention D {d} bf16 causal={causal}: {err:.3e}")
-        out, lse, dout, errs = flash_grads_match(q, k, v, key_mask, True,
-                                                 f"B={b} T={t} H={heads} D={d}", gen)
-        qh, kh, vh = sdpa_layout(q, k, v)
-        tm = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in (
-            ("fwd", lambda: flash_attention(q, k, v, None, False)),
-            ("fwd_causal", lambda: flash_attention(q, k, v, None, True)),
-            ("lse", lambda: flash_attention_with_lse(q, k, v, key_mask, True)),
-            ("bwd", lambda: flash_attention_backward(q, k, v, key_mask, out, lse, dout, True)),
-            ("sdpa", lambda: F.scaled_dot_product_attention(qh, kh, vh)),
-            ("sdpa_causal", lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)))}
-        tm["plain"] = cuda_ms(lambda: flash_attention_reference(q, k, v, None, False), reps=3)
-        tm["plain_bwd"] = cuda_ms(lambda: flash_attention_backward_reference(
-            q, k, v, key_mask, out, lse, dout, True), reps=3)
-        leaves = [x.requires_grad_() for x in (qh, kh, vh)]
-        (dout_h,) = sdpa_layout(dout)
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-            torch.autograd.grad(o, leaves, dout_h)
-
-        tm["sdpa_lse"] = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed),
-                                 reps=5)
-        tm["sdpa_bwd"] = cuda_ms(sdpa_fwd_bwd, reps=5) - tm["sdpa_lse"]
-        bounds = {"fwd": flash_bound(q, k, False), "fwd_causal": flash_bound(q, k, True),
-                  "lse": flash_bound(q, k, True, key_mask, extra_bytes=key_mask.numel()
-                                     + b * heads * t * 4),
-                  "bwd": flash_bound(q, k, True, key_mask, tensors=8, extra_bytes=stats,
-                                     products=5)}
-        for name, lib in (("fwd", "sdpa"), ("fwd_causal", "sdpa_causal"), ("lse", "sdpa_lse"),
-                          ("bwd", "sdpa_bwd")):
-            bd = bounds[name]
-            print(f"K4/K5 bf16 D {d} {name} (B {b}, T {t}, 3 heads of {d}, "
-                  f"flash_attention_wide_tc.cu{'' if d <= 320 else ', split'}): kernel "
-                  f"{tm[name]:.4f} ms "
-                  f"({bd['bound_ms'] / tm[name] * 100:.1f}% of the bound), bound "
-                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), scaled_dot_product_attention "
-                  f"{tm[lib]:.4f} ms")
-        print(f"K4/K5 bf16 D {d} plain versions: forward {tm['plain']:.4f} ms, causal backward "
-              f"with padded keys {tm['plain_bwd']:.4f} ms")
-        rel = max(errs[n] for n in ("dq", "dk", "dv"))
-        # the kernels line's keys at this head dim: the forward (K4), and the
-        # whole backward (delta and K5's pair) with its largest relative error
-        rows[d] = {
-            "forward": dict(max_abs_err=worst, ms=tm["fwd"], plain_ms=tm["plain"],
-                            **bounds["fwd"], library_ms=tm["sdpa"], causal_ms=tm["fwd_causal"],
-                            lse_ms=tm["lse"], lse_bound_ms=bounds["lse"]["bound_ms"],
-                            lse_library_ms=tm["sdpa_lse"]),
-            "backward": dict(max_abs_err=rel, ms=tm["bwd"], plain_ms=tm["plain_bwd"],
-                             **bounds["bwd"], library_ms=tm["sdpa_bwd"]),
-        }
-        del q, k, v, qh, kh, vh, leaves, dout_h, out, lse, dout
-        torch.cuda.empty_cache()
+    rows = {(d, "bf16"): flash_wide_row(d, torch.bfloat16, gen, key_mask, allowed,
+                                        f"flash_attention_wide_tc.cu{'' if d <= 320 else ', split'}")
+            for d in (256, 320, 384, 512)}
+    rows.update({(d, "f32"): flash_wide_row(d, torch.float32, gen, key_mask, allowed,
+                                            f"flash_attention_f32_split.cu, {d // 64} x 64")
+                 for d in (320, 512)})
     del allowed
+    # the small parities: each on its entries alone
     for d, tq, tk, dtype in ((320, 300, 300, torch.float32), (320, 300, 300, torch.bfloat16),
                              (160, 200, 300, torch.float32), (160, 200, 300, torch.bfloat16),
                              (384, 300, 300, torch.bfloat16), (1000, 300, 200, torch.bfloat16),
-                             (2600, 130, 70, torch.bfloat16), (5184, 96, 96, torch.bfloat16)):
+                             (2600, 130, 70, torch.bfloat16), (5184, 96, 96, torch.bfloat16),
+                             (1024, 300, 200, torch.float32), (1088, 96, 96, torch.float32)):
         q = torch.randn(2, tq, 3, d, generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn(2, tk, 3, d, generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
         mask = torch.ones(2, tk, dtype=torch.bool, device="cuda")
         mask[1, tk - tk // 3:] = False
+        before = dict(fa.ENTRY_LAUNCHES)
         flash_grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal", gen)
-    usage = ptxas_usage("flash_attention_wide_tc")
-    print("flash_attention_wide_tc.cu (ptxas -v; <CTA's columns, split>): " + "; ".join(
-        f"{k} {u['registers']} registers, spill stores / loads {u['spill_stores']} / "
-        f"{u['spill_loads']} bytes" for k, u in usage.items()))
-    built = {f"flash_{part}_wide_kernel<{w},{split}>" for part in ("fwd", "bwd_dq", "bwd_dkv")
-             for w, split in ((256, 0), (320, 0), (192, 1), (256, 1), (320, 1))}
-    if set(usage) != built or any(u["spill_stores"] or u["spill_loads"] for u in usage.values()):
-        fail(f"flash_attention_wide_tc.cu: instantiations {sorted(usage)}, or spills")
-    source = "vilmedic_torch/csrc/flash_attention_wide_tc.cu"
-    for name, row, replaces, counter in (
-            ("flash_attention_wide_tc", "forward", "vilmedic_tpu/ops/flash_attention.py:161",
-             "vt_flash_attention_wide_tc"),
-            ("flash_attention_bwd_wide_tc", "backward", "vilmedic_tpu/ops/flash_attention.py:569",
-             "vt_flash_attention_bwd_dq_wide_tc")):
-        kernels = ("flash_fwd_wide",) if row == "forward" else ("flash_bwd_dq_wide",
-                                                                 "flash_bwd_dkv_wide")
-        results[name] = dict(route="cuda", source=source, replaces=replaces, **rows[320][row],
-                             d256=rows[256][row], d384=rows[384][row], d512=rows[512][row],
-                             path="flash_wide", counter=counter,
-                             ptxas={k: u for k, u in usage.items() if k.startswith(kernels)})
+        route = fa.kernel_route(dtype, fa.padded_head_dim(d, dtype))
+        launched = {e for e, n in fa.ENTRY_LAUNCHES.items() if n != before.get(e, 0)}
+        if launched != {f"vt_flash_attention{part}_{route}" for part in ("", "_bwd_dq", "_bwd_dkv")}:
+            fail(f"flash attention D {d} {dtype}: entries {sorted(launched)}, not {route}")
+    # bf16 wider than 16 CTAs split, on the CUDA cores, once at T 1370
+    q, k, v, dout = (torch.randn(2, t, 3, 5184, generator=gen, device="cuda").bfloat16()
+                     for _ in range(4))
+    out, lse = flash_attention_with_lse(q, k, v, None, False)
+    qh, kh, vh = sdpa_layout(q, k, v)
+    try:
+        sdpa = f"{cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), reps=3):.4f} ms"
+    except RuntimeError as e:  # no SDPA kernel for the head dim
+        sdpa = f"refused ({str(e).splitlines()[0][:120]})"
+    fwd = cuda_ms(lambda: flash_attention(q, k, v, None, False), reps=1, warmup=0)
+    bwd = cuda_ms(lambda: flash_attention_backward(q, k, v, None, out, lse, dout), reps=1,
+                  warmup=0)
+    print(f"K4/K5 bf16 D 5184 (B 2, T {t}, 3 heads, flash_attention_wide.cu's bf16 entries, one "
+          f"call each): forward {fwd:.4f} ms, backward {bwd:.4f} ms; "
+          f"scaled_dot_product_attention forward {sdpa}")
+    del q, k, v, dout, out, lse, qh, kh, vh
+    torch.cuda.empty_cache()
+    usage = {}
+    for source, built in (
+            ("flash_attention_wide_tc", {f"flash_{part}_wide_kernel<{w},{split}>"
+                                         for part in ("fwd", "bwd_dq", "bwd_dkv")
+                                         for w, split in ((256, 0), (320, 0), (192, 1), (256, 1),
+                                                          (320, 1))}),
+            ("flash_attention_f32_split", {f"flash_{part}_split_kernel"
+                                           for part in ("fwd", "bwd_dq", "bwd_dkv")})):
+        usage[source] = ptxas_usage(source)
+        print(f"{source}.cu (ptxas -v): " + "; ".join(
+            f"{k} {u['registers']} registers, spill stores / loads {u['spill_stores']} / "
+            f"{u['spill_loads']} bytes" for k, u in usage[source].items()))
+        if set(usage[source]) != built or any(u["spill_stores"] or u["spill_loads"]
+                                              for u in usage[source].values()):
+            fail(f"{source}.cu: instantiations {sorted(usage[source])}, or spills")
+    for name, part, dt, widths, source, counter, kernels in (
+            ("flash_attention_wide_tc", "forward", "bf16", (256, 384, 512),
+             "flash_attention_wide_tc", "vt_flash_attention_wide_tc", ("flash_fwd_wide",)),
+            ("flash_attention_bwd_wide_tc", "backward", "bf16", (256, 384, 512),
+             "flash_attention_wide_tc", "vt_flash_attention_bwd_dq_wide_tc",
+             ("flash_bwd_dq_wide", "flash_bwd_dkv_wide")),
+            ("flash_attention_f32_split", "forward", "f32", (512,), "flash_attention_f32_split",
+             "vt_flash_attention_f32_split", ("flash_fwd_split",)),
+            ("flash_attention_bwd_f32_split", "backward", "f32", (512,),
+             "flash_attention_f32_split", "vt_flash_attention_bwd_dq_f32_split",
+             ("flash_bwd_dq_split", "flash_bwd_dkv_split"))):
+        results[name] = dict(
+            route="cuda", source=f"vilmedic_torch/csrc/{source}.cu",
+            replaces=f"vilmedic_tpu/ops/flash_attention.py:{161 if part == 'forward' else 569}",
+            **rows[(320, dt)][part], **{f"d{w}": rows[(w, dt)][part] for w in widths},
+            path="flash_wide", counter=counter,
+            ptxas={k: u for k, u in usage[source].items() if k.startswith(kernels)})
 
 
 def train_key_mask(b: int, t: int, device):
@@ -1745,10 +1815,12 @@ def launch_counters():
 
 
 # the wide head dims' C entries (ops/flash_attention.ENTRY_LAUNCHES): the
-# wgmma kernels of csrc/flash_attention_wide_tc.cu and the CUDA-core ones of
-# csrc/flash_attention_wide.cu (f32, and bf16 above 5120)
+# wgmma kernels of csrc/flash_attention_wide_tc.cu (bf16), the three-pass
+# TF32 ones of csrc/flash_attention_f32_split.cu (f32 up to 1024) and the
+# CUDA-core ones of csrc/flash_attention_wide.cu (f32 above 1024, bf16
+# above 5120)
 WIDE_ENTRIES = tuple(f"vt_flash_attention{part}_{route}"
-                     for route in ("wide_tc", "wide", "wide_bf16")
+                     for route in ("wide_tc", "f32_split", "wide", "wide_bf16")
                      for part in ("", "_bwd_dq", "_bwd_dkv"))
 # f32 up to head dim 128: csrc/flash_attention_f32.cu (three TF32 passes)
 F32_ENTRIES = tuple(f"vt_flash_attention{part}_f32" for part in ("", "_bwd_dq", "_bwd_dkv"))
@@ -1966,9 +2038,12 @@ def phase_flash_wide():
     """The wide head dims' own path: attention with its gradient through
     ``flash_attention`` under autograd (K4 with LSE, then K5's pair), as a
     model with heads of 256, 320, 384 or 512 trains, at 3 such heads (bf16,
-    B 16, T 1370, causal, padded text keys). Each width launches the wgmma
-    kernels of ``csrc/flash_attention_wide_tc.cu`` once (at 384 and 512 a
-    cluster of two CTAs a row block) and the CUDA-core wide kernels never."""
+    B 16, T 1370, causal, padded text keys), and in f32 at 3 heads of 320.
+    Each bf16 width launches the wgmma kernels of
+    ``csrc/flash_attention_wide_tc.cu`` once (at 384 and 512 a cluster of
+    two CTAs a row block), the f32 one the three-pass TF32 kernels of
+    ``csrc/flash_attention_f32_split.cu`` once (a cluster of five CTAs), and
+    the CUDA-core wide kernels never."""
     import torch
 
     from vilmedic_torch.ops.flash_attention import flash_attention
@@ -1977,13 +2052,14 @@ def phase_flash_wide():
     b, t, heads = 16, VL_TOKENS, 3
     key_mask = train_key_mask(b, t, "cuda")
     finite = True
-    widths = (256, 320, 384, 512)
+    widths = ((256, torch.bfloat16), (320, torch.bfloat16), (384, torch.bfloat16),
+              (512, torch.bfloat16), (320, torch.float32))
     reset_launches()
-    for d in widths:
-        q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").bfloat16()
+    for d, dtype in widths:
+        q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").to(dtype)
                    .requires_grad_() for _ in range(3))
         out = flash_attention(q, k, v, key_mask, True)
-        dout = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
         grads = torch.autograd.grad(out, (q, k, v), dout)
         finite &= bool(torch.isfinite(out).all()) and all(
             g.shape == x.shape and bool(torch.isfinite(g).all()) for g, x in zip(grads, (q, k, v)))
@@ -1991,12 +2067,14 @@ def phase_flash_wide():
     torch.cuda.synchronize()
     launches = read_launches()
     wide = {e: launches[e] for e in WIDE_ENTRIES}
-    print(f"flash_wide (heads of {', '.join(map(str, widths))}, forward and backward by "
-          f"autograd): {wide}")
+    print(f"flash_wide (bf16 heads of 256, 320, 384, 512 and f32 heads of 320, forward and "
+          f"backward by autograd): {wide}")
     require({"finite output and gradients of the inputs' shapes": finite,
-             "flash_attention_wide_tc.cu: forward, dq, dk/dv once per width":
-                 all(wide[e] == len(widths) for e in WIDE_ENTRIES[:3]),
-             "no CUDA-core wide kernel": not any(wide[e] for e in WIDE_ENTRIES[3:])},
+             "flash_attention_wide_tc.cu: forward, dq, dk/dv once per bf16 width":
+                 all(wide[e] == 4 for e in WIDE_ENTRIES[:3]),
+             "flash_attention_f32_split.cu: forward, dq, dk/dv once (f32)":
+                 all(wide[e] == 1 for e in WIDE_ENTRIES[3:6]),
+             "no CUDA-core wide kernel": not any(wide[e] for e in WIDE_ENTRIES[6:])},
             "flash_wide")
     torch.cuda.empty_cache()
     return launches
@@ -2462,8 +2540,9 @@ def device_ops(fn):
 def phase_vl_routes():
     """bf16, full width, one model: the int8-cache route (the config with
     the ensemblor's prefix_kv_dtype and gen_kv_dtype at int8) and the
-    fused-prefix route beside the merge route, each checked, then timed in
-    alternated blocks (merge, int8, fused, fused, int8, merge)."""
+    fused-prefix route beside the merge route, each checked (their
+    reports/s, device ops and device-busy ms per decode step are
+    ``time_port.py``'s ``serving``)."""
     import torch
 
     from vilmedic_torch.blocks.transformer import to_kernel_cache
@@ -2478,12 +2557,8 @@ def phase_vl_routes():
     b = sv["batch"]
     images = vl_images(b, sv["image"], SEED)
     args = (model, sv["beam"], sv["max_len"], VL_BOS, VL_EOS, VL_PAD)
-    routes = {
-        "merge": (make_vl_generate_fn(*args), {}),
-        "int8": (generate_int8, dict(prefix_kv_dtype=sv["prefix_kv_dtype"],
-                                     gen_kv_dtype=sv["gen_kv_dtype"])),
-        "fused": (make_vl_generate_fn(*args, fused_prefix=True), dict(fused_prefix=True)),
-    }
+    routes = {"merge": make_vl_generate_fn(*args), "int8": generate_int8,
+              "fused": make_vl_generate_fn(*args, fused_prefix=True)}
     print(f"VL routes: {os.path.relpath(VL_CONFIG, ROOT)} with {', '.join(INT8_SERVING)}, and "
           f"make_vl_generate_fn(fused_prefix=True); bf16, batch {b}, beam {sv['beam']}, max_len "
           f"{sv['max_len']}")
@@ -2500,7 +2575,7 @@ def phase_vl_routes():
         del cache, pkv, kcache
 
     runs = {}
-    for name, (generate, _) in routes.items():
+    for name, generate in routes.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2537,32 +2612,9 @@ def phase_vl_routes():
         print(f"VL {name} route: {agree:.4f} of {b} beam sequences equal to the merge route's "
               f"(reported, not required), max |score diff| {diff:.3e}")
 
-    # device ops and device-busy ms per decode step: a short generate's
-    # events less its prefill's
-    ops = {}
-    for name, (_, kwargs) in routes.items():
-        short = make_vl_generate_fn(model, sv["beam"], OPS_LEN, VL_BOS, VL_EOS, VL_PAD, **kwargs)
-        res, n_all, ms_all = device_ops(lambda: short(img))
-        with torch.inference_mode():
-            _, n_prefill, ms_prefill = device_ops(lambda: module.prefill(
-                img, OPS_LEN, quantize_prefix=name == "int8"))
-        ops[name] = ((n_all - n_prefill) / res.steps, (ms_all - ms_prefill) / res.steps)
-
-    times = {name: [] for name in routes}
-    for name in ("merge", "int8", "fused", "fused", "int8", "merge"):
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            routes[name][0](images.to("cuda", non_blocking=True))
-            torch.cuda.synchronize()
-            times[name].append(time.perf_counter() - t0)
-    for name, ts in times.items():
-        med = statistics.median(ts)
-        print(f"VL {name:5s} route batch {b}: {b / med:.2f} reports/s (median of {len(ts)} in two "
-              f"alternated blocks: {b / statistics.median(ts[:len(ts) // 2]):.2f} / "
-              f"{b / statistics.median(ts[len(ts) // 2:]):.2f}; spread {(max(ts) - min(ts)) / med * 100:.1f}%), "
-              f"{ops[name][0]:.1f} device ops and {ops[name][1]:.3f} device-busy ms per decode "
-              f"step, peak {runs[name][2]:.2f} GiB")
+    for name, (_, _, peak) in runs.items():
+        print(f"VL {name:5s} route batch {b}: peak {peak:.2f} GiB (reports/s, device ops and "
+              f"device-busy ms per decode step: time_port.py)")
     launches = {"vl_int8": runs["int8"][1], "vl_fused": runs["fused"][1]}
     del model, module, routes, runs, img
     torch.cuda.empty_cache()
@@ -8115,8 +8167,11 @@ def main():
     launches["vl"] = timed(phase_vl_slice)
     launches["vl_parity"] = timed(phase_vl_parity)
     launches.update(timed(phase_vl_routes))
-    timed(phase_vl_routes_parity)
+    # the greedy and small-vocab routes' card work before the routes'
+    # parity, so that the helper's CPU halves are ready when each parity
+    # reads them (the parities keep the helper's order)
     launches.update(timed(phase_vl_greedy_small_vocab))
+    timed(phase_vl_routes_parity)
     timed(phase_vl_greedy_small_vocab_parity)
     launches["vl_train"] = timed(phase_vl_train)
     timed(phase_vl_train_sanity)

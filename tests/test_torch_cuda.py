@@ -453,7 +453,9 @@ def test_flash_wide_head_dims(cuda, dtype, d, tq, tk, causal):
     padded to 256; bf16 on the wgmma kernels of ``flash_attention_wide_tc.cu``
     at every width (256 and 320 one CTA a row block; 384, 448 padded to 512,
     and 512 a pair of CTAs that split the head dim; 1000 padded to 1024,
-    four), f32 at all of them on the CUDA-core ``flash_attention_wide.cu``.
+    four), f32 at all of them on the three-pass TF32 kernels of
+    ``flash_attention_f32_split.cu`` (160 padded to 192 and 192 as three
+    64-column shares of a cluster, 1000 padded to 1024 as sixteen).
     K4, K4 with LSE and K5 launch, only on those entries, and match the
     plain versions at the head dim itself, ragged on both axes, with rows
     that see no key."""
@@ -475,7 +477,7 @@ def test_flash_wide_head_dims(cuda, dtype, d, tq, tk, causal):
                                    .float(), rtol=TOL[dtype], atol=TOL[dtype])
         _flash_grads_match(q, k, v, km, causal)
     assert [fn.launches - s for fn, s in zip(counters, start)] == [2, 2, 2, 2]
-    route = "wide_tc" if dtype == torch.bfloat16 else "wide"
+    route = "wide_tc" if dtype == torch.bfloat16 else "f32_split"
     launched = {e: n - entries.get(e, 0) for e, n in fa.ENTRY_LAUNCHES.items()
                 if n != entries.get(e, 0)}
     assert launched == {f"vt_flash_attention_{route}": 4, f"vt_flash_attention_bwd_dq_{route}": 2,
@@ -500,6 +502,62 @@ def test_flash_wide_clusters_of_three_to_sixteen(cuda, d, tq, tk):
     launched = {e for e, n in fa.ENTRY_LAUNCHES.items() if n != entries.get(e, 0)}
     assert launched == {"vt_flash_attention_wide_tc", "vt_flash_attention_bwd_dq_wide_tc",
                         "vt_flash_attention_bwd_dkv_wide_tc"}
+
+
+@pytest.mark.parametrize("d,tq,tk", [(128, 300, 100), (192, 70, 200), (320, 300, 100),
+                                     (512, 130, 200), (576, 200, 70), (1024, 70, 130)])
+def test_flash_f32_split_clusters_of_two_to_sixteen(cuda, monkeypatch, d, tq, tk):
+    """f32 heads split across clusters of 2 (D 128 routed to the split
+    kernels here: the public route gives it one CTA of
+    ``flash_attention_f32.cu``, and splits f32 only from 192), 3, 5, 8, 9
+    (a non-portable cluster) and 16 CTAs of 64 columns, three TF32 passes,
+    partial scores summed over the cluster each tile: K4 with LSE and K5
+    (out, lse, dq, dk, dv, dbias) match the plain versions within the f32
+    bounds, causal with a key mask, Tq != Tk, on the split entries only;
+    two runs agree bit for bit (no atomics, fixed sum order)."""
+    if d == 128:
+        route = fa.kernel_route
+        monkeypatch.setattr(fa, "kernel_route", lambda dtype, width: "f32_split"
+                            if dtype == torch.float32 and width == 128 else route(dtype, width))
+    gen = torch.Generator().manual_seed(d + tq + 23)
+    q, dout = (torch.randn(2, tq, 3, d, generator=gen).to(cuda) for _ in range(2))
+    k, v = (torch.randn(2, tk, 3, d, generator=gen).to(cuda) for _ in range(2))
+    key_mask = torch.ones(2, tk, dtype=torch.bool)
+    key_mask[1, tk - tk // 3:] = False
+    key_mask = key_mask.to(cuda)
+    entries = dict(fa.ENTRY_LAUNCHES)
+    _flash_grads_match(q, k, v, key_mask, True)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention_with_lse(q, k, v, key_mask, True)
+        runs.append((out, lse) + tuple(flash_attention_backward(q, k, v, key_mask, out, lse,
+                                                                dout, True)))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv", "dbias"), *runs):
+        assert torch.equal(a, b), name
+    launched = {e: n - entries.get(e, 0) for e, n in fa.ENTRY_LAUNCHES.items()
+                if n != entries.get(e, 0)}
+    assert launched == {"vt_flash_attention_f32_split": 3,
+                        "vt_flash_attention_bwd_dq_f32_split": 3,
+                        "vt_flash_attention_bwd_dkv_f32_split": 3}
+
+
+def test_flash_f32_above_1024_runs_on_the_cuda_cores(cuda):
+    """An f32 head wider than 16 shares of 64 columns (1088) runs on the
+    CUDA-core ``flash_attention_wide.cu``'s f32 entries: K4, K4 with LSE and
+    K5 against the plain versions, causal with padded keys."""
+    gen = torch.Generator().manual_seed(1088)
+    q, k, v = (torch.randn(1, 96, 2, 1088, generator=gen).to(cuda) for _ in range(3))
+    key_mask = torch.ones(1, 96, dtype=torch.bool, device=cuda)
+    key_mask[0, 80:] = False
+    entries = dict(fa.ENTRY_LAUNCHES)
+    out = flash_attention(q, k, v, key_mask, True)
+    torch.testing.assert_close(out, flash_attention_reference(q, k, v, key_mask, True),
+                               rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    _flash_grads_match(q, k, v, key_mask, True)
+    launched = {e: n - entries.get(e, 0) for e, n in fa.ENTRY_LAUNCHES.items()
+                if n != entries.get(e, 0)}
+    assert launched == {"vt_flash_attention_wide": 2, "vt_flash_attention_bwd_dq_wide": 1,
+                        "vt_flash_attention_bwd_dkv_wide": 1}
 
 
 def test_flash_refuses_bf16_heads_above_5120(cuda):

@@ -10,6 +10,7 @@ suffix key masks under the causal mask.
 """
 
 import ctypes
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -167,15 +168,19 @@ BF16_WIDTHS = {448: 512, 576: 640, 704: 768, 2624: 2880}
                                      (2600, 2624), (5120, 5120)])
 def test_padded_head_dim_above_128(d, width):
     """Above 128 the card runs 256 (the wgmma kernels' largest), above 256
-    the next multiple of 64 (the wide kernels' chunk), and in bf16 above 320
-    the next width a cluster of CTAs splits into equal shares of 192, 256 or
-    320 columns; and names the C entry that takes it: f32 the CUDA-core wide
-    kernels, bf16 the wgmma ones of ``flash_attention_wide_tc.cu`` at every
-    width."""
+    the next multiple of 64 (the wide kernels' chunk); in f32 every head
+    above 128 the next multiple of 64 (n shares of 64 columns of a cluster),
+    and in bf16 above 320 the next width a cluster of CTAs splits into equal
+    shares of 192, 256 or 320 columns; and names the C entry that takes it:
+    f32 the three-pass TF32 split kernels up to 1024 (16 shares) and the
+    CUDA-core wide kernels above, bf16 the wgmma ones of
+    ``flash_attention_wide_tc.cu`` at every width here."""
     bf16_width = BF16_WIDTHS.get(width, width)
-    assert padded_head_dim(d) == width == padded_head_dim(d, torch.float32)
+    f32_width = -(-d // 64) * 64
+    assert padded_head_dim(d) == width
+    assert padded_head_dim(d, torch.float32) == f32_width
     assert padded_head_dim(d, torch.bfloat16) == bf16_width
-    assert kernel_route(torch.float32, width) == "wide"
+    assert kernel_route(torch.float32, f32_width) == ("f32_split" if f32_width <= 1024 else "wide")
     assert kernel_route(torch.bfloat16, bf16_width) == "wide_tc"
 
 
@@ -193,16 +198,40 @@ def test_split_of_takes_every_bf16_width(width):
     assert fa._head_args(torch.bfloat16, n * w) == (n * w, n)
 
 
+@pytest.mark.parametrize("d,width,route", [
+    (129, 192, "f32_split"), (192, 192, "f32_split"), (256, 256, "f32_split"),
+    (300, 320, "f32_split"), (320, 320, "f32_split"), (1000, 1024, "f32_split"),
+    (1024, 1024, "f32_split"), (1025, 1088, "wide"), (1088, 1088, "wide"),
+])
+def test_f32_split_of_takes_every_f32_width_to_1024(d, width, route):
+    """An f32 head above 128 pads to the next multiple of 64 and runs, up
+    to 1024 (16 shares, the largest split), as a cluster of width / 64 CTAs
+    of 64 columns on the ``f32_split`` entries, which take the cluster size
+    after the head dim; a width above runs on the CUDA-core entries, which
+    take the head dim alone."""
+    assert padded_head_dim(d, torch.float32) == width
+    assert kernel_route(torch.float32, width) == route
+    n, w = fa.f32_split_of(width)
+    assert (n, w) == (width // 64, fa.F32_SHARE) == (width // 64, 64)
+    split = route == "f32_split"
+    assert fa._head_args(torch.float32, width) == ((width, n) if split else (width,))
+    for part in ("", "_bwd_dq", "_bwd_dkv"):
+        assert len(cuda_lib.SIGNATURES[f"vt_flash_attention{part}_{route}"]) \
+            == len(cuda_lib.SIGNATURES[f"vt_flash_attention{part}_f32"]) + split
+
+
 @pytest.mark.parametrize("dtype,width,args", [
     (torch.bfloat16, 128, (128,)), (torch.bfloat16, 256, (256, 1)),
     (torch.bfloat16, 320, (320, 1)), (torch.bfloat16, 384, (384, 2)),
     (torch.bfloat16, 1024, (1024, 4)), (torch.bfloat16, 2880, (2880, 9)),
-    (torch.bfloat16, 5120, (5120, 16)), (torch.float32, 384, (384,)),
+    (torch.bfloat16, 5120, (5120, 16)), (torch.float32, 384, (384, 6)),
+    (torch.float32, 128, (128,)), (torch.float32, 1088, (1088,)),
 ])
 def test_head_args_give_the_wide_tc_entries_their_cluster(dtype, width, args):
-    """The ``wide_tc`` entries take the CTAs a head (1 at 256 and 320, a
-    cluster above) after the head dim, one int more than the other entries;
-    the caller, which pads to :func:`split_of`, is the one place that
+    """The ``wide_tc`` and ``f32_split`` entries take the CTAs a head (bf16:
+    1 at 256 and 320, a cluster above; f32: one CTA a 64-column share) after
+    the head dim, one int more than the other entries; the caller, which
+    pads to :func:`split_of` or :func:`f32_split_of`, is the one place that
     chooses it."""
     assert fa._head_args(dtype, width) == args
     entry = f"vt_flash_attention_{fa.kernel_route(dtype, width)}"
@@ -211,22 +240,29 @@ def test_head_args_give_the_wide_tc_entries_their_cluster(dtype, width, args):
 
 
 def test_cuda_core_route_is_f32_only():
-    """Up to the widest head a cluster of CTAs splits (5120), the CUDA-core
-    ``csrc/flash_attention_wide.cu`` is an f32 route alone: every f32 width
-    above 128 routes to its f32 entries, and no bf16 width from 129 to 5120
-    routes to it (those run on the wgmma kernels of ``wide_tc``)."""
+    """Up to the widest head a cluster of CTAs splits in bf16 (5120), the
+    CUDA-core ``csrc/flash_attention_wide.cu`` is an f32 route alone, and
+    only above the widest f32 head a cluster splits (16 shares of 64, 1024):
+    f32 from 192 to 1024 routes to the three-pass TF32 split entries, f32
+    from 1088 to 5120 to the CUDA-core f32 entries, and no bf16 width from
+    129 to 5120 to the CUDA cores (those run on the wgmma kernels of
+    ``wide_tc``)."""
     for part in ("", "_bwd_dq", "_bwd_dkv"):
         assert cuda_lib.SIGNATURES[f"vt_flash_attention{part}_wide"][0] is ctypes.c_void_p
-    for width in (192, 256, 320, 384, 1024, 4096, 5120):
+    for width in (192, 256, 320, 384, 1024):
+        assert kernel_route(torch.float32, width) == "f32_split"
+        assert kernel_route(torch.bfloat16, width) == "wide_tc"
+    for width in (1088, 2048, 4096, 5120):
         assert kernel_route(torch.float32, width) == "wide"
         assert kernel_route(torch.bfloat16, width) == "wide_tc"
 
 
 def test_cuda_core_routes_take_f32_above_128_and_bf16_above_5120():
-    """Above 5120 the CUDA-core file also takes bf16, through entries of
-    their own (``_wide_bf16``, the f32 entries' arguments, no dtype flag):
-    bf16 heads wider than the 16 CTAs of a cluster split route there, f32
-    at the same widths to the f32 entries."""
+    """The CUDA-core file takes the heads wider than a cluster of 16 CTAs
+    splits, in each dtype through entries of its own (``_wide`` and
+    ``_wide_bf16``, the same arguments, no dtype flag, no cluster size):
+    f32 above 1024 (it took f32 from 129 before the split kernels) and bf16
+    above 5120; f32 from 129 to 1024 never routes there."""
     source = (cuda_lib.CSRC_DIR / "flash_attention_wide.cu").read_text()
     assert 'extern "C" int vt_flash_attention_wide_bf16(' in source
     for part in ("", "_bwd_dq", "_bwd_dkv"):
@@ -235,6 +271,10 @@ def test_cuda_core_routes_take_f32_above_128_and_bf16_above_5120():
     for width in (5184, 5248, 8192):
         assert kernel_route(torch.float32, width) == "wide"
         assert kernel_route(torch.bfloat16, width) == "wide_bf16"
+    for d in (1025, 1088, 2000):
+        assert kernel_route(torch.float32, padded_head_dim(d, torch.float32)) == "wide"
+    for d in (129, 500, 1024):
+        assert kernel_route(torch.float32, padded_head_dim(d, torch.float32)) == "f32_split"
 
 
 class _StandInLibrary:
@@ -259,7 +299,8 @@ class _StandInLibrary:
     (torch.bfloat16, 256, "wide_tc"), (torch.bfloat16, 320, "wide_tc"),
     (torch.bfloat16, 384, "wide_tc"), (torch.bfloat16, 512, "wide_tc"),
     (torch.bfloat16, 1024, "wide_tc"), (torch.float32, 128, "f32"),
-    (torch.float32, 256, "wide"), (torch.float32, 320, "wide"),
+    (torch.float32, 256, "f32_split"), (torch.float32, 320, "f32_split"),
+    (torch.float32, 1024, "f32_split"), (torch.float32, 1088, "wide"),
     (torch.float32, 16, "f32"), (torch.float32, 32, "f32"), (torch.float32, 64, "f32"),
     (torch.bfloat16, 5184, "wide_bf16"), (torch.bfloat16, 5248, "wide_bf16"),
 ])
@@ -269,8 +310,9 @@ def test_entry_calls_the_routed_c_entry(monkeypatch, name, dtype, width, suffix)
     ``flash_attention_f32.cu``; bf16 above 128 the wgmma kernels of
     ``flash_attention_wide_tc.cu`` (one CTA a row block at 256 and 320, a
     cluster above) up to 5120, the CUDA-core wide kernels' bf16 entries
-    above; f32 above 128 the CUDA-core wide kernels; no entry takes a dtype
-    flag. It counts the
+    above; f32 above 128 the three-pass TF32 kernels of
+    ``flash_attention_f32_split.cu`` up to 1024, the CUDA-core wide kernels
+    above; no entry takes a dtype flag. It counts the
     launch under that entry; a non-zero status raises and counts nothing.
     The function is looked up once per library."""
     stand_in = _StandInLibrary()
@@ -287,23 +329,32 @@ def test_entry_calls_the_routed_c_entry(monkeypatch, name, dtype, width, suffix)
     assert fa.ENTRY_LAUNCHES == {entry: 1}
 
 
-@pytest.mark.parametrize("d", [160, 256, 320, 384, 448, 512])
-@pytest.mark.parametrize("causal", [False, True])
-def test_wide_head_dims_match_jax_v1(d, causal):
-    """Head dims above 128 (JAX's v1 kernel, which takes any D): the plain
-    forward equals JAX's in interpret mode, with a key mask; run as the card
-    runs it in bf16 (zero-padded to ``padded_head_dim(d, bfloat16)``: 448 to
-    512, the split kernels' widths; true scale) it equals the unpadded plain
-    version."""
+@functools.lru_cache(maxsize=None)
+def _wide_case(d: int, causal: bool):
+    """The inputs of a wide-head case and JAX's v1 output on them (one
+    interpret-mode run, whichever dtype's padding a case checks)."""
     (q, k, v), rng = _inputs(6 + d, 2, 100, 130 if not causal else 100, 2, d)
     key_mask = (rng.random((2, k.shape[1])) > 0.2).astype(np.int32)
     key_mask[:, 0] = 1
+    return q, k, v, key_mask, _run_jax(q, k, v, key_mask, causal)
+
+
+@pytest.mark.parametrize("d", [160, 256, 320, 384, 448, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_head_dims_match_jax_v1(d, causal, dtype):
+    """Head dims above 128 (JAX's v1 kernel, which takes any D): the plain
+    forward equals JAX's in interpret mode, with a key mask; run as the card
+    runs it in the case's dtype (zero-padded to ``padded_head_dim(d,
+    dtype)``: in bf16 448 to 512, the split kernels' widths; in f32 160 to
+    192, three 64-column shares; true scale) it equals the unpadded plain
+    version."""
+    q, k, v, key_mask, want = _wide_case(d, causal)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     tm = torch.from_numpy(key_mask)
     out, lse = flash_attention_reference(tq, tk, tv, tm, causal, return_lse=True)
-    np.testing.assert_allclose(out.numpy(), _run_jax(q, k, v, key_mask, causal),
-                               rtol=TOL, atol=TOL)
-    width = padded_head_dim(d, torch.bfloat16)
+    np.testing.assert_allclose(out.numpy(), want, rtol=TOL, atol=TOL)
+    width = padded_head_dim(d, dtype)
     padded = [pad_head_dim(x, width) for x in (tq, tk, tv)]
     out_p, lse_p = flash_attention_reference(*padded, tm, causal, return_lse=True,
                                              scale=d ** -0.5)
@@ -348,10 +399,19 @@ def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor
     return (al @ bh + ah @ bl + ah @ bh).float()
 
 
-def _flash_tf32(q, k, v, passes: int) -> torch.Tensor:
+def _flash_tf32(q, k, v, passes: int, share=None) -> torch.Tensor:
     """One head's attention (T, D) with S = Q K^T and P V in ``passes``
-    TF32 passes, the softmax in f32 as the kernels run it."""
-    s = _tf32_product(q, k.t().contiguous(), passes) * q.shape[-1] ** -0.5
+    TF32 passes, the softmax in f32 as the kernels run it. With ``share``, S
+    is summed as the split kernels sum it: each CTA's ``share`` columns a
+    product of their own, rounded to f32, the partials added in rank order
+    in f32 (P V needs no such sum: each CTA writes its own columns)."""
+    share = share or q.shape[-1]
+    s = None
+    for c in range(0, q.shape[-1], share):
+        part = _tf32_product(q[:, c:c + share].contiguous(), k[:, c:c + share].t().contiguous(),
+                             passes)
+        s = part if s is None else s + part
+    s = s * q.shape[-1] ** -0.5
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return _tf32_product(p, v, passes) / p.sum(dim=-1, keepdim=True)
 
@@ -376,19 +436,22 @@ def test_split_tf32_halves_each_f32_word():
                                               1 + 2.0 ** -9]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 320, 512])
 def test_three_tf32_passes_hold_the_f32_tolerance(d):
     """At the tower's reduction lengths (1370 keys; head dim 64, and 128),
     attention with both products in three TF32 passes stays within the f32
     tolerance the card's checks hold the kernels to (1e-5, max abs, of the
     f32 plain version) and keeps f32's order of error against float64; one
-    pass misses it by orders of magnitude."""
+    pass misses it by orders of magnitude. At the split heads' widths (320
+    and 512: 5 and 8 CTAs) with S summed as those kernels sum it, in
+    64-column shares added in rank order."""
     rng = np.random.default_rng(1370 + d)
     q, k, v = (torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32))
                for t in (64, 1370, 1370))
     want = flash_attention_reference(q[None, :, None], k[None, :, None], v[None, :, None])[0, :, 0]
     exact = torch.softmax(q.double() @ k.double().t() * d ** -0.5, dim=-1) @ v.double()
-    three, one = _flash_tf32(q, k, v, 3), _flash_tf32(q, k, v, 1)
+    share = fa.f32_split_of(d)[1] if d > 128 else None
+    three, one = _flash_tf32(q, k, v, 3, share), _flash_tf32(q, k, v, 1, share)
     tol = 1e-5  # chip_smoke.FLASH_TOL["float32"], tests/test_torch_cuda.TOL
     assert (three - want).abs().max().item() <= tol
     assert (three.double() - exact).abs().max().item() <= 2 * (want.double() - exact).abs().max()

@@ -43,8 +43,9 @@ one JSON line:
   ``torch._scaled_mm`` and ``x[:8].float()``: all device ms per call
   (``torch.profiler``);
 - the flash kernels above head dim 128 (after the first item): bf16, B 16,
-  T 1370, 3 heads of 256, 320, 384, 448 and 512 (forward, causal forward,
-  with LSE and the whole backward, causal, padded text keys), CUDA events;
+  T 1370, 3 heads of 256, 320, 384, 448 and 512, and f32 at 3 heads of 256,
+  320, 384 and 512 (forward, causal forward, with LSE and the whole
+  backward, causal, padded text keys), CUDA events;
   ``null`` where the checkout raises; where the checkout pads the head dim
   (448 to 512), the padding copies alone of a forward (q, k, v in, out
   back) and of a backward (q, k, v, dO into each of the two kernels; dq,
@@ -278,19 +279,19 @@ def time_small_kernels() -> dict:
     return ms
 
 
-def time_flash_wide() -> dict:
-    """K4 and K5 at 3 heads of 256, 320, 384, 448 and 512 (bf16, B 16,
-    T 1370), CUDA events, by head dim; None for a call the checkout
-    refuses."""
+def time_flash_wide(dtype="bfloat16", widths=(256, 320, 384, 448, 512)) -> dict:
+    """K4 and K5 at 3 heads of each of ``widths`` (B 16, T 1370), CUDA
+    events, by head dim; None for a call the checkout refuses."""
     import torch
 
     from vilmedic_torch.ops import flash_attention as fa
 
+    dtype = getattr(torch, dtype)
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
     mask = key_mask(B, TOKENS)
     ms = {}
-    for d in (256, 320, 384, 448, 512):
-        q, k, v, dout = (torch.randn(B, TOKENS, 3, d, generator=gen, device="cuda").bfloat16()
+    for d in widths:
+        q, k, v, dout = (torch.randn(B, TOKENS, 3, d, generator=gen, device="cuda").to(dtype)
                          for _ in range(4))
         try:
             out, lse = fa.flash_attention_with_lse(q, k, v, mask, causal=True)
@@ -304,7 +305,7 @@ def time_flash_wide() -> dict:
                  "backward": cuda_ms(lambda: fa.flash_attention_backward(
                      q, k, v, mask, out, lse, dout, causal=True), reps=3)}
         try:
-            width = fa.padded_head_dim(d, torch.bfloat16)
+            width = fa.padded_head_dim(d, dtype)
         except TypeError:  # a checkout whose padding does not depend on the dtype
             width = fa.padded_head_dim(d)
         if width != d:  # the wrappers' zero-padding copies alone
@@ -505,6 +506,7 @@ def main():
     result["flash_f32_ms"] = time_flash_f32()
     result.update(time_flash())
     result["flash_wide_ms"] = time_flash_wide()
+    result["flash_wide_f32_ms"] = time_flash_wide("float32", (256, 320, 384, 512))
     if not flash_only:
         result["decode_kernels"] = time_decode_kernels()
         result["small_kernels_ms"] = time_small_kernels()

@@ -1,8 +1,9 @@
 // Flash attention, forward and backward, on the CUDA cores at the head dims
-// no tensor-core kernel takes: float32 above 128 (f32 up to 128 is
-// flash_attention_f32.cu) and bfloat16 above 5120, wider than the 16 CTAs
-// of Hopper's largest cluster split (bf16 from 129 to 5120 is
-// flash_attention_wide_tc.cu). Any head dim that is a multiple of 64.
+// no tensor-core kernel takes, wider than the 16 CTAs of Hopper's largest
+// cluster split: float32 above 1024 (f32 up to 128 is flash_attention_f32.cu,
+// from 129 to 1024 flash_attention_f32_split.cu) and bfloat16 above 5120
+// (bf16 from 129 to 5120 is flash_attention_wide_tc.cu). Any head dim that
+// is a multiple of 64.
 //
 // Replaces, at those head dims: vilmedic_tpu/ops/flash_attention.py::_kernel
 // (forward, with `with_lse`, reached through `_flash_bhtd`) and
@@ -18,9 +19,7 @@
 // What bounds it on the H100: the same products as the tensor-core kernels
 // (at B 16, T 1370, 3 heads of 256: 92 GFLOP forward), here on the CUDA
 // cores in f32 (67 TFLOP/s). It is the simple kernel that makes every head
-// dim run; its times are in PERF.md. The f32 route above 128 is the last
-// flash route on the CUDA cores (ROADMAP.md queues it for the three-pass
-// TF32 design of flash_attention_f32.cu).
+// dim run; its times are in PERF.md.
 //
 // Design: 256 threads own 32 rows of one (b, h) (queries: forward, dq; keys:
 // dk/dv) and one slab of at most 256 output columns (a head dim above 256

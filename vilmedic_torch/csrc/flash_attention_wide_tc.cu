@@ -123,18 +123,17 @@
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
+#include "split_rounds.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace rounds;
 
-constexpr int kRows = 64;      // rows a CTA owns (queries; keys for dk/dv)
 constexpr int kStages = 2;     // ring depth of a CTA that holds the whole head
 constexpr int kOneGroup = 160;   // one consumer warpgroup + the producer warp
 constexpr int kTwoGroups = 256;  // two consumer warpgroups, no producer warp (dk/dv)
-constexpr int kGroup = 128;      // threads of a warpgroup
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a CTA may take
-constexpr int kMaxSplit = 16;     // CTAs of a cluster (above 8: non-portable)
 
 // named barriers of the dk/dv kernel (1 and 2 are the epilogues' warpgroup barriers)
 constexpr int kBarPFull = 3;  // P^T is in shared memory
@@ -155,152 +154,6 @@ __device__ __forceinline__ void wgmma_rs_wide(float (&acc)[D / 2], const uint32_
   if constexpr (D % 128 != 0)
     hopper::wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&acc[64 * (D / 128)]), a,
                          hopper::desc_mn<D>(base + (D / 64 - 1) * CHUNK, ROWS, kc), 1);
-}
-
-// ------------------------------------------------------- the split's rounds
-
-// Init `count` barriers from bars[first], each expecting `arrivals`; thread
-// 0, before init_ring (whose fence and barrier then cover them).
-__device__ __forceinline__ void init_barriers(uint64_t* bars, int first, int count,
-                                              uint32_t arrivals) {
-  if (threadIdx.x == 0)
-    for (int i = 0; i < count; ++i) hopper::mbar_init(&bars[first + i], arrivals);
-}
-
-// This thread's part of a warpgroup's partial tile (an m64nN accumulator,
-// NREG = N / 2 floats) into `slot`: float4 i of thread tw at
-// (i * 128 + tw) * 4, so a warp writes, and reads, 512 contiguous bytes.
-template <int NREG>
-__device__ __forceinline__ void put_partial(const float (&x)[NREG], float* slot, int tw) {
-#pragma unroll
-  for (int i = 0; i < NREG / 4; ++i)
-    *reinterpret_cast<float4*>(slot + (i * 128 + tw) * 4) =
-        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
-}
-
-// Arrive on the barrier at `bar`'s offset in every other CTA of the cluster
-// (each expects (n - 1) * its threads' arrivals a round).
-__device__ __forceinline__ void publish(uint64_t* bar, uint32_t n, uint32_t rank) {
-  for (uint32_t r = 0; r < n; ++r)
-    if (r != rank) hopper::mbar_arrive_remote(hopper::map_rank(bar, r));
-}
-
-// x = the sum of the n CTAs' partial tiles at `slot`'s offset, in rank order
-// (the same values in the same order in every CTA: the same bits).
-template <int NREG>
-__device__ __forceinline__ void sum_partials(float (&x)[NREG], const float* slot, uint32_t n,
-                                             int tw) {
-  for (uint32_t r = 0; r < n; ++r) {
-    const uint32_t at = hopper::map_rank(slot, r) + tw * 16;
-#pragma unroll
-    for (int i = 0; i < NREG / 4; ++i) {
-      const float4 v = hopper::ld_cluster_f4(at + i * 128 * 16);
-      x[4 * i + 0] = r == 0 ? v.x : x[4 * i + 0] + v.x;
-      x[4 * i + 1] = r == 0 ? v.y : x[4 * i + 1] + v.y;
-      x[4 * i + 2] = r == 0 ? v.z : x[4 * i + 2] + v.z;
-      x[4 * i + 3] = r == 0 ? v.w : x[4 * i + 3] + v.w;
-    }
-  }
-}
-
-// A round's barrier (one per partial buffer) expects, each round: a pair
-// (n 2) pushes its partial into the other CTA's buffer by st.async, which
-// completes transaction bytes on that CTA's barrier, armed by one local
-// arrival; from 3 CTAs each CTA's partial stays in its own buffer and every
-// thread of the others' warpgroups arrives once it is written.
-__device__ __forceinline__ uint32_t round_arrivals(uint32_t n) {
-  return n == 2 ? 1 : (n - 1) * kGroup;
-}
-
-// one partial tile (NREG floats a thread) into the other CTA of a pair by
-// st.async: float4 i of thread tw at `at` (its address there) + i * 2048
-template <int NREG>
-__device__ __forceinline__ void push_tile(const float (&x)[NREG], uint32_t at, uint32_t rbar) {
-#pragma unroll
-  for (int i = 0; i < NREG / 4; ++i)
-    hopper::st_async_f4(at + i * 128 * 16,
-                        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]), rbar);
-}
-
-// x += the partial tile at `slot` in this CTA's shared memory
-template <int NREG>
-__device__ __forceinline__ void add_local(float (&x)[NREG], const float* slot, int tw) {
-#pragma unroll
-  for (int i = 0; i < NREG / 4; ++i) {
-    const float4 v = *reinterpret_cast<const float4*>(slot + (i * 128 + tw) * 4);
-    x[4 * i + 0] += v.x;
-    x[4 * i + 1] += v.y;
-    x[4 * i + 2] += v.z;
-    x[4 * i + 3] += v.w;
-  }
-}
-
-// Send this warpgroup's partial tiles (one or two) of round `round`
-// (counting from 0), one after the other in buffer round % 2 of `slots`:
-// pushed into the other CTA's buffer (n 2), or written to this CTA's and
-// announced on the round's barrier of every other CTA.
-template <typename... Tiles>
-__device__ __forceinline__ void send_partial(float* slots, uint64_t* bars, int round, uint32_t n,
-                                             uint32_t rank, int tw, const Tiles&... tiles) {
-  constexpr int floats = ((sizeof(Tiles) / 4) + ...);  // a thread's, over the tiles
-  float* slot = slots + (round & 1) * 128 * floats;
-  uint64_t* bar = &bars[round & 1];
-  if (n == 2) {
-    if (tw == 0) hopper::mbar_arrive_expect_tx(bar, 128 * floats * 4);  // the other's partial
-    uint32_t at = hopper::map_rank(slot, rank ^ 1) + tw * 16;
-    const uint32_t rbar = hopper::map_rank(bar, rank ^ 1);
-    ((push_tile(tiles, at, rbar), at += 128 * sizeof(Tiles)), ...);
-  } else {
-    ((put_partial(tiles, slot, tw), slot += 128 * (sizeof(Tiles) / 4)), ...);
-    publish(bar, n, rank);
-  }
-}
-
-// Once every CTA has sent round `round`: the tiles = the sum of the
-// cluster's partials, in place. A pair adds the other's partial to its own
-// (own + other is other + own: both CTAs get the same bits); from 3 CTAs the
-// partials are summed in rank order.
-template <typename... Tiles>
-__device__ __forceinline__ void sum_round(const float* slots, uint64_t* bars, int round,
-                                          uint32_t n, int tw, Tiles&... tiles) {
-  constexpr int floats = ((sizeof(Tiles) / 4) + ...);
-  const float* slot = slots + (round & 1) * 128 * floats;
-  hopper::mbar_wait<true>(&bars[round & 1], (round >> 1) & 1);
-  if (n == 2)
-    ((add_local(tiles, slot, tw), slot += 128 * (sizeof(Tiles) / 4)), ...);
-  else
-    ((sum_partials(tiles, slot, n, tw), slot += 128 * (sizeof(Tiles) / 4)), ...);
-}
-
-// the grid of a kernel over `rows` rows a CTA, `n` CTAs a row block
-inline dim3 row_grid(int rows, int n, int H, int B) {
-  return dim3((rows + kRows - 1) / kRows * n, H, B);
-}
-
-// Launch `kernel`, as clusters of n CTAs along x (n 1: no cluster; above 8,
-// the portable size, the kernel is let take a non-portable cluster).
-template <typename... Params, typename... Args>
-int launch_kernel(void (*kernel)(Params...), dim3 grid, int threads, int smem, int n,
-                  cudaStream_t stream, Args... args) {
-  if (n > 8) {
-    const cudaError_t st =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (st != cudaSuccess) return (int)st;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = n > 1 ? 1 : 0;
-  const cudaError_t st = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return st != cudaSuccess ? (int)st : (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ forward

@@ -62,6 +62,9 @@ SIGNATURES = {
     "vt_flash_attention_wide_tc": [_P] * 6 + [_I] * 7 + [_F, _P],
     "vt_flash_attention_bwd_dq_wide_tc": [_P] * 8 + [_I] * 7 + [_F, _P],
     "vt_flash_attention_bwd_dkv_wide_tc": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "vt_flash_attention_f32_split": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "vt_flash_attention_bwd_dq_f32_split": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "vt_flash_attention_bwd_dkv_f32_split": [_P] * 10 + [_I] * 7 + [_F, _P],
     "vt_lm_head_blocked_stats_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_blocked_stats_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_topk_lse_f32": [_P] * 10 + [_I] * 5 + [_P],

@@ -23,21 +23,25 @@ differentiable; dbias (summed over heads, as JAX does) comes out of
 Every entry launches, for CUDA tensors, ``csrc/flash_attention.cu`` (K4)
 and ``csrc/flash_attention_bwd.cu`` (K5) in bf16 or
 ``csrc/flash_attention_f32.cu`` in float32 up to head dim 128, and above it
-``csrc/flash_attention_wide_tc.cu`` (bf16) or ``csrc/flash_attention_wide.cu``
-(float32, and bf16 wider than a cluster splits), or raises; it runs the
-same function in plain PyTorch (``*_reference``) for CPU tensors, so
-autograd on the CPU goes through the port's own backward too. The float32
-kernels run on the tensor cores as three TF32 passes (:func:`split_tf32`
-gives the halves): one pass would not hold the f32 route's parity with the
-plain version, three keep f32's own order of error.
+``csrc/flash_attention_wide_tc.cu`` (bf16) or
+``csrc/flash_attention_f32_split.cu`` (float32), both as a cluster of CTAs
+that split the head dim where one CTA does not hold it, and
+``csrc/flash_attention_wide.cu`` for heads wider than a cluster splits, or
+raises; it runs the same function in plain PyTorch (``*_reference``) for
+CPU tensors, so autograd on the CPU goes through the port's own backward
+too. The float32 tensor-core kernels run as three TF32 passes
+(:func:`split_tf32` gives the halves): one pass would not hold the f32
+route's parity with the plain version, three keep f32's own order of error.
 
 Head dims: every d runs on the card, at :func:`padded_head_dim` (d, dtype):
 the least of ``HEAD_DIMS`` (16, 32, 64, 128, 256) at or above it; above 256
-the next multiple of ``WIDE_STEP`` (64), and in bf16 above 320 the next
+(in float32 above 128) the next multiple of ``WIDE_STEP`` (64), which the
+float32 kernels split into n shares of ``F32_SHARE`` (64) columns up to 16
+CTAs (:func:`f32_split_of`: 192 to 1024), and in bf16 above 320 the next
 width that a cluster of n CTAs splits into n equal shares of 192, 256 or
 320 columns (:func:`split_of`: 384, 512, 640 as pairs, 768 to 1280 as 3 or
-4, up to 5120 as 16; wider bf16 heads stay at the multiple of 64, on the
-CUDA cores). q, k, v (and dO, O) get zero columns along D, the
+4, up to 5120 as 16). Wider heads stay at the multiple of 64, on the CUDA
+cores. q, k, v (and dO, O) get zero columns along D, the
 kernels take the true scale ``d ** -0.5``, and the outputs are sliced back
 to d. Zero columns change no score, no output column, no LSE and no
 ``delta``, so this is the same function (the JAX package's v1 kernel, which
@@ -59,6 +63,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are built for
 WIDE_STEP = 64  # above 256: the wide kernels' head-dim chunk
 SPLIT_WIDTHS = (192, 256, 320)  # bf16 above 320: the columns a CTA of a cluster holds
 SPLIT_MAX = 16  # CTAs of a cluster (Hopper's largest, non-portable above 8)
+F32_SHARE = 64  # f32 above 128: the columns a CTA of a cluster holds
 ENTRY_LAUNCHES: dict = {}  # C entry name -> launches
 _ENTRIES: dict = {}  # (C entry name, library) -> its function
 
@@ -88,17 +93,29 @@ def split_of(width: int) -> tuple:
     return n, -(-width // (n * WIDE_STEP)) * WIDE_STEP
 
 
+def f32_split_of(width: int) -> tuple:
+    """``(n, w)``: the CTAs of the cluster that an f32 head of (a multiple
+    of ``WIDE_STEP``) ``width`` above 128 takes and the columns each holds:
+    ``w = F32_SHARE``, the narrowest share, so n = width / 64 (3 at 192).
+    The head runs on the split kernels when n is at most ``SPLIT_MAX`` (up
+    to 1024; 128-column shares do not fit the dq kernel's shared memory)."""
+    return -(-width // F32_SHARE), F32_SHARE
+
+
 def padded_head_dim(d: int, dtype=None) -> int:
     """The head dim that head dim ``d`` runs at on the card: the least one in
-    ``HEAD_DIMS`` at or above ``d``; above the largest, ``d`` rounded up to a
-    multiple of ``WIDE_STEP``, and for bf16 above 320 to the width
+    ``HEAD_DIMS`` at or above ``d``; above the largest (for float32 above
+    128), ``d`` rounded up to a multiple of ``WIDE_STEP``, which
+    :func:`f32_split_of` splits as it is; for bf16 above 320 the width
     :func:`split_of` gives, where a cluster splits it (up to 5120)."""
     if d < 1:
         raise ValueError(f"flash attention: head dim {d}")
+    width = -(-d // WIDE_STEP) * WIDE_STEP
+    if dtype == torch.float32 and d > HEAD_DIMS[-2]:
+        return width
     for built in HEAD_DIMS:
         if d <= built:
             return built
-    width = -(-d // WIDE_STEP) * WIDE_STEP
     if dtype == torch.bfloat16 and width > SPLIT_WIDTHS[-1]:
         n, w = split_of(width)
         if n <= SPLIT_MAX:
@@ -111,15 +128,18 @@ def kernel_route(dtype, width: int) -> str:
     head dim ``width``: ``bf16`` up to 128, the wgmma kernels of
     ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``; ``f32``
     up to 128, ``csrc/flash_attention_f32.cu`` (wgmma, three TF32 passes);
-    ``wide_tc`` for bf16 above 128 up to ``SPLIT_MAX`` * 320 = 5120, the
-    wgmma kernels of ``csrc/flash_attention_wide_tc.cu`` (one CTA a row
-    block at 256 and 320, a cluster of :func:`split_of` CTAs above); on the
-    CUDA cores of ``csrc/flash_attention_wide.cu``, ``wide`` for f32 above
-    128 and ``wide_bf16`` for bf16 heads wider than a cluster splits."""
+    ``f32_split`` for f32 above 128 up to ``SPLIT_MAX`` * 64 = 1024,
+    ``csrc/flash_attention_f32_split.cu`` (three TF32 passes, a cluster of
+    :func:`f32_split_of` CTAs); ``wide_tc`` for bf16 above 128 up to
+    ``SPLIT_MAX`` * 320 = 5120, the wgmma kernels of
+    ``csrc/flash_attention_wide_tc.cu`` (one CTA a row block at 256 and
+    320, a cluster of :func:`split_of` CTAs above); on the CUDA cores of
+    ``csrc/flash_attention_wide.cu``, ``wide`` for f32 and ``wide_bf16``
+    for bf16 heads wider than a cluster splits."""
     if width <= 128:
         return "bf16" if dtype == torch.bfloat16 else "f32"
     if dtype != torch.bfloat16:
-        return "wide"
+        return "f32_split" if width <= SPLIT_MAX * F32_SHARE else "wide"
     return "wide_tc" if width <= SPLIT_MAX * SPLIT_WIDTHS[-1] else "wide_bf16"
 
 
@@ -231,11 +251,15 @@ def _entry(name: str, dtype, width: int):
 
 def _head_args(dtype, width: int) -> tuple:
     """The C entries' head-dim arguments at the padded ``width``: ``(width,)``,
-    and for the ``wide_tc`` entries ``(width, n)``, n the CTAs a head takes
-    (:func:`split_of`; 1 at 256 and 320), which the entry checks against the
-    widths it is built for."""
-    if kernel_route(dtype, width) == "wide_tc":
+    and for the ``wide_tc`` and ``f32_split`` entries ``(width, n)``, n the
+    CTAs a head takes (:func:`split_of`, 1 at 256 and 320;
+    :func:`f32_split_of`), which the entry checks against the widths it is
+    built for."""
+    route = kernel_route(dtype, width)
+    if route == "wide_tc":
         return width, split_of(width)[0]
+    if route == "f32_split":
+        return width, f32_split_of(width)[0]
     return (width,)
 
 
