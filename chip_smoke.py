@@ -1005,6 +1005,8 @@ def ptxas_usage(source: str) -> dict:
                 name = found.group(1)
                 if found.group(2) is not None:  # int and bool template arguments
                     name += f"<{','.join(re.findall(r'L[ib](\d+)E', found.group(2) + 'E'))}>"
+                if source == "flash_attention_gemm":  # + class and element type arguments
+                    name = gemm_kernel_label(entry.group(1))
                 usage[name] = {}
         elif name and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -1012,6 +1014,20 @@ def ptxas_usage(source: str) -> dict:
         elif name and re.search(r"Used \d+ registers", line):
             usage[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
     return usage
+
+
+def gemm_kernel_label(mangled: str) -> str:
+    """``name<int and bool arguments, epilogue class, element type>`` of a
+    kernel of ``csrc/flash_attention_gemm.cu`` from its mangled name (one
+    label for each instantiation)."""
+    found = re.search(r"([a-z_]+_kernel)(I.*?Ev)?", mangled)
+    args = found.group(2) or ""
+    label = re.findall(r"L[ib](\d+)E", args)
+    for at in re.finditer(r"NS_(\d+)", args):
+        label.append(args[at.end():at.end() + int(at.group(1))])
+    label += ["f32"] if re.search(r"If(E|$)", args) else []
+    label += ["bf16"] if "__nv_bfloat16" in args else []
+    return f"{found.group(1)}<{','.join(label)}>"
 
 
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # K4's out and K5's dq / dk / dv
@@ -1056,8 +1072,8 @@ def flash_grads_match(q, k, v, key_mask, causal, label, gen):
     return out, lse, dout, errs
 
 
-def flash_wide_row(d: int, dtype, gen, key_mask, allowed, source: str) -> dict:
-    """One head dim of :func:`check_flash_wide` at B 16, T 1370, 3 heads:
+def flash_wide_row(d: int, dtype, gen, key_mask, allowed, source: str, b: int = 16) -> dict:
+    """One head dim of :func:`check_flash_wide` at B ``b`` (16), T 1370, 3 heads:
     K4 unmasked and causal, K4 with LSE and K5 causal with padded keys
     against the plain versions, then timed beside their bounds (f32 at the
     three-pass TF32 rate, with the f32 FMA bound beside it),
@@ -1072,7 +1088,7 @@ def flash_wide_row(d: int, dtype, gen, key_mask, allowed, source: str) -> dict:
         flash_attention_reference, flash_attention_with_lse,
     )
 
-    b, t, heads = 16, VL_TOKENS, 3
+    t, heads = VL_TOKENS, 3
     name = str(dtype)[6:]
     f32 = dtype == torch.float32
     stats = 2 * b * heads * t * 4 + b * t * 4  # lse, delta; the key bias
@@ -1144,30 +1160,38 @@ def flash_wide_row(d: int, dtype, gen, key_mask, allowed, source: str) -> dict:
     return row
 
 
+# csrc/flash_attention_gemm.cu's instantiations (gemm_kernel_label):
+# gemm_kernel<TF32, products, BN, MN-major B, epilogue[, element type]>
+GEMM_KERNELS = {
+    "gemm_kernel<0,1,128,0,FwdScores>", "gemm_kernel<0,1,256,1,Output,bf16>",
+    "gemm_kernel<0,2,128,0,DqScores,bf16>", "gemm_kernel<0,2,128,0,DkvScores,bf16>",
+    "gemm_kernel<1,1,128,0,FwdScores>", "gemm_kernel<1,1,128,0,Output,f32>",
+    "gemm_kernel<1,2,64,0,DqScores,f32>", "gemm_kernel<1,2,64,0,DkvScores,f32>",
+    "softmax_kernel<f32>", "softmax_kernel<bf16>", "split_kernel<>", "split_t_kernel<>",
+    "dbias_reduce_kernel<>"}
+
+
 def check_flash_wide(results):
     """K4 and K5 above head dim 128 (:func:`flash_wide_row` at B 16, T 1370,
     3 heads): bf16 at 256 and 320 (one CTA a row block) and at 384 and 512
     (a cluster of two CTAs that split the head dim), on
     ``csrc/flash_attention_wide_tc.cu``; f32 at 320 and 512 (clusters of 5
     and 8 CTAs of 64 columns, three TF32 passes) on
-    ``csrc/flash_attention_f32_split.cu``. Then against the plain versions
-    at B 2, T 300 / 200 (130 / 70 at 2600, 96 at 5184 and 1088), 3 heads,
-    causal with a key mask: f32 at D 320, 160 (padded to 192: three CTAs)
-    and 1024 (sixteen, a non-portable cluster) on the split kernels and at
-    1088, wider than sixteen shares, on the CUDA-core
-    ``csrc/flash_attention_wide.cu``; the bf16 wgmma kernels at D 320, 160,
-    384 (a pair), 1000 (padded to 1024: four CTAs, Tq > Tk) and 2600 (padded
-    to 2880: nine, a non-portable cluster), and bf16 at 5184, wider than a
-    cluster splits, on the CUDA-core kernels' bf16 entries (timed once at B
-    2, T 1370, 3 heads, beside ``scaled_dot_product_attention``). ptxas's
-    registers and spills of every tensor-core instantiation."""
+    ``csrc/flash_attention_f32_split.cu``; the GEMM routes of
+    ``csrc/flash_attention_gemm.cu``, wider than a cluster splits, at B 2,
+    T 1370, 3 heads: bf16 at 5184, f32 at 1088 and 2048. Then against the
+    plain versions at B 2, T 300 / 200 (130 / 70 at 2600, 96 at 5184, 1088
+    and 2048), 3 heads, causal with a key mask: f32 at D 320, 160 (padded
+    to 192: three CTAs) and 1024 (sixteen, a non-portable cluster) on the
+    split kernels; the bf16 wgmma kernels at D 320, 160, 384 (a pair), 1000
+    (padded to 1024: four CTAs, Tq > Tk) and 2600 (padded to 2880: nine, a
+    non-portable cluster); the GEMM routes at bf16 5184 and f32 1088 and
+    2048, with Tq > Tk, and with the workspace cap forced to 256 KiB so that
+    every entry takes its axis in five 64-row chunks. ptxas's registers and
+    spills of every tensor-core instantiation."""
     import torch
-    import torch.nn.functional as F
 
     from vilmedic_torch.ops import flash_attention as fa
-    from vilmedic_torch.ops.flash_attention import (
-        flash_attention, flash_attention_backward, flash_attention_with_lse,
-    )
 
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
     b, t = 16, VL_TOKENS
@@ -1181,40 +1205,42 @@ def check_flash_wide(results):
                                             f"flash_attention_f32_split.cu, {d // 64} x 64")
                  for d in (320, 512)})
     del allowed
-    # the small parities: each on its entries alone
-    for d, tq, tk, dtype in ((320, 300, 300, torch.float32), (320, 300, 300, torch.bfloat16),
-                             (160, 200, 300, torch.float32), (160, 200, 300, torch.bfloat16),
-                             (384, 300, 300, torch.bfloat16), (1000, 300, 200, torch.bfloat16),
-                             (2600, 130, 70, torch.bfloat16), (5184, 96, 96, torch.bfloat16),
-                             (1024, 300, 200, torch.float32), (1088, 96, 96, torch.float32)):
+    # the GEMM routes, wider than a cluster splits, at B 2
+    key_mask = train_key_mask(2, t, "cuda")
+    allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
+               & key_mask[:, None, None, :])
+    for d, dtype in ((5184, torch.bfloat16), (1088, torch.float32), (2048, torch.float32)):
+        rows[(d, str(dtype)[6:].replace("float32", "f32").replace("bfloat16", "bf16"))] = \
+            flash_wide_row(d, dtype, gen, key_mask, allowed, "flash_attention_gemm.cu", b=2)
+    del allowed
+    # the small parities: each on its entries alone (cap: the GEMM routes'
+    # workspace cap, forced low: five chunks of each axis)
+    for d, tq, tk, dtype, cap in (
+            (320, 300, 300, torch.float32, None), (320, 300, 300, torch.bfloat16, None),
+            (160, 200, 300, torch.float32, None), (160, 200, 300, torch.bfloat16, None),
+            (384, 300, 300, torch.bfloat16, None), (1000, 300, 200, torch.bfloat16, None),
+            (2600, 130, 70, torch.bfloat16, None), (5184, 96, 96, torch.bfloat16, None),
+            (1024, 300, 200, torch.float32, None), (1088, 96, 96, torch.float32, None),
+            (2048, 96, 96, torch.float32, None), (5184, 300, 200, torch.bfloat16, None),
+            (1088, 300, 200, torch.float32, None), (5184, 300, 260, torch.bfloat16, 1 << 18),
+            (1088, 300, 260, torch.float32, 1 << 18)):
         q = torch.randn(2, tq, 3, d, generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn(2, tk, 3, d, generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
         mask = torch.ones(2, tk, dtype=torch.bool, device="cuda")
         mask[1, tk - tk // 3:] = False
         before = dict(fa.ENTRY_LAUNCHES)
-        flash_grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal", gen)
+        default_cap = fa.WORKSPACE_CAP
+        fa.WORKSPACE_CAP = cap or default_cap
+        try:
+            flash_grads_match(q, k, v, mask, True, f"B=2 Tq={tq} Tk={tk} H=3 D={d} causal"
+                              + (f", workspace cap {cap} bytes" if cap else ""), gen)
+        finally:
+            fa.WORKSPACE_CAP = default_cap
         route = fa.kernel_route(dtype, fa.padded_head_dim(d, dtype))
         launched = {e for e, n in fa.ENTRY_LAUNCHES.items() if n != before.get(e, 0)}
         if launched != {f"vt_flash_attention{part}_{route}" for part in ("", "_bwd_dq", "_bwd_dkv")}:
             fail(f"flash attention D {d} {dtype}: entries {sorted(launched)}, not {route}")
-    # bf16 wider than 16 CTAs split, on the CUDA cores, once at T 1370
-    q, k, v, dout = (torch.randn(2, t, 3, 5184, generator=gen, device="cuda").bfloat16()
-                     for _ in range(4))
-    out, lse = flash_attention_with_lse(q, k, v, None, False)
-    qh, kh, vh = sdpa_layout(q, k, v)
-    try:
-        sdpa = f"{cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), reps=3):.4f} ms"
-    except RuntimeError as e:  # no SDPA kernel for the head dim
-        sdpa = f"refused ({str(e).splitlines()[0][:120]})"
-    fwd = cuda_ms(lambda: flash_attention(q, k, v, None, False), reps=1, warmup=0)
-    bwd = cuda_ms(lambda: flash_attention_backward(q, k, v, None, out, lse, dout), reps=1,
-                  warmup=0)
-    print(f"K4/K5 bf16 D 5184 (B 2, T {t}, 3 heads, flash_attention_wide.cu's bf16 entries, one "
-          f"call each): forward {fwd:.4f} ms, backward {bwd:.4f} ms; "
-          f"scaled_dot_product_attention forward {sdpa}")
-    del q, k, v, dout, out, lse, qh, kh, vh
-    torch.cuda.empty_cache()
     usage = {}
     for source, built in (
             ("flash_attention_wide_tc", {f"flash_{part}_wide_kernel<{w},{split}>"
@@ -1222,7 +1248,8 @@ def check_flash_wide(results):
                                          for w, split in ((256, 0), (320, 0), (192, 1), (256, 1),
                                                           (320, 1))}),
             ("flash_attention_f32_split", {f"flash_{part}_split_kernel"
-                                           for part in ("fwd", "bwd_dq", "bwd_dkv")})):
+                                           for part in ("fwd", "bwd_dq", "bwd_dkv")}),
+            ("flash_attention_gemm", GEMM_KERNELS)):
         usage[source] = ptxas_usage(source)
         print(f"{source}.cu (ptxas -v): " + "; ".join(
             f"{k} {u['registers']} registers, spill stores / loads {u['spill_stores']} / "
@@ -1247,6 +1274,19 @@ def check_flash_wide(results):
             **rows[(320, dt)][part], **{f"d{w}": rows[(w, dt)][part] for w in widths},
             path="flash_wide", counter=counter,
             ptxas={k: u for k, u in usage[source].items() if k.startswith(kernels)})
+    for dt, d, wider in (("bf16", 5184, ()), ("f32", 1088, (2048,))):
+        route = "wide_bf16" if dt == "bf16" else "wide"
+        for part, name in (("forward", f"flash_attention_gemm_{dt}"),
+                           ("backward", f"flash_attention_bwd_gemm_{dt}")):
+            results[name] = dict(
+                route="cuda", source="vilmedic_torch/csrc/flash_attention_gemm.cu",
+                replaces=f"vilmedic_tpu/ops/flash_attention.py:{161 if part == 'forward' else 569}",
+                **rows[(d, dt)][part], **{f"d{w}": rows[(w, dt)][part] for w in wider},
+                path="flash_wide",
+                counter=f"vt_flash_attention{'' if part == 'forward' else '_bwd_dq'}_{route}",
+                ptxas={k: u for k, u in usage["flash_attention_gemm"].items()
+                       if (dt == "f32") == (k.startswith(("gemm_kernel<1", "split")) or "f32" in k)
+                       or k.startswith("dbias")})
 
 
 def train_key_mask(b: int, t: int, device):
@@ -1817,7 +1857,7 @@ def launch_counters():
 # the wide head dims' C entries (ops/flash_attention.ENTRY_LAUNCHES): the
 # wgmma kernels of csrc/flash_attention_wide_tc.cu (bf16), the three-pass
 # TF32 ones of csrc/flash_attention_f32_split.cu (f32 up to 1024) and the
-# CUDA-core ones of csrc/flash_attention_wide.cu (f32 above 1024, bf16
+# matrix products of csrc/flash_attention_gemm.cu (f32 above 1024, bf16
 # above 5120)
 WIDE_ENTRIES = tuple(f"vt_flash_attention{part}_{route}"
                      for route in ("wide_tc", "f32_split", "wide", "wide_bf16")
@@ -2042,23 +2082,25 @@ def phase_flash_wide():
     Each bf16 width launches the wgmma kernels of
     ``csrc/flash_attention_wide_tc.cu`` once (at 384 and 512 a cluster of
     two CTAs a row block), the f32 one the three-pass TF32 kernels of
-    ``csrc/flash_attention_f32_split.cu`` once (a cluster of five CTAs), and
-    the CUDA-core wide kernels never."""
+    ``csrc/flash_attention_f32_split.cu`` once (a cluster of five CTAs).
+    Then the heads wider than a cluster splits, at B 2: 3 heads of 5184 in
+    bf16 and of 1088 in f32, each launching ``csrc/flash_attention_gemm.cu``'s
+    route once."""
     import torch
 
     from vilmedic_torch.ops.flash_attention import flash_attention
 
     gen = torch.Generator("cuda").manual_seed(SEED + 7)
     b, t, heads = 16, VL_TOKENS, 3
-    key_mask = train_key_mask(b, t, "cuda")
     finite = True
-    widths = ((256, torch.bfloat16), (320, torch.bfloat16), (384, torch.bfloat16),
-              (512, torch.bfloat16), (320, torch.float32))
+    widths = ((256, torch.bfloat16, b), (320, torch.bfloat16, b), (384, torch.bfloat16, b),
+              (512, torch.bfloat16, b), (320, torch.float32, b), (5184, torch.bfloat16, 2),
+              (1088, torch.float32, 2))
     reset_launches()
-    for d, dtype in widths:
-        q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda").to(dtype)
+    for d, dtype, items in widths:
+        q, k, v = (torch.randn(items, t, heads, d, generator=gen, device="cuda").to(dtype)
                    .requires_grad_() for _ in range(3))
-        out = flash_attention(q, k, v, key_mask, True)
+        out = flash_attention(q, k, v, train_key_mask(items, t, "cuda"), True)
         dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
         grads = torch.autograd.grad(out, (q, k, v), dout)
         finite &= bool(torch.isfinite(out).all()) and all(
@@ -2067,14 +2109,15 @@ def phase_flash_wide():
     torch.cuda.synchronize()
     launches = read_launches()
     wide = {e: launches[e] for e in WIDE_ENTRIES}
-    print(f"flash_wide (bf16 heads of 256, 320, 384, 512 and f32 heads of 320, forward and "
-          f"backward by autograd): {wide}")
+    print(f"flash_wide (bf16 heads of 256, 320, 384, 512, 5184 and f32 heads of 320 and 1088, "
+          f"forward and backward by autograd): {wide}")
     require({"finite output and gradients of the inputs' shapes": finite,
              "flash_attention_wide_tc.cu: forward, dq, dk/dv once per bf16 width":
                  all(wide[e] == 4 for e in WIDE_ENTRIES[:3]),
              "flash_attention_f32_split.cu: forward, dq, dk/dv once (f32)":
                  all(wide[e] == 1 for e in WIDE_ENTRIES[3:6]),
-             "no CUDA-core wide kernel": not any(wide[e] for e in WIDE_ENTRIES[6:])},
+             "flash_attention_gemm.cu: forward, dq, dk/dv once in each dtype":
+                 all(wide[e] == 1 for e in WIDE_ENTRIES[6:])},
             "flash_wide")
     torch.cuda.empty_cache()
     return launches
@@ -8276,7 +8319,7 @@ def main():
     # 512 and their ptxas report; the f32 kernels' f32 FMA bound (their
     # bound_ms is the three-pass TF32 one),
     # the prefill and K4 with LSE; launches on the training paths
-    extra = ("head_dims", "d256", "d384", "d512", "ptxas", "fma_bound_ms", "prefill",
+    extra = ("head_dims", "d256", "d384", "d512", "d2048", "ptxas", "fma_bound_ms", "prefill",
              "lse_ms", "lse_plain_ms", "lse_bound_ms", "lse_fma_bound_ms", "lse_library_ms",
              "lse_max_abs_err", "rrg_train_launches", "scst_launches",
              "pipelined_launches", "rrs_launches",

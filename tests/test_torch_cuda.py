@@ -542,9 +542,10 @@ def test_flash_f32_split_clusters_of_two_to_sixteen(cuda, monkeypatch, d, tq, tk
 
 
 def test_flash_f32_above_1024_runs_on_the_cuda_cores(cuda):
-    """An f32 head wider than 16 shares of 64 columns (1088) runs on the
-    CUDA-core ``flash_attention_wide.cu``'s f32 entries: K4, K4 with LSE and
-    K5 against the plain versions, causal with padded keys."""
+    """An f32 head wider than 16 shares of 64 columns (1088) runs on
+    ``flash_attention_gemm.cu``'s f32 entries (three TF32 passes on the
+    tensor cores, no longer the CUDA cores): K4, K4 with LSE and K5 against
+    the plain versions, causal with padded keys."""
     gen = torch.Generator().manual_seed(1088)
     q, k, v = (torch.randn(1, 96, 2, 1088, generator=gen).to(cuda) for _ in range(3))
     key_mask = torch.ones(1, 96, dtype=torch.bool, device=cuda)
@@ -562,8 +563,8 @@ def test_flash_f32_above_1024_runs_on_the_cuda_cores(cuda):
 
 def test_flash_refuses_bf16_heads_above_5120(cuda):
     """No head dim is refused. A bf16 head above 5120, wider than the 16
-    CTAs of Hopper's largest cluster split, runs on the CUDA cores
-    (``flash_attention_wide.cu``'s bf16 entries, bf16's rounding points):
+    CTAs of Hopper's largest cluster split, runs on the tensor cores
+    (``flash_attention_gemm.cu``'s bf16 entries, bf16's rounding points):
     D 5184 at B 1, T 96, one head, causal with padded keys, K4, K4 with LSE
     and K5 against the plain versions; f32 takes such a head as before."""
     gen = torch.Generator().manual_seed(5184)
@@ -586,6 +587,37 @@ def test_flash_refuses_bf16_heads_above_5120(cuda):
     out = flash_attention(q, q, q)
     torch.testing.assert_close(out, flash_attention_reference(q, q, q), rtol=TOL[torch.float32],
                                atol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 5184), (torch.float32, 1088)])
+@pytest.mark.parametrize("tq,tk", [(300, 260), (260, 300)])
+def test_flash_gemm_routes_in_chunks(cuda, monkeypatch, dtype, d, tq, tk):
+    """The GEMM routes with the workspace cap forced so low that every
+    entry takes its axis in 64-row chunks (5 of each): K4 with LSE and K5
+    match the plain versions, causal with a key mask, with Tq > Tk and Tq <
+    Tk, on the route's three entries, and two runs agree bit for bit (no
+    atomics, fixed sum order)."""
+    monkeypatch.setattr(fa, "WORKSPACE_CAP", 1 << 18)
+    gen = torch.Generator().manual_seed(d + tq)
+    q, dout = (torch.randn(2, tq, 3, d, generator=gen).to(cuda, dtype) for _ in range(2))
+    k, v = (torch.randn(2, tk, 3, d, generator=gen).to(cuda, dtype) for _ in range(2))
+    key_mask = torch.ones(2, tk, dtype=torch.bool)
+    key_mask[1, tk - tk // 3:] = False
+    key_mask = key_mask.to(cuda)
+    entries = dict(fa.ENTRY_LAUNCHES)
+    _flash_grads_match(q, k, v, key_mask, True)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention_with_lse(q, k, v, key_mask, True)
+        runs.append((out, lse) + tuple(flash_attention_backward(q, k, v, key_mask, out, lse,
+                                                                dout, True)))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv", "dbias"), *runs):
+        assert torch.equal(a, b), name
+    route = fa.kernel_route(dtype, d)
+    launched = {e: n - entries.get(e, 0) for e, n in fa.ENTRY_LAUNCHES.items()
+                if n != entries.get(e, 0)}
+    assert launched == {f"vt_flash_attention_{route}": 3, f"vt_flash_attention_bwd_dq_{route}": 3,
+                        f"vt_flash_attention_bwd_dkv_{route}": 3}
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])

@@ -173,8 +173,8 @@ def test_padded_head_dim_above_128(d, width):
     and in bf16 above 320 the next width a cluster of CTAs splits into equal
     shares of 192, 256 or 320 columns; and names the C entry that takes it:
     f32 the three-pass TF32 split kernels up to 1024 (16 shares) and the
-    CUDA-core wide kernels above, bf16 the wgmma ones of
-    ``flash_attention_wide_tc.cu`` at every width here."""
+    matrix products of ``flash_attention_gemm.cu`` above, bf16 the wgmma
+    ones of ``flash_attention_wide_tc.cu`` at every width here."""
     bf16_width = BF16_WIDTHS.get(width, width)
     f32_width = -(-d // 64) * 64
     assert padded_head_dim(d) == width
@@ -207,8 +207,9 @@ def test_f32_split_of_takes_every_f32_width_to_1024(d, width, route):
     """An f32 head above 128 pads to the next multiple of 64 and runs, up
     to 1024 (16 shares, the largest split), as a cluster of width / 64 CTAs
     of 64 columns on the ``f32_split`` entries, which take the cluster size
-    after the head dim; a width above runs on the CUDA-core entries, which
-    take the head dim alone."""
+    after the head dim; a width above runs on the GEMM entries, which take
+    the head dim alone and, after the scale, a workspace (pointer, bytes)
+    and the rows a chunk."""
     assert padded_head_dim(d, torch.float32) == width
     assert kernel_route(torch.float32, width) == route
     n, w = fa.f32_split_of(width)
@@ -217,7 +218,7 @@ def test_f32_split_of_takes_every_f32_width_to_1024(d, width, route):
     assert fa._head_args(torch.float32, width) == ((width, n) if split else (width,))
     for part in ("", "_bwd_dq", "_bwd_dkv"):
         assert len(cuda_lib.SIGNATURES[f"vt_flash_attention{part}_{route}"]) \
-            == len(cuda_lib.SIGNATURES[f"vt_flash_attention{part}_f32"]) + split
+            == len(cuda_lib.SIGNATURES[f"vt_flash_attention{part}_f32"]) + (1 if split else 3)
 
 
 @pytest.mark.parametrize("dtype,width,args", [
@@ -232,21 +233,24 @@ def test_head_args_give_the_wide_tc_entries_their_cluster(dtype, width, args):
     1 at 256 and 320, a cluster above; f32: one CTA a 64-column share) after
     the head dim, one int more than the other entries; the caller, which
     pads to :func:`split_of` or :func:`f32_split_of`, is the one place that
-    chooses it."""
+    chooses it. The GEMM entries (f32 above 1024) take the head dim alone,
+    and three more arguments after the scale: the workspace, its bytes and
+    the rows a chunk."""
     assert fa._head_args(dtype, width) == args
-    entry = f"vt_flash_attention_{fa.kernel_route(dtype, width)}"
+    route = fa.kernel_route(dtype, width)
+    entry = f"vt_flash_attention_{route}"
     assert len(cuda_lib.SIGNATURES[entry]) == len(cuda_lib.SIGNATURES["vt_flash_attention_f32"]) \
-        + len(args) - 1
+        + len(args) - 1 + (3 if route in fa.GEMM_ROUTES else 0)
 
 
 def test_cuda_core_route_is_f32_only():
-    """Up to the widest head a cluster of CTAs splits in bf16 (5120), the
-    CUDA-core ``csrc/flash_attention_wide.cu`` is an f32 route alone, and
-    only above the widest f32 head a cluster splits (16 shares of 64, 1024):
-    f32 from 192 to 1024 routes to the three-pass TF32 split entries, f32
-    from 1088 to 5120 to the CUDA-core f32 entries, and no bf16 width from
-    129 to 5120 to the CUDA cores (those run on the wgmma kernels of
-    ``wide_tc``)."""
+    """No flash route runs on the CUDA cores any more. Up to the widest head
+    a cluster of CTAs splits in bf16 (5120), the GEMM route of
+    ``csrc/flash_attention_gemm.cu`` is an f32 route alone, and only above
+    the widest f32 head a cluster splits (16 shares of 64, 1024): f32 from
+    192 to 1024 routes to the three-pass TF32 split entries, f32 from 1088
+    to 5120 to the GEMM f32 entries, and no bf16 width from 129 to 5120 to
+    the GEMM entries (those run on the wgmma kernels of ``wide_tc``)."""
     for part in ("", "_bwd_dq", "_bwd_dkv"):
         assert cuda_lib.SIGNATURES[f"vt_flash_attention{part}_wide"][0] is ctypes.c_void_p
     for width in (192, 256, 320, 384, 1024):
@@ -258,13 +262,17 @@ def test_cuda_core_route_is_f32_only():
 
 
 def test_cuda_core_routes_take_f32_above_128_and_bf16_above_5120():
-    """The CUDA-core file takes the heads wider than a cluster of 16 CTAs
-    splits, in each dtype through entries of its own (``_wide`` and
-    ``_wide_bf16``, the same arguments, no dtype flag, no cluster size):
-    f32 above 1024 (it took f32 from 129 before the split kernels) and bf16
-    above 5120; f32 from 129 to 1024 never routes there."""
-    source = (cuda_lib.CSRC_DIR / "flash_attention_wide.cu").read_text()
-    assert 'extern "C" int vt_flash_attention_wide_bf16(' in source
+    """The GEMM file, which took over from the CUDA-core
+    ``flash_attention_wide.cu`` (gone), takes the heads wider than a cluster
+    of 16 CTAs splits, in each dtype through entries of its own (``_wide``
+    and ``_wide_bf16``, the same arguments, no dtype flag, no cluster size):
+    f32 above 1024 and bf16 above 5120; f32 from 129 to 1024 never routes
+    there."""
+    assert not (cuda_lib.CSRC_DIR / "flash_attention_wide.cu").exists()
+    source = (cuda_lib.CSRC_DIR / "flash_attention_gemm.cu").read_text()
+    for part in ("", "_bwd_dq", "_bwd_dkv"):
+        for suffix in fa.GEMM_ROUTES:
+            assert f'extern "C" int vt_flash_attention{part}_{suffix}(' in source
     for part in ("", "_bwd_dq", "_bwd_dkv"):
         assert cuda_lib.SIGNATURES[f"vt_flash_attention{part}_wide_bf16"] \
             == cuda_lib.SIGNATURES[f"vt_flash_attention{part}_wide"]
@@ -309,10 +317,9 @@ def test_entry_calls_the_routed_c_entry(monkeypatch, name, dtype, width, suffix)
     names: f32 up to 128 the three-pass TF32 kernels of
     ``flash_attention_f32.cu``; bf16 above 128 the wgmma kernels of
     ``flash_attention_wide_tc.cu`` (one CTA a row block at 256 and 320, a
-    cluster above) up to 5120, the CUDA-core wide kernels' bf16 entries
-    above; f32 above 128 the three-pass TF32 kernels of
-    ``flash_attention_f32_split.cu`` up to 1024, the CUDA-core wide kernels
-    above; no entry takes a dtype flag. It counts the
+    cluster above) up to 5120, the GEMM kernels' bf16 entries above; f32
+    above 128 the three-pass TF32 kernels of ``flash_attention_f32_split.cu``
+    up to 1024, the GEMM kernels above; no entry takes a dtype flag. It counts the
     launch under that entry; a non-zero status raises and counts nothing.
     The function is looked up once per library."""
     stand_in = _StandInLibrary()
@@ -367,14 +374,150 @@ def test_wide_head_dims_match_jax_v1(d, causal, dtype):
 def test_bf16_heads_above_5120_run_on_the_cuda_cores(d, width):
     """A bf16 head wider than 16 CTAs split (5120) is no longer refused: it
     pads to the next multiple of 64, as f32 does, and routes to the bf16
-    entries of the CUDA-core ``flash_attention_wide.cu``, which take the
-    head dim alone (no cluster size)."""
+    entries of ``flash_attention_gemm.cu`` (on the tensor cores now), which
+    take the head dim alone (no cluster size) and the workspace, its bytes
+    and the rows a chunk."""
     assert padded_head_dim(d, torch.bfloat16) == width == padded_head_dim(d, torch.float32)
     assert kernel_route(torch.bfloat16, width) == "wide_bf16"
     assert kernel_route(torch.float32, width) == "wide"
     assert fa._head_args(torch.bfloat16, width) == (width,)
     assert len(cuda_lib.SIGNATURES["vt_flash_attention_wide_bf16"]) \
-        == len(cuda_lib.SIGNATURES["vt_flash_attention_f32"])
+        == len(cuda_lib.SIGNATURES["vt_flash_attention_f32"]) + 3
+
+
+# ------------------------------------------------------------ the GEMM routes
+
+
+def _round64(x: int) -> int:
+    return -(-x // 64) * 64
+
+
+@pytest.mark.parametrize("rows,b,h,cols,kind,dtype", [
+    (1370, 2, 3, 1370, "fwd", torch.bfloat16), (1370, 16, 3, 1370, "fwd", torch.float32),
+    (1370, 16, 3, 1370, "dkv", torch.float32), (1370, 64, 12, 1370, "dq", torch.bfloat16),
+    (24, 1, 2, 16, "fwd", torch.float32), (100000, 64, 16, 8192, "dkv", torch.float32),
+    (4096, 32, 16, 4096, "fwd", torch.bfloat16),
+])
+def test_gemm_chunk_is_a_multiple_of_64_under_the_cap(rows, b, h, cols, kind, dtype):
+    """The rows a GEMM route's launch takes (queries for the forward and dq,
+    keys for dk/dv): a multiple of 64, at least 64, no more than the axis
+    rounded up to 64 (so its chunks cover the axis), and the most whose
+    scores for every (b, h) over the other axis (rounded up to 64) fit in
+    the workspace cap; 64 when not even that fits."""
+    score = fa.gemm_score_bytes(kind, dtype)
+    chunk = fa.gemm_chunk(rows, b, h, cols, score)
+    assert chunk % 64 == 0 and 64 <= chunk <= _round64(rows)
+    per_row = b * h * _round64(cols) * score
+    assert chunk * per_row <= fa.WORKSPACE_CAP or chunk == 64
+    if chunk < _round64(rows):
+        assert (chunk + 64) * per_row > fa.WORKSPACE_CAP
+    assert -(-rows // chunk) * chunk >= rows
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemm_chunk_takes_the_whole_axis_at_the_training_shapes(kind, dtype):
+    """At B 2 to 16, T 1370, 3 heads the whole axis is one chunk in every
+    entry and dtype, under a cap that forces 3 or more chunks of each axis
+    at B 2, Tq 300, Tk 260 (what the card's forced-chunk parity uses), and
+    the score bytes are the entries' (S f32 and P, dS, P^T and dS^T in the
+    operands' dtype; f32 as TF32 hi and lo)."""
+    score = fa.gemm_score_bytes(kind, dtype)
+    assert score == {("fwd", torch.bfloat16): 6, ("fwd", torch.float32): 12,
+                     ("dq", torch.bfloat16): 2, ("dq", torch.float32): 8,
+                     ("dkv", torch.bfloat16): 4, ("dkv", torch.float32): 16}[(kind, dtype)]
+    for b in (2, 16):
+        assert fa.gemm_chunk(1370, b, 3, 1370, score) == 1408
+    rows, cols = (260, 300) if kind == "dkv" else (300, 260)
+    assert -(-rows // fa.gemm_chunk(rows, 2, 3, cols, score, cap=1 << 18)) >= 3
+
+
+def test_gemm_workspace_is_allocated_for_the_gemm_routes_only():
+    """The wrapper allocates a GEMM route's workspace itself (the kernels
+    allocate nothing) and passes (pointer, bytes, chunk) after the scale;
+    its size is the entry's layout: regions on 1024-byte boundaries, in f32
+    the TF32 halves of the operands first (transposes padded to 64 rows),
+    then the score block. Other routes get no workspace."""
+    ws, args = fa._workspace("fwd", torch.float32, 1, 24, 16, 2, 1088, "cpu")
+    assert args == (ws.data_ptr(), ws.numel(), 64) and ws.dtype == torch.uint8
+    assert fa._workspace("fwd", torch.float32, 1, 24, 16, 2, 1024, "cpu") == (None, ())
+    assert fa._workspace("dkv", torch.bfloat16, 1, 24, 16, 2, 5120, "cpu") == (None, ())
+
+    def regions(*sizes):
+        used = 0
+        for size in sizes:
+            used = -(-used // 1024) * 1024 + size
+        return used
+
+    b, tq, tk, h, d, c = 1, 24, 16, 2, 1088, 64
+    assert ws.numel() == regions(*[b * tq * h * d * 4] * 2, *[b * tk * h * d * 4] * 2,
+                                 *[b * d * h * 64 * 4] * 2, b * c * h * 64 * 4,
+                                 2 * b * c * h * 64 * 4, b * h * c * 4)
+    assert fa.gemm_workspace_bytes("dq", torch.bfloat16, b, tq, tk, h, 5184, c) \
+        == b * c * h * 64 * 2
+    assert fa.gemm_workspace_bytes("dkv", torch.bfloat16, b, tq, tk, h, 5184, c) \
+        == regions(*[b * c * h * 64 * 2] * 2, b * h * c * 1 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_case(d: int):
+    """B 1, Tq 24 > Tk 16, 2 heads, the last 4 keys masked, and JAX's v1
+    output on them, causal (one interpret-mode run)."""
+    (q, k, v), _ = _inputs(40 + d, 1, 24, 16, 2, d)
+    key_mask = np.ones((1, 16), np.int32)
+    key_mask[0, 12:] = 0
+    return q, k, v, key_mask, _run_jax(q, k, v, key_mask, True)
+
+
+@pytest.mark.parametrize("d,dtype", [(5184, torch.bfloat16), (1088, torch.float32)])
+def test_gemm_head_dims_match_jax_v1(d, dtype):
+    """The GEMM routes' widths (bf16 above 5120, f32 above 1024): the plain
+    forward equals JAX's v1 kernel in interpret mode, causal with Tq > Tk
+    (rows 0 to 7 see no key and average every V) and masked keys; run at
+    ``padded_head_dim(d, dtype)`` with the true scale, as the card runs it,
+    it equals the unpadded plain version."""
+    q, k, v, key_mask, want = _gemm_case(d)
+    width = padded_head_dim(d, dtype)
+    assert kernel_route(dtype, width) in fa.GEMM_ROUTES
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tm = torch.from_numpy(key_mask)
+    out, lse = flash_attention_reference(tq, tk, tv, tm, True, return_lse=True)
+    np.testing.assert_allclose(out.numpy(), want, rtol=TOL, atol=TOL)
+    padded = [pad_head_dim(x, width) for x in (tq, tk, tv)]
+    out_p, lse_p = flash_attention_reference(*padded, tm, True, return_lse=True, scale=d ** -0.5)
+    torch.testing.assert_close(out_p[..., :d], out, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("tq,tk", [(24, 16), (16, 24), (130, 130)])
+def test_gemm_skips_only_zero_probabilities(tq, tk):
+    """What the GEMM kernels leave out under the causal mask is exactly zero
+    in the plain version: a row that sees keys weighs the keys past its
+    causal limit by exp(-1e9 - m) = 0 (P V's depth stops at the limit, the
+    softmax writes P = 0 past it, dS is 0 there), and a row that sees no key
+    (Tq > Tk) weighs every key alike, so a tile holding one takes every key.
+    On the backward's side, dS^T of a key for the queries before the first
+    that sees it is 0 (dk/dv's depth starts there)."""
+    (q, k, v), rng = _inputs(7, 1, tq, tk, 2, 16)
+    tq_, tk_, tv_ = (torch.from_numpy(x) for x in (q, k, v))
+    key_mask = torch.ones(1, tk)
+    key_mask[0, tk - 3:] = 0
+    s = fa._scores(tq_, tk_, key_mask, True)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(fa.NEG_INF)
+    p = torch.exp(s - m)
+    row = torch.arange(tq)[:, None]
+    col = torch.arange(tk)[None, :]
+    sees_none = (row + tk - tq < 0).expand(tq, tk)
+    past = (col > row + tk - tq) & ~sees_none
+    assert torch.equal(p[..., past], torch.zeros_like(p[..., past]))
+    if tq > tk:
+        torch.testing.assert_close(p[..., sees_none], torch.ones_like(p[..., sees_none]))
+    _, lse = flash_attention_reference(tq_, tk_, tv_, key_mask, True, return_lse=True)
+    dout = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    pb = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout, tv_)
+    ds = pb * (dp - fa._delta(flash_attention_reference(tq_, tk_, tv_, key_mask, True), dout)[..., None])
+    assert torch.equal(ds[..., past], torch.zeros_like(ds[..., past]))
 
 
 # ------------------------------------------------ three-pass TF32 arithmetic

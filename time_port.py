@@ -4,7 +4,8 @@ one JSON line:
     python3 time_port.py ROOT [--flash-only]
 
 (``--flash-only``: the first two items and the flash kernels above head dim
-128, nothing else)
+128, nothing else: bf16 256 to 512 and f32 256 to 512 at B 16, and the heads
+wider than a cluster splits, bf16 5184 and f32 1088 and 2048, at B 2)
 
 - the flash kernels at the VisionLanguage shapes, through the public entry
   points of ``vilmedic_torch.ops.flash_attention`` (CUDA events, median of 9
@@ -44,8 +45,9 @@ one JSON line:
   (``torch.profiler``);
 - the flash kernels above head dim 128 (after the first item): bf16, B 16,
   T 1370, 3 heads of 256, 320, 384, 448 and 512, and f32 at 3 heads of 256,
-  320, 384 and 512 (forward, causal forward, with LSE and the whole
-  backward, causal, padded text keys), CUDA events;
+  320, 384 and 512, and at B 2 the heads wider than a cluster splits, bf16
+  5184 and f32 1088 and 2048 (forward, causal forward, with LSE and the
+  whole backward, causal, padded text keys), CUDA events;
   ``null`` where the checkout raises; where the checkout pads the head dim
   (448 to 512), the padding copies alone of a forward (q, k, v in, out
   back) and of a backward (q, k, v, dO into each of the two kernels; dq,
@@ -279,19 +281,20 @@ def time_small_kernels() -> dict:
     return ms
 
 
-def time_flash_wide(dtype="bfloat16", widths=(256, 320, 384, 448, 512)) -> dict:
-    """K4 and K5 at 3 heads of each of ``widths`` (B 16, T 1370), CUDA
-    events, by head dim; None for a call the checkout refuses."""
+def time_flash_wide(dtype="bfloat16", widths=(256, 320, 384, 448, 512), b: int = B) -> dict:
+    """K4 and K5 at 3 heads of each of ``widths`` (B ``b``, 16 unless given,
+    T 1370), CUDA events, by head dim; None for a call the checkout
+    refuses."""
     import torch
 
     from vilmedic_torch.ops import flash_attention as fa
 
     dtype = getattr(torch, dtype)
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
-    mask = key_mask(B, TOKENS)
+    mask = key_mask(b, TOKENS)
     ms = {}
     for d in widths:
-        q, k, v, dout = (torch.randn(B, TOKENS, 3, d, generator=gen, device="cuda").to(dtype)
+        q, k, v, dout = (torch.randn(b, TOKENS, 3, d, generator=gen, device="cuda").to(dtype)
                          for _ in range(4))
         try:
             out, lse = fa.flash_attention_with_lse(q, k, v, mask, causal=True)
@@ -507,6 +510,9 @@ def main():
     result.update(time_flash())
     result["flash_wide_ms"] = time_flash_wide()
     result["flash_wide_f32_ms"] = time_flash_wide("float32", (256, 320, 384, 512))
+    # the heads wider than a cluster splits, at B 2
+    result["flash_gemm_ms"] = {"bfloat16": time_flash_wide("bfloat16", (5184,), b=2),
+                               "float32": time_flash_wide("float32", (1088, 2048), b=2)}
     if not flash_only:
         result["decode_kernels"] = time_decode_kernels()
         result["small_kernels_ms"] = time_small_kernels()

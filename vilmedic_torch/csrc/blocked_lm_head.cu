@@ -95,11 +95,6 @@ constexpr int kWgThreads = kConsumers + 32;  // and the producer warp
 constexpr int kStageBytes = 2 * BM * BK * 2;  // h tile + W tile
 constexpr int kWgSmem = STAGES * kStageBytes + 1024;  // + the 1024-byte alignment
 
-// wait until at most one committed group of wgmma products is in flight
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(kWgThreads, 2)
     lm_head_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
                          const __grid_constant__ CUtensorMap tm_w,
@@ -159,7 +154,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
         hopper::wgmma_ss_n128(d, hopper::desc_k<64>(a, BM, 64 * wg, kk),
                               hopper::desc_k<64>(b, BN, 0, kk), 1);
       hopper::wgmma_commit();
-      wgmma_wait_one();
+      hopper::wgmma_wait_one();
       if (k > 0) hopper::mbar_arrive(&empty[(it + STAGES - 1) % STAGES]);
     }
     hopper::wgmma_wait_all();

@@ -63,7 +63,8 @@
 // Head dims: 16, 32, 64 and 128 here; bf16 at 256 and 320 is
 // flash_attention_wide_tc.cu (whose one consumer warpgroup may keep the
 // wide accumulator in registers; an instantiation here at 256 spilled and
-// took 1.7-1.9x its time: PERF.md, K4 row), the rest flash_attention_wide.cu.
+// took 1.7-1.9x its time: PERF.md, K4 row), the rest flash_attention_wide_tc.cu
+// and flash_attention_gemm.cu.
 //
 // What bounds the bf16 kernel now (PERF.md, K4 row): not memory. Each
 // consumer warpgroup runs S, the softmax and P V of a tile in series, and

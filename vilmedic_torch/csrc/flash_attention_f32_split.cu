@@ -57,7 +57,7 @@
 //   - 128-column shares (heads above 1024) do not fit: the dq kernel's ring
 //     of K, V and K^T halves (3 stages of 16-key tiles, 150 KB), its landing
 //     buffer and its Q and dO fragments (64 KB) pass 227 KB. Wider f32 heads
-//     stay on flash_attention_wide.cu.
+//     run on flash_attention_gemm.cu.
 //   - Deterministic: no atomics; every output element is written by one
 //     block, and every sum runs in a fixed order.
 

@@ -1,7 +1,7 @@
 // What the flash-attention kernels share: flash_attention.cu (K4),
 // flash_attention_bwd.cu (K5), and at the wide head dims
-// flash_attention_wide_tc.cu and flash_attention_wide.cu (both). The TPU
-// kernels' finite mask, the tiles a block visits, and the per-tile score
+// flash_attention_wide_tc.cu and flash_attention_gemm.cu (the mask). The
+// TPU kernels' finite mask, the tiles a block visits, and the per-tile score
 // arithmetic on the wgmma accumulator layout (hopper_common.cuh): the
 // forward's online softmax, the dq kernels' dS and the dk/dv kernels' P^T
 // and dS^T.

@@ -314,10 +314,6 @@ struct Smem {
   static constexpr int BYTES = LISTS + 2 * RC * kConsumers * 8 + 1024;  // + the 1024 alignment
 };
 
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
 // the best (value, column) among a row's quad of lanes, in each of them
 __device__ __forceinline__ void quad_best(float& v, int& c) {
 #pragma unroll
@@ -501,7 +497,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           hopper::wgmma_ss_n128_mn(d, hopper::desc_k<64>(a, BM, 64 * wg, kk),
                                    hopper::desc_mn<128>(b, BK, kk), 1);
         hopper::wgmma_commit();
-        wgmma_wait_one();
+        hopper::wgmma_wait_one();
         if (k > 0) hopper::mbar_arrive(&empty[(it + STAGES - 1) % STAGES]);
       }
       hopper::wgmma_wait_all();

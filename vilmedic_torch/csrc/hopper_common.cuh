@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // (flash_attention.cu, K4, flash_attention_bwd.cu, K5, and their wide-head
-// counterparts in flash_attention_wide_tc.cu), the LM heads
+// counterparts in flash_attention_wide_tc.cu and flash_attention_gemm.cu),
+// the LM heads
 // (blocked_lm_head.cu, K2, and fused_lm_head.cu, K6) and the beam-cache
 // attention (beam_cache_attention.cu, K1): mbarriers, TMA
 // tile loads through tensor maps, cluster ranks and distributed shared
@@ -305,6 +306,11 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wait until at most one committed group of wgmma products is in flight
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // keep the compiler from moving accesses of an accumulator across the

@@ -41,6 +41,8 @@ PTXAS_VERBOSE = ("-Xptxas", "-v")  # the compile step's report, kept in the buil
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_WS = [_P, _L, _I]  # the GEMM routes' workspace, its bytes, the rows a chunk
 
 # C entry -> argtypes (every entry returns an int status)
 SIGNATURES = {
@@ -53,12 +55,12 @@ SIGNATURES = {
     "vt_flash_attention_bwd_dq_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dkv_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
     "vt_flash_attention_bwd_dkv_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
-    "vt_flash_attention_wide": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "vt_flash_attention_bwd_dq_wide": [_P] * 8 + [_I] * 6 + [_F, _P],
-    "vt_flash_attention_bwd_dkv_wide": [_P] * 10 + [_I] * 6 + [_F, _P],
-    "vt_flash_attention_wide_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "vt_flash_attention_bwd_dq_wide_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
-    "vt_flash_attention_bwd_dkv_wide_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "vt_flash_attention_wide": [_P] * 6 + [_I] * 6 + [_F] + _WS + [_P],
+    "vt_flash_attention_bwd_dq_wide": [_P] * 8 + [_I] * 6 + [_F] + _WS + [_P],
+    "vt_flash_attention_bwd_dkv_wide": [_P] * 10 + [_I] * 6 + [_F] + _WS + [_P],
+    "vt_flash_attention_wide_bf16": [_P] * 6 + [_I] * 6 + [_F] + _WS + [_P],
+    "vt_flash_attention_bwd_dq_wide_bf16": [_P] * 8 + [_I] * 6 + [_F] + _WS + [_P],
+    "vt_flash_attention_bwd_dkv_wide_bf16": [_P] * 10 + [_I] * 6 + [_F] + _WS + [_P],
     "vt_flash_attention_wide_tc": [_P] * 6 + [_I] * 7 + [_F, _P],
     "vt_flash_attention_bwd_dq_wide_tc": [_P] * 8 + [_I] * 7 + [_F, _P],
     "vt_flash_attention_bwd_dkv_wide_tc": [_P] * 10 + [_I] * 7 + [_F, _P],

@@ -20,34 +20,35 @@ over key tiles that recompute ``p = exp(s - lse)``. The key mask is not
 differentiable; dbias (summed over heads, as JAX does) comes out of
 :func:`flash_attention_backward` for checking.
 
-Every entry launches, for CUDA tensors, ``csrc/flash_attention.cu`` (K4)
-and ``csrc/flash_attention_bwd.cu`` (K5) in bf16 or
+Every entry launches, for CUDA tensors, ``csrc/flash_attention.cu`` (K4) and
+``csrc/flash_attention_bwd.cu`` (K5) in bf16 or
 ``csrc/flash_attention_f32.cu`` in float32 up to head dim 128, and above it
 ``csrc/flash_attention_wide_tc.cu`` (bf16) or
 ``csrc/flash_attention_f32_split.cu`` (float32), both as a cluster of CTAs
 that split the head dim where one CTA does not hold it, and
-``csrc/flash_attention_wide.cu`` for heads wider than a cluster splits, or
-raises; it runs the same function in plain PyTorch (``*_reference``) for
-CPU tensors, so autograd on the CPU goes through the port's own backward
-too. The float32 tensor-core kernels run as three TF32 passes
-(:func:`split_tf32` gives the halves): one pass would not hold the f32
-route's parity with the plain version, three keep f32's own order of error.
+``csrc/flash_attention_gemm.cu`` for heads wider than a cluster splits
+(matrix products over a score block in a workspace the wrapper allocates:
+:func:`gemm_chunk`, :func:`gemm_workspace_bytes`), or raises; it runs the
+same function in plain PyTorch (``*_reference``) for CPU tensors, so
+autograd on the CPU goes through the port's own backward too. The float32
+tensor-core kernels run as three TF32 passes (:func:`split_tf32` gives the
+halves): one pass would not hold the f32 route's parity with the plain
+version, three keep f32's own order of error.
 
 Head dims: every d runs on the card, at :func:`padded_head_dim` (d, dtype):
 the least of ``HEAD_DIMS`` (16, 32, 64, 128, 256) at or above it; above 256
 (in float32 above 128) the next multiple of ``WIDE_STEP`` (64), which the
 float32 kernels split into n shares of ``F32_SHARE`` (64) columns up to 16
 CTAs (:func:`f32_split_of`: 192 to 1024), and in bf16 above 320 the next
-width that a cluster of n CTAs splits into n equal shares of 192, 256 or
-320 columns (:func:`split_of`: 384, 512, 640 as pairs, 768 to 1280 as 3 or
-4, up to 5120 as 16). Wider heads stay at the multiple of 64, on the CUDA
-cores. q, k, v (and dO, O) get zero columns along D, the
-kernels take the true scale ``d ** -0.5``, and the outputs are sliced back
-to d. Zero columns change no score, no output column, no LSE and no
-``delta``, so this is the same function (the JAX package's v1 kernel, which
-takes any head dim, pads its VMEM tile alike). :func:`kernel_route` names
-the C entries for each dtype and padded head dim; ``ENTRY_LAUNCHES`` counts
-the launches of each entry.
+width that a cluster of n CTAs splits into n equal shares of 192, 256 or 320
+columns (:func:`split_of`: 384, 512, 640 as pairs, 768 to 1280 as 3 or 4, up
+to 5120 as 16). Wider heads stay at the multiple of 64. q, k, v (and dO, O)
+get zero columns along D, the kernels take the true scale ``d ** -0.5``, and
+the outputs are sliced back to d. Zero columns change no score, no output
+column, no LSE and no ``delta``, so this is the same function (the JAX
+package's v1 kernel, which takes any head dim, pads its VMEM tile alike).
+:func:`kernel_route` names the C entries for each dtype and padded head dim;
+``ENTRY_LAUNCHES`` counts the launches of each entry.
 """
 
 from __future__ import annotations
@@ -64,6 +65,10 @@ WIDE_STEP = 64  # above 256: the wide kernels' head-dim chunk
 SPLIT_WIDTHS = (192, 256, 320)  # bf16 above 320: the columns a CTA of a cluster holds
 SPLIT_MAX = 16  # CTAs of a cluster (Hopper's largest, non-portable above 8)
 F32_SHARE = 64  # f32 above 128: the columns a CTA of a cluster holds
+GEMM_ROUTES = ("wide", "wide_bf16")  # csrc/flash_attention_gemm.cu's routes
+WORKSPACE_CAP = 2 << 30  # bytes of those routes' score block, a chunk of rows
+GEMM_ROW_STEP = 64  # their chunks of rows are multiples of this
+GEMM_DUAL_N = {torch.float32: 64, torch.bfloat16: 128}  # columns of a backward score tile
 ENTRY_LAUNCHES: dict = {}  # C entry name -> launches
 _ENTRIES: dict = {}  # (C entry name, library) -> its function
 
@@ -133,9 +138,10 @@ def kernel_route(dtype, width: int) -> str:
     :func:`f32_split_of` CTAs); ``wide_tc`` for bf16 above 128 up to
     ``SPLIT_MAX`` * 320 = 5120, the wgmma kernels of
     ``csrc/flash_attention_wide_tc.cu`` (one CTA a row block at 256 and
-    320, a cluster of :func:`split_of` CTAs above); on the CUDA cores of
-    ``csrc/flash_attention_wide.cu``, ``wide`` for f32 and ``wide_bf16``
-    for bf16 heads wider than a cluster splits."""
+    320, a cluster of :func:`split_of` CTAs above); the matrix products of
+    ``csrc/flash_attention_gemm.cu`` (wgmma; three TF32 passes in f32),
+    ``wide`` for f32 and ``wide_bf16`` for bf16 heads wider than a cluster
+    splits."""
     if width <= 128:
         return "bf16" if dtype == torch.bfloat16 else "f32"
     if dtype != torch.bfloat16:
@@ -152,6 +158,79 @@ def split_tf32(x: torch.Tensor):
     bits = x.contiguous().view(torch.int32)
     hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
     return hi, x - hi
+
+
+def _round_up(x: int, step: int = GEMM_ROW_STEP) -> int:
+    return -(-x // step) * step
+
+
+def gemm_score_bytes(kind: str, dtype) -> int:
+    """Bytes a score takes in a GEMM route's workspace: the forward's f32 S
+    and P (V's dtype; f32 as TF32 hi and lo halves), dq's dS, dk/dv's P^T
+    and dS^T (``kind`` ``fwd``, ``dq``, ``dkv``)."""
+    rounded = 8 if dtype == torch.float32 else 2
+    return {"fwd": 4 + rounded, "dq": rounded, "dkv": 2 * rounded}[kind]
+
+
+def gemm_chunk(rows: int, b: int, h: int, cols: int, score_bytes: int,
+               cap: int = None) -> int:
+    """The rows (queries for the forward and dq, keys for dk/dv) a GEMM
+    route's launch takes at a time: a multiple of ``GEMM_ROW_STEP``, at
+    least one step, no more than ``rows`` rounded up, and otherwise the most
+    whose scores over ``cols`` (rounded up) columns for every (b, h) fit in
+    ``cap`` bytes (``WORKSPACE_CAP``)."""
+    cap = WORKSPACE_CAP if cap is None else cap
+    per_row = b * h * _round_up(cols) * score_bytes
+    fit = cap // per_row // GEMM_ROW_STEP * GEMM_ROW_STEP
+    return min(max(fit, GEMM_ROW_STEP), _round_up(rows))
+
+
+def gemm_workspace_bytes(kind: str, dtype, b: int, tq: int, tk: int, h: int, d: int,
+                         chunk: int) -> int:
+    """The workspace of ``csrc/flash_attention_gemm.cu``'s entry ``kind`` at
+    padded head dim ``d``, laid out as the entry carves it (each region on a
+    1024-byte boundary): in f32 the TF32 hi and lo halves of its operands
+    (forward Q, K, V^T; dq Q, dO, K, V, K^T; dk/dv K, V, Q, dO, Q^T, dO^T;
+    the transposes with their rows padded to 64), then the score block of a
+    chunk (and the forward's row denominators, dk/dv's per-tile dbias
+    sums)."""
+    f32 = dtype == torch.float32
+    esize, halves = (4, 2) if f32 else (2, 1)
+    tkp, tqp = _round_up(tk), _round_up(tq)
+    operands = {"fwd": [(tq, False), (tk, False), (tk, True)],
+                "dq": [(tq, False), (tq, False), (tk, False), (tk, False), (tk, True)],
+                "dkv": [(tk, False), (tk, False), (tq, False), (tq, False), (tq, True),
+                        (tq, True)]}[kind]
+    regions = []
+    if f32:
+        for t, trans in operands:
+            regions += [b * (_round_up(t) if trans else t) * h * d * 4] * 2
+    cols = tqp if kind == "dkv" else tkp
+    block = b * chunk * h * cols
+    if kind == "fwd":
+        regions += [block * 4, halves * block * esize, b * h * chunk * 4]
+    elif kind == "dq":
+        regions += [halves * block * esize]
+    else:
+        n_ct = -(-tqp // GEMM_DUAL_N[dtype])
+        regions += [halves * block * esize] * 2 + [b * h * chunk * n_ct * 4]
+    used = 0
+    for size in regions:
+        used = _round_up(used, 1024) + size
+    return used
+
+
+def _workspace(kind: str, dtype, b: int, tq: int, tk: int, h: int, width: int, dev):
+    """``(workspace, C arguments)`` of a GEMM route's entry (``(None, ())``
+    for the other routes): a uint8 tensor of :func:`gemm_workspace_bytes`
+    and ``(its pointer, its bytes, the chunk)``."""
+    if kernel_route(dtype, width) not in GEMM_ROUTES:
+        return None, ()
+    rows, cols = (tk, tq) if kind == "dkv" else (tq, tk)
+    chunk = gemm_chunk(rows, b, h, cols, gemm_score_bytes(kind, dtype))
+    size = gemm_workspace_bytes(kind, dtype, b, tq, tk, h, width, chunk)
+    ws = torch.empty(size, dtype=torch.uint8, device=dev)
+    return ws, (ws.data_ptr(), size, chunk)
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -285,13 +364,14 @@ def _kernel_forward(q, k, v, key_mask, causal: bool, with_lse: bool):
         bias = bias.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev) if with_lse else None
+    ws, ws_args = _workspace("fwd", q.dtype, b, tq, tk, h, q.shape[-1], dev)
     with torch.cuda.device(dev):
         _launch("vt_flash_attention", "flash_attention", q.dtype, q.shape[-1],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 0 if bias is None else bias.data_ptr(), out.data_ptr(),
                 0 if lse is None else lse.data_ptr(),
                 b, tq, tk, h, *_head_args(q.dtype, q.shape[-1]), int(bool(causal)), d ** -0.5,
-                cuda_lib.stream_of(out))
+                *ws_args, cuda_lib.stream_of(out))
     return _unpad(out, d), lse
 
 
@@ -347,13 +427,14 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal: bool = False
     dev, d, (q, k, v, dout) = _kernel_operands("flash_attention_bwd_dq", q, k, v, dout)
     _check_stats("flash_attention_bwd_dq", lse, delta, b, h, tq, dev)
     dq = torch.empty_like(q)
+    ws, ws_args = _workspace("dq", q.dtype, b, tq, k.shape[1], h, q.shape[-1], dev)
     with torch.cuda.device(dev):
         _launch("vt_flash_attention_bwd_dq", "flash_attention_bwd_dq", q.dtype, q.shape[-1],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), b, tq, k.shape[1], h,
                 *_head_args(q.dtype, q.shape[-1]),
-                int(bool(causal)), d ** -0.5, cuda_lib.stream_of(dq))
+                int(bool(causal)), d ** -0.5, *ws_args, cuda_lib.stream_of(dq))
     flash_attention_bwd_dq.launches += 1
     return _unpad(dq, d)
 
@@ -374,13 +455,14 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, causal: bool = Fals
     _check_stats("flash_attention_bwd_dkv", lse, delta, b, h, tq, dev)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((b, h, tk), dtype=torch.float32, device=dev)
+    ws, ws_args = _workspace("dkv", q.dtype, b, tq, tk, h, q.shape[-1], dev)
     with torch.cuda.device(dev):
         _launch("vt_flash_attention_bwd_dkv", "flash_attention_bwd_dkv", q.dtype, q.shape[-1],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 0 if bias is None else bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
                 b, tq, tk, h, *_head_args(q.dtype, q.shape[-1]), int(bool(causal)), d ** -0.5,
-                cuda_lib.stream_of(dk))
+                *ws_args, cuda_lib.stream_of(dk))
     flash_attention_bwd_dkv.launches += 1
     return _unpad(dk, d), _unpad(dv, d), dbias
 
